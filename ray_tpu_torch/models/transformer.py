@@ -1,0 +1,272 @@
+"""Decoder-only transformer in PyTorch, dense path.
+
+Counterpart of ray_tpu/models/transformer.py. Parameters keep the
+reference's plain dict with layers STACKED on a leading axis (`wq
+[L, D, H, hd]`, `wo [L, H, hd, D]`, ...), so `params_from_numpy` turns the
+JAX package's parameters into this package's and both compute the same
+thing. The forward is a Python loop over the layers. Weights are cast to
+the model dtype at each use site (a no-op when they already are), softmax,
+norms and logits run in f32. Attention is ops.flash_attention and norms
+ops.rms_norm: CUDA kernels on the card, plain PyTorch on the CPU.
+MoE layers and the sequence-parallel attention are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops import apply_rope, flash_attention, layer_norm, rms_norm, rope_frequencies
+from ..ops.dispatch import resolve_device
+from .config import ModelConfig
+
+Params = Dict[str, Any]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # the kernels' two types
+
+
+def torch_dtype(name) -> torch.dtype:
+    """torch dtype of a config's dtype name (or a torch dtype itself)."""
+    if isinstance(name, torch.dtype):
+        return name
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported dtype {name!r}; have {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: the MoE path is not ported yet")
+    if cfg.attn_impl != "flash":
+        raise NotImplementedError(f"{cfg.name}: attn_impl {cfg.attn_impl!r} is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                dtype: Any = torch.float32) -> Params:
+    """Random-init parameters from `seed`, straight into `dtype` on `device`
+    (the card unless the caller names another). The reference keeps an f32
+    master copy and casts at use; a server passes its model dtype here so an
+    8B model never holds an f32 copy on the card."""
+    _require_dense(cfg)
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    D, Fd, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab_size
+    H, KVH, hd = cfg.n_heads, cfg.kv_heads, cfg.hdim
+    out_scale = 0.02 / (2 * L) ** 0.5
+
+    def dense(shape, scale=0.02):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dt).mul_(scale)
+
+    def ones(shape):
+        return torch.ones(shape, device=dev, dtype=dt)
+
+    def zeros(shape):
+        return torch.zeros(shape, device=dev, dtype=dt)
+
+    layers = {
+        "ln1": ones((L, D)),
+        "wq": dense((L, D, H, hd)),
+        "wk": dense((L, D, KVH, hd)),
+        "wv": dense((L, D, KVH, hd)),
+        "wo": dense((L, H, hd, D), out_scale),
+        "ln2": ones((L, D)),
+        "w_in": dense((L, D, Fd)),
+        "w_out": dense((L, Fd, D), out_scale),
+    }
+    if cfg.norm == "layernorm":
+        layers["ln1_b"] = zeros((L, D))
+        layers["ln2_b"] = zeros((L, D))
+    if cfg.activation == "swiglu":
+        layers["w_gate"] = dense((L, D, Fd))
+    else:
+        layers["b_in"] = zeros((L, Fd))
+        layers["b_out"] = zeros((L, D))
+    params: Params = {"embed": dense((V, D)), "layers": layers, "final_norm": ones((D,))}
+    if cfg.norm == "layernorm":
+        params["final_norm_b"] = zeros((D,))
+    if cfg.positional == "learned":
+        params["pos_emb"] = dense((cfg.max_seq_len, D), 0.01)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((D, V))
+    return params
+
+
+def params_from_numpy(tree, device=None, dtype: Any = None) -> Params:
+    """The JAX package's parameters as numpy arrays
+    (`jax.tree.map(np.asarray, params)`) -> this package's, on `device` (the
+    card unless named) in `dtype` (None keeps each array's dtype)."""
+    dev = resolve_device(device)
+    dt = None if dtype is None else torch_dtype(dtype)
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        t = torch.tensor(np.asarray(node), device=dev)
+        return t if dt is None else t.to(dt)
+
+    return convert(tree)
+
+
+def layer_slice(layers: Params, l: int) -> Params:
+    """Layer l's parameters as views into the stacked [L, ...] tensors."""
+    return {name: t[l] for name, t in layers.items()}
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _norm(x, w, b, cfg):
+    if cfg.norm == "layernorm":
+        return layer_norm(x, w, b, eps=cfg.norm_eps)
+    return rms_norm(x, w, eps=cfg.norm_eps)
+
+
+def _project(x, w):
+    """x [..., D] @ w [D, ...] in x's dtype -> [..., *w.shape[1:]]."""
+    D = w.shape[0]
+    out = x.reshape(-1, D) @ w.reshape(D, -1).to(x.dtype)
+    return out.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def _qkv(h, lp, cfg, rope_tables, positions=None):
+    """Projections of h [B, T, D] -> q [B,T,H,hd], k/v [B,T,KVH,hd], rope
+    applied at `positions` (default arange(T))."""
+    q = _project(h, lp["wq"])
+    k = _project(h, lp["wk"])
+    v = _project(h, lp["wv"])
+    if cfg.positional == "rope":
+        cos, sin = rope_tables
+        q = apply_rope(q, cos, sin, positions)
+        k = apply_rope(k, cos, sin, positions)
+    return q, k, v
+
+
+def _out_proj(o, lp):
+    """Attention output o [..., H, hd] @ wo [H, hd, D] -> [..., D]."""
+    H, hd, D = lp["wo"].shape
+    out = o.reshape(-1, H * hd) @ lp["wo"].reshape(H * hd, D).to(o.dtype)
+    return out.reshape(*o.shape[:-2], D)
+
+
+def _attention(x, lp, cfg, rope_tables, positions=None):
+    q, k, v = _qkv(x, lp, cfg, rope_tables, positions)
+    return _out_proj(flash_attention(q, k, v, causal=True), lp)
+
+
+def _dense_ffn(x, lp, cfg):
+    h = _project(x, lp["w_in"])
+    if cfg.activation == "swiglu":
+        h = F.silu(_project(x, lp["w_gate"])) * h
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(h + lp["b_in"].to(x.dtype), approximate="tanh")
+    out = _project(h, lp["w_out"])
+    if cfg.activation != "swiglu":
+        out = out + lp["b_out"].to(x.dtype)
+    return out
+
+
+def _block(x, lp, cfg, rope_tables, positions=None):
+    h = _norm(x, lp["ln1"], lp.get("ln1_b"), cfg)
+    x = x + _attention(h, lp, cfg, rope_tables, positions)
+    h = _norm(x, lp["ln2"], lp.get("ln2_b"), cfg)
+    return x + _dense_ffn(h, lp, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """Embedding gather (the reference's one-hot form serves sharded
+    tables, which this package does not have yet)."""
+    return table[tokens.long()].to(dtype)
+
+
+def _prologue(params, tokens, cfg, positions=None, rope_tables=None):
+    """Shared embed + positional prologue -> (x [B,T,D], rope_tables)."""
+    dtype = torch_dtype(cfg.dtype)
+    T = tokens.shape[1]
+    x = _embed_lookup(params["embed"], tokens, dtype)
+    if cfg.positional == "learned":
+        pos = positions if positions is not None else torch.arange(T, device=x.device)[None, :]
+        return x + params["pos_emb"][pos].to(dtype), None
+    if rope_tables is None:
+        rope_tables = rope_frequencies(cfg.hdim, cfg.max_seq_len, cfg.rope_theta,
+                                       device=x.device)
+    return x, rope_tables
+
+
+def lm_head_weight(params, cfg) -> torch.Tensor:
+    """The [D, V] head (the embedding's transpose when tied)."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _lm_head(x, params, cfg, head: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Final norm + head -> f32 logits. `head`: an f32 [D, V] copy a caller
+    keeps to avoid casting the head on every call."""
+    x = _norm(x, params["final_norm"], params.get("final_norm_b"), cfg)
+    if head is None:
+        head = lm_head_weight(params, cfg)
+    logits = x.float() @ head.float()
+    if cfg.logits_softcap:
+        logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
+    return logits
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            positions: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, T] -> (logits [B, T, V] f32, aux_loss scalar)."""
+    _require_dense(cfg)
+    x, rope_tables = _prologue(params, tokens, cfg, positions)
+    layers = params["layers"]
+    for l in range(cfg.n_layers):
+        x = _block(x, layer_slice(layers, l), cfg, rope_tables, positions)
+    return _lm_head(x, params, cfg), torch.zeros((), device=x.device)
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
+            last_index: Optional[torch.Tensor] = None, rope_tables=None,
+            head: Optional[torch.Tensor] = None):
+    """Run the full prompt, build a contiguous KV cache of size max_len.
+
+    tokens [B, T]. last_index [B] (default T-1) selects the position whose
+    logits are returned — pass true_len-1 when prompts are right-padded to
+    a bucket. rope_tables / head: precomputed tables and f32 head a caller
+    keeps across calls. Returns (last_logits [B,V] f32, cache dict with k/v
+    [L, B, max_len, KVH, hd])."""
+    _require_dense(cfg)
+    dtype = torch_dtype(cfg.dtype)
+    B, T = tokens.shape
+    x, rope_tables = _prologue(params, tokens, cfg, rope_tables=rope_tables)
+    L, KVH, hd = cfg.n_layers, cfg.kv_heads, cfg.hdim
+    kc = torch.zeros((L, B, max_len, KVH, hd), dtype=dtype, device=x.device)
+    vc = torch.zeros_like(kc)
+    layers = params["layers"]
+    for l in range(L):
+        lp = layer_slice(layers, l)
+        h = _norm(x, lp["ln1"], lp.get("ln1_b"), cfg)
+        q, k, v = _qkv(h, lp, cfg, rope_tables)
+        x = x + _out_proj(flash_attention(q, k, v, causal=True), lp)
+        h = _norm(x, lp["ln2"], lp.get("ln2_b"), cfg)
+        x = x + _dense_ffn(h, lp, cfg)
+        kc[l, :, :T] = k
+        vc[l, :, :T] = v
+    if last_index is None:
+        x_last = x[:, -1]
+    else:
+        x_last = x[torch.arange(B, device=x.device), last_index.long()]
+    return _lm_head(x_last, params, cfg, head), {"k": kc, "v": vc}

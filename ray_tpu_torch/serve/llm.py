@@ -1,0 +1,82 @@
+"""LLMServer: the colocated serving front of one InferenceEngine.
+
+Counterpart of ray_tpu/serve/llm.py's LLMServer in the colocated role, as
+a plain class: one server = one engine = one card. The deployment
+decorator, disaggregated roles, LoRA adapters and live weight sync belong
+to the serve runtime, which this package does not port yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+from ..models import get_config, init_params
+from ..ops.dispatch import resolve_device
+from .engine import EngineConfig, InferenceEngine
+
+
+class LLMServer:
+    """Token-level LLM server.
+
+    Request: {"prompt_ids": [int], "max_tokens": int, "temperature": float,
+              "top_p": float, "top_k": int, "stop_token_ids": [[int]]}
+    Response: {"token_ids": [...], "logprobs": [...], "finish_reason": ...,
+               "ttft_s": ..., "latency_s": ..., ...}
+
+    params_fn: optional () -> (params, model_cfg) to load real weights;
+    default builds random weights for the named config from `seed`,
+    straight into the model dtype on the device (no f32 master copy).
+    device: the card unless the caller names another.
+    """
+
+    role = "colocated"
+
+    def __init__(self, model_name: str = "tiny-llama",
+                 engine_config: Optional[Dict[str, Any]] = None, params_fn=None,
+                 model_overrides: Optional[Dict[str, Any]] = None, device=None,
+                 seed: int = 0):
+        device = resolve_device(device)
+        if params_fn is not None:
+            params, cfg = params_fn()
+        else:
+            cfg = get_config(model_name, **(model_overrides or {}))
+            params = init_params(cfg, seed=seed, device=device, dtype=cfg.dtype)
+        self.engine = InferenceEngine(params, cfg, EngineConfig(**dict(engine_config or {})),
+                                      device=device)
+        # run every decode-span program once at init (and so build the
+        # kernels) rather than under the first requests
+        self.engine.warmup(buckets=[])
+
+    def __call__(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        return self.engine.generate(**_generate_args(request))
+
+    def stream(self, request: Dict[str, Any]):
+        """Token iterator: the first token arrives at TTFT, not completion."""
+        return self.engine.generate_stream(**_generate_args(request))
+
+    def cancel(self, request: Dict[str, Any]) -> bool:
+        return self.engine.cancel(request["request_id"])
+
+    def stats(self, _request: Any = None) -> Dict[str, Any]:
+        out = self.engine.stats()
+        out["role"] = self.role
+        return out
+
+    def check_health(self) -> None:
+        pass
+
+    def shutdown(self) -> None:
+        """Stop the engine's threads."""
+        self.engine.stop()
+
+
+def _generate_args(request: Dict[str, Any]) -> Dict[str, Any]:
+    return dict(
+        prompt=list(request["prompt_ids"]),
+        max_tokens=int(request.get("max_tokens", 32)),
+        temperature=float(request.get("temperature", 0.0)),
+        top_p=float(request.get("top_p", 1.0)),
+        top_k=int(request.get("top_k", 0)),
+        stop=request.get("stop_token_ids"),
+        request_id=request.get("request_id"),
+    )

@@ -1,0 +1,98 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA card (the kernels have no CPU mode) and skips
+without one. This file imports neither JAX nor ray_tpu, so on a machine
+with a card and no JAX it runs alone, without the suite's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+
+Tolerances: f32 2e-3 as the CPU parity tests (sums in another order);
+bf16 2e-2 + 1.6e-2 relative, two bf16 ulps, since kernel and plain version
+each round their f32 results to bf16.
+"""
+
+import pytest
+import torch
+
+from ray_tpu_torch import ops
+from ray_tpu_torch.ops import dispatch
+from ray_tpu_torch.ops import paged_attention as paged
+
+D = 128
+pytestmark = [pytest.mark.cuda, pytest.mark.parametrize("dtype", [torch.float32,
+                                                                  torch.bfloat16])]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rand(shape, dtype, card):
+    return torch.randn(shape, device=card).to(dtype)
+
+
+def _close(got, want, dtype):
+    tol = dict(atol=2e-3, rtol=2e-3) if dtype == torch.float32 else dict(atol=2e-2,
+                                                                         rtol=1.6e-2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_rms_norm(card, dtype):
+    x, w = _rand((37, 4136), dtype, card), _rand((4136,), dtype, card)  # D % 128 != 0
+    before = dispatch.launch_counts()["rms_norm"]
+    _close(ops.rms_norm(x, w, 1e-5), ops.rms_norm_reference(x, w, 1e-5), dtype)
+    assert dispatch.launch_counts()["rms_norm"] == before + 1
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 100, 257])
+def test_flash_attention(card, dtype, T):
+    q = _rand((2, T, 8, D), dtype, card)
+    k, v = _rand((2, T, 2, D), dtype, card), _rand((2, T, 2, D), dtype, card)
+    _close(ops.flash_attention(q, k, v), ops.mha_reference(q, k, v), dtype)
+
+
+def test_flash_attention_reads_strided_views(card, dtype):
+    qkv = _rand((1, 100, 12, D), dtype, card)  # q, k, v as views of one tensor
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    _close(ops.flash_attention(q, k, v), ops.mha_reference(q, k, v), dtype)
+
+
+def test_attention_wrappers_refuse_unaligned_kv(card, dtype):
+    # K/V one element past a 16-byte boundary: the kernels' 16-byte loads
+    # cannot take it, so the wrappers raise before any launch
+    n = 2 * 40 * 16 * D
+    kp = torch.zeros(n + 1, device=card, dtype=dtype)[1:].view(2, 40, 16, D)
+    table = torch.ones((4, 8), device=card, dtype=torch.int32)
+    lengths = torch.full((4,), 5, device=card, dtype=torch.int32)
+    kv = torch.zeros((1, 64 * 2 * D + 1), device=card, dtype=dtype)[:, 1:].view(1, 64, 2, D)
+    before = dispatch.launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.paged_attention_decode(_rand((4, 8, D), dtype, card), kp, kp, table, lengths)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.paged_attention_chunk(_rand((8, 8, D), dtype, card), kp, kp, table[0], 0, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(_rand((1, 64, 8, D), dtype, card), kv, kv)
+    assert dispatch.launch_counts() == before
+
+
+def test_paged_decode(card, dtype):
+    kp, vp = _rand((2, 40, 16, D), dtype, card), _rand((2, 40, 16, D), dtype, card)
+    q = _rand((4, 8, D), dtype, card)
+    table = torch.randint(1, 40, (4, 8), device=card, dtype=torch.int32)
+    lengths = torch.tensor([0, 1, 31, 128], device=card, dtype=torch.int32)
+    got = ops.paged_attention_decode(q, kp, vp, table, lengths)
+    _close(got, paged._paged_reference(q, kp, vp, table, lengths, D ** -0.5), dtype)
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("start", [0, 48])
+def test_paged_chunk(card, dtype, start):
+    kp, vp = _rand((2, 40, 16, D), dtype, card), _rand((2, 40, 16, D), dtype, card)
+    q = _rand((40, 8, D), dtype, card)
+    table = torch.randint(1, 40, (8,), device=card, dtype=torch.int32)
+    got = ops.paged_attention_chunk(q, kp, vp, table, start, start + 40)
+    _close(got, paged._chunk_reference(q, kp, vp, table, start, start + 40, D ** -0.5), dtype)

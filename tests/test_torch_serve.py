@@ -1,0 +1,195 @@
+"""ray_tpu_torch models and serving path against ray_tpu on the CPU.
+
+The JAX package's tiny-model parameters go through params_from_numpy, so
+both packages compute the same function; forward/prefill logits agree
+within 1e-4 (f32, sums in another order), and the two engines, run with
+the same EngineConfig on the same weights, give token-identical greedy
+outputs with logprobs within 1e-4 over the bucketed path, the chunked
+path, a prefix-cache hit and a stop sequence.
+"""
+
+import json
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import ray_tpu.models as jmodels
+from ray_tpu.models import transformer as jtransformer
+from ray_tpu.serve import EngineConfig as JEngineConfig
+from ray_tpu.serve import InferenceEngine as JInferenceEngine
+from ray_tpu_torch import EngineConfig, InferenceEngine, LLMServer, get_config
+from ray_tpu_torch.models import forward, init_params, params_from_numpy, prefill
+
+LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
+ENGINE_KW = dict(max_batch_size=4, page_size=8, max_pages=64, max_seq_len=64,
+                 prefill_buckets=(16, 32), prefill_chunk=16)
+
+
+def _both(name):
+    cfg = jmodels.get_config(name)
+    jparams = jmodels.init_params(cfg, jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+    return cfg, jparams, get_config(name), tparams
+
+
+@pytest.fixture(scope="module")
+def tiny_llama():
+    return _both("tiny-llama")
+
+
+@pytest.mark.parametrize("name", ["tiny-llama", "tiny-gpt2"])
+def test_forward_and_prefill_match_reference(name):
+    jcfg, jparams, tcfg, tparams = _both(name)
+    toks = np.random.RandomState(0).randint(0, jcfg.vocab_size, (2, 20)).astype(np.int32)
+    want, _ = jtransformer.forward(jparams, jnp.asarray(toks), jcfg)
+    got, aux = forward(tparams, torch.from_numpy(toks), tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+    assert float(aux) == 0.0
+    last = np.array([19, 7], np.int32)
+    want_l, want_c = jtransformer.prefill(jparams, jcfg, jnp.asarray(toks), 32, jnp.asarray(last))
+    got_l, got_c = prefill(tparams, tcfg, torch.from_numpy(toks), 32, torch.from_numpy(last))
+    np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), **LOGIT_TOL)
+    np.testing.assert_allclose(got_c["k"].numpy(), np.asarray(want_c["k"]), **LOGIT_TOL)
+    np.testing.assert_allclose(got_c["v"].numpy(), np.asarray(want_c["v"]), **LOGIT_TOL)
+
+
+@pytest.mark.parametrize("name", ["tiny-llama", "tiny-gpt2"])  # rope / learned positions
+def test_engine_matches_reference_engine(name):
+    jcfg, jparams, tcfg, tparams = _both(name)
+    jeng = JInferenceEngine(jparams, jcfg, JEngineConfig(**ENGINE_KW))
+    teng = InferenceEngine(tparams, tcfg, EngineConfig(**ENGINE_KW), device="cpu")
+    long_prompt = [(i * 7) % 60 + 1 for i in range(40)]
+    cases = [
+        dict(prompt=[5, 6, 7, 8, 9, 10], max_tokens=8),            # bucket 16
+        dict(prompt=list(range(3, 15)), max_tokens=10),            # bucket 16
+        dict(prompt=long_prompt, max_tokens=8),                    # chunked: 3 chunks
+        dict(prompt=long_prompt[:32] + [9, 8, 7], max_tokens=6),   # prefix hit: 2 chunks cached
+    ]
+    try:
+        outs = []
+        for case in cases:
+            want = jeng.generate(**case)
+            got = teng.generate(**case)
+            assert got["token_ids"] == want["token_ids"], case
+            np.testing.assert_allclose(got["logprobs"], want["logprobs"], atol=1e-4)
+            assert got["finish_reason"] == want["finish_reason"] == "length"
+            outs.append(got)
+        assert teng.stats()["cached_pages"] > 0
+        # a stop sequence taken from the unstopped output finishes early
+        # and is stripped, identically in both engines
+        toks = outs[0]["token_ids"]
+        stop = [toks[3:5]]
+        first = next(i for i in range(len(toks)) if toks[i:i + 2] == stop[0])
+        want = jeng.generate([5, 6, 7, 8, 9, 10], max_tokens=8, stop=stop)
+        got = teng.generate([5, 6, 7, 8, 9, 10], max_tokens=8, stop=stop)
+        assert got["finish_reason"] == want["finish_reason"] == "stop"
+        assert got["token_ids"] == want["token_ids"] == toks[:first]
+        np.testing.assert_allclose(got["logprobs"], want["logprobs"], atol=1e-4)
+        # reference and port agree on what an engine's stats report
+        assert set(teng.stats()) <= set(jeng.stats()) | {"weights_version"}
+        assert set(got) == set(want)
+    finally:
+        teng.stop()
+        jeng.stop()
+
+
+def test_concurrent_requests_match_sequential(tiny_llama):
+    import threading
+
+    _jcfg, _jparams, tcfg, tparams = tiny_llama
+    prompts = [[1, 2, 3], [4, 5] * 10, [(i * 3) % 50 + 1 for i in range(30)], [9, 1, 3]]
+    eng = InferenceEngine(tparams, tcfg, EngineConfig(**ENGINE_KW, decode_span=4),
+                          device="cpu")
+    try:
+        solo = [eng.generate(p, max_tokens=6)["token_ids"] for p in prompts]
+        results = [None] * len(prompts)
+
+        def work(i):
+            results[i] = eng.generate(prompts[i], max_tokens=6)["token_ids"]
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+        assert results == solo
+        streamed = list(eng.generate_stream(prompts[1], max_tokens=6))
+        assert streamed == solo[1]
+    finally:
+        eng.stop()
+
+
+def test_sampled_requests_stay_in_range(tiny_llama):
+    _jcfg, _jparams, tcfg, tparams = tiny_llama
+    eng = InferenceEngine(tparams, tcfg, EngineConfig(**ENGINE_KW), device="cpu")
+    try:
+        for kw in (dict(temperature=0.8), dict(temperature=0.8, top_p=0.9, top_k=20)):
+            out = eng.generate([3, 4, 5], max_tokens=12, **kw)
+            assert len(out["token_ids"]) == 12
+            assert all(0 <= t < tcfg.vocab_size for t in out["token_ids"])
+            assert all(lp <= 0 for lp in out["logprobs"])
+    finally:
+        eng.stop()
+
+
+def test_llm_server_returns_reference_keys(tiny_llama):
+    jcfg, jparams, _tcfg, _tparams = tiny_llama
+    jeng = JInferenceEngine(jparams, jcfg, JEngineConfig(**ENGINE_KW))
+    server = LLMServer(model_name="tiny-llama", device="cpu", engine_config=ENGINE_KW)
+    try:
+        want = jeng.generate([1, 2, 3], max_tokens=8)
+        got = server({"prompt_ids": [1, 2, 3], "max_tokens": 8})
+        assert set(got) == set(want)
+        assert len(got["token_ids"]) == 8 and got["finish_reason"] == "length"
+        assert server.stats()["role"] == "colocated"
+    finally:
+        server.shutdown()
+        jeng.stop()
+
+
+def test_entry_points_need_a_device_without_a_card(tiny_llama):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    _jcfg, _jparams, tcfg, tparams = tiny_llama
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngine(tparams, tcfg, EngineConfig(**ENGINE_KW))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(tcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLMServer(model_name="tiny-llama")
+
+
+def test_unported_features_raise(tiny_llama):
+    with pytest.raises(NotImplementedError):
+        EngineConfig(**ENGINE_KW, speculation={"mode": "ngram", "k": 2})
+    with pytest.raises(NotImplementedError):
+        init_params(get_config("tiny-moe"), device="cpu")
+
+
+def test_init_params_is_seeded_and_typed():
+    cfg = get_config("tiny-llama")
+    a = init_params(cfg, seed=3, device="cpu", dtype="bfloat16")
+    b = init_params(cfg, seed=3, device="cpu", dtype="bfloat16")
+    assert a["layers"]["wq"].dtype == torch.bfloat16
+    assert a["layers"]["wq"].shape == (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.hdim)
+    assert a["layers"]["wo"].shape == (cfg.n_layers, cfg.n_heads, cfg.hdim, cfg.d_model)
+    assert torch.equal(a["embed"], b["embed"])
+
+
+def test_port_imports_neither_jax_nor_ray_tpu():
+    code = (
+        "import json, sys\n"
+        "import ray_tpu_torch, ray_tpu_torch.serve, ray_tpu_torch.models\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'ray_tpu' or m.startswith('ray_tpu.'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True, timeout=120)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
