@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (ray_tpu_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py            # from the repository root, one card
+    python3 chip_smoke.py --profile  # adds a torch.profiler pass after each path
 
 Phases (any failure exits non-zero; no phase's failure is caught):
   0. the card: `nvidia-smi` name and power limit, compute capability 9.0;
@@ -12,15 +13,32 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      launch overhead excluded; see device_ms), the plain version's time,
      the least time the card could take (bound), and one PyTorch library
      call computing the same function where one exists;
-  3. the main path: LLMServer serving llama3-8b at full width and depth
+     K2 also with its lse output, and the backward kernels K3 (dq) and K4
+     (dk, dv) at the training shape (llama-2b: B=4, T=2048, 20/5 heads of
+     128), at a ragged T and at g = 1;
+  3. the serving path: LLMServer serving llama3-8b at full width and depth
      (random weights from a seed) with five concurrent requests — short
      prompts (bucketed prefill, kernel K2), a ~700-token prompt (chunked
      prefill, K6), one request sampled at temperature 0.8 / top_p 0.9 —
      32 tokens each. Launch counts are reset just before and read just
-     after; every kernel must have run. The engine's logprobs are held
-     against log-softmax of the port's own `forward` over prompt + output;
-     as negative controls, the same burst with fresh prompts is served once
-     per planted engine fault (FAULTS), and the gate must fail each.
+     after; every serving kernel (SERVE_KERNELS) must have run. The
+     engine's logprobs are held against log-softmax of the port's own
+     `forward` over prompt + output; as negative controls, the same burst
+     with fresh prompts is served once per planted engine fault (FAULTS),
+     and the gate must fail each;
+  4. the training path: with the server's memory freed, train.lm trains
+     llama-2b at full width and depth (f32 master weights from seed 0,
+     bf16 compute, remat, AdamW from a warmup of 2) for TRAIN_STEPS steps
+     on one fixed synthetic batch of 4 x 2048 tokens. Launch counts are
+     reset just before and read just after: K3 and K4 run once per layer
+     per step, K2 with lse twice (forward and remat recompute). The first
+     step must leave the parameters bit-identical (its learning rate is 0),
+     every loss must be finite and the last below the first. Then the
+     gradient gate: one step's loss and gradients on the kernel path
+     against the plain path (transformer's flash_attention and rms_norm
+     swapped for mha_reference and rms_norm_reference under autograd);
+     every leaf's relative L2 gap must stay under GRAD_TOL, and each
+     planted backward fault (BWD_FAULTS) must exceed it.
 
 The second-to-last line of stdout is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -32,7 +50,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -56,6 +76,10 @@ TOL = {
     # bf16: both round their f32 results to bf16 (one ulp is 2^-8 relative)
     ("rms_norm", torch.bfloat16): (2e-2, 1.6e-2),
     ("attention", torch.bfloat16): (2e-2, 1.6e-2),
+    # K2's lse residual is f32 in both dtypes; the kernel sums the scores
+    # of bf16 inputs in another order than the plain version
+    ("lse", torch.float32): (1e-4, 1e-5),
+    ("lse", torch.bfloat16): (1e-3, 1e-5),
 }
 # nats, per request, on |engine - forward| over its output logprobs: the
 # largest and the mean. The engine (bucketed/chunked prefill, then decode
@@ -71,11 +95,20 @@ LOGPROB_TOL = {"max": 0.5, "mean": 0.12}
 SOURCES = {
     "rms_norm": ("ray_tpu_torch/csrc/rms_norm.cu", "ray_tpu/ops/norm.py:31"),
     "flash_attention": ("ray_tpu_torch/csrc/flash_attention.cu", "ray_tpu/ops/attention.py:84"),
+    "flash_attention_bwd_dq": ("ray_tpu_torch/csrc/flash_attention_bwd.cu",
+                               "ray_tpu/ops/attention.py:205"),
+    "flash_attention_bwd_dkv": ("ray_tpu_torch/csrc/flash_attention_bwd.cu",
+                                "ray_tpu/ops/attention.py:248"),
     "paged_attention_decode": ("ray_tpu_torch/csrc/paged_attention.cu",
                                "ray_tpu/ops/paged_attention.py:129"),
     "paged_attention_chunk": ("ray_tpu_torch/csrc/paged_attention.cu",
                               "ray_tpu/ops/paged_attention.py:222"),
 }
+# the kernels the serving path must launch (the training path's launch
+# counts are checked exactly, in train_main_path)
+SERVE_KERNELS = ("rms_norm", "flash_attention", "paged_attention_decode",
+                 "paged_attention_chunk")
+TRAIN_STEPS = 8
 
 
 def log(*a):
@@ -256,6 +289,106 @@ def kernel_checks(gen) -> dict:
     return out
 
 
+def training_kernel_checks(gen) -> dict:
+    """K2 with lse, K3 and K4 vs their plain versions at the training path's
+    shape (llama-2b, batch 4 x 2048), at a ragged T and at g = 1. Returns,
+    per kernel, the bf16 figures at the training shape."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention
+
+    out = {}
+    D = 128
+    # (B, T, H, KVH): the training shape first
+    shapes = [(4, 2048, 20, 5), (2, 1000, 20, 5), (2, 1024, 8, 8)]
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        el = torch.tensor([], dtype=dtype).element_size()
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for B, T, H, KVH in shapes:
+            main = (B, T, H, KVH) == shapes[0]
+            reps, trials = (5, 3) if main else (3, 3)
+            q, do = rnd((B, T, H, D), dtype), rnd((B, T, H, D), dtype)
+            k, v = rnd((B, T, KVH, D), dtype), rnd((B, T, KVH, D), dtype)
+            pairs = T * (T + 1) // 2
+            rows = 4 * B * H * T  # bytes of one f32 [B, H, T]
+            shape = f"B={B} T={T} H={H}/{KVH}"
+
+            # K2 with lse
+            o, lse = attention.flash_attention_with_lse(q, k, v)
+            want_o, want_lse = attention._fwd_reference_with_lse(q, k, v)
+            err = max(check_close("flash_attention+lse", "attention", dtype, o, want_o),
+                      check_close("flash_attention+lse lse", "lse", dtype, lse, want_lse))
+            ms = device_ms(lambda: attention.flash_attention_with_lse(q, k, v), reps, trials)
+            plain = device_ms(lambda: attention._fwd_reference_with_lse(q, k, v), reps, trials)
+            bnd, by = bound_ms((2 * q.numel() + k.numel() + v.numel()) * el + rows,
+                               4 * B * H * D * pairs, dtype)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), reps, trials)
+            log(f"K2+lse flash_attention {tag} {shape}: max_err {err:.3e} ms {ms:.4f} "
+                f"plain {plain:.4f} bound {bnd:.4f} ({by}) sdpa {lib_fwd:.4f}")
+            del want_o, want_lse
+
+            # K3 / K4 from the plain forward's o and lse
+            o, lse = attention._fwd_reference_with_lse(q, k, v)
+            delta = attention._attention_delta(o, do)
+            dq = attention.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+            err_dq = check_close("flash_attention_bwd_dq", "attention", dtype, dq,
+                                 attention._dq_reference(q, k, v, do, lse, delta))
+            dk, dv = attention.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+            want_dk, want_dv = attention._dkv_reference(q, k, v, do, lse, delta)
+            err_dkv = max(check_close("flash_attention_bwd_dkv dk", "attention", dtype, dk,
+                                      want_dk),
+                          check_close("flash_attention_bwd_dkv dv", "attention", dtype, dv,
+                                      want_dv))
+            del dq, dk, dv, want_dk, want_dv
+            ms_dq = device_ms(lambda: attention.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+                              reps, trials)
+            ms_dkv = device_ms(lambda: attention.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                                         delta), reps, trials)
+            plain_dq = device_ms(lambda: attention._dq_reference(q, k, v, do, lse, delta),
+                                 reps, trials)
+            plain_dkv = device_ms(lambda: attention._dkv_reference(q, k, v, do, lse, delta),
+                                  reps, trials)
+            # the reference's cost estimates (ray_tpu/ops/attention.py:334, :366)
+            # over the causal (q, k) pairs; bytes: each input read once, each
+            # output written once
+            bnd_dq, by_dq = bound_ms((3 * q.numel() + k.numel() + v.numel()) * el + 2 * rows,
+                                     6 * B * H * D * pairs, dtype)
+            bnd_dkv, by_dkv = bound_ms((2 * q.numel() + 2 * k.numel() + 2 * v.numel()) * el
+                                       + 2 * rows, 8 * B * H * D * pairs, dtype)
+            # yardstick: one autograd.grad through SDPA, dq + dk + dv together
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            dot = do.transpose(1, 2)
+            lib = device_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                                        retain_graph=True), reps, trials)
+            del ot, qt, kt, vt
+            log(f"K3 flash_attention_bwd_dq {tag} {shape}: max_err {err_dq:.3e} ms {ms_dq:.4f} "
+                f"plain {plain_dq:.4f} bound {bnd_dq:.4f} ({by_dq}); "
+                f"SDPA backward (dq+dk+dv) {lib:.4f}")
+            log(f"K4 flash_attention_bwd_dkv {tag} {shape}: max_err {err_dkv:.3e} "
+                f"ms {ms_dkv:.4f} plain {plain_dkv:.4f} bound {bnd_dkv:.4f} ({by_dkv}); "
+                f"K3+K4 {ms_dq + ms_dkv:.4f}")
+            if dtype == torch.bfloat16 and main:
+                out["flash_attention_lse"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                                  bound_ms=bnd, bound_by=by, library_ms=lib_fwd)
+                out["flash_attention_bwd_dq"] = dict(
+                    max_abs_err=err_dq, ms=ms_dq, plain_ms=plain_dq, bound_ms=bnd_dq,
+                    bound_by=by_dq, library_ms=lib)
+                out["flash_attention_bwd_dkv"] = dict(
+                    max_abs_err=err_dkv, ms=ms_dkv, plain_ms=plain_dkv, bound_ms=bnd_dkv,
+                    bound_by=by_dkv, library_ms=None)
+            del q, k, v, do, o, lse, delta
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return out
+
+
 # -------------------------------------------------------------- phase 3
 
 
@@ -282,17 +415,17 @@ def run_requests(server, requests):
     return results, time.monotonic() - t0, errors
 
 
-def profile_run(server, requests) -> None:
-    """The same requests again under torch.profiler: device time by kernel
-    and the card's busy share of the wall time."""
+def profile_report(run) -> None:
+    """run() under torch.profiler: device time by kernel and the card's busy
+    share of the wall time that run() returns, in seconds."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _results, wall, errors = run_requests(server, requests)
-    if errors:
-        fail(f"profiled run: {errors}")
+        wall = run()
     rows = []
     for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # host events carry their kernels' device time too
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
@@ -307,18 +440,23 @@ def profile_run(server, requests) -> None:
 
 
 @contextlib.contextmanager
-def planted(fault):
-    """Swap one of the engine's kernel wrappers for a wrong one while the
-    block runs (the negative controls of the logprob gate)."""
-    from ray_tpu_torch.serve import engine
-
-    name, make = fault
-    real = getattr(engine, name)
-    setattr(engine, name, make(real))
+def swapped(module, **attrs):
+    """Bind module.<name> to the given objects while the block runs."""
+    saved = {name: getattr(module, name) for name in attrs}
+    for name, obj in attrs.items():
+        setattr(module, name, obj)
     try:
         yield
     finally:
-        setattr(engine, name, real)
+        for name, obj in saved.items():
+            setattr(module, name, obj)
+
+
+def planted(module, fault):
+    """Swap one of the module's kernel wrappers for a wrong one while the
+    block runs (the negative controls of a gate)."""
+    name, make = fault
+    return swapped(module, **{name: make(getattr(module, name))})
 
 
 # Engine faults the logprob gate must catch, each planted by wrapping the
@@ -379,7 +517,7 @@ def logprob_gaps(params, cfg, requests, results, yardstick: bool = False) -> lis
 
 def serve_main_path(profile: bool) -> dict:
     from ray_tpu_torch.ops import dispatch
-    from ray_tpu_torch.serve import LLMServer
+    from ray_tpu_torch.serve import LLMServer, engine
 
     t0 = time.monotonic()
     server = LLMServer(model_name="llama3-8b",
@@ -412,10 +550,10 @@ def serve_main_path(profile: bool) -> dict:
     if errors:
         server.shutdown()
         fail(f"main path: {errors}")
-    log(f"launches on the main path: {launches}")
-    for name in dispatch.KERNELS:
+    log(f"launches on the serving path: {launches}")
+    for name in SERVE_KERNELS:
         if launches[name] <= 0:
-            fail(f"main path never launched kernel {name}")
+            fail(f"serving path never launched kernel {name}")
 
     total_tokens = 0
     for i, (req, res) in enumerate(zip(requests, results)):
@@ -434,14 +572,20 @@ def serve_main_path(profile: bool) -> dict:
         f"{total_tokens / wall:.2f} over {wall:.2f}s wall; {len(results)} requests, "
         f"0 failed")
 
-    if profile:
-        profile_run(server, requests)
+    if profile:  # the same requests again
+        def profiled():
+            _results, wall, errs = run_requests(server, requests)
+            if errs:
+                fail(f"profiled run: {errs}")
+            return wall
+
+        profile_report(profiled)
     # the negative controls: a burst of fresh prompts (no prefix hits) per
     # planted fault
     faulted = []
     for name, fault in FAULTS.items():
         reqs = burst()
-        with planted(fault):
+        with planted(engine, fault):
             res, _wall, errs = run_requests(server, reqs)
         if errs:
             server.shutdown()
@@ -469,10 +613,206 @@ def serve_main_path(profile: bool) -> dict:
     return {"launches": launches}
 
 
+# -------------------------------------------------------------- phase 4
+
+# The gradient gate: per parameter leaf, the relative L2 gap
+# |g_kernel - g_plain| / |g_plain| of one step's gradients, kernel path
+# against plain path, must stay under GRAD_TOL (the largest over leaves is
+# compared), and each planted backward fault must exceed it somewhere.
+# Both paths compute in bf16 and round at different places. On the H100
+# the sound run read 0.0038 and the weakest fault (K4 dropping the last q
+# tile) 0.059 (PERF.md); the limit sits near their geometric middle, about
+# 4x from each.
+GRAD_TOL = 0.015
+# |loss_kernel - loss_plain| in nats: the two forwards (K1/K2 against the
+# plain versions, bf16 activations) may differ by rounding only
+LOSS_GAP_TOL = 0.01
+
+
+def _keys_one_ahead(f):
+    """K3 reads its keys one position ahead: query row t sees keys 1..t+1
+    in place of 0..t (the last position reads zeros)."""
+    def shifted(t):
+        return torch.cat([t[:, 1:], torch.zeros_like(t[:, :1])], dim=1)
+
+    def dq(q, k, v, do, lse, delta, causal=True, scale=None):
+        return f(q, shifted(k), shifted(v), do, lse, delta, causal, scale)
+    return dq
+
+
+def _drop_last_q_tile(f):
+    """K4 loses the last 64-row q tile: those queries add nothing to dk/dv."""
+    def dkv(q, k, v, do, lse, delta, causal=True, scale=None):
+        return f(q[:, :-64], k, v, do[:, :-64], lse[:, :, :-64].contiguous(),
+                 delta[:, :, :-64].contiguous(), causal, scale)
+    return dkv
+
+
+def _first_head_of_group(f):
+    """K4 sums dk/dv over the first q head of each GQA group only."""
+    def dkv(q, k, v, do, lse, delta, causal=True, scale=None):
+        g = q.shape[2] // k.shape[2]
+        return f(q[:, :, ::g], k, v, do[:, :, ::g], lse[:, ::g].contiguous(),
+                 delta[:, ::g].contiguous(), causal, scale)
+    return dkv
+
+
+# Backward faults the gradient gate must catch, each planted by wrapping a
+# kernel wrapper that the attention Function's backward calls:
+# name -> (ops.attention attribute, wrapper maker)
+BWD_FAULTS = {
+    "dq_keys_one_ahead": ("flash_attention_bwd_dq", _keys_one_ahead),
+    "dkv_drops_last_q_tile": ("flash_attention_bwd_dkv", _drop_last_q_tile),
+    "dkv_first_head_of_group": ("flash_attention_bwd_dkv", _first_head_of_group),
+}
+
+
+def named_leaves(tree, prefix=""):
+    """[(path, tensor)] of a nested dict, in sorted key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in named_leaves(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def loss_and_grads(params, batch, cfg):
+    """One step's loss and gradients, without an update."""
+    from ray_tpu_torch.models import loss_fn
+
+    loss, _ = loss_fn(params, batch, cfg)
+    grads = torch.autograd.grad(loss, [t for _, t in named_leaves(params)])
+    return float(loss.detach()), grads
+
+
+def plain_path():
+    """The transformer's attention and norms as their plain versions under
+    autograd (the module imports them by name, so they are swapped there)."""
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.ops import attention, norm
+
+    return swapped(transformer, flash_attention=attention.mha_reference,
+                   rms_norm=norm.rms_norm_reference)
+
+
+def grad_gaps(names, grads, ref) -> dict:
+    return {n: float(torch.linalg.vector_norm(g.float() - r.float())
+                     / torch.linalg.vector_norm(r.float()))
+            for n, g, r in zip(names, grads, ref)}
+
+
+def train_main_path(card: str, profile: bool) -> dict:
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import get_config
+    from ray_tpu_torch.ops import attention, dispatch
+
+    cfg = get_config("llama-2b")
+    L, B, T = cfg.n_layers, 4, 2048
+    opt = train.make_optimizer(learning_rate=3e-4, warmup_steps=2, total_steps=100)
+    t0 = time.monotonic()
+    state = train.init_train_state(cfg, opt, seed=0)
+    leaves = named_leaves(state["params"])
+    names = [n for n, _ in leaves]
+    n_params = sum(t.numel() for _, t in leaves)
+    batch = train.synthetic_batch(cfg, B, T, seed=0)
+    step = train.make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    log(f"phase 4: train llama-2b (d_model {cfg.d_model}, layers {L}, heads {cfg.n_heads}/"
+        f"{cfg.kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {n_params / 1e9:.4f} B "
+        f"params, f32 masters, {cfg.dtype} compute, remat {cfg.remat}) on {B} x {T} tokens; "
+        f"state built in {time.monotonic() - t0:.1f}s, "
+        f"memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    before = [t.detach().clone() for _, t in leaves]
+    losses, times = [], []
+    dispatch.reset_launches()
+    for i in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))  # waits for the step
+        times.append(time.perf_counter() - t1)
+        log(f"step {i}: loss {losses[-1]:.6f} ce {float(m['ce_loss']):.6f} "
+            f"z {float(m['z_loss']):.4e} acc {float(m['accuracy']):.5f} "
+            f"grad_norm {float(m['grad_norm']):.5f} {times[-1]:.3f}s")
+        if i == 0:  # learning rate 0: nothing may move
+            moved = [n for (n, t), b in zip(leaves, before) if not torch.equal(t.detach(), b)]
+            del before
+            if moved:
+                fail(f"the first step (learning rate 0) changed {moved}")
+            torch.cuda.reset_peak_memory_stats()
+    launches = dispatch.launch_counts()
+    log(f"launches on the training path ({TRAIN_STEPS} steps): {launches}")
+    S = TRAIN_STEPS
+    expect = {"flash_attention_bwd_dq": L * S, "flash_attention_bwd_dkv": L * S,
+              "flash_attention": 2 * L * S, "flash_attention_lse": 2 * L * S,
+              "rms_norm": (4 * L + 1) * S, "paged_attention_decode": 0,
+              "paged_attention_chunk": 0}
+    for name, n in expect.items():
+        if launches[name] != n:
+            fail(f"training path launched {name} {launches[name]} times, expected {n}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall: {losses}")
+    step_s = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated()
+    log(f"training: step time median {step_s:.4f}s (steps 1-{S - 1}: "
+        f"{[round(t, 4) for t in times[1:]]}), {B * T / step_s:.1f} tokens/s, MFU "
+        f"{6 * n_params * B * T / step_s / 989e12:.4f} (6 N tokens / step time / 989e12), "
+        f"peak memory {peak / 2**30:.2f} GiB (steps 1-{S - 1}); loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}; {card}")
+
+    if profile:  # one more step
+        def profiled():
+            t1 = time.perf_counter()
+            float(step(state, batch)[1]["loss"])
+            return time.perf_counter() - t1
+
+        profile_report(profiled)
+
+    # the gradient gate, on the trained parameters
+    state["opt_state"] = None
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = state["params"]
+    loss_k, g_kernel = loss_and_grads(params, batch, cfg)
+    with plain_path():
+        loss_p, g_plain = loss_and_grads(params, batch, cfg)
+    sound = grad_gaps(names, g_kernel, g_plain)
+    del g_kernel
+    faulted = {}
+    for name, fault in BWD_FAULTS.items():
+        with planted(attention, fault):
+            _loss, g = loss_and_grads(params, batch, cfg)
+        faulted[name] = grad_gaps(names, g, g_plain)
+        del g
+    del g_plain, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def fmt(gaps):
+        return " ".join(f"{n} {x:.5f}" for n, x in gaps.items())
+
+    log(f"gradient gate (relative L2 per leaf, limit {GRAD_TOL}): loss kernel {loss_k:.6f} "
+        f"plain {loss_p:.6f} (|gap| {abs(loss_k - loss_p):.3e}, limit {LOSS_GAP_TOL})")
+    log(f"  sound: max {max(sound.values()):.5f}: {fmt(sound)}")
+    for name, gaps in faulted.items():
+        log(f"  planted {name}: max {max(gaps.values()):.5f}: {fmt(gaps)}")
+    if not abs(loss_k - loss_p) <= LOSS_GAP_TOL:
+        fail(f"kernel and plain losses differ by {abs(loss_k - loss_p):.3e}")
+    worst = max(sound, key=sound.get)
+    if not sound[worst] <= GRAD_TOL:
+        fail(f"kernel gradients differ from the plain path: {worst} {sound[worst]:.5f}")
+    for name, gaps in faulted.items():
+        if not max(gaps.values()) > GRAD_TOL:
+            fail(f"the gradient gate ({GRAD_TOL}) passes planted fault {name}")
+    return {"launches": launches}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after the main path, serve the requests again under torch.profiler")
+                    help="after each path, serve the requests again / take one more "
+                         "training step under torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -482,7 +822,8 @@ def main() -> None:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     cap = torch.cuda.get_device_capability(0)
     if cap != (9, 0):
@@ -501,12 +842,20 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     figures = kernel_checks(gen)
+    figures.update(training_kernel_checks(gen))
     serve = serve_main_path(args.profile)
+    gc.collect()  # the server is shut down: free its weights and pool
+    torch.cuda.empty_cache()
+    trained = train_main_path(card, args.profile)
     kernels = []
     for name in dispatch.KERNELS:
         source, replaces = SOURCES[name]
+        by_path = {"serve": serve["launches"][name], "train": trained["launches"][name]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": serve["launches"].get(name, 0), **figures.get(name, {})})
+                        "launches": sum(by_path.values()), "launches_by_path": by_path,
+                        **figures[name]})
+        if name == "flash_attention":  # the serving shape above; with lse at the training shape
+            kernels[-1]["with_lse"] = figures["flash_attention_lse"]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,10 @@
 //   T* out_row(int r)            output row r, nullptr past the end
 //   const T* k, * v              K and V bases (same strides, kv_layout_ok)
 // and the exclusive bound `key_end` of the keys any row of the tile may see.
+// `lse`, when not null, receives row r's log-sum-exp m + log(l) (l == 0
+// counts as 1, as in the reference) at lse[r] for every row with an output;
+// callers that want none pass nullptr as a constant, so the epilogue code
+// for it is not generated.
 //
 // What bounds it: at the slice's shapes (T <= 1024 prefill, 256-row chunks)
 // each tile does 2*64*64*D multiply-adds per 64*D*2 elements loaded, so the
@@ -41,7 +45,8 @@ inline size_t tile_smem_bytes(int D) {
 }
 
 template <typename T, typename Problem>
-__device__ void attend_tile(const Problem& pb, int D, int key_end, float scale) {
+__device__ void attend_tile(const Problem& pb, int D, int key_end, float scale,
+                            float* lse = nullptr) {
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + kTileR * (D + 1);
@@ -176,6 +181,7 @@ __device__ void attend_tile(const Problem& pb, int D, int key_end, float scale) 
       const int d = tx + 16 * j;
       if (d < D) out[d] = from_f32<T>(l == 0.f ? 0.f : acc[i][j] / l);
     }
+    if (lse != nullptr && tx == 0) lse[r] = m_s[r] + logf(l == 0.f ? 1.f : l);
   }
 }
 

@@ -2,9 +2,12 @@
 //
 // Replaces ray_tpu/ops/attention.py `_fwd_kernel` (launched by
 // `_flash_fwd_pallas`): o = softmax(q k^T * scale, causal) v per (b, head),
-// kv head h // g, f32 online softmax, rows with no visible key give 0. The
-// lse output of the reference (for ring attention and the backward) is
-// training-slice work and not computed here.
+// kv head h // g, f32 online softmax, rows with no visible key give 0. With
+// a non-null `lse` it also writes the reference's logsumexp residual
+// lse [B, H, Tq] f32 (`return_lse=True`), which the backward kernels K3/K4
+// (flash_attention_bwd.cu) read. The two cases are two instantiations of
+// one kernel, so a launch without lse (serving) runs the same code as
+// before lse existed.
 //
 // Unlike the Pallas kernel, which needs T % block == 0 and T >= 128 (the
 // JAX package falls back to XLA otherwise), this one takes every T: the
@@ -45,11 +48,12 @@ struct FlashProblem {
   }
 };
 
-template <typename T>
+template <typename T, bool kLse>
 __global__ void __launch_bounds__(rtt::kTileThreads)
-    flash_fwd_kernel(const T* q, const T* k, const T* v, T* o, int Tq, int Tk, int H, int KVH,
-                     int D, long long q_sb, long long q_st, long long q_sh, long long kv_sb,
-                     long long kv_st, long long kv_sh, int causal, float scale) {
+    flash_fwd_kernel(const T* q, const T* k, const T* v, T* o, float* lse, int Tq, int Tk,
+                     int H, int KVH, int D, long long q_sb, long long q_st, long long q_sh,
+                     long long kv_sb, long long kv_st, long long kv_sh, int causal,
+                     float scale) {
   FlashProblem<T> pb;
   pb.q = q;
   pb.k = k;
@@ -71,12 +75,32 @@ __global__ void __launch_bounds__(rtt::kTileThreads)
   pb.causal = causal != 0;
   int key_end = Tk;
   if (pb.causal) key_end = min(Tk, min(Tq, pb.q0 + rtt::kTileR));
-  rtt::attend_tile<T>(pb, D, key_end, scale);
+  if constexpr (kLse)
+    rtt::attend_tile<T>(pb, D, key_end, scale,
+                        lse + (static_cast<size_t>(pb.b) * H + pb.h) * Tq + pb.q0);
+  else
+    rtt::attend_tile<T>(pb, D, key_end, scale);
+}
+
+template <typename T, bool kLse>
+cudaError_t launch_fwd(dim3 grid, size_t smem, cudaStream_t s, const void* q, const void* k,
+                       const void* v, void* o, float* lse, int Tq, int Tk, int H, int KVH, int D,
+                       long long q_sb, long long q_st, long long q_sh, long long kv_sb,
+                       long long kv_st, long long kv_sh, int causal, float scale) {
+  cudaError_t err = rtt::allow_smem(flash_fwd_kernel<T, kLse>, smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel<T, kLse><<<grid, rtt::kTileThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, Tq, Tk, H, KVH, D, q_sb, q_st, q_sh, kv_sb, kv_st, kv_sh, causal,
+      scale);
+  return cudaSuccess;
 }
 
 }  // namespace
 
-extern "C" int rtt_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
+// lse: null, or [B, H, Tq] f32 for the logsumexp residual
+extern "C" int rtt_flash_attention(const void* q, const void* k, const void* v, void* o,
+                                   void* lse, int B,
                                    int Tq, int Tk, int H, int KVH, int D, long long q_sb,
                                    long long q_st, long long q_sh, long long kv_sb,
                                    long long kv_st, long long kv_sh, int causal, float scale,
@@ -89,12 +113,13 @@ extern "C" int rtt_flash_attention(const void* q, const void* k, const void* v, 
   const dim3 grid((Tq + rtt::kTileR - 1) / rtt::kTileR, H, B);
   RTT_DISPATCH_DTYPE(dtype, T, {
     if (!rtt::kv_layout_ok<T>(k, v, D, kv_sb, kv_st, kv_sh)) return cudaErrorInvalidValue;
-    cudaError_t err = rtt::allow_smem(flash_fwd_kernel<T>, smem);
+    float* l = static_cast<float*>(lse);
+    cudaError_t err =
+        l ? launch_fwd<T, true>(grid, smem, s, q, k, v, o, l, Tq, Tk, H, KVH, D, q_sb, q_st,
+                                q_sh, kv_sb, kv_st, kv_sh, causal, scale)
+          : launch_fwd<T, false>(grid, smem, s, q, k, v, o, l, Tq, Tk, H, KVH, D, q_sb, q_st,
+                                 q_sh, kv_sb, kv_st, kv_sh, causal, scale);
     if (err != cudaSuccess) return err;
-    flash_fwd_kernel<T><<<grid, rtt::kTileThreads, smem, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), Tq, Tk, H, KVH, D, q_sb, q_st, q_sh, kv_sb, kv_st, kv_sh, causal,
-        scale);
   });
   return cudaGetLastError();
 }

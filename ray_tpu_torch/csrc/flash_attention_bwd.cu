@@ -1,0 +1,366 @@
+// K3 and K4: the causal flash-attention backward (flash-2) with GQA.
+//
+// Replaces ray_tpu/ops/attention.py `_dq_kernel` (K3) and `_dkv_kernel`
+// (K4), both launched by `_flash_bwd_pallas`. With P = exp(S - lse),
+// S = q k^T * scale (masked scores at -2e30), dP = dO v^T and
+// dS = P * (dP - delta) * scale, where lse comes from the forward (K2) and
+// delta = rowsum(dO * O) - dlse is computed by the caller:
+//   K3: dQ = dS K         one CTA per (b, q head, 64-row q tile), walking the
+//                          key tiles up to the diagonal;
+//   K4: dK = dS^T Q,      one CTA per (b, kv head, 64-key tile), looping over
+//       dV = P^T dO        the g q heads of its group and the q tiles at and
+//                          below the diagonal, so the sum over the group
+//                          happens in registers (the reference writes a
+//                          [B, H, T, D] f32 transient and sums it outside).
+//
+// Layout as K2: q, dO [B, Tq, H, D] sharing one set of strides, k, v
+// [B, Tk, KVH, D] sharing another; lse and delta [B, H, Tq] f32 contiguous;
+// dq [B, Tq, H, D] and dk, dv [B, Tk, KVH, D] written contiguous in the input
+// dtype. Any Tq, Tk: ragged tiles are masked. Rows are staged into shared
+// memory as f32 by KVStager's 16-byte loads, the next tile's loads in flight
+// while the current one is computed; all sums are f32.
+//
+// What bounds it: like K2 these run on the FMA pipes (4 x 64 x 64 x D
+// multiply-adds per tile pair in K4, 3 x in K3) fed from shared memory by a
+// 4x4 register tile, one CTA of 256 threads per SM (150-166 KB of shared
+// memory each); tensor cores (mma.sync / wgmma) are later work.
+
+#include "attention_tile.cuh"
+
+namespace {
+
+constexpr int kR = rtt::kTileR;   // query rows per tile
+constexpr int kK = rtt::kTileK;   // keys per tile
+constexpr int kThreads = rtt::kTileThreads;
+constexpr int kMaxD = rtt::kTileMaxD;
+constexpr int kCols = kMaxD / 16;
+static_assert(kR == kK, "K4 finds the q tiles below the diagonal by tile index");
+
+using rtt::kNegInf;
+
+// Rows t of one (b, head) of a [B, T, heads, D] tensor, for KVStager.
+struct Rows {
+  long long sb, st, sh;
+  int b, h;
+  __device__ size_t kv_offset(int t) const {
+    return static_cast<size_t>(b * sb + t * st + h * sh);
+  }
+};
+
+inline size_t dq_smem_bytes(int D) {  // Q, dO, K, V [64][D+1]; dS [64][65]; lse, delta [64]
+  return sizeof(float) * (4 * static_cast<size_t>(kR) * (D + 1) + kR * (kK + 1) + 2 * kR);
+}
+
+inline size_t dkv_smem_bytes(int D) {  // K, V, Q, dO [64][D+1]; P^T, dS^T [64][65]; lse, delta
+  return sizeof(float) * (4 * static_cast<size_t>(kR) * (D + 1) + 2 * kK * (kR + 1) + 2 * kR);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const T* q, const T* k, const T* v, const T* dout, const float* lse,
+                        const float* delta, T* dq, int Tq, int Tk, int H, int KVH, int D,
+                        long long q_sb, long long q_st, long long q_sh, long long kv_sb,
+                        long long kv_st, long long kv_sh, int causal, float scale) {
+  extern __shared__ float smem[];
+  const int Dp = D + 1;
+  float* Qs = smem;
+  float* dOs = Qs + kR * Dp;
+  float* Ks = dOs + kR * Dp;
+  float* Vs = Ks + kK * Dp;
+  float* dSs = Vs + kK * Dp;
+  float* lse_s = dSs + kR * (kK + 1);
+  float* dl_s = lse_s + kR;
+
+  // the last q tiles see the most keys: start them first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kR;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KVH);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const Rows qrows{q_sb, q_st, q_sh, b, h};
+  const Rows kvrows{kv_sb, kv_st, kv_sh, b, kvh};
+
+  rtt::KVStager<T, kR, kThreads, kMaxD> stager;
+  stager.fetch(qrows, q, dout, q0, Tq, D);
+  stager.store(Qs, Dp, dOs, Dp, D);
+  if (tid < kR) {
+    const int t = q0 + tid;
+    const size_t i = (static_cast<size_t>(b) * H + h) * Tq + t;
+    lse_s[tid] = t < Tq ? lse[i] : 0.f;
+    dl_s[tid] = t < Tq ? delta[i] : 0.f;
+  }
+
+  float acc[4][kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
+
+  int key_end = Tk;
+  if (causal) key_end = min(Tk, min(Tq, q0 + kR));
+  if (key_end > 0) stager.fetch(kvrows, k, v, 0, key_end, D);
+  for (int k0 = 0; k0 < key_end; k0 += kK) {
+    __syncthreads();  // the previous tile's readers are done with Ks/Vs/dSs
+    stager.store(Ks, Dp, Vs, Dp, D);
+    __syncthreads();
+    if (k0 + kK < key_end) stager.fetch(kvrows, k, v, k0 + kK, key_end, D);
+
+    // S and dP for rows ty*4 + i, keys tx + 16*j
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float qv[4], ov[4], kv[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = Qs[(ty * 4 + i) * Dp + d];
+        ov[i] = dOs[(ty * 4 + i) * Dp + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kv[j] = Ks[(tx + 16 * j) * Dp + d];
+        vv[j] = Vs[(tx + 16 * j) * Dp + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kk = tx + 16 * j, key = k0 + kk;
+        const bool keep = key < key_end && (!causal || key <= q0 + r);
+        // the reference's formula: a masked score is -2e30 before exp
+        const float p = q0 + r < Tq ? expf((keep ? s[i][j] * scale : kNegInf) - lse_s[r]) : 0.f;
+        dSs[r * (kK + 1) + kk] = p * (dp[i][j] - dl_s[r]) * scale;
+      }
+    }
+    __syncthreads();
+
+    for (int kk = 0; kk < kK; ++kk) {
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[i] = dSs[(ty * 4 + i) * (kK + 1) + kk];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int d = tx + 16 * j;
+        if (d < D) {
+          const float kd = Ks[kk * Dp + d];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(ds[i], kd, acc[i][j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = q0 + ty * 4 + i;
+    if (t >= Tq) continue;
+    T* out = dq + (static_cast<size_t>(b) * Tq + t) * H * D + static_cast<size_t>(h) * D;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int d = tx + 16 * j;
+      if (d < D) out[d] = rtt::from_f32<T>(acc[i][j]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_kernel(const T* q, const T* k, const T* v, const T* dout, const float* lse,
+                         const float* delta, T* dk, T* dv, int Tq, int Tk, int H, int KVH, int D,
+                         long long q_sb, long long q_st, long long q_sh, long long kv_sb,
+                         long long kv_st, long long kv_sh, int causal, float scale) {
+  extern __shared__ float smem[];
+  const int Dp = D + 1;
+  float* Ks = smem;
+  float* Vs = Ks + kK * Dp;
+  float* Qs = Vs + kK * Dp;
+  float* dOs = Qs + kR * Dp;
+  float* Pt = dOs + kR * Dp;       // P^T  [key][row]
+  float* dSt = Pt + kK * (kR + 1);  // dS^T [key][row]
+  float* lse_s = dSt + kK * (kR + 1);
+  float* dl_s = lse_s + kR;
+
+  const int k0 = blockIdx.x * kK, kvh = blockIdx.y, b = blockIdx.z;
+  const int g = H / KVH;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const Rows kvrows{kv_sb, kv_st, kv_sh, b, kvh};
+
+  rtt::KVStager<T, kR, kThreads, kMaxD> stager;
+  stager.fetch(kvrows, k, v, k0, Tk, D);
+  stager.store(Ks, Dp, Vs, Dp, D);
+
+  // keys ty*4 + a, columns tx + 16*c
+  float dk_acc[4][kCols], dv_acc[4][kCols];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.f;
+
+  // under causal masking, rows before k0 see none of this tile's keys
+  const int qt_first = causal ? k0 / kR : 0;
+  const int n_qt = max(0, (Tq + kR - 1) / kR - qt_first);
+  const int n_it = g * n_qt;  // (q head of the group, q tile) pairs
+  auto rows_of = [&](int it) {
+    return Rows{q_sb, q_st, q_sh, b, kvh * g + it / n_qt};
+  };
+  auto q0_of = [&](int it) { return (qt_first + it % n_qt) * kR; };
+  if (n_it > 0) stager.fetch(rows_of(0), q, dout, q0_of(0), Tq, D);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int hq = kvh * g + it / n_qt, q0 = q0_of(it);
+    __syncthreads();  // the previous tile's readers are done with Qs/dOs/Pt/dSt/lse_s
+    stager.store(Qs, Dp, dOs, Dp, D);
+    if (tid < kR) {
+      const int t = q0 + tid;
+      const size_t i = (static_cast<size_t>(b) * H + hq) * Tq + t;
+      lse_s[tid] = t < Tq ? lse[i] : 0.f;
+      dl_s[tid] = t < Tq ? delta[i] : 0.f;
+    }
+    __syncthreads();
+    if (it + 1 < n_it) stager.fetch(rows_of(it + 1), q, dout, q0_of(it + 1), Tq, D);
+
+    // S and dP, transposed: keys ty*4 + a, rows tx + 16*c
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float kv[4], vv[4], qv[4], ov[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        kv[a] = Ks[(ty * 4 + a) * Dp + d];
+        vv[a] = Vs[(ty * 4 + a) * Dp + d];
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        qv[c] = Qs[(tx + 16 * c) * Dp + d];
+        ov[c] = dOs[(tx + 16 * c) * Dp + d];
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[a][c] = fmaf(kv[a], qv[c], s[a][c]);
+          dp[a][c] = fmaf(vv[a], ov[c], dp[a][c]);
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int kk = ty * 4 + a, key = k0 + kk;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = tx + 16 * c, row = q0 + r;
+        const bool keep = key < Tk && (!causal || key <= row);
+        const float p = row < Tq ? expf((keep ? s[a][c] * scale : kNegInf) - lse_s[r]) : 0.f;
+        Pt[kk * (kR + 1) + r] = p;
+        dSt[kk * (kR + 1) + r] = p * (dp[a][c] - dl_s[r]) * scale;
+      }
+    }
+    __syncthreads();
+
+    for (int r = 0; r < kR; ++r) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        p[a] = Pt[(ty * 4 + a) * (kR + 1) + r];
+        ds[a] = dSt[(ty * 4 + a) * (kR + 1) + r];
+      }
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int d = tx + 16 * c;
+        if (d < D) {
+          const float od = dOs[r * Dp + d], qd = Qs[r * Dp + d];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            dv_acc[a][c] = fmaf(p[a], od, dv_acc[a][c]);
+            dk_acc[a][c] = fmaf(ds[a], qd, dk_acc[a][c]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int key = k0 + ty * 4 + a;
+    if (key >= Tk) continue;
+    const size_t off = (static_cast<size_t>(b) * Tk + key) * KVH * D + static_cast<size_t>(kvh) * D;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int d = tx + 16 * c;
+      if (d < D) {
+        dk[off + d] = rtt::from_f32<T>(dk_acc[a][c]);
+        dv[off + d] = rtt::from_f32<T>(dv_acc[a][c]);
+      }
+    }
+  }
+}
+
+bool bwd_args_ok(int B, int Tq, int Tk, int H, int KVH, int D) {
+  return B > 0 && Tq > 0 && Tk > 0 && KVH > 0 && H % KVH == 0 && D > 0 && D <= kMaxD;
+}
+
+}  // namespace
+
+extern "C" int rtt_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+                                          const void* dout, const void* lse, const void* delta,
+                                          void* dq, int B, int Tq, int Tk, int H, int KVH, int D,
+                                          long long q_sb, long long q_st, long long q_sh,
+                                          long long kv_sb, long long kv_st, long long kv_sh,
+                                          int causal, float scale, int dtype, void* stream) {
+  if (!bwd_args_ok(B, Tq, Tk, H, KVH, D)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = dq_smem_bytes(D);
+  const dim3 grid((Tq + kR - 1) / kR, H, B);
+  RTT_DISPATCH_DTYPE(dtype, T, {
+    if (!rtt::kv_layout_ok<T>(k, v, D, kv_sb, kv_st, kv_sh) ||
+        !rtt::kv_layout_ok<T>(q, dout, D, q_sb, q_st, q_sh))
+      return cudaErrorInvalidValue;
+    cudaError_t err = rtt::allow_smem(flash_bwd_dq_kernel<T>, smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_kernel<T><<<grid, kThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dq), Tq, Tk, H, KVH, D, q_sb, q_st,
+        q_sh, kv_sb, kv_st, kv_sh, causal, scale);
+  });
+  return cudaGetLastError();
+}
+
+extern "C" int rtt_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
+                                           const void* dout, const void* lse, const void* delta,
+                                           void* dk, void* dv, int B, int Tq, int Tk, int H,
+                                           int KVH, int D, long long q_sb, long long q_st,
+                                           long long q_sh, long long kv_sb, long long kv_st,
+                                           long long kv_sh, int causal, float scale, int dtype,
+                                           void* stream) {
+  if (!bwd_args_ok(B, Tq, Tk, H, KVH, D)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = dkv_smem_bytes(D);
+  const dim3 grid((Tk + kK - 1) / kK, KVH, B);
+  RTT_DISPATCH_DTYPE(dtype, T, {
+    if (!rtt::kv_layout_ok<T>(k, v, D, kv_sb, kv_st, kv_sh) ||
+        !rtt::kv_layout_ok<T>(q, dout, D, q_sb, q_st, q_sh))
+      return cudaErrorInvalidValue;
+    cudaError_t err = rtt::allow_smem(flash_bwd_dkv_kernel<T>, smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_kernel<T><<<grid, kThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), Tq, Tk, H,
+        KVH, D, q_sb, q_st, q_sh, kv_sb, kv_st, kv_sh, causal, scale);
+  });
+  return cudaGetLastError();
+}

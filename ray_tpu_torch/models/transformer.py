@@ -7,7 +7,10 @@ JAX package's parameters into this package's and both compute the same
 thing. The forward is a Python loop over the layers. Weights are cast to
 the model dtype at each use site (a no-op when they already are), softmax,
 norms and logits run in f32. Attention is ops.flash_attention and norms
-ops.rms_norm: CUDA kernels on the card, plain PyTorch on the CPU.
+ops.rms_norm: CUDA kernels on the card, plain PyTorch on the CPU, both
+differentiable (autograd Functions whose backward is K3/K4 for attention).
+With `cfg.remat` and grad enabled, each layer runs under activation
+checkpointing, as the reference's `run_layers` runs `jax.checkpoint`.
 MoE layers and the sequence-parallel attention are not ported yet.
 """
 
@@ -18,6 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import apply_rope, flash_attention, layer_norm, rms_norm, rope_frequencies
 from ..ops.dispatch import resolve_device
@@ -117,9 +121,14 @@ def params_from_numpy(tree, device=None, dtype: Any = None) -> Params:
     return convert(tree)
 
 
-def layer_slice(layers: Params, l: int) -> Params:
-    """Layer l's parameters as views into the stacked [L, ...] tensors."""
-    return {name: t[l] for name, t in layers.items()}
+def layer_views(layers: Params) -> list:
+    """Every layer's parameters as views into the stacked [L, ...] tensors,
+    one dict per layer. One unbind per tensor: under autograd the layers'
+    gradients reach each stacked tensor through a single stack, where
+    indexing layer by layer would zero-fill and add a full [L, ...]
+    gradient once per layer."""
+    names = list(layers)
+    return [dict(zip(names, ts)) for ts in zip(*(layers[n].unbind(0) for n in names))]
 
 
 # ---------------------------------------------------------------------------
@@ -232,10 +241,41 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     """tokens [B, T] -> (logits [B, T, V] f32, aux_loss scalar)."""
     _require_dense(cfg)
     x, rope_tables = _prologue(params, tokens, cfg, positions)
-    layers = params["layers"]
-    for l in range(cfg.n_layers):
-        x = _block(x, layer_slice(layers, l), cfg, rope_tables, positions)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in layer_views(params["layers"]):
+        if remat:  # keep only each layer's input; recompute the rest in the backward
+            x = checkpoint(_block, x, lp, cfg, rope_tables, positions, use_reentrant=False)
+        else:
+            x = _block(x, lp, cfg, rope_tables, positions)
     return _lm_head(x, params, cfg), torch.zeros((), device=x.device)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            z_loss_coef: float = 1e-4) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: tokens [B, T], targets [B, T], optional mask [B, T]
+    -> (loss, metrics)."""
+    logits, aux = forward(params, batch["tokens"], cfg)
+    return loss_from_logits(logits, batch["targets"], batch.get("mask"), cfg, aux,
+                            z_loss_coef=z_loss_coef)
+
+
+def loss_from_logits(logits: torch.Tensor, targets: torch.Tensor,
+                     mask: Optional[torch.Tensor], cfg: ModelConfig, aux: torch.Tensor,
+                     z_loss_coef: float = 1e-4) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Cross-entropy + z-loss (coef * mean lse^2) + the router's aux loss,
+    over the tokens the mask keeps, given f32 logits [B, T, V]."""
+    if mask is None:
+        mask = torch.ones_like(targets, dtype=torch.float32)
+    mask = mask.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    true_logit = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = ((lse - true_logit) * mask).sum() / denom
+    z_loss = z_loss_coef * (lse * lse * mask).sum() / denom
+    total = ce + z_loss + cfg.router_aux_coef * aux
+    acc = ((logits.argmax(dim=-1) == targets).float() * mask).sum() / denom
+    return total, {"loss": total, "ce_loss": ce, "aux_loss": aux, "z_loss": z_loss,
+                   "accuracy": acc, "tokens": mask.sum()}
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
@@ -255,9 +295,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int
     L, KVH, hd = cfg.n_layers, cfg.kv_heads, cfg.hdim
     kc = torch.zeros((L, B, max_len, KVH, hd), dtype=dtype, device=x.device)
     vc = torch.zeros_like(kc)
-    layers = params["layers"]
-    for l in range(L):
-        lp = layer_slice(layers, l)
+    for l, lp in enumerate(layer_views(params["layers"])):
         h = _norm(x, lp["ln1"], lp.get("ln1_b"), cfg)
         q, k, v = _qkv(h, lp, cfg, rope_tables)
         x = x + _out_proj(flash_attention(q, k, v, causal=True), lp)

@@ -40,17 +40,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DType
 
-KERNELS = ("rms_norm", "flash_attention", "paged_attention_decode",
-           "paged_attention_chunk")
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+KERNELS = ("rms_norm", "flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "paged_attention_decode", "paged_attention_chunk")
+# per kernel, and for K2 also the launches that wrote the lse residual
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS + ("flash_attention_lse",)}
 _launch_lock = threading.Lock()
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point -> argtypes (the stream is the last pointer of each)
 _SIGNATURES = {
     "rtt_rms_norm": (_P, _P, _P, _I, _I, _F, _I, _I, _P),
-    "rtt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "rtt_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _LL, _LL, _LL, _LL, _LL, _LL, _I, _F, _I, _P),
+    "rtt_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _LL, _LL, _LL, _LL, _LL, _LL, _I, _F, _I, _P),
+    "rtt_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _LL, _LL, _LL, _LL, _LL, _LL, _I, _F, _I, _P),
     "rtt_paged_attention_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _I, _I, _F, _I, _P),
     "rtt_paged_attention_chunk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -211,9 +216,10 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
+def launch(kernel: str, entry: str, device: torch.device, *args, also: str = "") -> None:
     """Call C entry point `entry` on `device`'s current stream, raise on a
-    refused launch, and count one launch of `kernel`."""
+    refused launch, and count one launch of `kernel` (and of the variant
+    counter `also`, when given)."""
     lib = library()
     stream = torch.cuda.current_stream(device).cuda_stream
     if device.index is None or device.index == torch.cuda.current_device():
@@ -226,3 +232,5 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
                            f"{lib.rtt_error_string(err).decode()}")
     with _launch_lock:
         LAUNCHES[kernel] += 1
+        if also:
+            LAUNCHES[also] += 1

@@ -2,7 +2,10 @@
 
 Counterpart of ray_tpu/ops/norm.py. `rms_norm` launches the CUDA kernel
 for tensors on the card and runs `rms_norm_reference` for tensors on the
-CPU. LayerNorm has no kernel in the reference either.
+CPU. When a gradient is needed it runs as `_RMSNorm`, an autograd Function
+whose backward is the reference's closed form (`_rms_bwd`) in plain
+PyTorch: the reference has no backward kernel for it either. LayerNorm has
+no kernel in the reference.
 """
 
 from __future__ import annotations
@@ -22,8 +25,40 @@ def rms_norm_reference(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> t
     return (y * w.float()).to(x.dtype)
 
 
+def _rms_bwd(x, w, g, eps):
+    """Closed-form (dx, dw) of x * rsqrt(mean(x^2) + eps) * w, f32 inside."""
+    xf, gf, wf = x.float(), g.float(), w.float()
+    inv = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * inv
+    gw = gf * wf
+    dx = inv * (gw - xhat * (gw * xhat).mean(dim=-1, keepdim=True))
+    dw = (gf * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rms_forward(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = _rms_bwd(x, w, g, ctx.eps)
+        return dx, dw, None
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last axis. w: [D] scale."""
+    """RMSNorm over the last axis, differentiable. w: [D] scale."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RMSNorm.apply(x, w, eps)
+    return _rms_forward(x, w, eps)
+
+
+def _rms_forward(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """K1 on the card, the plain version on the CPU."""
     if not dispatch.use_kernel(x, w):
         return rms_norm_reference(x, w, eps)
     D = x.shape[-1]

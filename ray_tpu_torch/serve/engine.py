@@ -53,7 +53,7 @@ from ..models.transformer import (
     _out_proj,
     _qkv,
     _require_dense,
-    layer_slice,
+    layer_views,
     lm_head_weight,
     prefill,
     torch_dtype,
@@ -325,7 +325,7 @@ class InferenceEngine:
         self.k_pages = torch.zeros((L, KVH, P, ps, hd), **pool)
         self.v_pages = torch.zeros((L, KVH, P, ps, hd), **pool)
         # per-layer parameter views and the tables every program reuses
-        self._layers = [layer_slice(self.params["layers"], l) for l in range(L)]
+        self._layers = layer_views(self.params["layers"])
         # one f32 copy of the head: logits are f32 (a bf16 product flips
         # greedy tokens against the reference) and casting the head every
         # step would re-read and re-write it each time

@@ -8,14 +8,16 @@ with a card and no JAX it runs alone, without the suite's conftest:
 
 Tolerances: f32 2e-3 as the CPU parity tests (sums in another order);
 bf16 2e-2 + 1.6e-2 relative, two bf16 ulps, since kernel and plain version
-each round their f32 results to bf16.
+each round their f32 results to bf16. The lse residual is f32 in both
+dtypes: 1e-4 (f32) and 1e-3 (bf16 inputs, whose scores the kernel sums in
+another order).
 """
 
 import pytest
 import torch
 
 from ray_tpu_torch import ops
-from ray_tpu_torch.ops import dispatch
+from ray_tpu_torch.ops import attention, dispatch
 from ray_tpu_torch.ops import paged_attention as paged
 
 D = 128
@@ -96,3 +98,88 @@ def test_paged_chunk(card, dtype, start):
     table = torch.randint(1, 40, (8,), device=card, dtype=torch.int32)
     got = ops.paged_attention_chunk(q, kp, vp, table, start, start + 40)
     _close(got, paged._chunk_reference(q, kp, vp, table, start, start + 40, D ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("T", [1, 63, 100, 257, 1024])
+@pytest.mark.parametrize("g", [1, 4])
+def test_flash_attention_lse(card, dtype, T, g):
+    q = _rand((2, T, 8, D), dtype, card)
+    k, v = _rand((2, T, 8 // g, D), dtype, card), _rand((2, T, 8 // g, D), dtype, card)
+    before = dispatch.launch_counts()
+    o, lse = ops.flash_attention_with_lse(q, k, v)
+    want_o, want_lse = attention._fwd_reference_with_lse(q, k, v)
+    _close(o, want_o, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
+    after = dispatch.launch_counts()
+    assert after["flash_attention_lse"] == before["flash_attention_lse"] + 1
+
+
+@pytest.mark.parametrize("T", [1, 63, 100, 257, 1024])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd(card, dtype, T, g, causal):
+    q = _rand((2, T, 8, D), dtype, card)
+    k, v = _rand((2, T, 8 // g, D), dtype, card), _rand((2, T, 8 // g, D), dtype, card)
+    do = _rand((2, T, 8, D), dtype, card)
+    o, lse = attention._fwd_reference_with_lse(q, k, v, causal)
+    delta = attention._attention_delta(o, do)
+    before = dispatch.launch_counts()
+    dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    _close(dq, attention._dq_reference(q, k, v, do, lse, delta, causal), dtype)
+    want_dk, want_dv = attention._dkv_reference(q, k, v, do, lse, delta, causal)
+    _close(dk, want_dk, dtype)
+    _close(dv, want_dv, dtype)
+    after = dispatch.launch_counts()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + 1
+
+
+def test_backward_wrappers_refuse_what_the_kernels_cannot_take(card, dtype):
+    q, k, v, do = (_rand((1, 64, 4, D), dtype, card) for _ in range(4))
+    lse = delta = torch.zeros((1, 4, 64), device=card)
+    wide = _rand((1, 64, 4, 2 * D), dtype, card)
+    before = dispatch.launch_counts()
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention_bwd_dq(wide, wide, wide, wide, lse, delta)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.flash_attention_bwd_dkv(q, k.float() if dtype != torch.float32 else k.bfloat16(),
+                                    v, do, lse, delta)
+    with pytest.raises(ValueError, match="unit stride"):
+        ops.flash_attention_bwd_dq(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, do,
+                                   lse, delta)
+    with pytest.raises(ValueError, match="float32"):
+        ops.flash_attention_bwd_dkv(q, k, v, do, lse.to(dtype if dtype != torch.float32
+                                                        else torch.bfloat16), delta)
+    assert dispatch.launch_counts() == before
+
+
+def test_gradients_flow_through_the_kernels(card, dtype):
+    # the card's forward kernels write into fresh tensors through ctypes:
+    # without the autograd Functions around them no gradient would reach
+    # x, q, k or v; the gradients must match autograd of the plain versions
+    x0 = _rand((2, 100, 256), dtype, card)
+    w0 = 1.0 + 0.1 * torch.randn(256, device=card)
+    wq = 0.05 * torch.randn(256, 8 * D, device=card).to(dtype)
+    wkv = 0.05 * torch.randn(256, 2 * 2 * D, device=card).to(dtype)
+    gy = _rand((2, 100, 8, D), dtype, card)
+
+    def run(norm, attend):
+        x, w = x0.clone().requires_grad_(True), w0.clone().requires_grad_(True)
+        h = norm(x, w, 1e-5)
+        q = (h @ wq).view(2, 100, 8, D)
+        k, v = (h @ wkv).view(2, 100, 2, 2 * D).split(D, dim=-1)
+        (attend(q, k.contiguous(), v.contiguous()).float() * gy.float()).sum().backward()
+        return x.grad, w.grad
+
+    before = dispatch.launch_counts()
+    got = run(ops.rms_norm, ops.flash_attention)
+    after = dispatch.launch_counts()
+    want = run(ops.rms_norm_reference, ops.mha_reference)
+    assert got[0] is not None and got[1] is not None
+    for name in ("rms_norm", "flash_attention", "flash_attention_lse",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+    _close(got[0], want[0], dtype)
+    torch.testing.assert_close(got[1], want[1], atol=2e-2, rtol=2e-2)

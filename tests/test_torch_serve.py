@@ -185,7 +185,7 @@ def test_init_params_is_seeded_and_typed():
 def test_port_imports_neither_jax_nor_ray_tpu():
     code = (
         "import json, sys\n"
-        "import ray_tpu_torch, ray_tpu_torch.serve, ray_tpu_torch.models\n"
+        "import ray_tpu_torch, ray_tpu_torch.serve, ray_tpu_torch.models, ray_tpu_torch.train\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'ray_tpu' or m.startswith('ray_tpu.'))\n"
         "print(json.dumps(bad))\n"
