@@ -15,7 +15,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      call computing the same function where one exists;
      K2 also with its lse output, and the backward kernels K3 (dq) and K4
      (dk, dv) at the training shape (llama-2b: B=4, T=2048, 20/5 heads of
-     128), at a ragged T and at g = 1;
+     128), at a ragged T and at g = 1; K7 (speculative verify attention) at
+     the engine's span (B=8, S=5) and at S = 1 (where it must also equal
+     K5), S = 2, S = 65, g = 1, inactive slots and a span past the table;
   3. the serving path: LLMServer serving llama3-8b at full width and depth
      (random weights from a seed) with five concurrent requests — short
      prompts (bucketed prefill, kernel K2), a ~700-token prompt (chunked
@@ -26,6 +28,29 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      `forward` over prompt + output; as negative controls, the same burst
      with fresh prompts is served once per planted engine fault (FAULTS),
      and the gate must fail each;
+  3s. the speculation path: the serving server is shut down and its
+     parameters go to LLMServer(engine_config={"speculation": ...}), again
+     llama3-8b at full width and depth, twice. (1) mode "draft", k = 4,
+     self-speculation: phase 3's five prompts, all greedy. Launch counts
+     are reset just before and read just after: K7 must have run a
+     multiple of n_layers times (once per layer per verify round), K5
+     (propose), K6 (draft prefill, the long prompt), K1 and K2 must have
+     run, and tokens per decode step must exceed SPEC_TOKENS_PER_STEP_MIN.
+     (2) mode "ngram", k = 4: prompts that hold their own first output
+     tokens (planted_prompt, so that drafts exist), a short pattern
+     repeated, a random prompt (zero-draft rounds fall back to the plain span), one
+     request sampled at temperature 0.8 / top_p 0.9 (the top-k/top-p
+     verify); K7 and K5 must both have run. The gate: speculative commits
+     carry no logprobs and bf16 greedy tokens are not stable across batch
+     shapes, so per greedy request the port's own `forward` over prompt +
+     output gives, per output token, (largest logprob of the row) -
+     (logprob of the committed token), 0 where the committed token is
+     forward's argmax; its mean and max per request must stay under
+     SPEC_REGRET_TOL, and each planted fault (spec_faults: verify mask one
+     key short, span KV one position late, and, on a server with a distinct
+     two-layer draft, every draft accepted) must exceed it. Prints TTFT,
+     TPOT and tokens/s beside phase 3's, acceptance, tokens per step, the
+     round's host wall split, and a verify round against a decode step;
   4. the training path: with the server's memory freed, train.lm trains
      llama-2b at full width and depth (f32 master weights from seed 0,
      bf16 compute, remat, AdamW from a warmup of 2) for TRAIN_STEPS steps
@@ -40,7 +65,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      every leaf's relative L2 gap must stay under GRAD_TOL, and each
      planted backward fault (BWD_FAULTS) must exceed it.
 
-The second-to-last line of stdout is {"kernels": [...]}, the last
+The second-to-last line of stdout is {"kernels": [...]} (seven kernels,
+launches by path: serve, spec, train), the last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -103,11 +129,15 @@ SOURCES = {
                                "ray_tpu/ops/paged_attention.py:129"),
     "paged_attention_chunk": ("ray_tpu_torch/csrc/paged_attention.cu",
                               "ray_tpu/ops/paged_attention.py:222"),
+    "paged_attention_verify": ("ray_tpu_torch/csrc/paged_attention.cu",
+                               "ray_tpu/ops/paged_attention.py:371"),
 }
 # the kernels the serving path must launch (the training path's launch
 # counts are checked exactly, in train_main_path)
 SERVE_KERNELS = ("rms_norm", "flash_attention", "paged_attention_decode",
                  "paged_attention_chunk")
+# the kernels the speculation path must launch, in draft mode
+SPEC_KERNELS = SERVE_KERNELS + ("paged_attention_verify",)
 TRAIN_STEPS = 8
 
 
@@ -285,6 +315,56 @@ def kernel_checks(gen) -> dict:
             if dtype == torch.bfloat16 and start == 512:
                 out["paged_attention_chunk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                                     bound_ms=bnd, bound_by=by, library_ms=None)
+
+        # K7: the engine's verify span: 8 slots, k = 4 drafts + the last
+        # committed token, positions spread over the context. Bytes: q and o
+        # once, each sequence's live K/V rows once per kv head.
+        S, ctx = 5, pps * ps
+        positions = torch.tensor([20, 100, 333, 500, 640, 777, 850, 900], dtype=torch.int32,
+                                 device="cuda")
+        q = rnd((B, S, H, hd), dtype)
+        got = paged_attention.paged_attention_verify(q, kp, vp, table, positions)
+        want = paged_attention._verify_reference(q, kp, vp, table, positions, hd ** -0.5)
+        err = check_close("paged_attention_verify", "attention", dtype, got, want)
+        ms = device_ms(lambda: paged_attention.paged_attention_verify(q, kp, vp, table,
+                                                                      positions))
+        plain = device_ms(lambda: paged_attention._verify_reference(q, kp, vp, table, positions,
+                                                                  hd ** -0.5))
+        keys = sum(min(p + S, ctx) for p in positions.tolist())
+        pairs = sum(min(p + s + 1, ctx) for p in positions.tolist() for s in range(S))
+        bnd, by = bound_ms((2 * q.numel() + 2 * keys * KVH * hd) * el + 4 * (table.numel() + B),
+                           4 * H * hd * pairs, dtype)
+        log(f"K7 paged_attention_verify {tag} B={B} S={S} positions {positions.tolist()}: "
+            f"max_err {err:.3e} (tol {TOL[('attention', dtype)]}) ms {ms:.4f} plain {plain:.4f} "
+            f"bound {bnd:.4f} ({by}); library: none (no single PyTorch call attends over a "
+            f"page table)")
+        if dtype == torch.bfloat16:
+            out["paged_attention_verify"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                                 bound_ms=bnd, bound_by=by, library_ms=None)
+        # K7's edges: (S, heads, kv heads, positions, zero table)
+        edges = {
+            "S=1 (decode)": (1, H, KVH, [0, 1, 17, 100, 333, 700, 1000, 1023], False),
+            "S=2": (2, H, KVH, [0, 15, 16, 100, 333, 700, 1000, 1022], False),
+            "S=65 (k=64)": (65, H, KVH, [0, 3, 64, 100, 333, 700, 900, 959], False),
+            "g=1": (S, KVH, KVH, [0, 20, 100, 333, 500, 640, 777, 900], False),
+            "inactive slots": (S, H, KVH, [0] * B, True),
+            "span past the table": (S, H, KVH, [1023, 1022, 1020, 1019, 1000, 7, 0, 1023],
+                                    False),
+        }
+        for name, (Se, He, KVHe, pos, zero_table) in edges.items():
+            pe = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            te = torch.zeros_like(table) if zero_table else table
+            qe = rnd((B, Se, He, hd), dtype)
+            kpe, vpe = kp[:KVHe].contiguous(), vp[:KVHe].contiguous()
+            got = paged_attention.paged_attention_verify(qe, kpe, vpe, te, pe)
+            want = paged_attention._verify_reference(qe, kpe, vpe, te, pe, hd ** -0.5)
+            err = check_close(f"paged_attention_verify {name}", "attention", dtype, got, want)
+            if Se == 1:  # one row per sequence is a decode step
+                dec = paged_attention.paged_attention_decode(qe[:, 0].contiguous(), kpe, vpe,
+                                                             te, pe + 1)
+                err = max(err, check_close("paged_attention_verify S=1 vs K5", "attention",
+                                           dtype, got[:, 0], dec))
+            log(f"K7 paged_attention_verify {tag} {name}: max_err {err:.3e}")
     torch.cuda.synchronize()
     return out
 
@@ -415,9 +495,10 @@ def run_requests(server, requests):
     return results, time.monotonic() - t0, errors
 
 
-def profile_report(run) -> None:
+def profile_report(run) -> int:
     """run() under torch.profiler: device time by kernel and the card's busy
-    share of the wall time that run() returns, in seconds."""
+    share of the wall time that run() returns, in seconds. Returns the
+    number of kernel launches it saw."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -433,10 +514,13 @@ def profile_report(run) -> None:
             rows.append((dev_us, ev.count, ev.key))
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
+    launches = sum(r[1] for r in rows)
     log(f"profile: wall {wall:.3f}s, device busy {busy_s:.3f}s "
-        f"({100 * busy_s / wall:.1f}% busy, {100 - 100 * busy_s / wall:.1f}% idle)")
+        f"({100 * busy_s / wall:.1f}% busy, {100 - 100 * busy_s / wall:.1f}% idle), "
+        f"{launches} kernel launches")
     for dev_us, count, key in rows[:20]:
         log(f"  {dev_us / 1e3:10.3f} ms {count:7d}x  {key[:90]}")
+    return launches
 
 
 @contextlib.contextmanager
@@ -460,7 +544,8 @@ def planted(module, fault):
 
 
 # Engine faults the logprob gate must catch, each planted by wrapping the
-# kernel wrapper the engine calls: name -> (engine attribute, wrapper maker)
+# kernel wrapper the engine's device programs call: name -> (attribute of
+# serve.programs, wrapper maker)
 FAULTS = {
     # decode attends over pos keys, not pos + 1: it misses its own key
     "decode_length_off_by_one": ("paged_attention_decode", lambda f: (
@@ -515,9 +600,31 @@ def logprob_gaps(params, cfg, requests, results, yardstick: bool = False) -> lis
     return gaps
 
 
+def report_burst(label: str, requests, results, wall: float) -> None:
+    """Per request and for the burst: TTFT, time per output token, tokens/s;
+    fails unless every request returned all its tokens."""
+    total_tokens = 0
+    for i, (req, res) in enumerate(zip(requests, results)):
+        n = len(res["token_ids"])
+        if n != req["max_tokens"] or res["finish_reason"] != "length":
+            fail(f"{label} request {i}: {n} tokens, finish_reason {res['finish_reason']}")
+        total_tokens += n
+        log(f"{label} request {i}: prompt {len(req['prompt_ids'])} tokens, ttft "
+            f"{res['ttft_s']:.3f}s, latency {res['latency_s']:.3f}s, first tokens "
+            f"{res['token_ids'][:6]}")
+    ttfts = sorted(r["ttft_s"] for r in results)
+    tpots = sorted((r["latency_s"] - r["ttft_s"]) / (len(r["token_ids"]) - 1) for r in results)
+    log(f"{label}: TTFT s: p50 {statistics.median(ttfts):.4f} max {ttfts[-1]:.4f}; time per "
+        f"output token after the first, ms: p50 {1e3 * statistics.median(tpots):.2f} max "
+        f"{1e3 * tpots[-1]:.2f} (decode tok/s per request p50 "
+        f"{1 / statistics.median(tpots):.2f}); aggregate output tok/s "
+        f"{total_tokens / wall:.2f} over {wall:.2f}s wall; {len(results)} requests, "
+        f"0 failed")
+
+
 def serve_main_path(profile: bool) -> dict:
     from ray_tpu_torch.ops import dispatch
-    from ray_tpu_torch.serve import LLMServer, engine
+    from ray_tpu_torch.serve import LLMServer, programs
 
     t0 = time.monotonic()
     server = LLMServer(model_name="llama3-8b",
@@ -555,22 +662,7 @@ def serve_main_path(profile: bool) -> dict:
         if launches[name] <= 0:
             fail(f"serving path never launched kernel {name}")
 
-    total_tokens = 0
-    for i, (req, res) in enumerate(zip(requests, results)):
-        n = len(res["token_ids"])
-        if n != req["max_tokens"] or res["finish_reason"] != "length":
-            fail(f"request {i}: {n} tokens, finish_reason {res['finish_reason']}")
-        total_tokens += n
-        log(f"request {i}: prompt {len(req['prompt_ids'])} tokens, ttft {res['ttft_s']:.3f}s, "
-            f"latency {res['latency_s']:.3f}s, first tokens {res['token_ids'][:6]}")
-    ttfts = sorted(r["ttft_s"] for r in results)
-    tpots = sorted((r["latency_s"] - r["ttft_s"]) / (len(r["token_ids"]) - 1) for r in results)
-    log(f"TTFT s: p50 {statistics.median(ttfts):.4f} max {ttfts[-1]:.4f}; time per output "
-        f"token after the first, ms: p50 {1e3 * statistics.median(tpots):.2f} max "
-        f"{1e3 * tpots[-1]:.2f} (decode tok/s per request p50 "
-        f"{1 / statistics.median(tpots):.2f}); aggregate output tok/s "
-        f"{total_tokens / wall:.2f} over {wall:.2f}s wall; {len(results)} requests, "
-        f"0 failed")
+    report_burst("plain", requests, results, wall)
 
     if profile:  # the same requests again
         def profiled():
@@ -585,7 +677,7 @@ def serve_main_path(profile: bool) -> dict:
     faulted = []
     for name, fault in FAULTS.items():
         reqs = burst()
-        with planted(engine, fault):
+        with planted(programs, fault):
             res, _wall, errs = run_requests(server, reqs)
         if errs:
             server.shutdown()
@@ -610,7 +702,367 @@ def serve_main_path(profile: bool) -> dict:
     for name, hit in caught.items():
         if not hit:
             fail(f"the logprob gate {LOGPROB_TOL} passes planted fault {name}")
-    return {"launches": launches}
+    return {"launches": launches, "params": params, "cfg": cfg, "requests": requests,
+            "results": results}
+
+
+# ------------------------------------------------------------- phase 3s
+
+# The speculation gate. Speculative commits carry no logprobs, and on the
+# card greedy tokens are not stable across batch shapes (the S-row verify
+# GEMMs and the 1-row decode GEMMs round bf16 differently, and random
+# weights give nearly flat logits), so neither phase 3's gate nor token
+# equality with the plain run can be used. In their place, per greedy
+# request: the port's own `forward` over prompt + output gives each output
+# row's log-softmax, and the token's regret is (largest logprob of the row)
+# - (logprob of the committed token): 0 where forward agrees that the token
+# is the argmax, the size of the near-tie where bf16 rounding flipped it,
+# and several nats where the engine committed a token the model does not
+# favour. A burst is sound when every greedy request stays under both
+# limits, and a fault is caught when any request of its burst exceeds one.
+# On the H100 the 14 greedy requests of the three sound runs read at most
+# mean 0.017 and max 0.20; the weakest planted fault (the verify mask one
+# key short) read mean 1.81 and max 5.58 on its clearest request, and above
+# the mean limit on 3 of its 5 (PERF.md). The limits sit near the geometric
+# middles, 0.18 and 1.06.
+SPEC_REGRET_TOL = {"max": 1.0, "mean": 0.15}
+# committed tokens per slot per decode iteration in draft mode, k = 4: the
+# plain path's is at most 1; self-speculation read 2.58 at an acceptance
+# of 0.90 on the H100 (PERF.md). The floor leaves room for more bf16
+# disagreement between the 1-row draft step and the S-row verify.
+SPEC_TOKENS_PER_STEP_MIN = 1.5
+
+
+def _mask_one_key_short(f):
+    """K7 attends row s over keys 0..p+s-1: every row misses its own key."""
+    def verify(q, kp, vp, tables, positions):
+        return f(q, kp, vp, tables, (positions - 1).clamp(min=0))
+    return verify
+
+
+def _span_kv_one_late(f):
+    """The span's KV lands one position late (rope and queries stay)."""
+    def indices(self, positions, S, tables, n_draft):
+        rope_pos, _page, _slot = f(self, positions, S, tables, n_draft)
+        _rope, page_idx, slot_idx = f(self, positions + 1, S, tables, n_draft)
+        return rope_pos, page_idx, slot_idx
+    return indices
+
+
+def _accept_every_draft(f):
+    """Accept/commit sees logits that put all mass on each draft."""
+    def accept(logits, tokens, n_draft, *rest):
+        forced = logits.clone()
+        forced[:, :-1].scatter_(2, tokens[:, 1:].long()[:, :, None], 1e4)
+        return f(forced, tokens, n_draft, *rest)
+    return accept
+
+
+# Speculation faults the regret gate must catch:
+# name -> (module or class holding the attribute, attribute, wrapper maker,
+# whether it needs the server with the distinct two-layer draft)
+def spec_faults():
+    from ray_tpu_torch.serve import programs, spec_decode
+
+    return {
+        "verify_mask_one_key_short": (programs, "paged_attention_verify",
+                                      _mask_one_key_short, False),
+        "span_kv_one_position_late": (programs.PagedModel, "_span_indices",
+                                      _span_kv_one_late, False),
+        "accept_every_draft": (spec_decode, "_accept_commit", _accept_every_draft, True),
+    }
+
+
+def spec_regrets(params, cfg, requests, results) -> list:
+    """Per greedy request, (max, mean, share of tokens that are not forward's
+    argmax) of the regret of its output tokens under the port's forward."""
+    from ray_tpu_torch.models import transformer
+
+    out = []
+    for req, res in zip(requests, results):
+        if req.get("temperature", 0.0) > 0:
+            continue
+        seq = req["prompt_ids"] + res["token_ids"]
+        T = len(req["prompt_ids"])
+        toks = torch.tensor([seq[:-1]], device="cuda")
+        picked = torch.tensor(res["token_ids"], device="cuda")[:, None]
+        with torch.no_grad():
+            logits, _ = transformer.forward(params, toks, cfg)
+        lp = torch.log_softmax(logits[0, T - 1:], dim=-1)
+        regret = lp.max(dim=-1).values - lp.gather(1, picked)[:, 0]
+        if not torch.isfinite(regret).all():
+            fail("speculation gate: non-finite logprobs")
+        out.append((regret.max().item(), regret.mean().item(),
+                    (regret > 0).float().mean().item()))
+    return out
+
+
+def within_regret_tol(r) -> bool:
+    return r[0] <= SPEC_REGRET_TOL["max"] and r[1] <= SPEC_REGRET_TOL["mean"]
+
+
+def fmt_regrets(regrets) -> str:
+    return (f"max {[round(r[0], 4) for r in regrets]} mean {[round(r[1], 4) for r in regrets]} "
+            f"not-argmax share {[round(r[2], 3) for r in regrets]}")
+
+
+def spec_counters(engine) -> dict:
+    """The engine's running speculation totals, to take differences of."""
+    spec = engine._spec
+    return {"proposed": spec.proposed_total, "accepted": spec.accepted_total,
+            "committed": engine._tps_committed, "steps": engine._tps_steps,
+            **{f"s:{k}": v for k, v in spec.phase_seconds.items()}}
+
+
+def spec_report(label: str, engine, since: dict) -> float:
+    """Acceptance, tokens per decode step and the round's host wall split
+    since the counters `since`; returns the tokens per decode step."""
+    now = spec_counters(engine)
+    d = {k: v - since.get(k, 0) for k, v in now.items()}
+    rounds = max(1, int(d.pop("s:rounds", 0)))
+    split = " ".join(f"{k[2:]} {1e3 * v / rounds:.2f}" for k, v in sorted(d.items())
+                     if k.startswith("s:"))
+    per_step = d["committed"] / max(1, d["steps"])
+    log(f"{label}: proposed {d['proposed']} accepted {d['accepted']} acceptance "
+        f"{d['accepted'] / max(1, d['proposed']):.4f}, tokens per decode step "
+        f"{per_step:.4f}; {rounds} verify rounds, host wall per round, ms: {split}")
+    return per_step
+
+
+def round_vs_step(engine) -> None:
+    """A verify round (S = k + 1) and a draft propose against one plain
+    decode step, on an idle draft-mode engine at the burst's batch shape: host wall with a
+    synchronise after each call, and device time by CUDA events."""
+    import numpy as np
+
+    ecfg = engine.ecfg
+    B, pps, k = ecfg.max_batch_size, ecfg.pages_per_seq, engine._spec.k
+    rs = np.random.RandomState(0)
+    positions = np.linspace(20, 900, B).astype(np.int32)
+    tables = rs.randint(1, ecfg.max_pages, (B, pps)).astype(np.int32)
+    tokens = rs.randint(1, engine.cfg.vocab_size, (B,)).astype(np.int32)
+    zeros_f, ones_f = np.zeros((B,), np.float32), np.ones((B,), np.float32)
+    zeros_i = np.zeros((B,), np.int32)
+    dev = engine._tensor
+    toks_bs = dev(rs.randint(1, engine.cfg.vocab_size, (B, k + 1)).astype(np.int32), torch.int32)
+    pos_t, tab_t = dev(positions, torch.int32), dev(tables, torch.int32)
+    nd_t = dev(np.full((B,), k, np.int32), torch.int32)
+
+    calls = {
+        "decode step": lambda: engine._decode_span(1, tokens, positions, tables, zeros_f, ones_f,
+                                                   zeros_i, False),
+        f"verify round S={k + 1}": lambda: engine._spec._verify(
+            toks_bs, pos_t, tab_t, nd_t, dev(zeros_f, torch.float32),
+            dev(ones_f, torch.float32), dev(zeros_i, torch.int32), False, False)[0].cpu(),
+        f"propose k={k} (catch-up + {k} draft steps)": lambda: engine._spec.proposer._dispatch(
+            engine, tokens, tokens, positions).cpu(),
+    }
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        walls, devs = [], []
+        for _ in range(5):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            call()
+            b.record()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            devs.append(a.elapsed_time(b))
+        log(f"  {name}: host wall {statistics.median(walls):.2f} ms, first to last kernel "
+            f"{statistics.median(devs):.2f} ms (median of 5, B={B}, positions 20..900)")
+
+
+def planted_prompt(server, draw, n: int) -> list:
+    """A prompt of n tokens in which the n-gram proposer has something to
+    find: draw(n) with one token somewhere in its middle replaced by the
+    first token the server generates for it, where that edit leaves the
+    first token as it was. Found by serving: with random weights a token
+    in the middle of 100+ often does not move the argmax (the token at
+    position 0 moves everything), but a prompt whose two best tokens lie
+    close is moved by any edit, and then another prompt is drawn. When it
+    holds too, the four tokens after the planted one become the next four
+    the server generates, so that the drafts are right."""
+    def generated(p, count):
+        return server({"prompt_ids": p, "max_tokens": count})["token_ids"]
+
+    places = sorted(range(n // 5, 4 * n // 5, max(1, n // 12)), key=lambda i: abs(i - n // 2))
+    for _ in range(8):
+        prompt = draw(n)
+        tok = generated(prompt, 1)[0]
+        for at in places:
+            planted_one = prompt[:at] + [tok] + prompt[at + 1:]
+            if generated(planted_one, 1)[0] != tok:
+                continue
+            block = generated(planted_one, 5)
+            planted_five = prompt[:at] + block + prompt[at + 5:]
+            return planted_five if generated(planted_five, 1)[0] == block[0] else planted_one
+    fail(f"planted_prompt: no edit of 8 prompts of {n} tokens kept the first output token")
+
+
+def spec_main_path(card: str, profile: bool, served: dict) -> dict:
+    """The speculation path on phase 3's parameters; returns the launch
+    counts of its two sound runs (draft, then ngram), summed."""
+    from ray_tpu_torch.ops import dispatch
+    from ray_tpu_torch.serve import LLMServer
+
+    params, cfg = served["params"], served["cfg"]
+    base_requests, base_results = served["requests"], served["results"]
+    L = cfg.n_layers
+    rng = torch.Generator().manual_seed(2)
+
+    def prompt(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    def fresh_burst():
+        return [{"prompt_ids": prompt(n), "max_tokens": 32} for n in (23, 100, 200, 700, 50)]
+
+    def server_for(spec):
+        t0 = time.monotonic()
+        server = LLMServer(params_fn=lambda: (params, cfg), engine_config=dict(
+            max_batch_size=8, max_seq_len=1024, speculation=spec))
+        torch.cuda.synchronize()
+        log(f"phase 3s: LLMServer llama3-8b speculation {spec} built + warmed in "
+            f"{time.monotonic() - t0:.1f}s; memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        return server
+
+    def burst(server, label, requests):
+        results, wall, errors = run_requests(server, requests)
+        if errors:
+            server.shutdown()
+            fail(f"{label}: {errors}")
+        return results, wall
+
+    faults = spec_faults()
+    gated = []   # (label, requests, results) the gate must pass
+    faulted = []  # (name, requests, results) the gate must fail
+    total = {name: 0 for name in dispatch.KERNELS}
+
+    # (1) draft mode, self-speculation: phase 3's prompts, all greedy
+    server = server_for({"mode": "draft", "num_speculative_tokens": 4})
+    requests = [{"prompt_ids": r["prompt_ids"], "max_tokens": 32} for r in base_requests]
+    since = spec_counters(server.engine)
+    dispatch.reset_launches()
+    results, wall = burst(server, "draft", requests)
+    launches = dispatch.launch_counts()
+    log(f"launches on the speculation path, draft mode: {launches}")
+    for name in SPEC_KERNELS:
+        if launches[name] <= 0:
+            fail(f"speculation path (draft) never launched kernel {name}")
+    if launches["paged_attention_verify"] % L:
+        fail(f"K7 ran {launches['paged_attention_verify']} times, not a multiple of {L} layers")
+    for name in total:
+        total[name] += launches[name]
+    report_burst("draft", requests, results, wall)
+    per_step = spec_report("draft", server.engine, since)
+    if not per_step > SPEC_TOKENS_PER_STEP_MIN:
+        fail(f"draft mode committed {per_step:.3f} tokens per decode step, "
+             f"floor {SPEC_TOKENS_PER_STEP_MIN}")
+    same = [sum(a == b for a, b in zip(r["token_ids"], p["token_ids"]))
+            for r, p in zip(results[:4], base_results[:4])]
+    log(f"draft: tokens equal to the plain run's, per greedy request of 32: {same} "
+        f"(bf16 rounds differently across batch shapes: reported, not gated)")
+    gated.append(("draft", requests, results))
+    if profile:
+        def profiled():
+            reqs = fresh_burst()
+            _res, wall = burst(server, "profiled draft", reqs)
+            return wall
+
+        before = dispatch.launch_counts()["paged_attention_verify"]
+        launched = profile_report(profiled)
+        rounds = (dispatch.launch_counts()["paged_attention_verify"] - before) // L
+        log(f"profiled draft burst: {rounds} verify rounds, {launched / max(1, rounds):.0f} "
+            f"kernel launches per round (its propose, and the burst's prefills, included)")
+    for name, (holder, attr, make, distinct) in faults.items():
+        if distinct:
+            continue
+        reqs = fresh_burst()
+        with planted(holder, (attr, make)):
+            res, _wall = burst(server, f"planted fault {name}", reqs)
+        faulted.append((name, reqs, res))
+    server.shutdown()
+    log(f"a verify round against a decode step ({card}):")
+    round_vs_step(server.engine)
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) ngram mode. A model with random weights emits tokens that are
+    # nowhere in a random prompt, so the suffix lookup would never draft.
+    # Three prompts are therefore planted (planted_prompt): their own first
+    # output token sits in the middle of the prompt, so the first round
+    # drafts what follows it there. Beside them a short pattern repeated, a
+    # random prompt (no draft anywhere: the plain span), and one sampled
+    # request (while it is in the batch, rounds run the top-k/top-p verify).
+    server = server_for({"mode": "ngram", "num_speculative_tokens": 4})
+    requests = [{"prompt_ids": planted_prompt(server, prompt, n), "max_tokens": 32}
+                for n in (100, 150, 200)]
+    requests += [
+        {"prompt_ids": prompt(8) * 12, "max_tokens": 32},
+        {"prompt_ids": prompt(60), "max_tokens": 32},
+        {"prompt_ids": prompt(50), "max_tokens": 32, "temperature": 0.8, "top_p": 0.9},
+    ]
+    since = spec_counters(server.engine)  # the planting served requests too
+    dispatch.reset_launches()
+    results, wall = burst(server, "ngram", requests)
+    launches = dispatch.launch_counts()
+    log(f"launches on the speculation path, ngram mode: {launches}")
+    report_burst("ngram", requests, results, wall)
+    spec_report("ngram", server.engine, since)
+    for name in ("paged_attention_verify", "paged_attention_decode"):
+        if launches[name] <= 0:
+            fail(f"speculation path (ngram) never launched kernel {name}")
+    for name in total:
+        total[name] += launches[name]
+    gated.append(("ngram", requests, results))
+    server.shutdown()
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (3) a distinct draft (the same widths, two layers, its own random
+    # weights): nearly every draft is rejected, so the sound run commits the
+    # verify forward's own tokens, and the planted fault commits the draft's
+    server = server_for({"mode": "draft", "num_speculative_tokens": 4,
+                         "draft_model": "llama3-8b", "draft_model_overrides": {"n_layers": 2}})
+    requests = fresh_burst()
+    since = spec_counters(server.engine)
+    results, wall = burst(server, "distinct draft", requests)
+    report_burst("distinct draft", requests, results, wall)
+    spec_report("distinct draft", server.engine, since)
+    gated.append(("distinct draft", requests, results))
+    for name, (holder, attr, make, distinct) in faults.items():
+        if not distinct:
+            continue
+        reqs = fresh_burst()
+        with planted(holder, (attr, make)):
+            res, _wall = burst(server, f"planted fault {name}", reqs)
+        faulted.append((name, reqs, res))
+    server.shutdown()
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the gate: passes every sound run, fails every planted fault
+    sound = [(label, spec_regrets(params, cfg, reqs, res)) for label, reqs, res in gated]
+    for label, regrets in sound:
+        log(f"speculation gate, {label} (limit {SPEC_REGRET_TOL}): {fmt_regrets(regrets)}")
+    caught = {}
+    for name, reqs, res in faulted:
+        regrets = spec_regrets(params, cfg, reqs, res)
+        caught[name] = any(not within_regret_tol(r) for r in regrets)
+        log(f"speculation gate, planted fault {name}: {fmt_regrets(regrets)}")
+    for label, regrets in sound:
+        for i, r in enumerate(regrets):
+            if not within_regret_tol(r):
+                fail(f"{label} greedy request {i}: regret max {r[0]:.4f} mean {r[1]:.4f} "
+                     f"under the forward (limit {SPEC_REGRET_TOL})")
+    for name, hit in caught.items():
+        if not hit:
+            fail(f"the speculation gate {SPEC_REGRET_TOL} passes planted fault {name}")
+    return {"launches": total}
 
 
 # -------------------------------------------------------------- phase 4
@@ -744,7 +1196,7 @@ def train_main_path(card: str, profile: bool) -> dict:
     expect = {"flash_attention_bwd_dq": L * S, "flash_attention_bwd_dkv": L * S,
               "flash_attention": 2 * L * S, "flash_attention_lse": 2 * L * S,
               "rms_norm": (4 * L + 1) * S, "paged_attention_decode": 0,
-              "paged_attention_chunk": 0}
+              "paged_attention_chunk": 0, "paged_attention_verify": 0}
     for name, n in expect.items():
         if launches[name] != n:
             fail(f"training path launched {name} {launches[name]} times, expected {n}")
@@ -811,7 +1263,7 @@ def train_main_path(card: str, profile: bool) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after each path, serve the requests again / take one more "
+                    help="after each path, serve a burst again / take one more "
                          "training step under torch.profiler")
     args = ap.parse_args()
 
@@ -843,14 +1295,20 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     figures = kernel_checks(gen)
     figures.update(training_kernel_checks(gen))
-    serve = serve_main_path(args.profile)
-    gc.collect()  # the server is shut down: free its weights and pool
+    served = serve_main_path(args.profile)
+    gc.collect()  # the server is shut down: free its pool, keep its weights
+    torch.cuda.empty_cache()
+    spec = spec_main_path(card, args.profile, served)
+    serve_launches = served["launches"]
+    del served
+    gc.collect()  # free the weights
     torch.cuda.empty_cache()
     trained = train_main_path(card, args.profile)
     kernels = []
     for name in dispatch.KERNELS:
         source, replaces = SOURCES[name]
-        by_path = {"serve": serve["launches"][name], "train": trained["launches"][name]}
+        by_path = {"serve": serve_launches[name], "spec": spec["launches"][name],
+                   "train": trained["launches"][name]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **figures[name]})

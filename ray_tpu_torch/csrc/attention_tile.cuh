@@ -1,5 +1,5 @@
-// The tile loop shared by K2 (flash_attention.cu) and K6 (paged chunk
-// attention in paged_attention.cu).
+// The tile loop shared by K2 (flash_attention.cu) and by K6 and K7 (paged
+// chunk and paged verify attention in paged_attention.cu).
 //
 // One CTA of 256 threads owns kTileR = 64 query rows that all read the same
 // kv head. It stages them in shared memory once, then streams kTileK = 64

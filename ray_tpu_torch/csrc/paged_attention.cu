@@ -1,4 +1,4 @@
-// K5 and K6: attention over the serving engine's paged KV cache.
+// K5, K6 and K7: attention over the serving engine's paged KV cache.
 //
 // Pool layout per layer: [KVH, P, ps, D] (the engine's [L, KVH, P, ps, D]
 // pool sliced at one layer, passed as a pointer, never copied). A sequence's
@@ -27,6 +27,22 @@
 // which would leave most of 132 SMs idle, so here the C*g query rows of a kv
 // head (row = c*g + head within the group) are cut into 64-row tiles, grid
 // (ceil(C*g / 64), KVH), each run by the tile loop of attention_tile.cuh.
+//
+// K7 `rtt_paged_attention_verify` replaces `_verify_kernel` (launched by
+// `_verify_pallas`): the speculative-verify span, S = k + 1 query rows per
+// sequence for the whole batch in one launch; key j is visible to row s of
+// sequence b iff j <= positions[b] + s, and no key past the sequence's own
+// table row (pps pages) is read. Each CTA reads positions[b] itself, so a
+// verify round needs no readback before the launch. Bound: bytes, as for
+// decode: a sequence's live K/V rows are read once per kv head and serve
+// all S*g rows of that head. The TPU wrapper transposes q to
+// [B, KVH, S*g, D] and the output back so that a block holds one kv head's
+// rows; here row (s, kvh*g + gi) of [B, S, H, D] is indexed in place and
+// both copies are gone. Per sequence this is K6's problem with start =
+// positions[b], so the kernel fills a ChunkProblem per (row tile, kv head,
+// sequence), grid (ceil(S*g / 64), KVH, B), and runs the same tile loop.
+// At the engine's S = 5, g = 4 a tile holds 20 live rows of 64: the tile's
+// idle rows cost FMA time, not bytes; a narrower tile is later work.
 
 #include "attention_tile.cuh"
 
@@ -196,6 +212,35 @@ __global__ void __launch_bounds__(rtt::kTileThreads)
   rtt::attend_tile<T>(pb, D, key_end, scale);
 }
 
+template <typename T>
+__global__ void __launch_bounds__(rtt::kTileThreads)
+    paged_verify_kernel(const T* q, const T* k_pages, const T* v_pages, const int* table,
+                        const int* positions, T* o, int S, int H, int KVH, int D, int P,
+                        int ps, int pps, float scale) {
+  const int b = blockIdx.z;
+  const size_t seq = static_cast<size_t>(b) * S * H * D;
+  ChunkProblem<T> pb;
+  pb.q = q + seq;
+  pb.k = k_pages;
+  pb.v = v_pages;
+  pb.o = o + seq;
+  pb.table = table + static_cast<size_t>(b) * pps;
+  pb.kvh = blockIdx.y;
+  pb.g = H / KVH;
+  pb.r0 = blockIdx.x * rtt::kTileR;
+  pb.rows = S * pb.g;
+  pb.H = H;
+  pb.D = D;
+  pb.P = P;
+  pb.ps = ps;
+  pb.start = max(positions[b], 0);
+  // the tile's last row s sees keys up to positions[b] + s; a span that
+  // ends past this sequence's table reads no page beyond its own row
+  const int last_row = min(pb.r0 + rtt::kTileR, pb.rows) - 1;
+  const int key_end = min(pb.start + last_row / pb.g + 1, pps * ps);
+  rtt::attend_tile<T>(pb, D, key_end, scale);
+}
+
 }  // namespace
 
 extern "C" int rtt_paged_attention_decode(const void* q, const void* k_pages,
@@ -242,6 +287,30 @@ extern "C" int rtt_paged_attention_chunk(const void* q, const void* k_pages,
         static_cast<const T*>(q), static_cast<const T*>(k_pages),
         static_cast<const T*>(v_pages), table, static_cast<T*>(o), C, H, KVH, D, P, ps, pps,
         start, total, scale);
+  });
+  return cudaGetLastError();
+}
+
+extern "C" int rtt_paged_attention_verify(const void* q, const void* k_pages,
+                                          const void* v_pages, const int* table,
+                                          const int* positions, void* o, int B, int S, int H,
+                                          int KVH, int D, int P, int ps, int pps, float scale,
+                                          int dtype, void* stream) {
+  if (B <= 0 || B > 65535 || S <= 0 || KVH <= 0 || KVH > 65535 || H % KVH != 0 || D <= 0 ||
+      D > rtt::kTileMaxD || P <= 0 || ps <= 0 || pps <= 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = rtt::tile_smem_bytes(D);
+  const int rows = S * (H / KVH);
+  const dim3 grid((rows + rtt::kTileR - 1) / rtt::kTileR, KVH, B);
+  RTT_DISPATCH_DTYPE(dtype, T, {
+    if (!rtt::kv_layout_ok<T>(k_pages, v_pages, D)) return cudaErrorInvalidValue;
+    cudaError_t err = rtt::allow_smem(paged_verify_kernel<T>, smem);
+    if (err != cudaSuccess) return err;
+    paged_verify_kernel<T><<<grid, rtt::kTileThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k_pages),
+        static_cast<const T*>(v_pages), table, positions, static_cast<T*>(o), S, H, KVH, D, P,
+        ps, pps, scale);
   });
   return cudaGetLastError();
 }

@@ -278,6 +278,43 @@ def loss_from_logits(logits: torch.Tensor, targets: torch.Tensor,
                    "accuracy": acc, "tokens": mask.sum()}
 
 
+def _decode_attention(q, k_cache, v_cache, lengths, cfg):
+    """q [B,1,H,hd]; k/v_cache [B,S,KVH,hd]; lengths [B] = #valid keys.
+    Plain PyTorch, as the reference's is plain einsums."""
+    B, S, KVH, hd = k_cache.shape
+    g = cfg.n_heads // KVH
+    qf = q[:, 0].reshape(B, KVH, g, hd).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float()) * (hd ** -0.5)
+    mask = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
+    s = s.masked_fill(~mask[:, None, None, :], -2e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return o.reshape(B, 1, cfg.n_heads, hd).to(q.dtype)
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache, tokens: torch.Tensor,
+                positions: torch.Tensor, rope_tables=None):
+    """One token per sequence over the contiguous cache. tokens [B],
+    positions [B] (0-based index of this token). Writes the cache in place
+    and returns (logits [B,V] f32, cache)."""
+    _require_dense(cfg)
+    B = tokens.shape[0]
+    pos2d = positions.long()[:, None]
+    x, rope_tables = _prologue(params, tokens[:, None], cfg, positions=pos2d,
+                               rope_tables=rope_tables)
+    rows = torch.arange(B, device=x.device)
+    for l, lp in enumerate(layer_views(params["layers"])):
+        h = _norm(x, lp["ln1"], lp.get("ln1_b"), cfg)
+        q, k, v = _qkv(h, lp, cfg, rope_tables, pos2d)
+        cache["k"][l, rows, pos2d[:, 0]] = k[:, 0]
+        cache["v"][l, rows, pos2d[:, 0]] = v[:, 0]
+        o = _decode_attention(q, cache["k"][l], cache["v"][l], pos2d[:, 0] + 1, cfg)
+        x = x + _out_proj(o, lp)
+        h = _norm(x, lp["ln2"], lp.get("ln2_b"), cfg)
+        x = x + _dense_ffn(h, lp, cfg)
+    return _lm_head(x[:, 0], params, cfg), cache
+
+
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
             last_index: Optional[torch.Tensor] = None, rope_tables=None,
             head: Optional[torch.Tensor] = None):

@@ -13,5 +13,9 @@ from .attention import (  # noqa: F401
     mha_reference,
 )
 from .norm import layer_norm, rms_norm, rms_norm_reference  # noqa: F401
-from .paged_attention import paged_attention_chunk, paged_attention_decode  # noqa: F401
+from .paged_attention import (  # noqa: F401
+    paged_attention_chunk,
+    paged_attention_decode,
+    paged_attention_verify,
+)
 from .rope import apply_rope, rope_frequencies  # noqa: F401

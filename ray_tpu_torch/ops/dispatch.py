@@ -41,7 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DType
 
 KERNELS = ("rms_norm", "flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "paged_attention_decode", "paged_attention_chunk")
+           "paged_attention_decode", "paged_attention_chunk", "paged_attention_verify")
 # per kernel, and for K2 also the launches that wrote the lse residual
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS + ("flash_attention_lse",)}
 _launch_lock = threading.Lock()
@@ -60,6 +60,8 @@ _SIGNATURES = {
                                    _I, _I, _I, _F, _I, _P),
     "rtt_paged_attention_chunk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _F, _I, _P),
+    "rtt_paged_attention_verify": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _F, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

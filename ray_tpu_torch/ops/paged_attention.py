@@ -1,10 +1,12 @@
-"""Attention over the serving engine's paged KV cache (kernels K5 and K6,
-csrc/paged_attention.cu).
+"""Attention over the serving engine's paged KV cache (kernels K5, K6 and
+K7, csrc/paged_attention.cu).
 
 Counterpart of ray_tpu/ops/paged_attention.py. Cache layout per layer:
 k_pages / v_pages [KVH, num_pages, page_size, D]; the engine passes one
 layer's slice of its [L, KVH, P, ps, D] pool, which the kernels read in
-place. The speculative verify attention belongs to a later slice.
+place. Decode (K5) attends one query per sequence, chunk (K6) one
+sequence's prefill chunk, verify (K7) a span of S = k + 1 speculative rows
+per sequence.
 """
 
 from __future__ import annotations
@@ -63,6 +65,26 @@ def _chunk_reference(q, k_pages, v_pages, page_table, start, total, scale):
     mask = (keypos[None, :] <= qpos[:, None]) & (keypos[None, :] < total)
     o = _masked_softmax_values(s, mask[:, None, None, :], vg, "ckgt,ktd->ckgd")
     return o.reshape(C, H, D).to(q.dtype)
+
+
+def _verify_reference(q, k_pages, v_pages, page_table, positions, scale):
+    """Plain version of K7: gathers the whole table. q [B,S,H,D] ->
+    o [B,S,H,D]; key j visible to query (b, s) iff j <= positions[b] + s."""
+    B, S, H, D = q.shape
+    KVH, _, page_size, _ = k_pages.shape
+    g = H // KVH
+    ctx = page_table.shape[1] * page_size
+    table = page_table.long()
+    # [KVH, B, pages, ps, D] -> [B, KVH, ctx, D]
+    kg = k_pages[:, table].transpose(0, 1).reshape(B, KVH, ctx, D).float()
+    vg = v_pages[:, table].transpose(0, 1).reshape(B, KVH, ctx, D).float()
+    qf = q.reshape(B, S, KVH, g, D).float()
+    s = torch.einsum("bscgd,bctd->bscgt", qf, kg) * scale
+    keypos = torch.arange(ctx, device=q.device)
+    qpos = positions.long()[:, None] + torch.arange(S, device=q.device)[None, :]
+    mask = keypos[None, None, :] <= qpos[:, :, None]  # [B, S, ctx]
+    o = _masked_softmax_values(s, mask[:, :, None, None, :], vg, "bscgt,bctd->bscgd")
+    return o.reshape(B, S, H, D).to(q.dtype)
 
 
 def _check_pools(name, q, k_pages, v_pages, page_table, H):
@@ -154,4 +176,47 @@ def paged_attention_chunk(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
         o.data_ptr(), C, H, KVH, D, P, ps, page_table.shape[0], start, total,
         float(scale), dispatch.dtype_code(q))
+    return o
+
+
+def paged_attention_verify(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                           page_table: torch.Tensor, positions: torch.Tensor,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Speculative-decode verify attention over the paged KV cache.
+
+    The engine writes the span's KV (last committed token + k draft tokens,
+    at positions p..p+k) into each sequence's pages, then scores all
+    S = k + 1 positions in one call: key j is visible to query row s of
+    sequence b iff ``j <= positions[b] + s``. S = 1 is exactly
+    paged_attention_decode with lengths = positions + 1. Keys past the
+    table's end (a span launched near max_seq_len) are never read.
+
+    Args:
+      q: [B, S, H, D] — span queries per sequence (rope applied).
+      k_pages/v_pages: [KVH, num_pages, page_size, D] (span KV written).
+      page_table: [B, pages_per_seq] int32 page ids.
+      positions: [B] int32 — position of each sequence's row 0; read on the
+        card by the kernel, so a round needs no readback before the launch.
+    Returns [B, S, H, D].
+    """
+    B, S, H, D = q.shape
+    if scale is None:
+        scale = D ** -0.5
+    if not dispatch.use_kernel(q, k_pages, v_pages, page_table, positions):
+        return _verify_reference(q, k_pages, v_pages, page_table, positions, scale)
+    _check_pools("paged_attention_verify", q, k_pages, v_pages, page_table, H)
+    if (positions.dtype != torch.int32 or positions.shape != (B,)
+            or not positions.is_contiguous() or page_table.dim() != 2
+            or page_table.shape[0] != B):
+        raise ValueError("paged_attention_verify: positions must be contiguous int32 "
+                         "[B] and page_table [B, pages_per_seq]")
+    KVH, P, ps, _ = k_pages.shape
+    o = torch.empty_like(q)
+    if B == 0 or S == 0:
+        return o
+    dispatch.launch(
+        "paged_attention_verify", "rtt_paged_attention_verify", q.device,
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+        positions.data_ptr(), o.data_ptr(),
+        B, S, H, KVH, D, P, ps, page_table.shape[1], float(scale), dispatch.dtype_code(q))
     return o

@@ -9,11 +9,15 @@ lengths (short prompts, kernel K2) or chunk by chunk straight into their
 pages (long prompts and prefix-cache hits, kernel K6); every decode step
 attends over the pages (kernel K5). The decode batch is a fixed-size slot
 array: inactive slots write to the reserved trash page 0 and have length 0,
-for which the decode kernel returns zeros.
+for which the decode kernel returns zeros. With `EngineConfig.speculation`
+a decode iteration becomes a speculative round (serve/spec_decode.py): a
+proposer drafts up to k tokens per slot and one verify forward over the
+pages (kernel K7) commits between 1 and k+1 of them.
 
 The host side (slots, page allocator, prefix cache, request lifecycle,
 stop sequences, the two threads) is the reference's, adapted. The device
-programs are eager PyTorch around the kernels:
+programs are eager PyTorch around the kernels (serve/programs.py holds the
+per-layer code they share):
 - decode span: n steps of the whole batch with on-device sampling, the
   tokens staying on the card from step to step, and ONE [span, B] readback
   of tokens and logprobs per span;
@@ -23,9 +27,9 @@ programs are eager PyTorch around the kernels:
 Both threads issue work to PyTorch's default stream, so the card runs
 their work in the order it was issued; page writes never race.
 
-Not ported yet: KV export/import and streaming, speculative decoding,
-tensor-parallel meshes, live weight updates, and the Prometheus/SLO
-telemetry (this module logs through stdlib `logging`).
+Not ported yet: KV export/import and streaming, tensor-parallel meshes,
+live weight updates, and the Prometheus/SLO telemetry (this module logs
+through stdlib `logging`; speculation's totals are in `stats()`).
 """
 
 from __future__ import annotations
@@ -45,21 +49,11 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.transformer import (
-    _dense_ffn,
-    _embed_lookup,
-    _lm_head,
-    _norm,
-    _out_proj,
-    _qkv,
-    _require_dense,
-    layer_views,
-    lm_head_weight,
-    prefill,
-    torch_dtype,
-)
-from ..ops import paged_attention_chunk, paged_attention_decode, rope_frequencies
+from ..models.transformer import _require_dense, prefill, torch_dtype
 from ..ops.dispatch import resolve_device
+from .config import SpeculationConfig
+from .programs import PagedModel, _categorical
+from .spec_decode import SpecDecoder
 
 logger = logging.getLogger("ray_tpu_torch.serve.engine")
 
@@ -95,7 +89,8 @@ class EngineConfig:
     # a chained hash of their token prefix and reused by later prompts
     # sharing the prefix (requires chunked_prefill)
     prefix_caching: bool = True
-    # speculative decoding is not ported yet; must stay None
+    # speculative decoding: a SpeculationConfig or its dict form
+    # (serve/config.py); None or mode "off" decodes one token per step
     speculation: Optional[Any] = None
 
     def __post_init__(self) -> None:
@@ -108,8 +103,7 @@ class EngineConfig:
                 f"prefill_chunk={self.prefill_chunk} "
                 f"page_size={self.page_size}")
         if self.speculation is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported to ray_tpu_torch yet")
+            self.speculation = SpeculationConfig.parse(self.speculation)
 
     @property
     def pages_per_seq(self) -> int:
@@ -308,31 +302,26 @@ class PageAllocator:
 
 class InferenceEngine:
     def __init__(self, params, model_cfg: ModelConfig, engine_cfg: EngineConfig,
-                 device=None):
+                 device=None, draft_params=None):
         """params: the model's parameter dict (models.init_params or
         params_from_numpy). device: the card unless the caller names
-        another; with no card and no device this raises."""
+        another; with no card and no device this raises. draft_params: the
+        parameters of a named speculation draft model (default: random
+        from seed 0)."""
         _require_dense(model_cfg)
         self.cfg = model_cfg
         self.ecfg = engine_cfg
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
-        self._dtype = torch_dtype(model_cfg.dtype)
         B = engine_cfg.max_batch_size
         L, KVH, hd = model_cfg.n_layers, model_cfg.kv_heads, model_cfg.hdim
         P, ps = engine_cfg.max_pages, engine_cfg.page_size
         pool = dict(dtype=torch_dtype(engine_cfg.cache_dtype), device=self.device)
         self.k_pages = torch.zeros((L, KVH, P, ps, hd), **pool)
         self.v_pages = torch.zeros((L, KVH, P, ps, hd), **pool)
-        # per-layer parameter views and the tables every program reuses
-        self._layers = layer_views(self.params["layers"])
-        # one f32 copy of the head: logits are f32 (a bf16 product flips
-        # greedy tokens against the reference) and casting the head every
-        # step would re-read and re-write it each time
-        self._head32 = lm_head_weight(self.params, model_cfg).float()
-        self._rope = (rope_frequencies(hd, model_cfg.max_seq_len, model_cfg.rope_theta,
-                                       device=self.device)
-                      if model_cfg.positional == "rope" else None)
+        # the device programs over this pool, with the per-layer parameter
+        # views, the f32 head and the rope tables every program reuses
+        self._model = PagedModel(self.params, model_cfg, ps, self.k_pages, self.v_pages)
         self.allocator = PageAllocator(P)
         self.prefix = (PrefixCache(ps)
                        if engine_cfg.prefix_caching and engine_cfg.chunked_prefill
@@ -368,6 +357,12 @@ class InferenceEngine:
         self._chunk_lock = threading.Lock()
         self._requests: Dict[str, Request] = {}  # live (uncompleted) ids
         self._req_lock = threading.Lock()
+        scfg = engine_cfg.speculation
+        self._spec: Optional[SpecDecoder] = None
+        if scfg is not None and scfg.enabled:
+            if draft_params is not None:
+                draft_params = _to_device(draft_params, self.device)
+            self._spec = SpecDecoder(self, scfg, draft_params=draft_params)
 
     # ------------------------------------------------------------ programs
 
@@ -379,32 +374,9 @@ class InferenceEngine:
         """One token for every slot. toks/pos [B] int32 on the card; tables
         [B, pps] int32. Writes each slot's KV at `pos`, attends over its
         pages (kernel K5), samples on the card -> (tokens [B] int32, logprob
-        of each token under the raw softmax [B] f32)."""
-        cfg, ecfg = self.cfg, self.ecfg
-        ps, pps = ecfg.page_size, ecfg.pages_per_seq
-        B = toks.shape[0]
-        x = _embed_lookup(self.params["embed"], toks[:, None], self._dtype)  # [B,1,D]
-        # the reference's gathers clamp out-of-range indices: a slot that
-        # finished mid-span rides out the span past its last position
-        rope_pos = pos.clamp(max=cfg.max_seq_len - 1).long()
-        if cfg.positional == "learned":
-            x = x + self.params["pos_emb"][rope_pos][:, None].to(self._dtype)
-        page_idx = tables.gather(1, (pos // ps).clamp(max=pps - 1).long()[:, None])[:, 0].long()
-        slot_idx = (pos % ps).long()
-        lengths = pos + 1
-        for l, lp in enumerate(self._layers):
-            h = _norm(x, lp["ln1"], lp.get("ln1_b"), cfg)
-            q, k, v = _qkv(h, lp, cfg, self._rope, rope_pos[:, None])
-            kp, vp = self.k_pages[l], self.v_pages[l]
-            # [B, KVH, hd] -> [KVH, B, hd] at (page, slot) of each slot;
-            # inactive slots all write page 0 slot 0, the trash page
-            kp[:, page_idx, slot_idx] = k[:, 0].transpose(0, 1).to(kp.dtype)
-            vp[:, page_idx, slot_idx] = v[:, 0].transpose(0, 1).to(vp.dtype)
-            o = paged_attention_decode(q[:, 0], kp, vp, tables, lengths)
-            x = x + _out_proj(o, lp)[:, None]
-            h = _norm(x, lp["ln2"], lp.get("ln2_b"), cfg)
-            x = x + _dense_ffn(h, lp, cfg)
-        logits = _lm_head(x[:, 0], self.params, cfg, self._head32)
+        of each token under the raw softmax [B] f32). Inactive slots all
+        write page 0 slot 0, the trash page."""
+        logits = self._model.logits(self._model.decode(toks, pos, tables))
         new = _device_sample(logits, temps, top_ps, top_ks, self._gen, sample, advanced)
         logps = torch.log_softmax(logits, dim=-1).gather(1, new.long()[:, None])[:, 0]
         return new, logps
@@ -433,31 +405,9 @@ class InferenceEngine:
         """One C-token prefill chunk of one sequence: write its KV into the
         sequence's pages, attend over the paged prefix (kernel K6) ->
         f32 logits [V] at chunk row last_idx. Decode thread only."""
-        cfg, ecfg = self.cfg, self.ecfg
-        ps, pps = ecfg.page_size, ecfg.pages_per_seq
-        C = len(tokens)
-        toks = self._tensor(tokens, torch.int32)
-        table_t = self._tensor(table, torch.int32)
-        x = _embed_lookup(self.params["embed"], toks[None, :], self._dtype)  # [1,C,D]
-        positions = start + torch.arange(C, device=self.device)
-        rope_pos = positions.clamp(max=cfg.max_seq_len - 1)
-        if cfg.positional == "learned":
-            x = x + self.params["pos_emb"][rope_pos][None].to(self._dtype)
-        page_idx = table_t[(positions // ps).clamp(max=pps - 1)].long()
-        slot_idx = positions % ps
-        for l, lp in enumerate(self._layers):
-            h = _norm(x, lp["ln1"], lp.get("ln1_b"), cfg)
-            q, k, v = _qkv(h, lp, cfg, self._rope, rope_pos[None])
-            kp, vp = self.k_pages[l], self.v_pages[l]
-            kp[:, page_idx, slot_idx] = k[0].transpose(0, 1).to(kp.dtype)
-            vp[:, page_idx, slot_idx] = v[0].transpose(0, 1).to(vp.dtype)
-            # pad rows past the prompt write KV too, but no later query sees
-            # them before decode overwrites them (position bound)
-            o = paged_attention_chunk(q[0], kp, vp, table_t, start, start + C)
-            x = x + _out_proj(o, lp)[None]
-            h = _norm(x, lp["ln2"], lp.get("ln2_b"), cfg)
-            x = x + _dense_ffn(h, lp, cfg)
-        return _lm_head(x[0, last_idx:last_idx + 1], self.params, cfg, self._head32)[0]
+        x = self._model.chunk(self._tensor(tokens, torch.int32), start,
+                              self._tensor(table, torch.int32))
+        return self._model.logits(x[last_idx:last_idx + 1])[0]
 
     def _prefill(self, tokens: np.ndarray, true_lens: np.ndarray):
         """Bucketed prefill of a padded batch [Bp, bucket] (prefill thread:
@@ -466,7 +416,8 @@ class InferenceEngine:
         toks = self._tensor(tokens, torch.int32)
         lens = self._tensor(true_lens, torch.int64)
         return prefill(self.params, self.cfg, toks, max_len=tokens.shape[1],
-                       last_index=lens - 1, rope_tables=self._rope, head=self._head32)
+                       last_index=lens - 1, rope_tables=self._model.rope,
+                       head=self._model.head32)
 
     def _scatter_prefill(self, cache, pages: List[int]) -> None:
         """Write a prefill row cache [L, 1, Tpad, KVH, hd] into the page
@@ -510,6 +461,8 @@ class InferenceEngine:
             C = self.ecfg.prefill_chunk
             self._chunk_step(np.zeros((C,), np.int32), 0,
                              np.zeros((pps,), np.int32), C - 1).cpu()
+        if self._spec is not None:
+            self._spec.warmup()
 
     # ------------------------------------------------------------ requests
 
@@ -837,6 +790,11 @@ class InferenceEngine:
             slot.pages = pages
             slot.position = T  # the sampled token is written at T
             slot.generated = 1
+            if self._spec is not None:
+                # draft proposer: prefill the prompt into the slot's draft
+                # pages (decode thread: the draft pool is only ever touched
+                # here and in run_step)
+                self._spec.on_install(self.slots.index(slot), req)
             self._maybe_finish(slot, req.output[-1])
             installed = True
 
@@ -916,6 +874,14 @@ class InferenceEngine:
             if s.request.temperature > 0 and (s.request.top_p < 1.0 or s.request.top_k > 0):
                 advanced = True  # the sort-based sampler runs
         self._step_count += 1
+        if self._spec is not None:
+            if self._step_spec(tokens, positions, tables, temps, top_ps, top_ks, advanced,
+                               len(active)):
+                return True
+            # zero-draft fallback: the (cheap) proposer found nothing to
+            # draft anywhere in the batch this round — the plain span below
+            # commits span tokens per slot where the S-wide verify would
+            # commit exactly one
         # adaptive span: while prefill work is queued or running, yield the
         # card sooner so arriving requests get their first token
         if self.ecfg.adaptive_span and (
@@ -954,6 +920,61 @@ class InferenceEngine:
         self._tps_steps += span * len(active)
         return True
 
+    def _step_spec(self, tokens, positions, tables, temps, top_ps, top_ks, advanced,
+                   n_active) -> bool:
+        """One speculative round for the built batch arrays: propose up to
+        k drafts per slot (capped to the slot's remaining token budget and
+        sequence room so no verify write can land past its allocation),
+        verify them in one span forward, commit the accepted prefix plus
+        the bonus token through the same budget/eos/stop/finish path the
+        plain loop uses. Returns False when the proposer declined the
+        round (zero drafts batch-wide) — the caller runs a plain span."""
+        spec, ecfg = self._spec, self.ecfg
+        caps = np.zeros((ecfg.max_batch_size,), np.int32)
+        for i, s in enumerate(self.slots):
+            if s.request is None:
+                continue
+            caps[i] = max(0, min(spec.k, s.request.max_tokens - s.generated - 1,
+                                 ecfg.max_seq_len - 1 - s.position))
+        committed, n_comm, n_draft, times = spec.run_step(
+            tokens, positions, tables, caps, temps, top_ps, top_ks, advanced)
+        spec.note_times(times)
+        if committed is None:
+            return False
+        t0 = time.monotonic()
+        proposed = accepted = n_tokens = 0
+        for i, s in enumerate(self.slots):
+            if s.request is None:
+                continue
+            proposed += int(n_draft[i])
+            accepted += int(n_comm[i]) - 1
+            for t in range(int(n_comm[i])):
+                if s.request is None:
+                    break  # finished on an earlier committed token
+                s.position += 1
+                tok = int(committed[i, t])
+                if s.generated < s.request.max_tokens and not s.request.done.is_set():
+                    s.request.output.append(tok)
+                    # the verify forward does not surface per-token logits
+                    # to the host; speculative commits carry no logprob
+                    # (callers needing them serve without speculation)
+                    s.request.output_logprobs.append(None)
+                    s.generated += 1
+                    n_tokens += 1
+                    eos = ecfg.eos_token_id
+                    if eos is not None and tok == eos:
+                        pass  # eos is control, not content
+                    elif s.request.stop:
+                        s.request._held.append(tok)
+                    else:
+                        s.request._emit(tok)
+                self._maybe_finish(s, tok)
+        spec.record(proposed, accepted)
+        spec.note_times({"cache_bookkeeping": time.monotonic() - t0, "rounds": 1})
+        self._tps_committed += n_tokens
+        self._tps_steps += n_active
+        return True
+
     def _maybe_finish(self, slot: _Slot, last_tok: int) -> None:
         req = slot.request
         if req is None:
@@ -987,6 +1008,11 @@ class InferenceEngine:
         # free BEFORE signalling completion: a caller returning from
         # generate() must see this request's pages released in stats()
         self._free_pages_and_revive(slot.pages)
+        if self._spec is not None:
+            # proposer hygiene: drop the slot's ngram context / invalidate
+            # any prefetched draft row so the next occupant can never see
+            # this request's state
+            self._spec.on_evict(self.slots.index(slot))
         slot.request = None
         slot.pages = []
         slot.position = 0
@@ -1059,6 +1085,7 @@ class InferenceEngine:
             waiting = len(self._waiting)
             free_pages = self.allocator.num_free
             prefix = self.prefix.stats() if self.prefix is not None else {}
+        spec = self._spec.stats() if self._spec is not None else {}
         # zero-ref cached pages are reclaimed on demand: they count as free
         return {
             "active": len(self._active()),
@@ -1071,6 +1098,7 @@ class InferenceEngine:
             "weights_version": self.weights_version,
             "tokens_per_decode_step": (self._tps_committed / self._tps_steps
                                        if self._tps_steps else 0.0),
+            **spec,
         }
 
     def stop(self, timeout_s: float = 30.0) -> None:
@@ -1120,14 +1148,6 @@ def _match_stop(output: List[int], stops: Optional[List[List[int]]]) -> int:
         if n and len(output) >= n and output[-n:] == list(s):
             return n
     return 0
-
-
-def _categorical(logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-    """One draw per row from softmax(logits) by the Gumbel-max trick (as
-    jax.random.categorical): argmax(logits - log E), E ~ Exp(1). Stays on
-    the card, no host sync."""
-    e = torch.empty_like(logits).exponential_(generator=gen)
-    return (logits - e.log()).argmax(dim=-1)
 
 
 def _device_sample(logits, temps, top_ps, top_ks, gen, sample: bool, advanced: bool):

@@ -23,6 +23,8 @@ class LLMServer:
     Response: {"token_ids": [...], "logprobs": [...], "finish_reason": ...,
                "ttft_s": ..., "latency_s": ..., ...}
 
+    engine_config: EngineConfig's fields; "speculation" (a dict, see
+    serve/config.py) turns on speculative decoding.
     params_fn: optional () -> (params, model_cfg) to load real weights;
     default builds random weights for the named config from `seed`,
     straight into the model dtype on the device (no f32 master copy).

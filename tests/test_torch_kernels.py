@@ -100,6 +100,55 @@ def test_paged_chunk(card, dtype, start):
     _close(got, paged._chunk_reference(q, kp, vp, table, start, start + 40, D ** -0.5), dtype)
 
 
+@pytest.mark.parametrize("S,g,positions", [
+    (5, 4, [0, 10, 37, 100]),     # the engine's span: 20 rows of a 64-row tile
+    (1, 4, [0, 1, 30, 127]),      # S = 1 is decode
+    (2, 4, [3, 16, 15, 64]),
+    (65, 4, [0, 5, 40, 60]),      # the config's widest span: five row tiles
+    (5, 1, [7, 8, 9, 10]),
+    (5, 4, [125, 127, 120, 0]),   # spans that end past the table
+])
+def test_paged_verify(card, dtype, S, g, positions):
+    KVH, pps = 2, 8
+    kp, vp = _rand((KVH, 40, 16, D), dtype, card), _rand((KVH, 40, 16, D), dtype, card)
+    q = _rand((4, S, KVH * g, D), dtype, card)
+    table = torch.randint(1, 40, (4, pps), device=card, dtype=torch.int32)
+    pos = torch.tensor(positions, device=card, dtype=torch.int32)
+    before = dispatch.launch_counts()["paged_attention_verify"]
+    got = ops.paged_attention_verify(q, kp, vp, table, pos)
+    assert dispatch.launch_counts()["paged_attention_verify"] == before + 1
+    _close(got, paged._verify_reference(q, kp, vp, table, pos, D ** -0.5), dtype)
+    if S == 1:
+        _close(got[:, 0], ops.paged_attention_decode(q[:, 0].contiguous(), kp, vp, table,
+                                                     pos + 1), dtype)
+
+
+def test_paged_verify_inactive_slots_and_refusals(card, dtype):
+    # inactive engine slots: position 0 and an all-zero table row (the
+    # trash page); the output is never read but must be finite
+    kp, vp = _rand((2, 40, 16, D), dtype, card), _rand((2, 40, 16, D), dtype, card)
+    q = _rand((4, 5, 8, D), dtype, card)
+    table = torch.zeros((4, 8), device=card, dtype=torch.int32)
+    pos = torch.zeros((4,), device=card, dtype=torch.int32)
+    got = ops.paged_attention_verify(q, kp, vp, table, pos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _close(got, paged._verify_reference(q, kp, vp, table, pos, D ** -0.5), dtype)
+    before = dispatch.launch_counts()
+    with pytest.raises(ValueError, match="positions"):
+        ops.paged_attention_verify(q, kp, vp, table, pos.long())
+    with pytest.raises(ValueError, match="positions"):
+        ops.paged_attention_verify(q, kp, vp, table[:2].contiguous(), pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.paged_attention_verify(q.transpose(1, 2).contiguous().transpose(1, 2), kp, vp,
+                                   table, pos)
+    n = 2 * 40 * 16 * D
+    odd = torch.zeros(n + 1, device=card, dtype=dtype)[1:].view(2, 40, 16, D)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.paged_attention_verify(q, odd, odd, table, pos)
+    assert dispatch.launch_counts() == before
+
+
 @pytest.mark.parametrize("T", [1, 63, 100, 257, 1024])
 @pytest.mark.parametrize("g", [1, 4])
 def test_flash_attention_lse(card, dtype, T, g):
@@ -159,6 +208,7 @@ def test_gradients_flow_through_the_kernels(card, dtype):
     # the card's forward kernels write into fresh tensors through ctypes:
     # without the autograd Functions around them no gradient would reach
     # x, q, k or v; the gradients must match autograd of the plain versions
+    torch.manual_seed(0)  # the same inputs whatever ran before
     x0 = _rand((2, 100, 256), dtype, card)
     w0 = 1.0 + 0.1 * torch.randn(256, device=card)
     wq = 0.05 * torch.randn(256, 8 * D, device=card).to(dtype)
@@ -182,4 +232,10 @@ def test_gradients_flow_through_the_kernels(card, dtype):
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         assert after[name] == before[name] + 1, name
     _close(got[0], want[0], dtype)
-    torch.testing.assert_close(got[1], want[1], atol=2e-2, rtol=2e-2)
+    # w.grad[j] sums 200 rows of terms that the two paths round to bf16 at
+    # different places, so its error scales with the terms, not with the
+    # sum: an element near 0 is off by as much as the largest. On the H100
+    # the gap read 0.05-0.08 at max |w.grad| 22-27 over six seeds (1e-5 in
+    # f32): two bf16 ulps (2^-7) of the largest element leave 2.4x room.
+    atol = 2e-2 if dtype == torch.float32 else 2 ** -7 * want[1].abs().max().item()
+    torch.testing.assert_close(got[1], want[1], atol=atol, rtol=2e-2)

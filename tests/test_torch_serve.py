@@ -166,7 +166,9 @@ def test_entry_points_need_a_device_without_a_card(tiny_llama):
 
 
 def test_unported_features_raise(tiny_llama):
-    with pytest.raises(NotImplementedError):
+    # speculation is ported: its config is parsed, and a key it does not
+    # know is an error, not an option silently ignored
+    with pytest.raises(ValueError, match="unknown speculation option"):
         EngineConfig(**ENGINE_KW, speculation={"mode": "ngram", "k": 2})
     with pytest.raises(NotImplementedError):
         init_params(get_config("tiny-moe"), device="cpu")
@@ -186,6 +188,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     code = (
         "import json, sys\n"
         "import ray_tpu_torch, ray_tpu_torch.serve, ray_tpu_torch.models, ray_tpu_torch.train\n"
+        "import ray_tpu_torch.serve.spec_decode, ray_tpu_torch.serve.config\n"
+        "import ray_tpu_torch.serve.programs, ray_tpu_torch.models.generate\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'ray_tpu' or m.startswith('ray_tpu.'))\n"
         "print(json.dumps(bad))\n"
