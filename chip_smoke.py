@@ -6,7 +6,8 @@
 
 Phases (any failure exits non-zero; no phase's failure is caught):
   0. the card: `nvidia-smi` name and power limit, compute capability 9.0;
-  1. build the CUDA kernels from ray_tpu_torch/csrc with nvcc (sm_90a);
+  1. build the CUDA kernels from ray_tpu_torch/csrc with nvcc (sm_90a) and
+     print each kernel's registers and spills from ptxas' report;
   2. each kernel against its plain PyTorch version on the card, in bf16
      and f32, at the serving path's shapes: max error against the stated
      tolerance, device time (CUDA events, L2 flushed before each call, host
@@ -17,7 +18,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      (dk, dv) at the training shape (llama-2b: B=4, T=2048, 20/5 heads of
      128), at a ragged T and at g = 1; K7 (speculative verify attention) at
      the engine's span (B=8, S=5) and at S = 1 (where it must also equal
-     K5), S = 2, S = 65, g = 1, inactive slots and a span past the table;
+     K5), S = 2, S = 65, g = 1, inactive slots and a span past the table.
+     First, at every K2 and K3 shape, a profiler pass around one launch
+     must show the kernel that (dtype, head_dim) selects: the tensor-core
+     (wgmma) tile for bf16, the FMA tile for f32 (tile_identity_checks);
   3. the serving path: LLMServer serving llama3-8b at full width and depth
      (random weights from a seed) with five concurrent requests — short
      prompts (bucketed prefill, kernel K2), a ~700-token prompt (chunked
@@ -80,6 +84,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -211,6 +216,110 @@ def check_close(name, kind, dtype, got, want) -> float:
     return err.max().item()
 
 
+def _kernel_name(mangled: str) -> str:
+    """identifier<template arguments> of a mangled kernel name: the last
+    length-prefixed segment of its nested name, then its int, bool and
+    type arguments; the mangled name where that reading fails."""
+    m = re.match(r"_ZN(.*)", mangled)
+    pos, seg = 0, None
+    rest = m.group(1) if m else ""
+    while pos < len(rest) and rest[pos].isdigit():
+        n = re.match(r"\d+", rest[pos:]).group(0)
+        pos += len(n)
+        seg = rest[pos:pos + int(n)]
+        pos += int(n)
+    if seg is None or not rest[pos:].startswith("I"):
+        return mangled
+    args = re.findall(r"L[ib](\d+)E|(13__nv_bfloat16)|(f)", rest[pos + 1:rest.find("EEv", pos)])
+    return f"{seg}<{', '.join(a or ('bf16' if b else 'f32') for a, b, _c in args)}>"
+
+
+def ptxas_report(build_log: str) -> dict:
+    """Per kernel entry in nvcc's build log (-Xptxas -v): registers and
+    spill bytes, by `_kernel_name`."""
+    out, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = _kernel_name(m.group(1))
+            out.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+def launched_kernels(fn) -> list:
+    """Names of the CUDA kernels one fn() launched, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a margin on both sides of the launch: late in a process a pass
+        # without it recorded no kernel at all (PERF.md)
+        time.sleep(0.25)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.25)
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def tile_identity_checks(gen) -> None:
+    """A profiler pass around one launch of K2 (without lse at the serving
+    shapes, with lse at the training shapes) and of K3 (training shapes),
+    in f32 and bf16: each must show the kernel that (dtype, head_dim)
+    selects (check_tile). Run first in phase 2, on inputs of its own."""
+    from ray_tpu_torch.ops import attention
+
+    D = 128
+    serving = [(1, T, 32, 8) for T in (64, 100, 128, 256)]
+    training = [(4, 2048, 20, 5), (2, 1000, 20, 5), (2, 1024, 8, 8)]
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for B, T, H, KVH in serving + training:
+            shape = f"B={B} T={T} H={H}/{KVH}"
+            q, k, v = rnd((B, T, H, D), dtype), rnd((B, T, KVH, D), dtype), rnd((B, T, KVH, D),
+                                                                                dtype)
+            if (B, T, H, KVH) in serving:
+                name = check_tile(f"K2 {tag} {shape}", "flash_attention", dtype, D,
+                                  lambda: attention.flash_attention(q, k, v))
+                log(f"tile K2 {tag} {shape}: {name}")
+                continue
+            do = rnd((B, T, H, D), dtype)
+            lse = torch.zeros((B, H, T), device="cuda")
+            k2 = check_tile(f"K2+lse {tag} {shape}", "flash_attention", dtype, D,
+                            lambda: attention.flash_attention_with_lse(q, k, v))
+            k3 = check_tile(f"K3 {tag} {shape}", "flash_attention_bwd_dq", dtype, D,
+                            lambda: attention.flash_attention_bwd_dq(q, k, v, do, lse, lse))
+            log(f"tile K2+lse {tag} {shape}: {k2}; K3: {k3}")
+            del do, lse
+        del q, k, v
+    torch.cuda.empty_cache()
+
+
+def check_tile(label: str, op: str, dtype, head_dim: int, fn) -> str:
+    """Fails unless fn(), one call of attention op `op`, launched the kernel
+    that (dtype, head_dim) selects (attention.kernel_symbol: the wgmma tile
+    for bf16 at head_dim 64/128, the FMA tile otherwise); returns its name."""
+    from ray_tpu_torch.ops import attention
+
+    want = attention.kernel_symbol(op, dtype, head_dim)
+    names = launched_kernels(fn)
+    if not any(want in n for n in names):
+        fail(f"{label}: expected a launch of {want}, the profiler saw {names}")
+    return want
+
+
 # -------------------------------------------------------------- phase 2
 
 
@@ -254,6 +363,7 @@ def kernel_checks(gen) -> dict:
             q, k, v = rnd((1, T, H, hd), dtype), rnd((1, T, KVH, hd), dtype), rnd((1, T, KVH, hd), dtype)
             err = check_close("flash_attention", "attention", dtype,
                               attention.flash_attention(q, k, v), attention.mha_reference(q, k, v))
+            tile = attention.kernel_symbol("flash_attention", dtype, hd)
             ms = device_ms(lambda: attention.flash_attention(q, k, v))
             plain = device_ms(lambda: attention.mha_reference(q, k, v))
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -262,9 +372,9 @@ def kernel_checks(gen) -> dict:
             pairs = T * (T + 1) // 2
             bnd, by = bound_ms((2 * q.numel() + k.numel() + v.numel()) * el,
                                4 * H * hd * pairs, dtype)
-            log(f"K2 flash_attention {tag} T={T}: max_err {err:.3e} "
+            log(f"K2 flash_attention {tag} T={T} [{tile}]: max_err {err:.3e} "
                 f"(tol {TOL[('attention', dtype)]}) ms {ms:.4f} plain {plain:.4f} "
-                f"bound {bnd:.4f} ({by}) sdpa {lib:.4f}")
+                f"bound {bnd:.4f} ({by}) sdpa {lib:.4f} (kernel / sdpa {ms / lib:.2f})")
             if dtype == torch.bfloat16 and T == 256:
                 out["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                               bound_ms=bnd, bound_by=by, library_ms=lib)
@@ -402,6 +512,7 @@ def training_kernel_checks(gen) -> dict:
             want_o, want_lse = attention._fwd_reference_with_lse(q, k, v)
             err = max(check_close("flash_attention+lse", "attention", dtype, o, want_o),
                       check_close("flash_attention+lse lse", "lse", dtype, lse, want_lse))
+            tile = attention.kernel_symbol("flash_attention", dtype, D)
             ms = device_ms(lambda: attention.flash_attention_with_lse(q, k, v), reps, trials)
             plain = device_ms(lambda: attention._fwd_reference_with_lse(q, k, v), reps, trials)
             bnd, by = bound_ms((2 * q.numel() + k.numel() + v.numel()) * el + rows,
@@ -409,8 +520,9 @@ def training_kernel_checks(gen) -> dict:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True), reps, trials)
-            log(f"K2+lse flash_attention {tag} {shape}: max_err {err:.3e} ms {ms:.4f} "
-                f"plain {plain:.4f} bound {bnd:.4f} ({by}) sdpa {lib_fwd:.4f}")
+            log(f"K2+lse flash_attention {tag} {shape} [{tile}]: max_err {err:.3e} ms {ms:.4f} "
+                f"plain {plain:.4f} bound {bnd:.4f} ({by}) sdpa {lib_fwd:.4f} "
+                f"(kernel / sdpa {ms / lib_fwd:.2f})")
             del want_o, want_lse
 
             # K3 / K4 from the plain forward's o and lse
@@ -419,6 +531,7 @@ def training_kernel_checks(gen) -> dict:
             dq = attention.flash_attention_bwd_dq(q, k, v, do, lse, delta)
             err_dq = check_close("flash_attention_bwd_dq", "attention", dtype, dq,
                                  attention._dq_reference(q, k, v, do, lse, delta))
+            tile_dq = attention.kernel_symbol("flash_attention_bwd_dq", dtype, D)
             dk, dv = attention.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
             want_dk, want_dv = attention._dkv_reference(q, k, v, do, lse, delta)
             err_dkv = max(check_close("flash_attention_bwd_dkv dk", "attention", dtype, dk,
@@ -448,9 +561,9 @@ def training_kernel_checks(gen) -> dict:
             lib = device_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
                                                         retain_graph=True), reps, trials)
             del ot, qt, kt, vt
-            log(f"K3 flash_attention_bwd_dq {tag} {shape}: max_err {err_dq:.3e} ms {ms_dq:.4f} "
-                f"plain {plain_dq:.4f} bound {bnd_dq:.4f} ({by_dq}); "
-                f"SDPA backward (dq+dk+dv) {lib:.4f}")
+            log(f"K3 flash_attention_bwd_dq {tag} {shape} [{tile_dq}]: max_err {err_dq:.3e} "
+                f"ms {ms_dq:.4f} plain {plain_dq:.4f} bound {bnd_dq:.4f} ({by_dq}); "
+                f"SDPA backward (dq+dk+dv) {lib:.4f} (kernel / sdpa {ms_dq / lib:.2f})")
             log(f"K4 flash_attention_bwd_dkv {tag} {shape}: max_err {err_dkv:.3e} "
                 f"ms {ms_dkv:.4f} plain {plain_dkv:.4f} bound {bnd_dkv:.4f} ({by_dkv}); "
                 f"K3+K4 {ms_dq + ms_dkv:.4f}")
@@ -1286,13 +1399,18 @@ def main() -> None:
     log(f"phase 1: kernels built in {time.monotonic() - t0:.1f}s "
         f"(nvcc {dispatch.BUILD_INFO.get('seconds', 0.0):.1f}s)")
     with open(dispatch.BUILD_INFO["log"]) as f:
-        for line in f:
-            if "registers" in line or "spill" in line or line.startswith("=="):
-                log("  " + line.rstrip())
+        build_log = f.read()
+    for line in build_log.splitlines():
+        if line.startswith("==") or "warning" in line.lower():
+            log("  " + line.rstrip())
+    for name, res in ptxas_report(build_log).items():
+        log(f"  {name}: {res.get('registers', '?')} registers, spill stores "
+            f"{res.get('spill_stores', '?')} B, spill loads {res.get('spill_loads', '?')} B")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
+    tile_identity_checks(gen)
     figures = kernel_checks(gen)
     figures.update(training_kernel_checks(gen))
     served = serve_main_path(args.profile)

@@ -1,5 +1,9 @@
-// The tile loop shared by K2 (flash_attention.cu) and by K6 and K7 (paged
-// chunk and paged verify attention in paged_attention.cu).
+// The FMA tile loop: K6 and K7 (paged chunk and paged verify attention in
+// paged_attention.cu), and K2 (flash_attention.cu) for f32 inputs or a head
+// dim other than 64 and 128. Replaces, in those cases, the tile loop of
+// ray_tpu/ops/attention.py `_fwd_kernel` and of paged_attention.py
+// `_chunk_kernel` / `_verify_kernel`. bf16 K2 at head dim 64/128 runs on the
+// tensor cores instead (flash_fwd_wgmma_kernel, wgmma.cuh).
 //
 // One CTA of 256 threads owns kTileR = 64 query rows that all read the same
 // kv head. It stages them in shared memory once, then streams kTileK = 64
@@ -23,9 +27,10 @@
 // callers that want none pass nullptr as a constant, so the epilogue code
 // for it is not generated.
 //
-// What bounds it: at the slice's shapes (T <= 1024 prefill, 256-row chunks)
-// each tile does 2*64*64*D multiply-adds per 64*D*2 elements loaded, so the
-// scalar FMA pipes bound it; tensor cores (mma.sync / wgmma) are later work.
+// What bounds it: each tile does 2*64*64*D multiply-adds per 64*D*2
+// elements loaded, so the scalar FMA pipes bound it (K6 0.206 ms at C=256
+// against a 0.003 ms tensor-core bound; PERF.md). K6 and K7 are to move to
+// K2's wgmma tile (ROADMAP); f32 has no tensor-core path here.
 #pragma once
 
 #include "common.cuh"

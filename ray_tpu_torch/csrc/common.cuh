@@ -126,6 +126,16 @@ struct KVStager {
   }
 };
 
+// Rows t of one (b, head) of a [B, T, heads, D] tensor read through its
+// strides: the `kv_offset` that KVStager and tc::load_tile take.
+struct Rows {
+  long long sb, st, sh;
+  int b, h;
+  __device__ size_t kv_offset(int t) const {
+    return static_cast<size_t>(b * sb + t * st + h * sh);
+  }
+};
+
 // True when K/V rows of D elements at the given element strides from the
 // bases k and v can be moved in KVStager's 16-byte loads.
 template <typename T>
@@ -134,6 +144,14 @@ inline bool kv_layout_ok(const void* k, const void* v, int D, long long s0 = 0,
   constexpr int VE = vec_elems<T>();
   return D % VE == 0 && s0 % VE == 0 && s1 % VE == 0 && s2 % VE == 0 && aligned16(k) &&
          aligned16(v);
+}
+
+// SMs of the current device (a launch's choice of tile size reads it)
+inline int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
 }
 
 // Dynamic shared memory above the default 48 KB must be allowed per kernel

@@ -5,8 +5,8 @@
 // S = q k^T * scale (masked scores at -2e30), dP = dO v^T and
 // dS = P * (dP - delta) * scale, where lse comes from the forward (K2) and
 // delta = rowsum(dO * O) - dlse is computed by the caller:
-//   K3: dQ = dS K         one CTA per (b, q head, 64-row q tile), walking the
-//                          key tiles up to the diagonal;
+//   K3: dQ = dS K         one CTA per (b, q head, q tile), walking the key
+//                          tiles up to the diagonal;
 //   K4: dK = dS^T Q,      one CTA per (b, kv head, 64-key tile), looping over
 //       dV = P^T dO        the g q heads of its group and the q tiles at and
 //                          below the diagonal, so the sum over the group
@@ -16,16 +16,38 @@
 // Layout as K2: q, dO [B, Tq, H, D] sharing one set of strides, k, v
 // [B, Tk, KVH, D] sharing another; lse and delta [B, H, Tq] f32 contiguous;
 // dq [B, Tq, H, D] and dk, dv [B, Tk, KVH, D] written contiguous in the input
-// dtype. Any Tq, Tk: ragged tiles are masked. Rows are staged into shared
-// memory as f32 by KVStager's 16-byte loads, the next tile's loads in flight
-// while the current one is computed; all sums are f32.
+// dtype. Any Tq, Tk: ragged tiles are masked. All sums are f32.
 //
-// What bounds it: like K2 these run on the FMA pipes (4 x 64 x 64 x D
-// multiply-adds per tile pair in K4, 3 x in K3) fed from shared memory by a
-// 4x4 register tile, one CTA of 256 threads per SM (150-166 KB of shared
-// memory each); tensor cores (mma.sync / wgmma) are later work.
+// Which K3 runs is decided by (dtype, D) alone:
+//   bf16, D in {64, 128}: flash_bwd_dq_wgmma_kernel, on the tensor cores;
+//   f32, or any other D:  flash_bwd_dq_fma_kernel, on the FMA pipes.
+// K4 (flash_bwd_dkv_kernel) runs on the FMA pipes for every dtype.
+//
+// flash_bwd_dq_wgmma_kernel<D>: K2's tensor-core skeleton
+// (flash_attention.cu, wgmma.cuh) for one warpgroup of 128 threads owning
+// 64 query rows, two CTAs to an SM. Q and dO stay resident in
+// 128-byte-swizzled bf16 shared memory, lse and delta of the thread's two
+// rows in registers; K/V tiles of 64 keys stream through a two-stage
+// cp.async ring. Per key tile up to the diagonal the warpgroup issues
+// S = Q K^T and dP = dO V^T as SS wgmma (both K-major) in one group, forms
+// P = exp2(S scale log2(e) - lse log2(e)) and dS = P (dP - delta) scale on
+// the accumulator fragments (masked only on tiles that cross the diagonal
+// or the ragged key end), packs dS to bf16 as the register-A operand and
+// adds dS K with RS wgmma that reads K from the same shared-memory tile S
+// read, through the transpose (MN-major) bit. dQ is written in bf16
+// through the Q tile in 16-byte stores. (Two warpgroups sharing a 128-row
+// tile, as K2 does, ran slower at the training shape on the H100.)
+//
+// What bounds them: K3 on the tensor cores does 6 B H D T^2 / 2
+// operations at the training shape (bound 0.130 ms); like K2 it runs its
+// products and the elementwise work of a warpgroup one after the other.
+// K4 still runs on the FMA pipes (4 x 64 x 64 x D multiply-adds per tile
+// pair) fed from f32 shared memory by a 4x4 register tile, one CTA of 256
+// threads per SM (150-166 KB of shared memory): it is the next to move to
+// the tensor cores.
 
 #include "attention_tile.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -38,14 +60,7 @@ static_assert(kR == kK, "K4 finds the q tiles below the diagonal by tile index")
 
 using rtt::kNegInf;
 
-// Rows t of one (b, head) of a [B, T, heads, D] tensor, for KVStager.
-struct Rows {
-  long long sb, st, sh;
-  int b, h;
-  __device__ size_t kv_offset(int t) const {
-    return static_cast<size_t>(b * sb + t * st + h * sh);
-  }
-};
+using rtt::Rows;
 
 inline size_t dq_smem_bytes(int D) {  // Q, dO, K, V [64][D+1]; dS [64][65]; lse, delta [64]
   return sizeof(float) * (4 * static_cast<size_t>(kR) * (D + 1) + kR * (kK + 1) + 2 * kR);
@@ -57,7 +72,7 @@ inline size_t dkv_smem_bytes(int D) {  // K, V, Q, dO [64][D+1]; P^T, dS^T [64][
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dq_kernel(const T* q, const T* k, const T* v, const T* dout, const float* lse,
+    flash_bwd_dq_fma_kernel(const T* q, const T* k, const T* v, const T* dout, const float* lse,
                         const float* delta, T* dq, int Tq, int Tk, int H, int KVH, int D,
                         long long q_sb, long long q_st, long long q_sh, long long kv_sb,
                         long long kv_st, long long kv_sh, int causal, float scale) {
@@ -308,6 +323,152 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ----------------------------------------- K3 on the tensor cores (bf16, D 64/128)
+
+using bf16 = __nv_bfloat16;
+constexpr int kKeys = 64;  // keys per K/V tile
+
+template <int D>
+struct DqLayout {
+  static constexpr int kRows = 64;                  // one warpgroup's query rows
+  static constexpr uint32_t kQ = kRows * D * 2;     // Q, later dQ's staging; dO the same
+  static constexpr uint32_t kKV = kKeys * D * 2;    // one K or V tile
+  static constexpr uint32_t kStage = 2 * kKV;       // K then V
+  static constexpr size_t kSmem = 2 * kQ + 2 * kStage;
+};
+
+template <int D>
+__global__ void __launch_bounds__(128, 2)
+    flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              bf16* __restrict__ dq, int Tq, int Tk, int H, int KVH,
+                              long long q_sb, long long q_st, long long q_sh, long long kv_sb,
+                              long long kv_st, long long kv_sh, int causal, float scale) {
+  namespace tc = rtt::tc;
+  using L = DqLayout<D>;
+  constexpr int kRows = L::kRows, kThreads = 128, kBlk = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = tc::aligned_smem(smem_raw);
+  const uint32_t sQ = tc::smem_u32(smem), sdO = sQ + L::kQ, sKV = sdO + L::kQ;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // the most keys first
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KVH);
+  const Rows qrows{q_sb, q_st, q_sh, b, h}, kvrows{kv_sb, kv_st, kv_sh, b, kvh};
+  const int key_end = causal ? min(Tk, min(Tq, q0 + kRows)) : Tk;
+  const int n_tiles = (key_end + kKeys - 1) / kKeys;
+
+  tc::load_tile<kRows, D, kThreads>(sQ, q, qrows, q0, Tq, tid);
+  tc::load_tile<kRows, D, kThreads>(sdO, dout, qrows, q0, Tq, tid);
+  tc::cp_async_commit();
+  tc::load_tile<kKeys, D, kThreads>(sKV, k, kvrows, 0, key_end, tid);
+  tc::load_tile<kKeys, D, kThreads>(sKV + L::kKV, v, kvrows, 0, key_end, tid);
+  tc::cp_async_commit();
+
+  // lse (log2 units) and delta of the thread's rows row0 and row0 + 8; rows
+  // past Tq read 0 and are never written
+  const int row0 = q0 + 16 * warp + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    const size_t i = (static_cast<size_t>(b) * H + h) * Tq + row;
+    lse2[hh] = row < Tq ? lse[i] * tc::kLog2e : 0.f;
+    dl[hh] = row < Tq ? delta[i] : 0.f;
+  }
+  const float sc2 = scale * tc::kLog2e;
+  float acc[kBlk][32];
+#pragma unroll
+  for (int blk = 0; blk < kBlk; ++blk)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[blk][i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const uint32_t sK = sKV + (j & 1) * L::kStage, sV = sK + L::kKV;
+    if (j + 1 < n_tiles) {
+      const uint32_t nK = sKV + ((j + 1) & 1) * L::kStage;
+      tc::load_tile<kKeys, D, kThreads>(nK, k, kvrows, (j + 1) * kKeys, key_end, tid);
+      tc::load_tile<kKeys, D, kThreads>(nK + L::kKV, v, kvrows, (j + 1) * kKeys, key_end, tid);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    tc::fence_async_proxy();
+    __syncthreads();  // tile j (and Q, dO) in shared memory for every thread
+
+    const int k0 = j * kKeys;
+    float s[32], dp[32];
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      tc::wgmma_ss(s, tc::desc_k<kRows>(sQ, 0, kk), tc::desc_k<kKeys>(sK, 0, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      tc::wgmma_ss(dp, tc::desc_k<kRows>(sdO, 0, kk), tc::desc_k<kKeys>(sV, 0, kk), kk);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(s);
+    tc::fence_regs(dp);
+
+    // the reference's formula: a masked score is -2e30 before exp
+    const bool edge = k0 + kKeys > key_end || (causal && k0 + kKeys - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      float t = s[i] * sc2;
+      if (edge) {
+        const int key = k0 + 8 * (i >> 2) + col0 + (i & 1);
+        if (key >= key_end || (causal && key > row0 + 8 * hh)) t = kNegInf * tc::kLog2e;
+      }
+      s[i] = tc::exp2_approx(t - lse2[hh]) * (dp[i] - dl[hh]) * scale;  // dS
+    }
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) tc::a_fragment(s, kk, a[kk]);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int blk = 0; blk < kBlk; ++blk)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tc::wgmma_rs_mn(acc[blk], a[kk], tc::desc_mn<kKeys>(sK, blk, kk));
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+#pragma unroll
+    for (int blk = 0; blk < kBlk; ++blk) tc::fence_regs(acc[blk]);
+    __syncthreads();  // every thread is done with stage j & 1
+  }
+
+  // dQ in bf16 through the Q tile, 16-byte stores
+  const float one[2] = {1.f, 1.f};
+  tc::stage_rows<kRows, kBlk>(smem, 0, acc, one, warp, lane);
+  __syncthreads();
+  const auto out_row = [&](int t) {
+    return (static_cast<size_t>(b) * Tq + t) * H * D + static_cast<size_t>(h) * D;
+  };
+  tc::store_tile<kRows, D, kThreads>(smem, dq, out_row, q0, Tq, tid);
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma(cudaStream_t s, const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse, const void* delta, void* dq,
+                            int B, int Tq, int Tk, int H, int KVH, long long q_sb,
+                            long long q_st, long long q_sh, long long kv_sb, long long kv_st,
+                            long long kv_sh, int causal, float scale) {
+  const size_t smem = rtt::tc::smem_bytes(DqLayout<D>::kSmem);
+  cudaError_t err = rtt::allow_smem(flash_bwd_dq_wgmma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tq + DqLayout<D>::kRows - 1) / DqLayout<D>::kRows, H, B);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, 128, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), Tq, Tk, H, KVH, q_sb, q_st,
+      q_sh, kv_sb, kv_st, kv_sh, causal, scale);
+  return cudaSuccess;
+}
+
 bool bwd_args_ok(int B, int Tq, int Tk, int H, int KVH, int D) {
   return B > 0 && Tq > 0 && Tk > 0 && KVH > 0 && H % KVH == 0 && D > 0 && D <= kMaxD;
 }
@@ -322,15 +483,27 @@ extern "C" int rtt_flash_attention_bwd_dq(const void* q, const void* k, const vo
                                           int causal, float scale, int dtype, void* stream) {
   if (!bwd_args_ok(B, Tq, Tk, H, KVH, D)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == rtt::kBF16 && (D == 64 || D == 128)) {  // the tensor-core tile
+    if (!rtt::kv_layout_ok<bf16>(k, v, D, kv_sb, kv_st, kv_sh) ||
+        !rtt::kv_layout_ok<bf16>(q, dout, D, q_sb, q_st, q_sh))
+      return cudaErrorInvalidValue;
+    cudaError_t err =
+        D == 64 ? launch_dq_wgmma<64>(s, q, k, v, dout, lse, delta, dq, B, Tq, Tk, H, KVH,
+                                        q_sb, q_st, q_sh, kv_sb, kv_st, kv_sh, causal, scale)
+                : launch_dq_wgmma<128>(s, q, k, v, dout, lse, delta, dq, B, Tq, Tk, H, KVH,
+                                         q_sb, q_st, q_sh, kv_sb, kv_st, kv_sh, causal, scale);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
   const size_t smem = dq_smem_bytes(D);
   const dim3 grid((Tq + kR - 1) / kR, H, B);
   RTT_DISPATCH_DTYPE(dtype, T, {
     if (!rtt::kv_layout_ok<T>(k, v, D, kv_sb, kv_st, kv_sh) ||
         !rtt::kv_layout_ok<T>(q, dout, D, q_sb, q_st, q_sh))
       return cudaErrorInvalidValue;
-    cudaError_t err = rtt::allow_smem(flash_bwd_dq_kernel<T>, smem);
+    cudaError_t err = rtt::allow_smem(flash_bwd_dq_fma_kernel<T>, smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dq_kernel<T><<<grid, kThreads, smem, s>>>(
+    flash_bwd_dq_fma_kernel<T><<<grid, kThreads, smem, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<T*>(dq), Tq, Tk, H, KVH, D, q_sb, q_st,

@@ -14,6 +14,10 @@ XLA, then launches K3 (dq) and K4 (dk, dv). On the CPU the same Function
 runs the kernels' plain versions (`_fwd_reference_with_lse`,
 `_dq_reference`, `_dkv_reference`), which compute the flash-2 formulas
 directly, not through autograd of `mha_reference`.
+
+On the card K2 and K3 run on the tensor cores (wgmma) for bf16 with
+head_dim 64 or 128 and on the FMA pipes otherwise; `kernel_symbol` names
+the kernel a call launches.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from . import dispatch
 
 _NEG_INF = -2.0e30
 _MAX_HEAD_DIM = 128  # csrc/attention_tile.cuh kTileMaxD
+_TENSOR_CORE_HEAD_DIMS = (64, 128)  # the bf16 head dims K2 and K3 run on wgmma
 
 
 def _scores(q, k, causal, scale):
@@ -154,6 +159,7 @@ def _flash_fwd(q, k, v, causal: bool, scale: float, with_lse: bool):
     B, Tq, H, D = q.shape
     Tk, KVH = k.shape[1], k.shape[2]
     _check_gqa("flash_attention", q, k, v)
+    dispatch.check_kv_layout("flash_attention", q)  # the bf16 tile copies q in 16-byte chunks
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device) if with_lse else None
     if o.numel() == 0:
@@ -166,6 +172,19 @@ def _flash_fwd(q, k, v, causal: bool, scale: float, with_lse: bool):
         k.stride(0), k.stride(1), k.stride(2), int(bool(causal)), float(scale),
         dispatch.dtype_code(q), also="flash_attention_lse" if with_lse else "")
     return o, lse
+
+
+def kernel_symbol(op: str, dtype: torch.dtype, head_dim: int) -> str:
+    """Name of the CUDA kernel that `op`'s C entry point launches for inputs
+    of this dtype and head_dim, as a profiler shows it: the tensor-core tile
+    (wgmma) for bf16 with head_dim 64 or 128, the FMA tile otherwise
+    (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu). `op` is
+    "flash_attention" (K2, with or without lse) or "flash_attention_bwd_dq"
+    (K3)."""
+    stem = {"flash_attention": "flash_fwd", "flash_attention_bwd_dq": "flash_bwd_dq"}[op]
+    tile = ("wgmma" if dtype == torch.bfloat16 and head_dim in _TENSOR_CORE_HEAD_DIMS
+            else "fma")
+    return f"{stem}_{tile}_kernel"
 
 
 def _bwd_operands(name, q, k, v, do, lse, delta):

@@ -13,6 +13,8 @@ dtypes: 1e-4 (f32) and 1e-3 (bf16 inputs, whose scores the kernel sums in
 another order).
 """
 
+import time
+
 import pytest
 import torch
 
@@ -50,10 +52,20 @@ def test_rms_norm(card, dtype):
     assert dispatch.launch_counts()["rms_norm"] == before + 1
 
 
-@pytest.mark.parametrize("T", [1, 63, 64, 100, 257])
+# the T of the attention tests: the 64- and 128-row tiles' edges, a ragged T,
+# and the training length, which runs at batch 1 (_batch)
+T_EDGES = [1, 63, 64, 65, 100, 127, 128, 129, 257]
+
+
+def _batch(T):
+    return 1 if T >= 2048 else 2
+
+
+@pytest.mark.parametrize("T", T_EDGES + [2048])
 def test_flash_attention(card, dtype, T):
-    q = _rand((2, T, 8, D), dtype, card)
-    k, v = _rand((2, T, 2, D), dtype, card), _rand((2, T, 2, D), dtype, card)
+    B = _batch(T)
+    q = _rand((B, T, 8, D), dtype, card)
+    k, v = _rand((B, T, 2, D), dtype, card), _rand((B, T, 2, D), dtype, card)
     _close(ops.flash_attention(q, k, v), ops.mha_reference(q, k, v), dtype)
 
 
@@ -149,11 +161,12 @@ def test_paged_verify_inactive_slots_and_refusals(card, dtype):
     assert dispatch.launch_counts() == before
 
 
-@pytest.mark.parametrize("T", [1, 63, 100, 257, 1024])
+@pytest.mark.parametrize("T", T_EDGES + [1024, 2048])
 @pytest.mark.parametrize("g", [1, 4])
 def test_flash_attention_lse(card, dtype, T, g):
-    q = _rand((2, T, 8, D), dtype, card)
-    k, v = _rand((2, T, 8 // g, D), dtype, card), _rand((2, T, 8 // g, D), dtype, card)
+    B = _batch(T)
+    q = _rand((B, T, 8, D), dtype, card)
+    k, v = _rand((B, T, 8 // g, D), dtype, card), _rand((B, T, 8 // g, D), dtype, card)
     before = dispatch.launch_counts()
     o, lse = ops.flash_attention_with_lse(q, k, v)
     want_o, want_lse = attention._fwd_reference_with_lse(q, k, v)
@@ -164,13 +177,14 @@ def test_flash_attention_lse(card, dtype, T, g):
     assert after["flash_attention_lse"] == before["flash_attention_lse"] + 1
 
 
-@pytest.mark.parametrize("T", [1, 63, 100, 257, 1024])
+@pytest.mark.parametrize("T", T_EDGES + [1024, 2048])
 @pytest.mark.parametrize("g", [1, 4])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_bwd(card, dtype, T, g, causal):
-    q = _rand((2, T, 8, D), dtype, card)
-    k, v = _rand((2, T, 8 // g, D), dtype, card), _rand((2, T, 8 // g, D), dtype, card)
-    do = _rand((2, T, 8, D), dtype, card)
+    B = _batch(T)
+    q = _rand((B, T, 8, D), dtype, card)
+    k, v = _rand((B, T, 8 // g, D), dtype, card), _rand((B, T, 8 // g, D), dtype, card)
+    do = _rand((B, T, 8, D), dtype, card)
     o, lse = attention._fwd_reference_with_lse(q, k, v, causal)
     delta = attention._attention_delta(o, do)
     before = dispatch.launch_counts()
@@ -183,6 +197,82 @@ def test_flash_attention_bwd(card, dtype, T, g, causal):
     after = dispatch.launch_counts()
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         assert after[name] == before[name] + 1
+
+
+def _forward_and_dq(q, k, v, do, dtype, causal=True):
+    """K2 without and with lse and K3 against their plain versions."""
+    _close(ops.flash_attention(q, k, v, causal), ops.mha_reference(q, k, v, causal), dtype)
+    o, lse = ops.flash_attention_with_lse(q, k, v, causal)
+    want_o, want_lse = attention._fwd_reference_with_lse(q, k, v, causal)
+    _close(o, want_o, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
+    delta = attention._attention_delta(want_o, do)
+    _close(ops.flash_attention_bwd_dq(q, k, v, do, want_lse, delta, causal),
+           attention._dq_reference(q, k, v, do, want_lse, delta, causal), dtype)
+    return want_lse, delta
+
+
+@pytest.mark.parametrize("T", [1, 65, 129, 300])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_head_dim_64(card, dtype, T, causal):
+    # the gpt2 configs' head_dim: the bf16 tiles' D = 64 instantiation
+    d = 64
+    q, do = _rand((2, T, 8, d), dtype, card), _rand((2, T, 8, d), dtype, card)
+    k, v = _rand((2, T, 2, d), dtype, card), _rand((2, T, 2, d), dtype, card)
+    lse, delta = _forward_and_dq(q, k, v, do, dtype, causal)
+    dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    want_dk, want_dv = attention._dkv_reference(q, k, v, do, lse, delta, causal)
+    _close(dk, want_dk, dtype)
+    _close(dv, want_dv, dtype)
+
+
+def test_flash_attention_wide_grid(card, dtype):
+    # ceil(T / 128) * H * B >= the SM count: K2's bf16 tile takes 128 query
+    # rows per CTA (two warpgroups sharing one K/V ring); a ragged T
+    B, T, H, KVH = 2, 1000, 20, 5
+    q, do = _rand((B, T, H, D), dtype, card), _rand((B, T, H, D), dtype, card)
+    k, v = _rand((B, T, KVH, D), dtype, card), _rand((B, T, KVH, D), dtype, card)
+    _forward_and_dq(q, k, v, do, dtype)
+
+
+def _cuda_kernel_names(fn):
+    """Names of the CUDA kernels fn() launched, as torch.profiler saw them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a margin on both sides of the launch, as chip_smoke.launched_kernels
+        # keeps (without it a pass late in a process recorded no kernel)
+        time.sleep(0.25)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.25)
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("head_dim", [64, D])
+def test_attention_calls_launch_the_tile_their_dtype_selects(card, dtype, head_dim):
+    # bf16 at head_dim 64/128 must reach the tensor-core (wgmma) kernels,
+    # f32 the FMA tile: read from the kernel names the profiler records
+    q, do = _rand((1, 256, 8, head_dim), dtype, card), _rand((1, 256, 8, head_dim), dtype, card)
+    k, v = _rand((1, 256, 2, head_dim), dtype, card), _rand((1, 256, 2, head_dim), dtype, card)
+    lse = attention._fwd_reference_with_lse(q, k, v)[1]
+    delta = torch.zeros_like(lse)
+    calls = {
+        "flash_attention": ("flash_attention", lambda: ops.flash_attention(q, k, v)),
+        "flash_attention_with_lse": ("flash_attention",
+                                     lambda: ops.flash_attention_with_lse(q, k, v)),
+        "flash_attention_bwd_dq": ("flash_attention_bwd_dq",
+                                   lambda: ops.flash_attention_bwd_dq(q, k, v, do, lse, delta)),
+    }
+    for name, (op, fn) in calls.items():
+        want = attention.kernel_symbol(op, dtype, head_dim)
+        assert ("wgmma" in want) == (dtype == torch.bfloat16)
+        other = want.replace("wgmma", "fma") if "wgmma" in want else want.replace("fma", "wgmma")
+        names = _cuda_kernel_names(fn)
+        assert any(want in n for n in names), (name, want, names)
+        assert not any(other in n for n in names), (name, other, names)
 
 
 def test_backward_wrappers_refuse_what_the_kernels_cannot_take(card, dtype):
