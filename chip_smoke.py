@@ -16,10 +16,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      call computing the same function where one exists;
      K2 also with its lse output, and the backward kernels K3 (dq) and K4
      (dk, dv) at the training shape (llama-2b: B=4, T=2048, 20/5 heads of
-     128), at a ragged T and at g = 1; K7 (speculative verify attention) at
+     128), at a ragged T and at g = 1; K5 (split-KV decode) at the
+     engine's batch and at its edges: one sequence of 1024 keys, lengths at
+     split boundaries +- 1, lengths past the table, g = 1 and g = 8, and
+     two calls back to back; K7 (speculative verify attention) at
      the engine's span (B=8, S=5) and at S = 1 (where it must also equal
      K5), S = 2, S = 65, g = 1, inactive slots and a span past the table.
-     First, at every K2 and K3 shape, a profiler pass around one launch
+     First, at every K2, K3 and K4 shape, a profiler pass around one launch
      must show the kernel that (dtype, head_dim) selects: the tensor-core
      (wgmma) tile for bf16, the FMA tile for f32 (tile_identity_checks);
   3. the serving path: LLMServer serving llama3-8b at full width and depth
@@ -73,6 +76,12 @@ The second-to-last line of stdout is {"kernels": [...]} (seven kernels,
 launches by path: serve, spec, train), the last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --ab DIR   # kernel variants side by side
+
+builds the kernels of this checkout and those of DIR (a changed copy of
+ray_tpu_torch/csrc), checks both, times K4 and K5 with each in turns in
+one process (ab_compare), and prints no result line.
 """
 
 from __future__ import annotations
@@ -272,8 +281,8 @@ def launched_kernels(fn) -> list:
 
 def tile_identity_checks(gen) -> None:
     """A profiler pass around one launch of K2 (without lse at the serving
-    shapes, with lse at the training shapes) and of K3 (training shapes),
-    in f32 and bf16: each must show the kernel that (dtype, head_dim)
+    shapes, with lse at the training shapes) and of K3 and K4 (training
+    shapes), in f32 and bf16: each must show the kernel that (dtype, head_dim)
     selects (check_tile). Run first in phase 2, on inputs of its own."""
     from ray_tpu_torch.ops import attention
 
@@ -301,7 +310,9 @@ def tile_identity_checks(gen) -> None:
                             lambda: attention.flash_attention_with_lse(q, k, v))
             k3 = check_tile(f"K3 {tag} {shape}", "flash_attention_bwd_dq", dtype, D,
                             lambda: attention.flash_attention_bwd_dq(q, k, v, do, lse, lse))
-            log(f"tile K2+lse {tag} {shape}: {k2}; K3: {k3}")
+            k4 = check_tile(f"K4 {tag} {shape}", "flash_attention_bwd_dkv", dtype, D,
+                            lambda: attention.flash_attention_bwd_dkv(q, k, v, do, lse, lse))
+            log(f"tile K2+lse {tag} {shape}: {k2}; K3: {k3}; K4: {k4}")
             del do, lse
         del q, k, v
     torch.cuda.empty_cache()
@@ -394,15 +405,49 @@ def kernel_checks(gen) -> dict:
         ms = device_ms(lambda: paged_attention.paged_attention_decode(q, kp, vp, table, lengths))
         plain = device_ms(lambda: paged_attention._paged_reference(q, kp, vp, table, lengths,
                                                                  hd ** -0.5))
-        keys = int(lengths.sum())
-        bnd, by = bound_ms((2 * q.numel() + 2 * keys * KVH * hd) * el + 4 * (table.numel() + B),
-                           4 * keys * H * hd, dtype)
+        bnd, by = decode_bound(q, kp, table, lengths)
         log(f"K5 paged_attention_decode {tag} B={B} lengths {lengths.tolist()}: "
             f"max_err {err:.3e} (tol {TOL[('attention', dtype)]}) ms {ms:.4f} plain {plain:.4f} "
             f"bound {bnd:.4f} ({by})")
         if dtype == torch.bfloat16:
             out["paged_attention_decode"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                                  bound_ms=bnd, bound_by=by, library_ms=None)
+        # K5's edges, beside the engine's batch: K5 cuts each sequence into
+        # splits of DECODE_SPLIT_KEYS keys (128) and merges them on the card.
+        # name -> (kv heads, q heads, lengths); a table of 64 pages of 16
+        ctx = pps * ps
+        decode_edges = {
+            "B=1 length 1024": (KVH, H, [1024]),
+            "split edges +-1": (KVH, H, [127, 128, 129, 255, 256, 257, 0, 895]),
+            "past the table": (KVH, H, [ctx + 1, 5000, ctx, ctx - 1, 0, 2, 700, 1500]),
+            "g=1": (KVH, KVH, lengths.tolist()),
+            "g=8": (KVH // 2, H, lengths.tolist()),
+        }
+        for name, (KVHe, He, lens) in decode_edges.items():
+            le = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            te = table[:len(lens)].contiguous()
+            qe = rnd((len(lens), He, hd), dtype)
+            kpe, vpe = kp[:KVHe].contiguous(), vp[:KVHe].contiguous()
+            got = paged_attention.paged_attention_decode(qe, kpe, vpe, te, le)
+            want = paged_attention._paged_reference(qe, kpe, vpe, te, le, hd ** -0.5)
+            err = check_close(f"paged_attention_decode {name}", "attention", dtype, got, want)
+            if bool(got[le == 0].float().abs().sum() != 0):
+                fail(f"paged_attention_decode {name}: a length-0 slot must give zeros")
+            ms = device_ms(lambda: paged_attention.paged_attention_decode(qe, kpe, vpe, te, le))
+            bnd, by = decode_bound(qe, kpe, te, le)
+            log(f"K5 paged_attention_decode {tag} {name}: max_err {err:.3e} ms {ms:.4f} "
+                f"bound {bnd:.4f} ({by})")
+        # two calls back to back on one stream with other lengths: the
+        # second call's workspace is the first's, returned to the allocator
+        la = torch.tensor([1024, 0, 129, 5, 333, 1, 640, 1023], dtype=torch.int32, device="cuda")
+        lb = torch.tensor([1, 1024, 0, 300, 128, 900, 17, 256], dtype=torch.int32, device="cuda")
+        a = paged_attention.paged_attention_decode(q, kp, vp, table, la)
+        b = paged_attention.paged_attention_decode(q, kp, vp, table, lb)
+        err = max(check_close("paged_attention_decode back to back (1)", "attention", dtype, a,
+                              paged_attention._paged_reference(q, kp, vp, table, la, hd ** -0.5)),
+                  check_close("paged_attention_decode back to back (2)", "attention", dtype, b,
+                              paged_attention._paged_reference(q, kp, vp, table, lb, hd ** -0.5)))
+        log(f"K5 paged_attention_decode {tag} two calls back to back: max_err {err:.3e}")
 
         # K6: the chunks of a 700-token prompt (C = 256, starts 0/256/512)
         C = 256
@@ -477,6 +522,16 @@ def kernel_checks(gen) -> dict:
             log(f"K7 paged_attention_verify {tag} {name}: max_err {err:.3e}")
     torch.cuda.synchronize()
     return out
+
+
+def decode_bound(q, k_pages, table, lengths) -> tuple:
+    """K5's bound: q and o once, each sequence's live K/V rows (up to the
+    table's end) once per kv head, the table and lengths once."""
+    ctx = table.shape[1] * k_pages.shape[2]
+    keys = int(lengths.clamp(max=ctx).sum())
+    KVH, hd, el = k_pages.shape[0], k_pages.shape[3], k_pages.element_size()
+    return bound_ms((2 * q.numel() + 2 * keys * KVH * hd) * el
+                    + 4 * (table.numel() + lengths.numel()), 4 * keys * q.shape[1] * hd, q.dtype)
 
 
 def training_kernel_checks(gen) -> dict:
@@ -564,8 +619,10 @@ def training_kernel_checks(gen) -> dict:
             log(f"K3 flash_attention_bwd_dq {tag} {shape} [{tile_dq}]: max_err {err_dq:.3e} "
                 f"ms {ms_dq:.4f} plain {plain_dq:.4f} bound {bnd_dq:.4f} ({by_dq}); "
                 f"SDPA backward (dq+dk+dv) {lib:.4f} (kernel / sdpa {ms_dq / lib:.2f})")
-            log(f"K4 flash_attention_bwd_dkv {tag} {shape}: max_err {err_dkv:.3e} "
+            tile_dkv = attention.kernel_symbol("flash_attention_bwd_dkv", dtype, D)
+            log(f"K4 flash_attention_bwd_dkv {tag} {shape} [{tile_dkv}]: max_err {err_dkv:.3e} "
                 f"ms {ms_dkv:.4f} plain {plain_dkv:.4f} bound {bnd_dkv:.4f} ({by_dkv}); "
+                f"SDPA backward (dq+dk+dv) {lib:.4f} (kernel / sdpa {ms_dkv / lib:.2f}); "
                 f"K3+K4 {ms_dq + ms_dkv:.4f}")
             if dtype == torch.bfloat16 and main:
                 out["flash_attention_lse"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
@@ -575,7 +632,7 @@ def training_kernel_checks(gen) -> dict:
                     bound_by=by_dq, library_ms=lib)
                 out["flash_attention_bwd_dkv"] = dict(
                     max_abs_err=err_dkv, ms=ms_dkv, plain_ms=plain_dkv, bound_ms=bnd_dkv,
-                    bound_by=by_dkv, library_ms=None)
+                    bound_by=by_dkv, library_ms=lib)
             del q, k, v, do, o, lse, delta
             torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -1373,11 +1430,79 @@ def train_main_path(card: str, profile: bool) -> dict:
     return {"launches": launches}
 
 
+def ab_compare(variant_csrc: str, card: str) -> None:
+    """Kernel variants side by side in one process: the kernel library of
+    this checkout (A) and one built from `variant_csrc` (B, a copy of
+    ray_tpu_torch/csrc with one change), each checked against the plain
+    version, then timed in turns A B B A: K4 at the training shape and K5 at
+    the engine's batch and at one sequence of 1024 keys, bf16."""
+    from pathlib import Path
+
+    from ray_tpu_torch.ops import attention, dispatch, paged_attention
+
+    lib_a = dispatch.library()
+    saved = dispatch.CSRC_DIR, dispatch.BUILD_ROOT
+    dispatch.CSRC_DIR = Path(variant_csrc).resolve()
+    dispatch.BUILD_ROOT = dispatch.CSRC_DIR.parent / "_build"
+    try:
+        lib_b = dispatch.load(dispatch.build())
+    finally:
+        dispatch.CSRC_DIR, dispatch.BUILD_ROOT = saved
+    with open(dispatch.BUILD_INFO["log"]) as f:
+        for name, res in ptxas_report(f.read()).items():
+            log(f"  B {name}: {res.get('registers', '?')} registers, spill stores "
+                f"{res.get('spill_stores', '?')} B")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = torch.bfloat16
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    B, T, H, KVH, D = 4, 2048, 20, 5, 128
+    q, do, k, v = rnd((B, T, H, D)), rnd((B, T, H, D)), rnd((B, T, KVH, D)), rnd((B, T, KVH, D))
+    o, lse = attention._fwd_reference_with_lse(q, k, v)
+    delta = attention._attention_delta(o, do)
+    want_dkv = attention._dkv_reference(q, k, v, do, lse, delta)
+    kp, vp = rnd((8, 512, 16, 128)), rnd((8, 512, 16, 128))
+    table = torch.randint(1, 512, (8, 64), generator=gen, device="cuda", dtype=torch.int32)
+    q8, q1 = rnd((8, 32, 128)), rnd((1, 32, 128))
+    l8 = torch.tensor([0, 1, 17, 100, 333, 700, 1000, 1024], dtype=torch.int32, device="cuda")
+    l1 = torch.tensor([1024], dtype=torch.int32, device="cuda")
+    t1 = table[:1].contiguous()
+    calls = {
+        "K4 B=4 T=2048 H=20/5": (
+            lambda: attention.flash_attention_bwd_dkv(q, k, v, do, lse, delta), want_dkv),
+        "K5 B=8 lengths 0..1024": (
+            lambda: paged_attention.paged_attention_decode(q8, kp, vp, table, l8),
+            paged_attention._paged_reference(q8, kp, vp, table, l8, 128 ** -0.5)),
+        "K5 B=1 length 1024": (
+            lambda: paged_attention.paged_attention_decode(q1, kp, vp, t1, l1),
+            paged_attention._paged_reference(q1, kp, vp, t1, l1, 128 ** -0.5)),
+    }
+    for name, (fn, want) in calls.items():
+        times = {"A": [], "B": []}
+        for which in "ABBA":
+            dispatch._lib = lib_a if which == "A" else lib_b
+            got = fn()
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                check_close(f"{name} ({which})", "attention", dt, g, w)
+            times[which].append(device_ms(fn, 5, 3))
+        dispatch._lib = lib_a
+        log(f"A/B {name}: A {[round(t, 4) for t in times['A']]} ms, "
+            f"B {[round(t, 4) for t in times['B']]} ms ({card})")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="after each path, serve a burst again / take one more "
                          "training step under torch.profiler")
+    ap.add_argument("--ab", metavar="CSRC",
+                    help="only build and check the kernels, then time K4 and K5 with this "
+                         "checkout's kernels and with those built from CSRC (a changed copy "
+                         "of ray_tpu_torch/csrc), in turns; prints no result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1409,6 +1534,9 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.ab:
+        ab_compare(args.ab, card)
+        return
     gen = torch.Generator(device="cuda").manual_seed(0)
     tile_identity_checks(gen)
     figures = kernel_checks(gen)

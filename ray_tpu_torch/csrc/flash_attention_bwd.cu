@@ -18,10 +18,12 @@
 // dq [B, Tq, H, D] and dk, dv [B, Tk, KVH, D] written contiguous in the input
 // dtype. Any Tq, Tk: ragged tiles are masked. All sums are f32.
 //
-// Which K3 runs is decided by (dtype, D) alone:
-//   bf16, D in {64, 128}: flash_bwd_dq_wgmma_kernel, on the tensor cores;
-//   f32, or any other D:  flash_bwd_dq_fma_kernel, on the FMA pipes.
-// K4 (flash_bwd_dkv_kernel) runs on the FMA pipes for every dtype.
+// Which kernel runs is decided by (dtype, D) alone, for K3 and K4 alike:
+//   bf16, D in {64, 128}: flash_bwd_dq_wgmma_kernel / flash_bwd_dkv_wgmma_kernel,
+//                         on the tensor cores;
+//   f32, or any other D:  flash_bwd_dq_fma_kernel / flash_bwd_dkv_fma_kernel,
+//                         on the FMA pipes (4x4 register tiles over f32
+//                         shared memory).
 //
 // flash_bwd_dq_wgmma_kernel<D>: K2's tensor-core skeleton
 // (flash_attention.cu, wgmma.cuh) for one warpgroup of 128 threads owning
@@ -38,13 +40,28 @@
 // through the Q tile in 16-byte stores. (Two warpgroups sharing a 128-row
 // tile, as K2 does, ran slower at the training shape on the H100.)
 //
-// What bounds them: K3 on the tensor cores does 6 B H D T^2 / 2
-// operations at the training shape (bound 0.130 ms); like K2 it runs its
-// products and the elementwise work of a warpgroup one after the other.
-// K4 still runs on the FMA pipes (4 x 64 x 64 x D multiply-adds per tile
-// pair) fed from f32 shared memory by a 4x4 register tile, one CTA of 256
-// threads per SM (150-166 KB of shared memory): it is the next to move to
-// the tensor cores.
+// flash_bwd_dkv_wgmma_kernel<D>: the same skeleton with the roles
+// swapped. One warpgroup owns 64 keys (wgmma M = keys), two CTAs to an
+// SM; its K and V tiles stay resident, and the (q head of the group, q tile) pairs at and below
+// the diagonal stream through a two-stage cp.async ring whose stages hold
+// Q, dO and the tile's lse and delta (64 f32 each). Per stage it issues
+// S^T = K Q^T and dP^T = V dO^T as SS wgmma in one group, forms P^T on the
+// fragments (lse indexes the fragment's columns, so it is read from the
+// stage, not held per thread) and dS^T = P^T (dP^T - delta) scale, packs
+// both to bf16 as register-A operands, and issues dV += P^T dO and
+// dK += dS^T Q in one group; both read dO and Q MN-major from the bytes
+// S^T and dP^T read K-major, and one wait ends the stage. Masking
+// runs only on stages that cross the diagonal, the ragged key end or the
+// end of Tq. The GQA sum stays in the f32 accumulators; dK and dV go out in
+// bf16 through the K and V tiles in 16-byte stores. The grid runs key tile
+// 0, which sees the most q tiles, first. (Two warpgroups of 64 keys
+// sharing one ring ran slower on the H100; PERF.md.)
+//
+// What bounds them: on the tensor cores K3 does 6 B H D T^2 / 2 and K4
+// 8 B H D T^2 / 2 operations at the training shape (bounds 0.130 and
+// 0.174 ms); like K2, each warpgroup runs its products and the elementwise
+// work one after the other, so the elementwise work does not hide under
+// the products.
 
 #include "attention_tile.cuh"
 #include "wgmma.cuh"
@@ -190,7 +207,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dkv_kernel(const T* q, const T* k, const T* v, const T* dout, const float* lse,
+    flash_bwd_dkv_fma_kernel(const T* q, const T* k, const T* v, const T* dout, const float* lse,
                          const float* delta, T* dk, T* dv, int Tq, int Tk, int H, int KVH, int D,
                          long long q_sb, long long q_st, long long q_sh, long long kv_sb,
                          long long kv_st, long long kv_sh, int causal, float scale) {
@@ -469,6 +486,203 @@ cudaError_t launch_dq_wgmma(cudaStream_t s, const void* q, const void* k, const 
   return cudaSuccess;
 }
 
+// ----------------------------------------- K4 on the tensor cores (bf16, D 64/128)
+
+template <int D>
+struct DkvLayout {
+  static constexpr int kRows = 64;                // q rows per stage
+  static constexpr uint32_t kKV = kKeys * D * 2;  // the K or the V tile
+  static constexpr uint32_t kQ = kRows * D * 2;   // a stage's Q or dO tile
+  // Q, dO, then lse and delta (64 f32 each), padded to keep 1024-B tiles
+  static constexpr uint32_t kStage = 2 * kQ + 1024;
+  static constexpr size_t kSmem = 2 * kKV + 2 * kStage;  // K, V, a ring of two stages
+};
+
+template <int D>
+__global__ void __launch_bounds__(128, 2)
+    flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk,
+                               int H, int KVH, long long q_sb, long long q_st, long long q_sh,
+                               long long kv_sb, long long kv_st, long long kv_sh, int causal,
+                               float scale) {
+  namespace tc = rtt::tc;
+  using L = DkvLayout<D>;
+  constexpr int kRows = L::kRows, kThreads = 128, kBlk = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = tc::aligned_smem(smem_raw);
+  const uint32_t sK = tc::smem_u32(smem), sV = sK + L::kKV, sRing = sV + L::kKV;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // grid (KVH, B, key tiles): key tile 0, which sees the most q tiles,
+  // for every (kv head, sequence) first
+  const int kvh = blockIdx.x, b = blockIdx.y, g = H / KVH;
+  const int k0 = blockIdx.z * kKeys;  // the CTA's keys [k0, k0 + 64)
+  const Rows kvrows{kv_sb, kv_st, kv_sh, b, kvh};
+
+  // under causal masking, rows before k0 see none of the tile's keys; the
+  // (q head of the group, q tile) pairs stream through a two-stage ring
+  const int qt_first = causal ? k0 / kRows : 0;
+  const int n_qt = max(0, (Tq + kRows - 1) / kRows - qt_first);
+  const int n_it = g * n_qt;
+  const auto load_stage = [&](int it) {
+    const int hq = kvh * g + it / n_qt, q0 = (qt_first + it % n_qt) * kRows;
+    const uint32_t st = sRing + (it & 1) * L::kStage;
+    const Rows qrows{q_sb, q_st, q_sh, b, hq};
+    tc::load_tile<kRows, D, kThreads>(st, q, qrows, q0, Tq, tid);
+    tc::load_tile<kRows, D, kThreads>(st + L::kQ, dout, qrows, q0, Tq, tid);
+    if (tid < 2 * kRows) {  // lse then delta of the tile's rows; rows past Tq read 0
+      const int t = q0 + (tid & (kRows - 1));
+      const float* src = tid < kRows ? lse : delta;
+      const bool valid = t < Tq;
+      tc::cp_async4(st + 2 * L::kQ + 4 * tid,
+                    valid ? src + (static_cast<size_t>(b) * H + hq) * Tq + t : src, valid);
+    }
+  };
+  // copy groups: {K, V, stage 0}, then per iteration {stage it + 1}
+  tc::load_tile<kKeys, D, kThreads>(sK, k, kvrows, k0, Tk, tid);
+  tc::load_tile<kKeys, D, kThreads>(sV, v, kvrows, k0, Tk, tid);
+  if (n_it > 0) load_stage(0);
+  tc::cp_async_commit();
+
+  float dk_acc[kBlk][32], dv_acc[kBlk][32];
+#pragma unroll
+  for (int blk = 0; blk < kBlk; ++blk)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[blk][i] = dv_acc[blk][i] = 0.f;
+  const float sc2 = scale * tc::kLog2e;
+  // accumulator value i: key key_lo + 8 ((i / 2) % 2), q row
+  // q0 + 8 (i / 4) + col0 + i % 2 (wgmma.cuh): the keys are M, the rows N
+  const int key_lo = k0 + 16 * warp + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+
+  for (int it = 0; it < n_it; ++it) {
+    const uint32_t st = sRing + (it & 1) * L::kStage;
+    if (it + 1 < n_it) {
+      load_stage(it + 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    tc::fence_async_proxy();
+    __syncthreads();  // stage it (and K, V) in shared memory for every thread
+
+    const int q0 = (qt_first + it % n_qt) * kRows;
+    const uint32_t sQ = st, sdO = st + L::kQ;
+    const float* lse_s = reinterpret_cast<const float*>(smem + (st - sK) + 2 * L::kQ);
+    const float* dl_s = lse_s + kRows;
+    float s[32], dp[32];
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      tc::wgmma_ss(s, tc::desc_k<kKeys>(sK, 0, kk), tc::desc_k<kRows>(sQ, 0, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      tc::wgmma_ss(dp, tc::desc_k<kKeys>(sV, 0, kk), tc::desc_k<kRows>(sdO, 0, kk), kk);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(s);
+    tc::fence_regs(dp);
+
+    // P^T = exp2(S^T scale log2(e) - lse log2(e)), the reference's formula
+    // (a masked score is -2e30 before exp); lse indexes the columns
+    const bool edge = k0 + kKeys > Tk || q0 + kRows > Tq || (causal && k0 + kKeys - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 ls = *reinterpret_cast<const float2*>(lse_s + 8 * j + col0);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hh + e;
+          const float lg = (e ? ls.y : ls.x) * tc::kLog2e;
+          float t = s[i] * sc2;
+          if (edge) {
+            const int key = key_lo + 8 * hh, row = q0 + 8 * j + col0 + e;
+            if (key >= Tk || (causal && key > row)) t = kNegInf * tc::kLog2e;
+            s[i] = row < Tq ? tc::exp2_approx(t - lg) : 0.f;
+          } else {
+            s[i] = tc::exp2_approx(t - lg);
+          }
+        }
+    }
+    // dS^T = P^T (dP^T - delta) scale; then dV += P^T dO and dK += dS^T Q
+    // in one group, reading dO and Q MN-major from the bytes S^T and dP^T
+    // read K-major (issuing dV before forming dS^T ran no faster and left
+    // ptxas 8 bytes of spills; PERF.md)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dl = *reinterpret_cast<const float2*>(dl_s + 8 * j + col0);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hh + e;
+          dp[i] = s[i] * (dp[i] - (e ? dl.y : dl.x)) * scale;
+        }
+    }
+    uint32_t ap[4][4], as[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      tc::a_fragment(s, kk, ap[kk]);
+      tc::a_fragment(dp, kk, as[kk]);
+    }
+    tc::wgmma_fence();
+#pragma unroll
+    for (int blk = 0; blk < kBlk; ++blk)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tc::wgmma_rs_mn(dv_acc[blk], ap[kk], tc::desc_mn<kRows>(sdO, blk, kk));
+#pragma unroll
+    for (int blk = 0; blk < kBlk; ++blk)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tc::wgmma_rs_mn(dk_acc[blk], as[kk], tc::desc_mn<kRows>(sQ, blk, kk));
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+#pragma unroll
+    for (int blk = 0; blk < kBlk; ++blk) {
+      tc::fence_regs(dv_acc[blk]);
+      tc::fence_regs(dk_acc[blk]);
+    }
+    __syncthreads();  // every thread is done with stage it & 1
+  }
+
+  // dK and dV in bf16 through the K and V tiles, 16-byte stores (no copy
+  // is in flight and no product reads the tiles any more)
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  const float one[2] = {1.f, 1.f};
+  tc::stage_rows<kKeys, kBlk>(smem, 0, dk_acc, one, warp, lane);
+  tc::stage_rows<kKeys, kBlk>(smem + L::kKV, 0, dv_acc, one, warp, lane);
+  __syncthreads();
+  const auto out_row = [&](int t) {
+    return (static_cast<size_t>(b) * Tk + t) * KVH * D + static_cast<size_t>(kvh) * D;
+  };
+  tc::store_tile<kKeys, D, kThreads>(smem, dk, out_row, k0, Tk, tid);
+  tc::store_tile<kKeys, D, kThreads>(smem + L::kKV, dv, out_row, k0, Tk, tid);
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma(cudaStream_t s, const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse, const void* delta, void* dk,
+                             void* dv, int B, int Tq, int Tk, int H, int KVH, long long q_sb,
+                             long long q_st, long long q_sh, long long kv_sb, long long kv_st,
+                             long long kv_sh, int causal, float scale) {
+  const size_t smem = rtt::tc::smem_bytes(DkvLayout<D>::kSmem);
+  cudaError_t err = rtt::allow_smem(flash_bwd_dkv_wgmma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(KVH, B, (Tk + kKeys - 1) / kKeys);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, 128, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq, Tk,
+      H, KVH, q_sb, q_st, q_sh, kv_sb, kv_st, kv_sh, causal, scale);
+  return cudaSuccess;
+}
+
 bool bwd_args_ok(int B, int Tq, int Tk, int H, int KVH, int D) {
   return B > 0 && Tq > 0 && Tk > 0 && KVH > 0 && H % KVH == 0 && D > 0 && D <= kMaxD;
 }
@@ -521,15 +735,28 @@ extern "C" int rtt_flash_attention_bwd_dkv(const void* q, const void* k, const v
                                            void* stream) {
   if (!bwd_args_ok(B, Tq, Tk, H, KVH, D)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == rtt::kBF16 && (D == 64 || D == 128)) {  // the tensor-core tile
+    if (!rtt::kv_layout_ok<bf16>(k, v, D, kv_sb, kv_st, kv_sh) ||
+        !rtt::kv_layout_ok<bf16>(q, dout, D, q_sb, q_st, q_sh) || B > 65535 ||
+        (Tk + 63) / 64 > 65535)
+      return cudaErrorInvalidValue;
+    cudaError_t err =
+        D == 64 ? launch_dkv_wgmma<64>(s, q, k, v, dout, lse, delta, dk, dv, B, Tq, Tk, H, KVH,
+                                         q_sb, q_st, q_sh, kv_sb, kv_st, kv_sh, causal, scale)
+                : launch_dkv_wgmma<128>(s, q, k, v, dout, lse, delta, dk, dv, B, Tq, Tk, H, KVH,
+                                          q_sb, q_st, q_sh, kv_sb, kv_st, kv_sh, causal, scale);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
   const size_t smem = dkv_smem_bytes(D);
   const dim3 grid((Tk + kK - 1) / kK, KVH, B);
   RTT_DISPATCH_DTYPE(dtype, T, {
     if (!rtt::kv_layout_ok<T>(k, v, D, kv_sb, kv_st, kv_sh) ||
         !rtt::kv_layout_ok<T>(q, dout, D, q_sb, q_st, q_sh))
       return cudaErrorInvalidValue;
-    cudaError_t err = rtt::allow_smem(flash_bwd_dkv_kernel<T>, smem);
+    cudaError_t err = rtt::allow_smem(flash_bwd_dkv_fma_kernel<T>, smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dkv_kernel<T><<<grid, kThreads, smem, s>>>(
+    flash_bwd_dkv_fma_kernel<T><<<grid, kThreads, smem, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), Tq, Tk, H,

@@ -1,6 +1,7 @@
 // Hopper tensor-core tools for the attention kernels K2 (flash_attention.cu)
-// and K3 (flash_attention_bwd.cu): bf16 tiles in 128-byte-swizzled shared
-// memory filled by 16-byte cp.async copies, the wgmma matrix descriptors
+// and K3/K4 (flash_attention_bwd.cu): bf16 tiles in 128-byte-swizzled shared
+// memory filled by 16-byte cp.async copies (K5 in paged_attention.cu uses
+// the cp.async helpers alone), the wgmma matrix descriptors
 // that name that swizzle, and the warpgroup instruction
 // wgmma.mma_async.m64n64k16.f32.bf16.bf16 with both operands in shared
 // memory (SS) or A in registers (RS). Everything here is inline PTX; no
@@ -54,6 +55,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
   // src-size 0 writes 16 zero bytes and reads nothing
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+// one f32 (or 4 bytes) by cp.async; src-size 0 writes a zero
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

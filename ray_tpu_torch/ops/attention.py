@@ -15,7 +15,7 @@ runs the kernels' plain versions (`_fwd_reference_with_lse`,
 `_dq_reference`, `_dkv_reference`), which compute the flash-2 formulas
 directly, not through autograd of `mha_reference`.
 
-On the card K2 and K3 run on the tensor cores (wgmma) for bf16 with
+On the card K2, K3 and K4 run on the tensor cores (wgmma) for bf16 with
 head_dim 64 or 128 and on the FMA pipes otherwise; `kernel_symbol` names
 the kernel a call launches.
 """
@@ -30,7 +30,7 @@ from . import dispatch
 
 _NEG_INF = -2.0e30
 _MAX_HEAD_DIM = 128  # csrc/attention_tile.cuh kTileMaxD
-_TENSOR_CORE_HEAD_DIMS = (64, 128)  # the bf16 head dims K2 and K3 run on wgmma
+_TENSOR_CORE_HEAD_DIMS = (64, 128)  # the bf16 head dims K2, K3 and K4 run on wgmma
 
 
 def _scores(q, k, causal, scale):
@@ -179,9 +179,10 @@ def kernel_symbol(op: str, dtype: torch.dtype, head_dim: int) -> str:
     of this dtype and head_dim, as a profiler shows it: the tensor-core tile
     (wgmma) for bf16 with head_dim 64 or 128, the FMA tile otherwise
     (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu). `op` is
-    "flash_attention" (K2, with or without lse) or "flash_attention_bwd_dq"
-    (K3)."""
-    stem = {"flash_attention": "flash_fwd", "flash_attention_bwd_dq": "flash_bwd_dq"}[op]
+    "flash_attention" (K2, with or without lse), "flash_attention_bwd_dq"
+    (K3) or "flash_attention_bwd_dkv" (K4)."""
+    stem = {"flash_attention": "flash_fwd", "flash_attention_bwd_dq": "flash_bwd_dq",
+            "flash_attention_bwd_dkv": "flash_bwd_dkv"}[op]
     tile = ("wgmma" if dtype == torch.bfloat16 and head_dim in _TENSOR_CORE_HEAD_DIMS
             else "fma")
     return f"{stem}_{tile}_kernel"

@@ -56,7 +56,7 @@ _SIGNATURES = {
                                    _LL, _LL, _LL, _LL, _LL, _LL, _I, _F, _I, _P),
     "rtt_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     _LL, _LL, _LL, _LL, _LL, _LL, _I, _F, _I, _P),
-    "rtt_paged_attention_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    "rtt_paged_attention_decode": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
                                    _I, _I, _I, _F, _I, _P),
     "rtt_paged_attention_chunk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _F, _I, _P),
@@ -200,6 +200,18 @@ def build() -> Path:
     return lib_path
 
 
+def load(path) -> ctypes.CDLL:
+    """A built kernel library with its entry points' signatures set."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.rtt_error_string.argtypes = [ctypes.c_int]
+    lib.rtt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
     global _lib
@@ -207,14 +219,7 @@ def library() -> ctypes.CDLL:
         return _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            lib.rtt_error_string.argtypes = [ctypes.c_int]
-            lib.rtt_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = load(build())
         return _lib
 
 

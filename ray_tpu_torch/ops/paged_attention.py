@@ -6,7 +6,9 @@ k_pages / v_pages [KVH, num_pages, page_size, D]; the engine passes one
 layer's slice of its [L, KVH, P, ps, D] pool, which the kernels read in
 place. Decode (K5) attends one query per sequence, chunk (K6) one
 sequence's prefill chunk, verify (K7) a span of S = k + 1 speculative rows
-per sequence.
+per sequence. K5 splits each sequence's keys over CTAs and merges the
+splits on the card (`_paged_split_reference` spells out that arithmetic
+for the tests).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from . import dispatch
 from .attention import _MAX_HEAD_DIM
 
 _NEG_INF = -2.0e30
+DECODE_SPLIT_KEYS = 128  # keys per split of K5, csrc/paged_attention.cu kSplitKeys
 
 
 def _masked_softmax_values(s: torch.Tensor, mask: torch.Tensor, v: torch.Tensor,
@@ -46,6 +49,48 @@ def _paged_reference(q, k_pages, v_pages, page_table, lengths, scale):
     mask = torch.arange(ctx, device=q.device)[None, :] < lengths.long()[:, None]
     o = _masked_softmax_values(s, mask[:, None, None, :], vg, "bcgt,bctd->bcgd")
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def _paged_split_reference(q, k_pages, v_pages, page_table, lengths, scale,
+                           split_keys: int = None):
+    """K5's split-and-merge arithmetic in plain PyTorch (used by tests only;
+    `_paged_reference` is the plain version the wrapper runs). Each
+    sequence's keys [0, pps * ps) are cut into splits of `split_keys`; a
+    split with a live key (below min(lengths[b], pps * ps)) gives the
+    unnormalised O_i, its max m_i and its sum l_i in f32, and the merge is
+    o = sum e^(m_i - M) O_i / sum e^(m_i - M) l_i over the live splits;
+    none live gives 0. q [B, H, D] -> o [B, H, D]."""
+    split_keys = split_keys or DECODE_SPLIT_KEYS
+    B, H, D = q.shape
+    KVH, _, page_size, _ = k_pages.shape
+    g = H // KVH
+    ctx = page_table.shape[1] * page_size
+    n_split = -(-ctx // split_keys)
+    table = page_table.long()
+    kg = k_pages[:, table].transpose(0, 1).reshape(B, KVH, ctx, D).float()
+    vg = v_pages[:, table].transpose(0, 1).reshape(B, KVH, ctx, D).float()
+    s = torch.einsum("bcgd,bctd->bcgt", q.reshape(B, KVH, g, D).float(), kg) * scale
+    live = torch.arange(ctx, device=q.device)[None, :] < lengths.long().clamp(max=ctx)[:, None]
+    pad = n_split * split_keys - ctx  # the last split may end past the table
+    s = torch.nn.functional.pad(s, (0, pad), value=_NEG_INF)
+    vg = torch.nn.functional.pad(vg, (0, 0, 0, pad))
+    live = torch.nn.functional.pad(live, (0, pad))[:, None, None, :]
+    s = torch.where(live, s, torch.full_like(s, _NEG_INF))
+    # [B, KVH, g, splits, keys]
+    s = s.reshape(B, KVH, g, n_split, split_keys)
+    live = live.reshape(B, 1, 1, n_split, split_keys)
+    m = s.amax(dim=-1)
+    p = torch.where(live, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    o = torch.einsum("bcgnt,bcntd->bcgnd", p, vg.reshape(B, KVH, n_split, split_keys, D))
+    split_live = live.any(dim=-1)  # [B, 1, 1, splits]
+    big_m = torch.where(split_live, m, torch.full_like(m, _NEG_INF)).amax(dim=-1, keepdim=True)
+    w = torch.where(split_live, torch.exp(m - big_m), torch.zeros_like(m))
+    den = (w * l).sum(dim=-1)
+    num = (w[..., None] * o).sum(dim=-2)
+    out = torch.where(den[..., None] > 0, num / torch.where(den > 0, den, 1.0)[..., None],
+                      torch.zeros_like(num))
+    return out.reshape(B, H, D).to(q.dtype)
 
 
 def _chunk_reference(q, k_pages, v_pages, page_table, start, total, scale):
@@ -128,14 +173,19 @@ def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
         raise ValueError("paged_attention_decode: lengths must be contiguous int32 "
                          "[B] and page_table [B, pages_per_seq]")
     KVH, P, ps, _ = k_pages.shape
+    pps = page_table.shape[1]
     o = torch.empty_like(q)
     if B == 0:
         return o
+    # the splits' f32 partials (O, then m and l); the host knows their
+    # number without reading lengths, which stay on the card
+    n_split = -(-pps * ps // DECODE_SPLIT_KEYS)
+    ws = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32, device=q.device)
     dispatch.launch(
         "paged_attention_decode", "rtt_paged_attention_decode", q.device,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-        lengths.data_ptr(), o.data_ptr(),
-        B, H, KVH, D, P, ps, page_table.shape[1], float(scale), dispatch.dtype_code(q))
+        lengths.data_ptr(), o.data_ptr(), ws.data_ptr(), ws.numel(),
+        B, H, KVH, D, P, ps, pps, float(scale), dispatch.dtype_code(q))
     return o
 
 

@@ -93,14 +93,49 @@ def test_attention_wrappers_refuse_unaligned_kv(card, dtype):
     assert dispatch.launch_counts() == before
 
 
-def test_paged_decode(card, dtype):
-    kp, vp = _rand((2, 40, 16, D), dtype, card), _rand((2, 40, 16, D), dtype, card)
-    q = _rand((4, 8, D), dtype, card)
-    table = torch.randint(1, 40, (4, 8), device=card, dtype=torch.int32)
-    lengths = torch.tensor([0, 1, 31, 128], device=card, dtype=torch.int32)
+# K5's cases: (kv heads, g, pages per sequence, lengths). K5 cuts each
+# sequence's keys into splits of paged.DECODE_SPLIT_KEYS (128) and merges
+# them on the card: lengths at split edges +- 1, a sequence of 1024 keys
+# alone, lengths past the table (read as the table's end), and g = 1 / 8.
+DECODE_CASES = {
+    "engine_slots": (2, 4, 8, [0, 1, 31, 128]),
+    "split_edges": (2, 4, 40, [127, 128, 129, 255, 256, 257, 0, 383]),
+    "one_long_sequence": (8, 4, 64, [1024]),
+    "past_the_table": (2, 4, 40, [641, 5000, 640, 639]),
+    "g1": (4, 1, 40, [0, 129, 300, 640]),
+    "g8": (1, 8, 40, [1, 128, 257, 500]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_paged_decode(card, dtype, case):
+    KVH, g, pps, lens = DECODE_CASES[case]
+    B = len(lens)
+    P = B * pps + 1
+    kp, vp = _rand((KVH, P, 16, D), dtype, card), _rand((KVH, P, 16, D), dtype, card)
+    q = _rand((B, KVH * g, D), dtype, card)
+    table = torch.randperm(P - 1, device=card)[:B * pps].view(B, pps).to(torch.int32) + 1
+    lengths = torch.tensor(lens, device=card, dtype=torch.int32)
+    before = dispatch.launch_counts()["paged_attention_decode"]
     got = ops.paged_attention_decode(q, kp, vp, table, lengths)
+    assert dispatch.launch_counts()["paged_attention_decode"] == before + 1
     _close(got, paged._paged_reference(q, kp, vp, table, lengths, D ** -0.5), dtype)
-    assert not got[0].any()
+    assert not got[lengths == 0].any()  # a length-0 slot gives exact zeros
+
+
+def test_paged_decode_back_to_back(card, dtype):
+    # two calls in flight on one stream, the second with other lengths: the
+    # first call's workspace goes back to the caching allocator and is the
+    # second's, which stream order makes safe
+    kp, vp = _rand((2, 161, 16, D), dtype, card), _rand((2, 161, 16, D), dtype, card)
+    q = _rand((4, 8, D), dtype, card)
+    table = torch.randperm(160, device=card)[:160].view(4, 40).to(torch.int32) + 1
+    la = torch.tensor([640, 0, 129, 5], device=card, dtype=torch.int32)
+    lb = torch.tensor([1, 640, 0, 300], device=card, dtype=torch.int32)
+    a = ops.paged_attention_decode(q, kp, vp, table, la)
+    b = ops.paged_attention_decode(q, kp, vp, table, lb)
+    _close(a, paged._paged_reference(q, kp, vp, table, la, D ** -0.5), dtype)
+    _close(b, paged._paged_reference(q, kp, vp, table, lb, D ** -0.5), dtype)
 
 
 @pytest.mark.parametrize("start", [0, 48])
@@ -253,8 +288,8 @@ def _cuda_kernel_names(fn):
 
 @pytest.mark.parametrize("head_dim", [64, D])
 def test_attention_calls_launch_the_tile_their_dtype_selects(card, dtype, head_dim):
-    # bf16 at head_dim 64/128 must reach the tensor-core (wgmma) kernels,
-    # f32 the FMA tile: read from the kernel names the profiler records
+    # bf16 at head_dim 64/128 must reach the tensor-core (wgmma) kernels
+    # (K2, K3 and K4), f32 the FMA tiles: read from the kernel names the profiler records
     q, do = _rand((1, 256, 8, head_dim), dtype, card), _rand((1, 256, 8, head_dim), dtype, card)
     k, v = _rand((1, 256, 2, head_dim), dtype, card), _rand((1, 256, 2, head_dim), dtype, card)
     lse = attention._fwd_reference_with_lse(q, k, v)[1]
@@ -265,6 +300,8 @@ def test_attention_calls_launch_the_tile_their_dtype_selects(card, dtype, head_d
                                      lambda: ops.flash_attention_with_lse(q, k, v)),
         "flash_attention_bwd_dq": ("flash_attention_bwd_dq",
                                    lambda: ops.flash_attention_bwd_dq(q, k, v, do, lse, delta)),
+        "flash_attention_bwd_dkv": ("flash_attention_bwd_dkv",
+                                    lambda: ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta)),
     }
     for name, (op, fn) in calls.items():
         want = attention.kernel_symbol(op, dtype, head_dim)
