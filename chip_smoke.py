@@ -19,12 +19,18 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      128), at a ragged T and at g = 1; K5 (split-KV decode) at the
      engine's batch and at its edges: one sequence of 1024 keys, lengths at
      split boundaries +- 1, lengths past the table, g = 1 and g = 8, and
-     two calls back to back; K7 (speculative verify attention) at
-     the engine's span (B=8, S=5) and at S = 1 (where it must also equal
-     K5), S = 2, S = 65, g = 1, inactive slots and a span past the table.
-     First, at every K2, K3 and K4 shape, a profiler pass around one launch
-     must show the kernel that (dtype, head_dim) selects: the tensor-core
-     (wgmma) tile for bf16, the FMA tile for f32 (tile_identity_checks);
+     two calls back to back; K6 (paged chunked prefill) at the chunks of a
+     700-token prompt and at its edges: key tiles +- 1, a ragged C, total
+     below start + C, keys past the table, no visible key (exact zeros),
+     g = 1 and g = 8; K7 (speculative verify attention, split-KV on the
+     tensor cores) at the engine's span (B=8, S=5) and at S = 1 (where it
+     must also equal K5), S = 2, S = 65, g = 1, g = 8, inactive slots, a
+     span past the table, positions at split edges +- 1, spans crossing a
+     split, one sequence of 1024 keys, and two calls back to back.
+     First, at every K2, K3 and K4 shape and at K6's and K7's engine
+     shapes, a profiler pass around one launch must show the kernel that
+     (dtype, head_dim) selects: the tensor-core (wgmma) tile for bf16, the
+     FMA tile for f32 (tile_identity_checks);
   3. the serving path: LLMServer serving llama3-8b at full width and depth
      (random weights from a seed) with five concurrent requests — short
      prompts (bucketed prefill, kernel K2), a ~700-token prompt (chunked
@@ -80,8 +86,8 @@ package beside this script, it exits non-zero and prints no result.
     python3 chip_smoke.py --ab DIR   # kernel variants side by side
 
 builds the kernels of this checkout and those of DIR (a changed copy of
-ray_tpu_torch/csrc), checks both, times K4 and K5 with each in turns in
-one process (ab_compare), and prints no result line.
+ray_tpu_torch/csrc), checks both, times K4, K5, K6 and K7 with each in
+turns in one process (ab_compare), and prints no result line.
 """
 
 from __future__ import annotations
@@ -153,6 +159,8 @@ SERVE_KERNELS = ("rms_norm", "flash_attention", "paged_attention_decode",
 # the kernels the speculation path must launch, in draft mode
 SPEC_KERNELS = SERVE_KERNELS + ("paged_attention_verify",)
 TRAIN_STEPS = 8
+# name stems of the CUDA kernels in ray_tpu_torch/csrc, as a profiler shows them
+PORT_KERNEL_STEMS = ("rms_norm_kernel", "flash_fwd_", "flash_bwd_", "paged_")
 
 
 def log(*a):
@@ -281,10 +289,12 @@ def launched_kernels(fn) -> list:
 
 def tile_identity_checks(gen) -> None:
     """A profiler pass around one launch of K2 (without lse at the serving
-    shapes, with lse at the training shapes) and of K3 and K4 (training
-    shapes), in f32 and bf16: each must show the kernel that (dtype, head_dim)
-    selects (check_tile). Run first in phase 2, on inputs of its own."""
-    from ray_tpu_torch.ops import attention
+    shapes, with lse at the training shapes), of K3 and K4 (training
+    shapes), and of K6 and K7 at the engine's shapes (a 256-query chunk at
+    start 512, the verify span B=8, S=5), in f32 and bf16: each must show the
+    kernel that (dtype, head_dim) selects (check_tile). Run first in phase 2,
+    on inputs of its own."""
+    from ray_tpu_torch.ops import attention, paged_attention
 
     D = 128
     serving = [(1, T, 32, 8) for T in (64, 100, 128, 256)]
@@ -293,6 +303,9 @@ def tile_identity_checks(gen) -> None:
     def rnd(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
 
+    def attn(op, dtype):
+        return attention.kernel_symbol(op, dtype, D)
+
     for dtype in (torch.float32, torch.bfloat16):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         for B, T, H, KVH in serving + training:
@@ -300,31 +313,45 @@ def tile_identity_checks(gen) -> None:
             q, k, v = rnd((B, T, H, D), dtype), rnd((B, T, KVH, D), dtype), rnd((B, T, KVH, D),
                                                                                 dtype)
             if (B, T, H, KVH) in serving:
-                name = check_tile(f"K2 {tag} {shape}", "flash_attention", dtype, D,
+                name = check_tile(f"K2 {tag} {shape}", attn("flash_attention", dtype),
                                   lambda: attention.flash_attention(q, k, v))
                 log(f"tile K2 {tag} {shape}: {name}")
                 continue
             do = rnd((B, T, H, D), dtype)
             lse = torch.zeros((B, H, T), device="cuda")
-            k2 = check_tile(f"K2+lse {tag} {shape}", "flash_attention", dtype, D,
+            k2 = check_tile(f"K2+lse {tag} {shape}", attn("flash_attention", dtype),
                             lambda: attention.flash_attention_with_lse(q, k, v))
-            k3 = check_tile(f"K3 {tag} {shape}", "flash_attention_bwd_dq", dtype, D,
+            k3 = check_tile(f"K3 {tag} {shape}", attn("flash_attention_bwd_dq", dtype),
                             lambda: attention.flash_attention_bwd_dq(q, k, v, do, lse, lse))
-            k4 = check_tile(f"K4 {tag} {shape}", "flash_attention_bwd_dkv", dtype, D,
+            k4 = check_tile(f"K4 {tag} {shape}", attn("flash_attention_bwd_dkv", dtype),
                             lambda: attention.flash_attention_bwd_dkv(q, k, v, do, lse, lse))
             log(f"tile K2+lse {tag} {shape}: {k2}; K3: {k3}; K4: {k4}")
             del do, lse
         del q, k, v
+        # K6 and K7 over the engine's pool (512 pages of 16, 8 kv heads)
+        kp, vp = rnd((8, 512, 16, D), dtype), rnd((8, 512, 16, D), dtype)
+        table = torch.randint(1, 512, (8, 64), generator=gen, device="cuda", dtype=torch.int32)
+        q6, q7 = rnd((256, 32, D), dtype), rnd((8, 5, 32, D), dtype)
+        positions = torch.tensor([20, 100, 333, 500, 640, 777, 850, 900], dtype=torch.int32,
+                                 device="cuda")
+        k6 = check_tile(f"K6 {tag} C=256 start 512",
+                        paged_attention.kernel_symbol("paged_attention_chunk", dtype, D),
+                        lambda: paged_attention.paged_attention_chunk(q6, kp, vp, table[5], 512,
+                                                                      768))
+        k7 = check_tile(f"K7 {tag} B=8 S=5",
+                        paged_attention.kernel_symbol("paged_attention_verify", dtype, D),
+                        lambda: paged_attention.paged_attention_verify(q7, kp, vp, table,
+                                                                       positions))
+        log(f"tile K6 {tag} C=256: {k6}; K7 {tag} B=8 S=5: {k7}")
+        del kp, vp, q6, q7
     torch.cuda.empty_cache()
 
 
-def check_tile(label: str, op: str, dtype, head_dim: int, fn) -> str:
-    """Fails unless fn(), one call of attention op `op`, launched the kernel
-    that (dtype, head_dim) selects (attention.kernel_symbol: the wgmma tile
-    for bf16 at head_dim 64/128, the FMA tile otherwise); returns its name."""
-    from ray_tpu_torch.ops import attention
-
-    want = attention.kernel_symbol(op, dtype, head_dim)
+def check_tile(label: str, want: str, fn) -> str:
+    """Fails unless fn(), one call of an attention op, launched kernel
+    `want`: the name `kernel_symbol` gives for the op's dtype and head_dim
+    (the wgmma tile for bf16 at head_dim 64/128, the FMA tile otherwise);
+    returns it."""
     names = launched_kernels(fn)
     if not any(want in n for n in names):
         fail(f"{label}: expected a launch of {want}, the profiler saw {names}")
@@ -461,20 +488,43 @@ def kernel_checks(gen) -> dict:
             ms = device_ms(lambda: paged_attention.paged_attention_chunk(q, kp, vp, t1, start, total))
             plain = device_ms(lambda: paged_attention._chunk_reference(q, kp, vp, t1, start,
                                                                      total, hd ** -0.5))
-            pairs = sum(min(start + c + 1, total) for c in range(C))
-            bnd, by = bound_ms((2 * q.numel() + 2 * total * KVH * hd) * el + 4 * pps,
-                               4 * H * hd * pairs, dtype)
+            bnd, by = chunk_bound(q, kp, t1, start, total)
             log(f"K6 paged_attention_chunk {tag} C={C} start={start}: max_err {err:.3e} "
                 f"(tol {TOL[('attention', dtype)]}) ms {ms:.4f} plain {plain:.4f} "
                 f"bound {bnd:.4f} ({by})")
             if dtype == torch.bfloat16 and start == 512:
                 out["paged_attention_chunk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                                     bound_ms=bnd, bound_by=by, library_ms=None)
+        # K6's edges: name -> (C, kv heads, q heads, start, total); key tiles
+        # of 64 at +- 1, a ragged C, total below start + C, keys past the
+        # table, no visible key (exact zeros), g = 1 and g = 8
+        chunk_edges = {
+            "tile edges": (65, KVH, H, 63, 128),
+            "ragged C=100": (100, KVH, H, 48, 148),
+            "total below start + C": (100, KVH, H, 48, 120),
+            "past the table": (64, KVH, H, ctx - 20, ctx + 44),
+            "no visible key": (16, KVH, H, 0, 0),
+            "g=1": (100, KVH, KVH, 30, 130),
+            "g=8": (100, KVH // 2, H, 30, 130),
+        }
+        for name, (Ce, KVHe, He, start, total) in chunk_edges.items():
+            qe = rnd((Ce, He, hd), dtype)
+            kpe, vpe = kp[:KVHe].contiguous(), vp[:KVHe].contiguous()
+            got = paged_attention.paged_attention_chunk(qe, kpe, vpe, t1, start, total)
+            want = paged_attention._chunk_reference(qe, kpe, vpe, t1, start, total, hd ** -0.5)
+            err = check_close(f"paged_attention_chunk {name}", "attention", dtype, got, want)
+            if total == 0 and bool(got.float().abs().max() != 0):
+                fail(f"paged_attention_chunk {name}: rows with no visible key must give zeros")
+            ms = device_ms(lambda: paged_attention.paged_attention_chunk(qe, kpe, vpe, t1, start,
+                                                                         total))
+            bnd, by = chunk_bound(qe, kpe, t1, start, total)
+            log(f"K6 paged_attention_chunk {tag} {name}: max_err {err:.3e} ms {ms:.4f} "
+                f"bound {bnd:.4f} ({by})")
 
         # K7: the engine's verify span: 8 slots, k = 4 drafts + the last
         # committed token, positions spread over the context. Bytes: q and o
         # once, each sequence's live K/V rows once per kv head.
-        S, ctx = 5, pps * ps
+        S = 5
         positions = torch.tensor([20, 100, 333, 500, 640, 777, 850, 900], dtype=torch.int32,
                                  device="cuda")
         q = rnd((B, S, H, hd), dtype)
@@ -485,10 +535,7 @@ def kernel_checks(gen) -> dict:
                                                                       positions))
         plain = device_ms(lambda: paged_attention._verify_reference(q, kp, vp, table, positions,
                                                                   hd ** -0.5))
-        keys = sum(min(p + S, ctx) for p in positions.tolist())
-        pairs = sum(min(p + s + 1, ctx) for p in positions.tolist() for s in range(S))
-        bnd, by = bound_ms((2 * q.numel() + 2 * keys * KVH * hd) * el + 4 * (table.numel() + B),
-                           4 * H * hd * pairs, dtype)
+        bnd, by = verify_bound(q, kp, table, positions)
         log(f"K7 paged_attention_verify {tag} B={B} S={S} positions {positions.tolist()}: "
             f"max_err {err:.3e} (tol {TOL[('attention', dtype)]}) ms {ms:.4f} plain {plain:.4f} "
             f"bound {bnd:.4f} ({by}); library: none (no single PyTorch call attends over a "
@@ -496,20 +543,30 @@ def kernel_checks(gen) -> dict:
         if dtype == torch.bfloat16:
             out["paged_attention_verify"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                                  bound_ms=bnd, bound_by=by, library_ms=None)
-        # K7's edges: (S, heads, kv heads, positions, zero table)
+        # K7's edges: (S, heads, kv heads, positions, zero table). On the
+        # tensor cores K7 cuts each sequence's keys into splits of
+        # VERIFY_SPLIT_KEYS (128) and merges them on the card.
+        sk = paged_attention.VERIFY_SPLIT_KEYS
         edges = {
             "S=1 (decode)": (1, H, KVH, [0, 1, 17, 100, 333, 700, 1000, 1023], False),
             "S=2": (2, H, KVH, [0, 15, 16, 100, 333, 700, 1000, 1022], False),
             "S=65 (k=64)": (65, H, KVH, [0, 3, 64, 100, 333, 700, 900, 959], False),
             "g=1": (S, KVH, KVH, [0, 20, 100, 333, 500, 640, 777, 900], False),
+            "g=8": (S, H, KVH // 2, [0, 20, 100, 333, 500, 640, 777, 900], False),
             "inactive slots": (S, H, KVH, [0] * B, True),
             "span past the table": (S, H, KVH, [1023, 1022, 1020, 1019, 1000, 7, 0, 1023],
                                     False),
+            "split edges +-1": (S, H, KVH, [sk - 2, sk - 1, sk, sk + 1, 2 * sk - 1, 2 * sk,
+                                            7 * sk - 1, 7 * sk], False),
+            "span crosses a split": (S, H, KVH, [sk - 3, 2 * sk - 4, 3 * sk - 2, 4 * sk - 3,
+                                                 5 * sk - 1, 6 * sk - 4, 0, 7 * sk - 2], False),
+            "B=1 one sequence of 1024 keys": (S, H, KVH, [1019], False),
         }
         for name, (Se, He, KVHe, pos, zero_table) in edges.items():
             pe = torch.tensor(pos, dtype=torch.int32, device="cuda")
             te = torch.zeros_like(table) if zero_table else table
-            qe = rnd((B, Se, He, hd), dtype)
+            te = te[:len(pos)].contiguous()
+            qe = rnd((len(pos), Se, He, hd), dtype)
             kpe, vpe = kp[:KVHe].contiguous(), vp[:KVHe].contiguous()
             got = paged_attention.paged_attention_verify(qe, kpe, vpe, te, pe)
             want = paged_attention._verify_reference(qe, kpe, vpe, te, pe, hd ** -0.5)
@@ -519,7 +576,24 @@ def kernel_checks(gen) -> dict:
                                                              te, pe + 1)
                 err = max(err, check_close("paged_attention_verify S=1 vs K5", "attention",
                                            dtype, got[:, 0], dec))
-            log(f"K7 paged_attention_verify {tag} {name}: max_err {err:.3e}")
+            ms = device_ms(lambda: paged_attention.paged_attention_verify(qe, kpe, vpe, te, pe))
+            bnd, by = verify_bound(qe, kpe, te, pe)
+            log(f"K7 paged_attention_verify {tag} {name}: max_err {err:.3e} ms {ms:.4f} "
+                f"bound {bnd:.4f} ({by})")
+        # two calls back to back on one stream with other positions: the
+        # second call's split workspace is the first's, returned to the
+        # allocator
+        pa = torch.tensor([1019, 0, 129, 5, 333, 1, 640, 127], dtype=torch.int32, device="cuda")
+        pb = torch.tensor([1, 1019, 0, 300, 128, 900, 17, 256], dtype=torch.int32, device="cuda")
+        a = paged_attention.paged_attention_verify(q, kp, vp, table, pa)
+        b = paged_attention.paged_attention_verify(q, kp, vp, table, pb)
+        err = max(check_close("paged_attention_verify back to back (1)", "attention", dtype, a,
+                              paged_attention._verify_reference(q, kp, vp, table, pa,
+                                                                hd ** -0.5)),
+                  check_close("paged_attention_verify back to back (2)", "attention", dtype, b,
+                              paged_attention._verify_reference(q, kp, vp, table, pb,
+                                                                hd ** -0.5)))
+        log(f"K7 paged_attention_verify {tag} two calls back to back: max_err {err:.3e}")
     torch.cuda.synchronize()
     return out
 
@@ -532,6 +606,32 @@ def decode_bound(q, k_pages, table, lengths) -> tuple:
     KVH, hd, el = k_pages.shape[0], k_pages.shape[3], k_pages.element_size()
     return bound_ms((2 * q.numel() + 2 * keys * KVH * hd) * el
                     + 4 * (table.numel() + lengths.numel()), 4 * keys * q.shape[1] * hd, q.dtype)
+
+
+def chunk_bound(q, k_pages, table, start: int, total: int) -> tuple:
+    """K6's bound: q and o once, the live K/V rows (below total, up to the
+    table's end) once per kv head, the table once; operations over the
+    visible (row, key) pairs."""
+    ctx = table.shape[0] * k_pages.shape[2]
+    KVH, hd, el = k_pages.shape[0], k_pages.shape[3], k_pages.element_size()
+    keys = max(0, min(total, ctx))
+    pairs = sum(max(0, min(start + c + 1, total, ctx)) for c in range(q.shape[0]))
+    return bound_ms((2 * q.numel() + 2 * keys * KVH * hd) * el + 4 * table.numel(),
+                    4 * q.shape[1] * hd * pairs, q.dtype)
+
+
+def verify_bound(q, k_pages, table, positions) -> tuple:
+    """K7's bound: q and o once, each sequence's live K/V rows (up to the
+    table's end) once per kv head, the table and positions once; operations
+    over the visible (row, key) pairs."""
+    B, S, H, hd = q.shape
+    ctx = table.shape[1] * k_pages.shape[2]
+    KVH, el = k_pages.shape[0], k_pages.element_size()
+    pos = [max(p, 0) for p in positions.tolist()]
+    keys = sum(min(p + S, ctx) for p in pos)
+    pairs = sum(min(p + s + 1, ctx) for p in pos for s in range(S))
+    return bound_ms((2 * q.numel() + 2 * keys * KVH * hd) * el + 4 * (table.numel() + B),
+                    4 * H * hd * pairs, q.dtype)
 
 
 def training_kernel_checks(gen) -> dict:
@@ -666,9 +766,10 @@ def run_requests(server, requests):
 
 
 def profile_report(run) -> int:
-    """run() under torch.profiler: device time by kernel and the card's busy
-    share of the wall time that run() returns, in seconds. Returns the
-    number of kernel launches it saw."""
+    """run() under torch.profiler: device time by kernel (the top 20, then
+    the port's own kernels below them) and the card's busy share of the wall
+    time that run() returns, in seconds. Returns the number of kernel
+    launches it saw."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -690,6 +791,9 @@ def profile_report(run) -> int:
         f"{launches} kernel launches")
     for dev_us, count, key in rows[:20]:
         log(f"  {dev_us / 1e3:10.3f} ms {count:7d}x  {key[:90]}")
+    for dev_us, count, key in rows[20:]:  # the port's kernels below the top 20
+        if any(stem in key for stem in PORT_KERNEL_STEMS):
+            log(f"  {dev_us / 1e3:10.3f} ms {count:7d}x  {key[:90]}")
     return launches
 
 
@@ -1434,8 +1538,10 @@ def ab_compare(variant_csrc: str, card: str) -> None:
     """Kernel variants side by side in one process: the kernel library of
     this checkout (A) and one built from `variant_csrc` (B, a copy of
     ray_tpu_torch/csrc with one change), each checked against the plain
-    version, then timed in turns A B B A: K4 at the training shape and K5 at
-    the engine's batch and at one sequence of 1024 keys, bf16."""
+    version, then timed in turns A B B A, bf16: K4 at the training shape, K5
+    at the engine's batch and at one sequence of 1024 keys, K6 at the
+    engine's 256-query chunk at start 512, and K7 at the engine's verify
+    span (B=8, S=5) and at one sequence of 1024 keys."""
     from pathlib import Path
 
     from ray_tpu_torch.ops import attention, dispatch, paged_attention
@@ -1470,6 +1576,10 @@ def ab_compare(variant_csrc: str, card: str) -> None:
     l8 = torch.tensor([0, 1, 17, 100, 333, 700, 1000, 1024], dtype=torch.int32, device="cuda")
     l1 = torch.tensor([1024], dtype=torch.int32, device="cuda")
     t1 = table[:1].contiguous()
+    q6, q7, q71 = rnd((256, 32, 128)), rnd((8, 5, 32, 128)), rnd((1, 5, 32, 128))
+    p8 = torch.tensor([20, 100, 333, 500, 640, 777, 850, 900], dtype=torch.int32, device="cuda")
+    p1 = torch.tensor([1019], dtype=torch.int32, device="cuda")
+    t5 = table[5].contiguous()
     calls = {
         "K4 B=4 T=2048 H=20/5": (
             lambda: attention.flash_attention_bwd_dkv(q, k, v, do, lse, delta), want_dkv),
@@ -1479,6 +1589,15 @@ def ab_compare(variant_csrc: str, card: str) -> None:
         "K5 B=1 length 1024": (
             lambda: paged_attention.paged_attention_decode(q1, kp, vp, t1, l1),
             paged_attention._paged_reference(q1, kp, vp, t1, l1, 128 ** -0.5)),
+        "K6 C=256 start 512": (
+            lambda: paged_attention.paged_attention_chunk(q6, kp, vp, t5, 512, 768),
+            paged_attention._chunk_reference(q6, kp, vp, t5, 512, 768, 128 ** -0.5)),
+        "K7 B=8 S=5 positions 20..900": (
+            lambda: paged_attention.paged_attention_verify(q7, kp, vp, table, p8),
+            paged_attention._verify_reference(q7, kp, vp, table, p8, 128 ** -0.5)),
+        "K7 B=1 S=5 1024 keys": (
+            lambda: paged_attention.paged_attention_verify(q71, kp, vp, t1, p1),
+            paged_attention._verify_reference(q71, kp, vp, t1, p1, 128 ** -0.5)),
     }
     for name, (fn, want) in calls.items():
         times = {"A": [], "B": []}
@@ -1500,7 +1619,7 @@ def main() -> None:
                     help="after each path, serve a burst again / take one more "
                          "training step under torch.profiler")
     ap.add_argument("--ab", metavar="CSRC",
-                    help="only build and check the kernels, then time K4 and K5 with this "
+                    help="only build and check the kernels, then time K4-K7 with this "
                          "checkout's kernels and with those built from CSRC (a changed copy "
                          "of ray_tpu_torch/csrc), in turns; prints no result line")
     args = ap.parse_args()

@@ -1,9 +1,9 @@
-// The FMA tile loop: K6 and K7 (paged chunk and paged verify attention in
-// paged_attention.cu), and K2 (flash_attention.cu) for f32 inputs or a head
+// The FMA tile loop: K2 (flash_attention.cu), K6 and K7 (paged chunk and
+// paged verify attention in paged_attention.cu) for f32 inputs or a head
 // dim other than 64 and 128. Replaces, in those cases, the tile loop of
 // ray_tpu/ops/attention.py `_fwd_kernel` and of paged_attention.py
-// `_chunk_kernel` / `_verify_kernel`. bf16 K2 at head dim 64/128 runs on the
-// tensor cores instead (flash_fwd_wgmma_kernel, wgmma.cuh).
+// `_chunk_kernel` / `_verify_kernel`. bf16 at head dim 64/128 runs all three
+// on the tensor cores instead (flash_fwd_wgmma_kernel, paged_tile; wgmma.cuh).
 //
 // One CTA of 256 threads owns kTileR = 64 query rows that all read the same
 // kv head. It stages them in shared memory once, then streams kTileK = 64
@@ -28,9 +28,9 @@
 // for it is not generated.
 //
 // What bounds it: each tile does 2*64*64*D multiply-adds per 64*D*2
-// elements loaded, so the scalar FMA pipes bound it (K6 0.206 ms at C=256
-// against a 0.003 ms tensor-core bound; PERF.md). K6 and K7 are to move to
-// K2's wgmma tile (ROADMAP); f32 has no tensor-core path here.
+// elements loaded, so the scalar FMA pipes bound it (K6 on this tile took
+// 0.206 ms at C=256 against a 0.003 ms tensor-core bound; PERF.md). f32
+// has no tensor-core path here.
 #pragma once
 
 #include "common.cuh"

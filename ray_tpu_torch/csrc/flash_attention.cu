@@ -203,14 +203,7 @@ __global__ void __launch_bounds__(128 * WG, WG == 1 ? 2 : 1)
     if (j < wg_tiles) {  // uniform over the warpgroup
       const int k0 = j * kKeys;
       float s[32];
-      tc::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        tc::wgmma_ss(s, tc::desc_k<kRows>(sQ, 64 * wg, kk), tc::desc_k<kKeys>(sK, 0, kk), kk);
-      tc::wgmma_commit();
-      tc::wgmma_wait<0>();
-      tc::fence_regs(s);
-
+      tc::qk_scores<kRows, D>(s, sQ, 64 * wg, sK);
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] *= sc2;
       if (k0 + kKeys > key_end || (causal && k0 + kKeys - 1 > wq0)) {  // an edge tile
@@ -222,45 +215,8 @@ __global__ void __launch_bounds__(128 * WG, WG == 1 ? 2 : 1)
         }
       }
       float alpha[2];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        float mx = m[hh];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) mx = fmaxf(mx, fmaxf(s[4 * c + 2 * hh], s[4 * c + 2 * hh + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const bool live = mx > 0.5f * kNegInf;  // some key of the row is visible
-        alpha[hh] = tc::exp2_approx(m[hh] - mx);
-        m[hh] = mx;
-        float sum = 0.f;
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int i = 4 * c + 2 * hh + e;
-            s[i] = live ? tc::exp2_approx(s[i] - mx) : 0.f;
-            sum += s[i];
-          }
-        l[hh] = l[hh] * alpha[hh] + sum;
-      }
-#pragma unroll
-      for (int blk = 0; blk < kBlk; ++blk)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) acc[blk][i] *= alpha[(i >> 1) & 1];
-
-      uint32_t a[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) tc::a_fragment(s, kk, a[kk]);
-      tc::wgmma_fence();
-#pragma unroll
-      for (int blk = 0; blk < kBlk; ++blk)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          tc::wgmma_rs_mn(acc[blk], a[kk], tc::desc_mn<kKeys>(sV, blk, kk));
-      tc::wgmma_commit();
-      tc::wgmma_wait<0>();
-#pragma unroll
-      for (int blk = 0; blk < kBlk; ++blk) tc::fence_regs(acc[blk]);
+      tc::softmax_tile(s, m, l, alpha);
+      tc::pv_accumulate<kBlk>(acc, s, alpha, sV);
     }
   }
 
@@ -269,8 +225,7 @@ __global__ void __launch_bounds__(128 * WG, WG == 1 ? 2 : 1)
   float inv[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
-    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    l[hh] = tc::quad_sum(l[hh]);
     inv[hh] = l[hh] == 0.f ? 0.f : 1.f / l[hh];
     const int row = row0 + 8 * hh;
     if (kLse && (lane & 3) == 0 && row < Tq)

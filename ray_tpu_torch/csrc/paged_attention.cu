@@ -20,8 +20,8 @@
 // the pool, by 16-byte cp.async in two groups, K then V, so all of its
 // bytes are in flight at once and the scores run while V still arrives;
 // it then writes f32 partials for its g query rows: the unnormalised
-// O [g, D], the max m and the sum l. paged_decode_combine_kernel, one CTA
-// per (head, sequence), reads the number of live splits from lengths and
+// O [g, D], the max m and the sum l. paged_combine_kernel (shared with K7),
+// one CTA per (head, sequence), reads the number of live splits from lengths and
 // merges o = sum e^(m_i - M) O_i / sum e^(m_i - M) l_i; no live split (a
 // length of 0) gives exactly 0. The two kernels run back to back on the
 // caller's stream from the one C entry point, rather than the last CTA of
@@ -40,26 +40,41 @@
 // K6 `rtt_paged_attention_chunk` replaces `_chunk_kernel` (launched by
 // `_chunk_pallas`): one sequence's chunk of C queries; key j is visible to
 // chunk row c iff j <= start + c and j < total, and only the first
-// ceil(total / ps) pages are read. The TPU grid was (KVH,): eight programs,
-// which would leave most of 132 SMs idle, so here the C*g query rows of a kv
-// head (row = c*g + head within the group) are cut into 64-row tiles, grid
-// (ceil(C*g / 64), KVH), each run by the tile loop of attention_tile.cuh.
-//
-// K7 `rtt_paged_attention_verify` replaces `_verify_kernel` (launched by
-// `_verify_pallas`): the speculative-verify span, S = k + 1 query rows per
-// sequence for the whole batch in one launch; key j is visible to row s of
-// sequence b iff j <= positions[b] + s, and no key past the sequence's own
+// ceil(total / ps) pages are read. K7 `rtt_paged_attention_verify` replaces
+// `_verify_kernel` (launched by `_verify_pallas`): the speculative-verify
+// span, S = k + 1 query rows per sequence for the whole batch in one
+// launch; key j is visible to row s of sequence b iff j <= positions[b] + s
+// (negative positions count as 0), and no key past the sequence's own
 // table row (pps pages) is read. Each CTA reads positions[b] itself, so a
-// verify round needs no readback before the launch. Bound: bytes, as for
-// decode: a sequence's live K/V rows are read once per kv head and serve
-// all S*g rows of that head. The TPU wrapper transposes q to
-// [B, KVH, S*g, D] and the output back so that a block holds one kv head's
-// rows; here row (s, kvh*g + gi) of [B, S, H, D] is indexed in place and
-// both copies are gone. Per sequence this is K6's problem with start =
-// positions[b], so the kernel fills a ChunkProblem per (row tile, kv head,
-// sequence), grid (ceil(S*g / 64), KVH, B), and runs the same tile loop.
-// At the engine's S = 5, g = 4 a tile holds 20 live rows of 64: the tile's
-// idle rows cost FMA time, not bytes; a narrower tile is later work.
+// verify round needs no readback before the launch. The TPU wrappers
+// transpose q to [.., KVH, rows, D] so that a block holds one kv head's
+// rows; here row R = c * g + gi of a kv head is position c, head kvh * g +
+// gi of [.., H, D], indexed in place, so each K/V byte read serves all g
+// heads and no copy is made.
+//
+// bf16 at head dim 64/128 (the engine's) runs both on one tensor-core tile,
+// paged_tile below: K2's flash_fwd_wgmma_kernel (flash_attention.cu) with
+// GQA-packed rows, keys looked up through the page table once per tile, and
+// the per-row mask. f32 and other head dims keep the FMA tile of
+// attention_tile.cuh (paged_chunk_fma_kernel, paged_verify_fma_kernel).
+// - K6 `paged_chunk_wgmma_kernel<D, WG>`: grid (1, row tiles x KVH), the
+//   tiles with the most keys first; 128 rows a CTA (two warpgroups sharing
+//   the K/V ring) when that still gives one CTA an SM, else 64. Bound:
+//   operations at the engine's C = 256 (the causal (row, key) pairs on the
+//   tensor cores); the grid is one wave, each CTA walking up to ~800 keys.
+// - K7 `paged_verify_wgmma_kernel<D>` + `paged_combine_kernel<bf16>`: split-KV,
+//   as K5. Bound: bytes (each live K/V row once per kv head); the S * g = 20
+//   live rows of a 64-row tile cost tensor-core time that is free beside
+//   the bytes, so what the kernel needs is CTAs in flight: each sequence's
+//   keys [0, pps * ps) are cut into splits of kVerifySplitKeys, grid (splits,
+//   row tiles x KVH, B), the number of splits from host-known sizes only; a
+//   CTA whose split starts past what its tile's last row sees exits at once;
+//   a live CTA writes f32 partials (O, m, l) of its rows into the wrapper's
+//   workspace and the combine kernel, launched next from the same entry
+//   point on the same stream, merges each row's live splits, which it counts
+//   from positions on the card.
+
+#include <climits>
 
 #include "attention_tile.cuh"
 #include "wgmma.cuh"
@@ -257,17 +272,22 @@ __global__ void __launch_bounds__(kDecThreads, 3)
   }
 }
 
-// o[b, h] = sum_i e^(m_i - M) O_i / sum_i e^(m_i - M) l_i over the live
-// splits of sequence b; none (length 0) gives exactly 0
+// The merge of split partials, for K5 and K7: o[row] = sum_i e^(m_i - M)
+// O_i / sum_i e^(m_i - M) l_i over the live splits of row (b, s, h), one CTA
+// per row, grid (H, S, B). A row's key count is read on the card:
+// min(lengths[b], max_len) for K5 (S = 1, span = 0) and
+// min(max(positions[b], 0) + s + 1, max_len) for K7 (span = 1); its live
+// splits are the first ceil(count / split_keys). None (a length of 0) gives
+// exactly 0.
 template <typename T>
 __global__ void __launch_bounds__(rtt::kTileMaxD)
-    paged_decode_combine_kernel(const float* __restrict__ ws_o, const float* __restrict__ ws_ml,
-                                const int* __restrict__ lengths, T* __restrict__ o, int H, int D,
-                                int nsplit, int max_len) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int len = min(lengths[b], max_len);
-  const int live = len > 0 ? (len + kSplitKeys - 1) / kSplitKeys : 0;
-  const size_t row = static_cast<size_t>(b) * H + h;
+    paged_combine_kernel(const float* __restrict__ ws_o, const float* __restrict__ ws_ml,
+                         const int* __restrict__ counts, T* __restrict__ o, int S, int H, int D,
+                         int nsplit, int split_keys, int max_len, int span) {
+  const int h = blockIdx.x, s = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
+  const int len = min(span ? max(counts[b], 0) + s + 1 : counts[b], max_len);
+  const int live = len > 0 ? (len + split_keys - 1) / split_keys : 0;
+  const size_t row = (static_cast<size_t>(b) * S + s) * H + h;
   const float* ml = ws_ml + row * nsplit * 2;
   const float* po = ws_o + row * nsplit * D + d;
   float M = rtt::kNegInf;
@@ -295,10 +315,275 @@ cudaError_t launch_decode(cudaStream_t s, const void* q, const void* k_pages, co
       table, lengths, ws, ws_ml, H, KVH, D, P, ps, pps, nsplit, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  paged_decode_combine_kernel<T><<<dim3(H, B), rtt::kTileMaxD, 0, s>>>(
-      ws, ws_ml, lengths, static_cast<T*>(o), H, D, nsplit, pps * ps);
+  paged_combine_kernel<T><<<dim3(H, 1, B), rtt::kTileMaxD, 0, s>>>(
+      ws, ws_ml, lengths, static_cast<T*>(o), 1, H, D, nsplit, kSplitKeys, pps * ps, 0);
   return cudaSuccess;
 }
+
+// ------------------------------------ K6 and K7 on the tensor cores (bf16, D 64/128)
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTileKeys = 64;          // keys per K/V tile
+constexpr int kVerifySplitKeys = 128;  // keys per split of K7
+
+template <int D, int WG, int STAGES>
+struct PagedLayout {
+  static constexpr int kRows = 64 * WG;
+  static constexpr uint32_t kQ = kRows * D * 2;     // the Q tile, later O's staging
+  static constexpr uint32_t kKV = kTileKeys * D * 2;
+  static constexpr uint32_t kStage = 2 * kKV;       // K then V
+  static constexpr uint32_t kRowIds = STAGES * kTileKeys * 4;  // each stage's pool rows
+  static constexpr size_t kSmem = kQ + STAGES * kStage + kRowIds;
+};
+
+// One kv head's query rows of a [positions, H, D] block: row R = c g + gi
+// is position c, head kvh g + gi (the reference's GQA packing), so each K/V
+// byte serves all g heads of the kv head
+struct GqaRows {
+  int g, H, kvh, D;
+  __device__ size_t kv_offset(int R) const {
+    const int c = R / g;
+    return (static_cast<size_t>(c) * H + kvh * g + (R - c * g)) * D;
+  }
+};
+
+// A K/V tile's keys through the page table: the pool row of key k0 + i,
+// staged at rows[i] in shared memory once per tile
+template <int D>
+struct StagedKeys {
+  const int* rows;
+  int k0;
+  __device__ size_t kv_offset(int key) const {
+    return static_cast<size_t>(rows[key - k0]) * D;
+  }
+};
+
+struct PagedArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* o;             // the normalised output (K6), or
+  float* ws_o;         // the splits' partial O (K7) and
+  float* ws_ml;        // their (m, l)
+  const int* table;    // [pps] (K6) or [B, pps] (K7)
+  const int* positions;  // K7: each sequence's start, read on the card; null for K6
+  int S;               // query positions per sequence: C (K6) or S (K7)
+  int H, KVH, P, ps, pps, start, total;
+  int nsplit;          // K7: splits of kVerifySplitKeys keys per sequence
+  float scale;
+};
+
+// The paged tile. A CTA owns kRows = 64 WG GQA-packed query rows of one kv
+// head of one sequence (blockIdx.y: row tile and kv head, the tiles with
+// the most keys first; blockIdx.z: the sequence) and walks its keys in
+// tiles of 64, as flash_fwd_wgmma_kernel does: a ring of STAGES K/V stages
+// filled by cp.async, S = Q K^T (SS), the online softmax on the fragment,
+// O += P V (RS). Each stage's keys are looked up in the page table once, by
+// 64 threads, into a ring of pool rows in shared memory, one tile before
+// the copies that read them. Row R sees key j iff j <= start + R / g, j <
+// total and j < pps * ps (no page past the sequence's table row); only
+// tiles that cross a row's bound or the key end are masked. Without
+// kSplit the CTA walks keys [0, key_end) and writes O / l in bf16 (0 for a
+// row with no visible key). With kSplit, CTA blockIdx.x takes the keys of
+// split x only (kVerifySplitKeys each), exits at once when no row of its
+// tile sees the first of them, and writes f32 partials of its rows: the
+// unnormalised O, m in natural-log units, and l.
+template <int D, int WG, int STAGES, bool kSplit>
+__device__ __forceinline__ void paged_tile(const PagedArgs& a) {
+  namespace tc = rtt::tc;
+  using L = PagedLayout<D, WG, STAGES>;
+  constexpr int kRows = L::kRows, kThreads = 128 * WG, kBlk = D / 64;
+  extern __shared__ __align__(16) uint8_t tile_smem[];
+  uint8_t* smem = tc::aligned_smem(tile_smem);
+  const uint32_t sQ = tc::smem_u32(smem), sKV = sQ + L::kQ;
+  int* row_ids = reinterpret_cast<int*>(smem + L::kQ + STAGES * L::kStage);
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = a.H / a.KVH, rows = a.S * g, n_rt = (rows + kRows - 1) / kRows;
+  const int kvh = blockIdx.y % a.KVH, r0 = (n_rt - 1 - blockIdx.y / a.KVH) * kRows;
+  const int b = blockIdx.z;
+  const int* table = a.table + static_cast<size_t>(b) * a.pps;
+  const int start = a.positions ? max(a.positions[b], 0) : a.start;
+  const int total = a.positions ? INT_MAX : a.total;
+  // the keys any row of the tile sees
+  const int key_end = min(min(total, start + (min(r0 + kRows, rows) - 1) / g + 1), a.pps * a.ps);
+  int k_begin = 0, k_stop = key_end;
+  if constexpr (kSplit) {
+    k_begin = blockIdx.x * kVerifySplitKeys;
+    if (k_begin >= key_end) return;  // the combine reads no partial of this split
+    k_stop = min(key_end, k_begin + kVerifySplitKeys);
+  }
+  const int n_tiles = k_stop > k_begin ? (k_stop - k_begin + kTileKeys - 1) / kTileKeys : 0;
+  // this warpgroup's rows [wr0, wr0 + 64) see keys below wg_stop
+  const int wr0 = r0 + 64 * wg;
+  const int wg_stop =
+      wr0 < rows ? min(k_stop, start + (min(wr0 + 64, rows) - 1) / g + 1) : k_begin;
+
+  const auto stage_rows_of = [&](int t) {  // tile t's pool rows, one key per thread
+    if (tid < kTileKeys) {
+      const int key = k_begin + t * kTileKeys + tid;
+      row_ids[(t % STAGES) * kTileKeys + tid] =
+          key < k_stop ? (kvh * a.P + table[key / a.ps]) * a.ps + key % a.ps : 0;
+    }
+  };
+  const auto load_kv = [&](int t) {
+    const uint32_t st = sKV + (t % STAGES) * L::kStage;
+    const int k0 = k_begin + t * kTileKeys;
+    const StagedKeys<D> keys{row_ids + (t % STAGES) * kTileKeys, k0};
+    tc::load_tile<kTileKeys, D, kThreads>(st, a.k, keys, k0, k_stop, tid);
+    tc::load_tile<kTileKeys, D, kThreads>(st + L::kKV, a.v, keys, k0, k_stop, tid);
+  };
+  const size_t seq = static_cast<size_t>(b) * a.S * a.H * D;
+  const GqaRows qrows{g, a.H, kvh, D};
+  // pool rows of the first STAGES tiles; then copy groups {Q, KV0},
+  // {KV1} .. {KV(STAGES - 2)}, and per iteration j {KV(j + STAGES - 1)},
+  // whose pool rows were staged in iteration j - 1 (slot t % STAGES is
+  // rewritten only after the barrier that follows its last reader)
+  for (int t = 0; t < STAGES && t < n_tiles; ++t) stage_rows_of(t);
+  __syncthreads();
+  tc::load_tile<kRows, D, kThreads>(sQ, a.q + seq, qrows, r0, rows, tid);
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < n_tiles) load_kv(t);
+    tc::cp_async_commit();
+  }
+
+  float acc[kBlk][32];
+#pragma unroll
+  for (int blk = 0; blk < kBlk; ++blk)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[blk][i] = 0.f;
+  float m[2] = {rtt::kNegInf, rtt::kNegInf}, l[2] = {0.f, 0.f};
+  const float sc2 = a.scale * tc::kLog2e;
+  const int row0 = wr0 + 16 * warp + (lane >> 2), col0 = 2 * (lane & 3);
+  // the last key each of the thread's two rows sees
+  const int bound[2] = {start + row0 / g, start + (row0 + 8) / g};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const uint32_t sK = sKV + (j % STAGES) * L::kStage, sV = sK + L::kKV;
+    tc::cp_async_wait<STAGES - 2>();
+    tc::fence_async_proxy();
+    __syncthreads();  // tile j in shared memory; every thread is done with tile j - 1
+    if (j + STAGES - 1 < n_tiles) load_kv(j + STAGES - 1);
+    tc::cp_async_commit();
+    if (j + STAGES < n_tiles) stage_rows_of(j + STAGES);
+
+    const int k0 = k_begin + j * kTileKeys;
+    if (k0 < wg_stop) {  // uniform over the warpgroup
+      float s[32];
+      tc::qk_scores<kRows, D>(s, sQ, 64 * wg, sK);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= sc2;
+      // an edge tile: past the key end (zero-filled keys would score 0) or
+      // past the bound of the warpgroup's first row
+      if (k0 + kTileKeys > k_stop || k0 + kTileKeys - 1 > start + wr0 / g) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int key = k0 + 8 * (i >> 2) + col0 + (i & 1);
+          if (key >= k_stop || key > bound[(i >> 1) & 1]) s[i] = rtt::kNegInf;
+        }
+      }
+      float alpha[2];
+      tc::softmax_tile(s, m, l, alpha);
+      tc::pv_accumulate<kBlk>(acc, s, alpha, sV);
+    }
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) l[hh] = tc::quad_sum(l[hh]);
+  if constexpr (kSplit) {
+    // f32 partials of the rows below `rows`, at ((b S + s) H + h) nsplit + x
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int R = row0 + 8 * hh;
+      if (R >= rows) continue;
+      const int c = R / g;
+      const size_t part =
+          ((static_cast<size_t>(b) * a.S + c) * a.H + kvh * g + (R - c * g)) * a.nsplit +
+          blockIdx.x;
+      float* po = a.ws_o + part * D + col0;
+#pragma unroll
+      for (int blk = 0; blk < kBlk; ++blk)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int i = 4 * jj + 2 * hh;
+          *reinterpret_cast<float2*>(po + 64 * blk + 8 * jj) =
+              make_float2(acc[blk][i], acc[blk][i + 1]);
+        }
+      if ((lane & 3) == 0) {
+        a.ws_ml[2 * part] = m[hh] * tc::kLn2;
+        a.ws_ml[2 * part + 1] = l[hh];
+      }
+    }
+  } else {
+    // O / l into this warpgroup's rows of the Q tile (its products have all
+    // completed), then 16-byte stores of the rows below `rows`. With no key
+    // tile, no wait has covered Q's copies yet.
+    if (n_tiles == 0) {
+      tc::cp_async_wait<0>();
+      __syncthreads();
+    }
+    float inv[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) inv[hh] = l[hh] == 0.f ? 0.f : 1.f / l[hh];
+    tc::stage_rows<kRows, kBlk>(smem, 64 * wg, acc, inv, warp, lane);
+    __syncthreads();
+    tc::store_tile<kRows, D, kThreads>(
+        smem, a.o + seq, [&](int R) { return qrows.kv_offset(R); }, r0, rows, tid);
+  }
+}
+
+// K6: one sequence's chunk, grid (1, row tiles x KVH)
+template <int D, int WG>
+__global__ void __launch_bounds__(128 * WG, WG == 1 ? 2 : 1)
+    paged_chunk_wgmma_kernel(const PagedArgs a) {
+  paged_tile<D, WG, 3, false>(a);
+}
+
+// K7: the verify span of every sequence as split-KV, grid (splits, row
+// tiles x KVH, B); two stages hold a 128-key split's two tiles and keep
+// the shared memory low enough for two CTAs an SM at D = 128
+constexpr int kVerifyStages = 2;
+
+template <int D>
+__global__ void __launch_bounds__(128, 2) paged_verify_wgmma_kernel(const PagedArgs a) {
+  paged_tile<D, 1, kVerifyStages, true>(a);
+}
+
+template <int D>
+cudaError_t launch_chunk_wgmma(cudaStream_t s, const PagedArgs& a) {
+  const int rows = a.S * (a.H / a.KVH);
+  // 128 rows a CTA when that still gives one CTA an SM or more, as K2
+  const bool wide = static_cast<long long>((rows + 127) / 128) * a.KVH >= rtt::sm_count();
+  const auto launch = [&](auto kernel, int wg, size_t tiles) {
+    const size_t smem = rtt::tc::smem_bytes(tiles);
+    cudaError_t err = rtt::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const int n_rt = (rows + 64 * wg - 1) / (64 * wg);
+    kernel<<<dim3(1, n_rt * a.KVH, 1), 128 * wg, smem, s>>>(a);
+    return cudaSuccess;
+  };
+  if (wide) return launch(paged_chunk_wgmma_kernel<D, 2>, 2, PagedLayout<D, 2, 3>::kSmem);
+  return launch(paged_chunk_wgmma_kernel<D, 1>, 1, PagedLayout<D, 1, 3>::kSmem);
+}
+
+template <int D>
+cudaError_t launch_verify_wgmma(cudaStream_t s, const PagedArgs& a, int B) {
+  const size_t smem = rtt::tc::smem_bytes(PagedLayout<D, 1, kVerifyStages>::kSmem);
+  cudaError_t err = rtt::allow_smem(paged_verify_wgmma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const int n_rt = (a.S * (a.H / a.KVH) + 63) / 64;
+  paged_verify_wgmma_kernel<D><<<dim3(a.nsplit, n_rt * a.KVH, B), 128, smem, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  paged_combine_kernel<bf16><<<dim3(a.H, a.S, B), rtt::kTileMaxD, 0, s>>>(
+      a.ws_o, a.ws_ml, a.positions, a.o, a.S, a.H, D, a.nsplit, kVerifySplitKeys, a.pps * a.ps,
+      1);
+  return cudaSuccess;
+}
+
+// ------------------------------------------------- K6 and K7 on the FMA tile
 
 template <typename T>
 struct ChunkProblem {
@@ -323,9 +608,9 @@ struct ChunkProblem {
 
 template <typename T>
 __global__ void __launch_bounds__(rtt::kTileThreads)
-    paged_chunk_kernel(const T* q, const T* k_pages, const T* v_pages, const int* table, T* o,
-                       int C, int H, int KVH, int D, int P, int ps, int pps, int start,
-                       int total, float scale) {
+    paged_chunk_fma_kernel(const T* q, const T* k_pages, const T* v_pages, const int* table,
+                           T* o, int C, int H, int KVH, int D, int P, int ps, int pps,
+                           int start, int total, float scale) {
   ChunkProblem<T> pb;
   pb.q = q;
   pb.k = k_pages;
@@ -350,9 +635,9 @@ __global__ void __launch_bounds__(rtt::kTileThreads)
 
 template <typename T>
 __global__ void __launch_bounds__(rtt::kTileThreads)
-    paged_verify_kernel(const T* q, const T* k_pages, const T* v_pages, const int* table,
-                        const int* positions, T* o, int S, int H, int KVH, int D, int P,
-                        int ps, int pps, float scale) {
+    paged_verify_fma_kernel(const T* q, const T* k_pages, const T* v_pages, const int* table,
+                            const int* positions, T* o, int S, int H, int KVH, int D, int P,
+                            int ps, int pps, float scale) {
   const int b = blockIdx.z;
   const size_t seq = static_cast<size_t>(b) * S * H * D;
   ChunkProblem<T> pb;
@@ -375,6 +660,14 @@ __global__ void __launch_bounds__(rtt::kTileThreads)
   const int last_row = min(pb.r0 + rtt::kTileR, pb.rows) - 1;
   const int key_end = min(pb.start + last_row / pb.g + 1, pps * ps);
   rtt::attend_tile<T>(pb, D, key_end, scale);
+}
+
+// bf16 at head_dim 64 or 128 runs on the tensor cores
+bool tensor_core(int dtype, int D) { return dtype == rtt::kBF16 && (D == 64 || D == 128); }
+
+// the wgmma loaders keep a key's pool row, (kvh P + page) ps + slot, in an int
+bool pool_rows_fit(int KVH, int P, int ps) {
+  return static_cast<long long>(KVH) * P * ps <= INT_MAX;
 }
 
 }  // namespace
@@ -423,14 +716,25 @@ extern "C" int rtt_paged_attention_chunk(const void* q, const void* k_pages,
       ps <= 0 || pps <= 0 || start < 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_core(dtype, D)) {
+    if (!rtt::kv_layout_ok<bf16>(k_pages, v_pages, D) || !rtt::kv_layout_ok<bf16>(q, o, D) ||
+        !pool_rows_fit(KVH, P, ps) || static_cast<long long>(C) * H / 64 + KVH > 65535)
+      return cudaErrorInvalidValue;
+    PagedArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k_pages),
+                static_cast<const bf16*>(v_pages), static_cast<bf16*>(o), nullptr, nullptr,
+                table, nullptr, C, H, KVH, P, ps, pps, start, total, 1, scale};
+    cudaError_t err = D == 64 ? launch_chunk_wgmma<64>(s, a) : launch_chunk_wgmma<128>(s, a);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
   const size_t smem = rtt::tile_smem_bytes(D);
   const int rows = C * (H / KVH);
   const dim3 grid((rows + rtt::kTileR - 1) / rtt::kTileR, KVH);
   RTT_DISPATCH_DTYPE(dtype, T, {
     if (!rtt::kv_layout_ok<T>(k_pages, v_pages, D)) return cudaErrorInvalidValue;
-    cudaError_t err = rtt::allow_smem(paged_chunk_kernel<T>, smem);
+    cudaError_t err = rtt::allow_smem(paged_chunk_fma_kernel<T>, smem);
     if (err != cudaSuccess) return err;
-    paged_chunk_kernel<T><<<grid, rtt::kTileThreads, smem, s>>>(
+    paged_chunk_fma_kernel<T><<<grid, rtt::kTileThreads, smem, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k_pages),
         static_cast<const T*>(v_pages), table, static_cast<T*>(o), C, H, KVH, D, P, ps, pps,
         start, total, scale);
@@ -438,23 +742,44 @@ extern "C" int rtt_paged_attention_chunk(const void* q, const void* k_pages,
   return cudaGetLastError();
 }
 
+// ws: on the tensor-core path (bf16, D 64/128), f32 scratch of ws_floats >=
+// B * S * H * splits * (D + 2), splits = ceil(pps * ps / kVerifySplitKeys):
+// the splits' partial O, then their (m, l); unused otherwise
 extern "C" int rtt_paged_attention_verify(const void* q, const void* k_pages,
                                           const void* v_pages, const int* table,
-                                          const int* positions, void* o, int B, int S, int H,
-                                          int KVH, int D, int P, int ps, int pps, float scale,
-                                          int dtype, void* stream) {
-  if (B <= 0 || B > 65535 || S <= 0 || KVH <= 0 || KVH > 65535 || H % KVH != 0 || D <= 0 ||
-      D > rtt::kTileMaxD || P <= 0 || ps <= 0 || pps <= 0)
+                                          const int* positions, void* o, void* ws,
+                                          long long ws_floats, int B, int S, int H, int KVH,
+                                          int D, int P, int ps, int pps, float scale, int dtype,
+                                          void* stream) {
+  if (B <= 0 || B > 65535 || S <= 0 || S > 65535 || KVH <= 0 || KVH > 65535 || H % KVH != 0 ||
+      D <= 0 || D > rtt::kTileMaxD || P <= 0 || ps <= 0 || pps <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_core(dtype, D)) {
+    const int nsplit = (pps * ps + kVerifySplitKeys - 1) / kVerifySplitKeys;
+    if (!rtt::kv_layout_ok<bf16>(k_pages, v_pages, D) || !rtt::kv_layout_ok<bf16>(q, o, D) ||
+        !pool_rows_fit(KVH, P, ps) ||
+        ws_floats < static_cast<long long>(B) * S * H * nsplit * (D + 2) ||
+        static_cast<long long>(S) * H / 64 + KVH > 65535)
+      return cudaErrorInvalidValue;
+    float* w = static_cast<float*>(ws);
+    PagedArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k_pages),
+                static_cast<const bf16*>(v_pages), static_cast<bf16*>(o), w,
+                w + static_cast<size_t>(B) * S * H * nsplit * D, table, positions, S, H, KVH,
+                P, ps, pps, 0, 0, nsplit, scale};
+    cudaError_t err =
+        D == 64 ? launch_verify_wgmma<64>(s, a, B) : launch_verify_wgmma<128>(s, a, B);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
   const size_t smem = rtt::tile_smem_bytes(D);
   const int rows = S * (H / KVH);
   const dim3 grid((rows + rtt::kTileR - 1) / rtt::kTileR, KVH, B);
   RTT_DISPATCH_DTYPE(dtype, T, {
     if (!rtt::kv_layout_ok<T>(k_pages, v_pages, D)) return cudaErrorInvalidValue;
-    cudaError_t err = rtt::allow_smem(paged_verify_kernel<T>, smem);
+    cudaError_t err = rtt::allow_smem(paged_verify_fma_kernel<T>, smem);
     if (err != cudaSuccess) return err;
-    paged_verify_kernel<T><<<grid, rtt::kTileThreads, smem, s>>>(
+    paged_verify_fma_kernel<T><<<grid, rtt::kTileThreads, smem, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k_pages),
         static_cast<const T*>(v_pages), table, positions, static_cast<T*>(o), S, H, KVH, D, P,
         ps, pps, scale);

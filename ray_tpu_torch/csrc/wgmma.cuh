@@ -1,11 +1,12 @@
-// Hopper tensor-core tools for the attention kernels K2 (flash_attention.cu)
-// and K3/K4 (flash_attention_bwd.cu): bf16 tiles in 128-byte-swizzled shared
-// memory filled by 16-byte cp.async copies (K5 in paged_attention.cu uses
-// the cp.async helpers alone), the wgmma matrix descriptors
-// that name that swizzle, and the warpgroup instruction
+// Hopper tensor-core tools for the attention kernels K2 (flash_attention.cu),
+// K3/K4 (flash_attention_bwd.cu) and K6/K7 (paged_attention.cu): bf16 tiles
+// in 128-byte-swizzled shared memory filled by 16-byte cp.async copies (K5
+// uses the cp.async helpers alone), the wgmma matrix descriptors that name
+// that swizzle, the warpgroup instruction
 // wgmma.mma_async.m64n64k16.f32.bf16.bf16 with both operands in shared
-// memory (SS) or A in registers (RS). Everything here is inline PTX; no
-// CUTLASS header is included.
+// memory (SS) or A in registers (RS), and the forward attention step that
+// K2, K6 and K7 share: S = Q K^T, the online softmax on the fragment, and
+// O += P V. Everything here is inline PTX; no CUTLASS header is included.
 //
 // Tile layout. A bf16 tile of R rows x D columns (D a multiple of 64, R a
 // multiple of 8) is stored as D/64 column blocks, each R rows of 128 bytes;
@@ -77,13 +78,14 @@ __device__ __forceinline__ void fence_async_proxy() {
 }
 
 // Rows [row0, row0 + R) of a bf16 source of D columns (row t at element
-// offset rows.kv_offset(t) of base) into the tile at shared address dst, in
-// 16-byte cp.async copies spread over THREADS threads; rows at or past
-// row_end are zero-filled, so no NaN from memory past the end can reach a
-// product whose probability is 0.
-template <int R, int D, int THREADS>
+// offset rows.kv_offset(t) of base, for any RowsT that provides it, as
+// KVStager takes) into the tile at shared address dst, in 16-byte cp.async
+// copies spread over THREADS threads; rows at or past row_end are
+// zero-filled, so no NaN from memory past the end can reach a product
+// whose probability is 0.
+template <int R, int D, int THREADS, typename RowsT>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* base,
-                                          const rtt::Rows& rows, int row0, int row_end, int tid) {
+                                          const RowsT& rows, int row0, int row_end, int tid) {
   constexpr int kChunks = D / 8;
   static_assert((R * kChunks) % THREADS == 0, "tile chunks must divide over the threads");
 #pragma unroll
@@ -189,6 +191,79 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// S = Q K^T for one warpgroup: its 64 rows from row q_r0 of a Q tile of QR
+// rows against a K tile of 64 keys, as D/16 SS wgmma, waited for
+template <int QR, int D>
+__device__ __forceinline__ void qk_scores(float (&s)[32], uint32_t sQ, int q_r0, uint32_t sK) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss(s, desc_k<QR>(sQ, q_r0, kk), desc_k<64>(sK, 0, kk), kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+}
+
+// One key tile of the online softmax on the score fragment s (log2 units,
+// masked entries kNegInf) for the thread's rows 16 w + l / 4 + 8 hh: the
+// row max over the quad updates the running max m, s becomes P in place
+// (all 0 while a row has no visible key), this thread's share of the
+// running sum l is rescaled and added to, and alpha[hh] is O's rescale
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float mx = m[hh];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) mx = fmaxf(mx, fmaxf(s[4 * c + 2 * hh], s[4 * c + 2 * hh + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const bool live = mx > 0.5f * kNegInf;  // some key of the row is visible
+    alpha[hh] = exp2_approx(m[hh] - mx);
+    m[hh] = mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * c + 2 * hh + e;
+        s[i] = live ? exp2_approx(s[i] - mx) : 0.f;
+        sum += s[i];
+      }
+    l[hh] = l[hh] * alpha[hh] + sum;
+  }
+}
+
+// O = alpha O + P V for one warpgroup: P from the score fragment, packed to
+// bf16 as the register A operand, V a tile of 64 keys read MN-major; O is
+// BLKS blocks of 64 columns; waited for
+template <int BLKS>
+__device__ __forceinline__ void pv_accumulate(float (&acc)[BLKS][32], const float (&p)[32],
+                                              const float (&alpha)[2], uint32_t sV) {
+#pragma unroll
+  for (int blk = 0; blk < BLKS; ++blk)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[blk][i] *= alpha[(i >> 1) & 1];
+  uint32_t a[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) a_fragment(p, kk, a[kk]);
+  wgmma_fence();
+#pragma unroll
+  for (int blk = 0; blk < BLKS; ++blk)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(acc[blk], a[kk], desc_mn<64>(sV, blk, kk));
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int blk = 0; blk < BLKS; ++blk) fence_regs(acc[blk]);
+}
+
+// a row's value summed over the four threads of its quad
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // The warpgroup's 64 x (64 * BLKS) f32 accumulator, scaled per row, into

@@ -30,7 +30,7 @@ from . import dispatch
 
 _NEG_INF = -2.0e30
 _MAX_HEAD_DIM = 128  # csrc/attention_tile.cuh kTileMaxD
-_TENSOR_CORE_HEAD_DIMS = (64, 128)  # the bf16 head dims K2, K3 and K4 run on wgmma
+_TENSOR_CORE_HEAD_DIMS = (64, 128)  # the bf16 head dims K2-K4, K6 and K7 run on wgmma
 
 
 def _scores(q, k, causal, scale):

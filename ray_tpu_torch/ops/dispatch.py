@@ -60,7 +60,7 @@ _SIGNATURES = {
                                    _I, _I, _I, _F, _I, _P),
     "rtt_paged_attention_chunk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _F, _I, _P),
-    "rtt_paged_attention_verify": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "rtt_paged_attention_verify": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _F, _I, _P),
 }
 

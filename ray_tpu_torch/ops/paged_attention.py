@@ -6,9 +6,10 @@ k_pages / v_pages [KVH, num_pages, page_size, D]; the engine passes one
 layer's slice of its [L, KVH, P, ps, D] pool, which the kernels read in
 place. Decode (K5) attends one query per sequence, chunk (K6) one
 sequence's prefill chunk, verify (K7) a span of S = k + 1 speculative rows
-per sequence. K5 splits each sequence's keys over CTAs and merges the
-splits on the card (`_paged_split_reference` spells out that arithmetic
-for the tests).
+per sequence. K5, and K7 in bf16 at head_dim 64/128, split each
+sequence's keys over CTAs and merge the splits on the card
+(`_paged_split_reference` and `_verify_split_reference` spell out that
+arithmetic for the tests).
 """
 
 from __future__ import annotations
@@ -18,10 +19,28 @@ from typing import Optional
 import torch
 
 from . import dispatch
-from .attention import _MAX_HEAD_DIM
+from .attention import _MAX_HEAD_DIM, _TENSOR_CORE_HEAD_DIMS
 
 _NEG_INF = -2.0e30
 DECODE_SPLIT_KEYS = 128  # keys per split of K5, csrc/paged_attention.cu kSplitKeys
+VERIFY_SPLIT_KEYS = 128  # keys per split of K7's tensor-core path, kVerifySplitKeys
+
+
+def _tensor_core(dtype: torch.dtype, head_dim: int) -> bool:
+    """K6 and K7 run on the tensor-core tile for bf16 at head_dim 64/128,
+    on the FMA tile otherwise (csrc/paged_attention.cu)."""
+    return dtype == torch.bfloat16 and head_dim in _TENSOR_CORE_HEAD_DIMS
+
+
+def kernel_symbol(op: str, dtype: torch.dtype, head_dim: int) -> str:
+    """Name of the CUDA kernel that `op`'s C entry point launches first for
+    inputs of this dtype and head_dim, as a profiler shows it:
+    "paged_attention_chunk" (K6) and "paged_attention_verify" (K7) run the
+    tensor-core tile (wgmma) for bf16 at head_dim 64/128, the FMA tile
+    otherwise; K7's wgmma kernel is followed by paged_combine_kernel."""
+    stem = {"paged_attention_chunk": "paged_chunk",
+            "paged_attention_verify": "paged_verify"}[op]
+    return f"{stem}_{'wgmma' if _tensor_core(dtype, head_dim) else 'fma'}_kernel"
 
 
 def _masked_softmax_values(s: torch.Tensor, mask: torch.Tensor, v: torch.Tensor,
@@ -65,32 +84,68 @@ def _paged_split_reference(q, k_pages, v_pages, page_table, lengths, scale,
     KVH, _, page_size, _ = k_pages.shape
     g = H // KVH
     ctx = page_table.shape[1] * page_size
-    n_split = -(-ctx // split_keys)
     table = page_table.long()
     kg = k_pages[:, table].transpose(0, 1).reshape(B, KVH, ctx, D).float()
     vg = v_pages[:, table].transpose(0, 1).reshape(B, KVH, ctx, D).float()
     s = torch.einsum("bcgd,bctd->bcgt", q.reshape(B, KVH, g, D).float(), kg) * scale
     live = torch.arange(ctx, device=q.device)[None, :] < lengths.long().clamp(max=ctx)[:, None]
+    out = _split_merge(s, live[:, None, None, :], vg, -(-ctx // split_keys), split_keys,
+                       "bcgnt,bcntd->bcgnd")
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def _split_merge(s, live, vg, n_split, split_keys, o_eq):
+    """The split-and-merge arithmetic shared by `_paged_split_reference` and
+    `_verify_split_reference`: s [..., ctx] f32 scores, live [..., ctx] the
+    visible keys (True only below a row's key count), vg [B, KVH, ctx, D].
+    Per split of `split_keys` keys: O_i unnormalised, m_i and l_i; merged as
+    sum e^(m_i - M) O_i / sum e^(m_i - M) l_i over the splits holding a
+    visible key; none gives 0."""
+    B, KVH, ctx, D = vg.shape
     pad = n_split * split_keys - ctx  # the last split may end past the table
     s = torch.nn.functional.pad(s, (0, pad), value=_NEG_INF)
     vg = torch.nn.functional.pad(vg, (0, 0, 0, pad))
-    live = torch.nn.functional.pad(live, (0, pad))[:, None, None, :]
+    live = torch.nn.functional.pad(live, (0, pad))
     s = torch.where(live, s, torch.full_like(s, _NEG_INF))
-    # [B, KVH, g, splits, keys]
-    s = s.reshape(B, KVH, g, n_split, split_keys)
-    live = live.reshape(B, 1, 1, n_split, split_keys)
+    s = s.reshape(*s.shape[:-1], n_split, split_keys)
+    live = live.reshape(*live.shape[:-1], n_split, split_keys)
     m = s.amax(dim=-1)
     p = torch.where(live, torch.exp(s - m[..., None]), torch.zeros_like(s))
     l = p.sum(dim=-1)
-    o = torch.einsum("bcgnt,bcntd->bcgnd", p, vg.reshape(B, KVH, n_split, split_keys, D))
-    split_live = live.any(dim=-1)  # [B, 1, 1, splits]
+    o = torch.einsum(o_eq, p, vg.reshape(B, KVH, n_split, split_keys, D))
+    split_live = live.any(dim=-1)
     big_m = torch.where(split_live, m, torch.full_like(m, _NEG_INF)).amax(dim=-1, keepdim=True)
     w = torch.where(split_live, torch.exp(m - big_m), torch.zeros_like(m))
     den = (w * l).sum(dim=-1)
     num = (w[..., None] * o).sum(dim=-2)
-    out = torch.where(den[..., None] > 0, num / torch.where(den > 0, den, 1.0)[..., None],
-                      torch.zeros_like(num))
-    return out.reshape(B, H, D).to(q.dtype)
+    return torch.where(den[..., None] > 0, num / torch.where(den > 0, den, 1.0)[..., None],
+                       torch.zeros_like(num))
+
+
+def _verify_split_reference(q, k_pages, v_pages, page_table, positions, scale,
+                            split_keys: int = None):
+    """K7's split-and-merge arithmetic (its tensor-core path) in plain
+    PyTorch, for tests only (`_verify_reference` is the plain version the
+    wrapper runs). Row s of sequence b sees keys j < count[b, s] =
+    min(max(positions[b], 0) + s + 1, pps * ps); each sequence's keys
+    [0, pps * ps) are cut into splits of `split_keys`, a split is live for a
+    row when it starts below the row's count, and the live splits' partials
+    merge as in K5. q [B, S, H, D] -> o [B, S, H, D]."""
+    split_keys = split_keys or VERIFY_SPLIT_KEYS
+    B, S, H, D = q.shape
+    KVH, _, page_size, _ = k_pages.shape
+    g = H // KVH
+    ctx = page_table.shape[1] * page_size
+    table = page_table.long()
+    kg = k_pages[:, table].transpose(0, 1).reshape(B, KVH, ctx, D).float()
+    vg = v_pages[:, table].transpose(0, 1).reshape(B, KVH, ctx, D).float()
+    s = torch.einsum("bscgd,bctd->bscgt", q.reshape(B, S, KVH, g, D).float(), kg) * scale
+    count = (positions.long().clamp(min=0)[:, None] + 1
+             + torch.arange(S, device=q.device)[None, :]).clamp(max=ctx)  # [B, S]
+    live = torch.arange(ctx, device=q.device)[None, None, :] < count[:, :, None]
+    out = _split_merge(s, live[:, :, None, None, :], vg, -(-ctx // split_keys), split_keys,
+                       "bscgnt,bcntd->bscgnd")
+    return out.reshape(B, S, H, D).to(q.dtype)
 
 
 def _chunk_reference(q, k_pages, v_pages, page_table, start, total, scale):
@@ -261,12 +316,18 @@ def paged_attention_verify(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
         raise ValueError("paged_attention_verify: positions must be contiguous int32 "
                          "[B] and page_table [B, pages_per_seq]")
     KVH, P, ps, _ = k_pages.shape
+    pps = page_table.shape[1]
     o = torch.empty_like(q)
     if B == 0 or S == 0:
         return o
+    ws = None
+    if _tensor_core(q.dtype, D):  # split-KV: the splits' f32 partials (O, then m and l)
+        n_split = -(-pps * ps // VERIFY_SPLIT_KEYS)
+        ws = torch.empty(B * S * H * n_split * (D + 2), dtype=torch.float32, device=q.device)
     dispatch.launch(
         "paged_attention_verify", "rtt_paged_attention_verify", q.device,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-        positions.data_ptr(), o.data_ptr(),
-        B, S, H, KVH, D, P, ps, page_table.shape[1], float(scale), dispatch.dtype_code(q))
+        positions.data_ptr(), o.data_ptr(), None if ws is None else ws.data_ptr(),
+        0 if ws is None else ws.numel(),
+        B, S, H, KVH, D, P, ps, pps, float(scale), dispatch.dtype_code(q))
     return o

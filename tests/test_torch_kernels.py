@@ -196,6 +196,90 @@ def test_paged_verify_inactive_slots_and_refusals(card, dtype):
     assert dispatch.launch_counts() == before
 
 
+# K6 and K7 at their edges. On the tensor cores (bf16, head_dim 64/128) K7
+# cuts each sequence's keys into splits of paged.VERIFY_SPLIT_KEYS (128) and
+# merges them on the card. K7: (S, kv heads, g, positions, zero table), a
+# table of 24 pages of 16 (384 keys) per sequence.
+VERIFY_EDGE_CASES = {
+    "split_edges": (5, 2, 4, [126, 127, 128, 129], False),
+    "span_crosses_a_split": (5, 2, 4, [125, 255, 0, 7], False),
+    "span_past_the_table": (5, 2, 4, [383, 381, 388, 379], False),
+    "inactive_slots": (5, 2, 4, [0, 0, 0, 0], True),
+    "g1": (5, 4, 1, [127, 128, 3, 382], False),
+    "g8": (5, 1, 8, [127, 128, 3, 382], False),
+    "S65": (65, 2, 4, [0, 158, 100, 320], False),
+}
+# K6: (C, kv heads, g, start, total, zero table) on one such table: key
+# tiles of 64 at +- 1, a ragged C, total below start + C, keys past the
+# table, no visible key at all (exact zeros), g = 1 / 8, an all-zero table,
+# and a grid wide enough for 128-row CTAs
+CHUNK_EDGE_CASES = {
+    "tile_edges": (65, 2, 4, 63, 128, False),
+    "ragged_C": (100, 2, 4, 48, 148, False),
+    "total_below_start_plus_C": (100, 2, 4, 48, 120, False),
+    "past_the_table": (64, 2, 4, 360, 424, False),
+    "no_visible_key": (16, 2, 4, 0, 0, False),
+    "g1": (100, 4, 1, 30, 130, False),
+    "g8": (100, 1, 8, 30, 130, False),
+    "zero_table": (64, 2, 4, 0, 64, True),
+    "wide_grid": (520, 8, 4, 0, 520, False),  # 17 x 8 tiles of 128 rows, keys past the table
+}
+EDGE_PPS = 24
+
+
+def _paged_pool(KVH, B, head_dim, dtype, card, zero_table=False):
+    P = B * EDGE_PPS + 1
+    kp = _rand((KVH, P, 16, head_dim), dtype, card)
+    vp = _rand((KVH, P, 16, head_dim), dtype, card)
+    table = torch.randperm(P - 1, device=card)[:B * EDGE_PPS].view(B, EDGE_PPS).to(torch.int32) + 1
+    if zero_table:
+        table.zero_()
+    return kp, vp, table
+
+
+@pytest.mark.parametrize("head_dim", [64, D])
+@pytest.mark.parametrize("case", sorted(VERIFY_EDGE_CASES))
+def test_paged_verify_edges(card, dtype, case, head_dim):
+    S, KVH, g, positions, zero_table = VERIFY_EDGE_CASES[case]
+    B = len(positions)
+    kp, vp, table = _paged_pool(KVH, B, head_dim, dtype, card, zero_table)
+    q = _rand((B, S, KVH * g, head_dim), dtype, card)
+    pos = torch.tensor(positions, device=card, dtype=torch.int32)
+    before = dispatch.launch_counts()["paged_attention_verify"]
+    got = ops.paged_attention_verify(q, kp, vp, table, pos)
+    assert dispatch.launch_counts()["paged_attention_verify"] == before + 1
+    _close(got, paged._verify_reference(q, kp, vp, table, pos, head_dim ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("head_dim", [64, D])
+@pytest.mark.parametrize("case", sorted(CHUNK_EDGE_CASES))
+def test_paged_chunk_edges(card, dtype, case, head_dim):
+    C, KVH, g, start, total, zero_table = CHUNK_EDGE_CASES[case]
+    kp, vp, table = _paged_pool(KVH, 1, head_dim, dtype, card, zero_table)
+    q = _rand((C, KVH * g, head_dim), dtype, card)
+    before = dispatch.launch_counts()["paged_attention_chunk"]
+    got = ops.paged_attention_chunk(q, kp, vp, table[0], start, total)
+    assert dispatch.launch_counts()["paged_attention_chunk"] == before + 1
+    _close(got, paged._chunk_reference(q, kp, vp, table[0], start, total, head_dim ** -0.5),
+           dtype)
+    if total == 0:  # every row fully masked gives exact zeros
+        assert not got.any()
+
+
+def test_paged_verify_back_to_back(card, dtype):
+    # two calls in flight on one stream, the second with other positions: on
+    # the tensor cores the first call's split workspace goes back to the
+    # caching allocator and is the second's, which stream order makes safe
+    kp, vp, table = _paged_pool(2, 4, D, dtype, card)
+    q = _rand((4, 5, 8, D), dtype, card)
+    pa = torch.tensor([379, 0, 128, 5], device=card, dtype=torch.int32)
+    pb = torch.tensor([1, 300, 0, 255], device=card, dtype=torch.int32)
+    a = ops.paged_attention_verify(q, kp, vp, table, pa)
+    b = ops.paged_attention_verify(q, kp, vp, table, pb)
+    _close(a, paged._verify_reference(q, kp, vp, table, pa, D ** -0.5), dtype)
+    _close(b, paged._verify_reference(q, kp, vp, table, pb, D ** -0.5), dtype)
+
+
 @pytest.mark.parametrize("T", T_EDGES + [1024, 2048])
 @pytest.mark.parametrize("g", [1, 4])
 def test_flash_attention_lse(card, dtype, T, g):
@@ -310,6 +394,31 @@ def test_attention_calls_launch_the_tile_their_dtype_selects(card, dtype, head_d
         names = _cuda_kernel_names(fn)
         assert any(want in n for n in names), (name, want, names)
         assert not any(other in n for n in names), (name, other, names)
+
+
+@pytest.mark.parametrize("head_dim", [64, D])
+def test_paged_calls_launch_the_tile_their_dtype_selects(card, dtype, head_dim):
+    # K6 and K7 in bf16 at head_dim 64/128 must reach the tensor-core (wgmma)
+    # kernels, f32 the FMA tiles; K7's wgmma kernel is followed by the
+    # split merge
+    kp, vp, table = _paged_pool(2, 4, head_dim, dtype, card)
+    q7 = _rand((4, 5, 8, head_dim), dtype, card)
+    q6 = _rand((256, 8, head_dim), dtype, card)
+    pos = torch.tensor([20, 100, 300, 383], device=card, dtype=torch.int32)
+    calls = {
+        "paged_attention_chunk": lambda: ops.paged_attention_chunk(q6, kp, vp, table[0], 100,
+                                                                   356),
+        "paged_attention_verify": lambda: ops.paged_attention_verify(q7, kp, vp, table, pos),
+    }
+    for op, fn in calls.items():
+        want = paged.kernel_symbol(op, dtype, head_dim)
+        assert ("wgmma" in want) == (dtype == torch.bfloat16)
+        other = want.replace("wgmma", "fma") if "wgmma" in want else want.replace("fma", "wgmma")
+        names = _cuda_kernel_names(fn)
+        assert any(want in n for n in names), (op, want, names)
+        assert not any(other in n for n in names), (op, other, names)
+        merged = any("paged_combine_kernel" in n for n in names)
+        assert merged == (op == "paged_attention_verify" and "wgmma" in want), (op, names)
 
 
 def test_backward_wrappers_refuse_what_the_kernels_cannot_take(card, dtype):
