@@ -14,6 +14,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      launch overhead excluded; see device_ms), the plain version's time,
      the least time the card could take (bound), and one PyTorch library
      call computing the same function where one exists;
+     K1's forward at every shape of the three paths (decode [8, 4096],
+     verify [40, 4096], a prefill chunk [256, 4096], in bf16 and f32, and
+     the training block [8192, 2560] with bf16 x and f32 w) and its backward
+     (rms_norm_bwd) at the training shape and at [8, 4096], each beside the
+     one-element floor (a one-element PyTorch kernel under device_ms); the
+     backward's dw must be bit-identical over two calls, and the profiler
+     must show both kernels by name (norm_checks);
      K2 also with its lse output, and the backward kernels K3 (dq) and K4
      (dk, dv) at the training shape (llama-2b: B=4, T=2048, 20/5 heads of
      128), at a ragged T and at g = 1; K5 (split-KV decode) at the
@@ -69,7 +76,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      bf16 compute, remat, AdamW from a warmup of 2) for TRAIN_STEPS steps
      on one fixed synthetic batch of 4 x 2048 tokens. Launch counts are
      reset just before and read just after: K3 and K4 run once per layer
-     per step, K2 with lse twice (forward and remat recompute). The first
+     per step, K2 with lse twice (forward and remat recompute), K1's forward
+     4 x layers + 1 times and its backward 2 x layers + 1. The first
      step must leave the parameters bit-identical (its learning rate is 0),
      every loss must be finite and the last below the first. Then the
      gradient gate: one step's loss and gradients on the kernel path
@@ -78,16 +86,18 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      every leaf's relative L2 gap must stay under GRAD_TOL, and each
      planted backward fault (BWD_FAULTS) must exceed it.
 
-The second-to-last line of stdout is {"kernels": [...]} (seven kernels,
-launches by path: serve, spec, train), the last
+The second-to-last line of stdout is {"kernels": [...]} (eight kernels:
+K1's forward and backward, K2-K7; launches by path: serve, spec, train),
+the last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --ab DIR   # kernel variants side by side
 
 builds the kernels of this checkout and those of DIR (a changed copy of
-ray_tpu_torch/csrc), checks both, times K4, K5, K6 and K7 with each in
-turns in one process (ab_compare), and prints no result line.
+ray_tpu_torch/csrc), checks both, times K1 (forward and backward), K4, K5,
+K6 and K7 with each in turns in one process (ab_compare), and prints no
+result line.
 """
 
 from __future__ import annotations
@@ -126,6 +136,10 @@ TOL = {
     # of bf16 inputs in another order than the plain version
     ("lse", torch.float32): (1e-4, 1e-5),
     ("lse", torch.bfloat16): (1e-3, 1e-5),
+    # K1's backward: f32 dw sums up to 8192 rows of f32 terms of size ~1
+    # in another order than torch's sum; bf16 dw is rounded once by both
+    ("rms_norm_dw", torch.float32): (1e-3, 1e-4),
+    ("rms_norm_dw", torch.bfloat16): (2e-2, 1.6e-2),
 }
 # nats, per request, on |engine - forward| over its output logprobs: the
 # largest and the mean. The engine (bucketed/chunked prefill, then decode
@@ -140,6 +154,7 @@ LOGPROB_TOL = {"max": 0.5, "mean": 0.12}
 
 SOURCES = {
     "rms_norm": ("ray_tpu_torch/csrc/rms_norm.cu", "ray_tpu/ops/norm.py:31"),
+    "rms_norm_bwd": ("ray_tpu_torch/csrc/rms_norm.cu", "ray_tpu/ops/norm.py:76"),
     "flash_attention": ("ray_tpu_torch/csrc/flash_attention.cu", "ray_tpu/ops/attention.py:84"),
     "flash_attention_bwd_dq": ("ray_tpu_torch/csrc/flash_attention_bwd.cu",
                                "ray_tpu/ops/attention.py:205"),
@@ -160,7 +175,8 @@ SERVE_KERNELS = ("rms_norm", "flash_attention", "paged_attention_decode",
 SPEC_KERNELS = SERVE_KERNELS + ("paged_attention_verify",)
 TRAIN_STEPS = 8
 # name stems of the CUDA kernels in ray_tpu_torch/csrc, as a profiler shows them
-PORT_KERNEL_STEMS = ("rms_norm_kernel", "flash_fwd_", "flash_bwd_", "paged_")
+PORT_KERNEL_STEMS = ("rms_norm_fwd_", "rms_norm_bwd_", "rms_norm_dw_", "flash_fwd_",
+                     "flash_bwd_", "paged_")
 
 
 def log(*a):
@@ -247,8 +263,12 @@ def _kernel_name(mangled: str) -> str:
         pos += int(n)
     if seg is None or not rest[pos:].startswith("I"):
         return mangled
-    args = re.findall(r"L[ib](\d+)E|(13__nv_bfloat16)|(f)", rest[pos + 1:rest.find("EEv", pos)])
-    return f"{seg}<{', '.join(a or ('bf16' if b else 'f32') for a, b, _c in args)}>"
+    names = []  # a type seen before comes back as a substitution, S<n>_
+    for a, b, c, _sub in re.findall(r"L[ib](\d+)E|(13__nv_bfloat16)|(f)|(S\d*_)",
+                                   rest[pos + 1:rest.find("EEv", pos)]):
+        types = [n for n in names if not n.isdigit()]
+        names.append(a or ("bf16" if b else "f32" if c else types[-1] if types else "?"))
+    return f"{seg}<{', '.join(names)}>"
 
 
 def ptxas_report(build_log: str) -> dict:
@@ -361,15 +381,114 @@ def check_tile(label: str, want: str, fn) -> str:
 # -------------------------------------------------------------- phase 2
 
 
-def kernel_checks(gen) -> dict:
-    """Each kernel vs its plain version at the serving path's shapes.
-    Returns, per kernel, the bf16 figures at the main shape."""
+def norm_checks(gen) -> dict:
+    """K1's forward and backward vs their plain versions at the shapes of the
+    three paths, each timed beside its bound, the plain version, the library
+    call and the one-element floor. Returns the bf16 figures of the forward
+    at decode ([8, 4096]) and at the training block, and of the backward at
+    the training block."""
     import torch.nn.functional as F
 
-    from ray_tpu_torch.ops import attention, norm, paged_attention
+    from ray_tpu_torch.ops import norm
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    eps = 1e-5
+    out = {}
+    one = torch.zeros(1, device="cuda")
+    floor = device_ms(lambda: one.add_(1))
+    log(f"K1 floor: one one-element PyTorch kernel (add_) {floor:.4f} ms")
+
+    def inputs(rows, D, xd, wd):
+        x = torch.randn((rows, D), generator=gen, device="cuda").to(xd)
+        g = torch.randn((rows, D), generator=gen, device="cuda").to(xd)
+        w = (1.0 + 0.1 * torch.randn((D,), generator=gen, device="cuda")).to(wd)
+        return x, w, g
+
+    def tag(xd, wd):
+        return "/".join("bf16" if d == bf16 else "f32" for d in (xd, wd))
+
+    # (rows, D, x dtype, w dtype): decode, verify span (B*(k+1)), a prefill
+    # chunk, then the training block (bf16 activations, f32 master scale)
+    fwd_shapes = [(rows, 4096, d, d) for d in (f32, bf16) for rows in (8, 40, 256)]
+    fwd_shapes.append((8192, 2560, bf16, f32))
+    for rows, D, xd, wd in fwd_shapes:
+        x, w, _g = inputs(rows, D, xd, wd)
+        ex, ew = x.element_size(), w.element_size()
+        err = check_close(f"rms_norm [{rows},{D}]", "rms_norm", xd, norm.rms_norm(x, w, eps),
+                          norm.rms_norm_reference(x, w, eps))
+        reps = 10 if rows >= 8192 else 20
+        ms = device_ms(lambda: norm.rms_norm(x, w, eps), reps)
+        plain = device_ms(lambda: norm.rms_norm_reference(x, w, eps), reps)
+        lib = device_ms(lambda: F.rms_norm(x, (D,), w, eps), reps)
+        # x read and y written once, w read once; its arithmetic is f32
+        bnd, by = bound_ms(2 * rows * D * ex + D * ew, 4 * rows * D, f32)
+        log(f"K1 rms_norm {tag(xd, wd)} [{rows},{D}] [{norm.kernel_symbol('rms_norm', x, w)}]: "
+            f"max_err {err:.3e} (tol {TOL[('rms_norm', xd)]}) ms {ms:.4f} plain {plain:.4f} "
+            f"bound {bnd:.4f} ({by}) F.rms_norm {lib:.4f} floor {floor:.4f} "
+            f"(kernel / bound {ms / bnd:.1f}, kernel / F.rms_norm {ms / lib:.2f})")
+        fig = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                   library_ms=lib, floor_ms=floor)
+        if (rows, xd) == (8, bf16):
+            out["rms_norm"] = fig
+        if rows == 8192:
+            out["rms_norm_training"] = fig
+        del x, w
+    x, w, _g = inputs(8, 4096, bf16, bf16)
+    names = launched_kernels(lambda: norm.rms_norm(x, w, eps))
+    if not any("rms_norm_fwd_vec_kernel" in n for n in names):
+        fail(f"rms_norm: the profiler saw {names}, not rms_norm_fwd_vec_kernel")
+
+    # the backward: the training block first, then decode rows
+    for rows, D, xd, wd in [(8192, 2560, bf16, f32), (8, 4096, bf16, bf16), (8, 4096, f32, f32)]:
+        x, w, g = inputs(rows, D, xd, wd)
+        ex, ew = x.element_size(), w.element_size()
+        dx, dw = norm.rms_norm_bwd(x, w, g, eps)
+        want_dx, want_dw = norm._rms_bwd(x, w, g, eps)
+        err = max(check_close(f"rms_norm_bwd dx [{rows},{D}]", "rms_norm", xd, dx, want_dx),
+                  check_close(f"rms_norm_bwd dw [{rows},{D}]", "rms_norm_dw", wd, dw, want_dw))
+        dx2, dw2 = norm.rms_norm_bwd(x, w, g, eps)
+        if not (torch.equal(dw, dw2) and torch.equal(dx, dx2)):
+            fail(f"rms_norm_bwd [{rows},{D}]: two calls on the same inputs differ")
+        del dx, dw, dx2, dw2, want_dx, want_dw
+        reps = 10 if rows >= 8192 else 20
+        ms = device_ms(lambda: norm.rms_norm_bwd(x, w, g, eps), reps)
+        plain = device_ms(lambda: norm._rms_bwd(x, w, g, eps), reps)
+        # yardstick: autograd of F.rms_norm, several launches
+        xr, wr = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+        yr = F.rms_norm(xr, (D,), wr, eps)
+        lib = device_ms(lambda: torch.autograd.grad(yr, (xr, wr), g, retain_graph=True), reps)
+        del yr, xr, wr
+        # x and g read and dx written once, w read and dw written once
+        bnd, by = bound_ms(3 * rows * D * ex + 2 * D * ew, 12 * rows * D, f32)
+        log(f"K1 rms_norm_bwd {tag(xd, wd)} [{rows},{D}] "
+            f"[{norm.kernel_symbol('rms_norm_bwd', x, w, g)} + rms_norm_dw_kernel]: "
+            f"max_err {err:.3e} (dx tol {TOL[('rms_norm', xd)]}, dw tol "
+            f"{TOL[('rms_norm_dw', wd)]}; dw bit-identical over two calls) ms {ms:.4f} "
+            f"plain {plain:.4f} bound {bnd:.4f} ({by}) autograd of F.rms_norm (several "
+            f"launches) {lib:.4f} floor {floor:.4f} (kernel / bound {ms / bnd:.1f}, "
+            f"kernel / plain {ms / plain:.3f})")
+        if rows == 8192:
+            out["rms_norm_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                                       bound_by=by, library_ms=lib, floor_ms=floor)
+            names = launched_kernels(lambda: norm.rms_norm_bwd(x, w, g, eps))
+            for want in ("rms_norm_bwd_vec_kernel", "rms_norm_dw_kernel"):
+                if not any(want in n for n in names):
+                    fail(f"rms_norm_bwd: the profiler saw {names}, not {want}")
+        del x, w, g
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_checks(gen) -> dict:
+    """K2, K5, K6 and K7 vs their plain versions at the serving path's
+    shapes. Returns, per kernel, the bf16 figures at the main shape."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention, paged_attention
 
     out = {}
-    D_model, H, KVH, hd = 4096, 32, 8, 128
+    H, KVH, hd = 32, 8, 128
     P, ps, pps, B = 512, 16, 64, 8
 
     def rnd(shape, dtype):
@@ -378,22 +497,6 @@ def kernel_checks(gen) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         el = torch.tensor([], dtype=dtype).element_size()
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
-
-        # K1: decode rows (B tokens) and a prefill bucket's rows
-        for rows in (B, 256):
-            x, w = rnd((rows, D_model), dtype), 1.0 + 0.1 * rnd((D_model,), dtype)
-            err = check_close("rms_norm", "rms_norm", dtype, norm.rms_norm(x, w, 1e-5),
-                              norm.rms_norm_reference(x, w, 1e-5))
-            ms = device_ms(lambda: norm.rms_norm(x, w, 1e-5))
-            plain = device_ms(lambda: norm.rms_norm_reference(x, w, 1e-5))
-            lib = device_ms(lambda: F.rms_norm(x, (D_model,), w, 1e-5))
-            bnd, by = bound_ms((2 * rows * D_model + D_model) * el, 4 * rows * D_model, dtype)
-            log(f"K1 rms_norm {tag} [{rows},{D_model}]: max_err {err:.3e} "
-                f"(tol {TOL[('rms_norm', dtype)]}) ms {ms:.4f} plain {plain:.4f} "
-                f"bound {bnd:.4f} ({by}) F.rms_norm {lib:.4f}")
-            if dtype == torch.bfloat16 and rows == B:
-                out["rms_norm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                                       bound_by=by, library_ms=lib)
 
         # K2: bucketed prefill, one prompt: the buckets the main path uses
         # (64, 128, 256) and a ragged T
@@ -1383,13 +1486,42 @@ def _first_head_of_group(f):
     return dkv
 
 
+def _inv_of_neighbour_row(f):
+    """K1's backward takes each row's inv from the row before it (the first
+    row from the last): dx = inv' (g w - x inv' mean(g w x inv')); dw is the
+    kernel's."""
+    def bwd(x, w, g, eps):
+        _dx, dw = f(x, w, g, eps)
+        xf, gw = x.float(), g.float() * w.float()
+        inv = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+        inv = inv.reshape(-1, 1).roll(1, 0).reshape(inv.shape)
+        xhat = xf * inv
+        return (inv * (gw - xhat * (gw * xhat).mean(dim=-1, keepdim=True))).to(x.dtype), dw
+    return bwd
+
+
+def _dw_of_one_row_block(f):
+    """K1's dw sums the rows of one CTA only, as if the merge read the first
+    partial row alone: here every 16th row (the kernel's CTAs each walk a
+    far smaller share); dx is the kernel's."""
+    def bwd(x, w, g, eps):
+        dx, _dw = f(x, w, g, eps)
+        D = x.shape[-1]
+        _dx, dw = f(x.reshape(-1, D)[::16].contiguous(), w, g.reshape(-1, D)[::16].contiguous(),
+                    eps)
+        return dx, dw
+    return bwd
+
+
 # Backward faults the gradient gate must catch, each planted by wrapping a
-# kernel wrapper that the attention Function's backward calls:
-# name -> (ops.attention attribute, wrapper maker)
+# kernel wrapper that an autograd Function's backward calls:
+# name -> (module in ray_tpu_torch.ops, attribute, wrapper maker)
 BWD_FAULTS = {
-    "dq_keys_one_ahead": ("flash_attention_bwd_dq", _keys_one_ahead),
-    "dkv_drops_last_q_tile": ("flash_attention_bwd_dkv", _drop_last_q_tile),
-    "dkv_first_head_of_group": ("flash_attention_bwd_dkv", _first_head_of_group),
+    "dq_keys_one_ahead": ("attention", "flash_attention_bwd_dq", _keys_one_ahead),
+    "dkv_drops_last_q_tile": ("attention", "flash_attention_bwd_dkv", _drop_last_q_tile),
+    "dkv_first_head_of_group": ("attention", "flash_attention_bwd_dkv", _first_head_of_group),
+    "norm_dx_inv_of_neighbour_row": ("norm", "rms_norm_bwd", _inv_of_neighbour_row),
+    "norm_dw_of_one_row_block": ("norm", "rms_norm_bwd", _dw_of_one_row_block),
 }
 
 
@@ -1426,9 +1558,9 @@ def grad_gaps(names, grads, ref) -> dict:
 
 
 def train_main_path(card: str, profile: bool) -> dict:
-    from ray_tpu_torch import train
+    from ray_tpu_torch import ops, train
     from ray_tpu_torch.models import get_config
-    from ray_tpu_torch.ops import attention, dispatch
+    from ray_tpu_torch.ops import dispatch
 
     cfg = get_config("llama-2b")
     L, B, T = cfg.n_layers, 4, 2048
@@ -1469,7 +1601,8 @@ def train_main_path(card: str, profile: bool) -> dict:
     S = TRAIN_STEPS
     expect = {"flash_attention_bwd_dq": L * S, "flash_attention_bwd_dkv": L * S,
               "flash_attention": 2 * L * S, "flash_attention_lse": 2 * L * S,
-              "rms_norm": (4 * L + 1) * S, "paged_attention_decode": 0,
+              "rms_norm": (4 * L + 1) * S, "rms_norm_bwd": (2 * L + 1) * S,
+              "paged_attention_decode": 0,
               "paged_attention_chunk": 0, "paged_attention_verify": 0}
     for name, n in expect.items():
         if launches[name] != n:
@@ -1506,8 +1639,8 @@ def train_main_path(card: str, profile: bool) -> dict:
     sound = grad_gaps(names, g_kernel, g_plain)
     del g_kernel
     faulted = {}
-    for name, fault in BWD_FAULTS.items():
-        with planted(attention, fault):
+    for name, (module, attr, make) in BWD_FAULTS.items():
+        with planted(getattr(ops, module), (attr, make)):
             _loss, g = loss_and_grads(params, batch, cfg)
         faulted[name] = grad_gaps(names, g, g_plain)
         del g
@@ -1538,13 +1671,15 @@ def ab_compare(variant_csrc: str, card: str) -> None:
     """Kernel variants side by side in one process: the kernel library of
     this checkout (A) and one built from `variant_csrc` (B, a copy of
     ray_tpu_torch/csrc with one change), each checked against the plain
-    version, then timed in turns A B B A, bf16: K4 at the training shape, K5
-    at the engine's batch and at one sequence of 1024 keys, K6 at the
-    engine's 256-query chunk at start 512, and K7 at the engine's verify
-    span (B=8, S=5) and at one sequence of 1024 keys."""
+    version, then timed in turns A B B A, bf16: K1's forward at decode
+    ([8, 4096]) and at the training block ([8192, 2560], f32 w) and its
+    backward at the training block, K4 at the training shape, K5 at the
+    engine's batch and at one sequence of 1024 keys, K6 at the engine's
+    256-query chunk at start 512, and K7 at the engine's verify span (B=8,
+    S=5) and at one sequence of 1024 keys."""
     from pathlib import Path
 
-    from ray_tpu_torch.ops import attention, dispatch, paged_attention
+    from ray_tpu_torch.ops import attention, dispatch, norm, paged_attention
 
     lib_a = dispatch.library()
     saved = dispatch.CSRC_DIR, dispatch.BUILD_ROOT
@@ -1580,33 +1715,46 @@ def ab_compare(variant_csrc: str, card: str) -> None:
     p8 = torch.tensor([20, 100, 333, 500, 640, 777, 850, 900], dtype=torch.int32, device="cuda")
     p1 = torch.tensor([1019], dtype=torch.int32, device="cuda")
     t5 = table[5].contiguous()
+    xd, wd = rnd((8, 4096)), 1.0 + 0.1 * rnd((4096,))
+    xt, gt = rnd((8192, 2560)), rnd((8192, 2560))
+    wt = 1.0 + 0.1 * torch.randn((2560,), generator=gen, device="cuda")
+    # name -> (call, its plain result, the TOL kinds of its outputs)
+    att = ("attention", dt)
     calls = {
+        "K1 [8,4096] bf16": (lambda: norm.rms_norm(xd, wd, 1e-5),
+                             norm.rms_norm_reference(xd, wd, 1e-5), [("rms_norm", dt)]),
+        "K1 [8192,2560] bf16/f32": (lambda: norm.rms_norm(xt, wt, 1e-5),
+                                    norm.rms_norm_reference(xt, wt, 1e-5), [("rms_norm", dt)]),
+        "K1 backward [8192,2560] bf16/f32": (
+            lambda: norm.rms_norm_bwd(xt, wt, gt, 1e-5), norm._rms_bwd(xt, wt, gt, 1e-5),
+            [("rms_norm", dt), ("rms_norm_dw", torch.float32)]),
         "K4 B=4 T=2048 H=20/5": (
-            lambda: attention.flash_attention_bwd_dkv(q, k, v, do, lse, delta), want_dkv),
+            lambda: attention.flash_attention_bwd_dkv(q, k, v, do, lse, delta), want_dkv,
+            [att, att]),
         "K5 B=8 lengths 0..1024": (
             lambda: paged_attention.paged_attention_decode(q8, kp, vp, table, l8),
-            paged_attention._paged_reference(q8, kp, vp, table, l8, 128 ** -0.5)),
+            paged_attention._paged_reference(q8, kp, vp, table, l8, 128 ** -0.5), [att]),
         "K5 B=1 length 1024": (
             lambda: paged_attention.paged_attention_decode(q1, kp, vp, t1, l1),
-            paged_attention._paged_reference(q1, kp, vp, t1, l1, 128 ** -0.5)),
+            paged_attention._paged_reference(q1, kp, vp, t1, l1, 128 ** -0.5), [att]),
         "K6 C=256 start 512": (
             lambda: paged_attention.paged_attention_chunk(q6, kp, vp, t5, 512, 768),
-            paged_attention._chunk_reference(q6, kp, vp, t5, 512, 768, 128 ** -0.5)),
+            paged_attention._chunk_reference(q6, kp, vp, t5, 512, 768, 128 ** -0.5), [att]),
         "K7 B=8 S=5 positions 20..900": (
             lambda: paged_attention.paged_attention_verify(q7, kp, vp, table, p8),
-            paged_attention._verify_reference(q7, kp, vp, table, p8, 128 ** -0.5)),
+            paged_attention._verify_reference(q7, kp, vp, table, p8, 128 ** -0.5), [att]),
         "K7 B=1 S=5 1024 keys": (
             lambda: paged_attention.paged_attention_verify(q71, kp, vp, t1, p1),
-            paged_attention._verify_reference(q71, kp, vp, t1, p1, 128 ** -0.5)),
+            paged_attention._verify_reference(q71, kp, vp, t1, p1, 128 ** -0.5), [att]),
     }
-    for name, (fn, want) in calls.items():
+    for name, (fn, want, kinds) in calls.items():
         times = {"A": [], "B": []}
         for which in "ABBA":
             dispatch._lib = lib_a if which == "A" else lib_b
             got = fn()
-            for g, w in zip(got if isinstance(got, tuple) else (got,),
-                            want if isinstance(want, tuple) else (want,)):
-                check_close(f"{name} ({which})", "attention", dt, g, w)
+            for g, w, (kind, kdt) in zip(got if isinstance(got, tuple) else (got,),
+                                         want if isinstance(want, tuple) else (want,), kinds):
+                check_close(f"{name} ({which})", kind, kdt, g, w)
             times[which].append(device_ms(fn, 5, 3))
         dispatch._lib = lib_a
         log(f"A/B {name}: A {[round(t, 4) for t in times['A']]} ms, "
@@ -1658,7 +1806,8 @@ def main() -> None:
         return
     gen = torch.Generator(device="cuda").manual_seed(0)
     tile_identity_checks(gen)
-    figures = kernel_checks(gen)
+    figures = norm_checks(gen)
+    figures.update(kernel_checks(gen))
     figures.update(training_kernel_checks(gen))
     served = serve_main_path(args.profile)
     gc.collect()  # the server is shut down: free its pool, keep its weights
@@ -1679,6 +1828,8 @@ def main() -> None:
                         **figures[name]})
         if name == "flash_attention":  # the serving shape above; with lse at the training shape
             kernels[-1]["with_lse"] = figures["flash_attention_lse"]
+        if name == "rms_norm":  # decode rows above; the training block here
+            kernels[-1]["training_shape"] = figures["rms_norm_training"]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

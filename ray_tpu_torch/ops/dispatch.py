@@ -40,8 +40,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DType
 
-KERNELS = ("rms_norm", "flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "paged_attention_decode", "paged_attention_chunk", "paged_attention_verify")
+KERNELS = ("rms_norm", "rms_norm_bwd", "flash_attention", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv", "paged_attention_decode", "paged_attention_chunk",
+           "paged_attention_verify")
 # per kernel, and for K2 also the launches that wrote the lse residual
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS + ("flash_attention_lse",)}
 _launch_lock = threading.Lock()
@@ -50,6 +51,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # C entry point -> argtypes (the stream is the last pointer of each)
 _SIGNATURES = {
     "rtt_rms_norm": (_P, _P, _P, _I, _I, _F, _I, _I, _P),
+    "rtt_rms_norm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
     "rtt_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _LL, _LL, _LL, _LL, _LL, _LL, _I, _F, _I, _P),
     "rtt_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from ray_tpu_torch import ops
-from ray_tpu_torch.ops import attention, dispatch
+from ray_tpu_torch.ops import attention, dispatch, norm
 from ray_tpu_torch.ops import paged_attention as paged
 
 D = 128
@@ -50,6 +50,134 @@ def test_rms_norm(card, dtype):
     before = dispatch.launch_counts()["rms_norm"]
     _close(ops.rms_norm(x, w, 1e-5), ops.rms_norm_reference(x, w, 1e-5), dtype)
     assert dispatch.launch_counts()["rms_norm"] == before + 1
+
+
+# K1 at the paths' widths (2560 training, 4096 serving), a tiny config's
+# (64), a D that is not a multiple of 128 (4136) and one whose row is not a
+# multiple of 16 bytes (1030: the scalar kernels); one row, a few rows (a
+# block per row) and a training block's 8192 (warps per row, and CTAs that
+# walk rows in the backward). `other_w`: w in the other dtype, (bf16, f32)
+# as in training and (f32, bf16).
+K1_D = [64, 1030, 2560, 4096, 4136]
+K1_ROWS = [1, 37, 8192]
+
+
+def _k1_inputs(rows, D, dtype, other_w, card):
+    wdtype = dtype if not other_w else (torch.float32 if dtype == torch.bfloat16
+                                        else torch.bfloat16)
+    x, g = _rand((rows, D), dtype, card), _rand((rows, D), dtype, card)
+    w = (1.0 + 0.1 * torch.randn(D, device=card)).to(wdtype)
+    return x, w, g
+
+
+@pytest.mark.parametrize("other_w", [False, True])
+@pytest.mark.parametrize("rows", K1_ROWS)
+@pytest.mark.parametrize("D", K1_D)
+def test_rms_norm_forward_shapes(card, dtype, D, rows, other_w):
+    x, w, _g = _k1_inputs(rows, D, dtype, other_w, card)
+    y = norm.rms_norm(x, w, 1e-5)
+    assert y.dtype == dtype
+    _close(y, norm.rms_norm_reference(x, w, 1e-5), dtype)
+
+
+@pytest.mark.parametrize("other_w", [False, True])
+@pytest.mark.parametrize("rows", K1_ROWS)
+@pytest.mark.parametrize("D", K1_D)
+def test_rms_norm_backward_shapes(card, dtype, D, rows, other_w):
+    x, w, g = _k1_inputs(rows, D, dtype, other_w, card)
+    dx, dw = norm.rms_norm_bwd(x, w, g, 1e-5)
+    want_dx, want_dw = norm._rms_bwd(x, w, g, 1e-5)
+    assert (dx.dtype, dw.dtype) == (dtype, w.dtype)
+    _close(dx, want_dx, dtype)
+    _close(dw, want_dw, w.dtype)
+
+
+@pytest.mark.parametrize("D", [9001, 20000])
+def test_rms_norm_wide_rows_stream(card, dtype, D):
+    # rows wider than the registers hold (9001: scalar kernels past 8192
+    # forward and 2048 backward elements; 20000: vector kernels past 2048
+    # forward and 1024 backward groups) stream the rest of the row and
+    # read it again after the reduction
+    x, w, g = _k1_inputs(3, D, dtype, False, card)
+    _close(norm.rms_norm(x, w, 1e-5), norm.rms_norm_reference(x, w, 1e-5), dtype)
+    dx, dw = norm.rms_norm_bwd(x, w, g, 1e-5)
+    want_dx, want_dw = norm._rms_bwd(x, w, g, 1e-5)
+    _close(dx, want_dx, dtype)
+    _close(dw, want_dw, dtype)
+
+
+def test_rms_norm_unaligned_bases_take_the_scalar_kernels(card, dtype):
+    # contiguous slices one element past a 16-byte boundary: the 16-byte
+    # loads cannot take them, so the entry points pick the scalar kernels,
+    # which must agree as the vector kernels do
+    rows, D = 37, 4096
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=card)
+        out = buf[1:1 + t.numel()].view(t.shape)
+        out.copy_(t)
+        return out
+
+    x, w, g = (shifted(t) for t in _k1_inputs(rows, D, dtype, False, card))
+    assert norm.kernel_symbol("rms_norm", x, w) == "rms_norm_fwd_scalar_kernel"
+    assert norm.kernel_symbol("rms_norm_bwd", x, w, g) == "rms_norm_bwd_scalar_kernel"
+    names = _cuda_kernel_names(lambda: norm.rms_norm(x, w, 1e-5))
+    assert any("rms_norm_fwd_scalar_kernel" in n for n in names), names
+    names = _cuda_kernel_names(lambda: norm.rms_norm_bwd(x, w, g, 1e-5))
+    assert any("rms_norm_bwd_scalar_kernel" in n for n in names), names
+    assert any("rms_norm_dw_kernel" in n for n in names), names
+    _close(norm.rms_norm(x, w, 1e-5), norm.rms_norm_reference(x, w, 1e-5), dtype)
+    dx, dw = norm.rms_norm_bwd(x, w, g, 1e-5)
+    want_dx, want_dw = norm._rms_bwd(x, w, g, 1e-5)
+    _close(dx, want_dx, dtype)
+    _close(dw, want_dw, dtype)
+    # and aligned inputs reach the vector kernels
+    xa, wa, ga = (t.clone() for t in (x, w, g))
+    assert norm.kernel_symbol("rms_norm_bwd", xa, wa, ga) == "rms_norm_bwd_vec_kernel"
+    names = _cuda_kernel_names(lambda: norm.rms_norm(xa, wa, 1e-5))
+    assert any("rms_norm_fwd_vec_kernel" in n for n in names), names
+    names = _cuda_kernel_names(lambda: norm.rms_norm_bwd(xa, wa, ga, 1e-5))
+    assert any("rms_norm_bwd_vec_kernel" in n for n in names), names
+
+
+@pytest.mark.parametrize("rows", [37, 8192])
+def test_rms_norm_bwd_dw_is_deterministic(card, dtype, rows):
+    # dw sums the CTAs' partial rows in a fixed order: no atomics, the
+    # same bits from call to call
+    x, w, g = _k1_inputs(rows, 2560, dtype, dtype == torch.bfloat16, card)
+    dx1, dw1 = norm.rms_norm_bwd(x, w, g, 1e-5)
+    dx2, dw2 = norm.rms_norm_bwd(x, w, g, 1e-5)
+    assert torch.equal(dw1, dw2) and torch.equal(dx1, dx2)
+
+
+def test_rms_norm_backward_counts_one_launch(card, dtype):
+    x, w, g = _k1_inputs(64, 256, dtype, False, card)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    y = ops.rms_norm(x, w, 1e-5)
+    before = dispatch.launch_counts()
+    y.backward(g)
+    after = dispatch.launch_counts()
+    assert after["rms_norm_bwd"] == before["rms_norm_bwd"] + 1
+    assert {k: v for k, v in after.items() if k != "rms_norm_bwd"} == {
+        k: v for k, v in before.items() if k != "rms_norm_bwd"}
+    want_dx, want_dw = norm._rms_bwd(x.detach(), w.detach(), g, 1e-5)
+    _close(x.grad, want_dx, dtype)
+    _close(w.grad, want_dw, dtype)
+
+
+def test_rms_norm_bwd_refuses_what_the_kernel_cannot_take(card, dtype):
+    x, w, g = _k1_inputs(8, 256, dtype, False, card)
+    before = dispatch.launch_counts()
+    with pytest.raises(ValueError, match="g must match"):
+        norm.rms_norm_bwd(x, w, g[:4], 1e-5)
+    with pytest.raises(ValueError, match="w must be"):
+        norm.rms_norm_bwd(x, w[:128], g, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        norm.rms_norm_bwd(x.t().contiguous().t(), w, g, 1e-5)
+    with pytest.raises(ValueError, match="mixed"):
+        norm.rms_norm_bwd(x, w.cpu(), g, 1e-5)
+    assert dispatch.launch_counts() == before
 
 
 # the T of the attention tests: the 64- and 128-row tiles' edges, a ragged T,
@@ -464,7 +592,7 @@ def test_gradients_flow_through_the_kernels(card, dtype):
     after = dispatch.launch_counts()
     want = run(ops.rms_norm_reference, ops.mha_reference)
     assert got[0] is not None and got[1] is not None
-    for name in ("rms_norm", "flash_attention", "flash_attention_lse",
+    for name in ("rms_norm", "rms_norm_bwd", "flash_attention", "flash_attention_lse",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         assert after[name] == before[name] + 1, name
     _close(got[0], want[0], dtype)
