@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the repository root, one card
     python3 chip_smoke.py --profile  # adds a torch.profiler pass after each path
+                                     # (and gates K1/K5/K7 inside graph replays)
 
 Phases (any failure exits non-zero; no phase's failure is caught):
   0. the card: `nvidia-smi` name and power limit, compute capability 9.0;
@@ -42,12 +43,15 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      (random weights from a seed) with five concurrent requests — short
      prompts (bucketed prefill, kernel K2), a ~700-token prompt (chunked
      prefill, K6), one request sampled at temperature 0.8 / top_p 0.9 —
-     32 tokens each. Launch counts are reset just before and read just
+     32 tokens each. The server captures its decode spans as CUDA graphs
+     at warm-up (its build time, the capture's share and the graph pool's
+     size are printed). Launch counts are reset just before and read just
      after; every serving kernel (SERVE_KERNELS) must have run. The
      engine's logprobs are held against log-softmax of the port's own
      `forward` over prompt + output; as negative controls, the same burst
      with fresh prompts is served once per planted engine fault (FAULTS),
-     and the gate must fail each;
+     each on a server built inside the fault's block so that the fault is
+     captured into its graphs, and the gate must fail each;
   3s. the speculation path: the serving server is shut down and its
      parameters go to LLMServer(engine_config={"speculation": ...}), again
      llama3-8b at full width and depth, twice. (1) mode "draft", k = 4,
@@ -68,9 +72,16 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      forward's argmax; its mean and max per request must stay under
      SPEC_REGRET_TOL, and each planted fault (spec_faults: verify mask one
      key short, span KV one position late, and, on a server with a distinct
-     two-layer draft, every draft accepted) must exceed it. Prints TTFT,
-     TPOT and tokens/s beside phase 3's, acceptance, tokens per step, the
-     round's host wall split, and a verify round against a decode step;
+     two-layer draft, every draft accepted), each on a server built inside
+     its block, must exceed it. Prints TTFT, TPOT and tokens/s beside phase
+     3's, acceptance, tokens per step and the round's host wall split. On
+     the idle draft-mode engine the captured programs are held against
+     their eager bodies (graph_checks: decode span, verify and propose give
+     identical tokens, sampled replays draw fresh numbers, launches per
+     replay equal the eager body's, the profiler sees K1/K5/K7 inside
+     replays), and round_vs_step times a decode step, the verify at every
+     width and a propose as replays and as eager bodies and fits the span
+     picker's cost model (SpecDecoder._SPAN_ALPHA);
   4. the training path: with the server's memory freed, train.lm trains
      llama-2b at full width and depth (f32 master weights from seed 0,
      bf16 compute, remat, AdamW from a warmup of 2) for TRAIN_STEPS steps
@@ -293,18 +304,28 @@ def ptxas_report(build_log: str) -> dict:
 
 
 def launched_kernels(fn) -> list:
-    """Names of the CUDA kernels one fn() launched, from torch.profiler."""
+    """Names of the CUDA kernels that three calls of fn() launched, from
+    torch.profiler. The profiler on the H100 now and then loses records:
+    a pass around one short launch recorded no kernel, or only the second
+    of two (PERF.md), so each pass makes three calls, and a pass that
+    recorded no kernel at all is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # a margin on both sides of the launch: late in a process a pass
-        # without it recorded no kernel at all (PERF.md)
-        time.sleep(0.25)
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-        time.sleep(0.25)
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # a margin on both sides of the launches: late in a process a
+            # pass without it recorded no kernel at all (PERF.md)
+            time.sleep(0.25)
+            for _ in range(3):
+                fn()
+                torch.cuda.synchronize()
+            time.sleep(0.25)
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def tile_identity_checks(gen) -> None:
@@ -868,19 +889,35 @@ def run_requests(server, requests):
     return results, time.monotonic() - t0, errors
 
 
-def profile_report(run) -> int:
+# host-side launch calls a profiler records: one per eager kernel launch,
+# one per graph replay; and calls that wait for the card (a synchronise,
+# or a copy that PyTorch follows with one)
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+               "cudaGraphLaunch", "cuGraphLaunch")
+WAIT_APIS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+             "cudaMemcpy")
+
+
+def profile_report(run) -> dict:
     """run() under torch.profiler: device time by kernel (the top 20, then
-    the port's own kernels below them) and the card's busy share of the wall
-    time that run() returns, in seconds. Returns the number of kernel
-    launches it saw."""
+    the port's own kernels below them), the card's busy share of the wall
+    time that run() returns, in seconds, and the host's launch calls and
+    waits for the card by API, with the host time spent in them (summed
+    over threads). Returns {"kernels": kernel executions seen, "names":
+    their names, "api": launch calls by API}."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = run()
-    rows = []
+    rows, api, host_ms = [], {}, {}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host events carry their kernels' device time too
+            # host events carry their kernels' device time too: not summed
+            if ev.key in LAUNCH_APIS + WAIT_APIS:
+                if ev.key in LAUNCH_APIS:
+                    api[ev.key] = api.get(ev.key, 0) + ev.count
+                host_ms[ev.key] = (ev.count, ev.cpu_time_total / 1e3)
+            continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
@@ -891,13 +928,21 @@ def profile_report(run) -> int:
     launches = sum(r[1] for r in rows)
     log(f"profile: wall {wall:.3f}s, device busy {busy_s:.3f}s "
         f"({100 * busy_s / wall:.1f}% busy, {100 - 100 * busy_s / wall:.1f}% idle), "
-        f"{launches} kernel launches")
+        f"{launches} kernels ran; host calls (count, host ms summed over threads): "
+        + ", ".join(f"{k} {n} ({ms:.1f} ms)" for k, (n, ms) in sorted(host_ms.items())))
     for dev_us, count, key in rows[:20]:
         log(f"  {dev_us / 1e3:10.3f} ms {count:7d}x  {key[:90]}")
     for dev_us, count, key in rows[20:]:  # the port's kernels below the top 20
         if any(stem in key for stem in PORT_KERNEL_STEMS):
             log(f"  {dev_us / 1e3:10.3f} ms {count:7d}x  {key[:90]}")
-    return launches
+    return {"kernels": launches, "names": [r[2] for r in rows], "api": api}
+
+
+def require_kernels(label: str, names, stems) -> None:
+    """Fails unless, for each stem, some kernel name holds it."""
+    for stem in stems:
+        if not any(stem in n for n in names):
+            fail(f"{label}: no kernel named *{stem}* ran; the profiler saw {sorted(set(names))}")
 
 
 @contextlib.contextmanager
@@ -999,19 +1044,43 @@ def report_burst(label: str, requests, results, wall: float) -> None:
         f"0 failed")
 
 
-def serve_main_path(profile: bool) -> dict:
-    from ray_tpu_torch.ops import dispatch
-    from ray_tpu_torch.serve import LLMServer, programs
+# the serving engines' sizes, phases 3 and 3s
+ENGINE = dict(max_batch_size=8, max_seq_len=1024)
+
+
+def new_server(label: str, **kwargs):
+    """An LLMServer (which warms up: captures every program its step loop
+    can pick); prints the build time, the capture's share and the graph
+    pool's size."""
+    from ray_tpu_torch.serve import LLMServer
 
     t0 = time.monotonic()
-    server = LLMServer(model_name="llama3-8b",
-                       engine_config=dict(max_batch_size=8, max_seq_len=1024), seed=0)
+    server = LLMServer(**kwargs)
     torch.cuda.synchronize()
+    st = server.engine.capture_stats
+    log(f"{label}: built + warmed in {time.monotonic() - t0:.1f}s, of which capture "
+        f"{st['seconds']:.1f}s for {st['programs']} programs (graph pool and static "
+        f"buffers {st['pool_bytes'] / 2**30:.3f} GiB); memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return server
+
+
+def release() -> None:
+    """Free what dropped servers held: their pools and graphs (the weights
+    stay while a caller holds them)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_main_path(profile: bool) -> dict:
+    from ray_tpu_torch.ops import dispatch
+    from ray_tpu_torch.serve import programs
+
+    server = new_server("phase 3: LLMServer llama3-8b", model_name="llama3-8b",
+                        engine_config=ENGINE, seed=0)
     cfg = server.engine.cfg
-    log(f"phase 3: LLMServer llama3-8b (d_model {cfg.d_model}, layers {cfg.n_layers}, "
-        f"heads {cfg.n_heads}/{cfg.kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) "
-        f"built + warmed in {time.monotonic() - t0:.1f}s; "
-        f"memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    log(f"phase 3: llama3-8b d_model {cfg.d_model}, layers {cfg.n_layers}, heads "
+        f"{cfg.n_heads}/{cfg.kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}")
 
     rng = torch.Generator().manual_seed(1)  # prompts: seeded, host-side
 
@@ -1048,23 +1117,38 @@ def serve_main_path(profile: bool) -> dict:
                 fail(f"profiled run: {errs}")
             return wall
 
-        profile_report(profiled)
+        spans = server.engine._step_count
+        seen = profile_report(profiled)
+        spans = server.engine._step_count - spans
+        tokens = sum(r["max_tokens"] for r in requests)
+        log(f"profiled plain burst: {spans} engine iterations, {tokens} output tokens; host "
+            f"launch calls per output token {sum(seen['api'].values()) / tokens:.1f} "
+            f"({seen['api']}), kernels run per output token {seen['kernels'] / tokens:.1f}")
+        require_kernels("profiled plain burst (K1 and K5 inside graph replays)", seen["names"],
+                        ("rms_norm_fwd_", "paged_decode_split_kernel"))
+    params = server.engine.params
+    server.shutdown()
+    del server
+    release()
     # the negative controls: a burst of fresh prompts (no prefix hits) per
-    # planted fault
+    # planted fault, each on a server built inside the fault's block, so
+    # that the fault is captured into the graphs it must spoil
     faulted = []
     for name, fault in FAULTS.items():
         reqs = burst()
         with planted(programs, fault):
-            res, _wall, errs = run_requests(server, reqs)
+            fs = new_server(f"planted fault {name}", params_fn=lambda: (params, cfg),
+                            engine_config=ENGINE)
+            res, _wall, errs = run_requests(fs, reqs)
+            fs.shutdown()
+        del fs
+        release()
         if errs:
-            server.shutdown()
             fail(f"planted fault {name}: {errs}")
         faulted.append((name, reqs, res))
-    server.shutdown()
 
     # the gate: the engine's logprobs against the port's own full forward,
     # which must pass the sound run and fail each planted fault
-    params = server.engine.params
     sound = logprob_gaps(params, cfg, requests, results, yardstick=True)
     caught = {}
     for name, reqs, res in faulted:
@@ -1206,49 +1290,202 @@ def spec_report(label: str, engine, since: dict) -> float:
     return per_step
 
 
-def round_vs_step(engine) -> None:
-    """A verify round (S = k + 1) and a draft propose against one plain
-    decode step, on an idle draft-mode engine at the burst's batch shape: host wall with a
-    synchronise after each call, and device time by CUDA events."""
+# nats: a replayed decode span's logprobs against its eager body's on the
+# same inputs. The same kernels run in the same order, so they should
+# agree exactly; the limit only leaves room for a library that picks
+# another algorithm under capture (a bf16 rounding difference in one GEMM
+# moves a logprob by ~1e-3).
+GRAPH_LOGPROB_TOL = 5e-3
+
+
+def _batch_inputs(engine, seed: int):
+    """Host arrays at the burst's batch shape: tokens, positions spread over
+    20..900, and page tables as the allocator would give them: each slot
+    its own pages of the pool, drawn at random, as far as a span of up to
+    32 rows past its position reaches; the rest of the row the trash page."""
     import numpy as np
 
     ecfg = engine.ecfg
-    B, pps, k = ecfg.max_batch_size, ecfg.pages_per_seq, engine._spec.k
-    rs = np.random.RandomState(0)
+    B, pps, ps = ecfg.max_batch_size, ecfg.pages_per_seq, ecfg.page_size
+    rs = np.random.RandomState(seed)
     positions = np.linspace(20, 900, B).astype(np.int32)
-    tables = rs.randint(1, ecfg.max_pages, (B, pps)).astype(np.int32)
-    tokens = rs.randint(1, engine.cfg.vocab_size, (B,)).astype(np.int32)
+    free = list(rs.permutation(np.arange(1, ecfg.max_pages)))
+    tables = np.zeros((B, pps), np.int32)
+    for b, p in enumerate(positions):
+        n = min(pps, (int(p) + 32) // ps + 1)
+        tables[b, :n], free = free[:n], free[n:]
+    return rs.randint(1, engine.cfg.vocab_size, (B,)).astype(np.int32), positions, tables
+
+
+def graph_checks(engine) -> None:
+    """The captured programs of an idle draft-mode engine (threads stopped)
+    at llama3-8b against their eager bodies: a replay, then the body on the
+    program's static inputs (which still hold the replay's inputs; greedy
+    bodies rewrite the same KV with the same values before any query reads
+    it). Gates: the decode span's tokens identical and its logprobs within
+    GRAPH_LOGPROB_TOL, the verify's commits and the propose's drafts
+    identical; two sampled replays of the same inputs differ (the engine's
+    generator is registered with the graphs); every program's launches per
+    replay equal its eager body's; a profiler sees K1, K5 and K7 by name
+    inside replays."""
+    import numpy as np
+
+    from ray_tpu_torch.ops import dispatch
+    from ray_tpu_torch.ops import paged_attention as paged
+
+    ecfg, spec = engine.ecfg, engine._spec
+    B, k, n = ecfg.max_batch_size, spec.k, ecfg.decode_span
+    tokens, positions, tables = _batch_inputs(engine, 3)
     zeros_f, ones_f = np.zeros((B,), np.float32), np.ones((B,), np.float32)
     zeros_i = np.zeros((B,), np.int32)
-    dev = engine._tensor
-    toks_bs = dev(rs.randint(1, engine.cfg.vocab_size, (B, k + 1)).astype(np.int32), torch.int32)
-    pos_t, tab_t = dev(positions, torch.int32), dev(tables, torch.int32)
-    nd_t = dev(np.full((B,), k, np.int32), torch.int32)
 
-    calls = {
-        "decode step": lambda: engine._decode_span(1, tokens, positions, tables, zeros_f, ones_f,
-                                                   zeros_i, False),
-        f"verify round S={k + 1}": lambda: engine._spec._verify(
-            toks_bs, pos_t, tab_t, nd_t, dev(zeros_f, torch.float32),
-            dev(ones_f, torch.float32), dev(zeros_i, torch.int32), False, False)[0].cpu(),
-        f"propose k={k} (catch-up + {k} draft steps)": lambda: engine._spec.proposer._dispatch(
-            engine, tokens, tokens, positions).cpu(),
-    }
-    for name, call in calls.items():
+    seq, logps = engine._decode_span(n, tokens, positions, tables, zeros_f, ones_f, zeros_i,
+                                     False)
+    program = engine._program(("decode", n, False, False))
+    want_seq, want_logps = (t.cpu().numpy() for t in program.fn(*program.inputs))
+    gap = float(np.abs(logps - want_logps).max())
+    log(f"graph decode span n={n}: tokens equal to the eager body's "
+        f"{int((seq == want_seq).sum())}/{seq.size}, logprob max |replay - eager| {gap:.3e} "
+        f"(tol {GRAPH_LOGPROB_TOL})")
+    if not np.array_equal(seq, want_seq) or not gap <= GRAPH_LOGPROB_TOL:
+        fail("the decode span graph disagrees with its eager body")
+
+    drafts = spec.proposer._dispatch(engine, tokens, tokens, positions).clone()
+    program = engine._program(("propose",))
+    want = program.fn(*program.inputs)[0]
+    log(f"graph propose: drafts equal to the eager body's {int((drafts == want).sum())}/"
+        f"{drafts.numel()}")
+    if not torch.equal(drafts, want):
+        fail("the propose graph disagrees with its eager body")
+
+    # row 0 is the span's first fed token, the first draft its greedy
+    # successor, the rest random
+    rs = np.random.RandomState(4)
+    toks_bs = torch.as_tensor(rs.randint(1, engine.cfg.vocab_size, (B, k + 1)).astype(np.int32))
+    toks_bs[:, 0] = torch.as_tensor(tokens)
+    toks_bs[:, 1] = torch.as_tensor(want_seq[0])
+    verify_in = [toks_bs] + [torch.as_tensor(a) for a in (
+        positions, tables, np.full((B,), k, np.int32), zeros_f, ones_f, zeros_i)]
+    committed, n_comm = (t.clone() for t in spec._verify(*verify_in, advanced=False,
+                                                        sample=False))
+    program = engine._program(("verify", k + 1, False, False))
+    want_c, want_n = program.fn(*program.inputs)
+    log(f"graph verify S={k + 1}: commits equal to the eager body's "
+        f"{int((committed == want_c).sum())}/{committed.numel()}, counts "
+        f"{n_comm.tolist()} vs {want_n.tolist()}")
+    if not (torch.equal(committed, want_c) and torch.equal(n_comm, want_n)):
+        fail("the verify graph disagrees with its eager body")
+
+    # sampled replays draw fresh numbers
+    for top_p, advanced in ((1.0, False), (0.9, True)):
+        draws = [engine._decode_span(n, tokens, positions, tables, ones_f,
+                                     np.full((B,), top_p, np.float32), zeros_i, advanced)[0]
+                 for _ in range(2)]
+        same = int((draws[0] == draws[1]).sum())
+        log(f"graph decode span n={n} sampled (top_p {top_p}): two replays on the same "
+            f"inputs agree on {same}/{draws[0].size} tokens")
+        if same == draws[0].size:
+            fail("two sampled decode-span replays drew the same tokens")
+    verify_in[4] = torch.as_tensor(ones_f)
+    rounds = [spec._verify(*verify_in, advanced=False, sample=True)[0].clone() for _ in range(2)]
+    log(f"graph verify S={k + 1} sampled: two replays agree on "
+        f"{int((rounds[0] == rounds[1]).sum())}/{rounds[0].numel()} committed entries")
+    if torch.equal(rounds[0], rounds[1]):
+        fail("two sampled verify replays committed the same tokens")
+
+    # launches per replay equal the eager body's, program by program
+    for key, program in sorted(engine._programs.items(), key=str):
+        dispatch.reset_launches()
+        program.fn(*program.inputs)
+        eager = {name: c for name, c in dispatch.launch_counts().items() if c}
+        dispatch.reset_launches()
+        program(*program.inputs)
+        torch.cuda.synchronize()
+        replayed = {name: c for name, c in dispatch.launch_counts().items() if c}
+        if not (replayed == eager == program.launches):
+            fail(f"program {key}: launches per replay {replayed} (recorded "
+                 f"{program.launches}), eager body {eager}")
+    log(f"graph launches: every one of {len(engine._programs)} programs counts per replay "
+        f"what its eager body launches (decode span n={n}: "
+        f"{engine._program(('decode', n, False, False)).launches})")
+
+    # the profiler sees the kernels inside replays
+    names = launched_kernels(lambda: engine._decode_span(
+        n, tokens, positions, tables, zeros_f, ones_f, zeros_i, False))
+    require_kernels("a decode span replay", names,
+                    ("rms_norm_fwd_vec_kernel", "paged_decode_split_kernel",
+                     "paged_combine_kernel"))
+    names = launched_kernels(lambda: spec._verify(*verify_in, advanced=False, sample=False))
+    require_kernels("a verify replay", names,
+                    (paged.kernel_symbol("paged_attention_verify", torch.bfloat16, 128),))
+
+
+def round_vs_step(engine) -> float:
+    """A decode step, a decode span of decode_span steps, the verify at
+    every width S = 2..k+1 and the draft propose, each replayed (one graph
+    launch) and run as its eager body, on an idle draft-mode engine at the
+    burst's batch shape: the host's enqueue (until the call returns), host
+    wall with a synchronise after each call and device time (first to last
+    kernel, by CUDA events), median of 5. Fits the span picker's cost
+    model, t(S) = c (ALPHA + S) with the decode step as S = 1, to the
+    replays' device times by least squares, and returns the fitted ALPHA."""
+    import numpy as np
+
+    ecfg, spec = engine.ecfg, engine._spec
+    B, k, n = ecfg.max_batch_size, spec.k, ecfg.decode_span
+    engine._capture_programs(spans=[1])  # threads stopped: a capture is allowed
+    tokens, positions, tables = _batch_inputs(engine, 0)
+    rs = np.random.RandomState(1)
+    zeros_f, ones_f = np.zeros((B,), np.float32), np.ones((B,), np.float32)
+    zeros_i = np.zeros((B,), np.int32)
+    host = [torch.as_tensor(a) for a in (tokens, positions, tables, zeros_f, ones_f, zeros_i)]
+    calls = {"decode step": (("decode", 1, False, False), host),
+             f"decode span n={n}": (("decode", n, False, False), host)}
+    for S in range(2, k + 2):
+        toks_bs = torch.as_tensor(rs.randint(1, engine.cfg.vocab_size, (B, S)).astype(np.int32))
+        calls[f"verify round S={S}"] = (("verify", S, False, False), [
+            toks_bs, host[1], host[2], torch.full((B,), S - 1, dtype=torch.int32), host[3],
+            host[4], host[5]])
+    calls[f"propose k={k} (catch-up + {k} draft steps)"] = (("propose",),
+                                                           [host[0], host[0], host[1]])
+
+    def timed(call):
         call()
         torch.cuda.synchronize()
-        walls, devs = [], []
+        enqueues, walls, devs = [], [], []
         for _ in range(5):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
             a.record()
             call()
             b.record()
+            enqueues.append(1e3 * (time.perf_counter() - t0))
             torch.cuda.synchronize()
             walls.append(1e3 * (time.perf_counter() - t0))
             devs.append(a.elapsed_time(b))
-        log(f"  {name}: host wall {statistics.median(walls):.2f} ms, first to last kernel "
-            f"{statistics.median(devs):.2f} ms (median of 5, B={B}, positions 20..900)")
+        return [statistics.median(x) for x in (enqueues, walls, devs)]
+
+    replay_dev = {}
+    for name, (key, args) in calls.items():
+        program = engine._program(key)
+        enq_g, wall_g, dev_g = timed(lambda: program(*args))
+        enq_e, wall_e, dev_e = timed(lambda: program.fn(*program.inputs))
+        replay_dev[key] = dev_g
+        log(f"  {name}: graph replay enqueue {enq_g:.3f} ms, host wall {wall_g:.3f} ms, device "
+            f"{dev_g:.3f} ms; eager body enqueue {enq_e:.3f} ms, host wall {wall_e:.3f} ms, "
+            f"device {dev_e:.3f} ms (median of 5, B={B}, positions 20..900)")
+    xs = [1.0] + [float(S) for S in range(2, k + 2)]
+    ys = [replay_dev[("decode", 1, False, False)]] + [
+        replay_dev[("verify", S, False, False)] for S in range(2, k + 2)]
+    mx, my = statistics.fmean(xs), statistics.fmean(ys)
+    slope = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+             / sum((x - mx) ** 2 for x in xs))
+    intercept = my - slope * mx
+    alpha = intercept / slope if slope > 0 else float("inf")
+    log(f"  span cost fit, device ms = {intercept:.4f} + {slope:.4f} S over S = 1 (decode "
+        f"step) .. {k + 1}: ALPHA = {alpha:.2f} (the picker's _SPAN_ALPHA is "
+        f"{type(spec)._SPAN_ALPHA})")
+    return alpha
 
 
 def planted_prompt(server, draw, n: int) -> list:
@@ -1280,9 +1517,9 @@ def planted_prompt(server, draw, n: int) -> list:
 
 def spec_main_path(card: str, profile: bool, served: dict) -> dict:
     """The speculation path on phase 3's parameters; returns the launch
-    counts of its two sound runs (draft, then ngram), summed."""
+    counts of its two sound runs (draft, then ngram), summed, and the span
+    cost fit of round_vs_step."""
     from ray_tpu_torch.ops import dispatch
-    from ray_tpu_torch.serve import LLMServer
 
     params, cfg = served["params"], served["cfg"]
     base_requests, base_results = served["requests"], served["results"]
@@ -1295,14 +1532,10 @@ def spec_main_path(card: str, profile: bool, served: dict) -> dict:
     def fresh_burst():
         return [{"prompt_ids": prompt(n), "max_tokens": 32} for n in (23, 100, 200, 700, 50)]
 
-    def server_for(spec):
-        t0 = time.monotonic()
-        server = LLMServer(params_fn=lambda: (params, cfg), engine_config=dict(
-            max_batch_size=8, max_seq_len=1024, speculation=spec))
-        torch.cuda.synchronize()
-        log(f"phase 3s: LLMServer llama3-8b speculation {spec} built + warmed in "
-            f"{time.monotonic() - t0:.1f}s; memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-        return server
+    def server_for(spec, label="", **kwargs):
+        return new_server(f"phase 3s: LLMServer llama3-8b speculation {spec}{label}",
+                          params_fn=lambda: (params, cfg),
+                          engine_config=dict(ENGINE, speculation=spec), **kwargs)
 
     def burst(server, label, requests):
         results, wall, errors = run_requests(server, requests)
@@ -1311,13 +1544,27 @@ def spec_main_path(card: str, profile: bool, served: dict) -> dict:
             fail(f"{label}: {errors}")
         return results, wall
 
+    def faulted_burst(name, spec, **kwargs):
+        """A fresh burst on a server built inside the fault's block: the
+        fault is captured into the graphs it must spoil."""
+        holder, attr, make, _distinct = faults[name]
+        reqs = fresh_burst()
+        with planted(holder, (attr, make)):
+            server = server_for(spec, f", planted fault {name}", **kwargs)
+            res, _wall = burst(server, f"planted fault {name}", reqs)
+            server.shutdown()
+        del server
+        release()
+        faulted.append((name, reqs, res))
+
     faults = spec_faults()
     gated = []   # (label, requests, results) the gate must pass
     faulted = []  # (name, requests, results) the gate must fail
     total = {name: 0 for name in dispatch.KERNELS}
 
     # (1) draft mode, self-speculation: phase 3's prompts, all greedy
-    server = server_for({"mode": "draft", "num_speculative_tokens": 4})
+    draft = {"mode": "draft", "num_speculative_tokens": 4}
+    server = server_for(draft)
     requests = [{"prompt_ids": r["prompt_ids"], "max_tokens": 32} for r in base_requests]
     since = spec_counters(server.engine)
     dispatch.reset_launches()
@@ -1348,23 +1595,25 @@ def spec_main_path(card: str, profile: bool, served: dict) -> dict:
             return wall
 
         before = dispatch.launch_counts()["paged_attention_verify"]
-        launched = profile_report(profiled)
+        seen = profile_report(profiled)
         rounds = (dispatch.launch_counts()["paged_attention_verify"] - before) // L
-        log(f"profiled draft burst: {rounds} verify rounds, {launched / max(1, rounds):.0f} "
-            f"kernel launches per round (its propose, and the burst's prefills, included)")
-    for name, (holder, attr, make, distinct) in faults.items():
-        if distinct:
-            continue
-        reqs = fresh_burst()
-        with planted(holder, (attr, make)):
-            res, _wall = burst(server, f"planted fault {name}", reqs)
-        faulted.append((name, reqs, res))
+        log(f"profiled draft burst: {rounds} verify rounds, {seen['kernels'] / max(1, rounds):.0f} "
+            f"kernels run per round and {sum(seen['api'].values()) / max(1, rounds):.1f} host "
+            f"launch calls per round ({seen['api']}; its propose, and the burst's prefills, "
+            f"included)")
+        require_kernels("profiled draft burst (K1, K5 and K7 inside graph replays)",
+                        seen["names"], ("rms_norm_fwd_", "paged_decode_split_kernel",
+                                        "paged_verify_wgmma_kernel"))
     server.shutdown()
-    log(f"a verify round against a decode step ({card}):")
-    round_vs_step(server.engine)
+    log(f"the captured programs against their eager bodies ({card}):")
+    graph_checks(server.engine)
+    log(f"replays and eager bodies: a decode step, a verify round and a propose ({card}):")
+    alpha = round_vs_step(server.engine)
     del server
-    gc.collect()
-    torch.cuda.empty_cache()
+    release()
+    for name, (_holder, _attr, _make, distinct) in faults.items():
+        if not distinct:
+            faulted_burst(name, draft)
 
     # (2) ngram mode. A model with random weights emits tokens that are
     # nowhere in a random prompt, so the suffix lookup would never draft.
@@ -1396,31 +1645,30 @@ def spec_main_path(card: str, profile: bool, served: dict) -> dict:
     gated.append(("ngram", requests, results))
     server.shutdown()
     del server
-    gc.collect()
-    torch.cuda.empty_cache()
+    release()
 
     # (3) a distinct draft (the same widths, two layers, its own random
     # weights): nearly every draft is rejected, so the sound run commits the
-    # verify forward's own tokens, and the planted fault commits the draft's
-    server = server_for({"mode": "draft", "num_speculative_tokens": 4,
-                         "draft_model": "llama3-8b", "draft_model_overrides": {"n_layers": 2}})
+    # verify forward's own tokens, and the planted fault commits the draft's.
+    # The fault's server takes the same draft weights (draft_params_fn).
+    distinct = {"mode": "draft", "num_speculative_tokens": 4,
+                "draft_model": "llama3-8b", "draft_model_overrides": {"n_layers": 2}}
+    server = server_for(distinct)
+    draft_params = server.engine._spec.proposer.model.params
     requests = fresh_burst()
     since = spec_counters(server.engine)
     results, wall = burst(server, "distinct draft", requests)
     report_burst("distinct draft", requests, results, wall)
     spec_report("distinct draft", server.engine, since)
     gated.append(("distinct draft", requests, results))
-    for name, (holder, attr, make, distinct) in faults.items():
-        if not distinct:
-            continue
-        reqs = fresh_burst()
-        with planted(holder, (attr, make)):
-            res, _wall = burst(server, f"planted fault {name}", reqs)
-        faulted.append((name, reqs, res))
     server.shutdown()
     del server
-    gc.collect()
-    torch.cuda.empty_cache()
+    release()
+    for name, (_holder, _attr, _make, is_distinct) in faults.items():
+        if is_distinct:
+            faulted_burst(name, distinct, draft_params_fn=lambda: draft_params)
+    del draft_params
+    release()
 
     # the gate: passes every sound run, fails every planted fault
     sound = [(label, spec_regrets(params, cfg, reqs, res)) for label, reqs, res in gated]
@@ -1439,7 +1687,7 @@ def spec_main_path(card: str, profile: bool, served: dict) -> dict:
     for name, hit in caught.items():
         if not hit:
             fail(f"the speculation gate {SPEC_REGRET_TOL} passes planted fault {name}")
-    return {"launches": total}
+    return {"launches": total, "span_alpha_fit": alpha}
 
 
 # -------------------------------------------------------------- phase 4

@@ -14,11 +14,16 @@ the shared library with ctypes. Nothing here includes PyTorch's headers, so
 a build takes seconds.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made: a run can
-reset the counts, drive a path, and read which kernels that path ran.
+reset the counts, drive a path, and read which kernels that path ran. A
+wrapper called while a CUDA graph is being captured launches nothing:
+`recording_launches` takes what such a capture counted back out of
+`LAUNCHES` and keeps it, and each replay of the graph adds it once
+(`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -129,6 +134,34 @@ def reset_launches() -> None:
 def launch_counts() -> Dict[str, int]:
     with _launch_lock:
         return dict(LAUNCHES)
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count the launches of one replay of a captured graph: `counts` as
+    `recording_launches` recorded them at its capture."""
+    with _launch_lock:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Around a graph capture: yields a dict that, when the block ends,
+    holds the launches the wrappers counted inside it, which are taken back
+    out of `LAUNCHES` (a capture enqueues nothing; its replays launch). No
+    other thread may launch meanwhile: a capture runs before the engine's
+    threads start."""
+    before = launch_counts()
+    counts: Dict[str, int] = {}
+    try:
+        yield counts
+    finally:
+        with _launch_lock:
+            for name in LAUNCHES:
+                n = LAUNCHES[name] - before[name]
+                LAUNCHES[name] = before[name]
+                if n:
+                    counts[name] = n
 
 
 def _nvcc() -> str:

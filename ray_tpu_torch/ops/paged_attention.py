@@ -233,7 +233,9 @@ def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     if B == 0:
         return o
     # the splits' f32 partials (O, then m and l); the host knows their
-    # number without reading lengths, which stay on the card
+    # number without reading lengths, which stay on the card. Inside a
+    # captured decode program (serve/programs.py) the workspace comes from
+    # the graph's memory pool and keeps its address at every replay.
     n_split = -(-pps * ps // DECODE_SPLIT_KEYS)
     ws = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32, device=q.device)
     dispatch.launch(
@@ -321,7 +323,8 @@ def paged_attention_verify(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     if B == 0 or S == 0:
         return o
     ws = None
-    if _tensor_core(q.dtype, D):  # split-KV: the splits' f32 partials (O, then m and l)
+    if _tensor_core(q.dtype, D):  # split-KV: the splits' f32 partials (O, then m and l),
+        # from the graph's memory pool inside a captured verify program
         n_split = -(-pps * ps // VERIFY_SPLIT_KEYS)
         ws = torch.empty(B * S * H * n_split * (D + 2), dtype=torch.float32, device=q.device)
     dispatch.launch(

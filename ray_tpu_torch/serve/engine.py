@@ -16,16 +16,23 @@ pages (kernel K7) commits between 1 and k+1 of them.
 
 The host side (slots, page allocator, prefix cache, request lifecycle,
 stop sequences, the two threads) is the reference's, adapted. The device
-programs are eager PyTorch around the kernels (serve/programs.py holds the
+programs are PyTorch around the kernels (serve/programs.py holds the
 per-layer code they share):
 - decode span: n steps of the whole batch with on-device sampling, the
   tokens staying on the card from step to step, and ONE [span, B] readback
-  of tokens and logprobs per span;
+  of tokens and logprobs per span. Like the reference's jitted span (one
+  program per (n_steps, advanced)), it is captured as a CUDA graph per
+  (n_steps, sample, advanced) and replayed as one launch
+  (programs.CapturedProgram), as are the speculative verify and the draft
+  propose (serve/spec_decode.py). Every program the step loop can pick is
+  captured before the engine's threads start (`warmup`, or else the first
+  request), never later: a key that was not captured raises;
 - chunked prefill (decode thread: it writes the shared pool in place);
 - bucketed prefill (prefill thread: reads params, writes only its own
   outputs); its KV is scattered into pages by the decode thread at install.
-Both threads issue work to PyTorch's default stream, so the card runs
-their work in the order it was issued; page writes never race.
+Both stay eager. Both threads issue work, eager launches and graph replays
+alike, to PyTorch's default stream, so the card runs their work in the
+order it was issued; page writes never race.
 
 Not ported yet: KV export/import and streaming, tensor-parallel meshes,
 live weight updates, and the Prometheus/SLO telemetry (this module logs
@@ -35,6 +42,7 @@ through stdlib `logging`; speculation's totals are in `stats()`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import logging
 import os
@@ -52,7 +60,7 @@ from ..models.config import ModelConfig
 from ..models.transformer import _require_dense, prefill, torch_dtype
 from ..ops.dispatch import resolve_device
 from .config import SpeculationConfig
-from .programs import PagedModel, _categorical
+from .programs import SAMPLER_MODES, CapturedProgram, PagedModel, _categorical, host_tensor
 from .spec_decode import SpecDecoder
 
 logger = logging.getLogger("ray_tpu_torch.serve.engine")
@@ -337,7 +345,19 @@ class InferenceEngine:
         # first tokens are sampled on the host, from their own stream
         self._host_gen = torch.Generator()
         self._host_gen.manual_seed(int.from_bytes(os.urandom(8), "little") >> 1)
-        self._lock = threading.Lock()
+        # the device programs the step loop replays, by key ("decode",
+        # n_steps, sample, advanced), ("verify", S, sample, advanced),
+        # ("propose",); on the card one graph memory pool serves them all
+        # (_capture_programs says why sharing it is safe)
+        self._programs: Dict[tuple, CapturedProgram] = {}
+        self._graph_pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
+                            else None)
+        # what capture took: programs, seconds, and on the card the bytes
+        # the captures added to the reserved memory (graph pool + buffers)
+        self.capture_stats: Dict[str, float] = {}
+        # reentrant: warmup captures under it, and so does _ensure_loop,
+        # holding it while it starts the threads
+        self._lock = threading.RLock()
         self._alloc_lock = threading.Lock()  # allocator: prefill + decode threads
         self._ready: "list" = []  # prefilled, awaiting a decode slot
         self._ready_lock = threading.Lock()
@@ -381,25 +401,105 @@ class InferenceEngine:
         logps = torch.log_softmax(logits, dim=-1).gather(1, new.long()[:, None])[:, 0]
         return new, logps
 
-    def _decode_span(self, n_steps: int, tokens, positions, tables, temps, top_ps,
-                     top_ks, advanced: bool):
-        """n_steps decode steps; host arrays in, (tokens, logprobs) [n, B]
-        numpy out. Tokens stay on the card between steps: one readback."""
-        sample = bool(np.any(temps > 0))
-        toks = self._tensor(tokens, torch.int32)
-        pos = self._tensor(positions, torch.int32)
-        tables_t = self._tensor(tables, torch.int32)
-        temps_t = self._tensor(temps, torch.float32)
-        top_ps_t = self._tensor(top_ps, torch.float32)
-        top_ks_t = self._tensor(top_ks, torch.int32)
+    def _decode_span_body(self, toks, pos, tables, temps, top_ps, top_ks, *, n_steps: int,
+                          sample: bool, advanced: bool):
+        """The decode span program: n_steps decode steps, each feeding its
+        sampled tokens to the next on the card -> (tokens, logprobs) [n, B]."""
         seq, logps = [], []
         for _ in range(n_steps):
-            toks, lp = self._decode_step(toks, pos, tables_t, temps_t, top_ps_t,
-                                         top_ks_t, sample, advanced)
+            toks, lp = self._decode_step(toks, pos, tables, temps, top_ps, top_ks, sample,
+                                         advanced)
             seq.append(toks)
             logps.append(lp)
             pos = pos + 1
-        return torch.stack(seq).cpu().numpy(), torch.stack(logps).cpu().numpy()
+        return torch.stack(seq), torch.stack(logps)
+
+    def _decode_span(self, n_steps: int, tokens, positions, tables, temps, top_ps,
+                     top_ks, advanced: bool):
+        """n_steps decode steps: one replay of the captured span program
+        for (n_steps, sample, advanced); host arrays in, (tokens, logprobs)
+        [n, B] numpy out, one readback."""
+        sample = bool(np.any(np.asarray(temps) > 0))
+        program = self._program(("decode", n_steps, sample, advanced and sample))
+        seq, logps = program(
+            host_tensor(tokens, torch.int32), host_tensor(positions, torch.int32),
+            host_tensor(tables, torch.int32), host_tensor(temps, torch.float32),
+            host_tensor(top_ps, torch.float32), host_tensor(top_ks, torch.int32))
+        # copies on either device: the outputs are the program's buffers
+        return seq.to("cpu", copy=True).numpy(), logps.to("cpu", copy=True).numpy()
+
+    def _program(self, key: tuple) -> CapturedProgram:
+        program = self._programs.get(key)
+        if program is None:
+            raise RuntimeError(
+                f"device program {key} was not captured: the engine captures every "
+                "program its step loop can pick before its threads start, never later")
+        return program
+
+    def _program_specs(self, spans):
+        """(key, body, example inputs, generators) of every program the step
+        loop can pick: the decode span per length in `spans` and sampler
+        mode, then the speculation programs. The example inputs (positions
+        0, all-zero page tables) write only the trash page."""
+        B, pps = self.ecfg.max_batch_size, self.ecfg.pages_per_seq
+        zeros = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        tables = torch.zeros((B, pps), dtype=torch.int32, device=self.device)
+        ones = torch.ones((B,), device=self.device)
+        for span in spans:
+            for sample, advanced in SAMPLER_MODES:
+                yield (("decode", span, sample, advanced),
+                       functools.partial(self._decode_span_body, n_steps=span, sample=sample,
+                                         advanced=advanced),
+                       (zeros, zeros, tables, ones * float(sample), ones, zeros), (self._gen,))
+        if self._spec is not None:
+            yield from self._spec.program_specs()
+
+    def _capture_programs(self, spans=None) -> None:
+        """Capture every program the step loop can pick that is not captured
+        yet. spans: the decode span lengths (default: decode_span and, with
+        the adaptive policy, busy_span). Raises while the engine's threads
+        run: a capture beside the prefill thread's eager launches on the
+        same stream would record them or fail.
+
+        One graph memory pool serves all of the engine's programs, as the
+        reference's programs share one allocator. Sharing is safe because
+        (1) every program's static inputs and outputs stay referenced for
+        the engine's life, so no capture reuses them, (2) every replay runs
+        on the decode thread's stream, so no two programs run at once, and
+        (3) what one graph may overwrite of another's outputs (its scratch
+        can hold a later capture's outputs) is consumed first: a decode span
+        and a verify are read back at once, and the draft propose's output is
+        concatenated into the next verify's input before any replay."""
+        with self._lock:
+            if spans is None:
+                spans = {max(1, self.ecfg.decode_span)}
+                if self.ecfg.adaptive_span:
+                    spans.add(max(1, self.ecfg.busy_span))
+            todo = [spec for spec in self._program_specs(sorted(spans))
+                    if spec[0] not in self._programs]
+            if not todo:
+                return
+            if any(t is not None and t.is_alive()
+                   for t in (self._loop_thread, self._prefill_thread)):
+                raise RuntimeError("device programs are captured before the engine's "
+                                   "threads start, never while they run")
+            card = self.device.type == "cuda"
+            t0 = time.monotonic()
+            if card:
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(self.device)
+            for key, body, inputs, generators in todo:
+                self._programs[key] = CapturedProgram(body, inputs, pool=self._graph_pool,
+                                                      generators=generators)
+            stats = {"programs": len(self._programs),
+                     "seconds": self.capture_stats.get("seconds", 0.0) + time.monotonic() - t0}
+            if card:
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()
+                stats["pool_bytes"] = (self.capture_stats.get("pool_bytes", 0)
+                                       + torch.cuda.memory_reserved(self.device) - reserved)
+            self.capture_stats = stats
 
     def _chunk_step(self, tokens, start: int, table, last_idx: int) -> torch.Tensor:
         """One C-token prefill chunk of one sequence: write its KV into the
@@ -433,11 +533,15 @@ class InferenceEngine:
         self.v_pages[:, :, idx] = vb.to(self.v_pages.dtype)
 
     def warmup(self, buckets=None, batch_sizes=None) -> None:
-        """Run every serving program once off the request path (builds the
-        kernels on first use and warms the allocator): prefill per (bucket,
-        padded batch), every decode span the adaptive policy can pick, in
-        both sampler modes, and one chunk. Positions 0 and all-zero page
-        tables write only the trash page. Call before admitting traffic."""
+        """Run the eager serving programs once off the request path (builds
+        the kernels on first use and warms the allocator): prefill per
+        (bucket, padded batch) and one chunk; then capture every program
+        the step loop can pick (`_capture_programs`): the decode spans the
+        adaptive policy can pick in every sampler mode, and with
+        speculation the verify widths and the draft propose. Positions 0
+        and all-zero page tables write only the trash page. Call before
+        admitting traffic; an engine that was not warmed up captures at its
+        first request, before its threads start."""
         bucket_list = (list(buckets) if buckets is not None
                        else list(self.ecfg.prefill_buckets))
         sizes = (list(batch_sizes) if batch_sizes is not None
@@ -447,22 +551,14 @@ class InferenceEngine:
                 logits, _cache = self._prefill(np.ones((Bp, bucket), np.int32),
                                                np.ones((Bp,), np.int32))
                 logits.cpu()
-        B, pps = self.ecfg.max_batch_size, self.ecfg.pages_per_seq
-        spans = {max(1, self.ecfg.decode_span)}
-        if self.ecfg.adaptive_span:
-            spans.add(max(1, self.ecfg.busy_span))
-        for span in sorted(spans):
-            for advanced in (False, True):
-                self._decode_span(
-                    span, np.zeros((B,), np.int32), np.zeros((B,), np.int32),
-                    np.zeros((B, pps), np.int32), np.full((B,), float(advanced), np.float32),
-                    np.ones((B,), np.float32), np.zeros((B,), np.int32), advanced)
+        pps = self.ecfg.pages_per_seq
         if self.ecfg.chunked_prefill:
             C = self.ecfg.prefill_chunk
             self._chunk_step(np.zeros((C,), np.int32), 0,
                              np.zeros((pps,), np.int32), C - 1).cpu()
         if self._spec is not None:
             self._spec.warmup()
+        self._capture_programs()
 
     # ------------------------------------------------------------ requests
 
@@ -540,6 +636,10 @@ class InferenceEngine:
 
     def _ensure_loop(self):
         with self._lock:
+            if not all(t is not None and t.is_alive()
+                       for t in (self._loop_thread, self._prefill_thread)):
+                # capture first: no program is captured once the threads run
+                self._capture_programs()
             if self._loop_thread is None or not self._loop_thread.is_alive():
                 self._stop.clear()
                 self._loop_thread = threading.Thread(

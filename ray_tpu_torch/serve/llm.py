@@ -28,6 +28,9 @@ class LLMServer:
     params_fn: optional () -> (params, model_cfg) to load real weights;
     default builds random weights for the named config from `seed`,
     straight into the model dtype on the device (no f32 master copy).
+    draft_params_fn: optional () -> params of the speculation's named draft
+    model (mode "draft" with `draft_model`); default: random weights of
+    the named draft config from seed 0.
     device: the card unless the caller names another.
     """
 
@@ -36,17 +39,18 @@ class LLMServer:
     def __init__(self, model_name: str = "tiny-llama",
                  engine_config: Optional[Dict[str, Any]] = None, params_fn=None,
                  model_overrides: Optional[Dict[str, Any]] = None, device=None,
-                 seed: int = 0):
+                 seed: int = 0, draft_params_fn=None):
         device = resolve_device(device)
         if params_fn is not None:
             params, cfg = params_fn()
         else:
             cfg = get_config(model_name, **(model_overrides or {}))
             params = init_params(cfg, seed=seed, device=device, dtype=cfg.dtype)
+        draft_params = draft_params_fn() if draft_params_fn is not None else None
         self.engine = InferenceEngine(params, cfg, EngineConfig(**dict(engine_config or {})),
-                                      device=device)
-        # run every decode-span program once at init (and so build the
-        # kernels) rather than under the first requests
+                                      device=device, draft_params=draft_params)
+        # capture every decode-span (and speculation) program at init, and
+        # so build the kernels, rather than under the first requests
         self.engine.warmup(buckets=[])
 
     def __call__(self, request: Dict[str, Any]) -> Dict[str, Any]:

@@ -1,23 +1,32 @@
-"""The serving engine's device programs: one model over one paged KV pool.
+"""The serving engine's device programs: one model over one paged KV pool,
+and the captured form the engine runs them in.
 
 `PagedModel` binds a parameter dict to a pool [L, KVH, P, page_size, hd]
-per K and V and runs the three eager programs that write KV into pages and
+per K and V and runs the three programs that write KV into pages and
 attend over them: one decode token per sequence (kernel K5), one prefill
 chunk of one sequence (K6), and one speculative span of S rows per
 sequence (K7). The engine owns one for the target model; the draft-model
 proposer of serve/spec_decode.py owns another over its own pool, sharing
 the target's parameter tensors when it self-speculates. The programs
 differ only in which positions they write and which kernel attends, so the
-layer loop is written once (`_run_layers`).
+layer loop is written once (`_run_layers`). They update the pools in place
+and return hidden states; the caller applies `logits` to the rows it
+needs.
 
-The programs update the pools in place and return hidden states; the
-caller applies `logits` to the rows it needs.
+`CapturedProgram` is the port's counterpart of one of the reference's
+jitted programs (ray_tpu/serve/engine.py:662 `for_span`,
+ray_tpu/serve/spec_decode.py:503 and :711): a body over static input
+buffers that a CUDA graph captures once and replays as one launch. The
+engine captures its decode spans, its verify widths and the draft
+propose this way; prefill and chunked prefill stay eager.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import gc
+from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..models.config import ModelConfig
@@ -33,11 +42,19 @@ from ..models.transformer import (
     torch_dtype,
 )
 from ..ops import (
+    dispatch,
     paged_attention_chunk,
     paged_attention_decode,
     paged_attention_verify,
     rope_frequencies,
 )
+
+# the sampler modes a program is captured for, (sample, advanced): greedy
+# (no temperature > 0 in the batch: no draws), sampled, and sampled with
+# the top-k/top-p filter (one vocabulary sort per row). The host picks the
+# mode per dispatch from the batch's settings, as the reference picks
+# `advanced` per jitted program.
+SAMPLER_MODES = ((False, False), (True, False), (True, True))
 
 
 def _categorical(logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
@@ -168,3 +185,108 @@ class PagedModel:
             return paged_attention_verify(q, kp, vp, tables, positions)
 
         return self._run_layers(x, rope_pos, page_idx, slot_idx, attend)
+
+
+# eager runs of a program's body before its capture
+WARM_RUNS = 2
+
+
+def host_tensor(array, dtype: torch.dtype) -> torch.Tensor:
+    """A host array as a CPU tensor of `dtype`, to copy into a program's
+    static input (one host-to-device copy on the card)."""
+    return torch.as_tensor(np.asarray(array), dtype=dtype)
+
+
+class CapturedProgram:
+    """One device program over static buffers: `fn(*inputs)` returns a
+    tuple of tensors.
+
+    On a CUDA device it is a CUDA graph. `fn` first runs eagerly
+    WARM_RUNS times on a side stream, so that first launches, library
+    handles and workspaces happen outside the capture; then once under
+    `torch.cuda.graph`. A failed capture raises; nothing falls back to
+    eager launches. A call copies its arguments into the static inputs
+    (`copy_`, in stream order), replays the graph (one cudaGraphLaunch on
+    the current stream) and adds the kernel launches the capture recorded
+    to `dispatch.LAUNCHES`. Tensors the body allocates (the K5/K7 split
+    workspaces, every activation) come from the graph's memory pool at
+    capture and keep their addresses at every replay.
+
+    On the CPU there is no graph: a call runs `fn` on the static inputs
+    and copies the results into the static outputs (the first call's
+    results), so that the aliasing below holds there too.
+
+    The outputs are the static buffers, the same tensors at every call,
+    and the next call overwrites them. So does, on the card, any other
+    program of the same memory pool: a later capture may place its tensors
+    in memory an earlier graph uses as scratch. A caller therefore copies
+    what it keeps (on the card a readback to the host is a copy; on the
+    CPU `.cpu()` is not), or consumes it in stream order before any
+    program of the pool replays again.
+
+    generators: the torch.Generators `fn` draws from. Each is registered
+    with the graph, so that every replay draws fresh numbers from the
+    generator's advancing state (unregistered, each replay would repeat
+    the capture's draws).
+    """
+
+    def __init__(self, fn: Callable[..., Tuple[torch.Tensor, ...]],
+                 inputs: Sequence[torch.Tensor], pool=None,
+                 generators: Sequence[torch.Generator] = ()):
+        self.fn = fn
+        self.inputs = tuple(t.clone() for t in inputs)
+        self.outputs: Optional[Tuple[torch.Tensor, ...]] = None
+        self.graph = None
+        # kernel launches of one replay, by kernel (dispatch.KERNELS)
+        self.launches: dict = {}
+        device = self.inputs[0].device
+        if device.type != "cuda":
+            return
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(WARM_RUNS):
+                self.fn(*self.inputs)
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
+        # no garbage collection during the capture: a collection could
+        # destroy another engine's dropped graphs, and destroying a graph
+        # while a stream captures invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with dispatch.recording_launches() as launches:
+                with torch.cuda.graph(graph, pool=pool):
+                    outputs = self.fn(*self.inputs)
+        finally:
+            if collecting:
+                gc.enable()
+        self.graph, self.outputs, self.launches = graph, _as_outputs(outputs), launches
+
+    def __call__(self, *args: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        if len(args) != len(self.inputs):
+            raise ValueError(f"the program takes {len(self.inputs)} inputs, got {len(args)}")
+        for static, new in zip(self.inputs, args):
+            if new.shape != static.shape:
+                raise ValueError(f"input of shape {tuple(new.shape)} for a static buffer "
+                                 f"of shape {tuple(static.shape)}")
+            static.copy_(new)
+        if self.graph is not None:
+            self.graph.replay()
+            dispatch.add_launches(self.launches)
+            return self.outputs
+        outputs = _as_outputs(self.fn(*self.inputs))
+        if self.outputs is None:
+            self.outputs = outputs
+        else:
+            for static, new in zip(self.outputs, outputs):
+                static.copy_(new)
+        return self.outputs
+
+
+def _as_outputs(outputs) -> Tuple[torch.Tensor, ...]:
+    if not (isinstance(outputs, tuple) and all(isinstance(t, torch.Tensor) for t in outputs)):
+        raise TypeError("a captured program's body returns a tuple of tensors")
+    return outputs

@@ -38,7 +38,9 @@ Two proposers behind one duck-typed interface
   draft pool at install (kernel K6); each round runs one catch-up decode
   step for the token at position-1 (on a fully-accepted round the last
   draft token was never fed, which would leave a KV hole) and then k greedy
-  draft-decode steps (kernel K5), all eager and asynchronous. With overlap
+  draft-decode steps (kernel K5), one captured program replayed without a
+  host sync (serve/programs.py CapturedProgram; so is the verify, one
+  program per span width and sampler mode). With overlap
   (the default), the NEXT round's propose is enqueued at the end of
   run_step — right after the commit readback — so the draft forward runs
   on the card while the host does its commit loop. Per-slot (request_id,
@@ -62,6 +64,7 @@ not ported: the engine refuses MoE configs before any of this runs.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -70,7 +73,7 @@ import torch
 
 from ..models import get_config, init_params
 from .config import SPEC_OVERLAP_DEFAULT, SpeculationConfig
-from .programs import PagedModel, _categorical
+from .programs import SAMPLER_MODES, PagedModel, _categorical, host_tensor
 
 # ---------------------------------------------------------------------------
 # Device-side accept + commit
@@ -243,6 +246,9 @@ class NGramProposer:
     def warmup(self, engine) -> None:
         pass
 
+    def program_specs(self, engine):
+        return ()  # host code: nothing on the card
+
     def propose(self, engine, tokens, positions) -> Tuple[np.ndarray, np.ndarray]:
         self._ensure(engine)
         B = engine.ecfg.max_batch_size
@@ -274,7 +280,7 @@ class DraftModelProposer:
     k-step lookahead near max_seq_len never writes into a neighbour's
     pages. Prompts chunk-prefill into the pool at install time; per round
     one catch-up step and k greedy draft-decode steps run for the whole
-    batch, eagerly, with the tokens staying on the card.
+    batch as one captured program, with the tokens staying on the card.
     """
 
     name = "draft"
@@ -329,9 +335,11 @@ class DraftModelProposer:
 
     # --------------------------------------------------------- programs
 
-    def _propose(self, prev_tokens, tokens, positions) -> torch.Tensor:
-        """k greedy decode steps over the draft pool; [B] int32 tensors on
-        the card in, drafts [B, K] int32 on the card out, no host sync.
+    def _propose_body(self, prev_tokens, tokens, positions):
+        """The propose program, captured once: k greedy decode steps over
+        the draft pool; [B] int32 tensors in, (drafts [B, K] int32,) out,
+        no host sync (the reference's jitted scan,
+        ray_tpu/serve/spec_decode.py:503).
 
         Catch-up first: on a fully-accepted round the token now at
         position-1 (the last draft) was never FED to the draft model, so
@@ -347,7 +355,12 @@ class DraftModelProposer:
             toks = model.logits(model.decode(toks, pos, tables)).argmax(dim=-1).int()
             seq.append(toks)
             pos = pos + 1
-        return torch.stack(seq, dim=1)
+        return (torch.stack(seq, dim=1),)
+
+    def program_specs(self, engine):
+        B = engine.ecfg.max_batch_size
+        zeros = torch.zeros((B,), dtype=torch.int32, device=engine.device)
+        yield ("propose",), self._propose_body, (zeros, zeros, zeros), ()
 
     # -------------------------------------------------------- interface
 
@@ -371,11 +384,8 @@ class DraftModelProposer:
             self._pf["rids"][slot_idx] = None
 
     def warmup(self, engine) -> None:
-        B = engine.ecfg.max_batch_size
-        zeros = torch.zeros((B,), dtype=torch.int32, device=engine.device)
         self.model.chunk(torch.zeros((self.chunk,), dtype=torch.int32, device=engine.device),
                          0, self._tables[0])
-        self._propose(zeros, zeros, zeros).cpu()
 
     def _prev_tokens(self, engine, tokens) -> np.ndarray:
         """The token at position-1 per slot (catch-up feed)."""
@@ -391,9 +401,15 @@ class DraftModelProposer:
         return prev
 
     def _dispatch(self, engine, prev, tokens, positions) -> torch.Tensor:
-        return self._propose(engine._tensor(prev, torch.int32),
-                             engine._tensor(tokens, torch.int32),
-                             engine._tensor(positions, torch.int32))
+        """One replay of the propose program on host arrays -> drafts [B, K]
+        on the card: the program's static output, which its next replay
+        overwrites. run_step consumes it in stream order first: it
+        concatenates the drafts into the verify's input before the verify
+        replays and before the next propose (or prefetch) does."""
+        (drafts,) = engine._program(("propose",))(host_tensor(prev, torch.int32),
+                                                  host_tensor(tokens, torch.int32),
+                                                  host_tensor(positions, torch.int32))
+        return drafts
 
     def propose(self, engine, tokens, positions) -> Tuple[torch.Tensor, np.ndarray]:
         drafts = self._dispatch(engine, self._prev_tokens(engine, tokens), tokens, positions)
@@ -464,20 +480,48 @@ class SpecDecoder:
         # for the telemetry port)
         self.phase_seconds: Dict[str, float] = {}
 
-    def _verify(self, toks_bs, positions, tables, n_draft, temps, top_ps, top_ks,
-                advanced: bool, sample: bool):
-        """The span forward on the card: embed the S = m+1 fed tokens,
-        write their KV at positions p..p+n_draft (rows past a slot's draft
-        count go to the trash page), attend with the span kernel, f32 head
-        over all S rows, accept/commit. S is the tokens' width: run_step
-        narrows the span to the round's picked draft count + 1, so a round
-        where every slot drafted short never pays the full k+1-wide
-        forward. -> (committed [B,S], n_committed [B]) on the card."""
+    def _verify_body(self, toks_bs, positions, tables, n_draft, temps, top_ps, top_ks, *,
+                     sample: bool, advanced: bool):
+        """The verify program: the span forward plus accept/commit, one
+        program per (S, sample, advanced) as the reference jits one per
+        `advanced` (ray_tpu/serve/spec_decode.py:711). Embeds the S = m+1
+        fed tokens, writes their KV at positions p..p+n_draft (rows past a
+        slot's draft count go to the trash page), attends with the span
+        kernel, f32 head over all S rows, accept/commit -> (committed
+        [B,S], n_committed [B])."""
         eng = self.engine
         model = eng._model
         logits = model.logits(model.span(toks_bs, positions, tables, n_draft))
         return _accept_commit(logits, toks_bs, n_draft, temps, top_ps, top_ks, eng._gen,
                               advanced, sample)
+
+    def _verify(self, toks_bs, positions, tables, n_draft, temps, top_ps, top_ks,
+                advanced: bool, sample: bool):
+        """One replay of the verify program for the tokens' width S: run_step
+        narrows the span to the round's picked draft count + 1, so a round
+        where every slot drafted short never pays the full k+1-wide
+        forward. Tensors in (host or card), (committed [B,S], n_committed
+        [B]) out: the program's static outputs, read back at once."""
+        program = self.engine._program(("verify", toks_bs.shape[1], sample, advanced and sample))
+        return program(toks_bs, positions, tables, n_draft, temps, top_ps, top_ks)
+
+    def program_specs(self):
+        """(key, body, example inputs, generators) of the verify programs,
+        every width S = 2..k+1 that run_step can pick in every sampler
+        mode, then the proposer's."""
+        eng = self.engine
+        B, pps = eng.ecfg.max_batch_size, eng.ecfg.pages_per_seq
+        zeros = torch.zeros((B,), dtype=torch.int32, device=eng.device)
+        tables = torch.zeros((B, pps), dtype=torch.int32, device=eng.device)
+        ones = torch.ones((B,), device=eng.device)
+        for S in range(2, self.k + 2):
+            toks = torch.zeros((B, S), dtype=torch.int32, device=eng.device)
+            for sample, advanced in SAMPLER_MODES:
+                yield (("verify", S, sample, advanced),
+                       functools.partial(self._verify_body, sample=sample, advanced=advanced),
+                       (toks, zeros, tables, zeros, ones * float(sample), ones, zeros),
+                       (eng._gen,))
+        yield from self.proposer.program_specs(eng)
 
     # -------------------------------------------------------- engine API
 
@@ -488,24 +532,20 @@ class SpecDecoder:
         self.proposer.on_evict(self.engine, slot_idx)
 
     def warmup(self) -> None:
-        eng = self.engine
-        self.proposer.warmup(eng)
-        B, pps = eng.ecfg.max_batch_size, eng.ecfg.pages_per_seq
-        dev = dict(device=eng.device)
-        zeros = torch.zeros((B,), dtype=torch.int32, **dev)
-        for advanced in (False, True):
-            committed, _ = self._verify(
-                torch.zeros((B, self.k + 1), dtype=torch.int32, **dev), zeros,
-                torch.zeros((B, pps), dtype=torch.int32, **dev), zeros,
-                torch.full((B,), float(advanced), **dev), torch.ones((B,), **dev), zeros,
-                advanced, advanced)
-            committed.cpu()
+        """The proposer's eager work (the draft's chunk prefill); the engine
+        captures the verify and propose programs (program_specs)."""
+        self.proposer.warmup(self.engine)
 
     # verify cost model: one S-wide forward ~ ALPHA + S in single-row
-    # units (ALPHA covers dispatch + the fixed host share of a round).
-    # Used by _pick_span to trade truncating the deepest rows' drafts
-    # against running a narrower program for the whole batch.
-    _SPAN_ALPHA = 1.0
+    # units (ALPHA covers what a forward costs at any width: reading the
+    # weights, and dispatch). Used by _pick_span to trade truncating the
+    # deepest rows' drafts against running a narrower program for the
+    # whole batch. Fit by chip_smoke.round_vs_step from graph-replay device
+    # times at llama3-8b, B = 8, on an NVIDIA H100 80GB HBM3 at 700 W:
+    # ms = 9.889 + 0.164 S over S = 1 (a decode step) .. 5 (verify), so
+    # ALPHA = 60.3; the reference's TPU value was 1.0. A wider verify
+    # costs next to nothing more, so the picker keeps the full width.
+    _SPAN_ALPHA = 60.0
 
     def _pick_span(self, n_draft, caps) -> int:
         """Choose how many draft rows the verify forward should carry.
@@ -570,16 +610,17 @@ class SpecDecoder:
         m = max(1, self._pick_span(n_draft, caps))
         n_draft = np.minimum(n_draft, m)
         if isinstance(drafts, np.ndarray):
-            toks_bs = eng._tensor(np.concatenate([tokens[:, None], drafts[:, :m]], axis=1),
+            toks_bs = host_tensor(np.concatenate([tokens[:, None], drafts[:, :m]], axis=1),
                                   torch.int32)
-        else:  # draft mode: the drafts never left the card
+        else:  # draft mode: the drafts never left the card; the concatenation
+            # consumes the propose program's output before anything replays
             toks_bs = torch.cat([eng._tensor(tokens, torch.int32)[:, None], drafts[:, :m]],
                                 dim=1)
         t1 = time.monotonic()
         committed, n_comm = self._verify(
-            toks_bs, eng._tensor(positions, torch.int32), eng._tensor(tables, torch.int32),
-            eng._tensor(n_draft, torch.int32), eng._tensor(temps, torch.float32),
-            eng._tensor(top_ps, torch.float32), eng._tensor(top_ks, torch.int32),
+            toks_bs, host_tensor(positions, torch.int32), host_tensor(tables, torch.int32),
+            host_tensor(n_draft, torch.int32), host_tensor(temps, torch.float32),
+            host_tensor(top_ps, torch.float32), host_tensor(top_ks, torch.int32),
             advanced, bool(np.any(temps > 0)))
         t2 = time.monotonic()
         # the round's one readback: [B, S + 1] = committed | n_committed

@@ -13,14 +13,18 @@ dtypes: 1e-4 (f32) and 1e-3 (bf16 inputs, whose scores the kernel sums in
 another order).
 """
 
+import gc
 import time
 
+import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch import ops
+from ray_tpu_torch import EngineConfig, InferenceEngine, get_config, ops
+from ray_tpu_torch.models import init_params
 from ray_tpu_torch.ops import attention, dispatch, norm
 from ray_tpu_torch.ops import paged_attention as paged
+from ray_tpu_torch.serve.programs import WARM_RUNS, CapturedProgram
 
 D = 128
 pytestmark = [pytest.mark.cuda, pytest.mark.parametrize("dtype", [torch.float32,
@@ -603,3 +607,133 @@ def test_gradients_flow_through_the_kernels(card, dtype):
     # f32): two bf16 ulps (2^-7) of the largest element leave 2.4x room.
     atol = 2e-2 if dtype == torch.float32 else 2 ** -7 * want[1].abs().max().item()
     torch.testing.assert_close(got[1], want[1], atol=atol, rtol=2e-2)
+
+
+# ----------------------------------------------------------------- graphs
+# The engine's captured programs (serve/programs.py CapturedProgram) on a
+# small llama (2 layers, d_model 256, 4/2 heads of 64: K7 on its wgmma tile
+# in bf16), speculation in draft mode with k = 3.
+
+def _graph_engine(card, dtype):
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    cfg = get_config("tiny-llama", d_model=256, dtype=name)
+    params = init_params(cfg, seed=0, device=card, dtype=name)
+    ecfg = dict(max_batch_size=4, page_size=16, max_pages=64, max_seq_len=128,
+                prefill_buckets=(16,), prefill_chunk=32, decode_span=4, busy_span=2,
+                cache_dtype=name, speculation={"mode": "draft", "num_speculative_tokens": 3})
+    engine = InferenceEngine(params, cfg, EngineConfig(**ecfg), device=card)
+    engine.warmup(buckets=[16])
+    return engine
+
+
+def _graph_inputs(engine, seed, temp=0.0, top_p=1.0):
+    """Host arrays of one dispatch over the engine's batch: random tokens,
+    positions and page tables (pages 1.. of the pool)."""
+    ecfg = engine.ecfg
+    B, pps = ecfg.max_batch_size, ecfg.pages_per_seq
+    rs = np.random.RandomState(seed)
+    tables = (1 + np.arange(B * pps, dtype=np.int32) % (ecfg.max_pages - 1)).reshape(B, pps)
+    return (rs.randint(1, engine.cfg.vocab_size, B).astype(np.int32),
+            rs.randint(0, 60, B).astype(np.int32), tables, np.full(B, temp, np.float32),
+            np.full(B, top_p, np.float32), np.zeros(B, np.int32))
+
+
+def _on_card(arrays, card):
+    return [torch.as_tensor(a).to(card) for a in arrays]
+
+
+def test_captured_programs_replay_their_eager_bodies(card, dtype):
+    # each program's replay, then its body called eagerly on the same
+    # inputs (greedy: the body rewrites the KV the replay wrote with the
+    # same values before any query reads it): tokens identical; the
+    # logprobs come from the same kernels in the same order, so the
+    # tolerance (1e-5 nats) only allows for a library picking another
+    # algorithm under capture
+    engine = _graph_engine(card, dtype)
+    args = _graph_inputs(engine, 0)
+    seq, logps = engine._decode_span(4, *args, advanced=False)
+    want = engine._decode_span_body(*_on_card(args, card), n_steps=4, sample=False,
+                                    advanced=False)
+    assert np.array_equal(seq, want[0].cpu().numpy())
+    np.testing.assert_allclose(logps, want[1].cpu().numpy(), atol=1e-5, rtol=0)
+
+    tokens, positions, tables, temps, top_ps, top_ks = args
+    drafts = engine._spec.proposer._dispatch(engine, tokens, tokens, positions).clone()
+    want = engine._spec.proposer._propose_body(*_on_card([tokens, tokens, positions], card))[0]
+    assert torch.equal(drafts, want)
+    toks_bs = torch.cat([torch.as_tensor(tokens).to(card)[:, None], drafts], dim=1)
+    n_draft = np.full(4, 3, np.int32)
+    verify_args = [toks_bs] + _on_card([positions, tables, n_draft, temps, top_ps, top_ks],
+                                       card)
+    committed, n_comm = engine._spec._verify(*verify_args, advanced=False, sample=False)
+    committed, n_comm = committed.clone(), n_comm.clone()
+    want = engine._spec._verify_body(*verify_args, sample=False, advanced=False)
+    assert torch.equal(committed, want[0]) and torch.equal(n_comm, want[1])
+
+
+def test_sampled_replays_draw_fresh_numbers(card, dtype):
+    engine = _graph_engine(card, dtype)
+    for top_p, advanced in ((1.0, False), (0.9, True)):
+        args = _graph_inputs(engine, 1, temp=1.0, top_p=top_p)
+        first = engine._decode_span(4, *args, advanced=advanced)[0]
+        second = engine._decode_span(4, *args, advanced=advanced)[0]
+        assert not np.array_equal(first, second), (top_p, first)
+    tokens, positions, tables, temps, top_ps, top_ks = _graph_inputs(engine, 2, temp=1.0)
+    toks_bs = torch.as_tensor(np.stack([tokens, tokens + 1, tokens + 2, tokens + 3], axis=1))
+    verify_args = [toks_bs] + [torch.as_tensor(a) for a in (
+        positions, tables, np.full(4, 3, np.int32), temps, top_ps, top_ks)]
+    rounds = [engine._spec._verify(*verify_args, advanced=False, sample=True)[0].clone()
+              for _ in range(2)]
+    assert not torch.equal(rounds[0], rounds[1])
+
+
+def test_replays_count_the_eager_launches(card, dtype):
+    engine = _graph_engine(card, dtype)
+    assert len(engine._programs) == 6 + 3 * 3 + 1
+    for key, program in engine._programs.items():
+        dispatch.reset_launches()
+        program.fn(*program.inputs)
+        eager = {k: n for k, n in dispatch.launch_counts().items() if n}
+        dispatch.reset_launches()
+        program(*program.inputs)
+        torch.cuda.synchronize()
+        assert {k: n for k, n in dispatch.launch_counts().items() if n} == eager, key
+        assert program.launches == eager, key
+    L = engine.cfg.n_layers
+    assert engine._programs[("decode", 4, False, False)].launches == {
+        "rms_norm": 4 * (2 * L + 1), "paged_attention_decode": 4 * L}
+    assert engine._programs[("verify", 3, True, True)].launches == {
+        "rms_norm": 2 * L + 1, "paged_attention_verify": L}
+
+
+def test_graph_replays_show_their_kernels_to_the_profiler(card, dtype):
+    engine = _graph_engine(card, dtype)
+    args = _graph_inputs(engine, 3)
+    names = _cuda_kernel_names(lambda: engine._decode_span(2, *args, advanced=False))
+    for stem in ("rms_norm_fwd_", "paged_decode_split_kernel"):
+        assert any(stem in n for n in names), (stem, names)
+    verify = paged.kernel_symbol("paged_attention_verify", dtype, 64)
+    tokens, positions, tables, temps, top_ps, top_ks = args
+    toks_bs = torch.as_tensor(np.stack([tokens] * 3, axis=1))
+    verify_args = [toks_bs] + [torch.as_tensor(a) for a in (
+        positions, tables, np.full(4, 2, np.int32), temps, top_ps, top_ks)]
+    names = _cuda_kernel_names(lambda: engine._spec._verify(*verify_args, advanced=False,
+                                                            sample=False))
+    assert any(verify in n for n in names), (verify, names)
+
+
+def test_no_garbage_collection_during_a_capture(card, dtype):
+    # a collection inside a capture could destroy a dropped engine's graphs,
+    # which invalidates the capture (seen once on the H100: 32 graphs of two
+    # earlier tests' engines reset mid-capture, cuBLAS then failed); the
+    # body sees the collector off only while it is being captured
+    seen = []
+
+    def body(x):
+        seen.append(gc.isenabled())
+        return (x * 2,)
+
+    program = CapturedProgram(body, (torch.ones(4, device=card, dtype=dtype),))
+    assert seen == [True] * WARM_RUNS + [False] and gc.isenabled()
+    assert torch.equal(program(torch.full((4,), 3.0, device=card, dtype=dtype))[0],
+                       torch.full((4,), 6.0, device=card, dtype=dtype))
