@@ -30,7 +30,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      two calls back to back; K6 (paged chunked prefill) at the chunks of a
      700-token prompt and at its edges: key tiles +- 1, a ragged C, total
      below start + C, keys past the table, no visible key (exact zeros),
-     g = 1 and g = 8; K7 (speculative verify attention, split-KV on the
+     g = 1 and g = 8, each also with [start, total] as int32 on the card
+     (bit-identical to the int form); K7 (speculative verify attention, split-KV on the
      tensor cores) at the engine's span (B=8, S=5) and at S = 1 (where it
      must also equal K5), S = 2, S = 65, g = 1, g = 8, inactive slots, a
      span past the table, positions at split edges +- 1, spans crossing a
@@ -43,10 +44,16 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      (random weights from a seed) with five concurrent requests — short
      prompts (bucketed prefill, kernel K2), a ~700-token prompt (chunked
      prefill, K6), one request sampled at temperature 0.8 / top_p 0.9 —
-     32 tokens each. The server captures its decode spans as CUDA graphs
-     at warm-up (its build time, the capture's share and the graph pool's
-     size are printed). Launch counts are reset just before and read just
-     after; every serving kernel (SERVE_KERNELS) must have run. The
+     32 tokens each. The server captures every device program as a CUDA
+     graph at warm-up: decode spans, the chunk and the bucketed prefill
+     per bucket (its build time, the capture's share, the graph pools'
+     size and the prefill thread's share of both are printed, and what
+     prefill_batch_size=8 would take is reckoned from them). Launch counts
+     are reset just before and read just after; every serving kernel
+     (SERVE_KERNELS) must have run, and every launch must have come from
+     a graph replay (dispatch counts replayed launches apart). Each
+     prefill replay's wait behind the stream's earlier work is printed
+     (PrefillClock). The
      engine's logprobs are held against log-softmax of the port's own
      `forward` over prompt + output; as negative controls, the same burst
      with fresh prompts is served once per planted engine fault (FAULTS),
@@ -59,13 +66,15 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      are reset just before and read just after: K7 must have run a
      multiple of n_layers times (once per layer per verify round), K5
      (propose), K6 (draft prefill, the long prompt), K1 and K2 must have
-     run, and tokens per decode step must exceed SPEC_TOKENS_PER_STEP_MIN.
+     run, every launch must have come from a graph replay, and tokens per
+     decode step must exceed SPEC_TOKENS_PER_STEP_MIN.
      (2) mode "ngram", k = 4: prompts that hold their own first output
      tokens (planted_prompt, so that drafts exist), a short pattern
      repeated, a random prompt (zero-draft rounds fall back to the plain span), one
      request sampled at temperature 0.8 / top_p 0.9 (the top-k/top-p
-     verify); K7 and K5 must both have run. The gate: speculative commits
-     carry no logprobs and bf16 greedy tokens are not stable across batch
+     verify); K7 and K5 must both have run, all in graph replays. The
+     gate: speculative commits carry no logprobs and bf16 greedy tokens
+     are not stable across batch
      shapes, so per greedy request the port's own `forward` over prompt +
      output gives, per output token, (largest logprob of the row) -
      (logprob of the committed token), 0 where the committed token is
@@ -77,9 +86,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      3's, acceptance, tokens per step and the round's host wall split. On
      the idle draft-mode engine the captured programs are held against
      their eager bodies (graph_checks: decode span, verify and propose give
-     identical tokens, sampled replays draw fresh numbers, launches per
-     replay equal the eager body's, the profiler sees K1/K5/K7 inside
-     replays), and round_vs_step times a decode step, the verify at every
+     identical tokens; the bucketed prefill at every bucket, the chunk at
+     start 0 and 512 and the draft chunk write bit-identical pages and
+     logits within GRAPH_LOGPROB_TOL; sampled replays draw fresh numbers,
+     launches per replay equal the eager body's, the profiler sees
+     K1/K2/K5/K6/K7 inside replays), and round_vs_step times a decode step,
+     the verify at every
      width and a propose as replays and as eager bodies and fits the span
      picker's cost model (SpecDecoder._SPAN_ALPHA);
   4. the training path: with the server's memory freed, train.lm trains
@@ -600,6 +612,22 @@ def kernel_checks(gen) -> dict:
                               paged_attention._paged_reference(q, kp, vp, table, lb, hd ** -0.5)))
         log(f"K5 paged_attention_decode {tag} two calls back to back: max_err {err:.3e}")
 
+        def chunk_meta_on_card(label, got, q, kp, vp, t, start, total):
+            """K6 with [start, total] as int32 tensors on the card, both as
+            two tensors of their own (joined on the card) and as the two
+            halves of one [2] tensor that K6 reads in place, as the captured
+            chunk programs pass them: each bit-identical to the int form.
+            -> the halves, which K6's timings use (the int form adds a
+            host-to-card copy of the two ints to every call)."""
+            meta = torch.tensor([start, total], dtype=torch.int32, device="cuda")
+            apart = [torch.tensor([x], dtype=torch.int32, device="cuda") for x in (start, total)]
+            for form in (apart, [meta[:1], meta[1:]]):
+                if not torch.equal(paged_attention.paged_attention_chunk(q, kp, vp, t, *form),
+                                   got):
+                    fail(f"paged_attention_chunk {label}: start/total on the card differ from "
+                         f"the int form")
+            return [meta[:1], meta[1:]]
+
         # K6: the chunks of a 700-token prompt (C = 256, starts 0/256/512)
         C = 256
         t1 = table[5].contiguous()
@@ -607,15 +635,16 @@ def kernel_checks(gen) -> dict:
             total = start + C
             q = rnd((C, H, hd), dtype)
             got = paged_attention.paged_attention_chunk(q, kp, vp, t1, start, total)
+            meta = chunk_meta_on_card(f"{tag} start={start}", got, q, kp, vp, t1, start, total)
             want = paged_attention._chunk_reference(q, kp, vp, t1, start, total, hd ** -0.5)
             err = check_close("paged_attention_chunk", "attention", dtype, got, want)
-            ms = device_ms(lambda: paged_attention.paged_attention_chunk(q, kp, vp, t1, start, total))
+            ms = device_ms(lambda: paged_attention.paged_attention_chunk(q, kp, vp, t1, *meta))
             plain = device_ms(lambda: paged_attention._chunk_reference(q, kp, vp, t1, start,
                                                                      total, hd ** -0.5))
             bnd, by = chunk_bound(q, kp, t1, start, total)
             log(f"K6 paged_attention_chunk {tag} C={C} start={start}: max_err {err:.3e} "
                 f"(tol {TOL[('attention', dtype)]}) ms {ms:.4f} plain {plain:.4f} "
-                f"bound {bnd:.4f} ({by})")
+                f"bound {bnd:.4f} ({by}); start/total on the card: bit-identical")
             if dtype == torch.bfloat16 and start == 512:
                 out["paged_attention_chunk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                                     bound_ms=bnd, bound_by=by, library_ms=None)
@@ -635,12 +664,12 @@ def kernel_checks(gen) -> dict:
             qe = rnd((Ce, He, hd), dtype)
             kpe, vpe = kp[:KVHe].contiguous(), vp[:KVHe].contiguous()
             got = paged_attention.paged_attention_chunk(qe, kpe, vpe, t1, start, total)
+            meta = chunk_meta_on_card(f"{tag} {name}", got, qe, kpe, vpe, t1, start, total)
             want = paged_attention._chunk_reference(qe, kpe, vpe, t1, start, total, hd ** -0.5)
             err = check_close(f"paged_attention_chunk {name}", "attention", dtype, got, want)
             if total == 0 and bool(got.float().abs().max() != 0):
                 fail(f"paged_attention_chunk {name}: rows with no visible key must give zeros")
-            ms = device_ms(lambda: paged_attention.paged_attention_chunk(qe, kpe, vpe, t1, start,
-                                                                         total))
+            ms = device_ms(lambda: paged_attention.paged_attention_chunk(qe, kpe, vpe, t1, *meta))
             bnd, by = chunk_bound(qe, kpe, t1, start, total)
             log(f"K6 paged_attention_chunk {tag} {name}: max_err {err:.3e} ms {ms:.4f} "
                 f"bound {bnd:.4f} ({by})")
@@ -1049,9 +1078,9 @@ ENGINE = dict(max_batch_size=8, max_seq_len=1024)
 
 
 def new_server(label: str, **kwargs):
-    """An LLMServer (which warms up: captures every program its step loop
+    """An LLMServer (which warms up: captures every program its threads
     can pick); prints the build time, the capture's share and the graph
-    pool's size."""
+    pools' size, and the prefill thread's share of both."""
     from ray_tpu_torch.serve import LLMServer
 
     t0 = time.monotonic()
@@ -1059,10 +1088,96 @@ def new_server(label: str, **kwargs):
     torch.cuda.synchronize()
     st = server.engine.capture_stats
     log(f"{label}: built + warmed in {time.monotonic() - t0:.1f}s, of which capture "
-        f"{st['seconds']:.1f}s for {st['programs']} programs (graph pool and static "
-        f"buffers {st['pool_bytes'] / 2**30:.3f} GiB); memory "
+        f"{st['seconds']:.1f}s for {st['programs']} programs (graph pools and static "
+        f"buffers {st['pool_bytes'] / 2**30:.3f} GiB; of these the prefill thread's "
+        f"{st['prefill_programs']} programs {st['prefill_seconds']:.1f}s, "
+        f"{st['prefill_pool_bytes'] / 2**30:.3f} GiB in their own pool); memory "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     return server
+
+
+def reckon_prefill_tiers(engine, batch_size: int = 8) -> None:
+    """What the prefill programs would take at prefill_batch_size =
+    batch_size, reckoned from this engine's captures without capturing:
+    the prefill pool scaled from the measured one by the largest program's
+    tokens (a graph's scratch is its body's peak of activations, and one
+    pool serves the programs one at a time), the capture time by the
+    programs' summed tokens."""
+    ecfg, st = engine.ecfg, engine.capture_stats
+    buckets, have = ecfg.prefill_buckets, ecfg.prefill_tiers()
+    tiers = dataclasses.replace(ecfg, prefill_batch_size=batch_size).prefill_tiers()
+    largest, measured = max(buckets) * max(tiers), max(buckets) * max(have)
+    pool = st["prefill_pool_bytes"] * largest / measured
+    seconds = st["prefill_seconds"] * sum(tiers) / sum(have)
+    log(f"reckoned, not captured: prefill_batch_size={batch_size} (tiers {tiers}) captures "
+        f"{len(buckets) * len(tiers)} prefill programs, the largest {max(buckets)} x "
+        f"{max(tiers)} = {largest} tokens: prefill pool ~{pool / 2**30:.2f} GiB (measured "
+        f"{st['prefill_pool_bytes'] / 2**30:.3f} GiB at {measured} tokens, scaled by tokens), "
+        f"capture ~{seconds:.0f}s (measured {st['prefill_seconds']:.1f}s for tiers {have}, "
+        f"scaled by summed tokens)")
+
+
+class PrefillClock:
+    """Times the bucketed prefill replays of an engine on the card while
+    the block runs. Each of its prefill programs is wrapped: a call notes
+    the host's clock and records a CUDA event before the replay (its input
+    copies included) and one after. One event synchronised on an idle card
+    at the start ties the card's clock to the host's, so each replay's
+    wait is when the card reached its first event less when the host
+    called it: the time it queued behind work already on the stream (the
+    decode thread's spans). `waits_ms` and `device_ms` hold them, in call
+    order."""
+
+    def __init__(self, engine):
+        self.engine, self.records = engine, []
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        self.ref = torch.cuda.Event(enable_timing=True)
+        self.ref.record()
+        self.ref.synchronize()
+        self.t_ref = time.perf_counter()
+        self.saved = {k: p for k, p in self.engine._programs.items() if k[0] == "prefill"}
+        for key, program in self.saved.items():
+            self.engine._programs[key] = self._timed(program)
+        return self
+
+    def _timed(self, program):
+        def call(*args):
+            t0 = time.perf_counter()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = program(*args)
+            b.record()
+            self.records.append((t0, a, b))
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        self.engine._programs.update(self.saved)
+        torch.cuda.synchronize()
+        self.waits_ms = [1e3 * (self.t_ref + self.ref.elapsed_time(a) / 1e3 - t0)
+                         for t0, a, _b in self.records]
+        self.device_ms = [a.elapsed_time(b) for _t0, a, b in self.records]
+        return False
+
+    def report(self, label: str) -> None:
+        log(f"{label}: {len(self.records)} prefill replays; wait behind the stream's earlier "
+            f"work (ms, call order) {[round(w, 2) for w in self.waits_ms]}; replay on the card "
+            f"(copies + graph, and any work the decode thread enqueued between them, ms) "
+            f"{[round(d, 2) for d in self.device_ms]}")
+
+
+def require_no_eager_launches(label: str) -> None:
+    """Fails unless every kernel launch since the counts were reset came
+    from a graph replay (dispatch counts replayed launches apart)."""
+    from ray_tpu_torch.ops import dispatch
+
+    eager = {name: n for name, n in dispatch.eager_launch_counts().items() if n}
+    log(f"{label}: eager launches of the port's kernels {eager or 'none'}: every launch "
+        f"came from a graph replay")
+    if eager:
+        fail(f"{label}: kernels launched outside graph replays: {eager}")
 
 
 def release() -> None:
@@ -1096,9 +1211,11 @@ def serve_main_path(profile: bool) -> dict:
             {"prompt_ids": prompt(50), "max_tokens": 32, "temperature": 0.8, "top_p": 0.9},
         ]
 
+    reckon_prefill_tiers(server.engine)
     requests = burst()
     dispatch.reset_launches()
-    results, wall, errors = run_requests(server, requests)
+    with PrefillClock(server.engine) as clock:
+        results, wall, errors = run_requests(server, requests)
     launches = dispatch.launch_counts()
     if errors:
         server.shutdown()
@@ -1107,8 +1224,10 @@ def serve_main_path(profile: bool) -> dict:
     for name in SERVE_KERNELS:
         if launches[name] <= 0:
             fail(f"serving path never launched kernel {name}")
+    require_no_eager_launches("serving path")
 
     report_burst("plain", requests, results, wall)
+    clock.report("plain")
 
     if profile:  # the same requests again
         def profiled():
@@ -1123,9 +1242,11 @@ def serve_main_path(profile: bool) -> dict:
         tokens = sum(r["max_tokens"] for r in requests)
         log(f"profiled plain burst: {spans} engine iterations, {tokens} output tokens; host "
             f"launch calls per output token {sum(seen['api'].values()) / tokens:.1f} "
-            f"({seen['api']}), kernels run per output token {seen['kernels'] / tokens:.1f}")
-        require_kernels("profiled plain burst (K1 and K5 inside graph replays)", seen["names"],
-                        ("rms_norm_fwd_", "paged_decode_split_kernel"))
+            f"(eager: cudaLaunchKernel*/cuLaunchKernel*, graph: cudaGraphLaunch; "
+            f"{seen['api']}), kernels run per output token {seen['kernels'] / tokens:.1f}")
+        require_kernels("profiled plain burst (K1, K2, K5 and K6 inside graph replays)",
+                        seen["names"], ("rms_norm_fwd_", "flash_fwd_wgmma_kernel",
+                                        "paged_decode_split_kernel", "paged_chunk_wgmma_kernel"))
     params = server.engine.params
     server.shutdown()
     del server
@@ -1294,7 +1415,8 @@ def spec_report(label: str, engine, since: dict) -> float:
 # same inputs. The same kernels run in the same order, so they should
 # agree exactly; the limit only leaves room for a library that picks
 # another algorithm under capture (a bf16 rounding difference in one GEMM
-# moves a logprob by ~1e-3).
+# moves a logprob by ~1e-3). The prefill and chunk programs' f32 logits
+# are held to the same number.
 GRAPH_LOGPROB_TOL = 5e-3
 
 
@@ -1317,6 +1439,79 @@ def _batch_inputs(engine, seed: int):
     return rs.randint(1, engine.cfg.vocab_size, (B,)).astype(np.int32), positions, tables
 
 
+def prefill_graph_checks(engine) -> None:
+    """The prefill thread's and the chunk programs of an idle draft-mode
+    engine against their eager bodies: the bucketed prefill at every
+    bucket (tier 1), the engine's chunk at start 0 and at start 512 and the
+    draft's chunk. A replay, then the body on the program's static inputs:
+    the pages the program writes must be bit-identical after both (each
+    rewrites them with the same values; the chunk attends over a prefix
+    neither changes) and the f32 logits within GRAPH_LOGPROB_TOL. A
+    profiler sees K2 and K6 by name inside replays."""
+    import numpy as np
+
+    from ray_tpu_torch.ops import attention, paged_attention as paged
+
+    ecfg, spec, model = engine.ecfg, engine._spec, engine._model
+    pps, ps, C = ecfg.pages_per_seq, ecfg.page_size, ecfg.prefill_chunk
+    rs = np.random.RandomState(6)
+    table = rs.permutation(np.arange(1, ecfg.max_pages))[:pps].astype(np.int32)
+
+    def written(pools, ids):
+        return [p[:, :, torch.as_tensor(ids, device=p.device).long()].clone() for p in pools]
+
+    def against_eager(label, key, replay, pools, ids):
+        got = replay()
+        kv = written(pools, ids)
+        program = engine._program(key)
+        want = [t.float().cpu().numpy() for t in program.fn(*program.inputs)]
+        same = all(torch.equal(a, b) for a, b in zip(kv, written(pools, ids)))
+        gap = float(np.abs(got - want[0].reshape(got.shape)).max()) if got is not None else 0.0
+        log(f"graph {label}: pages {len(ids)} bit-identical to the eager body's {same}, "
+            f"logits max |replay - eager| {gap:.3e} (tol {GRAPH_LOGPROB_TOL})")
+        if not (same and gap <= GRAPH_LOGPROB_TOL):
+            fail(f"the {label} graph disagrees with its eager body")
+
+    for bucket in ecfg.prefill_buckets:
+        T = bucket - 3
+        n = min(pps, -(-(T + 32) // ps))
+        tables = np.zeros((1, pps), np.int32)
+        tables[0, :n] = table[:n]
+        toks = rs.randint(1, engine.cfg.vocab_size, (1, bucket)).astype(np.int32)
+        lens = np.array([T], np.int32)
+        against_eager(f"prefill bucket {bucket} (tier 1, true length {T}, {n} pages)",
+                      ("prefill", bucket, 1), lambda: engine._prefill(toks, lens, tables),
+                      (model.k_pages, model.v_pages), table[:n])
+    for start in (0, 512):
+        toks = rs.randint(1, engine.cfg.vocab_size, (C,)).astype(np.int32)
+        ids = table[start // ps:(start + C) // ps]
+        against_eager(f"chunk C={C} start {start}", ("chunk", C),
+                      lambda: engine._chunk_step(toks, start, table, C - 1),
+                      (model.k_pages, model.v_pages), ids)
+    draft = spec.proposer
+    dtable = draft._tables[2]  # slot 2's draft pages
+    dtoks = torch.as_tensor(rs.randint(1, engine.cfg.vocab_size, (C,)).astype(np.int32))
+    draft_chunk = engine._program(("draft_chunk", C))
+
+    def draft_replay():
+        draft_chunk(dtoks, torch.zeros((1,), dtype=torch.int32), dtable)  # no outputs
+
+    against_eager(f"draft chunk C={C} start 0", ("draft_chunk", C), draft_replay,
+                  (draft.model.k_pages, draft.model.v_pages), dtable[:C // ps].cpu().numpy())
+
+    bucket = ecfg.prefill_buckets[0]
+    toks = rs.randint(1, engine.cfg.vocab_size, (1, bucket)).astype(np.int32)
+    names = launched_kernels(lambda: engine._prefill(toks, np.array([bucket], np.int32),
+                                                     np.zeros((1, pps), np.int32)))
+    require_kernels("a prefill replay", names,
+                    (attention.kernel_symbol("flash_attention", torch.bfloat16, 128),
+                     "rms_norm_fwd_"))
+    names = launched_kernels(lambda: engine._chunk_step(np.zeros((C,), np.int32), 512, table,
+                                                        C - 1))
+    require_kernels("a chunk replay", names,
+                    (paged.kernel_symbol("paged_attention_chunk", torch.bfloat16, 128),))
+
+
 def graph_checks(engine) -> None:
     """The captured programs of an idle draft-mode engine (threads stopped)
     at llama3-8b against their eager bodies: a replay, then the body on the
@@ -1324,10 +1519,11 @@ def graph_checks(engine) -> None:
     bodies rewrite the same KV with the same values before any query reads
     it). Gates: the decode span's tokens identical and its logprobs within
     GRAPH_LOGPROB_TOL, the verify's commits and the propose's drafts
-    identical; two sampled replays of the same inputs differ (the engine's
+    identical; the prefill and chunk programs as prefill_graph_checks
+    says; two sampled replays of the same inputs differ (the engine's
     generator is registered with the graphs); every program's launches per
-    replay equal its eager body's; a profiler sees K1, K5 and K7 by name
-    inside replays."""
+    replay equal its eager body's; a profiler sees K1, K2, K5, K6 and K7 by
+    name inside replays."""
     import numpy as np
 
     from ray_tpu_torch.ops import dispatch
@@ -1418,6 +1614,7 @@ def graph_checks(engine) -> None:
     names = launched_kernels(lambda: spec._verify(*verify_in, advanced=False, sample=False))
     require_kernels("a verify replay", names,
                     (paged.kernel_symbol("paged_attention_verify", torch.bfloat16, 128),))
+    prefill_graph_checks(engine)
 
 
 def round_vs_step(engine) -> float:
@@ -1568,9 +1765,12 @@ def spec_main_path(card: str, profile: bool, served: dict) -> dict:
     requests = [{"prompt_ids": r["prompt_ids"], "max_tokens": 32} for r in base_requests]
     since = spec_counters(server.engine)
     dispatch.reset_launches()
-    results, wall = burst(server, "draft", requests)
+    with PrefillClock(server.engine) as clock:
+        results, wall = burst(server, "draft", requests)
     launches = dispatch.launch_counts()
     log(f"launches on the speculation path, draft mode: {launches}")
+    require_no_eager_launches("speculation path, draft mode")
+    clock.report("draft")
     for name in SPEC_KERNELS:
         if launches[name] <= 0:
             fail(f"speculation path (draft) never launched kernel {name}")
@@ -1635,6 +1835,7 @@ def spec_main_path(card: str, profile: bool, served: dict) -> dict:
     results, wall = burst(server, "ngram", requests)
     launches = dispatch.launch_counts()
     log(f"launches on the speculation path, ngram mode: {launches}")
+    require_no_eager_launches("speculation path, ngram mode")
     report_burst("ngram", requests, results, wall)
     spec_report("ngram", server.engine, since)
     for name in ("paged_attention_verify", "paged_attention_decode"):
@@ -1963,6 +2164,8 @@ def ab_compare(variant_csrc: str, card: str) -> None:
     p8 = torch.tensor([20, 100, 333, 500, 640, 777, 850, 900], dtype=torch.int32, device="cuda")
     p1 = torch.tensor([1019], dtype=torch.int32, device="cuda")
     t5 = table[5].contiguous()
+    meta6 = torch.tensor([512, 768], dtype=torch.int32, device="cuda")
+    meta6 = [meta6[:1], meta6[1:]]  # read in place by K6, as the chunk programs pass them
     xd, wd = rnd((8, 4096)), 1.0 + 0.1 * rnd((4096,))
     xt, gt = rnd((8192, 2560)), rnd((8192, 2560))
     wt = 1.0 + 0.1 * torch.randn((2560,), generator=gen, device="cuda")
@@ -1986,7 +2189,7 @@ def ab_compare(variant_csrc: str, card: str) -> None:
             lambda: paged_attention.paged_attention_decode(q1, kp, vp, t1, l1),
             paged_attention._paged_reference(q1, kp, vp, t1, l1, 128 ** -0.5), [att]),
         "K6 C=256 start 512": (
-            lambda: paged_attention.paged_attention_chunk(q6, kp, vp, t5, 512, 768),
+            lambda: paged_attention.paged_attention_chunk(q6, kp, vp, t5, *meta6),
             paged_attention._chunk_reference(q6, kp, vp, t5, 512, 768, 128 ** -0.5), [att]),
         "K7 B=8 S=5 positions 20..900": (
             lambda: paged_attention.paged_attention_verify(q7, kp, vp, table, p8),

@@ -40,7 +40,10 @@
 // K6 `rtt_paged_attention_chunk` replaces `_chunk_kernel` (launched by
 // `_chunk_pallas`): one sequence's chunk of C queries; key j is visible to
 // chunk row c iff j <= start + c and j < total, and only the first
-// ceil(total / ps) pages are read. K7 `rtt_paged_attention_verify` replaces
+// ceil(total / ps) pages are read. start and total are the two int32 of
+// `meta` on the card, which every CTA reads itself (the reference's scalar
+// prefetch `meta_ref`), so one captured launch serves every chunk of a
+// prompt: the grid depends on C alone. K7 `rtt_paged_attention_verify` replaces
 // `_verify_kernel` (launched by `_verify_pallas`): the speculative-verify
 // span, S = k + 1 query rows per sequence for the whole batch in one
 // launch; key j is visible to row s of sequence b iff j <= positions[b] + s
@@ -368,8 +371,9 @@ struct PagedArgs {
   float* ws_ml;        // their (m, l)
   const int* table;    // [pps] (K6) or [B, pps] (K7)
   const int* positions;  // K7: each sequence's start, read on the card; null for K6
+  const int* meta;     // K6: [start, total], read on the card; null for K7
   int S;               // query positions per sequence: C (K6) or S (K7)
-  int H, KVH, P, ps, pps, start, total;
+  int H, KVH, P, ps, pps;
   int nsplit;          // K7: splits of kVerifySplitKeys keys per sequence
   float scale;
 };
@@ -404,8 +408,8 @@ __device__ __forceinline__ void paged_tile(const PagedArgs& a) {
   const int kvh = blockIdx.y % a.KVH, r0 = (n_rt - 1 - blockIdx.y / a.KVH) * kRows;
   const int b = blockIdx.z;
   const int* table = a.table + static_cast<size_t>(b) * a.pps;
-  const int start = a.positions ? max(a.positions[b], 0) : a.start;
-  const int total = a.positions ? INT_MAX : a.total;
+  const int start = a.positions ? max(a.positions[b], 0) : a.meta[0];
+  const int total = a.positions ? INT_MAX : a.meta[1];
   // the keys any row of the tile sees
   const int key_end = min(min(total, start + (min(r0 + kRows, rows) - 1) / g + 1), a.pps * a.ps);
   int k_begin = 0, k_stop = key_end;
@@ -609,8 +613,9 @@ struct ChunkProblem {
 template <typename T>
 __global__ void __launch_bounds__(rtt::kTileThreads)
     paged_chunk_fma_kernel(const T* q, const T* k_pages, const T* v_pages, const int* table,
-                           T* o, int C, int H, int KVH, int D, int P, int ps, int pps,
-                           int start, int total, float scale) {
+                           const int* meta, T* o, int C, int H, int KVH, int D, int P, int ps,
+                           int pps, float scale) {
+  const int start = meta[0], total = meta[1];
   ChunkProblem<T> pb;
   pb.q = q;
   pb.k = k_pages;
@@ -707,13 +712,14 @@ extern "C" int rtt_paged_attention_decode(const void* q, const void* k_pages,
   return cudaGetLastError();
 }
 
+// meta: two int32 on the card, [start, total]
 extern "C" int rtt_paged_attention_chunk(const void* q, const void* k_pages,
-                                         const void* v_pages, const int* table, void* o, int C,
-                                         int H, int KVH, int D, int P, int ps, int pps,
-                                         int start, int total, float scale, int dtype,
+                                         const void* v_pages, const int* table,
+                                         const int* meta, void* o, int C, int H, int KVH, int D,
+                                         int P, int ps, int pps, float scale, int dtype,
                                          void* stream) {
   if (C <= 0 || KVH <= 0 || H % KVH != 0 || D <= 0 || D > rtt::kTileMaxD || P <= 0 ||
-      ps <= 0 || pps <= 0 || start < 0)
+      ps <= 0 || pps <= 0 || meta == nullptr)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tensor_core(dtype, D)) {
@@ -722,7 +728,7 @@ extern "C" int rtt_paged_attention_chunk(const void* q, const void* k_pages,
       return cudaErrorInvalidValue;
     PagedArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k_pages),
                 static_cast<const bf16*>(v_pages), static_cast<bf16*>(o), nullptr, nullptr,
-                table, nullptr, C, H, KVH, P, ps, pps, start, total, 1, scale};
+                table, nullptr, meta, C, H, KVH, P, ps, pps, 1, scale};
     cudaError_t err = D == 64 ? launch_chunk_wgmma<64>(s, a) : launch_chunk_wgmma<128>(s, a);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
@@ -736,8 +742,8 @@ extern "C" int rtt_paged_attention_chunk(const void* q, const void* k_pages,
     if (err != cudaSuccess) return err;
     paged_chunk_fma_kernel<T><<<grid, rtt::kTileThreads, smem, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k_pages),
-        static_cast<const T*>(v_pages), table, static_cast<T*>(o), C, H, KVH, D, P, ps, pps,
-        start, total, scale);
+        static_cast<const T*>(v_pages), table, meta, static_cast<T*>(o), C, H, KVH, D, P, ps,
+        pps, scale);
   });
   return cudaGetLastError();
 }
@@ -765,8 +771,8 @@ extern "C" int rtt_paged_attention_verify(const void* q, const void* k_pages,
     float* w = static_cast<float*>(ws);
     PagedArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k_pages),
                 static_cast<const bf16*>(v_pages), static_cast<bf16*>(o), w,
-                w + static_cast<size_t>(B) * S * H * nsplit * D, table, positions, S, H, KVH,
-                P, ps, pps, 0, 0, nsplit, scale};
+                w + static_cast<size_t>(B) * S * H * nsplit * D, table, positions, nullptr, S,
+                H, KVH, P, ps, pps, nsplit, scale};
     cudaError_t err =
         D == 64 ? launch_verify_wgmma<64>(s, a, B) : launch_verify_wgmma<128>(s, a, B);
     if (err != cudaSuccess) return err;

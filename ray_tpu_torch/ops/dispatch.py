@@ -18,7 +18,8 @@ reset the counts, drive a path, and read which kernels that path ran. A
 wrapper called while a CUDA graph is being captured launches nothing:
 `recording_launches` takes what such a capture counted back out of
 `LAUNCHES` and keeps it, and each replay of the graph adds it once
-(`add_launches`).
+(`add_launches`), to `LAUNCHES` and to `REPLAYED`, so that a path's eager
+launches are the difference (`eager_launch_counts`).
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ KERNELS = ("rms_norm", "rms_norm_bwd", "flash_attention", "flash_attention_bwd_d
            "paged_attention_verify")
 # per kernel, and for K2 also the launches that wrote the lse residual
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS + ("flash_attention_lse",)}
+# the share of LAUNCHES that graph replays added
+REPLAYED: Dict[str, int] = dict(LAUNCHES)
 _launch_lock = threading.Lock()
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -65,8 +68,8 @@ _SIGNATURES = {
                                     _LL, _LL, _LL, _LL, _LL, _LL, _I, _F, _I, _P),
     "rtt_paged_attention_decode": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
                                    _I, _I, _I, _F, _I, _P),
-    "rtt_paged_attention_chunk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _F, _I, _P),
+    "rtt_paged_attention_chunk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _F, _I, _P),
     "rtt_paged_attention_verify": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _F, _I, _P),
 }
@@ -128,12 +131,18 @@ def check_kv_layout(name: str, *tensors: torch.Tensor) -> None:
 def reset_launches() -> None:
     with _launch_lock:
         for name in LAUNCHES:
-            LAUNCHES[name] = 0
+            LAUNCHES[name] = REPLAYED[name] = 0
 
 
 def launch_counts() -> Dict[str, int]:
     with _launch_lock:
         return dict(LAUNCHES)
+
+
+def eager_launch_counts() -> Dict[str, int]:
+    """The launches the wrappers made themselves, outside any graph."""
+    with _launch_lock:
+        return {name: n - REPLAYED[name] for name, n in LAUNCHES.items()}
 
 
 def add_launches(counts: Dict[str, int]) -> None:
@@ -142,6 +151,7 @@ def add_launches(counts: Dict[str, int]) -> None:
     with _launch_lock:
         for name, n in counts.items():
             LAUNCHES[name] += n
+            REPLAYED[name] += n
 
 
 @contextlib.contextmanager

@@ -150,7 +150,8 @@ def _verify_split_reference(q, k_pages, v_pages, page_table, positions, scale,
 
 def _chunk_reference(q, k_pages, v_pages, page_table, start, total, scale):
     """Plain version of K6 for ONE sequence's chunk. q [C,H,D] -> o [C,H,D];
-    key j visible to query row c iff j <= start + c and j < total."""
+    key j visible to query row c iff j <= start + c and j < total. start
+    and total: ints or one-element int tensors on q's device."""
     C, H, D = q.shape
     KVH, _, page_size, _ = k_pages.shape
     g = H // KVH
@@ -161,7 +162,7 @@ def _chunk_reference(q, k_pages, v_pages, page_table, start, total, scale):
     qf = q.reshape(C, KVH, g, D).float()
     s = torch.einsum("ckgd,ktd->ckgt", qf, kg) * scale
     keypos = torch.arange(ctx, device=q.device)
-    qpos = start + torch.arange(C, device=q.device)
+    qpos = start + torch.arange(C, device=q.device)  # a tensor start broadcasts
     mask = (keypos[None, :] <= qpos[:, None]) & (keypos[None, :] < total)
     o = _masked_softmax_values(s, mask[:, None, None, :], vg, "ckgt,ktd->ckgd")
     return o.reshape(C, H, D).to(q.dtype)
@@ -246,8 +247,33 @@ def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     return o
 
 
+def _chunk_meta(start, total, device: torch.device) -> torch.Tensor:
+    """K6's [start, total] as two int32 on `device`, as the reference
+    stacks its traced scalars into `meta`: ints are copied there (one small
+    host-to-card copy); one-element int32 tensors on the device are joined
+    there without a host read, or read in place when they already lie side
+    by side (meta[:1] and meta[1:] of one [2] tensor, as PagedModel.chunk
+    passes them to every layer)."""
+    if not isinstance(start, torch.Tensor) and not isinstance(total, torch.Tensor):
+        if int(start) < 0:
+            raise ValueError("paged_attention_chunk: start must be >= 0")
+        return torch.tensor([int(start), int(total)], dtype=torch.int32, device=device)
+    parts = []
+    for name, x in (("start", start), ("total", total)):
+        if not isinstance(x, torch.Tensor):
+            x = torch.tensor([int(x)], dtype=torch.int32, device=device)
+        elif x.dtype != torch.int32 or x.numel() != 1 or x.device != device:
+            raise ValueError(f"paged_attention_chunk: {name} must be an int or a one-element "
+                             f"int32 tensor on {device}, got {x.dtype} {tuple(x.shape)} on "
+                             f"{x.device}")
+        parts.append(x.reshape(1))
+    if parts[1].data_ptr() == parts[0].data_ptr() + 4:
+        return parts[0]  # the kernel reads both int32 from start's address
+    return torch.cat(parts)
+
+
 def paged_attention_chunk(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-                          page_table: torch.Tensor, start: int, total: int,
+                          page_table: torch.Tensor, start, total,
                           scale: Optional[float] = None) -> torch.Tensor:
     """Chunked-prefill attention for ONE sequence over its paged KV.
 
@@ -260,20 +286,22 @@ def paged_attention_chunk(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch
       q: [C, H, D] — the chunk's queries (rope applied).
       k_pages/v_pages: [KVH, num_pages, page_size, D] (chunk KV written).
       page_table: [pages_per_seq] int32 page ids for this sequence.
-      start: the chunk's first token position (host int).
-      total: visibility cap, usually start + C (host int).
+      start: the chunk's first token position, >= 0.
+      total: visibility cap, usually start + C.
+      start and total are ints or one-element int32 tensors on q's device;
+      the kernel reads them on the card, so a captured chunk program takes
+      them as tensors and serves every chunk of a prompt.
     Returns [C, H, D].
     """
     C, H, D = q.shape
-    start, total = int(start), int(total)
     if scale is None:
         scale = D ** -0.5
     if not dispatch.use_kernel(q, k_pages, v_pages, page_table):
         return _chunk_reference(q, k_pages, v_pages, page_table, start, total, scale)
     _check_pools("paged_attention_chunk", q, k_pages, v_pages, page_table, H)
-    if page_table.dim() != 1 or start < 0:
-        raise ValueError("paged_attention_chunk: page_table must be [pages_per_seq] "
-                         "and start >= 0")
+    if page_table.dim() != 1:
+        raise ValueError("paged_attention_chunk: page_table must be [pages_per_seq]")
+    meta = _chunk_meta(start, total, q.device)
     KVH, P, ps, _ = k_pages.shape
     o = torch.empty_like(q)
     if C == 0:
@@ -281,7 +309,7 @@ def paged_attention_chunk(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch
     dispatch.launch(
         "paged_attention_chunk", "rtt_paged_attention_chunk", q.device,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-        o.data_ptr(), C, H, KVH, D, P, ps, page_table.shape[0], start, total,
+        meta.data_ptr(), o.data_ptr(), C, H, KVH, D, P, ps, page_table.shape[0],
         float(scale), dispatch.dtype_code(q))
     return o
 

@@ -17,22 +17,28 @@ pages (kernel K7) commits between 1 and k+1 of them.
 The host side (slots, page allocator, prefix cache, request lifecycle,
 stop sequences, the two threads) is the reference's, adapted. The device
 programs are PyTorch around the kernels (serve/programs.py holds the
-per-layer code they share):
-- decode span: n steps of the whole batch with on-device sampling, the
-  tokens staying on the card from step to step, and ONE [span, B] readback
-  of tokens and logprobs per span. Like the reference's jitted span (one
-  program per (n_steps, advanced)), it is captured as a CUDA graph per
-  (n_steps, sample, advanced) and replayed as one launch
-  (programs.CapturedProgram), as are the speculative verify and the draft
-  propose (serve/spec_decode.py). Every program the step loop can pick is
-  captured before the engine's threads start (`warmup`, or else the first
-  request), never later: a key that was not captured raises;
-- chunked prefill (decode thread: it writes the shared pool in place);
-- bucketed prefill (prefill thread: reads params, writes only its own
-  outputs); its KV is scattered into pages by the decode thread at install.
-Both stay eager. Both threads issue work, eager launches and graph replays
-alike, to PyTorch's default stream, so the card runs their work in the
-order it was issued; page writes never race.
+per-layer code they share). Like the reference's jitted programs, each is
+captured as a CUDA graph per shape and replayed as one launch
+(programs.CapturedProgram), with its inputs copied into static buffers:
+- decode span (decode thread): n steps of the whole batch with on-device
+  sampling, the tokens staying on the card from step to step, and ONE
+  [span, B] readback of tokens and logprobs per span; one program per
+  (n_steps, sample, advanced);
+- chunked prefill (decode thread: it writes the shared pool in place); one
+  program per chunk length C, the chunk's start an input on the card;
+- bucketed prefill (prefill thread): one program per (bucket, padded
+  batch); it writes each row's KV straight into the row's pages and
+  returns only the logits at each row's last prompt token;
+- with speculation, the verify per width and sampler mode, the draft
+  propose and the draft's chunk (decode thread; serve/spec_decode.py).
+Every program is captured before the engine's threads start (`warmup`, or
+else the first request), never later: a key that was not captured raises.
+The prefill thread's programs replay from a graph memory pool of their
+own, the decode thread's from another (`_capture_programs` says why).
+Both threads replay on PyTorch's default stream, as the reference runs its
+programs in one queue, so the card runs their work in the order it was
+issued: a prefill's page writes, the decode thread's spans, a cancel's
+freed pages and the chunks that reuse them never race.
 
 Not ported yet: KV export/import and streaming, tensor-parallel meshes,
 live weight updates, and the Prometheus/SLO telemetry (this module logs
@@ -57,7 +63,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.transformer import _require_dense, prefill, torch_dtype
+from ..models.transformer import _require_dense, torch_dtype
 from ..ops.dispatch import resolve_device
 from .config import SpeculationConfig
 from .programs import SAMPLER_MODES, CapturedProgram, PagedModel, _categorical, host_tensor
@@ -345,21 +351,27 @@ class InferenceEngine:
         # first tokens are sampled on the host, from their own stream
         self._host_gen = torch.Generator()
         self._host_gen.manual_seed(int.from_bytes(os.urandom(8), "little") >> 1)
-        # the device programs the step loop replays, by key ("decode",
-        # n_steps, sample, advanced), ("verify", S, sample, advanced),
-        # ("propose",); on the card one graph memory pool serves them all
-        # (_capture_programs says why sharing it is safe)
+        # the device programs the threads replay, by key ("decode",
+        # n_steps, sample, advanced), ("chunk", C), ("prefill", bucket,
+        # Bp), ("verify", S, sample, advanced), ("propose",),
+        # ("draft_chunk", C); on the card, one graph memory pool for the
+        # prefill thread's programs and one for the decode thread's
+        # (_capture_programs says why)
         self._programs: Dict[tuple, CapturedProgram] = {}
-        self._graph_pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
-                            else None)
+        card = self.device.type == "cuda"
+        self._graph_pool = torch.cuda.graph_pool_handle() if card else None
+        self._prefill_pool = torch.cuda.graph_pool_handle() if card else None
         # what capture took: programs, seconds, and on the card the bytes
-        # the captures added to the reserved memory (graph pool + buffers)
+        # the captures added to the reserved memory (graph pools + static
+        # buffers); the prefill_* keys give the prefill programs' share
         self.capture_stats: Dict[str, float] = {}
         # reentrant: warmup captures under it, and so does _ensure_loop,
         # holding it while it starts the threads
         self._lock = threading.RLock()
         self._alloc_lock = threading.Lock()  # allocator: prefill + decode threads
-        self._ready: "list" = []  # prefilled, awaiting a decode slot
+        # prefilled (KV in their pages), awaiting a decode slot:
+        # (request, pages, prompt length)
+        self._ready: "list" = []
         self._ready_lock = threading.Lock()
         self._waiting: "list[Request]" = []  # admitted but no pages free yet
         self._loop_thread: Optional[threading.Thread] = None
@@ -437,14 +449,17 @@ class InferenceEngine:
         return program
 
     def _program_specs(self, spans):
-        """(key, body, example inputs, generators) of every program the step
-        loop can pick: the decode span per length in `spans` and sampler
-        mode, then the speculation programs. The example inputs (positions
-        0, all-zero page tables) write only the trash page."""
+        """(key, body, example inputs, generators) of every program the
+        threads can pick: the decode span per length in `spans` and sampler
+        mode, the speculation programs, the chunk (with chunked prefill) and
+        the bucketed prefill per bucket and prefill tier. The example inputs
+        (positions and chunk starts 0, all-zero page tables) write only the
+        trash page."""
         B, pps = self.ecfg.max_batch_size, self.ecfg.pages_per_seq
-        zeros = torch.zeros((B,), dtype=torch.int32, device=self.device)
-        tables = torch.zeros((B, pps), dtype=torch.int32, device=self.device)
-        ones = torch.ones((B,), device=self.device)
+        dev = self.device
+        zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
+        tables = torch.zeros((B, pps), dtype=torch.int32, device=dev)
+        ones = torch.ones((B,), device=dev)
         for span in spans:
             for sample, advanced in SAMPLER_MODES:
                 yield (("decode", span, sample, advanced),
@@ -453,23 +468,41 @@ class InferenceEngine:
                        (zeros, zeros, tables, ones * float(sample), ones, zeros), (self._gen,))
         if self._spec is not None:
             yield from self._spec.program_specs()
+        one = torch.zeros((1,), dtype=torch.int32, device=dev)
+        if self.ecfg.chunked_prefill:
+            C = self.ecfg.prefill_chunk
+            yield (("chunk", C), self._chunk_body,
+                   (torch.zeros((C,), dtype=torch.int32, device=dev), one, tables[0],
+                    one + C - 1), ())
+        for bucket in self.ecfg.prefill_buckets:
+            for Bp in self.ecfg.prefill_tiers():
+                yield (("prefill", bucket, Bp), self._prefill_body,
+                       (torch.ones((Bp, bucket), dtype=torch.int32, device=dev),
+                        torch.ones((Bp,), dtype=torch.int32, device=dev),
+                        torch.zeros((Bp, pps), dtype=torch.int32, device=dev)), ())
 
     def _capture_programs(self, spans=None) -> None:
-        """Capture every program the step loop can pick that is not captured
+        """Capture every program the threads can pick that is not captured
         yet. spans: the decode span lengths (default: decode_span and, with
         the adaptive policy, busy_span). Raises while the engine's threads
-        run: a capture beside the prefill thread's eager launches on the
-        same stream would record them or fail.
+        run: a capture beside the other thread's launches on the same
+        stream would record them or fail.
 
-        One graph memory pool serves all of the engine's programs, as the
-        reference's programs share one allocator. Sharing is safe because
-        (1) every program's static inputs and outputs stay referenced for
-        the engine's life, so no capture reuses them, (2) every replay runs
-        on the decode thread's stream, so no two programs run at once, and
-        (3) what one graph may overwrite of another's outputs (its scratch
-        can hold a later capture's outputs) is consumed first: a decode span
-        and a verify are read back at once, and the draft propose's output is
-        concatenated into the next verify's input before any replay."""
+        Two graph memory pools: the bucketed prefill programs, which the
+        prefill thread replays, draw from one, and every program the decode
+        thread replays (spans, chunk, verify, propose, draft chunk) from the
+        other. A graph's scratch may hold the outputs of a program captured
+        later into its pool, so a replay may overwrite them; in one pool
+        shared by both threads, a prefill replay could land between a span's
+        replay and its readback. With a pool per thread, sharing within a
+        pool is safe because (1) every program's static inputs and outputs
+        stay referenced for the engine's life, so no capture reuses them,
+        (2) one thread replays a pool's programs, on one stream, so no two
+        of them run at once, and (3) that thread consumes a program's
+        outputs before it replays another program of the pool: spans,
+        verify, chunks and prefills are read back at once, the draft
+        chunk's only outputs are its KV writes, and the drafts a propose
+        leaves for the next round are copied out (spec_decode.py)."""
         with self._lock:
             if spans is None:
                 spans = {max(1, self.ecfg.decode_span)}
@@ -483,81 +516,83 @@ class InferenceEngine:
                    for t in (self._loop_thread, self._prefill_thread)):
                 raise RuntimeError("device programs are captured before the engine's "
                                    "threads start, never while they run")
-            card = self.device.type == "cuda"
-            t0 = time.monotonic()
-            if card:
-                torch.cuda.synchronize(self.device)
-                torch.cuda.empty_cache()
-                reserved = torch.cuda.memory_reserved(self.device)
-            for key, body, inputs, generators in todo:
-                self._programs[key] = CapturedProgram(body, inputs, pool=self._graph_pool,
-                                                      generators=generators)
-            stats = {"programs": len(self._programs),
-                     "seconds": self.capture_stats.get("seconds", 0.0) + time.monotonic() - t0}
-            if card:
-                torch.cuda.synchronize(self.device)
-                torch.cuda.empty_cache()
-                stats["pool_bytes"] = (self.capture_stats.get("pool_bytes", 0)
-                                       + torch.cuda.memory_reserved(self.device) - reserved)
+            # the decode thread's pool, then the prefill thread's, each
+            # measured on its own: totals, and the prefill_* share
+            stats = dict(self.capture_stats)
+            for names, pool, specs in (
+                    (("",), self._graph_pool, [t for t in todo if t[0][0] != "prefill"]),
+                    (("", "prefill_"), self._prefill_pool,
+                     [t for t in todo if t[0][0] == "prefill"])):
+                n, seconds, nbytes = len(specs), *self._capture(specs, pool)
+                for name in names:
+                    for key, x in (("programs", n), ("seconds", seconds),
+                                   ("pool_bytes", nbytes)):
+                        if x is not None:
+                            stats[name + key] = stats.get(name + key, 0) + x
             self.capture_stats = stats
 
-    def _chunk_step(self, tokens, start: int, table, last_idx: int) -> torch.Tensor:
-        """One C-token prefill chunk of one sequence: write its KV into the
-        sequence's pages, attend over the paged prefix (kernel K6) ->
-        f32 logits [V] at chunk row last_idx. Decode thread only."""
-        x = self._model.chunk(self._tensor(tokens, torch.int32), start,
-                              self._tensor(table, torch.int32))
-        return self._model.logits(x[last_idx:last_idx + 1])[0]
+    def _capture(self, specs, pool):
+        """Capture `specs` into `pool` -> (seconds, bytes the captures added
+        to the reserved memory on the card, else None)."""
+        card = self.device.type == "cuda"
+        t0 = time.monotonic()
+        if card:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+        for key, body, inputs, generators in specs:
+            self._programs[key] = CapturedProgram(body, inputs, pool=pool, generators=generators)
+        if not card:
+            return time.monotonic() - t0, None
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        return time.monotonic() - t0, torch.cuda.memory_reserved(self.device) - reserved
 
-    def _prefill(self, tokens: np.ndarray, true_lens: np.ndarray):
-        """Bucketed prefill of a padded batch [Bp, bucket] (prefill thread:
-        reads params, writes only its outputs) -> (f32 logits [Bp, V] at
-        each row's last prompt token, row KV cache)."""
-        toks = self._tensor(tokens, torch.int32)
-        lens = self._tensor(true_lens, torch.int64)
-        return prefill(self.params, self.cfg, toks, max_len=tokens.shape[1],
-                       last_index=lens - 1, rope_tables=self._model.rope,
-                       head=self._model.head32)
+    def _chunk_body(self, toks, start, table, last_idx):
+        """The chunk program: one C-token prefill chunk of one sequence
+        (PagedModel.chunk, kernel K6) -> (f32 logits [1, V] at chunk row
+        last_idx,). toks [C], start / last_idx [1], table [pps] int32."""
+        x = self._model.chunk(toks, start, table)
+        return (self._model.logits(x.index_select(0, last_idx.long())),)
 
-    def _scatter_prefill(self, cache, pages: List[int]) -> None:
-        """Write a prefill row cache [L, 1, Tpad, KVH, hd] into the page
-        pool (decode thread, at install)."""
-        ps = self.ecfg.page_size
-        k, v = cache["k"][:, 0], cache["v"][:, 0]  # [L, Tpad, KVH, hd]
-        L, Tpad, KVH, hd = k.shape
-        n_full = min(len(pages), Tpad // ps)
-        idx = torch.tensor(pages[:n_full], dtype=torch.long, device=self.device)
-        kb = k[:, :n_full * ps].reshape(L, n_full, ps, KVH, hd).permute(0, 3, 1, 2, 4)
-        vb = v[:, :n_full * ps].reshape(L, n_full, ps, KVH, hd).permute(0, 3, 1, 2, 4)
-        self.k_pages[:, :, idx] = kb.to(self.k_pages.dtype)
-        self.v_pages[:, :, idx] = vb.to(self.v_pages.dtype)
+    def _chunk_step(self, tokens, start: int, table, last_idx: int) -> np.ndarray:
+        """One replay of the chunk program on host arrays: writes the
+        chunk's KV into the sequence's pages -> f32 logits [V] at chunk row
+        last_idx, read back. Decode thread only."""
+        (logits,) = self._program(("chunk", len(tokens)))(
+            host_tensor(tokens, torch.int32), host_tensor([start], torch.int32),
+            host_tensor(table, torch.int32), host_tensor([last_idx], torch.int32))
+        return logits.to("cpu", copy=True).numpy()[0]
+
+    def _prefill_body(self, toks, true_lens, tables):
+        """The bucketed prefill program (PagedModel.prefill, kernel K2)."""
+        return (self._model.prefill(toks, true_lens, tables),)
+
+    def _prefill(self, tokens: np.ndarray, true_lens: np.ndarray,
+                 tables: np.ndarray) -> np.ndarray:
+        """Bucketed prefill of a padded batch: one replay of the program for
+        (bucket, Bp) on host arrays tokens [Bp, bucket], true_lens [Bp],
+        tables [Bp, pps]. Writes each row's KV into its pages -> f32 logits
+        [Bp, V] at each row's last prompt token, read back. Prefill thread."""
+        Bp, bucket = tokens.shape
+        (logits,) = self._program(("prefill", bucket, Bp))(
+            host_tensor(tokens, torch.int32), host_tensor(true_lens, torch.int32),
+            host_tensor(tables, torch.int32))
+        return logits.to("cpu", copy=True).numpy()
 
     def warmup(self, buckets=None, batch_sizes=None) -> None:
-        """Run the eager serving programs once off the request path (builds
-        the kernels on first use and warms the allocator): prefill per
-        (bucket, padded batch) and one chunk; then capture every program
-        the step loop can pick (`_capture_programs`): the decode spans the
-        adaptive policy can pick in every sampler mode, and with
-        speculation the verify widths and the draft propose. Positions 0
-        and all-zero page tables write only the trash page. Call before
-        admitting traffic; an engine that was not warmed up captures at its
-        first request, before its threads start."""
-        bucket_list = (list(buckets) if buckets is not None
-                       else list(self.ecfg.prefill_buckets))
-        sizes = (list(batch_sizes) if batch_sizes is not None
-                 else self.ecfg.prefill_tiers())
-        for bucket in bucket_list:
-            for Bp in sizes:
-                logits, _cache = self._prefill(np.ones((Bp, bucket), np.int32),
-                                               np.ones((Bp,), np.int32))
-                logits.cpu()
-        pps = self.ecfg.pages_per_seq
-        if self.ecfg.chunked_prefill:
-            C = self.ecfg.prefill_chunk
-            self._chunk_step(np.zeros((C,), np.int32), 0,
-                             np.zeros((pps,), np.int32), C - 1).cpu()
-        if self._spec is not None:
-            self._spec.warmup()
+        """Capture every program the threads can pick (`_capture_programs`)
+        off the request path, which also builds the kernels: the decode
+        spans the adaptive policy can pick in every sampler mode, the chunk,
+        the bucketed prefill per (bucket, prefill tier), and with
+        speculation the verify widths, the draft propose and the draft's
+        chunk. buckets / batch_sizes keep the reference's signature, where
+        they pick the prefill shapes to compile; the port captures the
+        configured set regardless, since a program that was not captured
+        raises where the reference would compile it. Example inputs write
+        only the trash page. Call before admitting traffic; an engine that
+        was not warmed up captures at its first request, before its threads
+        start."""
         self._capture_programs()
 
     # ------------------------------------------------------------ requests
@@ -832,13 +867,15 @@ class InferenceEngine:
             return
         padded = np.zeros((Bpad, bucket), np.int32)
         lens = np.ones((Bpad,), np.int32)  # dummy rows: true_len 1
-        for i, (req, _pages, T, _b, _cl) in enumerate(group):
+        tables = np.zeros((Bpad, self.ecfg.pages_per_seq), np.int32)  # dummy rows: trash
+        for i, (req, pages, T, _b, _cl) in enumerate(group):
             padded[i, :T] = req.prompt
             lens[i] = T
-        logits, cache = self._prefill(padded, lens)
+            tables[i, :len(pages)] = pages
+        # the program writes each row's KV into its pages
+        logits_host = self._prefill(padded, lens, tables)
         # sample every row BEFORE publishing anything: if this raises, the
         # caller can still free every page (nothing is in _ready yet)
-        logits_host = logits.cpu().numpy()
         firsts = [_sample_host(logits_host[i], req.temperature, req.top_p, req.top_k,
                                self._host_gen)
                   for i, (req, _p, _T, _b, _cl) in enumerate(group)]
@@ -847,8 +884,7 @@ class InferenceEngine:
         with self._ready_lock:
             for i, (req, pages, T, _b, _cl) in enumerate(group):
                 self._commit_first(req, firsts[i], first_lps[i], now)
-                row_cache = {"k": cache["k"][:, i:i + 1], "v": cache["v"][:, i:i + 1]}
-                self._ready.append((req, pages, row_cache, T))
+                self._ready.append((req, pages, T))
         self._work.set()  # revive the decode thread if it is idle-waiting
 
     def _commit_first(self, req: Request, first: int, logprob: float, now: float) -> None:
@@ -865,22 +901,20 @@ class InferenceEngine:
             req._emit(int(first))
 
     def _install_ready(self) -> bool:
-        """Decode thread: move finished prefills into free decode slots
-        (KV page scatter + slot bookkeeping only)."""
+        """Decode thread: move finished prefills, whose KV is already in
+        their pages, into free decode slots (slot bookkeeping only)."""
         installed = False
         while True:
             free_slots = [s for s in self.slots if s.request is None]
             with self._ready_lock:
                 if not self._ready or not free_slots:
                     return installed
-                req, pages, cache, T = self._ready.pop(0)
+                req, pages, T = self._ready.pop(0)
             if req.cancelled.is_set():  # cancelled between prefill/install
                 self._free_pages_and_revive(pages)
                 self._finish_request(req, "cancelled")
                 installed = True
                 continue
-            if cache is not None:  # chunked prefills wrote pages directly
-                self._scatter_prefill(cache, pages)
             if self.prefix is not None:
                 # the prompt's full pages are valid now: offer them
                 with self._alloc_lock:
@@ -928,13 +962,10 @@ class InferenceEngine:
         with self._chunk_lock:
             self._chunk_queue.pop(0)
         req = st.request
-        logits_host = logits.cpu().numpy()
-        first = _sample_host(logits_host, req.temperature, req.top_p, req.top_k,
-                             self._host_gen)
-        self._commit_first(req, first, _host_logprob(logits_host, first), time.monotonic())
+        first = _sample_host(logits, req.temperature, req.top_p, req.top_k, self._host_gen)
+        self._commit_first(req, first, _host_logprob(logits, first), time.monotonic())
         with self._ready_lock:
-            # cache=None: this prompt's KV is already in its pages
-            self._ready.append((req, st.pages, None, st.true_len))
+            self._ready.append((req, st.pages, st.true_len))
         return True
 
     def step(self) -> bool:

@@ -49,9 +49,10 @@ class LLMServer:
         draft_params = draft_params_fn() if draft_params_fn is not None else None
         self.engine = InferenceEngine(params, cfg, EngineConfig(**dict(engine_config or {})),
                                       device=device, draft_params=draft_params)
-        # capture every decode-span (and speculation) program at init, and
-        # so build the kernels, rather than under the first requests
-        self.engine.warmup(buckets=[])
+        # capture every device program (prefill, chunks, decode spans and
+        # speculation) at init, and so build the kernels, rather than under
+        # the first requests
+        self.engine.warmup()
 
     def __call__(self, request: Dict[str, Any]) -> Dict[str, Any]:
         return self.engine.generate(**_generate_args(request))

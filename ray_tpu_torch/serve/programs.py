@@ -2,23 +2,29 @@
 and the captured form the engine runs them in.
 
 `PagedModel` binds a parameter dict to a pool [L, KVH, P, page_size, hd]
-per K and V and runs the three programs that write KV into pages and
-attend over them: one decode token per sequence (kernel K5), one prefill
+per K and V and runs the four programs that write KV into pages: a padded
+batch of prompts at one bucket length (attention over the rows
+themselves, kernel K2), one decode token per sequence (K5), one prefill
 chunk of one sequence (K6), and one speculative span of S rows per
-sequence (K7). The engine owns one for the target model; the draft-model
-proposer of serve/spec_decode.py owns another over its own pool, sharing
-the target's parameter tensors when it self-speculates. The programs
-differ only in which positions they write and which kernel attends, so the
-layer loop is written once (`_run_layers`). They update the pools in place
-and return hidden states; the caller applies `logits` to the rows it
-needs.
+sequence (K7); the last three attend over the pages. The engine owns one
+for the target model; the draft-model proposer of serve/spec_decode.py
+owns another over its own pool, sharing the target's parameter tensors
+when it self-speculates. The programs differ only in which positions they
+write and how they attend, so the layer loop is written once
+(`_run_layers`). They update the pools in place and return hidden states
+(the bucketed prefill its f32 logits at each row's last prompt token);
+the caller applies `logits` to the rows it needs.
 
 `CapturedProgram` is the port's counterpart of one of the reference's
-jitted programs (ray_tpu/serve/engine.py:662 `for_span`,
-ray_tpu/serve/spec_decode.py:503 and :711): a body over static input
-buffers that a CUDA graph captures once and replays as one launch. The
-engine captures its decode spans, its verify widths and the draft
-propose this way; prefill and chunked prefill stay eager.
+jitted programs (ray_tpu/serve/engine.py:662 `for_span`, :772
+`for_chunk`, :853 `_prefill_fn`, ray_tpu/serve/spec_decode.py:503 and
+:711): a body over static input buffers that a CUDA graph captures once
+and replays as one launch. The engine captures every device program of
+its step loop and its prefill thread this way: the decode spans, the
+verify widths, the draft propose, the chunk of the engine and of the
+draft, and the bucketed prefill per (bucket, padded batch). Positions,
+lengths and chunk starts are inputs on the card, so one graph serves
+every request.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from ..models.transformer import (
 )
 from ..ops import (
     dispatch,
+    flash_attention,
     paged_attention_chunk,
     paged_attention_decode,
     paged_attention_verify,
@@ -100,9 +107,10 @@ class PagedModel:
         return x
 
     def _run_layers(self, x, rope_pos, page_idx, slot_idx, attend) -> torch.Tensor:
-        """x [B, T, D]; rope_pos / page_idx / slot_idx [B, T] long. Each
-        layer writes its K/V rows at (page, slot) and calls
-        attend(q [B,T,H,hd], k_pages, v_pages of the layer) -> [B,T,H,hd]."""
+        """x [B, T, D]; rope_pos [B or 1, T], page_idx / slot_idx [B, T]
+        long. Each layer writes its K/V rows at (page, slot) and calls
+        attend(q [B,T,H,hd], k, v [B,T,KVH,hd], k_pages, v_pages of the
+        layer) -> [B,T,H,hd]."""
         cfg = self.cfg
         for l, lp in enumerate(self.layers):
             h = _norm(x, lp["ln1"], lp.get("ln1_b"), cfg)
@@ -112,7 +120,7 @@ class PagedModel:
             # rows routed to page 0, the trash page, may collide there
             kp[:, page_idx, slot_idx] = k.permute(2, 0, 1, 3).to(kp.dtype)
             vp[:, page_idx, slot_idx] = v.permute(2, 0, 1, 3).to(vp.dtype)
-            x = x + _out_proj(attend(q, kp, vp), lp)
+            x = x + _out_proj(attend(q, k, v, kp, vp), lp)
             h = _norm(x, lp["ln2"], lp.get("ln2_b"), cfg)
             x = x + _dense_ffn(h, lp, cfg)
         return x
@@ -123,6 +131,32 @@ class PagedModel:
     # slot's draft count and the draft proposer's lookahead run past
     # max_seq_len. Positions are clamped to the rope table and page lookups
     # to the table's last entry, as there.
+
+    def prefill(self, toks, true_lens, tables) -> torch.Tensor:
+        """Bucketed prefill of a padded batch. toks [Bp, bucket] int32,
+        true_lens [Bp] int32, tables [Bp, pages] int32. Writes each row's
+        K/V at positions 0..bucket-1 into the row's pages and attends
+        causally over the row itself (kernel K2) -> f32 logits [Bp, V] at
+        position true_len - 1. Positions past a row's allocated pages (the
+        table's zero tail; every position of a dummy row's all-zero table)
+        write the trash page 0. Pad positions >= true_len inside real pages
+        write pad KV, as the reference's page scatter does; decode
+        overwrites it before any query reads it (position bound)."""
+        ps, (Bp, T), pps = self.ps, toks.shape, tables.shape[1]
+        positions = torch.arange(T, device=toks.device)
+        rope_pos = positions.clamp(max=self.cfg.max_seq_len - 1)[None]
+        x = self._embed(toks, rope_pos)
+        page_of = (positions // ps)[None].expand(Bp, T)
+        page_idx = tables.gather(1, page_of.clamp(max=pps - 1)).long()
+        page_idx = torch.where(page_of < pps, page_idx, 0)
+        slot_idx = (positions % ps)[None].expand(Bp, T)
+
+        def attend(q, k, v, kp, vp):
+            return flash_attention(q, k, v, causal=True)
+
+        x = self._run_layers(x, rope_pos, page_idx, slot_idx, attend)
+        last = x[torch.arange(Bp, device=x.device), true_lens.long() - 1]
+        return self.logits(last)
 
     def decode(self, toks, pos, tables) -> torch.Tensor:
         """One token for every sequence. toks/pos [B] int32, tables
@@ -137,26 +171,29 @@ class PagedModel:
         slot_idx = (pos % ps).long()[:, None]
         lengths = pos + 1
 
-        def attend(q, kp, vp):
+        def attend(q, k, v, kp, vp):
             return paged_attention_decode(q[:, 0], kp, vp, tables, lengths)[:, None]
 
         return self._run_layers(x, rope_pos, page_idx, slot_idx, attend)[:, 0]
 
-    def chunk(self, toks, start: int, table) -> torch.Tensor:
-        """One C-token prefill chunk of one sequence. toks [C] int32, table
-        [pages] int32. Writes the chunk's KV into the sequence's pages and
-        attends over the paged prefix (kernel K6) -> hidden [C, D]. Pad
-        rows past the prompt write KV too, but no later query sees them
-        before decode overwrites them (position bound)."""
+    def chunk(self, toks, start, table) -> torch.Tensor:
+        """One C-token prefill chunk of one sequence. toks [C] int32, start
+        [1] int32 (the chunk's first position, on the pool's device: one
+        captured program serves every chunk), table [pages] int32. Writes
+        the chunk's KV into the sequence's pages and attends over the paged
+        prefix (kernel K6, which reads [start, start + C] on the card) ->
+        hidden [C, D]. Pad rows past the prompt write KV too, but no later
+        query sees them before decode overwrites them (position bound)."""
         ps, C = self.ps, toks.shape[0]
-        positions = start + torch.arange(C, device=toks.device)
+        positions = start.long() + torch.arange(C, device=toks.device)
         rope_pos = positions.clamp(max=self.cfg.max_seq_len - 1)[None]
         x = self._embed(toks[None], rope_pos)
         page_idx = table[(positions // ps).clamp(max=table.shape[0] - 1)].long()[None]
         slot_idx = (positions % ps)[None]
+        meta = torch.cat([start, start + C])  # [start, total], which K6 reads in place
 
-        def attend(q, kp, vp):
-            return paged_attention_chunk(q[0], kp, vp, table, start, start + C)[None]
+        def attend(q, k, v, kp, vp):
+            return paged_attention_chunk(q[0], kp, vp, table, meta[:1], meta[1:])[None]
 
         return self._run_layers(x, rope_pos, page_idx, slot_idx, attend)[0]
 
@@ -181,7 +218,7 @@ class PagedModel:
                                                           n_draft)
         x = self._embed(toks, rope_pos)
 
-        def attend(q, kp, vp):
+        def attend(q, k, v, kp, vp):
             return paged_attention_verify(q, kp, vp, tables, positions)
 
         return self._run_layers(x, rope_pos, page_idx, slot_idx, attend)

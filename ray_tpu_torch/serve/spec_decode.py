@@ -25,7 +25,7 @@ sampling simple —
   speculative sampling: the output distribution equals the target's.
 
 Two proposers behind one duck-typed interface
-(on_install/on_evict/propose/warmup):
+(on_install/on_evict/propose/program_specs):
 
 - NGramProposer: suffix-match lookup over the request's own prompt+output,
   on the host in numpy, vectorized across the whole continuous batch over
@@ -35,7 +35,8 @@ Two proposers behind one duck-typed interface
 - DraftModelProposer: a small transformer from models/ sharing the
   tokenizer, with its OWN paged KV pool mirroring each slot's positions
   (fixed per-slot page runs — no allocator). Prompts chunk-prefill into the
-  draft pool at install (kernel K6); each round runs one catch-up decode
+  draft pool at install (kernel K6), one replay of the captured draft
+  chunk program per chunk; each round runs one catch-up decode
   step for the token at position-1 (on a fully-accepted round the last
   draft token was never fed, which would leave a KV hole) and then k greedy
   draft-decode steps (kernel K5), one captured program replayed without a
@@ -243,9 +244,6 @@ class NGramProposer:
             self._len[slot_idx] = 0
             self._rid[slot_idx] = None
 
-    def warmup(self, engine) -> None:
-        pass
-
     def program_specs(self, engine):
         return ()  # host code: nothing on the card
 
@@ -357,35 +355,44 @@ class DraftModelProposer:
             pos = pos + 1
         return (torch.stack(seq, dim=1),)
 
+    def _chunk_body(self, toks, start, table):
+        """The draft chunk program: one C-token chunk into the draft pool
+        (PagedModel.chunk, kernel K6), without the head: only its KV writes
+        matter, so it has no outputs. toks [C], start [1], table [tbl_len]
+        int32."""
+        self.model.chunk(toks, start, table)
+        return ()
+
     def program_specs(self, engine):
-        B = engine.ecfg.max_batch_size
+        B, C = engine.ecfg.max_batch_size, self.chunk
         zeros = torch.zeros((B,), dtype=torch.int32, device=engine.device)
         yield ("propose",), self._propose_body, (zeros, zeros, zeros), ()
+        # the draft pool's trash page 0 at start 0
+        yield (("draft_chunk", C), self._chunk_body,
+               (torch.zeros((C,), dtype=torch.int32, device=engine.device), zeros[:1],
+                torch.zeros_like(self._tables[0])), ())
 
     # -------------------------------------------------------- interface
 
     def on_install(self, engine, slot_idx: int, request) -> None:
-        """Chunk-prefill the prompt into the slot's draft pages, without
-        the head: only the KV writes matter (the target's pages may have
+        """Chunk-prefill the prompt into the slot's draft pages, one replay
+        of the draft chunk program per chunk (the target's pages may have
         come from the prefix cache or chunked prefill — the draft pool
         always rebuilds from the tokens)."""
         T, C = len(request.prompt), self.chunk
+        program = engine._program(("draft_chunk", C))
         table = self._tables[slot_idx]
         for c0 in range(0, T, C):
             toks = request.prompt[c0:c0 + C]
             padded = np.zeros((C,), np.int32)
             padded[: len(toks)] = toks
-            self.model.chunk(engine._tensor(padded, torch.int32), c0, table)
+            program(host_tensor(padded, torch.int32), host_tensor([c0], torch.int32), table)
 
     def on_evict(self, engine, slot_idx: int) -> None:
         # a prefetched row computed for the evicted request must never
         # surface for the slot's next occupant
         if self._pf is not None:
             self._pf["rids"][slot_idx] = None
-
-    def warmup(self, engine) -> None:
-        self.model.chunk(torch.zeros((self.chunk,), dtype=torch.int32, device=engine.device),
-                         0, self._tables[0])
 
     def _prev_tokens(self, engine, tokens) -> np.ndarray:
         """The token at position-1 per slot (catch-up feed)."""
@@ -403,9 +410,9 @@ class DraftModelProposer:
     def _dispatch(self, engine, prev, tokens, positions) -> torch.Tensor:
         """One replay of the propose program on host arrays -> drafts [B, K]
         on the card: the program's static output, which its next replay
-        overwrites. run_step consumes it in stream order first: it
-        concatenates the drafts into the verify's input before the verify
-        replays and before the next propose (or prefetch) does."""
+        overwrites. `propose` leaves it to run_step, which concatenates the
+        drafts into the verify's input before any other replay; `prefetch`
+        keeps a copy."""
         (drafts,) = engine._program(("propose",))(host_tensor(prev, torch.int32),
                                                   host_tensor(tokens, torch.int32),
                                                   host_tensor(positions, torch.int32))
@@ -432,7 +439,10 @@ class DraftModelProposer:
         prev_tok = np.where(nc >= 2, committed[rows, np.maximum(nc - 2, 0)],
                             tokens).astype(np.int32)
         next_pos = (np.asarray(positions, np.int64) + nc).astype(np.int32)
-        drafts = self._dispatch(engine, prev_tok, next_tok, next_pos)
+        # a copy: before the next round's verify reads them, that round's
+        # chunk and install replay other programs of this pool, and a
+        # program's scratch may hold the outputs of one captured after it
+        drafts = self._dispatch(engine, prev_tok, next_tok, next_pos).clone()
         rids = [s.request.request_id if s.request is not None else None
                 for s in engine.slots]
         self._pf = {"drafts": drafts, "pos": next_pos, "rids": rids}
@@ -530,11 +540,6 @@ class SpecDecoder:
 
     def on_evict(self, slot_idx: int) -> None:
         self.proposer.on_evict(self.engine, slot_idx)
-
-    def warmup(self) -> None:
-        """The proposer's eager work (the draft's chunk prefill); the engine
-        captures the verify and propose programs (program_specs)."""
-        self.proposer.warmup(self.engine)
 
     # verify cost model: one S-wide forward ~ ALPHA + S in single-row
     # units (ALPHA covers what a forward costs at any width: reading the

@@ -396,6 +396,13 @@ def test_paged_chunk_edges(card, dtype, case, head_dim):
            dtype)
     if total == 0:  # every row fully masked gives exact zeros
         assert not got.any()
+    # start and total as int32 tensors on the card, apart (joined there) or
+    # the halves of one [2] tensor (read in place): the same launch reads
+    # the same [start, total] there, bit for bit the int form's result
+    apart = [torch.tensor([x], device=card, dtype=torch.int32) for x in (start, total)]
+    meta = torch.tensor([start, total], device=card, dtype=torch.int32)
+    for form in (apart, [meta[:1], meta[1:]]):
+        assert torch.equal(ops.paged_attention_chunk(q, kp, vp, table[0], *form), got)
 
 
 def test_paged_verify_back_to_back(card, dtype):
@@ -671,6 +678,46 @@ def test_captured_programs_replay_their_eager_bodies(card, dtype):
     assert torch.equal(committed, want[0]) and torch.equal(n_comm, want[1])
 
 
+def test_prefill_and_chunk_replays_write_the_pages_their_eager_bodies_write(card, dtype):
+    # the bucketed prefill and the chunk (start 0, then mid-prompt) of the
+    # engine and of the draft: a replay, then its body on the same static
+    # inputs into a copy of the pools: pages bit-identical, logits within
+    # 1e-5 (the same kernels in the same order)
+    engine = _graph_engine(card, dtype)
+    model, draft = engine._model, engine._spec.proposer
+    pps = engine.ecfg.pages_per_seq
+    rs = np.random.RandomState(5)
+
+    def check(key, args, pools):
+        saved = [p.clone() for p in pools]
+        program = engine._program(key)
+        outs = [o.clone() for o in program(*args)]
+        after = [p.clone() for p in pools]
+        for p, s in zip(pools, saved):
+            p.copy_(s)
+        want = program.fn(*program.inputs)
+        for p, a in zip(pools, after):
+            assert torch.equal(p, a), key
+        for o, w in zip(outs, want):
+            torch.testing.assert_close(o, w, atol=1e-5, rtol=0)
+
+    table = np.zeros((1, pps), np.int32)
+    table[0, :3] = [5, 9, 2]
+    toks = rs.randint(1, engine.cfg.vocab_size, (1, 16)).astype(np.int32)
+    check(("prefill", 16, 1), [torch.as_tensor(a) for a in (toks, np.array([11], np.int32),
+                                                            table)],
+          (model.k_pages, model.v_pages))
+    chunk = rs.randint(1, engine.cfg.vocab_size, 32).astype(np.int32)
+    for start in (0, 32):
+        check(("chunk", 32), [torch.as_tensor(a) for a in (
+            chunk, np.array([start], np.int32), table[0], np.array([31], np.int32))],
+            (model.k_pages, model.v_pages))
+        check(("draft_chunk", 32), [torch.as_tensor(chunk),
+                                    torch.as_tensor(np.array([start], np.int32)),
+                                    draft._tables[1]],
+              (draft.model.k_pages, draft.model.v_pages))
+
+
 def test_sampled_replays_draw_fresh_numbers(card, dtype):
     engine = _graph_engine(card, dtype)
     for top_p, advanced in ((1.0, False), (0.9, True)):
@@ -689,7 +736,9 @@ def test_sampled_replays_draw_fresh_numbers(card, dtype):
 
 def test_replays_count_the_eager_launches(card, dtype):
     engine = _graph_engine(card, dtype)
-    assert len(engine._programs) == 6 + 3 * 3 + 1
+    # spans 4 and 2 x three sampler modes, verify S = 2..4 x three, the
+    # propose, the draft chunk, the chunk and the prefill at bucket 16
+    assert len(engine._programs) == 6 + 3 * 3 + 1 + 3
     for key, program in engine._programs.items():
         dispatch.reset_launches()
         program.fn(*program.inputs)

@@ -5,11 +5,12 @@ a graph, and the launch accounting that graph replays use on the card.
 Shows: (a) two calls with different inputs return what two direct calls of
 the body return; (b) a program's outputs are its static buffers, which the
 next call overwrites, and every engine caller copies what it keeps; (c)
-after warmup the engine's program table covers every key its step loop and
-span picker can pick, an uncaptured key raises, and nothing is captured
-while the engine's threads run; (d) `dispatch.recording_launches` takes a
-capture's launches out of the counts and `add_launches` adds them once per
-replay. Also `LLMServer(draft_params_fn=...)` against the reference server
+after warmup the engine's program table covers every key its step loop,
+span picker, chunked prefill, draft install and prefill thread can pick,
+an uncaptured key raises, and nothing is captured while the engine's
+threads run; (d) `dispatch.recording_launches` takes a capture's launches
+out of the counts and `add_launches` adds them once per replay, and
+counts them apart from eager launches. Also `LLMServer(draft_params_fn=...)` against the reference server
 given the same draft weights. Outputs of the same CPU arithmetic are
 compared exactly; logprobs against the reference within 1e-4 (f32, sums in
 another order).
@@ -104,9 +105,9 @@ def test_outputs_are_static_buffers_and_engine_callers_copy(tiny):
     assert not np.array_equal(seq2, kept[0])
     assert np.array_equal(seq, kept[0]) and np.array_equal(logps, kept[1])
 
-    # a speculative round: the committed tokens are a copy, and the draft
-    # rows a prefetch left in the propose program's output are consumed by
-    # the next round's verify before the propose runs again
+    # a speculative round: the committed tokens are a copy, and so are the
+    # draft rows a prefetch leaves for the next round, which replays the
+    # chunk and the draft chunk of the same pool before its verify reads them
     engine = _engine(tiny, dict(DRAFT4, overlap=True))
     engine.warmup(buckets=[])
     spec = engine._spec
@@ -115,7 +116,13 @@ def test_outputs_are_static_buffers_and_engine_callers_copy(tiny):
     out = spec.run_step(tokens, positions, tables, caps, temps, top_ps, top_ks, False)
     kept = out[0].copy()
     drafts = spec.proposer._pf["drafts"]
-    assert drafts is engine._program(("propose",)).outputs[0]
+    propose_out = engine._program(("propose",)).outputs[0]
+    assert drafts is not propose_out and torch.equal(drafts, propose_out)
+    held = drafts.clone()
+    engine._chunk_step(np.arange(16, dtype=np.int32), 0, tables[0], 15)
+    engine._program(("propose",))(*(torch.as_tensor(t + 1) for t in (tokens, tokens,
+                                                                      positions)))
+    assert torch.equal(drafts, held)
     spec.run_step(tokens + 1, positions, tables, caps, temps, top_ps, top_ks, False)
     assert np.array_equal(out[0], kept)
 
@@ -128,9 +135,13 @@ def test_program_table_covers_every_key_the_step_loop_picks(tiny):
         k = engine._spec.k
         want = {("decode", n, *mode) for n in (6, 2) for mode in SAMPLER_MODES}
         want |= {("verify", S, *mode) for S in range(2, k + 2) for mode in SAMPLER_MODES}
-        want |= {("propose",)}
+        want |= {("propose",), ("draft_chunk", 16), ("chunk", 16)}
+        # warmup's buckets=[] keeps the reference's signature; the port
+        # captures every configured bucket at every prefill tier regardless
+        want |= {("prefill", b, 1) for b in (16, 32)}
         assert set(engine._programs) == want
         assert engine.capture_stats["programs"] == len(want)
+        assert engine.capture_stats["prefill_programs"] == 2
         # every width the span picker can choose, at any acceptance
         rs = np.random.RandomState(0)
         for accepted in (0, 300, 1000):
@@ -145,6 +156,12 @@ def test_program_table_covers_every_key_the_step_loop_picks(tiny):
             engine._decode_span(3, *_span_inputs(engine, 0), advanced=False)
         with pytest.raises(RuntimeError, match="not captured"):
             engine._program(("verify", k + 2, False, False))
+        with pytest.raises(RuntimeError, match="not captured"):  # no tier 2
+            engine._prefill(np.ones((2, 16), np.int32), np.ones(2, np.int32),
+                            np.zeros((2, engine.ecfg.pages_per_seq), np.int32))
+        with pytest.raises(RuntimeError, match="not captured"):  # no bucket 24
+            engine._prefill(np.ones((1, 24), np.int32), np.ones(1, np.int32),
+                            np.zeros((1, engine.ecfg.pages_per_seq), np.int32))
         # the threads run after the first request; no capture from then on
         out = engine.generate([1, 2, 3], max_tokens=4, timeout_s=TIMEOUT_S)
         assert len(out["token_ids"]) == 4
@@ -178,6 +195,7 @@ def test_capture_launches_are_added_once_per_replay(monkeypatch):
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
     dev = torch.device("cuda")
     before = dispatch.launch_counts()
+    eager_before = dispatch.eager_launch_counts()
     dispatch.launch("rms_norm", "rtt_rms_norm", dev)  # an eager launch counts
     with dispatch.recording_launches() as recorded:
         for _ in range(3):
@@ -193,6 +211,11 @@ def test_capture_launches_are_added_once_per_replay(monkeypatch):
     assert now["rms_norm"] == before["rms_norm"] + 1 + 6
     assert now["flash_attention_lse"] == before["flash_attention_lse"] + 2
     assert now["paged_attention_decode"] == before["paged_attention_decode"]
+    # the replays' launches are counted apart: the eager ones are the one
+    # launch made outside the capture
+    eager = dispatch.eager_launch_counts()
+    assert eager["rms_norm"] == eager_before["rms_norm"] + 1
+    assert eager["flash_attention"] == eager_before["flash_attention"]
     # a capture that raises leaves the counts as they were
     with pytest.raises(RuntimeError):
         with dispatch.recording_launches():
