@@ -21,10 +21,17 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      (rms_norm_bwd) at the training shape and at [8, 4096], each beside the
      one-element floor (a one-element PyTorch kernel under device_ms); the
      backward's dw must be bit-identical over two calls, and the profiler
-     must show both kernels by name (norm_checks);
+     must show both kernels by name; checked, untimed, at moe-1b's width
+     (forward [8|40|256, 1536] in bf16 and f32 and [2048, 1536]; backward
+     [2048, 1536] in bf16 and f32) and the backward with phase 4f's bf16
+     weights at [8192, 2560] (norm_checks);
      K2 also with its lse output, and the backward kernels K3 (dq) and K4
      (dk, dv) at the training shape (llama-2b: B=4, T=2048, 20/5 heads of
-     128), at a ragged T and at g = 1; K5 (split-KV decode) at the
+     128), at a ragged T, at g = 1 and at moe-1b's training shape (B=2,
+     T=1024, 12/4 heads: g = 3); K2 untimed at moe-1b's prefill shapes;
+     K5, K6 and K7 also at moe-1b's heads (g = 3, so one position's query
+     heads straddle the 64-row tiles) at the engine's batch, chunks and
+     verify widths S = 1, 2, 3, 5; K5 (split-KV decode) at the
      engine's batch and at its edges: one sequence of 1024 keys, lengths at
      split boundaries +- 1, lengths past the table, g = 1 and g = 8, and
      two calls back to back; K6 (paged chunked prefill) at the chunks of a
@@ -107,11 +114,43 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      against the plain path (transformer's flash_attention and rms_norm
      swapped for mha_reference and rms_norm_reference under autograd);
      every leaf's relative L2 gap must stay under GRAD_TOL, and each
-     planted backward fault (BWD_FAULTS) must exceed it.
+     planted backward fault (BWD_FAULTS) must exceed it;
+  4f. llama-2b under the reference's train2b recipe (bench.py:2429): full
+     width and depth, make_optimizer(factored=True) (adafactor), parameters
+     cast to bf16 after init (bf16_params), 4 x 2048 tokens, TRAIN_STEPS
+     steps, after phase 4 freed its state. The optimizer state's bytes must
+     equal what the leaf shapes give (factored_bytes) and stay under 1 % of
+     the bf16 parameters; then phase 4's launch, lr-0 and loss gates
+     (train_steps), and the step time, tokens/s, MFU and peak memory beside
+     phase 4's;
+  5. LLMServer serving moe-1b (8 experts, top 2) at full width and depth,
+     random bf16 weights from seed 0, phase 3's engine sizes and burst
+     shapes: every serving kernel runs, every launch from a graph replay;
+     TTFT, TPOT, tok/s and a decode step's replay time beside its byte
+     bound (decode_step_figures). The logprob gate runs on servers over the
+     same weights whose capacity factor drops no token (see
+     MOE_LOGPROB_TOL), and each planted MoE fault (MOE_FAULTS: gate weights
+     from a softmax over all experts, the second choice's weight given to
+     the first, the combine reading the next slot) must fail it. Then an
+     ngram burst (k = 4, planted prompts) runs K7 and K5 in graph replays,
+     and on its idle engine the decode span, verify, prefill buckets and
+     chunks are held against their eager bodies (graph_checks);
+  6. moe-1b trained as the reference's bench_moe (bench.py:1711): 2 x 1024
+     tokens, factored, bf16 parameters, 2 warm and 8 timed steps, then its
+     dense twin (llama-600m at moe-1b's backbone, d_ff = 2 x 4096): phase
+     4f's gates for each, moe_dispatch_overhead_pct by bench_moe's formula,
+     and on the trained layer 0 the gather form against the dense form at
+     the training shape within MOE_FORM_TOL. Then phase 4's gradient gate
+     on the trained moe-1b: the kernel path in the gather form against the
+     plain attention and norms in the dense form (plain_moe_path), every
+     pass on the first pass's routing (OneRouting), router and expert
+     leaves included; BWD_FAULTS and the MoE faults MOE_BWD_FAULTS (gate
+     weights detached, expert inputs detached, the combine reading the
+     next slot) must each exceed GRAD_TOL.
 
 The second-to-last line of stdout is {"kernels": [...]} (eight kernels:
-K1's forward and backward, K2-K7; launches by path: serve, spec, train),
-the last
+K1's forward and backward, K2-K7; launches by path: serve, spec, train,
+train2b, moe_serve, moe_train), the last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
 
@@ -121,6 +160,12 @@ builds the kernels of this checkout and those of DIR (a changed copy of
 ray_tpu_torch/csrc), checks both, times K1 (forward and backward), K4, K5,
 K6 and K7 with each in turns in one process (ab_compare), and prints no
 result line.
+
+    python3 chip_smoke.py --moe-dynamics
+
+builds the kernels and trains moe-1b as phase 6 does under variants of its
+recipe and path (moe_dynamics), printing every step's metrics, and prints
+no result line.
 """
 
 from __future__ import annotations
@@ -417,7 +462,8 @@ def check_tile(label: str, want: str, fn) -> str:
 def norm_checks(gen) -> dict:
     """K1's forward and backward vs their plain versions at the shapes of the
     three paths, each timed beside its bound, the plain version, the library
-    call and the one-element floor. Returns the bf16 figures of the forward
+    call and the one-element floor, then checked, untimed, at moe-1b's width
+    and with phase 4f's bf16 weights. Returns the bf16 figures of the forward
     at decode ([8, 4096]) and at the training block, and of the backward at
     the training block."""
     import torch.nn.functional as F
@@ -466,6 +512,18 @@ def norm_checks(gen) -> dict:
         if rows == 8192:
             out["rms_norm_training"] = fig
         del x, w
+    # moe-1b's width (d_model 1536), checked only: its serving rows in f32
+    # and bf16, its training block (2 x 1024 rows; bf16 weights, as phase 6
+    # casts them)
+    for rows, D, xd, wd in ([(rows, 1536, d, d) for d in (f32, bf16) for rows in (8, 40, 256)]
+                            + [(2048, 1536, bf16, bf16)]):
+        x, w, _g = inputs(rows, D, xd, wd)
+        err = check_close(f"rms_norm [{rows},{D}]", "rms_norm", xd, norm.rms_norm(x, w, eps),
+                          norm.rms_norm_reference(x, w, eps))
+        log(f"K1 rms_norm {tag(xd, wd)} [{rows},{D}] (moe-1b) "
+            f"[{norm.kernel_symbol('rms_norm', x, w)}]: max_err {err:.3e} "
+            f"(tol {TOL[('rms_norm', xd)]})")
+        del x, w
     x, w, _g = inputs(8, 4096, bf16, bf16)
     names = launched_kernels(lambda: norm.rms_norm(x, w, eps))
     if not any("rms_norm_fwd_vec_kernel" in n for n in names):
@@ -508,6 +566,20 @@ def norm_checks(gen) -> dict:
                 if not any(want in n for n in names):
                     fail(f"rms_norm_bwd: the profiler saw {names}, not {want}")
         del x, w, g
+    # checked only: moe-1b's training block (bf16 weights and f32 weights
+    # with f32 activations) and llama-2b's with phase 4f's bf16 weights
+    for rows, D, xd, wd in [(2048, 1536, bf16, bf16), (2048, 1536, f32, f32),
+                            (8192, 2560, bf16, bf16)]:
+        x, w, g = inputs(rows, D, xd, wd)
+        dx, dw = norm.rms_norm_bwd(x, w, g, eps)
+        want_dx, want_dw = norm._rms_bwd(x, w, g, eps)
+        err = max(check_close(f"rms_norm_bwd dx [{rows},{D}]", "rms_norm", xd, dx, want_dx),
+                  check_close(f"rms_norm_bwd dw [{rows},{D}]", "rms_norm_dw", wd, dw, want_dw))
+        log(f"K1 rms_norm_bwd {tag(xd, wd)} [{rows},{D}] "
+            f"[{norm.kernel_symbol('rms_norm_bwd', x, w, g)} + rms_norm_dw_kernel]: "
+            f"max_err {err:.3e} (dx tol {TOL[('rms_norm', xd)]}, dw tol "
+            f"{TOL[('rms_norm_dw', wd)]})")
+        del x, w, g, dx, dw, want_dx, want_dw
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return out
@@ -515,7 +587,8 @@ def norm_checks(gen) -> dict:
 
 def kernel_checks(gen) -> dict:
     """K2, K5, K6 and K7 vs their plain versions at the serving path's
-    shapes. Returns, per kernel, the bf16 figures at the main shape."""
+    shapes, llama3-8b's (32/8 heads) and moe-1b's (12/4). Returns, per
+    kernel, the bf16 figures at the main shape."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import attention, paged_attention
@@ -553,6 +626,16 @@ def kernel_checks(gen) -> dict:
                 out["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                               bound_ms=bnd, bound_by=by, library_ms=lib)
 
+        # K2 at moe-1b's heads (12 over 4 kv heads, g = 3), checked only:
+        # one prompt at each bucket and a ragged T, and a tier of 8 prompts
+        for Bm, T in ((1, 64), (1, 100), (1, 128), (1, 256), (8, 64)):
+            q = rnd((Bm, T, 12, hd), dtype)
+            k, v = rnd((Bm, T, 4, hd), dtype), rnd((Bm, T, 4, hd), dtype)
+            err = check_close(f"flash_attention moe-1b B={Bm} T={T}", "attention", dtype,
+                              attention.flash_attention(q, k, v), attention.mha_reference(q, k, v))
+            log(f"K2 flash_attention {tag} moe-1b B={Bm} T={T} H=12/4: max_err {err:.3e} "
+                f"(tol {TOL[('attention', dtype)]})")
+
         # K5: the engine's decode batch: 8 slots, one inactive, lengths not
         # multiples of the page size, pages scattered over the pool
         kp, vp = rnd((KVH, P, ps, hd), dtype), rnd((KVH, P, ps, hd), dtype)
@@ -585,6 +668,7 @@ def kernel_checks(gen) -> dict:
             "past the table": (KVH, H, [ctx + 1, 5000, ctx, ctx - 1, 0, 2, 700, 1500]),
             "g=1": (KVH, KVH, lengths.tolist()),
             "g=8": (KVH // 2, H, lengths.tolist()),
+            "moe-1b g=3": (4, 12, lengths.tolist()),
         }
         for name, (KVHe, He, lens) in decode_edges.items():
             le = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -659,6 +743,12 @@ def kernel_checks(gen) -> dict:
             "no visible key": (16, KVH, H, 0, 0),
             "g=1": (100, KVH, KVH, 30, 130),
             "g=8": (100, KVH // 2, H, 30, 130),
+            # moe-1b's chunks of the 700-token prompt: g = 3, so one
+            # position's query heads straddle the 64-row tiles
+            "moe-1b g=3 start=0": (C, 4, 12, 0, C),
+            "moe-1b g=3 start=256": (C, 4, 12, 256, 256 + C),
+            "moe-1b g=3 start=512": (C, 4, 12, 512, 512 + C),
+            "moe-1b g=3 ragged C=100": (100, 4, 12, 48, 148),
         }
         for name, (Ce, KVHe, He, start, total) in chunk_edges.items():
             qe = rnd((Ce, He, hd), dtype)
@@ -706,6 +796,13 @@ def kernel_checks(gen) -> dict:
             "S=65 (k=64)": (65, H, KVH, [0, 3, 64, 100, 333, 700, 900, 959], False),
             "g=1": (S, KVH, KVH, [0, 20, 100, 333, 500, 640, 777, 900], False),
             "g=8": (S, H, KVH // 2, [0, 20, 100, 333, 500, 640, 777, 900], False),
+            # moe-1b's ngram verify widths S = 1..k+1 at g = 3
+            "moe-1b g=3 S=1": (1, 12, 4, [0, 1, 17, 100, 333, 700, 1000, 1023], False),
+            "moe-1b g=3 S=2": (2, 12, 4, [0, 15, 16, 100, 333, 700, 1000, 1022], False),
+            "moe-1b g=3 S=3": (3, 12, 4, [20, 100, 333, 500, 640, 777, 850, 900], False),
+            "moe-1b g=3 S=5": (S, 12, 4, [20, 100, 333, 500, 640, 777, 850, 900], False),
+            "moe-1b g=3 split edges +-1": (S, 12, 4, [sk - 2, sk - 1, sk, sk + 1, 2 * sk - 1,
+                                                      2 * sk, 7 * sk - 1, 7 * sk], False),
             "inactive slots": (S, H, KVH, [0] * B, True),
             "span past the table": (S, H, KVH, [1023, 1022, 1020, 1019, 1000, 7, 0, 1023],
                                     False),
@@ -789,7 +886,8 @@ def verify_bound(q, k_pages, table, positions) -> tuple:
 
 def training_kernel_checks(gen) -> dict:
     """K2 with lse, K3 and K4 vs their plain versions at the training path's
-    shape (llama-2b, batch 4 x 2048), at a ragged T and at g = 1. Returns,
+    shape (llama-2b, batch 4 x 2048), at a ragged T, at g = 1 and at
+    moe-1b's training shape (2 x 1024, 12/4 heads). Returns,
     per kernel, the bf16 figures at the training shape."""
     import torch.nn.functional as F
 
@@ -797,8 +895,9 @@ def training_kernel_checks(gen) -> dict:
 
     out = {}
     D = 128
-    # (B, T, H, KVH): the training shape first
-    shapes = [(4, 2048, 20, 5), (2, 1000, 20, 5), (2, 1024, 8, 8)]
+    # (B, T, H, KVH): the training shape first, then a ragged T, g = 1 and
+    # moe-1b's training shape (g = 3)
+    shapes = [(4, 2048, 20, 5), (2, 1000, 20, 5), (2, 1024, 8, 8), (2, 1024, 12, 4)]
 
     def rnd(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
@@ -1016,7 +1115,8 @@ def within_logprob_tol(gap) -> bool:
     return mx <= LOGPROB_TOL["max"] and mean <= LOGPROB_TOL["mean"]
 
 
-def logprob_gaps(params, cfg, requests, results, yardstick: bool = False) -> list:
+def logprob_gaps(params, cfg, requests, results, yardstick: bool = False,
+                 tol=LOGPROB_TOL) -> list:
     """Per request, (max, mean) of |engine logprob - log-softmax of the
     port's full forward| over the output tokens. With `yardstick`, also
     prints both against the same forward run in f32 over the same bf16
@@ -1024,12 +1124,13 @@ def logprob_gaps(params, cfg, requests, results, yardstick: bool = False) -> lis
     from ray_tpu_torch.models import transformer
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
+    dev = params["embed"].device
     gaps = []
     for i, (req, res) in enumerate(zip(requests, results)):
         seq = req["prompt_ids"] + res["token_ids"]
         T = len(req["prompt_ids"])
-        toks = torch.tensor([seq[:-1]], device="cuda")
-        picked = torch.tensor(res["token_ids"], device="cuda")[:, None]
+        toks = torch.tensor([seq[:-1]], device=dev)
+        picked = torch.tensor(res["token_ids"], device=dev)[:, None]
 
         def forward_logprobs(c):
             with torch.no_grad():
@@ -1037,7 +1138,7 @@ def logprob_gaps(params, cfg, requests, results, yardstick: bool = False) -> lis
             return torch.log_softmax(logits[0, T - 1:], dim=-1).gather(1, picked)[:, 0]
 
         ref = forward_logprobs(cfg)
-        got = torch.tensor(res["logprobs"], device="cuda", dtype=torch.float32)
+        got = torch.tensor(res["logprobs"], device=dev, dtype=torch.float32)
         if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
             fail(f"request {i}: non-finite logprobs")
         diff = (got - ref).abs()
@@ -1045,7 +1146,7 @@ def logprob_gaps(params, cfg, requests, results, yardstick: bool = False) -> lis
         if yardstick:
             ref32 = forward_logprobs(cfg32)
             log(f"request {i}: logprob |engine - forward| max {gaps[-1][0]:.4f} mean "
-                f"{gaps[-1][1]:.4f} (tol {LOGPROB_TOL}); against the f32 forward: "
+                f"{gaps[-1][1]:.4f} (tol {tol}); against the f32 forward: "
                 f"engine max {(got - ref32).abs().max().item():.4f}, bf16 forward max "
                 f"{(ref - ref32).abs().max().item():.4f}")
     return gaps
@@ -1440,10 +1541,10 @@ def _batch_inputs(engine, seed: int):
 
 
 def prefill_graph_checks(engine) -> None:
-    """The prefill thread's and the chunk programs of an idle draft-mode
+    """The prefill thread's and the chunk programs of an idle speculative
     engine against their eager bodies: the bucketed prefill at every
-    bucket (tier 1), the engine's chunk at start 0 and at start 512 and the
-    draft's chunk. A replay, then the body on the program's static inputs:
+    bucket (tier 1), the engine's chunk at start 0 and at start 512 and, in
+    draft mode, the draft's chunk. A replay, then the body on the program's static inputs:
     the pages the program writes must be bit-identical after both (each
     rewrites them with the same values; the chunk attends over a prefix
     neither changes) and the f32 logits within GRAPH_LOGPROB_TOL. A
@@ -1489,15 +1590,20 @@ def prefill_graph_checks(engine) -> None:
                       lambda: engine._chunk_step(toks, start, table, C - 1),
                       (model.k_pages, model.v_pages), ids)
     draft = spec.proposer
-    dtable = draft._tables[2]  # slot 2's draft pages
+    if engine.ecfg.speculation.mode == "ngram":  # no draft model, no draft chunk
+        draft = None
+    elif getattr(draft, "model", None) is None:
+        fail("a draft-mode engine has no draft model: the draft chunk is not checked")
+    dtable = None if draft is None else draft._tables[2]  # slot 2's draft pages
     dtoks = torch.as_tensor(rs.randint(1, engine.cfg.vocab_size, (C,)).astype(np.int32))
-    draft_chunk = engine._program(("draft_chunk", C))
+    if draft is not None:
+        draft_chunk = engine._program(("draft_chunk", C))
 
-    def draft_replay():
-        draft_chunk(dtoks, torch.zeros((1,), dtype=torch.int32), dtable)  # no outputs
+        def draft_replay():
+            draft_chunk(dtoks, torch.zeros((1,), dtype=torch.int32), dtable)  # no outputs
 
-    against_eager(f"draft chunk C={C} start 0", ("draft_chunk", C), draft_replay,
-                  (draft.model.k_pages, draft.model.v_pages), dtable[:C // ps].cpu().numpy())
+        against_eager(f"draft chunk C={C} start 0", ("draft_chunk", C), draft_replay,
+                      (draft.model.k_pages, draft.model.v_pages), dtable[:C // ps].cpu().numpy())
 
     bucket = ecfg.prefill_buckets[0]
     toks = rs.randint(1, engine.cfg.vocab_size, (1, bucket)).astype(np.int32)
@@ -1513,14 +1619,15 @@ def prefill_graph_checks(engine) -> None:
 
 
 def graph_checks(engine) -> None:
-    """The captured programs of an idle draft-mode engine (threads stopped)
-    at llama3-8b against their eager bodies: a replay, then the body on the
-    program's static inputs (which still hold the replay's inputs; greedy
-    bodies rewrite the same KV with the same values before any query reads
-    it). Gates: the decode span's tokens identical and its logprobs within
-    GRAPH_LOGPROB_TOL, the verify's commits and the propose's drafts
-    identical; the prefill and chunk programs as prefill_graph_checks
-    says; two sampled replays of the same inputs differ (the engine's
+    """The captured programs of an idle speculative engine (threads
+    stopped) against their eager bodies (llama3-8b in draft mode, phase
+    3s; moe-1b in ngram mode, phase 5, which has no propose and no draft
+    chunk): a replay, then the body on the program's static inputs (which
+    still hold the replay's inputs; greedy bodies rewrite the same KV with
+    the same values before any query reads it). Gates: the decode span's
+    tokens identical and its logprobs within GRAPH_LOGPROB_TOL, the
+    verify's commits and (draft mode) the propose's drafts identical; the
+    prefill and chunk programs as prefill_graph_checks says; two sampled replays of the same inputs differ (the engine's
     generator is registered with the graphs); every program's launches per
     replay equal its eager body's; a profiler sees K1, K2, K5, K6 and K7 by
     name inside replays."""
@@ -1546,13 +1653,17 @@ def graph_checks(engine) -> None:
     if not np.array_equal(seq, want_seq) or not gap <= GRAPH_LOGPROB_TOL:
         fail("the decode span graph disagrees with its eager body")
 
-    drafts = spec.proposer._dispatch(engine, tokens, tokens, positions).clone()
-    program = engine._program(("propose",))
-    want = program.fn(*program.inputs)[0]
-    log(f"graph propose: drafts equal to the eager body's {int((drafts == want).sum())}/"
-        f"{drafts.numel()}")
-    if not torch.equal(drafts, want):
-        fail("the propose graph disagrees with its eager body")
+    mode = engine.ecfg.speculation.mode
+    if mode != "ngram" and getattr(spec.proposer, "model", None) is None:
+        fail(f"a {mode}-mode engine has no draft model: its propose is not checked")
+    if mode != "ngram":  # draft mode: the propose
+        drafts = spec.proposer._dispatch(engine, tokens, tokens, positions).clone()
+        program = engine._program(("propose",))
+        want = program.fn(*program.inputs)[0]
+        log(f"graph propose: drafts equal to the eager body's {int((drafts == want).sum())}/"
+            f"{drafts.numel()}")
+        if not torch.equal(drafts, want):
+            fail("the propose graph disagrees with its eager body")
 
     # row 0 is the span's first fed token, the first draft its greedy
     # successor, the rest random
@@ -1891,6 +2002,230 @@ def spec_main_path(card: str, profile: bool, served: dict) -> dict:
     return {"launches": total, "span_alpha_fit": alpha}
 
 
+# -------------------------------------------------------------- phase 5
+
+# The MoE serving gate. A server at the registered capacity factor (1.25)
+# drops tokens wherever an expert's slots run out, and how many depends on
+# the shape a program routes at: the engine routes a prefill at its bucket,
+# decode one token per sequence, a chunk at its C rows, while `forward`
+# over prompt + output routes the whole sequence at once. The two drop
+# different tokens, so a sound engine could fail phase 3's gate. The gate
+# therefore runs on a second moe-1b server over the same weights whose
+# config sets capacity_factor = num_experts / num_selected_experts: then an
+# expert's capacity is at least T, no token drops in any program or in
+# `forward`, and the engine is held against `forward` under that config
+# (the drop semantics themselves are held against the reference engine on
+# the CPU, tests/test_torch_moe.py). Each planted MoE fault (MOE_FAULTS) is
+# served by a no-drop server built inside its block and must fail it. On
+# the H100 the sound burst read per request means 0.011-0.062 and maxima
+# up to 0.452 (the sampled request), and the weakest fault (softmax over
+# all experts) means 0.38-1.17 and maxima 1.04-2.46 (PERF.md §6);
+# phase 3's limits would leave the sound maximum 10 % under its limit.
+# The limits sit near the geometric middles of the sound run's worst and
+# the weakest fault's worst request: sqrt(0.062 * 1.17) and
+# sqrt(0.452 * 2.46).
+MOE_LOGPROB_TOL = {"max": 1.0, "mean": 0.25}
+
+
+def _softmax_over_all(f):
+    """Gate weights from a softmax over all E router logits, not over the
+    k selected ones."""
+    def gating(logits, k):
+        _w, ids = f(logits, k)
+        return torch.softmax(logits, dim=-1).gather(-1, ids), ids
+    return gating
+
+
+def _second_weight_to_first(f):
+    """The second choice's weight is given to the first: the first choice
+    weighs w1 + w2, the second 0."""
+    def gating(logits, k):
+        w, ids = f(logits, k)
+        return torch.cat([w[..., :1] + w[..., 1:2], torch.zeros_like(w[..., 1:])], dim=-1), ids
+    return gating
+
+
+def _next_slot(f):
+    """The combine reads each assignment's output one capacity slot on:
+    another token's output of the same expert."""
+    def combine(y, slot_of, coef, k):
+        return f(y, (slot_of + 1) % y.shape[1], coef, k)
+    return combine
+
+
+# planted on ray_tpu_torch.models.transformer: name -> (attribute, maker)
+MOE_FAULTS = {
+    "softmax_over_all_experts": ("top_k_gating", _softmax_over_all),
+    "second_weight_to_first": ("top_k_gating", _second_weight_to_first),
+    "combine_reads_next_slot": ("_moe_combine", _next_slot),
+}
+
+
+def within_moe_tol(gap) -> bool:
+    return gap[0] <= MOE_LOGPROB_TOL["max"] and gap[1] <= MOE_LOGPROB_TOL["mean"]
+
+
+def decode_step_figures(engine, card: str) -> None:
+    """A decode span replayed on the idle engine at the burst's batch shape
+    (median of 5, device time by CUDA events, per step), beside the step's
+    byte bound: every weight the step reads once (the layers' and the final
+    norm's in bf16, the engine's f32 head) over 3.35 TB/s."""
+    import numpy as np
+
+    B, n = engine.ecfg.max_batch_size, engine.ecfg.decode_span
+    tokens, positions, tables = _batch_inputs(engine, 0)
+    host = [torch.as_tensor(a) for a in (tokens, positions, tables, np.zeros((B,), np.float32),
+                                         np.ones((B,), np.float32), np.zeros((B,), np.int32))]
+    program = engine._program(("decode", n, False, False))
+    program(*host)
+    torch.cuda.synchronize()
+    devs = []
+    for _ in range(5):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        program(*host)
+        b.record()
+        b.synchronize()
+        devs.append(a.elapsed_time(b) / n)
+    params, model = engine.params, engine._model
+    weights = sum(t.numel() * t.element_size() for _, t in named_leaves(params["layers"]))
+    weights += params["final_norm"].numel() * params["final_norm"].element_size()
+    weights += model.head32.numel() * model.head32.element_size()
+    bound = weights / HBM_BYTES_S * 1e3
+    log(f"moe-1b decode step (span of {n} replayed, B={B}, positions 20..900): "
+        f"{statistics.median(devs):.4f} ms a step on the card (median of 5); byte bound "
+        f"{bound:.4f} ms ({weights / 1e9:.3f} GB of weights read once: the layers' and the "
+        f"norm's bf16 and the f32 head, over 3.35 TB/s); {card}")
+
+
+def moe_serve_path(card: str, profile: bool) -> dict:
+    """Phase 5: LLMServer serving moe-1b at full width and depth, plain, then
+    the no-drop logprob gate with its planted faults, then an ngram burst;
+    the graph checks on the idle ngram engine. Returns the launch counts of
+    the plain and the ngram bursts, summed."""
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.ops import dispatch
+
+    server = new_server("phase 5: LLMServer moe-1b", model_name="moe-1b", engine_config=ENGINE,
+                        seed=0)
+    cfg, params = server.engine.cfg, server.engine.params
+    E, k = cfg.num_experts, cfg.num_selected_experts
+
+    def capacity(T):
+        return min(max((-int(-cfg.capacity_factor * T * k // E) + 3) // 4 * 4, 4), T * k)
+
+    log(f"phase 5: moe-1b d_model {cfg.d_model}, layers {cfg.n_layers}, heads {cfg.n_heads}/"
+        f"{cfg.kv_heads}, d_ff {cfg.d_ff}, {E} experts top {k}, capacity factor "
+        f"{cfg.capacity_factor} (slots an expert: decode {capacity(1)}, verify S=5 "
+        f"{capacity(5)}, bucket 64 {capacity(64)}, chunk {server.engine.ecfg.prefill_chunk} "
+        f"{capacity(server.engine.ecfg.prefill_chunk)}), vocab {cfg.vocab_size}; "
+        f"{sum(t.numel() for _, t in named_leaves(params)) / 1e9:.4f} B params")
+    rng = torch.Generator().manual_seed(5)
+
+    def prompt(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    def burst():
+        return [{"prompt_ids": prompt(n), "max_tokens": 32} for n in (23, 100, 200, 700)] + [
+            {"prompt_ids": prompt(50), "max_tokens": 32, "temperature": 0.8, "top_p": 0.9}]
+
+    def serve(srv, label, reqs):
+        res, wall, errors = run_requests(srv, reqs)
+        if errors:
+            srv.shutdown()
+            fail(f"{label}: {errors}")
+        return res, wall
+
+    requests = burst()
+    dispatch.reset_launches()
+    with PrefillClock(server.engine) as clock:
+        results, wall = serve(server, "moe-1b plain", requests)
+    launches = dispatch.launch_counts()
+    log(f"launches on the moe-1b serving path: {launches}")
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0:
+            fail(f"moe-1b serving path never launched kernel {name}")
+    require_no_eager_launches("moe-1b serving path")
+    report_burst("moe-1b plain", requests, results, wall)
+    clock.report("moe-1b plain")
+    if profile:
+        def profiled():
+            return serve(server, "profiled moe-1b", requests)[1]
+
+        profile_report(profiled)
+    server.shutdown()
+    decode_step_figures(server.engine, card)
+    del server
+    release()
+
+    # the gate: no-drop servers over the same weights, sound and faulted
+    nodrop = dataclasses.replace(cfg, capacity_factor=E / k)
+
+    def nodrop_server(label):
+        return new_server(label, params_fn=lambda: (params, nodrop), engine_config=ENGINE)
+
+    gated = nodrop_server(f"phase 5: moe-1b, capacity factor {E / k} (no drops)")
+    sound_reqs = burst()
+    sound_res, _wall = serve(gated, "moe-1b no-drop", sound_reqs)
+    gated.shutdown()
+    del gated
+    release()
+    faulted = []
+    for name, fault in MOE_FAULTS.items():
+        reqs = burst()
+        with planted(transformer, fault):
+            fs = nodrop_server(f"planted MoE fault {name}")
+            res, _wall = serve(fs, f"planted MoE fault {name}", reqs)
+            fs.shutdown()
+        del fs
+        release()
+        faulted.append((name, reqs, res))
+    sound = logprob_gaps(params, nodrop, sound_reqs, sound_res, yardstick=True,
+                         tol=MOE_LOGPROB_TOL)
+    caught = {}
+    for name, reqs, res in faulted:
+        gaps = logprob_gaps(params, nodrop, reqs, res)
+        caught[name] = any(not within_moe_tol(g) for g in gaps)
+        log(f"planted MoE fault {name}: logprob |engine - forward| per request max "
+            f"{[round(g[0], 4) for g in gaps]} mean {[round(g[1], 4) for g in gaps]}")
+    log(f"moe-1b no-drop gate (limit {MOE_LOGPROB_TOL}): sound per request max "
+        f"{[round(g[0], 4) for g in sound]} mean {[round(g[1], 4) for g in sound]}")
+    for i, gap in enumerate(sound):
+        if not within_moe_tol(gap):
+            fail(f"moe-1b request {i}: logprobs differ from the forward by max {gap[0]:.4f}, "
+                 f"mean {gap[1]:.4f} (tol {MOE_LOGPROB_TOL})")
+    for name, hit in caught.items():
+        if not hit:
+            fail(f"the moe-1b logprob gate {MOE_LOGPROB_TOL} passes planted fault {name}")
+
+    # ngram speculation (K7), at the registered capacity factor
+    server = new_server("phase 5: LLMServer moe-1b speculation ngram", model_name="moe-1b",
+                        seed=0, engine_config=dict(ENGINE, speculation={
+                            "mode": "ngram", "num_speculative_tokens": 4}))
+    requests = [{"prompt_ids": planted_prompt(server, prompt, n), "max_tokens": 32}
+                for n in (100, 150, 200)]
+    requests += [{"prompt_ids": prompt(8) * 12, "max_tokens": 32},
+                 {"prompt_ids": prompt(60), "max_tokens": 32},
+                 {"prompt_ids": prompt(50), "max_tokens": 32, "temperature": 0.8, "top_p": 0.9}]
+    since = spec_counters(server.engine)
+    dispatch.reset_launches()
+    results, wall = serve(server, "moe-1b ngram", requests)
+    ngram = dispatch.launch_counts()
+    log(f"launches on the moe-1b speculation path, ngram mode: {ngram}")
+    require_no_eager_launches("moe-1b speculation path, ngram mode")
+    for name in ("paged_attention_verify", "paged_attention_decode"):
+        if ngram[name] <= 0:
+            fail(f"moe-1b ngram path never launched kernel {name}")
+    report_burst("moe-1b ngram", requests, results, wall)
+    spec_report("moe-1b ngram", server.engine, since)
+    server.shutdown()
+    log(f"the moe-1b captured programs against their eager bodies ({card}):")
+    graph_checks(server.engine)
+    del server
+    release()
+    return {"launches": {name: launches[name] + ngram[name] for name in launches}}
+
+
 # -------------------------------------------------------------- phase 4
 
 # The gradient gate: per parameter leaf, the relative L2 gap
@@ -2006,10 +2341,105 @@ def grad_gaps(names, grads, ref) -> dict:
             for n, g, r in zip(names, grads, ref)}
 
 
+def gradient_gate(label: str, params, batch, cfg, plain, faults, each_pass=None) -> None:
+    """One step's loss and gradients on the kernel path against the `plain`
+    path's (a context): the losses within LOSS_GAP_TOL and, per leaf, the
+    relative L2 gap within GRAD_TOL; each planted fault (name -> (module,
+    attribute, wrapper maker), planted on the kernel path) must exceed
+    GRAD_TOL somewhere. `each_pass`: a context every pass runs in."""
+    each_pass = each_pass or contextlib.nullcontext
+    names = [n for n, _ in named_leaves(params)]
+    with each_pass():
+        loss_k, g_kernel = loss_and_grads(params, batch, cfg)
+    with each_pass(), plain():
+        loss_p, g_plain = loss_and_grads(params, batch, cfg)
+    sound = grad_gaps(names, g_kernel, g_plain)
+    del g_kernel
+    faulted = {}
+    for name, (module, attr, make) in faults.items():
+        with each_pass(), planted(module, (attr, make)):
+            _loss, g = loss_and_grads(params, batch, cfg)
+        faulted[name] = grad_gaps(names, g, g_plain)
+        del g
+    del g_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def fmt(gaps):
+        return " ".join(f"{n} {x:.5f}" for n, x in gaps.items())
+
+    log(f"{label} (relative L2 per leaf, limit {GRAD_TOL}): loss kernel {loss_k:.6f} "
+        f"plain {loss_p:.6f} (|gap| {abs(loss_k - loss_p):.3e}, limit {LOSS_GAP_TOL})")
+    log(f"  sound: max {max(sound.values()):.5f}: {fmt(sound)}")
+    for name, gaps in faulted.items():
+        log(f"  planted {name}: max {max(gaps.values()):.5f}: {fmt(gaps)}")
+    if not abs(loss_k - loss_p) <= LOSS_GAP_TOL:
+        fail(f"{label}: kernel and plain losses differ by {abs(loss_k - loss_p):.3e}")
+    worst = max(sound, key=sound.get)
+    if not sound[worst] <= GRAD_TOL:
+        fail(f"{label}: kernel gradients differ from the plain path: {worst} "
+             f"{sound[worst]:.5f}")
+    for name, gaps in faulted.items():
+        if not max(gaps.values()) > GRAD_TOL:
+            fail(f"{label} ({GRAD_TOL}) passes planted fault {name}")
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """The exact launches of `steps` training steps: K3 and K4 once per layer
+    per step, K2 with lse twice (forward and remat recompute), K1's forward
+    4 x layers + 1 times and its backward 2 x layers + 1."""
+    L = cfg.n_layers
+    return {"flash_attention_bwd_dq": L * steps, "flash_attention_bwd_dkv": L * steps,
+            "flash_attention": 2 * L * steps, "flash_attention_lse": 2 * L * steps,
+            "rms_norm": (4 * L + 1) * steps, "rms_norm_bwd": (2 * L + 1) * steps,
+            "paged_attention_decode": 0, "paged_attention_chunk": 0,
+            "paged_attention_verify": 0}
+
+
+def train_steps(label: str, cfg, state, step, batch, steps: int) -> dict:
+    """`steps` calls of a train step on one batch. Launch counts are reset
+    just before and read just after, and must equal train_launches; the
+    first step (learning rate 0) must leave every parameter bit-identical;
+    every loss must be finite and the last below the first. Peak memory is
+    read over steps 1 onward. Returns {"launches", "losses", "times" (s,
+    each step's wall up to its loss on the host), "peak" (bytes)}."""
+    from ray_tpu_torch.ops import dispatch
+
+    leaves = named_leaves(state["params"])
+    before = [t.detach().clone() for _, t in leaves]
+    losses, times = [], []
+    dispatch.reset_launches()
+    for i in range(steps):
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))  # waits for the step
+        times.append(time.perf_counter() - t1)
+        log(f"{label} step {i}: loss {losses[-1]:.6f} ce {float(m['ce_loss']):.6f} "
+            f"aux {float(m['aux_loss']):.4e} z {float(m['z_loss']):.4e} acc "
+            f"{float(m['accuracy']):.5f} grad_norm {float(m['grad_norm']):.5f} "
+            f"{times[-1]:.3f}s")
+        if i == 0:  # learning rate 0: nothing may move
+            moved = [n for (n, t), b in zip(leaves, before) if not torch.equal(t.detach(), b)]
+            del before
+            if moved:
+                fail(f"{label}: the first step (learning rate 0) changed {moved}")
+            torch.cuda.reset_peak_memory_stats()
+    launches = dispatch.launch_counts()
+    log(f"launches on the {label} path ({steps} steps): {launches}")
+    for name, n in train_launches(cfg, steps).items():
+        if launches[name] != n:
+            fail(f"{label} launched {name} {launches[name]} times, expected {n}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{label}: the loss did not fall: {losses}")
+    return {"launches": launches, "losses": losses, "times": times,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
 def train_main_path(card: str, profile: bool) -> dict:
     from ray_tpu_torch import ops, train
     from ray_tpu_torch.models import get_config
-    from ray_tpu_torch.ops import dispatch
 
     cfg = get_config("llama-2b")
     L, B, T = cfg.n_layers, 4, 2048
@@ -2017,8 +2447,8 @@ def train_main_path(card: str, profile: bool) -> dict:
     t0 = time.monotonic()
     state = train.init_train_state(cfg, opt, seed=0)
     leaves = named_leaves(state["params"])
-    names = [n for n, _ in leaves]
     n_params = sum(t.numel() for _, t in leaves)
+    del leaves
     batch = train.synthetic_batch(cfg, B, T, seed=0)
     step = train.make_train_step(cfg, opt)
     torch.cuda.synchronize()
@@ -2028,45 +2458,17 @@ def train_main_path(card: str, profile: bool) -> dict:
         f"state built in {time.monotonic() - t0:.1f}s, "
         f"memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
-    before = [t.detach().clone() for _, t in leaves]
-    losses, times = [], []
-    dispatch.reset_launches()
-    for i in range(TRAIN_STEPS):
-        t1 = time.perf_counter()
-        state, m = step(state, batch)
-        losses.append(float(m["loss"]))  # waits for the step
-        times.append(time.perf_counter() - t1)
-        log(f"step {i}: loss {losses[-1]:.6f} ce {float(m['ce_loss']):.6f} "
-            f"z {float(m['z_loss']):.4e} acc {float(m['accuracy']):.5f} "
-            f"grad_norm {float(m['grad_norm']):.5f} {times[-1]:.3f}s")
-        if i == 0:  # learning rate 0: nothing may move
-            moved = [n for (n, t), b in zip(leaves, before) if not torch.equal(t.detach(), b)]
-            del before
-            if moved:
-                fail(f"the first step (learning rate 0) changed {moved}")
-            torch.cuda.reset_peak_memory_stats()
-    launches = dispatch.launch_counts()
-    log(f"launches on the training path ({TRAIN_STEPS} steps): {launches}")
-    S = TRAIN_STEPS
-    expect = {"flash_attention_bwd_dq": L * S, "flash_attention_bwd_dkv": L * S,
-              "flash_attention": 2 * L * S, "flash_attention_lse": 2 * L * S,
-              "rms_norm": (4 * L + 1) * S, "rms_norm_bwd": (2 * L + 1) * S,
-              "paged_attention_decode": 0,
-              "paged_attention_chunk": 0, "paged_attention_verify": 0}
-    for name, n in expect.items():
-        if launches[name] != n:
-            fail(f"training path launched {name} {launches[name]} times, expected {n}")
-    if not all(math.isfinite(x) for x in losses):
-        fail(f"non-finite training loss: {losses}")
-    if not losses[-1] < losses[0]:
-        fail(f"the loss did not fall: {losses}")
+    ran = train_steps("training", cfg, state, step, batch, TRAIN_STEPS)
+    losses, times, S = ran["losses"], ran["times"], TRAIN_STEPS
     step_s = statistics.median(times[1:])
-    peak = torch.cuda.max_memory_allocated()
+    mfu = 6 * n_params * B * T / step_s / 989e12
     log(f"training: step time median {step_s:.4f}s (steps 1-{S - 1}: "
         f"{[round(t, 4) for t in times[1:]]}), {B * T / step_s:.1f} tokens/s, MFU "
-        f"{6 * n_params * B * T / step_s / 989e12:.4f} (6 N tokens / step time / 989e12), "
-        f"peak memory {peak / 2**30:.2f} GiB (steps 1-{S - 1}); loss {losses[0]:.5f} -> "
+        f"{mfu:.4f} (6 N tokens / step time / 989e12), "
+        f"peak memory {ran['peak'] / 2**30:.2f} GiB (steps 1-{S - 1}); loss {losses[0]:.5f} -> "
         f"{losses[-1]:.5f}; {card}")
+    figures = {"launches": ran["launches"], "step_s": step_s, "tokens_s": B * T / step_s,
+               "mfu": mfu, "peak": ran["peak"]}
 
     if profile:  # one more step
         def profiled():
@@ -2078,42 +2480,320 @@ def train_main_path(card: str, profile: bool) -> dict:
 
     # the gradient gate, on the trained parameters
     state["opt_state"] = None
-    del m
     gc.collect()
     torch.cuda.empty_cache()
     params = state["params"]
-    loss_k, g_kernel = loss_and_grads(params, batch, cfg)
-    with plain_path():
-        loss_p, g_plain = loss_and_grads(params, batch, cfg)
-    sound = grad_gaps(names, g_kernel, g_plain)
-    del g_kernel
-    faulted = {}
-    for name, (module, attr, make) in BWD_FAULTS.items():
-        with planted(getattr(ops, module), (attr, make)):
-            _loss, g = loss_and_grads(params, batch, cfg)
-        faulted[name] = grad_gaps(names, g, g_plain)
-        del g
-    del g_plain, params, state
+    del state
+    gradient_gate("gradient gate", params, batch, cfg, plain_path,
+                  {name: (getattr(ops, module), attr, make)
+                   for name, (module, attr, make) in BWD_FAULTS.items()})
+    return figures
+
+
+# ------------------------------------------------------ phases 4f and 6
+
+
+def bf16_params(state) -> None:
+    """The reference's bench recipe (bench.py:1576-1584): after
+    init_train_state, every f32 parameter leaf becomes bf16, in the
+    caller; the train step takes the leaves as they are."""
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        return tree.detach().to(torch.bfloat16) if tree.dtype == torch.float32 else tree
+
+    state["params"] = cast(state["params"])
+
+
+def factored_bytes(params) -> int:
+    """What adafactor's statistics take in f32 by the leaf shapes alone: a
+    leaf of >= 2 dims whose second largest dim is >= 128 keeps two
+    statistics, its shape without its largest dim and its shape without its
+    second largest (one each where they tie); any other leaf one of its own
+    shape."""
+    total = 0
+    for _, t in named_leaves(params):
+        shape = tuple(t.shape)
+        big = sorted(shape)
+        if len(shape) >= 2 and big[-2] >= 128:
+            total += math.prod(shape) // big[-1] + math.prod(shape) // big[-2]
+        else:
+            total += math.prod(shape)
+    return 4 * total
+
+
+def opt_state_bytes(opt_state) -> int:
+    """The bytes an optimizer state's tensors hold on the card."""
+    held = [t for key in ("v_row", "v_col", "v") for t in opt_state[key] if t is not None]
+    return sum(t.numel() * t.element_size() for t in held)
+
+
+def factored_train(label: str, cfg, B: int, T: int, steps: int, timed_from: int,
+                   profile: bool = False) -> dict:
+    """The reference's factored recipe on one card: init_train_state with
+    make_optimizer(factored=True) (lr 3e-4 after a warmup of 2, as phase 4;
+    the reference's bench keeps the default warmup of 100, under which a
+    bf16 weight of 0.02, whose ulp is 1.2e-4, barely moves in 10 steps),
+    parameters cast to bf16 after init, then `steps` steps on one
+    synthetic batch (train_steps' gates). The optimizer state must be
+    factored: its bytes equal factored_bytes and stay under 1 % of the bf16
+    parameters. With `profile`, one more step under torch.profiler.
+    Returns the figures, with "state": the trained state."""
+    from ray_tpu_torch import train
+
+    opt = train.make_optimizer(learning_rate=3e-4, warmup_steps=2, total_steps=100,
+                               factored=True)
+    t0 = time.monotonic()
+    state = train.init_train_state(cfg, opt, seed=0)
+    held, want = opt_state_bytes(state["opt_state"]), factored_bytes(state["params"])
+    bf16_params(state)
     gc.collect()
     torch.cuda.empty_cache()
+    leaves = named_leaves(state["params"])
+    n_params = sum(t.numel() for _, t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    del leaves
+    batch = train.synthetic_batch(cfg, B, T, seed=0)
+    step = train.make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    log(f"{label}: d_model {cfg.d_model}, layers {cfg.n_layers}, heads {cfg.n_heads}/"
+        f"{cfg.kv_heads}, d_ff {cfg.d_ff}, experts {cfg.num_experts} (top "
+        f"{cfg.num_selected_experts if cfg.is_moe else 0}), vocab {cfg.vocab_size}, "
+        f"{n_params / 1e9:.4f} B params in bf16 ({param_bytes / 2**30:.3f} GiB), adafactor, "
+        f"{cfg.dtype} compute, remat {cfg.remat}, on {B} x {T} tokens; state built in "
+        f"{time.monotonic() - t0:.1f}s, memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB; "
+        f"optimizer state {held / 2**20:.3f} MiB in f32 (by the leaf shapes "
+        f"{want / 2**20:.3f} MiB), {100 * held / param_bytes:.3f} % of the bf16 parameters")
+    if held != want:
+        fail(f"{label}: the optimizer state holds {held} bytes, the leaf shapes give {want}")
+    if not held < 0.01 * param_bytes:
+        fail(f"{label}: the optimizer state is {100 * held / param_bytes:.3f} % of the "
+             f"parameters (limit 1 %): not factored")
+    ran = train_steps(label, cfg, state, step, batch, steps)
+    times = ran["times"][timed_from:]
+    step_s = statistics.median(times)
+    after = opt_state_bytes(state["opt_state"])
+    log(f"{label}: step time median {step_s:.4f}s (steps {timed_from}-{steps - 1}: "
+        f"{[round(t, 4) for t in times]}), {B * T / step_s:.1f} tokens/s, MFU "
+        f"{6 * n_params * B * T / step_s / 989e12:.4f} (6 N tokens / step time / 989e12; N "
+        f"counts every expert), peak memory {ran['peak'] / 2**30:.2f} GiB (steps 1-"
+        f"{steps - 1}); loss {ran['losses'][0]:.5f} -> {ran['losses'][-1]:.5f}; optimizer "
+        f"state after the steps {after / 2**20:.3f} MiB (its statistics take the "
+        f"parameters' bf16)")
+    if profile:
+        def profiled():
+            t1 = time.perf_counter()
+            float(step(state, batch)[1]["loss"])
+            return time.perf_counter() - t1
 
-    def fmt(gaps):
-        return " ".join(f"{n} {x:.5f}" for n, x in gaps.items())
+        profile_report(profiled)
+    return dict(ran, step_s=step_s, tokens_s=B * T / step_s,
+                mfu=6 * n_params * B * T / step_s / 989e12, state=state)
 
-    log(f"gradient gate (relative L2 per leaf, limit {GRAD_TOL}): loss kernel {loss_k:.6f} "
-        f"plain {loss_p:.6f} (|gap| {abs(loss_k - loss_p):.3e}, limit {LOSS_GAP_TOL})")
-    log(f"  sound: max {max(sound.values()):.5f}: {fmt(sound)}")
-    for name, gaps in faulted.items():
-        log(f"  planted {name}: max {max(gaps.values()):.5f}: {fmt(gaps)}")
-    if not abs(loss_k - loss_p) <= LOSS_GAP_TOL:
-        fail(f"kernel and plain losses differ by {abs(loss_k - loss_p):.3e}")
-    worst = max(sound, key=sound.get)
-    if not sound[worst] <= GRAD_TOL:
-        fail(f"kernel gradients differ from the plain path: {worst} {sound[worst]:.5f}")
-    for name, gaps in faulted.items():
-        if not max(gaps.values()) > GRAD_TOL:
-            fail(f"the gradient gate ({GRAD_TOL}) passes planted fault {name}")
-    return {"launches": launches}
+
+def train2b_path(card: str, adamw: dict, profile: bool) -> dict:
+    """Phase 4f: llama-2b under the reference's train2b recipe (bench.py:2429:
+    4 x 2048 tokens, 8 steps, factored, bf16 parameters), beside phase 4's
+    AdamW with f32 masters."""
+    from ray_tpu_torch.models import get_config
+
+    ran = factored_train("phase 4f: train llama-2b, train2b recipe", get_config("llama-2b"),
+                         4, 2048, TRAIN_STEPS, 1, profile)
+    del ran["state"]
+    release()
+    log(f"phase 4f beside phase 4 (llama-2b, 4 x 2048; {card}): step {ran['step_s']:.4f} "
+        f"against {adamw['step_s']:.4f} s, {ran['tokens_s']:.1f} against "
+        f"{adamw['tokens_s']:.1f} tokens/s, MFU {ran['mfu']:.4f} against {adamw['mfu']:.4f}, "
+        f"peak {ran['peak'] / 2**30:.2f} against {adamw['peak'] / 2**30:.2f} GiB")
+    return ran
+
+
+# gather against dense at the training shape, in f32 (layer 0's weights
+# cast): both give each token the same k weighted expert rows, summed in
+# another order, so any gap beyond f32 rounding (~1e-7 of the output's
+# scale) is a routing or indexing fault. In bf16 the gather rounds each
+# weighted row before the sum, and where the rows cancel the gap reaches
+# an ulp of the rows, not of the output (1.56e-2 at |output| <= 2.83 on
+# the H100): a bound there would be loose.
+MOE_FORM_TOL = 1e-5  # of the dense form's largest |output|
+
+
+class OneRouting:
+    """transformer.top_k_gating for the passes of a gradient gate: the first
+    pass routes as the model does and records each call's expert ids; every
+    later pass takes the ids of the same call of the first, with gate
+    weights softmaxed over its own logits at those ids (what top-k gives
+    where the ids agree). So every pass routes every token, and drops the
+    same assignments, alike: bf16 rounding elsewhere cannot flip a choice
+    and open a gap that no fault made."""
+
+    def __init__(self, transformer):
+        self.transformer, self.gating = transformer, transformer.top_k_gating
+        self.ids, self.at = [], None
+
+    def __call__(self, logits, k):
+        if self.at is None:
+            w, ids = self.gating(logits, k)
+            self.ids.append(ids)
+            return w, ids
+        ids = self.ids[self.at]
+        self.at += 1
+        return torch.softmax(logits.gather(-1, ids), dim=-1), ids
+
+    @contextlib.contextmanager
+    def one_pass(self):
+        with swapped(self.transformer, top_k_gating=self):
+            yield
+        if self.at is not None and self.at != len(self.ids):
+            fail(f"a gate pass routed {self.at} times, the first {len(self.ids)}")
+        self.at = 0
+
+
+@contextlib.contextmanager
+def plain_moe_path():
+    """plain_path with the MoE layers in the dense dispatch/combine form,
+    an independent formulation of the same routing."""
+    from ray_tpu_torch.models import transformer
+
+    with plain_path(), swapped(transformer, _moe_ffn_gather=transformer._moe_ffn_dense):
+        yield
+
+
+def _gate_weights_detached(f):
+    """The gate weights reach the combine detached: the router learns from
+    the load-balance loss alone."""
+    def gating(logits, k):
+        w, ids = f(logits, k)
+        return w.detach(), ids
+    return gating
+
+
+def _expert_inputs_detached(f):
+    """The experts' inputs are detached: no gradient flows back through the
+    FFN into the residual stream."""
+    return lambda expert_in, lp: f(expert_in.detach(), lp)
+
+
+# MoE faults the gradient gate must catch, planted on
+# ray_tpu_torch.models.transformer: name -> (attribute, wrapper maker)
+MOE_BWD_FAULTS = {
+    "gate_weights_detached": ("top_k_gating", _gate_weights_detached),
+    "expert_inputs_detached": ("_experts", _expert_inputs_detached),
+    "combine_reads_next_slot": ("_moe_combine", _next_slot),
+}
+
+
+def moe_train_path(card: str, profile: bool) -> dict:
+    """Phase 6: moe-1b trained as the reference's bench_moe (bench.py:1711:
+    2 x 1024 tokens, factored, bf16 parameters, 2 warm and 8 timed steps),
+    then its dense twin (llama-600m at moe-1b's backbone, d_ff = k x 4096),
+    and moe_dispatch_overhead_pct by bench_moe's formula. On the trained
+    parameters, the gather form against the dense form on one input at the
+    training shape (one routing: a top-k flip cannot excuse a gap)."""
+    from ray_tpu_torch.models import get_config
+    from ray_tpu_torch.models import transformer
+
+    B, T, warm, timed = 2, 1024, 2, 8
+    moe_cfg = get_config("moe-1b")
+    moe = factored_train("phase 6: train moe-1b", moe_cfg, B, T, warm + timed, warm, profile)
+    lp = {k: v.float() for k, v in
+          transformer.layer_views(moe["state"]["params"]["layers"])[0].items()}
+    # a direction every token shares skews the routing, so that experts
+    # overflow and the capacity drops take part in the comparison
+    dev = lp["router"].device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    shared = 2.0 * torch.randn((moe_cfg.d_model,), generator=gen, device=dev)
+    x = torch.randn((B, T, moe_cfg.d_model), generator=gen, device=dev) + shared
+    with torch.no_grad():
+        y_g, aux_g = transformer._moe_ffn_gather(x, lp, moe_cfg)
+        y_d, aux_d = transformer._moe_ffn_dense(x, lp, moe_cfg)
+        keep = transformer._moe_route(x, lp["router"], moe_cfg)[5]
+    err, scale = (y_g - y_d).abs().max().item(), y_d.abs().max().item()
+    log(f"phase 6: gather against dense on layer 0 at [{B}, {T}, {moe_cfg.d_model}] f32 "
+        f"(capacity {transformer._moe_route(x[:, :1], lp['router'], moe_cfg)[-1]} at T = 1, "
+        f"{transformer._moe_route(x, lp['router'], moe_cfg)[-1]} at T = {T}; "
+        f"{int((~keep).sum())} of {keep.numel()} assignments dropped): max |gather - dense| "
+        f"{err:.3e}, max |dense| {scale:.3e} (tol {MOE_FORM_TOL} of it), aux "
+        f"{aux_g.item():.6f} / {aux_d.item():.6f}")
+    if not err <= MOE_FORM_TOL * scale or aux_g.item() != aux_d.item():
+        fail("phase 6: the gather form disagrees with the dense form")
+    if bool(keep.all()):
+        fail("phase 6: no assignment was dropped, so the comparison left capacity out")
+    del lp, x, y_g, y_d
+    # the gradient gate on the trained bf16 parameters: the kernel path in
+    # the gather form against the plain attention and norms in the dense
+    # form, every pass on the first pass's routing, router and expert leaves
+    # included; the kernels' backward faults and the MoE faults planted
+    params = moe["state"]["params"]
+    moe["state"]["opt_state"] = None
+    release()
+    from ray_tpu_torch import ops, train
+
+    faults = {name: (getattr(ops, module), attr, make)
+              for name, (module, attr, make) in BWD_FAULTS.items()}
+    faults.update({name: (transformer, attr, make)
+                   for name, (attr, make) in MOE_BWD_FAULTS.items()})
+    gradient_gate("phase 6: moe-1b gradient gate", params, train.synthetic_batch(
+        moe_cfg, B, T, seed=0), moe_cfg, plain_moe_path, faults,
+        OneRouting(transformer).one_pass)
+    del moe["state"], params
+    release()
+    dense_cfg = get_config("llama-600m", n_layers=moe_cfg.n_layers, d_model=moe_cfg.d_model,
+                           n_heads=moe_cfg.n_heads, n_kv_heads=moe_cfg.n_kv_heads,
+                           head_dim=moe_cfg.head_dim,
+                           d_ff=moe_cfg.num_selected_experts * moe_cfg.d_ff)
+    dense = factored_train("phase 6: train the dense twin", dense_cfg, B, T, warm + timed, warm,
+                           profile)
+    del dense["state"]
+    release()
+    overhead = 100.0 * max(moe["step_s"] - dense["step_s"], 0.0) / moe["step_s"]
+    log(f"phase 6 (moe-1b, {B} x {T}; {card}): step {moe['step_s']:.4f} s, "
+        f"{moe['tokens_s']:.1f} tokens/s, peak {moe['peak'] / 2**30:.2f} GiB; dense twin step "
+        f"{dense['step_s']:.4f} s, {dense['tokens_s']:.1f} tokens/s, peak "
+        f"{dense['peak'] / 2**30:.2f} GiB; moe_dispatch_overhead_pct {overhead:.2f} "
+        f"(100 max(t_moe - t_dense, 0) / t_moe)")
+    launches = {k: moe["launches"][k] + dense["launches"][k] for k in moe["launches"]}
+    return {"launches": launches, "overhead_pct": overhead}
+
+
+def moe_dynamics(card: str) -> None:
+    """--moe-dynamics: moe-1b trained as phase 6 trains it (2 x 1024 tokens
+    of one synthetic batch, adafactor after a warmup of 2, 10 steps) under
+    variants, each from the same seed, every step's loss, cross-entropy,
+    load-balance loss, gradient norm and accuracy printed: phase 6's own
+    recipe; the same with the plain attention and norms and the MoE layers
+    in the dense form (an independent forward and backward); a learning
+    rate of 1e-4; f32 parameters. It gates nothing and prints no result
+    line: it tells a fault of the kernel path from the recipe's dynamics."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import get_config
+
+    cfg = get_config("moe-1b")
+    B, T, steps = 2, 1024, 10
+    batch = train.synthetic_batch(cfg, B, T, seed=0)
+    variants = {  # label -> (learning rate, bf16 parameters, path)
+        "phase 6's recipe (lr 3e-4, bf16 parameters)": (3e-4, True, contextlib.nullcontext),
+        "plain attention and norms, dense MoE form": (3e-4, True, plain_moe_path),
+        "lr 1e-4": (1e-4, True, contextlib.nullcontext),
+        "f32 parameters": (3e-4, False, contextlib.nullcontext),
+    }
+    for label, (lr, bf16, path) in variants.items():
+        opt = train.make_optimizer(learning_rate=lr, warmup_steps=2, total_steps=100,
+                                   factored=True)
+        state = train.init_train_state(cfg, opt, seed=0)
+        if bf16:
+            bf16_params(state)
+        step = train.make_train_step(cfg, opt)
+        rows = []
+        with path():
+            for _ in range(steps):
+                state, m = step(state, batch)
+                rows.append(" ".join(f"{float(m[k]):.4f}" for k in
+                                     ("loss", "ce_loss", "aux_loss", "grad_norm", "accuracy")))
+        log(f"moe-1b dynamics, {label} (per step: loss ce aux grad_norm accuracy): "
+            f"{' | '.join(rows)}; {card}")
+        del state, step, opt
+        release()
 
 
 def ab_compare(variant_csrc: str, card: str) -> None:
@@ -2221,6 +2901,10 @@ def main() -> None:
                     help="only build and check the kernels, then time K4-K7 with this "
                          "checkout's kernels and with those built from CSRC (a changed copy "
                          "of ray_tpu_torch/csrc), in turns; prints no result line")
+    ap.add_argument("--moe-dynamics", action="store_true",
+                    help="only build the kernels, then train moe-1b as phase 6 does under "
+                         "variants of its recipe and path, printing every step's metrics; "
+                         "prints no result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2255,6 +2939,9 @@ def main() -> None:
     if args.ab:
         ab_compare(args.ab, card)
         return
+    if args.moe_dynamics:
+        moe_dynamics(card)
+        return
     gen = torch.Generator(device="cuda").manual_seed(0)
     tile_identity_checks(gen)
     figures = norm_checks(gen)
@@ -2269,11 +2956,16 @@ def main() -> None:
     gc.collect()  # free the weights
     torch.cuda.empty_cache()
     trained = train_main_path(card, args.profile)
+    train2b = train2b_path(card, trained, args.profile)
+    moe_served = moe_serve_path(card, args.profile)
+    moe_trained = moe_train_path(card, args.profile)
     kernels = []
     for name in dispatch.KERNELS:
         source, replaces = SOURCES[name]
         by_path = {"serve": serve_launches[name], "spec": spec["launches"][name],
-                   "train": trained["launches"][name]}
+                   "train": trained["launches"][name], "train2b": train2b["launches"][name],
+                   "moe_serve": moe_served["launches"][name],
+                   "moe_train": moe_trained["launches"][name]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **figures[name]})

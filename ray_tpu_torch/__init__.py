@@ -2,11 +2,12 @@
 
 A package of its own beside the JAX package `ray_tpu`, which stays the
 reference the port is held against; it imports `torch`, numpy and the
-stdlib, never `jax` and nothing of `ray_tpu`. It serves the dense
-Llama-family decoder through the continuous-batching engine, with
-speculative decoding (n-gram or draft-model proposers), and trains it
-on one device (`ray_tpu_torch.train`: AdamW step with the reference's
-optax semantics, activation checkpointing). The kernels of both paths are
+stdlib, never `jax` and nothing of `ray_tpu`. It serves the
+Llama-family decoder, dense or mixture-of-experts, through the
+continuous-batching engine, with speculative decoding (n-gram or
+draft-model proposers), and trains it on one device
+(`ray_tpu_torch.train`: AdamW or adafactor with the reference's optax
+semantics, f32 or bf16 parameters, activation checkpointing). The kernels of both paths are
 hand-written in CUDA C++ for sm_90a (ray_tpu_torch/csrc): RMSNorm, the
 flash-attention forward (with the logsumexp residual) and its dq and dk/dv
 backward kernels, paged decode, paged chunk and paged verify attention.

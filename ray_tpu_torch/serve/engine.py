@@ -63,7 +63,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.transformer import _require_dense, torch_dtype
+from ..models.transformer import _require_flash, torch_dtype
 from ..ops.dispatch import resolve_device
 from .config import SpeculationConfig
 from .programs import SAMPLER_MODES, CapturedProgram, PagedModel, _categorical, host_tensor
@@ -322,7 +322,7 @@ class InferenceEngine:
         another; with no card and no device this raises. draft_params: the
         parameters of a named speculation draft model (default: random
         from seed 0)."""
-        _require_dense(model_cfg)
+        _require_flash(model_cfg)
         self.cfg = model_cfg
         self.ecfg = engine_cfg
         self.device = resolve_device(device)

@@ -11,7 +11,10 @@ for the target model; the draft-model proposer of serve/spec_decode.py
 owns another over its own pool, sharing the target's parameter tensors
 when it self-speculates. The programs differ only in which positions they
 write and how they attend, so the layer loop is written once
-(`_run_layers`). They update the pools in place and return hidden states
+(`_run_layers`); MoE layers route each row b of the program's [B, T]
+batch on its own at that T, as the reference's programs do: the bucketed
+prefill [Bp, bucket], decode [B, 1], the chunk [1, C] and the span
+[B, S]. They update the pools in place and return hidden states
 (the bucketed prefill its f32 logits at each row's last prompt token);
 the caller applies `logits` to the rows it needs.
 
@@ -37,8 +40,8 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.transformer import (
-    _dense_ffn,
     _embed_lookup,
+    _ffn,
     _lm_head,
     _norm,
     _out_proj,
@@ -122,7 +125,7 @@ class PagedModel:
             vp[:, page_idx, slot_idx] = v.permute(2, 0, 1, 3).to(vp.dtype)
             x = x + _out_proj(attend(q, k, v, kp, vp), lp)
             h = _norm(x, lp["ln2"], lp.get("ln2_b"), cfg)
-            x = x + _dense_ffn(h, lp, cfg)
+            x = x + _ffn(h, lp, cfg)[0]
         return x
 
     # The reference's gathers clamp out-of-range indices where PyTorch on

@@ -58,8 +58,9 @@ position-bounded) until overwritten.
 
 A round has ONE readback (committed tokens and counts); everything else on
 the card is enqueued without waiting. Draft pools are touched only by
-on_install and run_step, both on the engine's decode thread. MoE bodies are
-not ported: the engine refuses MoE configs before any of this runs.
+on_install and run_step, both on the engine's decode thread. MoE targets
+and drafts route through the same PagedModel programs; a verify routes
+its [B, S] span, so the width S sets its capacity, as in the reference.
 """
 
 from __future__ import annotations

@@ -236,6 +236,7 @@ DECODE_CASES = {
     "past_the_table": (2, 4, 40, [641, 5000, 640, 639]),
     "g1": (4, 1, 40, [0, 129, 300, 640]),
     "g8": (1, 8, 40, [1, 128, 257, 500]),
+    "g3": (4, 3, 40, [0, 129, 300, 640]),  # moe-1b's 12 heads over 4
 }
 
 
@@ -340,6 +341,9 @@ VERIFY_EDGE_CASES = {
     "g1": (5, 4, 1, [127, 128, 3, 382], False),
     "g8": (5, 1, 8, [127, 128, 3, 382], False),
     "S65": (65, 2, 4, [0, 158, 100, 320], False),
+    # moe-1b's heads (g = 3): a position's query heads straddle a 64-row tile
+    "g3": (5, 4, 3, [127, 128, 3, 382], False),
+    "g3_S2": (2, 4, 3, [0, 15, 16, 300], False),
 }
 # K6: (C, kv heads, g, start, total, zero table) on one such table: key
 # tiles of 64 at +- 1, a ragged C, total below start + C, keys past the
@@ -353,6 +357,8 @@ CHUNK_EDGE_CASES = {
     "no_visible_key": (16, 2, 4, 0, 0, False),
     "g1": (100, 4, 1, 30, 130, False),
     "g8": (100, 1, 8, 30, 130, False),
+    "g3": (100, 4, 3, 30, 130, False),
+    "g3_tile_edges": (65, 4, 3, 63, 128, False),
     "zero_table": (64, 2, 4, 0, 64, True),
     "wide_grid": (520, 8, 4, 0, 520, False),  # 17 x 8 tiles of 128 rows, keys past the table
 }
@@ -455,6 +461,25 @@ def test_flash_attention_bwd(card, dtype, T, g, causal):
     after = dispatch.launch_counts()
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         assert after[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("T", [65, 129, 1024])
+def test_flash_attention_group_of_three(card, dtype, T):
+    # moe-1b's heads, 12 over 4: K2 with lse, K3 and K4 at g = 3
+    q, do = _rand((2, T, 12, D), dtype, card), _rand((2, T, 12, D), dtype, card)
+    k, v = _rand((2, T, 4, D), dtype, card), _rand((2, T, 4, D), dtype, card)
+    o, lse = ops.flash_attention_with_lse(q, k, v)
+    want_o, want_lse = attention._fwd_reference_with_lse(q, k, v)
+    _close(o, want_o, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
+    delta = attention._attention_delta(want_o, do)
+    _close(ops.flash_attention_bwd_dq(q, k, v, do, want_lse, delta),
+           attention._dq_reference(q, k, v, do, want_lse, delta), dtype)
+    dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, want_lse, delta)
+    want_dk, want_dv = attention._dkv_reference(q, k, v, do, want_lse, delta)
+    _close(dk, want_dk, dtype)
+    _close(dv, want_dv, dtype)
 
 
 def _forward_and_dq(q, k, v, do, dtype, causal=True):

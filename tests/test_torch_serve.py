@@ -170,8 +170,22 @@ def test_unported_features_raise(tiny_llama):
     # know is an error, not an option silently ignored
     with pytest.raises(ValueError, match="unknown speculation option"):
         EngineConfig(**ENGINE_KW, speculation={"mode": "ngram", "k": 2})
-    with pytest.raises(NotImplementedError):
-        init_params(get_config("tiny-moe"), device="cpu")
+
+
+def test_moe_config_serves_through_llm_server():
+    """MoE configs are ported (tests/test_torch_moe.py holds them against
+    the reference): tiny-moe serves through the user's entry point."""
+    server = LLMServer(model_name="tiny-moe", device="cpu", seed=1,
+                       engine_config=dict(ENGINE_KW, decode_span=4))
+    try:
+        out = server({"prompt_ids": [3, 1, 4, 1, 5, 9, 2, 6], "max_tokens": 6})
+        again = server({"prompt_ids": [3, 1, 4, 1, 5, 9, 2, 6], "max_tokens": 6})
+    finally:
+        server.shutdown()
+    assert len(out["token_ids"]) == 6 and out["finish_reason"] == "length"
+    assert out["token_ids"] == again["token_ids"]
+    params = server.engine.params
+    assert params["layers"]["w_in"].shape[1] == get_config("tiny-moe").num_experts
 
 
 def test_init_params_is_seeded_and_typed():
@@ -185,11 +199,23 @@ def test_init_params_is_seeded_and_typed():
 
 
 def test_port_imports_neither_jax_nor_ray_tpu():
+    # it also serves tiny-moe with speculation, so the MoE path is checked too
     code = (
         "import json, sys\n"
         "import ray_tpu_torch, ray_tpu_torch.serve, ray_tpu_torch.models, ray_tpu_torch.train\n"
         "import ray_tpu_torch.serve.spec_decode, ray_tpu_torch.serve.config\n"
         "import ray_tpu_torch.serve.programs, ray_tpu_torch.models.generate\n"
+        "import ray_tpu_torch.parallel.moe\n"
+        "server = ray_tpu_torch.LLMServer(\n"
+        "    model_name='tiny-moe', device='cpu', engine_config=dict(\n"
+        "        max_batch_size=2, page_size=8, max_pages=32, max_seq_len=64,\n"
+        "        prefill_buckets=(16,), prefill_chunk=16,\n"
+        "        speculation={'mode': 'ngram', 'num_speculative_tokens': 2}))\n"
+        "try:\n"
+        "    out = server({'prompt_ids': [1, 2, 3, 1, 2], 'max_tokens': 4})\n"
+        "    assert len(out['token_ids']) == 4\n"
+        "finally:\n"
+        "    server.shutdown()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'ray_tpu' or m.startswith('ray_tpu.'))\n"
         "print(json.dumps(bad))\n"

@@ -236,9 +236,15 @@ def test_eval_step_and_synthetic_batch():
     torch.testing.assert_close(train_metrics["loss"], metrics["loss"])
 
 
-def test_factored_optimizer_is_not_ported():
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        make_optimizer(factored=True)
+def test_factored_optimizer_is_adafactor():
+    """factored=True gives the reference's adafactor under the same clip
+    and schedule (tests/test_torch_adafactor.py holds it against optax)."""
+    from ray_tpu_torch.train.lm import Adafactor
+
+    opt = make_optimizer(1e-2, warmup_steps=3, total_steps=10, grad_clip=0.5, factored=True)
+    assert isinstance(opt, Adafactor) and opt.grad_clip == 0.5
+    ref = make_optimizer(1e-2, warmup_steps=3, total_steps=10)
+    assert [opt.schedule(i) for i in range(12)] == [ref.schedule(i) for i in range(12)]
 
 
 def test_init_train_state_needs_a_device_without_a_card():
