@@ -33,8 +33,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      heads straddle the 64-row tiles) at the engine's batch, chunks and
      verify widths S = 1, 2, 3, 5; K5 (split-KV decode) at the
      engine's batch and at its edges: one sequence of 1024 keys, lengths at
-     split boundaries +- 1, lengths past the table, g = 1 and g = 8, and
-     two calls back to back; K6 (paged chunked prefill) at the chunks of a
+     split boundaries +- 1, lengths past the table, g = 1 and g = 8, two
+     calls back to back, and at page size 8 (phase 3m (b)'s destination:
+     the engine's batch over 128 pages of 8 a sequence, lengths off the
+     page edges and at split edges +- 1); K6 (paged chunked prefill) at the chunks of a
      700-token prompt and at its edges: key tiles +- 1, a ragged C, total
      below start + C, keys past the table, no visible key (exact zeros),
      g = 1 and g = 8, each also with [start, total] as int32 on the card
@@ -66,6 +68,27 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      with fresh prompts is served once per planted engine fault (FAULTS),
      each on a server built inside the fault's block so that the fault is
      captured into its graphs, and the gate must fail each;
+  3m. KV migration (migrate_path), on phase 3's server before it shuts
+     down: a second engine over the same parameter tensors imports what
+     phase 3's exports (Request(prefill_only=True)): prompts of 200 tokens
+     (bucketed prefill, K2) and 700 (chunked, K6), each a fresh prompt.
+     (a) page size 16: each length as a one-shot blob and as a layer-major
+     stream (kv_window 256), imported alone, must continue for 32 tokens
+     exactly as the source's own run of the prompt; each planted import
+     fault (IMPORT_FAULTS: the last layer slab not ingested, the staged KV
+     scattered one page late) must fail that gate; then four requests
+     decode on each engine, alone and then while the blobs and streams of
+     fresh prompts migrate. (b) page size 8: the layer-major and
+     token-major streams; under load and (b) are held to phase 3's logprob
+     gate. Launch counts are read around each export and import of (a)
+     (round_trip) and around (b): K1, K2, K5 and K6 must have run, every
+     launch from a graph replay. Prints the bytes on the wire, each
+     export's gather + host copy, the first frame's time after the first
+     token, the import's staging, the export's host copy in its two forms
+     (host_copy_forms), the gathers' and scatters' waits behind the
+     stream's earlier work (CallClock, of which PrefillClock is one), and
+     the background requests' TPOT and longest gap between tokens with and
+     without migrations;
   3s. the speculation path: the serving server is shut down and its
      parameters go to LLMServer(engine_config={"speculation": ...}), again
      llama3-8b at full width and depth, twice. (1) mode "draft", k = 4,
@@ -134,7 +157,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      the first, the combine reading the next slot) must fail it. Then an
      ngram burst (k = 4, planted prompts) runs K7 and K5 in graph replays,
      and on its idle engine the decode span, verify, prefill buckets and
-     chunks are held against their eager bodies (graph_checks);
+     chunks are held against their eager bodies (graph_checks); before
+     that, one streamed KV migration of a 700-token prompt into a second
+     engine at page size 16 must continue token-exactly (round_trip,
+     phase 3m's gate (a));
   6. moe-1b trained as the reference's bench_moe (bench.py:1711): 2 x 1024
      tokens, factored, bf16 parameters, 2 warm and 8 timed steps, then its
      dense twin (llama-600m at moe-1b's backbone, d_ff = 2 x 4096): phase
@@ -150,7 +176,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 
 The second-to-last line of stdout is {"kernels": [...]} (eight kernels:
 K1's forward and backward, K2-K7; launches by path: serve, spec, train,
-train2b, moe_serve, moe_train), the last
+train2b, moe_serve, moe_train, migrate (phase 3m), moe_migrate (phase 5's
+round trip)), the last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
 
@@ -695,6 +722,33 @@ def kernel_checks(gen) -> dict:
                   check_close("paged_attention_decode back to back (2)", "attention", dtype, b,
                               paged_attention._paged_reference(q, kp, vp, table, lb, hd ** -0.5)))
         log(f"K5 paged_attention_decode {tag} two calls back to back: max_err {err:.3e}")
+        # K5 at page size 8, as phase 3m (b)'s destination decodes its
+        # imports: the engine's batch of 8 slots, 1024 tokens a sequence in
+        # 128 pages of 8 (16 pages a split) from a pool of 1024 such pages;
+        # lengths off the page edges, at split edges +- 1 and across them
+        kp8, vp8 = rnd((KVH, 2 * P, 8, hd), dtype), rnd((KVH, 2 * P, 8, hd), dtype)
+        table8 = torch.randint(1, 2 * P, (B, 2 * pps), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        for name, lens in (("engine's batch", [0, 3, 9, 129, 255, 701, 1001, 1023]),
+                           ("split edges +-1", [127, 128, 129, 255, 256, 257, 7, 1017])):
+            le = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            qe = rnd((B, H, hd), dtype)
+            got = paged_attention.paged_attention_decode(qe, kp8, vp8, table8, le)
+            want = paged_attention._paged_reference(qe, kp8, vp8, table8, le, hd ** -0.5)
+            err = check_close(f"paged_attention_decode page size 8 {name}", "attention", dtype,
+                              got, want)
+            if bool(got[le == 0].float().abs().sum() != 0):
+                fail(f"paged_attention_decode page size 8 {name}: a length-0 slot must give "
+                     f"zeros")
+            ms = device_ms(lambda: paged_attention.paged_attention_decode(qe, kp8, vp8, table8,
+                                                                          le))
+            plain = device_ms(lambda: paged_attention._paged_reference(qe, kp8, vp8, table8, le,
+                                                                     hd ** -0.5))
+            bnd, by = decode_bound(qe, kp8, table8, le)
+            log(f"K5 paged_attention_decode {tag} page size 8 {name} lengths {lens}: max_err "
+                f"{err:.3e} (tol {TOL[('attention', dtype)]}) ms {ms:.4f} plain {plain:.4f} "
+                f"bound {bnd:.4f} ({by})")
+        del kp8, vp8, table8
 
         def chunk_meta_on_card(label, got, q, kp, vp, t, start, total):
             """K6 with [start, total] as int32 tensors on the card, both as
@@ -1218,19 +1272,30 @@ def reckon_prefill_tiers(engine, batch_size: int = 8) -> None:
         f"scaled by summed tokens)")
 
 
-class PrefillClock:
-    """Times the bucketed prefill replays of an engine on the card while
-    the block runs. Each of its prefill programs is wrapped: a call notes
-    the host's clock and records a CUDA event before the replay (its input
-    copies included) and one after. One event synchronised on an idle card
-    at the start ties the card's clock to the host's, so each replay's
-    wait is when the card reached its first event less when the host
-    called it: the time it queued behind work already on the stream (the
-    decode thread's spans). `waits_ms` and `device_ms` hold them, in call
-    order."""
+class CallClock:
+    """Times calls of some callables on the card while the block runs: the
+    entries `names` of `owner`, a dict (an engine's programs) or a module
+    or class (its functions). Each call notes the host's clock and records
+    a CUDA event before the call (its input copies included) and one after.
+    One event synchronised on an idle card at the start ties the card's
+    clock to the host's, so each call's wait is when the card reached its
+    first event less when the host made the call: the time it queued
+    behind work already on the stream (the decode thread's spans, and any
+    other engine's on the same card). `timings` holds (name, wait ms, card
+    ms between the events, host ms) per call, in call order; the card ms
+    include any work another thread enqueued between the two events."""
 
-    def __init__(self, engine):
-        self.engine, self.records = engine, []
+    def __init__(self, owner, names):
+        self.owner, self.names, self.calls = owner, list(names), []
+
+    def _get(self, name):
+        return self.owner[name] if isinstance(self.owner, dict) else getattr(self.owner, name)
+
+    def _set(self, name, fn) -> None:
+        if isinstance(self.owner, dict):
+            self.owner[name] = fn
+        else:
+            setattr(self.owner, name, fn)
 
     def __enter__(self):
         torch.cuda.synchronize()
@@ -1238,35 +1303,49 @@ class PrefillClock:
         self.ref.record()
         self.ref.synchronize()
         self.t_ref = time.perf_counter()
-        self.saved = {k: p for k, p in self.engine._programs.items() if k[0] == "prefill"}
-        for key, program in self.saved.items():
-            self.engine._programs[key] = self._timed(program)
+        self.saved = {name: self._get(name) for name in self.names}
+        for name, fn in self.saved.items():
+            self._set(name, self._timed(name, fn))
         return self
 
-    def _timed(self, program):
+    def _timed(self, name, fn):
         def call(*args):
             t0 = time.perf_counter()
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
-            out = program(*args)
+            out = fn(*args)
             b.record()
-            self.records.append((t0, a, b))
+            self.calls.append((name, t0, a, b, time.perf_counter()))
             return out
         return call
 
     def __exit__(self, *exc):
-        self.engine._programs.update(self.saved)
+        for name, fn in self.saved.items():
+            self._set(name, fn)
         torch.cuda.synchronize()
-        self.waits_ms = [1e3 * (self.t_ref + self.ref.elapsed_time(a) / 1e3 - t0)
-                         for t0, a, _b in self.records]
-        self.device_ms = [a.elapsed_time(b) for _t0, a, b in self.records]
+        self.timings = [(name, 1e3 * (self.t_ref + self.ref.elapsed_time(a) / 1e3 - t0),
+                         a.elapsed_time(b), 1e3 * (t1 - t0))
+                        for name, t0, a, b, t1 in self.calls]
         return False
 
+    def column(self, name, field: int) -> str:
+        """One field (1 wait, 2 card, 3 host) of the named calls, in ms."""
+        return "[" + ", ".join(f"{t[field]:.2f}" for t in self.timings if t[0] == name) + "]"
+
+
+class PrefillClock(CallClock):
+    """The bucketed prefill replays of an engine, timed by CallClock: each
+    replay's wait behind the stream's earlier work (the decode thread's
+    spans) and its time on the card."""
+
+    def __init__(self, engine):
+        super().__init__(engine._programs, [k for k in engine._programs if k[0] == "prefill"])
+
     def report(self, label: str) -> None:
-        log(f"{label}: {len(self.records)} prefill replays; wait behind the stream's earlier "
-            f"work (ms, call order) {[round(w, 2) for w in self.waits_ms]}; replay on the card "
+        log(f"{label}: {len(self.timings)} prefill replays; wait behind the stream's earlier "
+            f"work (ms, call order) {[round(t[1], 2) for t in self.timings]}; replay on the card "
             f"(copies + graph, and any work the decode thread enqueued between them, ms) "
-            f"{[round(d, 2) for d in self.device_ms]}")
+            f"{[round(t[2], 2) for t in self.timings]}")
 
 
 def require_no_eager_launches(label: str) -> None:
@@ -1288,7 +1367,7 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 
-def serve_main_path(profile: bool) -> dict:
+def serve_main_path(card: str, profile: bool) -> dict:
     from ray_tpu_torch.ops import dispatch
     from ray_tpu_torch.serve import programs
 
@@ -1348,6 +1427,7 @@ def serve_main_path(profile: bool) -> dict:
         require_kernels("profiled plain burst (K1, K2, K5 and K6 inside graph replays)",
                         seen["names"], ("rms_norm_fwd_", "flash_fwd_wgmma_kernel",
                                         "paged_decode_split_kernel", "paged_chunk_wgmma_kernel"))
+    migrate = migrate_path(server, card)  # phase 3m, on this server
     params = server.engine.params
     server.shutdown()
     del server
@@ -1385,8 +1465,356 @@ def serve_main_path(profile: bool) -> dict:
     for name, hit in caught.items():
         if not hit:
             fail(f"the logprob gate {LOGPROB_TOL} passes planted fault {name}")
-    return {"launches": launches, "params": params, "cfg": cfg, "requests": requests,
-            "results": results}
+    return {"launches": launches, "migrate": migrate, "params": params, "cfg": cfg,
+            "requests": requests, "results": results}
+
+
+# ------------------------------------------------------------- phase 3m
+
+# Planted import faults, each of which its gate must catch: name ->
+# (object, attribute, wrapper maker). The frames and blobs themselves are
+# sound; the fault sits in the importing engine.
+IMPORT_FAULTS = {
+    # the stream's last layer slab never reaches the staging buffer, so
+    # the top layers decode over zero KV
+    "last_layer_slab_not_ingested": ("engine", "ingest_kv_chunk", lambda f: (
+        lambda self, req, frame: None if (
+            frame.get("layer0", 0) > 0
+            and frame["layer0"] + len(frame["k"]) == self.cfg.n_layers) else f(self, req, frame))),
+    # the staged KV lands one page late: token t's KV at position t + page_size
+    "scatter_one_page_late": ("module", "_scatter_pages", lambda f: (
+        lambda kp, vp, k, v, pages: f(kp, vp, *(
+            torch.cat([x.new_zeros((x.shape[0], kp.shape[3]) + tuple(x.shape[2:])), x],
+                      1)[:, :x.shape[1]] for x in (k, v)), pages))),
+}
+
+
+def _ms(xs) -> str:
+    return "[" + ", ".join(f"{x:.2f}" for x in xs) + "]"
+
+
+def export_kv(engine, prompt, layout=None):
+    """One prefill_only request on `engine`: a one-shot blob (layout None,
+    export_kv_pages) or a frame stream in `layout` with kv_window 256.
+    Returns (frames, or [blob]; the first token's time; the first frame's
+    time; host seconds of each gather + host copy)."""
+    from ray_tpu_torch.serve import engine as engine_mod
+
+    frames, arrivals, gathers = [], [], []
+
+    def sink(frame):
+        arrivals.append(time.monotonic())
+        frames.append(frame)
+
+    gather = engine_mod.InferenceEngine._gather_kv
+
+    def timed(self, pages, t):
+        t0 = time.perf_counter()
+        out = gather(self, pages, t)
+        gathers.append(time.perf_counter() - t0)
+        return out
+
+    req = engine_mod.Request(request_id=f"export-{time.monotonic_ns()}", prompt=list(prompt),
+                             max_tokens=32, prefill_only=True,
+                             kv_sink=sink if layout else None, kv_frame_layout=layout or "")
+    with swapped(engine_mod.InferenceEngine, _gather_kv=timed):
+        engine.add_request(req)
+        if not layout:
+            frames = [engine.export_kv_pages(req, timeout_s=120)]
+        elif not req.done.wait(120):
+            fail(f"export of a {len(prompt)}-token prompt did not finish in 120 s")
+    if req.error or req.finish_reason != "prefill_done":
+        fail(f"export of a {len(prompt)}-token prompt: {req.error or req.finish_reason}")
+    return frames, req.first_token_at, (arrivals[0] if arrivals else None), gathers
+
+
+class TokenStamps:
+    """A request's stream_q stand-in that notes when each token is emitted
+    (`since`: when the window that finish_busy reads begins)."""
+
+    def __init__(self):
+        self.at, self.since = [], 0.0
+
+    def put(self, tok) -> None:
+        if tok is not None:
+            self.at.append(time.monotonic())
+
+
+def keep_busy(engine, prompt, n: int = 4, max_tokens: int = 300) -> list:
+    """n requests decoding on `engine` (prompts of 100 tokens cut from
+    `prompt`), each noting its tokens' times; returns once all n hold a
+    decode slot, which opens their window."""
+    from ray_tpu_torch.serve.engine import Request
+
+    busy = [Request(request_id=f"busy-{i}-{time.monotonic_ns()}", prompt=prompt[i:i + 100],
+                    max_tokens=max_tokens, stream_q=TokenStamps()) for i in range(n)]
+    for r in busy:
+        engine.add_request(r)
+    deadline = time.monotonic() + 60
+    while engine.stats()["active"] < n:
+        if time.monotonic() > deadline:
+            fail("the background requests did not reach their decode slots in 60 s")
+        time.sleep(0.002)
+    for r in busy:
+        r.stream_q.since = time.monotonic()
+    return busy
+
+
+def finish_busy(busy) -> str:
+    """Wait for the background requests -> over the tokens of their window
+    (from when all held a slot to their end), their TPOT p50 and max and
+    the longest gap between two of a request's tokens (a decode span's
+    tokens arrive together, so a gap is a span, or a span and what held it
+    up)."""
+    for r in busy:
+        if not r.done.wait(120) or r.error:
+            fail(f"a background request failed: {r.error}")
+    seen = [[t for t in r.stream_q.at if t >= r.stream_q.since] for r in busy]
+    tpot = [1e3 * (at[-1] - at[0]) / (len(at) - 1) for at in seen]
+    gap = max(1e3 * (b - a) for at in seen for a, b in zip(at, at[1:]))
+    return (f"TPOT p50 {statistics.median(tpot):.2f} max {max(tpot):.2f} ms, longest gap "
+            f"between tokens {gap:.2f} ms")
+
+
+def import_kv(engine, prompt, frames):
+    """Import a blob ([blob]) or a frame stream into `engine` and decode 32
+    tokens -> (result dict as the server gives it, host seconds of the
+    staging: begin + ingest + finish)."""
+    from ray_tpu_torch.serve.engine import Request
+
+    req = Request(request_id=f"import-{time.monotonic_ns()}", prompt=list(prompt), max_tokens=32)
+    t0 = time.perf_counter()
+    if "seq" not in frames[0]:
+        engine.import_kv_pages(req, frames[0])
+    else:
+        meta, last = frames[0], frames[-1]
+        if engine.begin_kv_import(req, meta["true_len"], meta):
+            for f in frames:
+                engine.ingest_kv_chunk(req, f)
+            engine.finish_kv_import(req, last["first_token"], last["first_logprob"])
+    staged = time.perf_counter() - t0
+    if not req.done.wait(120):
+        fail(f"import of a {len(prompt)}-token prompt did not finish in 120 s")
+    if req.error:
+        fail(f"import of a {len(prompt)}-token prompt: {req.error}")
+    return {"token_ids": list(req.output), "logprobs": list(req.output_logprobs),
+            "finish_reason": req.finish_reason}, staged
+
+
+def host_copy_forms(shape, reps: int = 5) -> str:
+    """The export's host copy of one gathered K (or V) of `shape` [L, T,
+    KVH, hd] in bf16, in two forms taken in turns on an idle card: widened
+    to float32 on the card and then copied (twice the bytes over the bus),
+    and copied in bf16 and then widened on the host (_gather_kv's form).
+    -> host ms, medians over `reps` turns, and the copies' rates."""
+    x = torch.randn(shape, device="cuda").to(torch.bfloat16)
+    on_card, copy, widen = [], [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = x.float().cpu()
+        t1 = time.perf_counter()
+        b = x.cpu()
+        t2 = time.perf_counter()
+        c = b.float()
+        t3 = time.perf_counter()
+        if not torch.equal(a, c):
+            fail("the two host copy forms of the export differ")
+        on_card.append(1e3 * (t1 - t0))
+        copy.append(1e3 * (t2 - t1))
+        widen.append(1e3 * (t3 - t2))
+    mib = x.numel() * 2 / 2**20
+    m = [statistics.median(v) for v in (on_card, copy, widen)]
+    return (f"{mib:.2f} MiB of bf16 {list(shape)}: widened on the card, then copied "
+            f"{m[0]:.2f} ms ({2 * mib / 1024 / m[0] * 1e3:.2f} GiB/s); copied in bf16 {m[1]:.2f} "
+            f"ms ({mib / 1024 / m[1] * 1e3:.2f} GiB/s), then widened on the host {m[2]:.2f} ms: "
+            f"{m[1] + m[2]:.2f} ms in all (medians of {reps} turns)")
+
+
+def wire_bytes(frames) -> int:
+    return sum(f["k"].nbytes + f["v"].nbytes for f in frames)
+
+
+def migration_line(label, p, frames, got, want=None) -> str:
+    line = (f"{label}, {len(p)}-token prompt: {len(frames)} frame(s), "
+            f"{wire_bytes(frames) / 2**20:.2f} MiB on the wire")
+    if want is not None:
+        lp = max(abs(a - b) for a, b in zip(got["logprobs"], want["logprobs"]))
+        same = got["token_ids"] == want["token_ids"]
+        line += (f"; tokens {'identical' if same else 'differ'}, logprob |import - source| "
+                 f"max {lp:.2e}")
+    return line
+
+
+def export_timings(gathers, first_at, frame_at, staged=None) -> str:
+    out = f"  export: gather + host copy {_ms(1e3 * g for g in gathers)} ms"
+    if frame_at is not None:
+        out += f"; first frame {1e3 * (frame_at - first_at):+.2f} ms after the first token"
+    return out + (f"; import staging {1e3 * staged:.2f} ms" if staged is not None else "")
+
+
+def round_trip(server, dst, prompt, layout, label: str) -> tuple:
+    """Gate (a), for one prompt: export it from the server's engine (a
+    one-shot blob where layout is None, else a frame stream in `layout`),
+    import it into engine `dst`, alone on both, and then run it on the
+    source uninterrupted (after the export, so that the export's prefill
+    finds nothing cached). The import's 32 tokens must equal the source's,
+    and every launch of the export and the import must come from a graph
+    replay; the launch counts are read around those two only. -> (frames,
+    the source's result, the export's and the import's launch counts)."""
+    from ray_tpu_torch.ops import dispatch
+
+    dispatch.reset_launches()
+    frames, first_at, frame_at, gathers = export_kv(server.engine, prompt, layout)
+    got, staged = import_kv(dst, prompt, frames)
+    launches = dispatch.launch_counts()
+    require_no_eager_launches(label)
+    want = server({"prompt_ids": prompt, "max_tokens": 32})
+    log(migration_line(label, prompt, frames, got, want))
+    log(export_timings(gathers, first_at, frame_at, staged))
+    if got["token_ids"] != want["token_ids"]:
+        fail(f"{label}: the import of a {len(prompt)}-token prompt gave "
+             f"{got['token_ids'][:8]}..., the source {want['token_ids'][:8]}...")
+    return frames, want, launches
+
+
+def migrate_path(server, card: str) -> dict:
+    """Phase 3m: KV migration from phase 3's llama3-8b server (page size
+    16) into a second engine over the same parameter tensors: (a) at page
+    size 16, token-exact against the source's own uninterrupted run, with
+    the planted import faults, then under load on both engines; (b) at
+    page size 8. Under load and (b) are held to phase 3's logprob gate.
+    Every export has a fresh prompt, so that no prefix-cache hit shortens
+    its prefill; the source's own run of a prompt comes after its export.
+    Returns the launch counts of (a) and (b), summed."""
+    from ray_tpu_torch.ops import dispatch
+    from ray_tpu_torch.serve import engine as engine_mod
+
+    src = server.engine
+    cfg, params = src.cfg, src.params
+    rng = torch.Generator().manual_seed(3)
+
+    def prompt(n):  # 200: bucketed prefill (K2) on the source; 700: chunked (K6)
+        return torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    per_token = 2 * cfg.n_layers * cfg.kv_heads * cfg.hdim
+    log(f"phase 3m: KV migration, llama3-8b ({card}): per token {per_token * 2 / 2**10:.0f} KiB "
+        f"of bf16 KV in the pool and on the host copy, {per_token * 4 / 2**10:.0f} KiB as "
+        f"float32 on the wire")
+
+    # (a) page size 16: prompts of 200 and 700 tokens, each once as a blob
+    # and once streamed layer-major (kv_window 256), each imported alone
+    dst = new_server("phase 3m: destination engine, page size 16",
+                     params_fn=lambda: (params, cfg), engine_config=ENGINE)
+    streamed, wants, launches_a = [], [], {}
+    with CallClock(engine_mod, ("_gather_pages", "_scatter_pages")) as clock:
+        for n in (200, 700):
+            for layout in (None, "layer"):
+                p = prompt(n)
+                frames, want, counts = round_trip(
+                    server, dst.engine, p, layout,
+                    f"phase 3m (a) {'streamed layer-major' if layout else 'blob'}")
+                launches_a = {k: launches_a.get(k, 0) + c for k, c in counts.items()}
+                if layout:
+                    streamed.append((p, frames))
+                    wants.append(want)
+    for what in clock.names:
+        log(f"  {what} (a, source and destination alone): wait behind the stream's earlier "
+            f"work {clock.column(what, 1)} ms; on the card (the scatter with its copy to the "
+            f"card) {clock.column(what, 2)} ms")
+
+    log(f"  the export's host copy of the 700-token prompt's K (its V the same), idle card: "
+        f"{host_copy_forms((cfg.n_layers, 700, cfg.kv_heads, cfg.hdim))}")
+
+    # the planted import faults, on the streamed frames of (a)
+    for name, (owner, attr, make) in IMPORT_FAULTS.items():
+        target = engine_mod.InferenceEngine if owner == "engine" else engine_mod
+        caught = []
+        with swapped(target, **{attr: make(getattr(target, attr))}):
+            for (p, frames), want in zip(streamed, wants):
+                got, _staged = import_kv(dst.engine, p, frames)
+                same = sum(a == b for a, b in zip(got["token_ids"], want["token_ids"]))
+                caught.append(got["token_ids"] != want["token_ids"])
+                log(f"phase 3m planted fault {name}, {len(p)}-token prompt: {same} of 32 tokens "
+                    f"agree with the source")
+        if not any(caught):
+            fail(f"phase 3m: gate (a) passes planted import fault {name}")
+
+    # under load: four requests decode on each engine, first alone, then
+    # while blobs and streams of fresh prompts migrate from the source to
+    # the destination, so that the gathers queue behind decode spans and
+    # the exports and scatters hold up the decode threads; the imports
+    # share their batch with others, so this step is held to the logprob
+    # gate
+    busy = keep_busy(src, prompt(400)), keep_busy(dst.engine, prompt(400))
+    alone = [finish_busy(b) for b in busy]
+    loaded = [[], []]
+    busy = keep_busy(src, prompt(400)), keep_busy(dst.engine, prompt(400))
+    with CallClock(engine_mod, ("_gather_pages", "_scatter_pages")) as clock:
+        for n in (200, 700):
+            for layout in (None, "layer"):
+                p = prompt(n)
+                frames, first_at, frame_at, gathers = export_kv(src, p, layout)
+                got, staged = import_kv(dst.engine, p, frames)
+                log(migration_line(f"phase 3m under load, "
+                                   f"{'streamed layer-major' if layout else 'blob'}",
+                                   p, frames, got))
+                log(export_timings(gathers, first_at, frame_at, staged))
+                loaded[0].append({"prompt_ids": p, "max_tokens": 32})
+                loaded[1].append(got)
+    during = [finish_busy(b) for b in busy]
+    for side, a, d in zip(("source", "destination"), alone, during):
+        log(f"  the {side}'s 4 background requests (300 tokens each): without migration "
+            f"{a}; during the migrations {d}")
+    for what in clock.names:
+        log(f"  {what} under load (4 requests decoding on each engine): wait behind the "
+            f"stream's earlier work {clock.column(what, 1)} ms; on the card "
+            f"{clock.column(what, 2)} ms")
+    dst.shutdown()
+    del dst
+    release()
+
+    # (b) page size 8: (a)'s layer-major streams, and token-major streams of
+    # the same prompts (re-exported: the source's runs cached them)
+    dst = new_server("phase 3m: destination engine, page size 8",
+                     params_fn=lambda: (params, cfg), engine_config=dict(ENGINE, page_size=8))
+    at8 = [[], []]
+    dispatch.reset_launches()
+    with CallClock(engine_mod, ("_scatter_pages",)) as clock:
+        for (p, frames), want in zip(streamed, wants):
+            for layout in ("layer", "token"):
+                if layout == "token":
+                    frames = export_kv(src, p, layout)[0]
+                got, _staged = import_kv(dst.engine, p, frames)
+                log(migration_line(f"phase 3m (b) page size 8, streamed {layout}-major", p,
+                                   frames, got, want))
+                at8[0].append({"prompt_ids": p, "max_tokens": 32})
+                at8[1].append(got)
+    launches_b = dispatch.launch_counts()
+    require_no_eager_launches("phase 3m (b)")
+    log(f"  _scatter_pages (b): wait {clock.column('_scatter_pages', 1)} ms; on the card "
+        f"{clock.column('_scatter_pages', 2)} ms")
+    dst.shutdown()
+    del dst
+    release()
+    for label, (reqs, res) in (("(b)", at8), ("under load", loaded)):
+        gaps = logprob_gaps(params, cfg, reqs, res)
+        log(f"phase 3m {label} logprob |engine - forward| per import max "
+            f"{[round(g[0], 4) for g in gaps]} mean {[round(g[1], 4) for g in gaps]} "
+            f"(tol {LOGPROB_TOL})")
+        for req, gap in zip(reqs, gaps):
+            if not within_logprob_tol(gap):
+                fail(f"phase 3m {label}: a {len(req['prompt_ids'])}-token import's logprobs "
+                     f"differ from the forward by max {gap[0]:.4f}, mean {gap[1]:.4f} "
+                     f"(tol {LOGPROB_TOL})")
+    launches = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    log(f"launches on the migration path, (a) and (b) (exports on the source, imports decoding "
+        f"on the destinations): {launches}")
+    for name in ("rms_norm", "flash_attention", "paged_attention_chunk",
+                 "paged_attention_decode"):
+        if launches[name] <= 0:
+            fail(f"phase 3m never launched kernel {name}")
+    return launches
 
 
 # ------------------------------------------------------------- phase 3s
@@ -2153,6 +2581,19 @@ def moe_serve_path(card: str, profile: bool) -> dict:
             return serve(server, "profiled moe-1b", requests)[1]
 
         profile_report(profiled)
+    # one streamed KV migration of a fresh 700-token prompt into a second
+    # engine at page size 16, held to phase 3m's gate (a)
+    label = "phase 5: moe-1b KV migration"
+    dst = new_server(f"{label}: destination engine, page size {server.engine.ecfg.page_size}",
+                     params_fn=lambda: (params, cfg), engine_config=ENGINE)
+    migrate = round_trip(server, dst.engine, prompt(700), "layer", label)[2]
+    dst.shutdown()
+    del dst
+    release()
+    log(f"launches on the moe-1b migration (export and import): {migrate}")
+    for name in ("rms_norm", "paged_attention_chunk", "paged_attention_decode"):
+        if migrate[name] <= 0:
+            fail(f"{label} never launched kernel {name}")
     server.shutdown()
     decode_step_figures(server.engine, card)
     del server
@@ -2223,7 +2664,8 @@ def moe_serve_path(card: str, profile: bool) -> dict:
     graph_checks(server.engine)
     del server
     release()
-    return {"launches": {name: launches[name] + ngram[name] for name in launches}}
+    return {"launches": {name: launches[name] + ngram[name] for name in launches},
+            "migrate": migrate}
 
 
 # -------------------------------------------------------------- phase 4
@@ -2947,11 +3389,11 @@ def main() -> None:
     figures = norm_checks(gen)
     figures.update(kernel_checks(gen))
     figures.update(training_kernel_checks(gen))
-    served = serve_main_path(args.profile)
+    served = serve_main_path(card, args.profile)
     gc.collect()  # the server is shut down: free its pool, keep its weights
     torch.cuda.empty_cache()
     spec = spec_main_path(card, args.profile, served)
-    serve_launches = served["launches"]
+    serve_launches, migrate_launches = served["launches"], served["migrate"]
     del served
     gc.collect()  # free the weights
     torch.cuda.empty_cache()
@@ -2965,7 +3407,9 @@ def main() -> None:
         by_path = {"serve": serve_launches[name], "spec": spec["launches"][name],
                    "train": trained["launches"][name], "train2b": train2b["launches"][name],
                    "moe_serve": moe_served["launches"][name],
-                   "moe_train": moe_trained["launches"][name]}
+                   "moe_train": moe_trained["launches"][name],
+                   "migrate": migrate_launches[name],
+                   "moe_migrate": moe_served["migrate"][name]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **figures[name]})

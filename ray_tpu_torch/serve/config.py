@@ -1,4 +1,6 @@
-"""Serve config schema of the port: speculative decoding.
+"""Serve config schema of the port: speculative decoding, and the defaults
+that the reference keeps in its global config (ray_tpu/core/config.py),
+which the port does not have yet.
 
 Counterpart of ray_tpu/serve/config.py's SpeculationConfig, as this
 package's own copy (the port imports nothing of ray_tpu). Autoscaling,
@@ -14,6 +16,14 @@ from typing import Any, Dict, Optional
 # What `overlap=None` means: dispatch the next round's propose right after
 # a round's commit readback (the reference's `spec_overlap` default).
 SPEC_OVERLAP_DEFAULT = True
+
+# The layout of streamed KV-migration frames when a request does not name
+# one (`Request.kv_frame_layout`; the reference's `kv_frame_layout`):
+# "layer" (wire v2: each frame a slab of consecutive layers over a token
+# range, so the stream starts while later layers are still being copied
+# and the importer stages slabs as they land) or "token" (wire v1: every
+# layer in each frame).
+KV_FRAME_LAYOUT_DEFAULT = "layer"
 
 
 @dataclasses.dataclass

@@ -40,9 +40,24 @@ programs in one queue, so the card runs their work in the order it was
 issued: a prefill's page writes, the decode thread's spans, a cancel's
 freed pages and the chunks that reuse them never race.
 
-Not ported yet: KV export/import and streaming, tensor-parallel meshes,
-live weight updates, and the Prometheus/SLO telemetry (this module logs
-through stdlib `logging`; speculation's totals are in `stats()`).
+KV migration, the engine's half of disaggregated serving: a request with
+`prefill_only` prefills as usual but takes no decode slot. Its prompt's KV
+leaves as one host blob (`export_kv_pages`) or, with a `kv_sink`, as a
+stream of frames while prefill commits it (`_stream_kv_frames`: wire v2,
+layer-major slabs, by default; v1, every layer in each frame, with layout
+"token"). Another engine takes it in (`import_kv_pages`, or
+`begin_kv_import` / `ingest_kv_chunk` / `finish_kv_import` for a stream),
+at its own page size, and the request goes on as if prefilled there. Pages
+move by plain tensor indexing (`_gather_pages`, `_scatter_pages`), as the
+reference's XLA gathers do, always eagerly between graph replays: an
+export gathers after the prefill's replay; an import stages on the host
+and the decode thread scatters it into the pool in place (the graphs read
+the pool at its captured address) before the slot goes live. numpy has no
+bf16, so the wire carries the bf16 KV widened to float32, which is exact.
+
+Not ported yet: tensor-parallel meshes, live weight updates, and the
+Prometheus/SLO telemetry (this module logs through stdlib `logging`;
+speculation's totals are in `stats()`).
 """
 
 from __future__ import annotations
@@ -57,7 +72,7 @@ import threading
 import time
 import uuid
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -65,7 +80,7 @@ import torch
 from ..models.config import ModelConfig
 from ..models.transformer import _require_flash, torch_dtype
 from ..ops.dispatch import resolve_device
-from .config import SpeculationConfig
+from .config import KV_FRAME_LAYOUT_DEFAULT, SpeculationConfig
 from .programs import SAMPLER_MODES, CapturedProgram, PagedModel, _categorical, host_tensor
 from .spec_decode import SpecDecoder
 
@@ -169,6 +184,20 @@ class Request:
     # streaming consumers: tokens pushed as generated, None terminates
     stream_q: Optional["queue.Queue"] = None
     cancelled: threading.Event = dataclasses.field(default_factory=threading.Event)
+    # disaggregated serving: a prefill_only request prefills as usual but
+    # never takes a decode slot; its prompt's KV leaves as a host blob
+    # (export_kv_pages) or, with kv_sink, as frames, and it finishes with
+    # finish_reason "prefill_done". It holds pages for its prompt only.
+    prefill_only: bool = False
+    _kv_export: Optional[Dict[str, Any]] = None
+    # streamed export: frames go to this callable, on the engine's threads,
+    # as prefill commits the KV (see _stream_kv_frames); it must not block
+    # for long, and a sink that raises fails its request alone
+    kv_sink: Optional[Callable[[Dict[str, Any]], None]] = None
+    kv_window: int = 256  # tokens per streamed frame
+    # "layer" (wire v2: each frame a slab of consecutive layers), "token"
+    # (wire v1: every layer in each frame), "" for KV_FRAME_LAYOUT_DEFAULT
+    kv_frame_layout: str = ""
 
     def _emit(self, tok: Optional[int]) -> None:
         if self.stream_q is not None:
@@ -178,7 +207,8 @@ class Request:
 class _ChunkState:
     """One long prompt mid-chunked-prefill."""
 
-    __slots__ = ("request", "pages", "table", "true_len", "next_chunk")
+    __slots__ = ("request", "pages", "table", "true_len", "next_chunk", "emitted_upto",
+                 "sink_seq")
 
     def __init__(self, request: Request, pages: List[int], table, true_len: int):
         self.request = request
@@ -186,6 +216,10 @@ class _ChunkState:
         self.table = table  # np [pages_per_seq]
         self.true_len = true_len
         self.next_chunk = 0
+        # streamed export: tokens already sent to kv_sink (page-aligned
+        # until the final frame) and the next frame's seq
+        self.emitted_upto = 0
+        self.sink_seq = 0
 
 
 class _Slot:
@@ -369,8 +403,10 @@ class InferenceEngine:
         # holding it while it starts the threads
         self._lock = threading.RLock()
         self._alloc_lock = threading.Lock()  # allocator: prefill + decode threads
-        # prefilled (KV in their pages), awaiting a decode slot:
-        # (request, pages, prompt length)
+        # prefilled, awaiting a decode slot (or, prefill_only, an export):
+        # (request, pages, prompt length, staged KV); the staged KV is an
+        # import's host (k, v) that the install scatters into the pages,
+        # None where prefill wrote the pages
         self._ready: "list" = []
         self._ready_lock = threading.Lock()
         self._waiting: "list[Request]" = []  # admitted but no pages free yet
@@ -389,6 +425,10 @@ class InferenceEngine:
         self._chunk_lock = threading.Lock()
         self._requests: Dict[str, Request] = {}  # live (uncompleted) ids
         self._req_lock = threading.Lock()
+        # streamed KV imports staged between begin_kv_import and
+        # finish_kv_import, by request id: {"req", "pages", "T", "k", "v"}
+        self._importing: Dict[str, Dict[str, Any]] = {}
+        self._import_lock = threading.Lock()
         scfg = engine_cfg.speculation
         self._spec: Optional[SpecDecoder] = None
         if scfg is not None and scfg.enabled:
@@ -595,15 +635,382 @@ class InferenceEngine:
         start."""
         self._capture_programs()
 
+    # ------------------------------------------------ KV export and import
+
+    def _gather_kv(self, pages: List[int], t: int):
+        """The KV of the first t tokens that `pages` hold, in order -> host
+        float32 numpy (k, v), each [L, t, KVH, hd]: one gather on the card
+        (eager, between graph replays; on the stream after the prefill
+        that wrote the pages) and one copy to the host in the pool's dtype.
+        A bf16 pool widens to float32 on the host, exactly (numpy has no
+        bf16), so the copy moves half the bytes of a float32 one."""
+        k, v = _gather_pages(self.k_pages, self.v_pages, pages[:-(-t // self.ecfg.page_size)])
+        return k[:, :t].cpu().float().numpy(), v[:, :t].cpu().float().numpy()
+
+    def _export_blob(self, req: Request, pages: List[int], T: int) -> Dict[str, Any]:
+        """A prefill_only request's KV as a token-contiguous host blob
+        [L, T, KVH, hd], gathered from its pages (decode thread, between
+        replays: the port keeps no row cache, its bucketed prefill writes
+        the pages straight away)."""
+        k, v = self._gather_kv(pages, T)
+        return {
+            "k": k,
+            "v": v,
+            "true_len": T,
+            "first_token": int(req.output[-1]),
+            "first_logprob": req.output_logprobs[-1] if req.output_logprobs else None,
+            "layers": int(k.shape[0]),
+            "kv_heads": int(k.shape[2]),
+            "head_dim": int(k.shape[3]),
+            "dtype": str(k.dtype),
+        }
+
+    def export_kv_pages(self, req: Request, timeout_s: float = 600.0) -> Dict[str, Any]:
+        """Block until a prefill_only request finishes and return its KV
+        blob (_export_blob). The blob is engine-agnostic: it imports into a
+        pool of another page_size or max_pages, in this package or the
+        reference's."""
+        if not req.done.wait(timeout_s):
+            self.cancel(req.request_id)
+            raise TimeoutError(f"request {req.request_id} timed out")
+        if req.error:
+            raise ValueError(req.error)
+        blob, req._kv_export = req._kv_export, None
+        if blob is None:
+            raise ValueError(
+                f"request {req.request_id} has no KV export (prefill_only="
+                f"{req.prefill_only}, finish_reason={req.finish_reason!r})")
+        return blob
+
+    def _kv_layout(self, req: Request) -> str:
+        """A request's streamed-frame layout: its own, else
+        KV_FRAME_LAYOUT_DEFAULT; anything unknown is "layer" (wire v2)."""
+        lay = req.kv_frame_layout or KV_FRAME_LAYOUT_DEFAULT
+        return lay if lay in ("layer", "token") else "layer"
+
+    def _stream_kv_frames(self, req: Request, k, v, start: int, *, true_len: int, last: bool,
+                          seq0: int = 0, layer0: int = 0,
+                          n_layers: Optional[int] = None) -> int:
+        """Push host KV k / v ([Ln, t, KVH, hd], prompt tokens [start,
+        start + t)) to req.kv_sink in kv_window-token frames -> the next
+        frame's seq. A frame is
+
+          {"request_id", "seq", "start", "k", "v", "last"}
+
+        with the blob's metadata (true_len, layers, kv_heads, head_dim,
+        dtype) on seq 0, all that begin_kv_import needs, and "first_token"
+        and "first_logprob" on the last frame, for finish_kv_import.
+
+        Wire v1 (token-major): each frame carries every layer for its token
+        range. Wire v2 (layer-major): k / v are a slab of Ln consecutive
+        layers from `layer0`; each frame gains "layer0", and seq 0 carries
+        "kv_wire": 2 ("layers" stays the model's total). `last` is set only
+        on the final window of the final slab of the stream. A sink that
+        raises propagates to the caller, which fails the request."""
+        win = max(int(req.kv_window), self.ecfg.page_size)
+        L_total = int(n_layers) if n_layers is not None else int(k.shape[0])
+        layered = layer0 > 0 or int(k.shape[0]) != L_total
+        t = k.shape[1]
+        seq, off = seq0, 0
+        while True:
+            end = min(off + win, t)
+            frame = {"request_id": req.request_id, "seq": seq, "start": start + off,
+                     "k": k[:, off:end], "v": v[:, off:end], "last": False}
+            if layered:
+                frame["layer0"] = int(layer0)
+            if seq == 0:
+                frame.update(true_len=int(true_len), layers=L_total, kv_heads=int(k.shape[2]),
+                             head_dim=int(k.shape[3]), dtype=str(k.dtype))
+                if layered:
+                    frame["kv_wire"] = 2
+            tail = end >= t
+            if tail and last:
+                frame.update(last=True, true_len=int(true_len), first_token=int(req.output[-1]),
+                             first_logprob=(req.output_logprobs[-1] if req.output_logprobs
+                                            else None))
+            req.kv_sink(frame)
+            seq += 1
+            off = end
+            if tail:
+                return seq
+
+    def _stream_kv(self, req: Request, k, v, start: int, true_len: int, last: bool,
+                   seq0: int = 0) -> int:
+        """Frames of host KV k / v [L, t, KVH, hd] (tokens [start, start +
+        t)) in the request's layout: one slab per layer group
+        (_kv_layer_groups), or every layer at once -> the next seq."""
+        if self._kv_layout(req) != "layer":
+            return self._stream_kv_frames(req, k, v, start, true_len=true_len, last=last,
+                                          seq0=seq0)
+        L = int(k.shape[0])
+        groups = _kv_layer_groups(L)
+        seq = seq0
+        for gi, (l0, l1) in enumerate(groups):
+            seq = self._stream_kv_frames(req, k[l0:l1], v[l0:l1], start, true_len=true_len,
+                                         last=last and gi == len(groups) - 1, seq0=seq,
+                                         layer0=l0, n_layers=L)
+        return seq
+
+    def _stream_group_kv(self, group: List[tuple], streamed: List[int]) -> None:
+        """Streamed-export leg of a bucketed prefill group (prefill thread,
+        after the group's replay wrote the rows' KV into their pages; the
+        gathers follow it on the stream, and wait behind any decode span
+        issued before them). Per streamed row: one gather and host copy,
+        then its frames; its pages free and it finishes "prefill_done". A
+        failure fails that row alone."""
+        for i in streamed:
+            req, pages, T = group[i][:3]
+            try:
+                k, v = self._gather_kv(pages, T)
+                self._stream_kv(req, k, v, 0, T, last=True)
+            except Exception as e:  # noqa: BLE001 — fail this request only
+                logger.warning("kv stream failed for %s", req.request_id, exc_info=True)
+                self._free_pages_and_revive(pages)
+                self._fail_request(req, f"kv stream failed: {e!r}")
+                continue
+            self._free_pages_and_revive(pages)
+            self._finish_request(req, "prefill_done")
+
+    def _stream_chunk_frames(self, st: _ChunkState, upto: int, last: bool) -> None:
+        """Chunked-prefill streamed export (decode thread, after the chunk's
+        replay): send the KV committed since the last frame, gathered from
+        the pages (a prefix-cache hit's shared pages included). Non-final
+        frames stop at a page boundary, so migration overlaps the remaining
+        chunks instead of waiting for the first token."""
+        ps = self.ecfg.page_size
+        if not last:
+            upto = (upto // ps) * ps
+        if upto <= st.emitted_upto:
+            return
+        p0 = st.emitted_upto // ps  # page-aligned until the final frame
+        k, v = self._gather_kv(st.pages[p0:], upto - p0 * ps)
+        st.sink_seq = self._stream_kv(st.request, k, v, st.emitted_upto, st.true_len, last,
+                                      st.sink_seq)
+        st.emitted_upto = upto
+
+    def begin_kv_import(self, req: Request, true_len: int, meta: Dict[str, Any],
+                        timeout_s: float = 60.0) -> bool:
+        """Start a streamed KV import: check the request and the frame-0
+        header `meta` (layers, kv_heads, head_dim; a wire version above 2 is
+        refused) against this model and engine, take pages for prompt +
+        max_tokens (waiting at most timeout_s for them), and stage a host
+        buffer in the pool's dtype that ingest_kv_chunk fills. Returns
+        False if the request failed instead (req.error and done set, as
+        import_kv_pages fails). The staged KV reaches the card only at
+        install, on the decode thread."""
+        try:
+            req.stop = _normalize_stops(req.stop)
+            self._check_prompt(req.prompt)
+        except ValueError as e:
+            self._finish_request(req, error=str(e))
+            return False
+        try:
+            T = int(true_len)
+            Lb, KVHb, hdb = int(meta["layers"]), int(meta["kv_heads"]), int(meta["head_dim"])
+        except (KeyError, TypeError, ValueError) as e:
+            self._finish_request(req, error=f"malformed kv blob: {e!r}")
+            return False
+        # v1 token-major frames carry no marker, v2 adds layer-major slabs;
+        # anything newer is refused rather than staged wrongly
+        wire = int(meta.get("kv_wire", 1))
+        if wire > 2:
+            self._finish_request(req, error=(
+                f"unsupported kv wire format v{wire} (this engine speaks <= v2)"))
+            return False
+        L, KVH, hd = self.cfg.n_layers, self.cfg.kv_heads, self.cfg.hdim
+        if (Lb, KVHb, hdb) != (L, KVH, hd):
+            self._finish_request(req, error=(
+                f"kv blob shape {(Lb, T, KVHb, hdb)} does not match model "
+                f"[layers={L}, true_len={T}, kv_heads={KVH}, head_dim={hd}]"))
+            return False
+        if len(req.prompt) != T:
+            self._finish_request(req, error=(
+                f"kv blob covers {T} tokens but the prompt has {len(req.prompt)}"))
+            return False
+        total = T + req.max_tokens
+        if total > self.ecfg.max_seq_len:
+            self._finish_request(req, error=(
+                f"prompt+max_tokens {T}+{req.max_tokens} exceeds "
+                f"max_seq_len {self.ecfg.max_seq_len}"))
+            return False
+        ps = self.ecfg.page_size
+        n_pages = -(-total // ps)
+        if n_pages > self.ecfg.max_pages - 1:
+            self._finish_request(req, error=(
+                f"request needs {n_pages} pages but the pool only has "
+                f"{self.ecfg.max_pages - 1}; raise EngineConfig.max_pages"))
+            return False
+        if self.prefix is not None:
+            req._page_hashes = self.prefix.page_hashes(req.prompt, T // ps)
+        with self._req_lock:
+            self._requests[req.request_id] = req
+        # pages inline, with a bounded wait, not parked in _waiting: a
+        # revival re-queues to the prefill thread, which would prefill
+        # the prompt again
+        deadline = time.monotonic() + timeout_s
+        while True:
+            with self._alloc_lock:
+                if req.cancelled.is_set():
+                    pages = None
+                    break
+                pages = self._alloc_with_reclaim(n_pages)
+            if pages is not None:
+                break
+            if time.monotonic() >= deadline:
+                self._finish_request(req, error=(
+                    f"no pages free for KV import within {timeout_s}s"))
+                return False
+            time.sleep(0.005)
+        if pages is None:
+            self._finish_request(req, "cancelled")
+            return False
+        Tpad = -(-T // ps) * ps
+        staged = dict(req=req, pages=pages, T=T,
+                      k=torch.zeros((L, Tpad, KVH, hd), dtype=self.k_pages.dtype),
+                      v=torch.zeros((L, Tpad, KVH, hd), dtype=self.v_pages.dtype))
+        with self._import_lock:
+            # _fail_all may have failed the request during the page wait;
+            # it finishes requests before it sweeps the staged imports, so
+            # a request that is not done here is swept if it fails later
+            done = req.done.is_set()
+            if not done:
+                self._importing[req.request_id] = staged
+        if done:
+            self._free_pages_and_revive(pages)
+            return False
+        return True
+
+    def _staged_import(self, req: Request, pop: bool = False) -> Optional[Dict[str, Any]]:
+        """The request's staged import (taken out of the registry with
+        `pop`), or None where there is none: never begun, or already
+        finished, aborted, cancelled or failed."""
+        with self._import_lock:
+            st = self._importing.get(req.request_id)
+            if st is None or st["req"] is not req:
+                return None
+            if pop:
+                del self._importing[req.request_id]
+            return st
+
+    def ingest_kv_chunk(self, req: Request, frame: Dict[str, Any]) -> None:
+        """Copy one streamed frame into the staging buffer (any order;
+        writing a frame twice is harmless). Token-major (v1) frames cover
+        every layer; layer-major (v2) frames a slab at frame["layer0"] (a
+        missing key is v1's layer0 = 0). Any float array is taken through
+        float32, an ml_dtypes bfloat16 one too, and cast to the pool's
+        dtype. Raises ValueError on a malformed frame (the caller aborts
+        the import) or where no import is staged."""
+        st = self._staged_import(req)
+        if st is None:
+            raise ValueError(f"request {req.request_id} has no staged kv import")
+        s, l0 = int(frame["start"]), int(frame.get("layer0", 0))
+        k = np.array(frame["k"], dtype=np.float32)
+        v = np.array(frame["v"], dtype=np.float32)
+        ln, t = int(k.shape[0]), int(k.shape[1])
+        Ls, Tpad = st["k"].shape[:2]
+        if s < 0 or s + t > Tpad:
+            raise ValueError(f"kv frame [{s}:{s + t}) outside the staged {Tpad} tokens")
+        if l0 < 0 or l0 + ln > Ls:
+            raise ValueError(f"kv frame layers [{l0}:{l0 + ln}) outside the staged {Ls} layers")
+        if k.shape[2:] != tuple(st["k"].shape[2:]) or v.shape != k.shape:
+            raise ValueError(f"kv frame k {k.shape} / v {v.shape} do not match the staged "
+                             f"[kv_heads, head_dim] {tuple(st['k'].shape[2:])}")
+        st["k"][l0:l0 + ln, s:s + t] = torch.from_numpy(k)
+        st["v"][l0:l0 + ln, s:s + t] = torch.from_numpy(v)
+
+    def finish_kv_import(self, req: Request, first_token: int,
+                         first_logprob: Optional[float] = None) -> Request:
+        """Finish a streamed import: seed the first token (sampled on the
+        exporting engine; its logprob rides the last frame) as a prefill
+        would, and publish the request with its staged KV to the decode
+        thread, whose install scatters the KV into the pages before the
+        slot goes live. A request whose import was cancelled or failed
+        meanwhile is returned as it is."""
+        st = self._staged_import(req, pop=True)
+        if st is None:
+            return req
+        if req.done.is_set() or req.cancelled.is_set():  # failed or cancelled meanwhile
+            self._free_pages_and_revive(st["pages"])
+            self._finish_request(req, "cancelled")
+            return req
+        if not req.output:
+            self._commit_first(req, int(first_token),
+                               float(first_logprob) if first_logprob is not None else None,
+                               time.monotonic())
+        with self._ready_lock:
+            self._ready.append((req, st["pages"], st["T"], (st["k"], st["v"])))
+        self._work.set()
+        self._ensure_loop()
+        return req
+
+    def abort_kv_import(self, req: Request, error: Optional[str] = None) -> None:
+        """Tear down a partial import (the stream died, or the caller gave
+        up): free the staged pages and finish the request, with `error` or
+        as cancelled."""
+        st = self._staged_import(req, pop=True)
+        if st is not None:
+            self._free_pages_and_revive(st["pages"])
+        if error is not None:
+            self._fail_request(req, error)
+        else:
+            self._finish_request(req, "cancelled")
+
+    def import_kv_pages(self, req: Request, blob: Dict[str, Any],
+                        timeout_s: float = 60.0) -> Request:
+        """Admit `req` straight into decode from an exported KV blob (its
+        prefill ran on another engine, of this package or the reference's).
+        The blob is re-paginated for this engine's page_size; the request
+        then behaves as if prefilled here (stops, stream hold-back, prefix
+        registration and speculation all apply). The one-shot form of
+        begin / ingest / finish_kv_import. Failures land on the request
+        (req.error and done set), as add_request's do."""
+        try:
+            k, v = blob["k"], blob["v"]
+            T = int(blob["true_len"])
+            first = int(blob["first_token"])
+        except (KeyError, TypeError, ValueError) as e:
+            self._finish_request(req, error=f"malformed kv blob: {e!r}")
+            return req
+        L, KVH, hd = self.cfg.n_layers, self.cfg.kv_heads, self.cfg.hdim
+        if tuple(np.shape(k)) != (L, T, KVH, hd) or tuple(np.shape(v)) != tuple(np.shape(k)):
+            self._finish_request(req, error=(
+                f"kv blob shape {tuple(np.shape(k))} does not match model "
+                f"[layers={L}, true_len={T}, kv_heads={KVH}, head_dim={hd}]"))
+            return req
+        meta = {"layers": L, "kv_heads": KVH, "head_dim": hd}
+        if not self.begin_kv_import(req, T, meta, timeout_s=timeout_s):
+            return req
+        try:
+            self.ingest_kv_chunk(req, {"start": 0, "k": k, "v": v})
+        except Exception as e:  # noqa: BLE001 — fail just this request
+            self.abort_kv_import(req, f"kv ingest failed: {e!r}")
+            return req
+        return self.finish_kv_import(req, first, first_logprob=blob.get("first_logprob"))
+
     # ------------------------------------------------------------ requests
+
+    def _check_prompt(self, prompt) -> None:
+        """Raise ValueError for a token id outside [0, vocab_size),
+        negative ids included. A deliberate difference: the reference
+        clamps such an id (JAX's gather) and serves the request from row
+        V-1, and wraps a negative one; here the embedding's index would
+        fail the request's whole prefill batch, and on the card end the
+        process's CUDA context, so the request fails alone."""
+        V = self.cfg.vocab_size
+        bad = next((t for t in prompt if not 0 <= t < V), None)
+        if bad is not None:
+            raise ValueError(f"prompt token id {bad} is outside the vocabulary [0, {V})")
 
     def add_request(self, req: Request) -> None:
         try:
             req.stop = _normalize_stops(req.stop)
+            self._check_prompt(req.prompt)
         except ValueError as e:
             self._finish_request(req, error=str(e))
             return
-        total = len(req.prompt) + req.max_tokens
+        # a prefill_only request never decodes here: it holds pages for its
+        # prompt only, so capacity leaves max_tokens out
+        total = len(req.prompt) + (0 if req.prefill_only else req.max_tokens)
         if total > self.ecfg.max_seq_len:
             self._finish_request(req, error=(
                 f"prompt+max_tokens {len(req.prompt)}+{req.max_tokens} exceeds "
@@ -646,6 +1053,10 @@ class InferenceEngine:
             if parked:
                 self._waiting.remove(req)
         if parked:
+            self._finish_request(req, "cancelled")
+        st = self._staged_import(req, pop=True)  # a streamed import not yet finished
+        if st is not None:
+            self._free_pages_and_revive(st["pages"])
             self._finish_request(req, "cancelled")
         self._work.set()  # decode thread sweeps chunks/slots promptly
         return True
@@ -716,11 +1127,47 @@ class InferenceEngine:
             self._work.wait(timeout=0.5)
 
     def _fail_all(self, msg: str) -> None:
+        """After a step exception: stop both threads, fail every live
+        request with `msg`, and leave nothing behind. The chunk queue, the
+        prefills awaiting install, the parked and pending requests, the
+        slots and the staged imports are emptied and all their pages
+        freed, so a later request restarts the threads on a clean engine.
+        (A prefill that the prefill thread publishes after this point finds
+        its request done, and install or admission frees its pages.)"""
         self._stop.set()
+        with self._chunk_lock:
+            chunks, self._chunk_queue = self._chunk_queue, []
+        with self._ready_lock:
+            ready, self._ready = self._ready, []
+        with self._alloc_lock:
+            self._waiting = []
+        held = [st.pages for st in chunks] + [item[1] for item in ready]
+        for i, slot in enumerate(self.slots):
+            if slot.request is not None:
+                held.append(slot.pages)
+                if self._spec is not None:
+                    self._spec.on_evict(i)
+            slot.request, slot.pages, slot.position, slot.generated = None, [], 0, 0
+        for pages in held:
+            self._free_pages_and_revive(pages)
+        while True:
+            try:
+                self.pending.get_nowait()
+            except queue.Empty:
+                break
         with self._req_lock:
             live = list(self._requests.values())
         for req in live:
             self._finish_request(req, error=msg)
+        # staged imports last: a begin_kv_import that stages after this
+        # sweep finds its request done and frees the pages itself
+        with self._import_lock:
+            staged, self._importing = self._importing, {}
+        for st in staged.values():
+            self._free_pages_and_revive(st["pages"])
+
+    def _fail_request(self, req: Request, msg: str) -> None:
+        self._finish_request(req, error=msg)
 
     # ------------------------------------------------------------- prefill
 
@@ -773,7 +1220,7 @@ class InferenceEngine:
         cached_len = tokens served by the prefix cache (chunk-aligned).
         Or None (deferred to _waiting / errored)."""
         T = len(req.prompt)
-        n_pages = -(-(T + req.max_tokens) // self.ecfg.page_size)
+        n_pages = -(-(T + (0 if req.prefill_only else req.max_tokens)) // self.ecfg.page_size)
         C = self.ecfg.prefill_chunk
         hashes: List[bytes] = []
         if self.prefix is not None:
@@ -820,7 +1267,8 @@ class InferenceEngine:
         (error set, pages freed) — independently of its batch-mates."""
         admitted: List[tuple] = []
         for req in reqs:
-            if req.cancelled.is_set():  # cancelled while queued
+            # cancelled while queued, or failed by _fail_all
+            if req.cancelled.is_set() or req.done.is_set():
                 self._finish_request(req, "cancelled")
                 continue
             try:
@@ -881,11 +1329,17 @@ class InferenceEngine:
                   for i, (req, _p, _T, _b, _cl) in enumerate(group)]
         first_lps = [_host_logprob(logits_host[i], firsts[i]) for i in range(B)]
         now = time.monotonic()
+        # streamed exports leave from here, and never wait in _ready
+        streamed = [i for i, it in enumerate(group)
+                    if it[0].prefill_only and it[0].kv_sink is not None]
         with self._ready_lock:
             for i, (req, pages, T, _b, _cl) in enumerate(group):
                 self._commit_first(req, firsts[i], first_lps[i], now)
-                self._ready.append((req, pages, T))
+                if i not in streamed:
+                    self._ready.append((req, pages, T, None))
         self._work.set()  # revive the decode thread if it is idle-waiting
+        if streamed:
+            self._stream_group_kv(group, streamed)
 
     def _commit_first(self, req: Request, first: int, logprob: float, now: float) -> None:
         req.first_token_at = now
@@ -901,20 +1355,52 @@ class InferenceEngine:
             req._emit(int(first))
 
     def _install_ready(self) -> bool:
-        """Decode thread: move finished prefills, whose KV is already in
-        their pages, into free decode slots (slot bookkeeping only)."""
+        """Decode thread: move finished prefills into free decode slots.
+        Their KV is in their pages, except an import's, which is scattered
+        into them here, in place, before the slot goes live. A prefill_only
+        request takes no slot, so it is served even while every slot is
+        busy: its KV is exported to a host blob and its pages freed."""
         installed = False
         while True:
             free_slots = [s for s in self.slots if s.request is None]
             with self._ready_lock:
-                if not self._ready or not free_slots:
+                if not self._ready:
                     return installed
-                req, pages, T = self._ready.pop(0)
-            if req.cancelled.is_set():  # cancelled between prefill/install
+                if free_slots:
+                    idx = 0
+                else:
+                    idx = next((j for j, it in enumerate(self._ready) if it[0].prefill_only),
+                               None)
+                    if idx is None:
+                        return installed
+                req, pages, T, staged = self._ready.pop(idx)
+            # cancelled between prefill and install, or failed by _fail_all
+            if req.cancelled.is_set() or req.done.is_set():
                 self._free_pages_and_revive(pages)
                 self._finish_request(req, "cancelled")
                 installed = True
                 continue
+            if req.prefill_only:
+                try:
+                    blob = self._export_blob(req, pages, T)
+                except Exception as e:  # noqa: BLE001 — fail this request only
+                    logger.warning("kv export failed for %s", req.request_id, exc_info=True)
+                    self._free_pages_and_revive(pages)
+                    self._fail_request(req, f"kv export failed: {e!r}")
+                    installed = True
+                    continue
+                if self.prefix is not None:
+                    # a prefill engine still gains from prefix hits
+                    with self._alloc_lock:
+                        self.prefix.register(req.prompt, pages, hashes=req._page_hashes)
+                req._kv_export = blob
+                self._free_pages_and_revive(pages)
+                self._finish_request(req, "prefill_done")
+                installed = True
+                continue
+            if staged is not None:
+                _scatter_pages(self.k_pages, self.v_pages, staged[0], staged[1],
+                               pages[:-(-T // self.ecfg.page_size)])
             if self.prefix is not None:
                 # the prompt's full pages are valid now: offer them
                 with self._alloc_lock:
@@ -943,29 +1429,55 @@ class InferenceEngine:
             if not self._chunk_queue:
                 return False
             st = self._chunk_queue[0]
-            if st.request.cancelled.is_set():  # cancelled between chunks
+            # cancelled between chunks, or failed by _fail_all
+            if st.request.cancelled.is_set() or st.request.done.is_set():
                 self._chunk_queue.pop(0)
                 self._free_pages_and_revive(st.pages)
                 self._finish_request(st.request, "cancelled")
                 return True
         C = self.ecfg.prefill_chunk
+        req = st.request
         start = st.next_chunk * C
-        toks = st.request.prompt[start:start + C]
+        toks = req.prompt[start:start + C]
         padded = np.zeros((C,), np.int32)
         padded[: len(toks)] = toks
         is_last = start + C >= st.true_len
         last_idx = (st.true_len - 1 - start) if is_last else C - 1
         logits = self._chunk_step(padded, start, st.table, last_idx)
         st.next_chunk += 1
+        streaming = req.prefill_only and req.kv_sink is not None
         if not is_last:
+            if streaming:
+                # the pages up to this chunk's end are committed: send them
+                # now, so migration overlaps the remaining chunks
+                try:
+                    self._stream_chunk_frames(st, start + C, last=False)
+                except Exception as e:  # noqa: BLE001 — fail this request only
+                    logger.warning("kv stream failed for %s", req.request_id, exc_info=True)
+                    with self._chunk_lock:
+                        if st in self._chunk_queue:
+                            self._chunk_queue.remove(st)
+                    self._free_pages_and_revive(st.pages)
+                    self._fail_request(req, f"kv stream failed: {e!r}")
             return True
         with self._chunk_lock:
             self._chunk_queue.pop(0)
-        req = st.request
         first = _sample_host(logits, req.temperature, req.top_p, req.top_k, self._host_gen)
         self._commit_first(req, first, _host_logprob(logits, first), time.monotonic())
+        if streaming:
+            # the last frame carries the first token; the pages free at once
+            try:
+                self._stream_chunk_frames(st, st.true_len, last=True)
+            except Exception as e:  # noqa: BLE001 — fail this request only
+                logger.warning("kv stream failed for %s", req.request_id, exc_info=True)
+                self._free_pages_and_revive(st.pages)
+                self._fail_request(req, f"kv stream failed: {e!r}")
+                return True
+            self._free_pages_and_revive(st.pages)
+            self._finish_request(req, "prefill_done")
+            return True
         with self._ready_lock:
-            self._ready.append((req, st.pages, st.true_len))
+            self._ready.append((req, st.pages, st.true_len, None))
         return True
 
     def step(self) -> bool:
@@ -1013,12 +1525,14 @@ class InferenceEngine:
             # draft anywhere in the batch this round — the plain span below
             # commits span tokens per slot where the S-wide verify would
             # commit exactly one
-        # adaptive span: while prefill work is queued or running, yield the
-        # card sooner so arriving requests get their first token
+        # adaptive span: while prefill work is queued or running, or a
+        # streamed KV import is staged (its request waits for a slot), yield
+        # the card sooner so arriving requests get their first token
         if self.ecfg.adaptive_span and (
             self._prefill_inflight > 0
             or not self.pending.empty()
-            or self._chunk_queue  # racy read is fine: pressure hint only
+            or self._chunk_queue  # racy reads are fine: pressure hints only
+            or self._importing
         ):
             span = max(1, self.ecfg.busy_span)
         else:
@@ -1242,6 +1756,64 @@ class InferenceEngine:
         for t in threads:
             if t is not threading.current_thread():
                 t.join(timeout_s)
+
+
+def _kv_layer_groups(L: int, groups: int = 4) -> List[tuple]:
+    """Near-even [l0, l1) layer slabs for layer-major KV frames: four
+    (the reference's measured choice), or one layer each under four
+    layers."""
+    G = max(1, min(int(L), int(groups)))
+    base, rem = divmod(int(L), G)
+    out, l0 = [], 0
+    for gi in range(G):
+        ln = base + (1 if gi < rem else 0)
+        out.append((l0, l0 + ln))
+        l0 += ln
+    return out
+
+
+def _gather_pages(k_pages: torch.Tensor, v_pages: torch.Tensor, pages):
+    """pool[:, :, pages] -> token-contiguous (k, v), each [L, n * ps, KVH,
+    hd] for n = len(pages), on the pool's device: the reference's
+    _gather_pages_jit, as tensor indexing (eager, never in a capture)."""
+    L, KVH, _P, ps, hd = k_pages.shape
+    idx = torch.as_tensor(pages, dtype=torch.long).to(k_pages.device)
+
+    def gather(pool):
+        return pool[:, :, idx].permute(0, 2, 3, 1, 4).reshape(L, len(pages) * ps, KVH, hd)
+
+    return gather(k_pages), gather(v_pages)
+
+
+def _scatter_pages(k_pages: torch.Tensor, v_pages: torch.Tensor, k, v, pages) -> None:
+    """Write token-contiguous k / v [L, t, KVH, hd] (any device and dtype)
+    into the pool's pages `pages`, n = len(pages) = ceil(t / ps): every
+    page the tokens touch, a partial last page padded with zeros (the
+    reference's _scatter_pages_jit). In place: the captured graphs read
+    the pool at its address, so it is never rebound."""
+    L, KVH, _P, ps, hd = k_pages.shape
+    n = len(pages)
+    idx = torch.as_tensor(pages, dtype=torch.long).to(k_pages.device)
+
+    def scatter(pool, x):
+        x = x.to(device=pool.device, dtype=pool.dtype)
+        if x.shape[1] < n * ps:
+            x = torch.cat([x, x.new_zeros((L, n * ps - x.shape[1], KVH, hd))], dim=1)
+        pool[:, :, idx] = x.reshape(L, n, ps, KVH, hd).permute(0, 3, 1, 2, 4)
+
+    scatter(k_pages, k)
+    scatter(v_pages, v)
+
+
+def prompt_page_fingerprints(prompt, page_size: int) -> List[str]:
+    """The truncated chain-hash fingerprints of every full page of
+    `prompt` (the first 8 bytes of PrefixCache's hash, in hex): what a
+    router matches against an engine's cached pages to count a prompt's
+    warm leading pages (the reference's prefix-aware role routing)."""
+    n = len(prompt) // page_size
+    if n <= 0:
+        return []
+    return [h[:8].hex() for h in PrefixCache(page_size).page_hashes(prompt, n)]
 
 
 def _to_device(tree, device: torch.device):

@@ -229,23 +229,28 @@ def test_attention_wrappers_refuse_unaligned_kv(card, dtype):
 # sequence's keys into splits of paged.DECODE_SPLIT_KEYS (128) and merges
 # them on the card: lengths at split edges +- 1, a sequence of 1024 keys
 # alone, lengths past the table (read as the table's end), and g = 1 / 8.
+# name -> (kv heads, g, pages a sequence, lengths, page size)
 DECODE_CASES = {
-    "engine_slots": (2, 4, 8, [0, 1, 31, 128]),
-    "split_edges": (2, 4, 40, [127, 128, 129, 255, 256, 257, 0, 383]),
-    "one_long_sequence": (8, 4, 64, [1024]),
-    "past_the_table": (2, 4, 40, [641, 5000, 640, 639]),
-    "g1": (4, 1, 40, [0, 129, 300, 640]),
-    "g8": (1, 8, 40, [1, 128, 257, 500]),
-    "g3": (4, 3, 40, [0, 129, 300, 640]),  # moe-1b's 12 heads over 4
+    "engine_slots": (2, 4, 8, [0, 1, 31, 128], 16),
+    "split_edges": (2, 4, 40, [127, 128, 129, 255, 256, 257, 0, 383], 16),
+    "one_long_sequence": (8, 4, 64, [1024], 16),
+    "past_the_table": (2, 4, 40, [641, 5000, 640, 639], 16),
+    "g1": (4, 1, 40, [0, 129, 300, 640], 16),
+    "g8": (1, 8, 40, [1, 128, 257, 500], 16),
+    "g3": (4, 3, 40, [0, 129, 300, 640], 16),  # moe-1b's 12 heads over 4
+    # pages of 8 tokens, as an engine with page_size=8 decodes an import:
+    # 16 pages a split; lengths off the page edges and across split edges
+    "page_size_8": (2, 4, 128, [0, 3, 9, 129, 255, 701, 1001, 1023], 8),
+    "page_size_8_split_edges": (2, 4, 40, [127, 128, 129, 255, 256, 257, 7, 319], 8),
 }
 
 
 @pytest.mark.parametrize("case", sorted(DECODE_CASES))
 def test_paged_decode(card, dtype, case):
-    KVH, g, pps, lens = DECODE_CASES[case]
+    KVH, g, pps, lens, ps = DECODE_CASES[case]
     B = len(lens)
     P = B * pps + 1
-    kp, vp = _rand((KVH, P, 16, D), dtype, card), _rand((KVH, P, 16, D), dtype, card)
+    kp, vp = _rand((KVH, P, ps, D), dtype, card), _rand((KVH, P, ps, D), dtype, card)
     q = _rand((B, KVH * g, D), dtype, card)
     table = torch.randperm(P - 1, device=card)[:B * pps].view(B, pps).to(torch.int32) + 1
     lengths = torch.tensor(lens, device=card, dtype=torch.int32)

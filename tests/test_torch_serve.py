@@ -199,13 +199,16 @@ def test_init_params_is_seeded_and_typed():
 
 
 def test_port_imports_neither_jax_nor_ray_tpu():
-    # it also serves tiny-moe with speculation, so the MoE path is checked too
+    # it also serves tiny-moe with speculation, so the MoE path is checked
+    # too, and moves a prompt's KV out of the engine and back in
     code = (
         "import json, sys\n"
         "import ray_tpu_torch, ray_tpu_torch.serve, ray_tpu_torch.models, ray_tpu_torch.train\n"
         "import ray_tpu_torch.serve.spec_decode, ray_tpu_torch.serve.config\n"
         "import ray_tpu_torch.serve.programs, ray_tpu_torch.models.generate\n"
         "import ray_tpu_torch.parallel.moe\n"
+        "from ray_tpu_torch.serve import Request\n"
+        "from ray_tpu_torch.serve.engine import prompt_page_fingerprints\n"
         "server = ray_tpu_torch.LLMServer(\n"
         "    model_name='tiny-moe', device='cpu', engine_config=dict(\n"
         "        max_batch_size=2, page_size=8, max_pages=32, max_seq_len=64,\n"
@@ -214,6 +217,14 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "try:\n"
         "    out = server({'prompt_ids': [1, 2, 3, 1, 2], 'max_tokens': 4})\n"
         "    assert len(out['token_ids']) == 4\n"
+        "    req = Request(request_id='e', prompt=[1, 2, 3, 1, 2], max_tokens=4,\n"
+        "                  prefill_only=True)\n"
+        "    server.engine.add_request(req)\n"
+        "    blob = server.engine.export_kv_pages(req, timeout_s=60)\n"
+        "    imp = Request(request_id='i', prompt=[1, 2, 3, 1, 2], max_tokens=4)\n"
+        "    server.engine.import_kv_pages(imp, blob)\n"
+        "    assert imp.done.wait(60) and imp.error is None and len(imp.output) == 4\n"
+        "    assert len(prompt_page_fingerprints(list(range(17)), 8)) == 2\n"
         "finally:\n"
         "    server.shutdown()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
