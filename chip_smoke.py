@@ -67,7 +67,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      `forward` over prompt + output; as negative controls, the same burst
      with fresh prompts is served once per planted engine fault (FAULTS),
      each on a server built inside the fault's block so that the fault is
-     captured into its graphs, and the gate must fail each;
+     captured into its graphs, and the gate must fail each. After the
+     plain burst its telemetry is printed beside what the burst measured
+     (telemetry_report: the serve_* counters and histogram counts, the SLO
+     digests' TTFT p50 and max against the burst's within the digest's
+     12.2 % relative error, the time-between-tokens p50 against TPOT, and
+     the host time the telemetry takes on the engine's threads during the
+     burst, per decode span: TelemetryClock); none of it decides the run;
   3m. KV migration (migrate_path), on phase 3's server before it shuts
      down: a second engine over the same parameter tensors imports what
      phase 3's exports (Request(prefill_only=True)): prompts of 200 tokens
@@ -89,6 +95,29 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      stream's earlier work (CallClock, of which PrefillClock is one), and
      the background requests' TPOT and longest gap between tokens with and
      without migrations;
+  3w. live weights (live_path), on phase 3's server after 3m: first what
+     a readback in one thread does to another's enqueue (readback_probe,
+     printed); the seed-1 llama3-8b tree is built on the card and a fresh
+     engine over it, which answers three fresh prompts (bucketed, 200 and
+     700 tokens: K2 and K6); four greedy streams of 96 tokens decode while
+     server.update_weights swaps it in, and a 200-token prefill submitted
+     inside the swap must run on the new weights (every stream
+     token-valid, version stamps 0 or 1, stats and the
+     serve_weights_version gauge at 1; the swap's time on the card, where
+     its host time went (SwapClock), the wait for the replay lock, the
+     streams' longest gap between tokens against four streams without an
+     update and four beside a prefill, and the prefill's TTFT against the
+     same prefill on the idle server and beside the streams are printed);
+     then the three prompts served alone on the updated server must agree
+     with the fresh engine's token for token with bit-identical logprobs,
+     and pass phase 3's logprob gate under the seed-1 forward; launch
+     counts around the update and these requests, the fresh engine's
+     outside them: K1, K2, K5 and K6 ran, all from graph replays. Each planted
+     update fault (LIVE_FAULTS: the f32 head copy not refreshed, the last
+     layer's FFN output projection not copied), applied from the seed-0
+     weights, must fail that exactness gate. The seed-0 weights are then
+     restored, bit-exact by per-leaf checksums and the head copy; the
+     planted-fault servers and phase 3s after it run on them;
   3s. the speculation path: the serving server is shut down and its
      parameters go to LLMServer(engine_config={"speculation": ...}), again
      llama3-8b at full width and depth, twice. (1) mode "draft", k = 4,
@@ -160,7 +189,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      chunks are held against their eager bodies (graph_checks); before
      that, one streamed KV migration of a 700-token prompt into a second
      engine at page size 16 must continue token-exactly (round_trip,
-     phase 3m's gate (a));
+     phase 3m's gate (a)); and one live update from a host tree
+     (moe_live_update): the seed-1 moe-1b weights as numpy float32 are
+     staged onto the card on a side stream and cast to bf16 while two
+     streams decode (staging time and the streams' TPOT and longest gap
+     while it ran, against two streams without an update), then two fresh
+     prompts must agree exactly with a fresh engine over the same weights,
+     and the seed-0 weights come back bit-exact;
   6. moe-1b trained as the reference's bench_moe (bench.py:1711): 2 x 1024
      tokens, factored, bf16 parameters, 2 warm and 8 timed steps, then its
      dense twin (llama-600m at moe-1b's backbone, d_ff = 2 x 4096): phase
@@ -177,7 +212,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 The second-to-last line of stdout is {"kernels": [...]} (eight kernels:
 K1's forward and backward, K2-K7; launches by path: serve, spec, train,
 train2b, moe_serve, moe_train, migrate (phase 3m), moe_migrate (phase 5's
-round trip)), the last
+round trip), live (phase 3w's update and gate, phase 5's update and
+gate)), the last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
 
@@ -193,6 +229,13 @@ result line.
 builds the kernels and trains moe-1b as phase 6 does under variants of its
 recipe and path (moe_dynamics), printing every step's metrics, and prints
 no result line.
+
+    python3 chip_smoke.py --readback-ab
+
+builds phase 3's llama3-8b server and serves phase 3's burst, fresh
+prompts each time, with the engine's readbacks into pinned memory
+(programs.read_back) and into pageable memory, in turns (readback_ab);
+prints each burst's figures and no result line.
 """
 
 from __future__ import annotations
@@ -1367,6 +1410,126 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 
+def metric_counts() -> dict:
+    """{(sample, tags): value} of the port's counters and histogram counts."""
+    from ray_tpu_torch.core import metrics
+
+    out = {}
+    for fam in metrics.registry.snapshot():
+        for sample, tags, value in fam["samples"]:
+            if fam["kind"] == "counter" or sample.endswith("_count"):
+                out[(sample, tuple(tuple(t) for t in tags))] = value
+    return out
+
+
+class TelemetryClock:
+    """Host time the engine's telemetry takes on each thread while the block
+    runs: every metric update (Counter.inc, Gauge.set and add,
+    Histogram.observe, slo.Digest.add) and the engine's _note_tokens_per_step
+    and _slo_digest, each timed at its outermost call, less the timer's own
+    share (the same timer around a call that does nothing); and the decode
+    spans the engine ran. The engine's own calls, at their own points: no
+    stand-in."""
+
+    def __init__(self, engine):
+        self.engine, self.ns, self.calls, self.spans = engine, {}, {}, 0
+        self._local, self._stack = threading.local(), contextlib.ExitStack()
+
+    def _timed(self, fn):
+        local, ns, calls = self._local, self.ns, self.calls
+
+        def timed(*args, **kwargs):
+            if getattr(local, "inside", False):
+                return fn(*args, **kwargs)
+            local.inside = True
+            t0 = time.perf_counter_ns()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter_ns() - t0
+                local.inside = False
+                name = threading.current_thread().name
+                ns[name] = ns.get(name, 0) + dt
+                calls[name] = calls.get(name, 0) + 1
+        return timed
+
+    def __enter__(self):
+        from ray_tpu_torch.core import metrics
+        from ray_tpu_torch.util import slo
+
+        probe = TelemetryClock(None)
+        nothing = probe._timed(lambda: None)
+        for _ in range(20000):
+            nothing()
+        self.timer_ns = sum(probe.ns.values()) / 20000
+        engine, span = self.engine, self.engine._decode_span
+
+        def counted_span(*args, **kwargs):
+            self.spans += 1
+            return span(*args, **kwargs)
+
+        enter = self._stack.enter_context
+        for cls, names in ((metrics.Counter, ("inc",)), (metrics.Gauge, ("set", "add")),
+                           (metrics.Histogram, ("observe",)), (slo.Digest, ("add",))):
+            enter(swapped(cls, **{n: self._timed(getattr(cls, n)) for n in names}))
+        enter(swapped(engine, _note_tokens_per_step=self._timed(engine._note_tokens_per_step),
+                      _slo_digest=self._timed(engine._slo_digest),
+                      _decode_span=counted_span))
+        return self
+
+    def __exit__(self, *exc):
+        self._stack.close()
+        for name in ("_note_tokens_per_step", "_slo_digest", "_decode_span"):
+            self.engine.__dict__.pop(name, None)
+        return False
+
+    def us(self, thread: str) -> float:
+        """The thread's telemetry host time in µs, the timer's share taken off."""
+        return max(0.0, self.ns.get(thread, 0) - self.calls.get(thread, 0) * self.timer_ns) / 1e3
+
+
+def telemetry_report(engine, results, before: dict, clock: TelemetryClock) -> None:
+    """After phase 3's plain burst: what the engine's metrics and SLO
+    digests saw, beside what the burst measured. Printed; nothing here
+    decides the run."""
+    delta = {k: v - before.get(k, 0.0) for k, v in metric_counts().items()
+             if v - before.get(k, 0.0)}
+    emitted = sum(len(r["token_ids"]) for r in results)
+    tokens = delta.get(("serve_tokens_generated", ()), 0.0)
+    finished = {dict(tags)["finish_reason"]: v for (sample, tags), v in delta.items()
+                if sample == "serve_requests_finished"}
+    phases = {dict(tags)["phase"]: int(v) for (sample, tags), v in delta.items()
+              if sample == "serve_decode_step_phase_seconds_count"}
+    log(f"telemetry, plain burst: serve_tokens_generated +{tokens:.0f} against {emitted} "
+        f"tokens returned ({'equal' if tokens == emitted else 'DIFFERENT'}); "
+        f"serve_requests_finished {finished}; serve_ttft_seconds count "
+        f"+{delta.get(('serve_ttft_seconds_count', ()), 0.0):.0f}; decode phase observations "
+        f"{phases}")
+    ttft, e2e, tbt = (engine._slo_digest(n) for n in ("serve_ttft_seconds", "serve_e2e_seconds",
+                                                      "serve_tbt_seconds"))
+    measured = sorted(r["ttft_s"] for r in results)
+    tpot = statistics.median((r["latency_s"] - r["ttft_s"]) / (len(r["token_ids"]) - 1)
+                             for r in results)
+    rel = 10 ** (1 / 20) - 1
+    pairs = ((ttft.quantile(0.5), statistics.median(measured)), (ttft.max, measured[-1]))
+    within = all(abs(d - m) <= rel * m for d, m in pairs)
+    log(f"  SLO digests (role {engine.slo_role}): counts ttft {ttft.count}, e2e {e2e.count}, tbt "
+        f"{tbt.count}; serve_ttft_seconds p50 {pairs[0][0]:.4f} max {pairs[1][0]:.4f} s against "
+        f"the burst's {pairs[0][1]:.4f} and {pairs[1][1]:.4f} s: "
+        f"{'within' if within else 'OUTSIDE'} the digest's relative error {100 * rel:.1f} %; "
+        f"serve_tbt_seconds p50 {1e3 * tbt.quantile(0.5):.2f} ms against TPOT p50 "
+        f"{1e3 * tpot:.2f} ms")
+    decode, prefill = clock.us("engine-decode"), clock.us("engine-prefill")
+    log(f"  telemetry's host time on the engine's threads during the burst (every metric "
+        f"update, _note_tokens_per_step and _slo_digest, timed where the engine calls them; "
+        f"timer's share {clock.timer_ns:.0f} ns a call taken off): decode thread "
+        f"{decode:.2f} us in {clock.calls.get('engine-decode', 0)} calls over {clock.spans} "
+        f"decode spans, {decode / max(clock.spans, 1):.2f} us a span; prefill thread "
+        f"{prefill:.2f} us in {clock.calls.get('engine-prefill', 0)} calls over "
+        f"{len(results)} requests; other threads "
+        f"{sum(clock.us(t) for t in clock.ns if not t.startswith('engine-')):.2f} us")
+
+
 def serve_main_path(card: str, profile: bool) -> dict:
     from ray_tpu_torch.ops import dispatch
     from ray_tpu_torch.serve import programs
@@ -1393,8 +1556,9 @@ def serve_main_path(card: str, profile: bool) -> dict:
 
     reckon_prefill_tiers(server.engine)
     requests = burst()
+    counts = metric_counts()
     dispatch.reset_launches()
-    with PrefillClock(server.engine) as clock:
+    with PrefillClock(server.engine) as clock, TelemetryClock(server.engine) as telemetry:
         results, wall, errors = run_requests(server, requests)
     launches = dispatch.launch_counts()
     if errors:
@@ -1408,6 +1572,7 @@ def serve_main_path(card: str, profile: bool) -> dict:
 
     report_burst("plain", requests, results, wall)
     clock.report("plain")
+    telemetry_report(server.engine, results, counts, telemetry)
 
     if profile:  # the same requests again
         def profiled():
@@ -1428,6 +1593,7 @@ def serve_main_path(card: str, profile: bool) -> dict:
                         seen["names"], ("rms_norm_fwd_", "flash_fwd_wgmma_kernel",
                                         "paged_decode_split_kernel", "paged_chunk_wgmma_kernel"))
     migrate = migrate_path(server, card)  # phase 3m, on this server
+    live = live_path(server, card)  # phase 3w, on this server
     params = server.engine.params
     server.shutdown()
     del server
@@ -1465,8 +1631,8 @@ def serve_main_path(card: str, profile: bool) -> dict:
     for name, hit in caught.items():
         if not hit:
             fail(f"the logprob gate {LOGPROB_TOL} passes planted fault {name}")
-    return {"launches": launches, "migrate": migrate, "params": params, "cfg": cfg,
-            "requests": requests, "results": results}
+    return {"launches": launches, "migrate": migrate, "live": live, "params": params,
+            "cfg": cfg, "requests": requests, "results": results}
 
 
 # ------------------------------------------------------------- phase 3m
@@ -1569,11 +1735,7 @@ def finish_busy(busy) -> str:
     for r in busy:
         if not r.done.wait(120) or r.error:
             fail(f"a background request failed: {r.error}")
-    seen = [[t for t in r.stream_q.at if t >= r.stream_q.since] for r in busy]
-    tpot = [1e3 * (at[-1] - at[0]) / (len(at) - 1) for at in seen]
-    gap = max(1e3 * (b - a) for at in seen for a, b in zip(at, at[1:]))
-    return (f"TPOT p50 {statistics.median(tpot):.2f} max {max(tpot):.2f} ms, longest gap "
-            f"between tokens {gap:.2f} ms")
+    return stream_figures(busy, max(r.stream_q.since for r in busy))
 
 
 def import_kv(engine, prompt, frames):
@@ -1817,6 +1979,445 @@ def migrate_path(server, card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- phase 3w
+
+
+def leaf_checksums(params) -> dict:
+    """Per leaf, the sum of its bits viewed as int16 words, in int64: equal
+    sums for a restored tree say its bits came back."""
+    return {name: int(t.contiguous().view(torch.int16).sum(dtype=torch.int64))
+            for name, t in named_leaves(params)}
+
+
+def host_tree(tree):
+    """A tree of card tensors as numpy arrays on the host."""
+    return {k: host_tree(v) if isinstance(v, dict) else v.cpu().numpy() for k, v in tree.items()}
+
+
+class SwapClock:
+    """Times update_params' swap while the block runs. On the card: a CUDA
+    event before the copies into the live tensors and one after the f32
+    head refresh, both enqueued under the replay lock, so no program runs
+    between them; and, from one event synchronised on an idle card at the
+    start (as CallClock does), how long after the host reached the copies
+    the card began them. On the host: whether the stream still held work
+    when the copies began, each leaf's copy call and the head refresh.
+    `on_swap`, if given, is called inside the swap, under the lock, before
+    the first copy."""
+
+    def __init__(self, engine, on_swap=None):
+        self.engine, self.on_swap, self.swaps = engine, on_swap, []
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        self.ref = torch.cuda.Event(enable_timing=True)
+        self.ref.record()
+        self.ref.synchronize()
+        self.t_ref = time.perf_counter()
+        copy, refresh = self.engine._copy_into_live, self.engine._model.refresh_head
+
+        def timed_copy(live, staged):
+            if self.on_swap is not None:
+                self.on_swap()
+            at = time.perf_counter()
+            swap = {"busy": not torch.cuda.current_stream().query(), "at": at,
+                    "a": torch.cuda.Event(enable_timing=True), "leaf_ms": []}
+            swap["a"].record()
+            swap["first_ms"] = 1e3 * (time.perf_counter() - at)
+            self.swaps.append(swap)
+            for dst, src in zip(live, staged):
+                t = time.perf_counter()
+                copy([dst], [src])
+                swap["leaf_ms"].append(1e3 * (time.perf_counter() - t))
+
+        def timed_refresh():
+            t = time.perf_counter()
+            refresh()
+            swap = self.swaps[-1]
+            swap["refresh_ms"] = 1e3 * (time.perf_counter() - t)
+            swap["b"] = torch.cuda.Event(enable_timing=True)
+            swap["b"].record()
+
+        self.engine._copy_into_live, self.engine._model.refresh_head = timed_copy, timed_refresh
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine._copy_into_live, self.engine._model.refresh_head
+        return False
+
+    def ms(self) -> list:
+        torch.cuda.synchronize()
+        return [s["a"].elapsed_time(s["b"]) for s in self.swaps]
+
+    def report(self, label: str) -> None:
+        torch.cuda.synchronize()
+        for s in self.swaps:
+            leaf = s["leaf_ms"]
+            slow = max(range(len(leaf)), key=leaf.__getitem__)
+            began = self.ref.elapsed_time(s["a"]) - 1e3 * (s["at"] - self.t_ref)
+            log(f"{label}: the stream {'still held work' if s['busy'] else 'was idle'} when the "
+                f"swap's copies began; the card began them {began:.2f} ms after the host "
+                f"reached them; host time of the swap's first CUDA calls (a stream query and an "
+                f"event record) {s['first_ms']:.2f} ms, of the {len(leaf)} leaf copy calls "
+                f"{sum(leaf):.2f} ms "
+                f"(the first {leaf[0]:.2f} ms, the slowest, leaf {slow}, {leaf[slow]:.2f} ms, "
+                f"the others {sum(leaf) - leaf[slow]:.2f} ms in all), of the head refresh "
+                f"{s['refresh_ms']:.2f} ms")
+
+
+def _head_not_refreshed(engine):
+    return swapped(engine._model, refresh_head=lambda: None)
+
+
+def _last_w_out_not_copied(engine):
+    copy, w_out = engine._copy_into_live, engine.params["layers"]["w_out"]
+
+    def faulty(live, staged):
+        pairs = [(d[:-1], s[:-1]) if d is w_out else (d, s) for d, s in zip(live, staged)]
+        copy([d for d, _ in pairs], [s for _, s in pairs])
+
+    return swapped(engine, _copy_into_live=faulty)
+
+
+# Planted update faults, each of which phase 3w's exactness gate must
+# catch, planted on phase 3's server: name -> maker(engine) of a context.
+# A swap torn by a replay between two leaves cannot fail that gate, whose
+# prompts run after the update returns; mid_swap_request has its own.
+LIVE_FAULTS = {
+    # the logits keep reading the old f32 head
+    "head32_not_refreshed": _head_not_refreshed,
+    # the last layer's FFN output projection keeps the old weights
+    "last_layer_w_out_not_copied": _last_w_out_not_copied,
+}
+
+
+@contextlib.contextmanager
+def mid_swap_request(engine, prompt, wait_s: float = 1.0):
+    """While the block runs, update_params' copies stop after half the
+    leaves, submit a one-token request of `prompt`, wait for it up to
+    wait_s, then copy the other half. A sound swap holds the replay lock
+    throughout, so the request's prefill waits and runs on the new
+    weights; a swap that leaves the lock lets it run between the halves.
+    Yields the request: its first token and logprob name the weights its
+    prefill ran on."""
+    from ray_tpu_torch.serve.engine import Request
+
+    copy = engine._copy_into_live
+    req = Request(request_id=f"mid-swap-{time.monotonic_ns()}", prompt=list(prompt),
+                  max_tokens=1)
+
+    def halves(live, staged):
+        h = len(live) // 2
+        copy(live[:h], staged[:h])
+        engine.add_request(req)
+        req.done.wait(wait_s)
+        copy(live[h:], staged[h:])
+
+    with swapped(engine, _copy_into_live=halves):
+        yield req
+
+
+def live_streams(engine, prompts, max_tokens: int, update=None):
+    """Greedy requests decoding together on `engine`, each noting its
+    tokens' times; with `update`, it is called once every request holds
+    at least 8 tokens and the decode thread has enqueued its next span,
+    so that it lands while that span runs. Fails unless each returns
+    max_tokens tokens in [0, V) without error. -> (requests, what update returned, when it was called
+    and when it returned, on the host's clock)."""
+    from ray_tpu_torch.serve.engine import Request
+
+    reqs = [Request(request_id=f"live-{i}-{time.monotonic_ns()}", prompt=p,
+                    max_tokens=max_tokens, stream_q=TokenStamps())
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.add_request(r)
+    out, called, returned = None, None, None
+    if update is not None:
+        deadline = time.monotonic() + 60
+        while min(len(r.output) for r in reqs) < 8:
+            if time.monotonic() > deadline:
+                fail("the live-weight streams did not reach 8 tokens in 60 s")
+            time.sleep(0.001)
+        span = engine._span_enqueued  # then wait for the next span: update lands while it runs
+        while engine._span_enqueued == span:
+            if time.monotonic() > deadline:
+                fail("the live-weight streams' engine enqueued no span in 60 s")
+            time.sleep(0.0002)
+        called = time.monotonic()
+        out = update()
+        returned = time.monotonic()
+    V = engine.cfg.vocab_size
+    for r in reqs:
+        if not r.done.wait(180) or r.error:
+            fail(f"a live-weight stream failed: {r.error}")
+        if len(r.output) != max_tokens or not all(0 <= t < V for t in r.output):
+            fail(f"a live-weight stream returned {len(r.output)} tokens, in range "
+                 f"{all(0 <= t < V for t in r.output)}")
+    return reqs, out, called, returned
+
+
+def stream_figures(reqs, t0: float = 0.0, t1: float = math.inf) -> str:
+    """TPOT p50 and max and the longest gap between two of a request's
+    tokens, over the tokens each request emitted between t0 and t1."""
+    seen = [[t for t in r.stream_q.at if t0 <= t <= t1] for r in reqs]
+    seen = [at for at in seen if len(at) >= 2]
+    if not seen:
+        return "no two tokens of one request in the window"
+    tpot = [1e3 * (at[-1] - at[0]) / (len(at) - 1) for at in seen]
+    gap = max(1e3 * (b - a) for at in seen for a, b in zip(at, at[1:]))
+    return (f"TPOT p50 {statistics.median(tpot):.2f} max {max(tpot):.2f} ms, longest gap "
+            f"between tokens {gap:.2f} ms")
+
+
+def exact_gate(label: str, prompts, got, want) -> bool:
+    """Per prompt, the updated engine's tokens and logprobs against a fresh
+    engine's on the same weights: True where every request is identical,
+    logprobs bit for bit (phase 3m's gate (a))."""
+    same = []
+    for p, g, w in zip(prompts, got, want):
+        tokens = sum(a == b for a, b in zip(g["token_ids"], w["token_ids"]))
+        lp = max(abs(a - b) for a, b in zip(g["logprobs"], w["logprobs"]))
+        same.append(g["token_ids"] == w["token_ids"] and g["logprobs"] == w["logprobs"])
+        log(f"{label}, {len(p)}-token prompt: {tokens} of {len(w['token_ids'])} tokens equal "
+            f"a fresh engine's, logprob |updated - fresh| max {lp:.3e}")
+    return all(same)
+
+
+def restore(server, tree, version: int, sums0: dict, label: str) -> None:
+    """update_weights back to `tree` (seed 0); the per-leaf checksums must
+    equal the ones taken before any update, and the f32 head copy the new
+    head's, bit for bit."""
+    from ray_tpu_torch.models.transformer import lm_head_weight
+
+    engine = server.engine
+    server.update_weights({"weights": tree, "version": version})
+    if leaf_checksums(engine.params) != sums0:
+        fail(f"{label}: the restored weights' checksums differ from the originals'")
+    if not torch.equal(engine._model.head32, lm_head_weight(engine.params, engine.cfg).float()):
+        fail(f"{label}: the restored f32 head copy differs from the head")
+
+
+def readback_probe(card: str, spin_ms: float = 150.0) -> None:
+    """What a thread's readback does to another thread's enqueue on the
+    same stream: behind a kernel that spins for spin_ms, one thread reads a
+    small tensor back, into pageable memory (`.to("cpu")`) or into pinned
+    memory with an event wait (programs.read_back), or waits on the stream
+    itself; meanwhile this thread times its enqueue of 16 device-to-device
+    copies, as a live weight swap enqueues its copies while the decode
+    thread reads a span back. Printed."""
+    from ray_tpu_torch.serve.programs import read_back
+
+    src = [torch.randn(1024, 1024, device="cuda", dtype=torch.bfloat16) for _ in range(16)]
+    dst = [torch.empty_like(t) for t in src]
+    out = torch.randn(8, 16, device="cuda")
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(100_000_000)
+    b.record()
+    b.synchronize()
+    cycles_ms = 100_000_000 / a.elapsed_time(b)
+    readers = {"none": None, "pageable .to('cpu')": lambda: out.to("cpu", copy=True),
+               "pinned, event wait (read_back)": lambda: read_back(out),
+               "stream synchronize": lambda: torch.cuda.current_stream().synchronize()}
+    rows = []
+    for name, reader in readers.items():
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(cycles_ms * spin_ms))
+        thread = threading.Thread(target=reader) if reader is not None else None
+        if thread is not None:
+            thread.start()
+            time.sleep(0.02)
+        t0 = time.perf_counter()
+        for d, x in zip(dst, src):
+            d.copy_(x)
+        rows.append(f"{name} {1e3 * (time.perf_counter() - t0):.2f} ms")
+        if thread is not None:
+            thread.join()
+        torch.cuda.synchronize()
+    log(f"phase 3w readback probe ({card}): host time of 16 device-to-device copy calls "
+        f"enqueued 20 ms into a {spin_ms:.0f} ms kernel while another thread waits for it: "
+        f"{'; '.join(rows)}")
+
+
+def live_path(server, card: str) -> dict:
+    """Phase 3w: live weight updates on phase 3's llama3-8b server. (1)
+    the seed-1 tree on the card; (2) four greedy streams of 96 tokens, the
+    update landing mid-stream: every stream token-valid, the version
+    stamps, stats and gauge; (3) three fresh prompts alone (bucketed, 200
+    and 700 tokens) on the updated server and on a fresh engine over the
+    seed-1 tree: tokens equal and logprobs bit-identical, phase 3's logprob
+    gate under the seed-1 forward, every launch from a graph replay; (4)
+    each planted update fault (LIVE_FAULTS) must fail (3)'s exactness
+    gate; (5) the seed-0 weights restored, bit-exact by checksum. Returns
+    the launch counts of (2) and (3)."""
+    from ray_tpu_torch.core import metrics
+    from ray_tpu_torch.models import init_params
+    from ray_tpu_torch.ops import dispatch
+    from ray_tpu_torch.serve import engine as engine_mod
+    from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine, Request
+
+    engine = server.engine
+    cfg, params = engine.cfg, engine.params
+    rng = torch.Generator().manual_seed(4)
+
+    def prompt(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    # (1) before the update
+    readback_probe(card)
+    sums0 = leaf_checksums(params)
+    t0 = time.monotonic()
+    tree1 = init_params(cfg, seed=1, device="cuda", dtype=cfg.dtype)
+    torch.cuda.synchronize()
+    built = time.monotonic() - t0
+    leaves = named_leaves(tree1)
+    n_params = sum(t.numel() for _, t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    per_layer = sum(t.numel() for name, t in leaves if name.startswith("layers/")) / cfg.n_layers
+    head = tree1["embed"] if cfg.tie_embeddings else tree1["lm_head"]
+    log(f"phase 3w: live weights, llama3-8b ({card}): the seed-1 tree built on the card in "
+        f"{built:.1f}s, {n_params / 1e9:.4f} B parameters, {n_bytes / 1e9:.2f} GB "
+        f"(embed {tree1['embed'].numel() / 1e6:.1f} M, head {head.numel() / 1e6:.1f} M, "
+        f"{per_layer / 1e6:.1f} M a layer x {cfg.n_layers})")
+    fresh = InferenceEngine(tree1, cfg, EngineConfig(**ENGINE))
+    fresh.warmup()
+    # the fresh engine answers (3)'s prompts first, so that the launch
+    # counts below hold the updated server's programs alone
+    prompts = [prompt(23), prompt(200), prompt(700)]
+    want = [fresh.generate(p, max_tokens=32) for p in prompts]
+
+    # (2) in flight: four streams alone; four with a 200-token prefill
+    # submitted while a span runs; four with the update at that point and
+    # the same prefill submitted inside the swap, under the lock
+    probes = []
+
+    def probe():
+        probes.append(Request(request_id=f"probe-{time.monotonic_ns()}", prompt=prompt(200),
+                              max_tokens=1))
+        engine.add_request(probes[-1])
+
+    def ttft(r) -> float:
+        if not r.done.wait(60) or r.error:
+            fail(f"phase 3w: a 200-token prefill failed: {r.error}")
+        return 1e3 * (r.first_token_at - r.submitted_at)
+
+    def in_flight_update(version: int, label: str) -> dict:
+        """Four streams, the update to tree1 landing while a span runs, a
+        200-token prefill submitted inside the swap; figures printed."""
+        with SwapClock(engine, on_swap=probe) as clock:
+            reqs, out, called, returned = live_streams(
+                engine, [prompt(100) for _ in range(4)], 96,
+                update=lambda: server.update_weights({"weights": tree1, "version": version}))
+        stats, swapped_in = dict(engine.update_stats), probes[-1]
+        log(f"{label} update_weights -> {out}: the swap on the card {_ms(clock.ms())} ms "
+            f"(copies into the live tensors + the f32 head refresh, CUDA events); host: staging "
+            f"{1e3 * stats['stage_s']:.2f} ms ({stats['staged_bytes']} bytes staged), wait for "
+            f"the replay lock {1e3 * stats['wait_s']:.2f} ms, swap {1e3 * stats['swap_s']:.2f} "
+            f"ms; call {1e3 * (returned - called):.2f} ms")
+        clock.report(label)
+        log(f"  4 streams of 96 tokens with the update {stream_figures(reqs)}; TTFT of the "
+            f"200-token prefill submitted inside the swap {ttft(swapped_in):.2f} ms (its stamp "
+            f"{swapped_in.weights_version})")
+        if swapped_in.weights_version != version:
+            fail(f"{label}: the prefill submitted inside the swap ran on version "
+                 f"{swapped_in.weights_version}")
+        return {"reqs": reqs, "out": out}
+
+    probe()
+    idle = ttft(probes[-1])
+    alone = live_streams(engine, [prompt(100) for _ in range(4)], 96)[0]
+    decoding = live_streams(engine, [prompt(100) for _ in range(4)], 96, update=probe)[0]
+    beside = ttft(probes[-1])
+    log(f"phase 3w (2) 4 streams of 96 tokens: alone {stream_figures(alone)}; with a 200-token "
+        f"prefill {stream_figures(decoding)}; TTFT of a 200-token prefill on the idle server "
+        f"{idle:.2f} ms, submitted beside the decoding streams while a span runs {beside:.2f} ms")
+    dispatch.reset_launches()
+    reqs = in_flight_update(1, "phase 3w (2)")["reqs"]
+    gauge = metrics.registry.get("serve_weights_version").get(tags={"role": server.role})
+    stamps = sorted({r.weights_version for r in reqs})
+    log(f"  version stamps {stamps}, stats {server.stats()['weights_version']}, "
+        f"serve_weights_version{{role={server.role}}} {gauge}")
+    if not set(stamps) <= {0, 1} or server.stats()["weights_version"] != 1 or gauge != 1:
+        fail(f"phase 3w (2): stamps {stamps}, stats {server.stats()['weights_version']}, "
+             f"gauge {gauge}")
+
+    # (3) after: the fresh prompts alone on the updated server
+    got = [server({"prompt_ids": p, "max_tokens": 32}) for p in prompts]
+    launches = dispatch.launch_counts()
+    log(f"launches around phase 3w (2) and (3): {launches}")
+    require_no_eager_launches("phase 3w (2) and (3)")
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0:
+            fail(f"phase 3w never launched kernel {name}")
+    if not exact_gate("phase 3w (3)", prompts, got, want):
+        fail("phase 3w (3): the updated server differs from a fresh engine on the new weights")
+    gaps = logprob_gaps(tree1, cfg, [{"prompt_ids": p} for p in prompts], got)
+    log(f"phase 3w (3) logprob |engine - forward under the seed-1 weights| per request max "
+        f"{[round(g[0], 4) for g in gaps]} mean {[round(g[1], 4) for g in gaps]} "
+        f"(tol {LOGPROB_TOL})")
+    if not all(within_logprob_tol(g) for g in gaps):
+        fail("phase 3w (3): the updated server fails phase 3's logprob gate")
+
+    # (4) the planted update faults, each from the seed-0 weights
+    tree0 = init_params(cfg, seed=0, device="cuda", dtype=cfg.dtype)
+    version = 2
+    for name, fault in LIVE_FAULTS.items():
+        restore(server, tree0, version, sums0, f"phase 3w before fault {name}")
+        with fault(engine):
+            server.update_weights({"weights": tree1, "version": version + 1})
+        version += 2
+        ps = [prompt(23), prompt(200), prompt(700)]
+        got = [server({"prompt_ids": p, "max_tokens": 32}) for p in ps]
+        want = [fresh.generate(p, max_tokens=32) for p in ps]
+        if exact_gate(f"phase 3w planted fault {name}", ps, got, want):
+            fail(f"phase 3w: the exactness gate passes planted update fault {name}")
+
+    # (4b) a prefill enqueued in the middle of a swap must run wholly on
+    # one generation: its first logprob equals the seed-0 or the seed-1
+    # model's, bit for bit; a swap outside the replay lock must fail that
+    p = prompt(15)  # under a page: never cached, one bucketed prefill
+    first = {"seed 0": server({"prompt_ids": p, "max_tokens": 1}),
+             "seed 1": fresh.generate(p, max_tokens=1)}
+    for label, lock in (("sound swap", None), ("planted fault swap_outside_the_lock",
+                                               contextlib.nullcontext())):
+        restore(server, tree0, version, sums0, f"phase 3w before the {label}")
+        with contextlib.ExitStack() as stack:
+            if lock is not None:
+                stack.enter_context(swapped(engine, _replay_lock=lock))
+            req = stack.enter_context(mid_swap_request(engine, p))
+            server.update_weights({"weights": tree1, "version": version + 1})
+        version += 2
+        if not req.done.wait(60) or req.error:
+            fail(f"phase 3w (4b) {label}: the mid-swap request failed: {req.error}")
+        ran_on = [name for name, r in first.items()
+                  if (req.output[0], req.output_logprobs[0]) == (r["token_ids"][0],
+                                                                 r["logprobs"][0])]
+        log(f"phase 3w (4b) {label}: a prefill enqueued mid-swap gave first token "
+            f"{req.output[0]} logprob {req.output_logprobs[0]:.6f}, stamp "
+            f"{req.weights_version}; the seed-0 model's {first['seed 0']['token_ids'][0]} "
+            f"{first['seed 0']['logprobs'][0]:.6f}, the seed-1 model's "
+            f"{first['seed 1']['token_ids'][0]} {first['seed 1']['logprobs'][0]:.6f}: ran on "
+            f"{ran_on or 'neither'}")
+        if (lock is None) != (ran_on == ["seed 1"]):
+            fail(f"phase 3w (4b): the mid-swap gate misjudges the {label} ({ran_on})")
+
+    # (4c) the same in-flight update with the engine's readbacks put back
+    # to pageable copies, as they were before programs.read_back: printed
+    restore(server, tree0, version, sums0, "phase 3w before (4c)")
+    with swapped(engine_mod, read_back=lambda *ts: tuple(t.to("cpu", copy=True) for t in ts)):
+        in_flight_update(version + 1, "phase 3w (4c) pageable readbacks")
+    version += 2
+
+    # (5) the seed-0 weights back, bit for bit
+    restore(server, tree0, version, sums0, "phase 3w (5)")
+    log(f"phase 3w (5): seed-0 weights restored (version {version}): per-leaf checksums equal "
+        f"the originals' and the f32 head copy the head's, bit for bit")
+    fresh.stop()
+    del fresh, tree0, tree1
+    release()
+    return launches
+
+
 # ------------------------------------------------------------- phase 3s
 
 # The speculation gate. Speculative commits carry no logprobs, and on the
@@ -2009,13 +2610,13 @@ def prefill_graph_checks(engine) -> None:
         toks = rs.randint(1, engine.cfg.vocab_size, (1, bucket)).astype(np.int32)
         lens = np.array([T], np.int32)
         against_eager(f"prefill bucket {bucket} (tier 1, true length {T}, {n} pages)",
-                      ("prefill", bucket, 1), lambda: engine._prefill(toks, lens, tables),
+                      ("prefill", bucket, 1), lambda: engine._prefill(toks, lens, tables)[0],
                       (model.k_pages, model.v_pages), table[:n])
     for start in (0, 512):
         toks = rs.randint(1, engine.cfg.vocab_size, (C,)).astype(np.int32)
         ids = table[start // ps:(start + C) // ps]
         against_eager(f"chunk C={C} start {start}", ("chunk", C),
-                      lambda: engine._chunk_step(toks, start, table, C - 1),
+                      lambda: engine._chunk_step(toks, start, table, C - 1)[0],
                       (model.k_pages, model.v_pages), ids)
     draft = spec.proposer
     if engine.ecfg.speculation.mode == "ngram":  # no draft model, no draft chunk
@@ -2526,6 +3127,68 @@ def decode_step_figures(engine, card: str) -> None:
         f"norm's bf16 and the f32 head, over 3.35 TB/s); {card}")
 
 
+def moe_live_update(server, card: str) -> dict:
+    """Phase 5's live update from a host tree: the seed-1 moe-1b weights as
+    numpy float32, staged onto the card on a side stream and cast to bf16
+    while two streams decode; then two fresh prompts on the updated server
+    and on a fresh engine over the same weights must agree exactly, and the
+    seed-0 weights come back bit for bit. Returns the launch counts of the
+    update and the gate."""
+    from ray_tpu_torch.models import init_params, params_from_numpy
+    from ray_tpu_torch.ops import dispatch
+    from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
+
+    engine = server.engine
+    cfg, label = engine.cfg, "phase 5: moe-1b live update"
+    rng = torch.Generator().manual_seed(12)  # its own: phase 5's other prompts stay as they were
+
+    def prompt(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    sums0 = leaf_checksums(engine.params)
+    host = host_tree(init_params(cfg, seed=1, device="cuda", dtype="float32"))
+    release()
+    nbytes = sum(a.nbytes for _, a in named_leaves(host))
+    fresh = InferenceEngine(params_from_numpy(host, device="cuda", dtype=cfg.dtype), cfg,
+                            EngineConfig(**ENGINE))
+    fresh.warmup()
+    # the fresh engine answers first: the launch counts hold the server's alone
+    ps = [prompt(200), prompt(700)]
+    want = [fresh.generate(p, max_tokens=32) for p in ps]
+    alone = live_streams(engine, [prompt(100), prompt(100)], 600)[0]
+    dispatch.reset_launches()
+    reqs, out, called, returned = live_streams(
+        engine, [prompt(100), prompt(100)], 600,
+        update=lambda: server.update_weights({"weights": host, "version": 1}))
+    stats = dict(engine.update_stats)
+    staged_until = called + stats["stage_s"]
+    log(f"{label} ({card}) -> {out}: {nbytes / 1e9:.2f} GB of numpy float32 "
+        f"({stats['staged_bytes'] / 1e9:.2f} GB through pinned memory) staged to the card on a "
+        f"side stream and cast to {cfg.dtype} in {1e3 * stats['stage_s']:.2f} ms "
+        f"({stats['staged_bytes'] / stats['stage_s'] / 1e9:.2f} GB/s), wait for the replay lock "
+        f"{1e3 * stats['wait_s']:.2f} ms, swap {1e3 * stats['swap_s']:.2f} ms (host)")
+    log(f"  2 streams of 600 tokens: without an update {stream_figures(alone)}; while the "
+        f"staging ran {stream_figures(reqs, called, staged_until)}; whole streams with the "
+        f"update {stream_figures(reqs)}")
+    got = [server({"prompt_ids": p, "max_tokens": 32}) for p in ps]
+    launches = dispatch.launch_counts()
+    log(f"launches around {label}: {launches}")
+    require_no_eager_launches(label)
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0:
+            fail(f"{label} never launched kernel {name}")
+    if not exact_gate(label, ps, got, want):
+        fail(f"{label}: the updated server differs from a fresh engine on the new weights")
+    fresh.stop()
+    del fresh, host
+    release()
+    restore(server, init_params(cfg, seed=0, device="cuda", dtype=cfg.dtype), 2, sums0, label)
+    log(f"{label}: seed-0 weights restored (version 2), checksums and the f32 head copy "
+        f"bit-exact")
+    release()
+    return launches
+
+
 def moe_serve_path(card: str, profile: bool) -> dict:
     """Phase 5: LLMServer serving moe-1b at full width and depth, plain, then
     the no-drop logprob gate with its planted faults, then an ngram burst;
@@ -2594,6 +3257,7 @@ def moe_serve_path(card: str, profile: bool) -> dict:
     for name in ("rms_norm", "paged_attention_chunk", "paged_attention_decode"):
         if migrate[name] <= 0:
             fail(f"{label} never launched kernel {name}")
+    live = moe_live_update(server, card)
     server.shutdown()
     decode_step_figures(server.engine, card)
     del server
@@ -2665,7 +3329,7 @@ def moe_serve_path(card: str, profile: bool) -> dict:
     del server
     release()
     return {"launches": {name: launches[name] + ngram[name] for name in launches},
-            "migrate": migrate}
+            "migrate": migrate, "live": live}
 
 
 # -------------------------------------------------------------- phase 4
@@ -3334,6 +3998,58 @@ def ab_compare(variant_csrc: str, card: str) -> None:
             f"B {[round(t, 4) for t in times['B']]} ms ({card})")
 
 
+def readback_ab(card: str, rounds: int = 4) -> None:
+    """--readback-ab: phase 3's llama3-8b server serves phase 3's burst
+    (five requests at once, prompts of 23/100/200/700/50, 32 tokens, one
+    sampled; fresh prompts each burst, so no prefix is cached) with the
+    engine's readbacks into pinned memory (programs.read_back, "pinned")
+    and into pageable memory as before it ("pageable"), in turns pinned,
+    pageable, pageable, pinned, `rounds` times, after one burst that is
+    discarded. Prints each burst's TTFT p50 and max, TPOT p50 and output
+    tok/s, then the median of each by form."""
+    from ray_tpu_torch.serve import engine as engine_mod
+
+    server = new_server("--readback-ab: LLMServer llama3-8b", model_name="llama3-8b",
+                        engine_config=ENGINE, seed=0)
+    rng = torch.Generator().manual_seed(21)
+    V = server.engine.cfg.vocab_size
+
+    def burst():
+        def prompt(n):
+            return torch.randint(1, V, (n,), generator=rng).tolist()
+
+        return [{"prompt_ids": prompt(n), "max_tokens": 32} for n in (23, 100, 200, 700)] + [
+            {"prompt_ids": prompt(50), "max_tokens": 32, "temperature": 0.8, "top_p": 0.9}]
+
+    def pageable():
+        return swapped(engine_mod, read_back=lambda *ts: tuple(t.to("cpu", copy=True)
+                                                                for t in ts))
+
+    figures = {"pinned": [], "pageable": []}
+    run_requests(server, burst())
+    for _ in range(rounds):
+        for form in ("pinned", "pageable", "pageable", "pinned"):
+            requests = burst()
+            with pageable() if form == "pageable" else contextlib.nullcontext():
+                results, wall, errors = run_requests(server, requests)
+            if errors:
+                server.shutdown()
+                fail(f"--readback-ab {form}: {errors}")
+            ttft = sorted(r["ttft_s"] for r in results)
+            tpot = statistics.median((r["latency_s"] - r["ttft_s"]) / (len(r["token_ids"]) - 1)
+                                     for r in results)
+            row = (1e3 * statistics.median(ttft), 1e3 * ttft[-1], 1e3 * tpot,
+                   sum(len(r["token_ids"]) for r in results) / wall)
+            figures[form].append(row)
+            log(f"--readback-ab {form}: TTFT p50 {row[0]:.2f} max {row[1]:.2f} ms, TPOT p50 "
+                f"{row[2]:.2f} ms, {row[3]:.2f} tok/s")
+    for form, rows in figures.items():
+        med = [statistics.median(col) for col in zip(*rows)]
+        log(f"--readback-ab {form}, median of {len(rows)} bursts ({card}): TTFT p50 "
+            f"{med[0]:.2f} max {med[1]:.2f} ms, TPOT p50 {med[2]:.2f} ms, {med[3]:.2f} tok/s")
+    server.shutdown()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3347,6 +4063,10 @@ def main() -> None:
                     help="only build the kernels, then train moe-1b as phase 6 does under "
                          "variants of its recipe and path, printing every step's metrics; "
                          "prints no result line")
+    ap.add_argument("--readback-ab", action="store_true",
+                    help="only build the kernels, then serve phase 3's burst with the engine's "
+                         "readbacks into pinned and into pageable memory, in turns; prints no "
+                         "result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3384,6 +4104,9 @@ def main() -> None:
     if args.moe_dynamics:
         moe_dynamics(card)
         return
+    if args.readback_ab:
+        readback_ab(card)
+        return
     gen = torch.Generator(device="cuda").manual_seed(0)
     tile_identity_checks(gen)
     figures = norm_checks(gen)
@@ -3393,7 +4116,8 @@ def main() -> None:
     gc.collect()  # the server is shut down: free its pool, keep its weights
     torch.cuda.empty_cache()
     spec = spec_main_path(card, args.profile, served)
-    serve_launches, migrate_launches = served["launches"], served["migrate"]
+    serve_launches, migrate_launches, live_launches = (served["launches"], served["migrate"],
+                                                       served["live"])
     del served
     gc.collect()  # free the weights
     torch.cuda.empty_cache()
@@ -3409,7 +4133,8 @@ def main() -> None:
                    "moe_serve": moe_served["launches"][name],
                    "moe_train": moe_trained["launches"][name],
                    "migrate": migrate_launches[name],
-                   "moe_migrate": moe_served["migrate"][name]}
+                   "moe_migrate": moe_served["migrate"][name],
+                   "live": live_launches[name] + moe_served["live"][name]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **figures[name]})

@@ -5,7 +5,9 @@ reference the port is held against; it imports `torch`, numpy and the
 stdlib, never `jax` and nothing of `ray_tpu`. It serves the
 Llama-family decoder, dense or mixture-of-experts, through the
 continuous-batching engine, with speculative decoding (n-gram or
-draft-model proposers), and trains it on one device
+draft-model proposers), KV migration between engines, live weight
+updates and the reference's metrics and SLO digests (ray_tpu_torch.core,
+ray_tpu_torch.util), and trains it on one device
 (`ray_tpu_torch.train`: AdamW or adafactor with the reference's optax
 semantics, f32 or bf16 parameters, activation checkpointing). The kernels of both paths are
 hand-written in CUDA C++ for sm_90a (ray_tpu_torch/csrc): RMSNorm, the

@@ -55,9 +55,23 @@ and the decode thread scatters it into the pool in place (the graphs read
 the pool at its captured address) before the slot goes live. numpy has no
 bf16, so the wire carries the bf16 KV widened to float32, which is exact.
 
-Not ported yet: tensor-parallel meshes, live weight updates, and the
-Prometheus/SLO telemetry (this module logs through stdlib `logging`;
-speculation's totals are in `stats()`).
+Live weights (`update_params`): the programs read the parameters at their
+captured addresses, so an update copies the new values into the live
+tensors in place (and refreshes the f32 head copy), never rebinding them
+and never recapturing a program. The copy runs under the replay lock that
+both threads hold while they enqueue a program, so every program runs
+wholly on the weights before an update or wholly on those after it, and a
+request's weights_version is read where its first token's program is
+enqueued.
+
+Telemetry, with the reference's names, buckets and tags: the Prometheus
+metrics below (core/metrics.py, the port's own registry), the SLO digests
+serve_ttft_seconds, serve_tbt_seconds and serve_e2e_seconds by role
+(util/slo.py), and an "engine.generate" span around `generate` under an
+active trace (util/tracing.py). The hot path adds host-side counter
+updates only: no sync with the card and no work inside a program.
+
+Not ported yet: tensor-parallel meshes.
 """
 
 from __future__ import annotations
@@ -77,14 +91,56 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..core.metrics import Counter, Gauge, Histogram
 from ..models.config import ModelConfig
 from ..models.transformer import _require_flash, torch_dtype
 from ..ops.dispatch import resolve_device
+from ..util import slo, tracing
 from .config import KV_FRAME_LAYOUT_DEFAULT, SpeculationConfig
-from .programs import SAMPLER_MODES, CapturedProgram, PagedModel, _categorical, host_tensor
+from .programs import (SAMPLER_MODES, CapturedProgram, PagedModel, _categorical, host_tensor,
+                       read_back)
 from .spec_decode import SpecDecoder
 
 logger = logging.getLogger("ray_tpu_torch.serve.engine")
+
+# The Prometheus plane, as the reference's engine exports it (its
+# counterpart of serve's ongoing-request metrics and vLLM's engine stats).
+_m_requests = Counter("serve_requests_finished",
+                      "Engine requests finished, by finish_reason.")
+_m_running = Gauge("serve_requests_running",
+                   "Requests currently admitted to decode slots.")
+_m_tokens = Counter("serve_tokens_generated", "Tokens emitted by the engine.")
+_m_prefix_hit_tokens = Counter(
+    "serve_prefix_cache_hit_tokens",
+    "Prompt tokens served from the prefix cache instead of prefilled.")
+_m_ttft = Histogram(
+    "serve_ttft_seconds", "Time to first token.",
+    buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0),
+)
+# Per-phase decode-step breakdown: every step() iteration with active slots
+# observes each phase once, tagged {phase, mode}; mode is "spec" when a
+# speculative round drives the step, "plain" for the span. "verify" is the
+# dispatch (the enqueue of the span or verify replay), "sample" the
+# blocking readback, "cache_bookkeeping" the host commit loop; speculative
+# rounds split "propose" into "propose_wait" (a prefetched draft) and
+# "propose_compute". The streamed export observes "kv_framing" (mode
+# "export"): the host time slicing KV into frames and pushing them to the
+# sink.
+_m_step_phase = Histogram(
+    "serve_decode_step_phase_seconds",
+    "Decode step wall time by phase (propose/propose_wait/propose_compute/"
+    "verify/sample/cache_bookkeeping/cancellation_check; kv_framing on "
+    "the export path).",
+    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+             0.25, 1.0, 5.0),
+)
+_m_tokens_per_step = Gauge(
+    "serve_tokens_per_decode_step",
+    "Cumulative committed tokens per slot-step of decode participation.")
+_m_weights_version = Gauge(
+    "serve_weights_version",
+    "Monotonic generation stamp of the weights an engine is serving "
+    "(bumped by update_params live swaps), by role.")
 
 
 @dataclasses.dataclass
@@ -402,6 +458,13 @@ class InferenceEngine:
         # reentrant: warmup captures under it, and so does _ensure_loop,
         # holding it while it starts the threads
         self._lock = threading.RLock()
+        # held by every program replay for its enqueue (input copies and
+        # graph launch, not the readback) and by update_params' swap: a
+        # program runs wholly on the weights before a swap or after it
+        self._replay_lock = threading.Lock()
+        # the last update_params: host seconds of staging, of the wait for
+        # the replay lock and of the swap under it, and the bytes staged
+        self.update_stats: Dict[str, float] = {}
         self._alloc_lock = threading.Lock()  # allocator: prefill + decode threads
         # prefilled, awaiting a decode slot (or, prefill_only, an export):
         # (request, pages, prompt length, staged KV); the staged KV is an
@@ -419,6 +482,16 @@ class InferenceEngine:
         self._prefill_inflight = 0  # prefill batches executing (GIL-atomic int)
         self._tps_committed = 0
         self._tps_steps = 0
+        # SLO latency digests (util/slo.py). The serving layer stamps
+        # slo_role after construction (LLMServer: its role), so the digest
+        # handles resolve at first observation; the switch resolves here
+        self.slo_role = "engine"
+        self._slo_on = slo.enabled()
+        self._slo: Dict[str, slo.Digest] = {}
+        self._last_commit_t = 0.0
+        # when the last decode span's replay was enqueued (decode thread):
+        # the step's "verify" phase ends here and its "sample" begins
+        self._span_enqueued = 0.0
         # long-prompt chunk states, consumed one chunk per step() by the
         # DECODE thread (chunks write the page pool the decode span writes)
         self._chunk_queue: "list[_ChunkState]" = []
@@ -472,13 +545,15 @@ class InferenceEngine:
         for (n_steps, sample, advanced); host arrays in, (tokens, logprobs)
         [n, B] numpy out, one readback."""
         sample = bool(np.any(np.asarray(temps) > 0))
-        program = self._program(("decode", n_steps, sample, advanced and sample))
-        seq, logps = program(
+        (seq, logps), _ = self._replay(
+            ("decode", n_steps, sample, advanced and sample),
             host_tensor(tokens, torch.int32), host_tensor(positions, torch.int32),
             host_tensor(tables, torch.int32), host_tensor(temps, torch.float32),
             host_tensor(top_ps, torch.float32), host_tensor(top_ks, torch.int32))
+        self._span_enqueued = time.monotonic()
         # copies on either device: the outputs are the program's buffers
-        return seq.to("cpu", copy=True).numpy(), logps.to("cpu", copy=True).numpy()
+        seq, logps = read_back(seq, logps)
+        return seq.numpy(), logps.numpy()
 
     def _program(self, key: tuple) -> CapturedProgram:
         program = self._programs.get(key)
@@ -487,6 +562,16 @@ class InferenceEngine:
                 f"device program {key} was not captured: the engine captures every "
                 "program its step loop can pick before its threads start, never later")
         return program
+
+    def _replay(self, key: tuple, *args: torch.Tensor):
+        """One replay of the program for `key` on `args` -> (its outputs,
+        the weights_version it runs on). The enqueue holds the replay lock,
+        as update_params' swap does, so the program runs wholly on the
+        weights before a swap or wholly on those after it; the caller reads
+        the outputs back after the lock is released."""
+        program = self._program(key)
+        with self._replay_lock:
+            return program(*args), self.weights_version
 
     def _program_specs(self, spans):
         """(key, body, example inputs, generators) of every program the
@@ -570,6 +655,13 @@ class InferenceEngine:
                         if x is not None:
                             stats[name + key] = stats.get(name + key, 0) + x
             self.capture_stats = stats
+            if self.device.type == "cuda":
+                # each program's readback takes its pinned host blocks now,
+                # which PyTorch's host allocator keeps: no request allocates one
+                for key, *_ in todo:
+                    outputs = self._programs[key].outputs
+                    if outputs:
+                        read_back(*outputs)
 
     def _capture(self, specs, pool):
         """Capture `specs` into `pool` -> (seconds, bytes the captures added
@@ -595,30 +687,33 @@ class InferenceEngine:
         x = self._model.chunk(toks, start, table)
         return (self._model.logits(x.index_select(0, last_idx.long())),)
 
-    def _chunk_step(self, tokens, start: int, table, last_idx: int) -> np.ndarray:
+    def _chunk_step(self, tokens, start: int, table, last_idx: int):
         """One replay of the chunk program on host arrays: writes the
-        chunk's KV into the sequence's pages -> f32 logits [V] at chunk row
-        last_idx, read back. Decode thread only."""
-        (logits,) = self._program(("chunk", len(tokens)))(
+        chunk's KV into the sequence's pages -> (f32 logits [V] at chunk
+        row last_idx, read back; the weights_version the chunk ran on).
+        Decode thread only."""
+        (logits,), version = self._replay(
+            ("chunk", len(tokens)),
             host_tensor(tokens, torch.int32), host_tensor([start], torch.int32),
             host_tensor(table, torch.int32), host_tensor([last_idx], torch.int32))
-        return logits.to("cpu", copy=True).numpy()[0]
+        return read_back(logits)[0].numpy()[0], version
 
     def _prefill_body(self, toks, true_lens, tables):
         """The bucketed prefill program (PagedModel.prefill, kernel K2)."""
         return (self._model.prefill(toks, true_lens, tables),)
 
     def _prefill(self, tokens: np.ndarray, true_lens: np.ndarray,
-                 tables: np.ndarray) -> np.ndarray:
+                 tables: np.ndarray):
         """Bucketed prefill of a padded batch: one replay of the program for
         (bucket, Bp) on host arrays tokens [Bp, bucket], true_lens [Bp],
-        tables [Bp, pps]. Writes each row's KV into its pages -> f32 logits
-        [Bp, V] at each row's last prompt token, read back. Prefill thread."""
+        tables [Bp, pps]. Writes each row's KV into its pages -> (f32
+        logits [Bp, V] at each row's last prompt token, read back; the
+        weights_version the prefill ran on). Prefill thread."""
         Bp, bucket = tokens.shape
-        (logits,) = self._program(("prefill", bucket, Bp))(
-            host_tensor(tokens, torch.int32), host_tensor(true_lens, torch.int32),
-            host_tensor(tables, torch.int32))
-        return logits.to("cpu", copy=True).numpy()
+        (logits,), version = self._replay(
+            ("prefill", bucket, Bp), host_tensor(tokens, torch.int32),
+            host_tensor(true_lens, torch.int32), host_tensor(tables, torch.int32))
+        return read_back(logits)[0].numpy(), version
 
     def warmup(self, buckets=None, batch_sizes=None) -> None:
         """Capture every program the threads can pick (`_capture_programs`)
@@ -707,6 +802,7 @@ class InferenceEngine:
         "kv_wire": 2 ("layers" stays the model's total). `last` is set only
         on the final window of the final slab of the stream. A sink that
         raises propagates to the caller, which fails the request."""
+        t0 = time.monotonic()
         win = max(int(req.kv_window), self.ecfg.page_size)
         L_total = int(n_layers) if n_layers is not None else int(k.shape[0])
         layered = layer0 > 0 or int(k.shape[0]) != L_total
@@ -732,6 +828,8 @@ class InferenceEngine:
             seq += 1
             off = end
             if tail:
+                _m_step_phase.observe(time.monotonic() - t0,
+                                      tags={"phase": "kv_framing", "mode": "export"})
                 return seq
 
     def _stream_kv(self, req: Request, k, v, start: int, true_len: int, last: bool,
@@ -934,9 +1032,10 @@ class InferenceEngine:
             self._finish_request(req, "cancelled")
             return req
         if not req.output:
+            # sampled, and its TTFT observed, on the exporting engine
             self._commit_first(req, int(first_token),
                                float(first_logprob) if first_logprob is not None else None,
-                               time.monotonic())
+                               time.monotonic(), self.weights_version)
         with self._ready_lock:
             self._ready.append((req, st["pages"], st["T"], (st["k"], st["v"])))
         self._work.set()
@@ -1064,14 +1163,17 @@ class InferenceEngine:
     def _finish_request(self, req: Request, reason: Optional[str] = None,
                         error: Optional[str] = None) -> None:
         """The one request-completion path (finish/fail/cancel): stamp,
-        unregister, signal, terminate the stream."""
+        count, unregister, signal, terminate the stream."""
         if req.done.is_set():
             return
         if error is not None:
             req.error = error
         else:
             req.finish_reason = reason
+            _m_requests.inc(tags={"finish_reason": reason})
         req.finished_at = time.monotonic()
+        if self._slo_on and error is None and reason != "cancelled":
+            self._slo_digest("serve_e2e_seconds").add(req.finished_at - req.submitted_at)
         with self._req_lock:
             self._requests.pop(req.request_id, None)
         for tok in req._held:  # flush the stream hold-back (post-strip)
@@ -1248,6 +1350,8 @@ class InferenceEngine:
             self._finish_request(req, "cancelled")
             return None
         cached_len = len(shared) * self.ecfg.page_size
+        if cached_len:
+            _m_prefix_hit_tokens.inc(cached_len)
         if shared or (self.ecfg.chunked_prefill and T > C):
             # long prompt (or cached prefix): chunk on the decode thread
             return pages, T, None, cached_len
@@ -1320,8 +1424,9 @@ class InferenceEngine:
             padded[i, :T] = req.prompt
             lens[i] = T
             tables[i, :len(pages)] = pages
-        # the program writes each row's KV into its pages
-        logits_host = self._prefill(padded, lens, tables)
+        # the program writes each row's KV into its pages; the rows' first
+        # tokens are stamped with the weights it ran on
+        logits_host, version = self._prefill(padded, lens, tables)
         # sample every row BEFORE publishing anything: if this raises, the
         # caller can still free every page (nothing is in _ready yet)
         firsts = [_sample_host(logits_host[i], req.temperature, req.top_p, req.top_k,
@@ -1334,18 +1439,29 @@ class InferenceEngine:
                     if it[0].prefill_only and it[0].kv_sink is not None]
         with self._ready_lock:
             for i, (req, pages, T, _b, _cl) in enumerate(group):
-                self._commit_first(req, firsts[i], first_lps[i], now)
+                self._observe_first(req, now)
+                self._commit_first(req, firsts[i], first_lps[i], now, version)
                 if i not in streamed:
                     self._ready.append((req, pages, T, None))
         self._work.set()  # revive the decode thread if it is idle-waiting
         if streamed:
             self._stream_group_kv(group, streamed)
 
-    def _commit_first(self, req: Request, first: int, logprob: float, now: float) -> None:
+    def _observe_first(self, req: Request, now: float) -> None:
+        """Count a first token sampled here, and its time to first token."""
+        _m_ttft.observe(now - req.submitted_at)
+        if self._slo_on:
+            self._slo_digest("serve_ttft_seconds").add(now - req.submitted_at)
+        _m_tokens.inc()
+
+    def _commit_first(self, req: Request, first: int, logprob: float, now: float,
+                      version: int) -> None:
+        """Seed the request's output with its first token; `version`: the
+        weights_version of the program that computed it."""
         req.first_token_at = now
         req.output.append(int(first))
         req.output_logprobs.append(logprob)
-        req.weights_version = self.weights_version
+        req.weights_version = version
         eos = self.ecfg.eos_token_id
         if eos is not None and int(first) == eos:
             pass  # eos is control
@@ -1417,6 +1533,7 @@ class InferenceEngine:
                 self._spec.on_install(self.slots.index(slot), req)
             self._maybe_finish(slot, req.output[-1])
             installed = True
+            _m_running.set(len(self._active()))
 
     # ------------------------------------------------------------ stepping
 
@@ -1443,7 +1560,7 @@ class InferenceEngine:
         padded[: len(toks)] = toks
         is_last = start + C >= st.true_len
         last_idx = (st.true_len - 1 - start) if is_last else C - 1
-        logits = self._chunk_step(padded, start, st.table, last_idx)
+        logits, version = self._chunk_step(padded, start, st.table, last_idx)
         st.next_chunk += 1
         streaming = req.prefill_only and req.kv_sink is not None
         if not is_last:
@@ -1463,7 +1580,9 @@ class InferenceEngine:
         with self._chunk_lock:
             self._chunk_queue.pop(0)
         first = _sample_host(logits, req.temperature, req.top_p, req.top_k, self._host_gen)
-        self._commit_first(req, first, _host_logprob(logits, first), time.monotonic())
+        now = time.monotonic()
+        self._observe_first(req, now)
+        self._commit_first(req, first, _host_logprob(logits, first), now, version)
         if streaming:
             # the last frame carries the first token; the pages free at once
             try:
@@ -1487,16 +1606,23 @@ class InferenceEngine:
         that finishes mid-span keeps decoding to span end; its extra tokens
         are dropped by the host loop and its extra KV writes land in its own
         still-allocated pages or the trash page (pages free only after the
-        span's readback). Returns True if work happened."""
+        span's readback). Returns True if work happened.
+
+        Every iteration with active slots observes each phase of the
+        per-phase histogram (serve_decode_step_phase_seconds) once."""
         chunked = self._advance_chunk()
         installed = self._install_ready()
         # a request cancelled mid-decode frees its slot at this boundary
+        t0 = time.monotonic()
         for s in self.slots:
             if s.request is not None and s.request.cancelled.is_set():
                 self._maybe_finish(s, -1)
+        t_cancel = time.monotonic() - t0
         active = self._active()
         if not active:
             return installed or chunked
+        mode = "spec" if self._spec is not None else "plain"
+        _m_step_phase.observe(t_cancel, tags={"phase": "cancellation_check", "mode": mode})
         B, pps = self.ecfg.max_batch_size, self.ecfg.pages_per_seq
         tokens = np.zeros((B,), np.int32)
         positions = np.zeros((B,), np.int32)
@@ -1537,8 +1663,10 @@ class InferenceEngine:
             span = max(1, self.ecfg.busy_span)
         else:
             span = max(1, self.ecfg.decode_span)
+        t0 = time.monotonic()
         seq, logps = self._decode_span(span, tokens, positions, tables, temps,
                                        top_ps, top_ks, advanced)
+        t1, t2 = self._span_enqueued, time.monotonic()
         committed = 0
         for t in range(span):
             for i, s in enumerate(self.slots):
@@ -1551,6 +1679,7 @@ class InferenceEngine:
                     s.request.output_logprobs.append(float(logps[t, i]))
                     s.generated += 1
                     committed += 1
+                    _m_tokens.inc()
                     eos = self.ecfg.eos_token_id
                     if eos is not None and tok == eos:
                         pass  # eos is control, not content
@@ -1561,8 +1690,11 @@ class InferenceEngine:
                     else:
                         s.request._emit(tok)
                 self._maybe_finish(s, tok)
-        self._tps_committed += committed
-        self._tps_steps += span * len(active)
+        t3 = time.monotonic()
+        for phase, dt in (("verify", t1 - t0), ("sample", t2 - t1),
+                          ("cache_bookkeeping", t3 - t2)):
+            _m_step_phase.observe(dt, tags={"phase": phase, "mode": "plain"})
+        self._note_tokens_per_step(committed, span * len(active))
         return True
 
     def _step_spec(self, tokens, positions, tables, temps, top_ps, top_ks, advanced,
@@ -1585,6 +1717,8 @@ class InferenceEngine:
             tokens, positions, tables, caps, temps, top_ps, top_ks, advanced)
         spec.note_times(times)
         if committed is None:
+            for phase in ("propose", "propose_wait", "propose_compute"):
+                _m_step_phase.observe(times[phase], tags={"phase": phase, "mode": "spec"})
             return False
         t0 = time.monotonic()
         proposed = accepted = n_tokens = 0
@@ -1606,6 +1740,7 @@ class InferenceEngine:
                     s.request.output_logprobs.append(None)
                     s.generated += 1
                     n_tokens += 1
+                    _m_tokens.inc()
                     eos = ecfg.eos_token_id
                     if eos is not None and tok == eos:
                         pass  # eos is control, not content
@@ -1614,11 +1749,37 @@ class InferenceEngine:
                     else:
                         s.request._emit(tok)
                 self._maybe_finish(s, tok)
+        t1 = time.monotonic()
         spec.record(proposed, accepted)
-        spec.note_times({"cache_bookkeeping": time.monotonic() - t0, "rounds": 1})
-        self._tps_committed += n_tokens
-        self._tps_steps += n_active
+        spec.note_times({"cache_bookkeeping": t1 - t0, "rounds": 1})
+        for phase in ("propose", "propose_wait", "propose_compute", "verify", "sample"):
+            _m_step_phase.observe(times[phase], tags={"phase": phase, "mode": "spec"})
+        _m_step_phase.observe(t1 - t0, tags={"phase": "cache_bookkeeping", "mode": "spec"})
+        self._note_tokens_per_step(n_tokens, n_active)
         return True
+
+    def _slo_digest(self, name: str) -> slo.Digest:
+        d = self._slo.get(name)
+        if d is None:
+            d = slo.digest(name, {"role": self.slo_role})
+            self._slo[name] = d
+        return d
+
+    def _note_tokens_per_step(self, committed: int, participations: int) -> None:
+        self._tps_committed += committed
+        self._tps_steps += participations
+        if self._tps_steps:
+            _m_tokens_per_step.set(self._tps_committed / self._tps_steps)
+        if committed and self._slo_on:
+            # time between tokens, count-weighted once per decode step (a
+            # per-token add would pay the digest span times per span for
+            # the same quantile information)
+            now = time.monotonic()
+            last = self._last_commit_t
+            # the gap bound keeps idle time between bursts out of the sketch
+            if last and now - last < 10.0:
+                self._slo_digest("serve_tbt_seconds").add((now - last) / committed, n=committed)
+            self._last_commit_t = now
 
     def _maybe_finish(self, slot: _Slot, last_tok: int) -> None:
         req = slot.request
@@ -1662,6 +1823,7 @@ class InferenceEngine:
         slot.pages = []
         slot.position = 0
         slot.generated = 0
+        _m_running.set(len(self._active()))
         self._finish_request(req, reason)
 
     # ------------------------------------------------------------ blocking
@@ -1673,11 +1835,12 @@ class InferenceEngine:
         req = Request(request_id=request_id or uuid.uuid4().hex, prompt=list(prompt),
                       max_tokens=max_tokens, temperature=temperature, top_p=top_p,
                       top_k=top_k, stop=stop)
-        self.add_request(req)
-        if not req.done.wait(timeout_s):
-            # the caller is gone: cancel so the slot and pages free
-            self.cancel(req.request_id)
-            raise TimeoutError(f"request {req.request_id} timed out")
+        with tracing.span_if_traced("engine.generate", {"request_id": req.request_id}):
+            self.add_request(req)
+            if not req.done.wait(timeout_s):
+                # the caller is gone: cancel so the slot and pages free
+                self.cancel(req.request_id)
+                raise TimeoutError(f"request {req.request_id} timed out")
         if req.error:
             raise ValueError(req.error)
         return {
@@ -1722,6 +1885,111 @@ class InferenceEngine:
                                   request_id=request_id, timeout_s=timeout_s,
                                   top_p=top_p, top_k=top_k, stop=stop)
         return gen
+
+    def update_params(self, params, version: Optional[int] = None) -> int:
+        """Live weight swap without draining: the reference's update_params,
+        which rebinds a new device tree. Here the captured programs read
+        the parameters at their addresses, so the new values are copied
+        into the live tensors in place; the tensors, their per-layer views
+        and the f32 head copy are never rebound and no program is
+        recaptured.
+
+        1. Validate: `params` must have this engine's keys and shapes, or
+           ValueError is raised before a byte is copied.
+        2. Stage: a leaf already on the engine's device in the live leaf's
+           dtype is used as it is. Any other (a numpy array, an ml_dtypes
+           bfloat16 one too, a CPU tensor, another dtype) is copied to the
+           card on a side stream, through reused pinned buffers
+           (_HostStager), and cast to the live leaf's dtype there; the
+           update then waits for that stream (the reference's
+           block_until_ready) while decode spans go on running. On the
+           CPU the same steps run without streams.
+        3. Swap: under the replay lock, which every program replay holds
+           while it is enqueued, and on the default stream, copy every leaf
+           into the live tensors, refresh the f32 head copy from the new
+           head, and bump weights_version (or set it to `version`) and the
+           serve_weights_version gauge. A program enqueued before the swap
+           runs wholly on the old weights and one enqueued after it wholly
+           on the new ones, as the reference's in-flight dispatches keep
+           their tree; a request's weights_version is the one its first
+           token's program ran on.
+
+        The engine writes through the tensors it was built over: a caller
+        that passed tensors on the card, a second engine built over the
+        same tensors and a self-speculation draft all see the new weights
+        (no second copy of the model is made). A distinct draft model's
+        weights are not touched. update_stats holds the update's host
+        seconds of staging, of the wait for the replay lock and of the
+        swap, and the bytes staged. Returns the new weights_version."""
+        t0 = time.monotonic()
+        live = _leaves(self.params)
+        new = _leaves(params)
+        missing, extra = sorted(set(live) - set(new)), sorted(set(new) - set(live))
+        if missing or extra:
+            raise ValueError(f"update_params: the new weights lack {missing} and add {extra}")
+        for name, t in live.items():
+            if tuple(np.shape(new[name])) != tuple(t.shape):
+                raise ValueError(f"update_params: {name} has shape "
+                                 f"{tuple(np.shape(new[name]))}, the engine's {tuple(t.shape)}")
+        dst = list(live.values())
+        staged, nbytes = self._stage([new[name] for name in live], dst)
+        t1 = time.monotonic()
+        # the engine lock keeps out a capture (the threads run only after it)
+        with self._lock, self._replay_lock:
+            t2 = time.monotonic()
+            self._copy_into_live(dst, staged)
+            self._model.refresh_head()
+            self.weights_version = (int(version) if version is not None
+                                    else self.weights_version + 1)
+            v = self.weights_version
+            _m_weights_version.set(float(v), tags={"role": self.slo_role})
+            t3 = time.monotonic()
+        self.update_stats = {"stage_s": t1 - t0, "wait_s": t2 - t1, "swap_s": t3 - t2,
+                             "staged_bytes": nbytes}
+        return v
+
+    def _stage(self, new: list, live: List[torch.Tensor]):
+        """The new leaves on the engine's device in the live leaves' dtypes
+        -> (tensors, bytes copied from the host). A leaf already there in
+        that dtype is used as it is; on the card the others are staged on
+        a side stream (_HostStager), which this waits for."""
+        card = self.device.type == "cuda"
+        out, nbytes, stager = [], 0, None
+        for x, t in zip(new, live):
+            if isinstance(x, torch.Tensor) and x.device == t.device and x.dtype == t.dtype:
+                out.append(x)
+                continue
+            x = x if isinstance(x, torch.Tensor) else _host_leaf(x)
+            if not card:
+                out.append(x.to(t.dtype))
+                continue
+            if stager is None:
+                stager = _HostStager(self.device)
+            if x.device.type == "cpu":
+                nbytes += x.numel() * x.element_size()
+            out.append(stager.stage(x, t.dtype))
+        if stager is not None:
+            stager.side.synchronize()
+        return out, nbytes
+
+    def _copy_into_live(self, live: List[torch.Tensor], staged: List[torch.Tensor]) -> None:
+        """The swap's copies, in stream order (under the replay lock): one
+        device-to-device copy a leaf, which ran closer to the byte bound
+        on the H100 than one torch._foreach_copy_ (PERF.md, live weights)."""
+        for dst, src in zip(live, staged):
+            dst.copy_(src)
+
+    def prefix_digest(self) -> Dict[str, Any]:
+        """Compact prefix-cache fingerprint for router gossip: the first 8
+        bytes, in hex, of the chain hash of every cached full prompt page.
+        A router matches prompt_page_fingerprints(prompt, page_size)
+        against this set to count a prompt's warm leading pages per
+        replica."""
+        if self.prefix is None:
+            return {"page_size": self.ecfg.page_size, "hashes": []}
+        with self._alloc_lock:
+            hashes = [h[:8].hex() for h in self.prefix.by_hash]
+        return {"page_size": self.ecfg.page_size, "hashes": hashes}
 
     def stats(self) -> Dict[str, Any]:
         with self._ready_lock:
@@ -1814,6 +2082,84 @@ def prompt_page_fingerprints(prompt, page_size: int) -> List[str]:
     if n <= 0:
         return []
     return [h[:8].hex() for h in PrefixCache(page_size).page_hashes(prompt, n)]
+
+
+def _leaves(tree, prefix: str = "") -> Dict[str, Any]:
+    """A parameter tree's leaves by path ("layers.wq"), in the tree's order."""
+    if not isinstance(tree, dict):
+        raise ValueError(f"update_params: {prefix or 'the weights'} is a "
+                         f"{type(tree).__name__}, not a dict of arrays")
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_leaves(v, path + "."))
+        else:
+            out[path] = v
+    return out
+
+
+# bytes of one host-to-card copy when update_params stages a host leaf
+STAGE_CHUNK_BYTES = 32 << 20
+
+
+class _HostStager:
+    """update_params' staging on the card, on a side stream. A host leaf
+    goes through two reused pinned buffers of STAGE_CHUNK_BYTES in turns:
+    the host fills one (a single-threaded copy, leaving the other cores to
+    the engine's threads) while the other's copy to the card runs. So no
+    pinned allocation is the size of a leaf, and no copy holds the card's
+    copy engine for long while the decode thread's input copies wait
+    behind it. The cast to the live dtype runs on the card."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.side = torch.cuda.Stream(device)
+        self.main = torch.cuda.current_stream(device)
+        self.bufs = [torch.empty(STAGE_CHUNK_BYTES, dtype=torch.uint8, pin_memory=True)
+                     for _ in range(2)]
+        self.copied: List[Optional[torch.cuda.Event]] = [None, None]
+        self.turn = 0
+
+    def stage(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """x (host, or on the card in another dtype) on the card in dtype,
+        enqueued on the side stream; read on the default stream."""
+        if x.device.type != "cpu":  # a cast, after what the caller enqueued
+            self.side.wait_stream(self.main)
+            with torch.cuda.stream(self.side):
+                y = x.to(dtype)
+        else:
+            src = x.contiguous().reshape(-1).view(torch.uint8).numpy()
+            with torch.cuda.stream(self.side):
+                dev = torch.empty(src.size, dtype=torch.uint8, device=self.device)
+            for off in range(0, src.size, STAGE_CHUNK_BYTES):
+                n = min(STAGE_CHUNK_BYTES, src.size - off)
+                buf, done = self.bufs[self.turn], self.copied[self.turn]
+                if done is not None:
+                    done.synchronize()  # the buffer's last copy has left it
+                np.copyto(buf.numpy()[:n], src[off:off + n])
+                with torch.cuda.stream(self.side):
+                    dev[off:off + n].copy_(buf[:n], non_blocking=True)
+                    self.copied[self.turn] = torch.cuda.Event()
+                    self.copied[self.turn].record(self.side)
+                self.turn ^= 1
+            with torch.cuda.stream(self.side):
+                y = dev.view(x.dtype).view(x.shape).to(dtype)
+        y.record_stream(self.main)  # read by the swap, on the default stream
+        return y
+
+
+def _host_leaf(x) -> torch.Tensor:
+    """An array-like on the host as a CPU tensor of its dtype; an ml_dtypes
+    bfloat16 array by its bits (numpy knows no bfloat16)."""
+    a = np.ascontiguousarray(x)
+    bf16 = a.dtype.name == "bfloat16"
+    if bf16:
+        a = a.view(np.uint16)
+    if not a.flags.writeable:  # torch.from_numpy wants a writable array
+        a = a.copy()
+    t = torch.from_numpy(a)
+    return t.view(torch.bfloat16) if bf16 else t
 
 
 def _to_device(tree, device: torch.device):

@@ -1,9 +1,11 @@
 """LLMServer: the colocated serving front of one InferenceEngine.
 
 Counterpart of ray_tpu/serve/llm.py's LLMServer in the colocated role, as
-a plain class: one server = one engine = one card. The deployment
-decorator, disaggregated roles, LoRA adapters and live weight sync belong
-to the serve runtime, which this package does not port yet.
+a plain class: one server = one engine = one card. It swaps its weights
+live (`update_weights`, from a tree in hand) and exposes the engine's
+weights version and prefix-cache digest. The deployment decorator,
+disaggregated roles, LoRA adapters, and weights fetched through the object
+plane belong to the serve runtime, which this package does not port yet.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ class LLMServer:
 
     engine_config: EngineConfig's fields; "speculation" (a dict, see
     serve/config.py) turns on speculative decoding.
+    speculation: shorthand for engine_config["speculation"]; the two must
+    not both be set.
     params_fn: optional () -> (params, model_cfg) to load real weights;
     default builds random weights for the named config from `seed`,
     straight into the model dtype on the device (no f32 master copy).
@@ -39,7 +43,13 @@ class LLMServer:
     def __init__(self, model_name: str = "tiny-llama",
                  engine_config: Optional[Dict[str, Any]] = None, params_fn=None,
                  model_overrides: Optional[Dict[str, Any]] = None, device=None,
-                 seed: int = 0, draft_params_fn=None):
+                 seed: int = 0, draft_params_fn=None, speculation: Any = None):
+        engine_config = dict(engine_config or {})
+        if speculation is not None:
+            if engine_config.get("speculation") is not None:
+                raise ValueError("pass speculation either as the LLMServer kwarg or "
+                                 "inside engine_config, not both")
+            engine_config["speculation"] = speculation
         device = resolve_device(device)
         if params_fn is not None:
             params, cfg = params_fn()
@@ -47,8 +57,10 @@ class LLMServer:
             cfg = get_config(model_name, **(model_overrides or {}))
             params = init_params(cfg, seed=seed, device=device, dtype=cfg.dtype)
         draft_params = draft_params_fn() if draft_params_fn is not None else None
-        self.engine = InferenceEngine(params, cfg, EngineConfig(**dict(engine_config or {})),
+        self.engine = InferenceEngine(params, cfg, EngineConfig(**engine_config),
                                       device=device, draft_params=draft_params)
+        # the SLO digests group by serving role
+        self.engine.slo_role = self.role
         # capture every device program (prefill, chunks, decode spans and
         # speculation) at init, and so build the kernels, rather than under
         # the first requests
@@ -63,6 +75,29 @@ class LLMServer:
 
     def cancel(self, request: Dict[str, Any]) -> bool:
         return self.engine.cancel(request["request_id"])
+
+    def update_weights(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        """Swap the engine's weights live, without draining:
+        {"weights": tree, "version"?: int} -> {"weights_version", "role"}
+        (InferenceEngine.update_params: any array form, written in place
+        into the tensors the engine was built over). A "ref" to fetch the
+        tree through the object plane is refused: the object plane is not
+        ported."""
+        weights = request.get("weights")
+        if weights is None and request.get("ref") is not None:
+            raise ValueError("update_weights: an object-plane 'ref' cannot be resolved, the "
+                             "object plane (ray_tpu's api.get) is not ported; pass 'weights'")
+        if weights is None:
+            raise ValueError("update_weights needs 'weights'")
+        v = self.engine.update_params(weights, version=request.get("version"))
+        return {"weights_version": v, "role": self.role}
+
+    def weights_version(self, _request: Any = None) -> int:
+        return self.engine.weights_version
+
+    def prefix_digest(self, _request: Any = None) -> Dict[str, Any]:
+        """The engine's prefix-cache fingerprint, for prefix-aware routing."""
+        return self.engine.prefix_digest()
 
     def stats(self, _request: Any = None) -> Dict[str, Any]:
         out = self.engine.stats()

@@ -99,6 +99,11 @@ class PagedModel:
                                     device=k_pages.device)
         self.rope = rope
 
+    def refresh_head(self) -> None:
+        """Rewrite the f32 head copy in place from the parameters' head
+        (after a live weight update; the programs read it at its address)."""
+        self.head32.copy_(lm_head_weight(self.params, self.cfg))
+
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm + f32 head over hidden rows [..., D] -> [..., V]."""
         return _lm_head(x, self.params, self.cfg, self.head32)
@@ -235,6 +240,23 @@ def host_tensor(array, dtype: torch.dtype) -> torch.Tensor:
     """A host array as a CPU tensor of `dtype`, to copy into a program's
     static input (one host-to-device copy on the card)."""
     return torch.as_tensor(np.asarray(array), dtype=dtype)
+
+
+def read_back(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Host copies of device tensors (a program's outputs). On the card
+    each is copied into pinned memory without blocking and the host then
+    waits on an event: a copy into pageable memory holds the stream while
+    it waits, and blocks every other thread's enqueue on it (a replay's
+    copies, a live weight swap's) until the card has run all the work
+    before it."""
+    if tensors[0].device.type != "cuda":
+        return tuple(t.to("cpu", copy=True) for t in tensors)
+    host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+                 for t in tensors)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return host
 
 
 class CapturedProgram:

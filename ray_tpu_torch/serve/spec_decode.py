@@ -73,9 +73,21 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.metrics import Counter, Gauge
 from ..models import get_config, init_params
 from .config import SPEC_OVERLAP_DEFAULT, SpeculationConfig
-from .programs import SAMPLER_MODES, PagedModel, _categorical, host_tensor
+from .programs import SAMPLER_MODES, PagedModel, _categorical, host_tensor, read_back
+
+_m_spec_proposed = Counter(
+    "serve_spec_proposed_tokens",
+    "Draft tokens proposed to the verify forward.")
+_m_spec_accepted = Counter(
+    "serve_spec_accepted_tokens",
+    "Draft tokens accepted by the verify forward.")
+_m_spec_accept_rate = Gauge(
+    "serve_spec_acceptance_rate",
+    "Cumulative accepted/proposed draft-token ratio.")
+
 
 # ---------------------------------------------------------------------------
 # Device-side accept + commit
@@ -303,7 +315,10 @@ class DraftModelProposer:
         shared = {}
         if spec.draft_model is None:
             # self-speculation: share the target's weight tensors, its
-            # per-layer views and its f32 head (no second copy). Acceptance
+            # per-layer views and its f32 head (no second copy), so after
+            # engine.update_params it drafts with the new weights (the
+            # reference's draft keeps the tree it was built with; greedy
+            # commits come from the target's verify in both). Acceptance
             # is high by construction — an upper-bound plumbing smoke, not
             # a deployment config (name a real small model for that).
             cfg, params = engine.cfg, engine.params
@@ -381,13 +396,13 @@ class DraftModelProposer:
         come from the prefix cache or chunked prefill — the draft pool
         always rebuilds from the tokens)."""
         T, C = len(request.prompt), self.chunk
-        program = engine._program(("draft_chunk", C))
         table = self._tables[slot_idx]
         for c0 in range(0, T, C):
             toks = request.prompt[c0:c0 + C]
             padded = np.zeros((C,), np.int32)
             padded[: len(toks)] = toks
-            program(host_tensor(padded, torch.int32), host_tensor([c0], torch.int32), table)
+            engine._replay(("draft_chunk", C), host_tensor(padded, torch.int32),
+                           host_tensor([c0], torch.int32), table)
 
     def on_evict(self, engine, slot_idx: int) -> None:
         # a prefetched row computed for the evicted request must never
@@ -414,9 +429,9 @@ class DraftModelProposer:
         overwrites. `propose` leaves it to run_step, which concatenates the
         drafts into the verify's input before any other replay; `prefetch`
         keeps a copy."""
-        (drafts,) = engine._program(("propose",))(host_tensor(prev, torch.int32),
-                                                  host_tensor(tokens, torch.int32),
-                                                  host_tensor(positions, torch.int32))
+        (drafts,), _ = engine._replay(("propose",), host_tensor(prev, torch.int32),
+                                      host_tensor(tokens, torch.int32),
+                                      host_tensor(positions, torch.int32))
         return drafts
 
     def propose(self, engine, tokens, positions) -> Tuple[torch.Tensor, np.ndarray]:
@@ -513,8 +528,9 @@ class SpecDecoder:
         where every slot drafted short never pays the full k+1-wide
         forward. Tensors in (host or card), (committed [B,S], n_committed
         [B]) out: the program's static outputs, read back at once."""
-        program = self.engine._program(("verify", toks_bs.shape[1], sample, advanced and sample))
-        return program(toks_bs, positions, tables, n_draft, temps, top_ps, top_ks)
+        return self.engine._replay(("verify", toks_bs.shape[1], sample, advanced and sample),
+                                   toks_bs, positions, tables, n_draft, temps, top_ps,
+                                   top_ks)[0]
 
     def program_specs(self):
         """(key, body, example inputs, generators) of the verify programs,
@@ -630,7 +646,7 @@ class SpecDecoder:
             advanced, bool(np.any(temps > 0)))
         t2 = time.monotonic()
         # the round's one readback: [B, S + 1] = committed | n_committed
-        out = torch.cat([committed, n_comm[:, None]], dim=1).cpu().numpy()
+        out = read_back(torch.cat([committed, n_comm[:, None]], dim=1))[0].numpy()
         committed, n_comm = out[:, :-1], out[:, -1]
         t3 = time.monotonic()
         if self.overlap:
@@ -650,6 +666,12 @@ class SpecDecoder:
     def record(self, proposed: int, accepted: int) -> None:
         self.proposed_total += int(proposed)
         self.accepted_total += int(accepted)
+        if proposed:
+            _m_spec_proposed.inc(proposed)
+            if accepted:
+                _m_spec_accepted.inc(accepted)
+        if self.proposed_total:
+            _m_spec_accept_rate.set(self.accepted_total / self.proposed_total)
 
     def stats(self) -> Dict[str, Any]:
         return {

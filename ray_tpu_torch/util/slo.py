@@ -1,0 +1,241 @@
+"""Streaming latency digests for the SLO health plane.
+
+The port's copy of ray_tpu/util/slo.py. Fixed-bucket log-spaced quantile
+sketches (the mergeable alternative to a t-digest that needs no
+per-update allocation): every process keeps one `Digest` per (metric,
+tags) pair, and the serving engine updates them inline (serve/engine.py:
+TTFT, time between tokens, e2e). `snapshot()` gives the wire form the
+reference's health plane merges bucket-wise — the same fixed bounds
+everywhere, so a merge is an element-wise add, and the two packages'
+snapshots merge with each other.
+
+Bucket layout: 20 buckets per decade over [100µs, 100s) → relative
+quantile error ≤ 10^(1/20)-1 ≈ 12%, plus one underflow and one overflow
+bucket. Windowing: the window (config slo_digest_window_s) is cut into
+`_SLICES` rotating sub-windows of counts; `snapshot()`/`quantile()` sum
+the slices still inside the window, so a replica that degraded two
+minutes ago but recovered reads healthy now.
+
+`Digest.add` is lock-free by design: it is a handful of list-item
+increments under the GIL on the decode hot path. A racing rotation can at
+worst misplace one update into an adjacent 10s slice — harmless for
+telemetry.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+from ..core.config import config
+
+__all__ = [
+    "Digest", "digest", "observe", "snapshot", "clear", "enabled",
+    "merge_snapshots", "quantile_from_counts", "BUCKET_BOUNDS",
+]
+
+_PER_DECADE = 20
+_LO_EXP = -4          # 1e-4 s = 100µs
+_HI_EXP = 2           # 1e+2 s
+_NB = (_HI_EXP - _LO_EXP) * _PER_DECADE   # 120 finite buckets
+_UNDER = _NB          # index of the underflow bucket
+_OVER = _NB + 1       # index of the overflow bucket
+_TOTAL = _NB + 2
+_SLICES = 6
+
+#: Upper bound (seconds) of finite bucket i: 1e-4 * 10^((i+1)/20).
+BUCKET_BOUNDS: Tuple[float, ...] = tuple(
+    10.0 ** (_LO_EXP + (i + 1) / _PER_DECADE) for i in range(_NB)
+)
+
+_LOG_LO = float(_LO_EXP)
+
+
+def _bucket(value: float) -> int:
+    if value < 1e-4:
+        return _UNDER
+    idx = int((math.log10(value) - _LOG_LO) * _PER_DECADE)
+    return idx if idx < _NB else _OVER
+
+
+def _bucket_value(idx: int) -> float:
+    """Representative latency for bucket idx (geometric midpoint)."""
+    if idx == _UNDER:
+        return 5e-5
+    if idx >= _NB:
+        return 10.0 ** _HI_EXP
+    lo = 10.0 ** (_LOG_LO + idx / _PER_DECADE)
+    return lo * (10.0 ** (0.5 / _PER_DECADE))
+
+
+class Digest:
+    """One windowed quantile sketch. Thread-compatible: `add` is GIL-atomic
+    enough for telemetry; snapshot/rotation take the instance lock."""
+
+    __slots__ = ("name", "tags", "_slices", "_slice_start", "_slice_s",
+                 "_cur", "count", "sum", "min", "max", "_lock")
+
+    def __init__(self, name: str, tags: Optional[Dict[str, str]] = None,
+                 window_s: Optional[float] = None):
+        self.name = name
+        self.tags = dict(tags or {})
+        if window_s is None:
+            window_s = float(config.get("slo_digest_window_s"))
+        self._slice_s = max(0.5, window_s / _SLICES)
+        self._slices: List[List[int]] = [[0] * _TOTAL for _ in range(_SLICES)]
+        self._slice_start = [0.0] * _SLICES
+        self._cur = 0
+        self.count = 0       # lifetime
+        self.sum = 0.0       # lifetime
+        self.min = math.inf
+        self.max = 0.0
+        self._lock = threading.Lock()
+
+    # -- hot path -----------------------------------------------------------
+    def add(self, value: float, n: int = 1, now: Optional[float] = None) -> None:
+        if now is None:
+            now = time.monotonic()
+        cur = self._cur
+        if now - self._slice_start[cur] >= self._slice_s:
+            self._rotate(now)
+            cur = self._cur
+        self._slices[cur][_bucket(value)] += n
+        self.count += n
+        self.sum += value * n
+        if value < self.min:
+            self.min = value
+        if value > self.max:
+            self.max = value
+
+    def _rotate(self, now: float) -> None:
+        with self._lock:
+            if now - self._slice_start[self._cur] < self._slice_s:
+                return  # another thread rotated first
+            nxt = (self._cur + 1) % _SLICES
+            self._slices[nxt] = [0] * _TOTAL
+            self._slice_start[nxt] = now
+            self._cur = nxt
+
+    # -- queries ------------------------------------------------------------
+    def window_counts(self, now: Optional[float] = None) -> List[int]:
+        """Summed bucket counts over the slices still inside the window."""
+        if now is None:
+            now = time.monotonic()
+        horizon = now - self._slice_s * _SLICES
+        out = [0] * _TOTAL
+        with self._lock:
+            for start, counts in zip(self._slice_start, self._slices):
+                if start >= horizon:
+                    for i, c in enumerate(counts):
+                        if c:
+                            out[i] += c
+        return out
+
+    def quantile(self, q: float, now: Optional[float] = None) -> Optional[float]:
+        return quantile_from_counts(self.window_counts(now), q)
+
+    def to_snapshot(self, now: Optional[float] = None) -> Dict[str, Any]:
+        """Wire form shipped in heartbeat telemetry. Bucket counts travel
+        sparse ({idx: n}) — a typical serve digest occupies <15 buckets."""
+        counts = self.window_counts(now)
+        return {
+            "name": self.name,
+            "tags": sorted(self.tags.items()),
+            "counts": {i: c for i, c in enumerate(counts) if c},
+            "count": self.count,
+            "sum": self.sum,
+            "min": None if self.count == 0 else self.min,
+            "max": self.max,
+        }
+
+
+def quantile_from_counts(counts: Iterable[int], q: float) -> Optional[float]:
+    """Quantile over a dense count list or sparse {idx: n} dict; None when
+    empty. q in [0, 1]."""
+    if isinstance(counts, dict):
+        dense = [0] * _TOTAL
+        for i, c in counts.items():
+            dense[int(i)] += c
+        counts = dense
+    else:
+        counts = list(counts)
+    total = sum(counts)
+    if total == 0:
+        return None
+    rank = q * (total - 1)
+    seen = 0
+    for i, c in enumerate(counts):
+        seen += c
+        if seen > rank:
+            return _bucket_value(i)
+    return _bucket_value(len(counts) - 1)
+
+
+def merge_snapshots(snaps: Iterable[Dict[str, Any]]
+                    ) -> Dict[Tuple[str, Tuple[Tuple[str, str], ...]], Dict[str, Any]]:
+    """Merge digest snapshots (from any number of nodes) by (name, tags).
+    Returns {key: {"counts": dense list, "count", "sum", "min", "max"}} —
+    feed "counts" to quantile_from_counts. Mergeability is the whole point
+    of the fixed shared bucket bounds."""
+    out: Dict[Tuple[str, Tuple[Tuple[str, str], ...]], Dict[str, Any]] = {}
+    for s in snaps:
+        key = (s["name"], tuple(tuple(kv) for kv in s.get("tags", ())))
+        m = out.get(key)
+        if m is None:
+            m = {"counts": [0] * _TOTAL, "count": 0, "sum": 0.0,
+                 "min": None, "max": 0.0}
+            out[key] = m
+        for i, c in (s.get("counts") or {}).items():
+            m["counts"][int(i)] += c
+        m["count"] += int(s.get("count", 0))
+        m["sum"] += float(s.get("sum", 0.0))
+        smin = s.get("min")
+        if smin is not None and (m["min"] is None or smin < m["min"]):
+            m["min"] = smin
+        m["max"] = max(m["max"], float(s.get("max", 0.0)))
+    return out
+
+
+# -- per-process registry ---------------------------------------------------
+
+_digests: Dict[Tuple[str, Tuple[Tuple[str, str], ...]], Digest] = {}
+_reg_lock = threading.Lock()
+
+
+def enabled() -> bool:
+    """Resolve the slo_digests switch (read once per engine/coordinator at
+    construction — not per observation)."""
+    return bool(config.get("slo_digests"))
+
+
+def digest(name: str, tags: Optional[Dict[str, str]] = None) -> Digest:
+    """Get-or-create the process-wide digest for (name, tags). Cache the
+    returned handle on hot paths — the lookup builds a tuple key."""
+    key = (name, tuple(sorted((tags or {}).items())))
+    d = _digests.get(key)
+    if d is None:
+        with _reg_lock:
+            d = _digests.get(key)
+            if d is None:
+                d = Digest(name, tags)
+                _digests[key] = d
+    return d
+
+
+def observe(name: str, value: float, tags: Optional[Dict[str, str]] = None,
+            n: int = 1) -> None:
+    digest(name, tags).add(value, n)
+
+
+def snapshot(now: Optional[float] = None) -> List[Dict[str, Any]]:
+    """All local digests in wire form (shipped with heartbeat telemetry)."""
+    with _reg_lock:
+        ds = list(_digests.values())
+    return [d.to_snapshot(now) for d in ds if d.count]
+
+
+def clear() -> None:
+    with _reg_lock:
+        _digests.clear()

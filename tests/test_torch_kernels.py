@@ -24,7 +24,7 @@ from ray_tpu_torch import EngineConfig, InferenceEngine, get_config, ops
 from ray_tpu_torch.models import init_params
 from ray_tpu_torch.ops import attention, dispatch, norm
 from ray_tpu_torch.ops import paged_attention as paged
-from ray_tpu_torch.serve.programs import WARM_RUNS, CapturedProgram
+from ray_tpu_torch.serve.programs import WARM_RUNS, CapturedProgram, read_back
 
 D = 128
 pytestmark = [pytest.mark.cuda, pytest.mark.parametrize("dtype", [torch.float32,
@@ -816,3 +816,84 @@ def test_no_garbage_collection_during_a_capture(card, dtype):
     assert seen == [True] * WARM_RUNS + [False] and gc.isenabled()
     assert torch.equal(program(torch.full((4,), 3.0, device=card, dtype=dtype))[0],
                        torch.full((4,), 6.0, device=card, dtype=dtype))
+
+
+def test_read_back_is_pinned_and_leaves_other_threads_enqueues_free(card, dtype):
+    # read_back copies into pinned memory and waits on an event: while one
+    # thread waits behind ~100 ms of work, another's enqueue of copies on
+    # the same stream returns at once (a pageable readback holds it until
+    # the card reaches the readback)
+    import threading
+
+    src = torch.randn(8, 16, device=card).to(dtype)
+    (host,) = read_back(src)
+    assert host.is_pinned() and torch.equal(host, src.cpu())
+    xs = [torch.randn(256, 256, device=card) for _ in range(8)]
+    ys = [torch.empty_like(x) for x in xs]
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(10_000_000)
+    b.record()
+    b.synchronize()
+    torch.cuda._sleep(int(10_000_000 * 100 / a.elapsed_time(b)))
+    reader = threading.Thread(target=read_back, args=(src,))
+    reader.start()
+    time.sleep(0.01)
+    t0 = time.perf_counter()
+    for x, y in zip(xs, ys):
+        y.copy_(x)
+    enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    reader.join()
+    torch.cuda.synchronize()
+    assert enqueue_ms < 30, enqueue_ms
+    assert all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+
+def test_update_params_under_live_replays(card, dtype):
+    # a live weight update on the card: a stream decodes (self-speculation,
+    # so the draft shares the live tensors) while the seed-1 tree, as host
+    # numpy float32, is staged on a side stream, cast to the engine's dtype
+    # and swapped in; afterwards the live weights and the f32 head copy
+    # equal a fresh engine's on the same tree bit for bit, fresh prompts
+    # give its tokens, and every launch around the update came from a
+    # graph replay
+    from ray_tpu_torch.models import params_from_numpy
+    from ray_tpu_torch.models.transformer import lm_head_weight
+
+    engine = _graph_engine(card, dtype)
+    cfg, name = engine.cfg, "bfloat16" if dtype == torch.bfloat16 else "float32"
+
+    def to_numpy(tree):
+        return {k: to_numpy(v) if isinstance(v, dict) else v.numpy() for k, v in tree.items()}
+
+    tree = to_numpy(init_params(cfg, seed=1, device="cpu", dtype="float32"))
+    fresh = InferenceEngine(params_from_numpy(tree, device=card, dtype=name), cfg, engine.ecfg,
+                            device=card)
+    fresh.warmup()
+    rs = np.random.RandomState(9)
+    prompts = [rs.randint(1, cfg.vocab_size, n).tolist() for n in (11, 50)]
+    try:
+        eager = dict(dispatch.eager_launch_counts())
+        req, stream = engine.open_stream(prompts[0], max_tokens=40, timeout_s=60)
+        got = []
+        for tok in stream:
+            got.append(tok)
+            if len(got) == 4:
+                assert engine.update_params(tree) == 1
+        assert req.error is None and len(got) == 40
+        assert all(0 <= t < cfg.vocab_size for t in got)
+        assert engine.update_stats["staged_bytes"] == sum(a.nbytes for a in _leaves(tree))
+        for p in prompts:
+            want = fresh.generate(p, max_tokens=12, timeout_s=60)["token_ids"]
+            assert engine.generate(p, max_tokens=12, timeout_s=60)["token_ids"] == want
+        assert dispatch.eager_launch_counts() == eager
+        for a, b in zip(_leaves(engine.params), _leaves(fresh.params)):
+            assert torch.equal(a, b)
+        assert torch.equal(engine._model.head32, lm_head_weight(engine.params, cfg).float())
+    finally:
+        engine.stop()
+        fresh.stop()
+
+
+def _leaves(tree):
+    return [x for v in tree.values() for x in (_leaves(v) if isinstance(v, dict) else [v])]

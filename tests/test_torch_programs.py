@@ -28,7 +28,7 @@ from ray_tpu.serve.llm import LLMServer as JLLMServer
 from ray_tpu_torch import EngineConfig, InferenceEngine, LLMServer, get_config
 from ray_tpu_torch.models import init_params, params_from_numpy
 from ray_tpu_torch.ops import dispatch
-from ray_tpu_torch.serve.programs import SAMPLER_MODES, CapturedProgram
+from ray_tpu_torch.serve.programs import SAMPLER_MODES, CapturedProgram, read_back
 
 TIMEOUT_S = 120
 ENGINE_KW = dict(max_batch_size=4, page_size=8, max_pages=64, max_seq_len=64,
@@ -125,6 +125,17 @@ def test_outputs_are_static_buffers_and_engine_callers_copy(tiny):
     assert torch.equal(drafts, held)
     spec.run_step(tokens + 1, positions, tables, caps, temps, top_ps, top_ks, False)
     assert np.array_equal(out[0], kept)
+
+
+def test_read_back_copies_off_the_card():
+    # on the CPU read_back is a plain copy of each tensor: the program's
+    # static buffers may be overwritten by its next replay
+    a, b = torch.arange(6.0).reshape(2, 3), torch.arange(4, dtype=torch.int32)
+    ra, rb = read_back(a, b)
+    assert torch.equal(ra, a) and torch.equal(rb, b) and rb.dtype == torch.int32
+    assert ra.data_ptr() != a.data_ptr() and rb.data_ptr() != b.data_ptr()
+    a.zero_()
+    assert torch.equal(ra, torch.arange(6.0).reshape(2, 3))
 
 
 def test_program_table_covers_every_key_the_step_loop_picks(tiny):

@@ -200,13 +200,16 @@ def test_init_params_is_seeded_and_typed():
 
 def test_port_imports_neither_jax_nor_ray_tpu():
     # it also serves tiny-moe with speculation, so the MoE path is checked
-    # too, and moves a prompt's KV out of the engine and back in
+    # too, moves a prompt's KV out of the engine and back in, swaps the
+    # weights live and renders the metrics, the digests and a trace
     code = (
         "import json, sys\n"
         "import ray_tpu_torch, ray_tpu_torch.serve, ray_tpu_torch.models, ray_tpu_torch.train\n"
         "import ray_tpu_torch.serve.spec_decode, ray_tpu_torch.serve.config\n"
         "import ray_tpu_torch.serve.programs, ray_tpu_torch.models.generate\n"
         "import ray_tpu_torch.parallel.moe\n"
+        "from ray_tpu_torch.core import config, metrics\n"
+        "from ray_tpu_torch.util import slo, tracing\n"
         "from ray_tpu_torch.serve import Request\n"
         "from ray_tpu_torch.serve.engine import prompt_page_fingerprints\n"
         "server = ray_tpu_torch.LLMServer(\n"
@@ -225,6 +228,15 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "    server.engine.import_kv_pages(imp, blob)\n"
         "    assert imp.done.wait(60) and imp.error is None and len(imp.output) == 4\n"
         "    assert len(prompt_page_fingerprints(list(range(17)), 8)) == 2\n"
+        "    tree = ray_tpu_torch.init_params(server.engine.cfg, seed=1, device='cpu')\n"
+        "    assert server.update_weights({'weights': tree})['weights_version'] == 1\n"
+        "    with tracing.start_span('root') as root:\n"
+        "        server({'prompt_ids': [4, 5, 6], 'max_tokens': 2})\n"
+        "    assert len(tracing.get_spans(root.trace_id)) == 2\n"
+        "    assert 'serve_weights_version{role=\"colocated\"} 1.0' in "
+        "metrics.registry.render_prometheus()\n"
+        "    assert slo.snapshot() and config.config.slo_digests\n"
+        "    assert isinstance(server.prefix_digest()['hashes'], list)\n"
         "finally:\n"
         "    server.shutdown()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
