@@ -118,6 +118,36 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      weights, must fail that exactness gate. The seed-0 weights are then
      restored, bit-exact by per-leaf checksums and the head copy; the
      planted-fault servers and phase 3s after it run on them;
+  3r. the task/actor runtime (runtime_path), on phase 3's tensors after 3w,
+     before phase 3's server shuts down: ray_tpu_torch.init() in thread
+     mode; (a) cluster_resources()["GPU"] equals the CUDA device count, a
+     second num_gpus=1 actor stays pending while the first lives and
+     places after kill, and a placement group's {"GPU": 1} bundle takes an
+     actor (planted: an agent that does not hold a created actor's GPU,
+     which the pending gate must catch); (b) put of the 16.06 GB parameter
+     tree and get of its ref return the same tensors (data_ptr), with the
+     put/get times and the process RSS around them printed and RSS growth
+     under RSS_GROWTH_MAX (planted: a seal_value that pickles device
+     trees, on a 64 MiB tree, which the identity gate must catch); (c) a
+     num_gpus=1 task runs K1 (ops.rms_norm) on a [8, 4096] bf16 activation
+     that arrives as a ref, within TOL of the plain version, K1's launch
+     count rising; the task's round trip p50/p99 over 200 tasks beside the
+     direct call's; (d) a GPU actor (num_gpus=1, max_concurrency=8)
+     builds an LLMServer over the tree's ref (the same tensors) and serves
+     phase 3's five prompts submitted concurrently through its handle:
+     every request its 32 tokens, phase 3's logprob gate, TTFT/TPOT/tok/s
+     beside phase 3's direct figures, greedy agreement printed; (e)
+     update_weights({"ref": ..., "version": 2}) through the handle, the
+     ref that of a tree whose final norm has a seeded half of its signs
+     flipped, reports version 2, writes the ref's values into phase 3's
+     tensors, and a 12-token prompt's logprobs then pass phase 3's gate
+     against the forward over that tree and fail it against the old one;
+     a second update (version 3) restores phase 3's tensors and tokens;
+     (f) a call parked behind eight on the actor fails with RayActorError
+     on kill, and no thread started in the phase outlives shutdown().
+     Launches are counted from before (c) to the end of (d)'s burst and
+     over (e)'s prompts and updates, the yardstick forwards left out: K1,
+     K2, K5 and K6 must have run;
   3s. the speculation path: the serving server is shut down and its
      parameters go to LLMServer(engine_config={"speculation": ...}), again
      llama3-8b at full width and depth, twice. (1) mode "draft", k = 4,
@@ -213,7 +243,7 @@ The second-to-last line of stdout is {"kernels": [...]} (eight kernels:
 K1's forward and backward, K2-K7; launches by path: serve, spec, train,
 train2b, moe_serve, moe_train, migrate (phase 3m), moe_migrate (phase 5's
 round trip), live (phase 3w's update and gate, phase 5's update and
-gate)), the last
+gate), runtime (phase 3r's tasks, hosted server and updates)), the last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
 
@@ -236,6 +266,11 @@ builds phase 3's llama3-8b server and serves phase 3's burst, fresh
 prompts each time, with the engine's readbacks into pinned memory
 (programs.read_back) and into pageable memory, in turns (readback_ab);
 prints each burst's figures and no result line.
+
+    python3 chip_smoke.py --runtime
+
+builds the kernels and phase 3's llama3-8b server, serves phase 3's burst,
+then runs phase 3r on its tensors (runtime_only); no result line.
 """
 
 from __future__ import annotations
@@ -1249,9 +1284,10 @@ def logprob_gaps(params, cfg, requests, results, yardstick: bool = False,
     return gaps
 
 
-def report_burst(label: str, requests, results, wall: float) -> None:
+def report_burst(label: str, requests, results, wall: float) -> str:
     """Per request and for the burst: TTFT, time per output token, tokens/s;
-    fails unless every request returned all its tokens."""
+    fails unless every request returned all its tokens. Returns the burst's
+    figures in one line."""
     total_tokens = 0
     for i, (req, res) in enumerate(zip(requests, results)):
         n = len(res["token_ids"])
@@ -1269,6 +1305,9 @@ def report_burst(label: str, requests, results, wall: float) -> None:
         f"{1 / statistics.median(tpots):.2f}); aggregate output tok/s "
         f"{total_tokens / wall:.2f} over {wall:.2f}s wall; {len(results)} requests, "
         f"0 failed")
+    return (f"TTFT p50 {statistics.median(ttfts):.4f} s max {ttfts[-1]:.4f} s, TPOT p50 "
+            f"{1e3 * statistics.median(tpots):.2f} ms, {total_tokens / wall:.2f} tok/s over "
+            f"{wall:.2f} s")
 
 
 # the serving engines' sizes, phases 3 and 3s
@@ -1530,6 +1569,34 @@ def telemetry_report(engine, results, before: dict, clock: TelemetryClock) -> No
         f"{sum(clock.us(t) for t in clock.ns if not t.startswith('engine-')):.2f} us")
 
 
+def burst_requests(cfg, rng) -> list:
+    """Phase 3's burst: five prompts drawn from `rng`, 32 tokens each."""
+    def prompt(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    return [
+        {"prompt_ids": prompt(23), "max_tokens": 32},
+        {"prompt_ids": prompt(100), "max_tokens": 32},
+        {"prompt_ids": prompt(200), "max_tokens": 32},
+        {"prompt_ids": prompt(700), "max_tokens": 32},
+        {"prompt_ids": prompt(50), "max_tokens": 32, "temperature": 0.8, "top_p": 0.9},
+    ]
+
+
+def runtime_only(card: str) -> None:
+    """`--runtime`: phase 3's server and plain burst, then phase 3r on its
+    tensors (no other phase, no result line)."""
+    server = new_server("phase 3: LLMServer llama3-8b", model_name="llama3-8b",
+                        engine_config=ENGINE, seed=0)
+    requests = burst_requests(server.engine.cfg, torch.Generator().manual_seed(1))
+    results, wall, errors = run_requests(server, requests)
+    if errors:
+        fail(f"phase 3 burst: {errors}")
+    plain = report_burst("plain", requests, results, wall)
+    runtime_path(server, card, requests, results, plain)
+    server.shutdown()
+
+
 def serve_main_path(card: str, profile: bool) -> dict:
     from ray_tpu_torch.ops import dispatch
     from ray_tpu_torch.serve import programs
@@ -1543,16 +1610,7 @@ def serve_main_path(card: str, profile: bool) -> dict:
     rng = torch.Generator().manual_seed(1)  # prompts: seeded, host-side
 
     def burst():
-        def prompt(n):
-            return torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
-
-        return [
-            {"prompt_ids": prompt(23), "max_tokens": 32},
-            {"prompt_ids": prompt(100), "max_tokens": 32},
-            {"prompt_ids": prompt(200), "max_tokens": 32},
-            {"prompt_ids": prompt(700), "max_tokens": 32},
-            {"prompt_ids": prompt(50), "max_tokens": 32, "temperature": 0.8, "top_p": 0.9},
-        ]
+        return burst_requests(cfg, rng)
 
     reckon_prefill_tiers(server.engine)
     requests = burst()
@@ -1570,7 +1628,7 @@ def serve_main_path(card: str, profile: bool) -> dict:
             fail(f"serving path never launched kernel {name}")
     require_no_eager_launches("serving path")
 
-    report_burst("plain", requests, results, wall)
+    plain = report_burst("plain", requests, results, wall)
     clock.report("plain")
     telemetry_report(server.engine, results, counts, telemetry)
 
@@ -1594,6 +1652,7 @@ def serve_main_path(card: str, profile: bool) -> dict:
                                         "paged_decode_split_kernel", "paged_chunk_wgmma_kernel"))
     migrate = migrate_path(server, card)  # phase 3m, on this server
     live = live_path(server, card)  # phase 3w, on this server
+    runtime = runtime_path(server, card, requests, results, plain)  # phase 3r, its tensors
     params = server.engine.params
     server.shutdown()
     del server
@@ -1631,8 +1690,8 @@ def serve_main_path(card: str, profile: bool) -> dict:
     for name, hit in caught.items():
         if not hit:
             fail(f"the logprob gate {LOGPROB_TOL} passes planted fault {name}")
-    return {"launches": launches, "migrate": migrate, "live": live, "params": params,
-            "cfg": cfg, "requests": requests, "results": results}
+    return {"launches": launches, "migrate": migrate, "live": live, "runtime": runtime,
+            "params": params, "cfg": cfg, "requests": requests, "results": results}
 
 
 # ------------------------------------------------------------- phase 3m
@@ -2415,6 +2474,346 @@ def live_path(server, card: str) -> dict:
     fresh.stop()
     del fresh, tree0, tree1
     release()
+    return launches
+
+
+# ------------------------------------------------------------- phase 3r
+
+# the runtime's process flags: thread mode, the port's only mode (ROADMAP A5b)
+RUNTIME_FLAGS = {"worker_processes": 0, "actor_processes": False}
+# a put/get of a device tree must not copy it through the host: the process
+# RSS may grow by less than this across phase 3r (b)'s put and get
+RSS_GROWTH_MAX = 256 * 2**20
+
+
+class ServerHost:
+    """Phase 3r's GPU actor: an LLMServer over weights that arrive as a ref."""
+
+    def __init__(self, params, cfg, engine_config):
+        from ray_tpu_torch.serve import LLMServer
+
+        t0 = time.monotonic()
+        self.server = LLMServer(params_fn=lambda: (params, cfg), engine_config=engine_config)
+        torch.cuda.synchronize()
+        self.built_s = time.monotonic() - t0
+        self.params = params
+
+    def built(self) -> dict:
+        st = self.server.engine.capture_stats
+        return {"seconds": self.built_s, "capture_s": st["seconds"],
+                "programs": st["programs"], "pool_gib": st.get("pool_bytes", 0) / 2**30,
+                "params": self.server.engine.params}
+
+    def generate(self, request):
+        return self.server(request)
+
+    def update_weights(self, request) -> dict:
+        t0 = time.monotonic()
+        out = self.server.update_weights(request)
+        return dict(out, seconds=time.monotonic() - t0, **self.server.engine.update_stats)
+
+    def weights_version(self) -> int:
+        return self.server.weights_version()
+
+    def hold(self, seconds: float) -> float:
+        time.sleep(seconds)
+        return seconds
+
+    def shutdown(self) -> None:
+        self.server.shutdown()
+
+
+class Probe:
+    """A GPU actor that holds nothing but its resources."""
+
+    def ping(self) -> str:
+        return "pong"
+
+
+def rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def same_tensors(a, b) -> bool:
+    """Every leaf of tree b is the very tensor of tree a (same storage)."""
+    la, lb = named_leaves(a), named_leaves(b)
+    return len(la) == len(lb) and all(
+        na == nb and x.data_ptr() == y.data_ptr() and x.shape == y.shape
+        for (na, x), (nb, y) in zip(la, lb))
+
+
+def percentiles_ms(xs) -> str:
+    xs = sorted(xs)
+    p99 = xs[min(len(xs) - 1, int(math.ceil(0.99 * len(xs))) - 1)]
+    return f"p50 {1e3 * statistics.median(xs):.4f} ms, p99 {1e3 * p99:.4f} ms"
+
+
+def second_gpu_actor(rt, probe_cls) -> tuple:
+    """Gate (a)'s first half, while a num_gpus=1 actor lives: a second
+    num_gpus=1 actor must stay pending. -> (second, its ping ref, whether it
+    was still pending after 1 s)."""
+    second = probe_cls.remote()
+    ping = second.ping.remote()
+    ready, _ = rt.wait([ping], num_returns=1, timeout=1.0)
+    return second, ping, not ready
+
+
+def runtime_path(server, card: str, requests, plain_results, plain_figures: str) -> dict:
+    """Phase 3r: the task/actor runtime on the card, over phase 3's tensors.
+    (a) resources: cluster_resources counts the card as "GPU"; a second
+    num_gpus=1 actor stays pending while the first lives and places after
+    kill (planted: accounting that does not hold an actor's GPU); a
+    placement group's {"GPU": 1} bundle takes an actor. (b) put/get of
+    phase 3's parameter tree returns the same tensors, no host copy
+    (planted: a seal_value that pickles device trees). (c) a num_gpus=1
+    task runs K1 on a CUDA activation that arrives as a ref, against the
+    plain version; round trips beside direct calls. (d) a GPU actor builds
+    an LLMServer over the tree's ref and serves phase 3's burst through its
+    handle under phase 3's logprob gate. (e) update_weights through the ref
+    of a tree whose final norm has other signs moves the outputs onto the forward
+    over that tree, and a second update restores them. (f) kill fails a
+    pending call; shutdown leaves no thread behind. Returns the launch
+    counts of (c)-(e), the yardstick forwards left out."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.core import node_agent, object_store
+    from ray_tpu_torch.ops import dispatch
+    from ray_tpu_torch.sched import placement_group, remove_placement_group
+
+    engine = server.engine
+    cfg, params = engine.cfg, engine.params
+    t_phase = time.monotonic()
+    threads_before = set(threading.enumerate())
+    rt.shutdown()
+    rt.init(num_cpus=8, system_config=RUNTIME_FLAGS)
+    resources = rt.cluster_resources()
+    log(f"phase 3r: the runtime on the card ({card}), thread mode {RUNTIME_FLAGS}: "
+        f"cluster_resources {resources}")
+    if resources.get("GPU") != torch.cuda.device_count():
+        fail(f"phase 3r (a): cluster_resources GPU {resources.get('GPU')}, the process sees "
+             f"{torch.cuda.device_count()} CUDA devices")
+    probe_cls = rt.remote(num_gpus=1)(Probe)
+
+    # (a), planted first: the agent forgets that a created actor holds its GPU
+    with swapped(node_agent.NodeAgent, has_actor=lambda self, actor_id: False):
+        first = probe_cls.remote()
+        rt.get(first.ping.remote(), timeout=60)
+        second, _ping, held = second_gpu_actor(rt, probe_cls)
+        rt.kill(first)
+        rt.kill(second)
+    log(f"phase 3r (a) planted fault gpu_not_held: a second num_gpus=1 actor "
+        f"{'stayed pending' if held else 'placed at once'}")
+    if held:
+        fail("phase 3r (a): the resource gate passes planted fault gpu_not_held")
+
+    # (b) the object plane: the parameter tree by reference
+    leaves = named_leaves(params)
+    nbytes = sum(t.nbytes for _, t in leaves)
+    rss0 = rss_bytes()
+    t0 = time.perf_counter()
+    pref = rt.put(params)
+    t_put = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = rt.get(pref, timeout=60)
+    t_get = time.perf_counter() - t0
+    rss1 = rss_bytes()
+    same = same_tensors(params, got)
+    log(f"phase 3r (b): put of phase 3's parameter tree ({len(leaves)} tensors, "
+        f"{nbytes / 1e9:.2f} GB {cfg.dtype}) {1e6 * t_put:.1f} us, get {1e6 * t_get:.1f} us; "
+        f"the same tensors back {same}; process RSS {rss0 / 2**30:.3f} -> "
+        f"{rss1 / 2**30:.3f} GiB")
+    if not same:
+        fail("phase 3r (b): get(put(tree)) did not return the tree's own tensors")
+    if rss1 - rss0 > RSS_GROWTH_MAX:
+        fail(f"phase 3r (b): RSS grew {(rss1 - rss0) / 2**20:.1f} MiB across put/get")
+    dev = params["embed"].device
+    small = {"final_norm": params["final_norm"],
+             "slab": torch.zeros(32 * 2**20, device=dev, dtype=params["embed"].dtype)}
+    with swapped(object_store, _has_device_leaves=lambda value: False):
+        t0 = time.perf_counter()
+        copied = rt.get(rt.put(small), timeout=60)
+        t_fault = time.perf_counter() - t0
+    caught = not same_tensors(small, copied)
+    log(f"phase 3r (b) planted fault seal_pickles_device_trees: a 64 MiB tree through "
+        f"put/get in {1e3 * t_fault:.1f} ms, the same tensors back {not caught}")
+    if not caught:
+        fail("phase 3r (b): the object-plane gate passes planted fault "
+             "seal_pickles_device_trees")
+    del small, copied
+
+    # (c) a GPU task on a CUDA activation that arrives as a ref
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(8, cfg.d_model, device=dev, generator=gen).to(params["final_norm"].dtype)
+    w = params["final_norm"]
+    eps = cfg.norm_eps
+
+    def norm_sync(a, b):
+        out = ops.rms_norm(a, b, eps)
+        torch.cuda.synchronize()
+        return out
+
+    norm_task = rt.remote(num_gpus=1)(norm_sync)
+    xref, wref = rt.put(x), rt.put(w)
+    direct = []
+    for _ in range(200):  # the yardstick, before the path's counts start
+        t0 = time.perf_counter()
+        norm_sync(x, w)
+        direct.append(time.perf_counter() - t0)
+    dispatch.reset_launches()
+    first_out = rt.get(norm_task.remote(xref, wref), timeout=60)
+    k1 = dispatch.launch_counts()["rms_norm"]
+    err = check_close("phase 3r (c) task rms_norm", "rms_norm", x.dtype, first_out,
+                      ops.rms_norm_reference(x, w, eps))
+    rounds = []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        rt.get(norm_task.remote(xref, wref), timeout=60)
+        rounds.append(time.perf_counter() - t0)
+    k1_tasks = dispatch.launch_counts()["rms_norm"]
+    log(f"phase 3r (c): a num_gpus=1 task ran K1 on a [8, {cfg.d_model}] {x.dtype} ref: "
+        f"max |err| {err:.3e} (tol {TOL[('rms_norm', x.dtype)]}), K1 launches 0 -> {k1} -> "
+        f"{k1_tasks} after 200 more; round trip (submit, run, get) {percentiles_ms(rounds)}; "
+        f"direct call {percentiles_ms(direct)}")
+    if k1 != 1 or k1_tasks != 201:
+        fail(f"phase 3r (c): the tasks' K1 launch count read {k1}, then {k1_tasks} "
+             f"(one a task)")
+
+    # (d) the hosted server: a GPU actor over the tree's ref, phase 3's burst
+    host_cls = rt.remote(num_gpus=1, max_concurrency=8)(ServerHost)
+    t0 = time.monotonic()
+    host = host_cls.remote(pref, cfg, ENGINE)
+    built = rt.get(host.built.remote(), timeout=900)
+    log(f"phase 3r (d): the GPU actor built an LLMServer in {built['seconds']:.1f}s (capture "
+        f"{built['capture_s']:.1f}s for {built['programs']} programs, graph pools "
+        f"{built['pool_gib']:.3f} GiB; {time.monotonic() - t0:.1f}s through the handle); its "
+        f"engine runs over phase 3's tensors: {same_tensors(params, built['params'])}")
+    if not same_tensors(params, built["params"]):
+        fail("phase 3r (d): the hosted engine does not run over phase 3's tensors")
+    del built
+    refs = [host.generate.remote(r) for r in requests]
+    t0 = time.monotonic()
+    hosted = rt.get(refs, timeout=600)
+    wall = time.monotonic() - t0
+    # read before the yardstick forward below, which launches K1 and K2 itself
+    launches = dispatch.launch_counts()
+    figures = report_burst("phase 3r (d) hosted", requests, hosted, wall)
+    log(f"phase 3r (d): through the actor: {figures}; phase 3 direct, the same prompts on "
+        f"the same card: {plain_figures}")
+    agree = [sum(a == b for a, b in zip(h["token_ids"], p["token_ids"])) / len(p["token_ids"])
+             for req, h, p in zip(requests, hosted, plain_results)
+             if req.get("temperature", 0.0) == 0.0]
+    log(f"phase 3r (d): greedy token agreement with phase 3's outputs, per request "
+        f"{[round(a, 3) for a in agree]} (not a gate: random weights give near-tied logits)")
+    gaps = logprob_gaps(params, cfg, requests, hosted)
+    log(f"phase 3r (d): logprob |engine - forward| per request max "
+        f"{[round(g[0], 4) for g in gaps]} mean {[round(g[1], 4) for g in gaps]} "
+        f"(tol {LOGPROB_TOL})")
+    for i, gap in enumerate(gaps):
+        if not within_logprob_tol(gap):
+            fail(f"phase 3r (d) request {i}: logprobs differ from the forward by max "
+                 f"{gap[0]:.4f}, mean {gap[1]:.4f} (tol {LOGPROB_TOL})")
+
+    # (e) a live update through a ref: a tree whose final norm has the sign
+    # of half its channels flipped (other logits of the same scale, so
+    # phase 3's gate holds against its forward), then back
+    short = {"prompt_ids": requests[0]["prompt_ids"][:12], "max_tokens": 32}
+    restore = dict(params, final_norm=params["final_norm"].clone())
+    flip = torch.rand(cfg.d_model, device=dev, generator=gen) < 0.5
+    changed = dict(params, final_norm=torch.where(flip, -1, 1).to(w.dtype) * w)
+    dispatch.reset_launches()
+    before = rt.get(host.generate.remote(short), timeout=300)
+    upd = rt.get(host.update_weights.remote({"ref": rt.put(changed), "version": 2}),
+                 timeout=300)
+    after = rt.get(host.generate.remote(short), timeout=300)
+    version = rt.get(host.weights_version.remote(), timeout=60)
+    written = torch.equal(params["final_norm"], changed["final_norm"])
+    back = rt.get(host.update_weights.remote({"ref": rt.put(restore), "version": 3}),
+                  timeout=300)
+    restored = rt.get(host.generate.remote(short), timeout=300)
+    launches = {name: n + dispatch.launch_counts()[name] for name, n in launches.items()}
+    (gap_new,) = logprob_gaps(changed, cfg, [short], [after])
+    (gap_old,) = logprob_gaps(restore, cfg, [short], [after])
+    log(f"phase 3r (e): update_weights through the ref of a tree with half the final norm's "
+        f"signs flipped: version "
+        f"{upd['weights_version']} (reported {version}) in {1e3 * upd['seconds']:.2f} ms through "
+        f"the handle (stage {1e3 * upd.get('stage_s', 0.0):.2f}, lock wait "
+        f"{1e3 * upd.get('wait_s', 0.0):.2f}, swap {1e3 * upd.get('swap_s', 0.0):.2f} ms); "
+        f"phase 3's final_norm now holds the ref's values {written}; a 12-token prompt's "
+        f"logprobs against the forward over the new tree max {gap_new[0]:.4f} mean "
+        f"{gap_new[1]:.4f}, over the old tree max {gap_old[0]:.4f} mean {gap_old[1]:.4f} "
+        f"(tol {LOGPROB_TOL}); restored (version {back['weights_version']}, "
+        f"{1e3 * back['seconds']:.2f} ms): tokens equal {restored['token_ids'] == before['token_ids']}, "
+        f"max |logprob diff| "
+        f"{max(abs(a - b) for a, b in zip(before['logprobs'], restored['logprobs'])):.3e}")
+    if upd["weights_version"] != 2 or version != 2 or back["weights_version"] != 3:
+        fail(f"phase 3r (e): the updates reported versions {upd['weights_version']}/{version}, "
+             f"then {back['weights_version']}")
+    if not written:
+        fail("phase 3r (e): the update through the ref did not write its values")
+    if not within_logprob_tol(gap_new) or within_logprob_tol(gap_old):
+        fail("phase 3r (e): after the update the outputs do not follow the forward over the "
+             "ref's tree alone")
+    if not torch.equal(params["final_norm"], restore["final_norm"]) \
+            or restored["token_ids"] != before["token_ids"]:
+        fail("phase 3r (e): the second update did not restore phase 3's weights and tokens")
+    del restore, changed
+    log(f"launches on the runtime path ((c)-(e), the hosted server's warm-up included, the "
+        f"yardstick forwards of (d) and (e) not): {launches}")
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0:
+            fail(f"phase 3r never launched kernel {name}")
+
+    # (a) sound: a second GPU actor waits while the hosted server lives
+    second, second_ping, held = second_gpu_actor(rt, probe_cls)
+    log(f"phase 3r (a): a second num_gpus=1 actor while the hosted server lives: "
+        f"{'pending' if held else 'placed'}")
+    if not held:
+        fail("phase 3r (a): a second num_gpus=1 actor placed while the first held the card")
+
+    # (f) teardown: stop the engine, park a call behind eight, kill
+    rt.get(host.shutdown.remote(), timeout=120)
+    holds = [host.hold.remote(2.0) for _ in range(8)]
+    parked = host.weights_version.remote()
+    time.sleep(0.3)
+    rt.kill(host)
+    try:
+        rt.get(parked, timeout=60)
+        fail("phase 3r (f): a call parked on a killed actor returned")
+    except rt.RayActorError as e:
+        log(f"phase 3r (f): kill failed the parked call with RayActorError ({e})")
+    placed = rt.get(second_ping, timeout=60) == "pong"
+    log(f"phase 3r (a): the second GPU actor placed after kill: {placed}")
+    if not placed:
+        fail("phase 3r (a): the second GPU actor did not place after kill")
+    rt.kill(second)
+    rt.get(holds, timeout=60)
+    pg = placement_group([{"GPU": 1.0}])
+    if not pg.ready(timeout=30):
+        fail("phase 3r (a): a placement group of one {'GPU': 1} bundle did not place")
+    in_pg = rt.remote(num_cpus=0, num_gpus=1, scheduling_strategy=rt.PlacementGroupSchedulingStrategy(
+        placement_group_id=pg.id, bundle_index=0))(Probe).remote()
+    in_bundle = rt.get(in_pg.ping.remote(), timeout=60) == "pong"
+    log(f"phase 3r (a): an actor placed into a {{'GPU': 1}} placement-group bundle: {in_bundle}")
+    rt.kill(in_pg)
+    remove_placement_group(pg)
+    del pref, xref, wref, got
+    rt.shutdown()
+    deadline = time.monotonic() + 15
+    while True:
+        left = [t.name for t in threading.enumerate()
+                if t not in threads_before and t.is_alive()]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    log(f"phase 3r (f): threads started in phase 3r still alive after shutdown: {left or 'none'}")
+    if left:
+        fail(f"phase 3r (f): threads outlived shutdown(): {left}")
+    release()
+    log(f"phase 3r took {time.monotonic() - t_phase:.1f}s")
     return launches
 
 
@@ -4067,6 +4466,9 @@ def main() -> None:
                     help="only build the kernels, then serve phase 3's burst with the engine's "
                          "readbacks into pinned and into pageable memory, in turns; prints no "
                          "result line")
+    ap.add_argument("--runtime", action="store_true",
+                    help="only build the kernels, serve phase 3's burst, then run phase 3r "
+                         "(the task/actor runtime on its tensors); prints no result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4107,6 +4509,9 @@ def main() -> None:
     if args.readback_ab:
         readback_ab(card)
         return
+    if args.runtime:
+        runtime_only(card)
+        return
     gen = torch.Generator(device="cuda").manual_seed(0)
     tile_identity_checks(gen)
     figures = norm_checks(gen)
@@ -4116,8 +4521,8 @@ def main() -> None:
     gc.collect()  # the server is shut down: free its pool, keep its weights
     torch.cuda.empty_cache()
     spec = spec_main_path(card, args.profile, served)
-    serve_launches, migrate_launches, live_launches = (served["launches"], served["migrate"],
-                                                       served["live"])
+    serve_launches, migrate_launches, live_launches, runtime_launches = (
+        served["launches"], served["migrate"], served["live"], served["runtime"])
     del served
     gc.collect()  # free the weights
     torch.cuda.empty_cache()
@@ -4134,7 +4539,8 @@ def main() -> None:
                    "moe_train": moe_trained["launches"][name],
                    "migrate": migrate_launches[name],
                    "moe_migrate": moe_served["migrate"][name],
-                   "live": live_launches[name] + moe_served["live"][name]}
+                   "live": live_launches[name] + moe_served["live"][name],
+                   "runtime": runtime_launches[name]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **figures[name]})

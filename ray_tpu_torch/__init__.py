@@ -16,8 +16,45 @@ backward kernels, paged decode, paged chunk and paged verify attention.
 Entry points run
 on the card unless the caller passes device="cpu"; on the CPU every kernel
 takes its plain version.
+
+The task/actor runtime is the reference's in thread mode (`init`,
+`remote`, `get`, `put`, `wait`, actors, the object store, placement groups
+and the virtual cluster of `cluster_utils`): every task and actor runs on
+the node agents' threads in the process that owns the card, the
+accelerator resource is "GPU", and a tree of CUDA tensors passes through
+the object store by reference. A GPU actor can host an `LLMServer`. The
+reference's concurrency sanitizer (`util/sanitizer.maybe_install()` at
+import) waits for ROADMAP A5c, with the rest of the health and profiling
+planes.
 """
 
+from .api import (  # noqa: F401
+    GetTimeoutError,
+    ObjectRef,
+    ObjectRefGenerator,
+    RayActorError,
+    RayTaskError,
+    available_resources,
+    broadcast,
+    cluster_resources,
+    get,
+    get_actor,
+    init,
+    is_initialized,
+    kill,
+    put,
+    remote,
+    shutdown,
+    wait,
+)
+from .core.task_spec import (  # noqa: F401
+    NodeAffinitySchedulingStrategy,
+    NodeLabelSchedulingStrategy,
+    PlacementGroupSchedulingStrategy,
+    SchedulingStrategy,
+    SpreadSchedulingStrategy,
+    TopologyRequest,
+)
 from .models import get_config, init_params, params_from_numpy  # noqa: F401
 from .serve import EngineConfig, InferenceEngine, LLMServer, SpeculationConfig  # noqa: F401
 from .train import (  # noqa: F401
@@ -28,6 +65,25 @@ from .train import (  # noqa: F401
     synthetic_batch,
 )
 
-__all__ = ["EngineConfig", "InferenceEngine", "LLMServer", "SpeculationConfig", "get_config",
-           "init_params", "init_train_state", "make_eval_step", "make_optimizer",
-           "make_train_step", "params_from_numpy", "synthetic_batch"]
+__all__ = ["EngineConfig", "GetTimeoutError", "InferenceEngine", "LLMServer",
+           "NodeAffinitySchedulingStrategy", "NodeLabelSchedulingStrategy", "ObjectRef",
+           "ObjectRefGenerator", "PlacementGroupSchedulingStrategy", "RayActorError",
+           "RayTaskError", "SchedulingStrategy", "SpeculationConfig",
+           "SpreadSchedulingStrategy", "TopologyRequest", "available_resources", "broadcast",
+           "cluster_resources", "get", "get_actor", "get_config", "init", "init_params",
+           "init_train_state", "is_initialized", "kill", "make_eval_step", "make_optimizer",
+           "make_train_step", "params_from_numpy", "put", "remote", "shutdown",
+           "synthetic_batch", "timeline", "wait"]
+
+
+def timeline(path: str) -> int:
+    """Export the task-event timeline as chrome-trace JSON (open in
+    Perfetto / chrome://tracing), with the buffered trace spans mirrored
+    into it (one lane per source process). Returns the number of events
+    written. See ray_tpu_torch.util.timeline for app spans (`span`) and
+    device traces (`trace_torch`)."""
+    from .util import timeline as _tl
+    from .util import tracing as _tr
+
+    _tr.export_to_timeline()
+    return _tl.export(path)

@@ -2,10 +2,12 @@
 
 Counterpart of ray_tpu/serve/llm.py's LLMServer in the colocated role, as
 a plain class: one server = one engine = one card. It swaps its weights
-live (`update_weights`, from a tree in hand) and exposes the engine's
-weights version and prefix-cache digest. The deployment decorator,
-disaggregated roles, LoRA adapters, and weights fetched through the object
-plane belong to the serve runtime, which this package does not port yet.
+live (`update_weights`, from a tree in hand or an object-plane ref) and
+exposes the engine's weights version and prefix-cache digest. The runtime
+hosts it as a GPU actor (`ray_tpu_torch.remote(num_gpus=1)` over a class
+that builds one). The deployment decorator, disaggregated roles and LoRA
+adapters belong to the serve runtime, which this package does not port
+yet.
 """
 
 from __future__ import annotations
@@ -78,17 +80,19 @@ class LLMServer:
 
     def update_weights(self, request: Dict[str, Any]) -> Dict[str, Any]:
         """Swap the engine's weights live, without draining:
-        {"weights": tree, "version"?: int} -> {"weights_version", "role"}
-        (InferenceEngine.update_params: any array form, written in place
-        into the tensors the engine was built over). A "ref" to fetch the
-        tree through the object plane is refused: the object plane is not
-        ported."""
+        {"weights"|"ref", "version"?: int, "timeout_s"?: float} ->
+        {"weights_version", "role"} (InferenceEngine.update_params: any
+        array form, written in place into the tensors the engine was built
+        over). An ObjectRef resolves through the object plane's `get`
+        within timeout_s (default 60); a tree of CUDA tensors comes back by
+        reference, without a host copy."""
+        from .. import api  # here: a server that takes no ref never loads the runtime
+
         weights = request.get("weights")
         if weights is None and request.get("ref") is not None:
-            raise ValueError("update_weights: an object-plane 'ref' cannot be resolved, the "
-                             "object plane (ray_tpu's api.get) is not ported; pass 'weights'")
+            weights = api.get(request["ref"], timeout=float(request.get("timeout_s", 60.0)))
         if weights is None:
-            raise ValueError("update_weights needs 'weights'")
+            raise ValueError("update_weights needs 'weights' or 'ref'")
         v = self.engine.update_params(weights, version=request.get("version"))
         return {"weights_version": v, "role": self.role}
 

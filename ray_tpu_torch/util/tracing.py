@@ -7,10 +7,11 @@ helper, without the OTel dependency): a thread-local current span,
 active trace (the serving engine wraps `generate` in "engine.generate"
 this way), `maybe_begin` / `activate` for spans that outlive one call,
 `get_spans` / `get_trace` to read the buffer as records or as a tree, and
-`drain_since` / `ingest` to move records between processes. The
-reference's propagation through task submission and its export to the
-chrome-trace timeline stand on the runtime and util/timeline.py, which
-the port does not have yet.
+`drain_since` / `ingest` to move records between processes, and
+`export_to_timeline` to mirror the buffer into the chrome-trace timeline
+(util/timeline.py). Task submission stamps the submitter's context on the
+task (`current_context`), and the executing node agent opens its
+`execute:<task>` span under it.
 
 Usage:
 
@@ -280,3 +281,23 @@ def clear() -> None:
     with _lock:
         _spans.clear()
 
+
+def export_to_timeline() -> int:
+    """Mirror buffered spans into the chrome-trace timeline (one lane
+    per SOURCE process: pid 'trace/<ospid>', tid = trace id prefix) so
+    the timeline renders request causality next to task/profiling
+    spans — federated spans land in their origin process's lane."""
+    from . import timeline
+
+    n = 0
+    for s in get_spans():
+        timeline.record(
+            s["name"], "X", cat="trace", ts_us=s["start_us"],
+            dur_us=(s["end_us"] or s["start_us"]) - s["start_us"],
+            pid=f"trace/{s['pid']}", tid=s["trace_id"][:8],
+            args={"span": s["span_id"], "parent": s["parent_id"],
+                  **{k: v for k, v in s["attrs"].items()
+                     if isinstance(v, (int, float, str))}},
+        )
+        n += 1
+    return n

@@ -897,3 +897,57 @@ def test_update_params_under_live_replays(card, dtype):
 
 def _leaves(tree):
     return [x for v in tree.values() for x in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+# The runtime (ray_tpu_torch.api) on the card: a GPU task runs K1 on CUDA
+# tensors that arrived as ObjectRefs, and a tree of CUDA tensors crosses the
+# object store by reference (the deliberate difference of ROADMAP C: an
+# actor that writes into what it received writes into the owner's tensors).
+RUNTIME = {"worker_processes": 0, "actor_processes": False}
+
+
+def test_runtime_gpu_task_runs_k1_on_cuda_refs(card, dtype):
+    import ray_tpu_torch as rt
+
+    rt.shutdown()
+    rt.init(num_cpus=2, system_config=RUNTIME)
+    try:
+        assert rt.cluster_resources()["GPU"] == torch.cuda.device_count()
+        x, w = _rand((8, 4096), dtype, card), _rand((4096,), dtype, card)
+
+        @rt.remote(num_gpus=1)
+        def norm_task(a, b):
+            return ops.rms_norm(a, b, 1e-5)
+
+        before = dispatch.launch_counts()["rms_norm"]
+        got = rt.get(norm_task.remote(rt.put(x), rt.put(w)), timeout=60)
+        assert dispatch.launch_counts()["rms_norm"] == before + 1
+        assert got.is_cuda
+        _close(got, ops.rms_norm_reference(x, w, 1e-5), dtype)
+    finally:
+        rt.shutdown()
+
+
+def test_runtime_passes_a_cuda_tree_by_reference(card, dtype):
+    import ray_tpu_torch as rt
+
+    rt.shutdown()
+    rt.init(num_cpus=2, system_config=RUNTIME)
+    try:
+        tree = {"w": _rand((64, 64), dtype, card), "layers": [_rand((4,), dtype, card)]}
+        ref = rt.put(tree)
+        got = rt.get(ref, timeout=60)
+        assert got is tree and got["w"].data_ptr() == tree["w"].data_ptr()
+
+        @rt.remote(num_gpus=1)
+        class Writer:
+            def zero(self, t):
+                t["w"].zero_()
+                return t["w"].data_ptr()
+
+        a = Writer.remote()
+        assert rt.get(a.zero.remote(ref), timeout=60) == tree["w"].data_ptr()
+        torch.cuda.synchronize()
+        assert int(torch.count_nonzero(tree["w"])) == 0  # the owner's copy changed
+    finally:
+        rt.shutdown()

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import ray_tpu.models as jmodels
+import ray_tpu_torch
 from ray_tpu.serve import EngineConfig as JEngineConfig
 from ray_tpu.serve import InferenceEngine as JInferenceEngine
 from ray_tpu_torch import EngineConfig, InferenceEngine, LLMServer, get_config
@@ -307,11 +308,19 @@ def test_llm_server_weight_methods(llama):
         assert got["weights_version"] == 5
         assert got["token_ids"] == fresh.generate(other, max_tokens=6,
                                                   timeout_s=TIMEOUT_S)["token_ids"]
-        with pytest.raises(ValueError, match="object plane"):
-            server.update_weights({"ref": object()})
+        # a ref resolves through the port's object plane (ray_tpu_torch.get)
+        ray_tpu_torch.init(num_cpus=2, system_config={"worker_processes": 0,
+                                                      "actor_processes": False})
+        try:
+            ref = ray_tpu_torch.put(llama["np"][1])
+            assert server.update_weights({"ref": ref, "version": 6, "timeout_s": 30}) == {
+                "weights_version": 6, "role": "colocated"}
+        finally:
+            ray_tpu_torch.shutdown()
+        assert server({"prompt_ids": other, "max_tokens": 6})["token_ids"] == got["token_ids"]
         with pytest.raises(ValueError, match="needs 'weights'"):
             server.update_weights({})
-        assert server.weights_version() == 5
+        assert server.weights_version() == 6
     finally:
         server.shutdown()
         fresh.stop()

@@ -201,7 +201,8 @@ def test_init_params_is_seeded_and_typed():
 def test_port_imports_neither_jax_nor_ray_tpu():
     # it also serves tiny-moe with speculation, so the MoE path is checked
     # too, moves a prompt's KV out of the engine and back in, swaps the
-    # weights live and renders the metrics, the digests and a trace
+    # weights live and renders the metrics, the digests and a trace; then
+    # it starts the runtime (a task, an actor, the virtual cluster)
     code = (
         "import json, sys\n"
         "import ray_tpu_torch, ray_tpu_torch.serve, ray_tpu_torch.models, ray_tpu_torch.train\n"
@@ -239,6 +240,31 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "    assert isinstance(server.prefix_digest()['hashes'], list)\n"
         "finally:\n"
         "    server.shutdown()\n"
+        "import ray_tpu_torch.api, ray_tpu_torch.cluster_utils\n"
+        "ray_tpu_torch.api.init(num_cpus=2, system_config={'worker_processes': 0,\n"
+        "                                                  'actor_processes': False})\n"
+        "try:\n"
+        "    @ray_tpu_torch.remote\n"
+        "    def add(a, b):\n"
+        "        return a + b\n"
+        "    @ray_tpu_torch.remote\n"
+        "    class Counter:\n"
+        "        def __init__(self):\n"
+        "            self.n = 0\n"
+        "        def inc(self):\n"
+        "            self.n += 1\n"
+        "            return self.n\n"
+        "    assert ray_tpu_torch.get(add.remote(ray_tpu_torch.put(1), 2), timeout=30) == 3\n"
+        "    c = Counter.remote()\n"
+        "    assert ray_tpu_torch.get([c.inc.remote() for _ in range(3)], timeout=30) == [1, 2, 3]\n"
+        "finally:\n"
+        "    ray_tpu_torch.api.shutdown()\n"
+        "cluster = ray_tpu_torch.cluster_utils.Cluster()\n"
+        "try:\n"
+        "    cluster.add_slice(num_hosts=2, chips_per_host=4)\n"
+        "    assert ray_tpu_torch.cluster_resources()['GPU'] == 8.0\n"
+        "finally:\n"
+        "    cluster.shutdown()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'ray_tpu' or m.startswith('ray_tpu.'))\n"
         "print(json.dumps(bad))\n"
