@@ -148,6 +148,34 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      Launches are counted from before (c) to the end of (d)'s burst and
      over (e)'s prompts and updates, the yardstick forwards left out: K1,
      K2, K5 and K6 must have run;
+  3d. the serve runtime (deploy_path), on phase 3's tensors after 3r,
+     before phase 3's server shuts down: serve.run(LLMServer.options(
+     num_replicas=2).bind(model_name="llama3-8b", params_fn=<phase 3's
+     tensors>, engine_config=ENGINE)) starts two replicas on the card over
+     the same tensors (process RSS and card memory read around their
+     build; a copy of the tree must not show); each replica's readiness
+     and capture time; phase 3's burst of fresh prompts through the handle
+     (every response carries its own request_id), then one 12-token greedy
+     prompt whole and streamed through the handle (the same tokens); then
+     build_openai_app over the same tensors (IdTokenizer, so that a
+     returned text gives back its token ids) behind serve.http_port():
+     /-/healthz, the burst as concurrent SSE streams with logprobs, a
+     completion whole and streamed (the
+     stream whole: 32 one-token chunks, a terminal chunk with its
+     finish_reason, [DONE]; its text the whole completion's), a chat
+     completion and /v1/models. Every response passes phase 3's logprob
+     gate against the forward over its own prompt and output; both
+     replicas served requests (ServeReplica.stats); every launch came from
+     a graph replay; each planted DEPLOY_FAULTS entry (the handle hands
+     two requests each other's responses; the proxy's event stream loses
+     its last chunk) must fail its gate; no thread the phase started
+     outlives serve.shutdown(). Prints TTFT, TPOT and tokens/s through the
+     handle (the engine's clock; the hop from call to result beside it)
+     and through HTTP (the client's clock, with each response's headers)
+     beside phase 3's direct burst, peak card memory and the phase's
+     wall. Launches are counted over the handle and HTTP sections, the
+     replicas' warm-up and the yardstick forwards left out: K1, K2, K5 and
+     K6 must have run;
   3s. the speculation path: the serving server is shut down and its
      parameters go to LLMServer(engine_config={"speculation": ...}), again
      llama3-8b at full width and depth, twice. (1) mode "draft", k = 4,
@@ -243,7 +271,8 @@ The second-to-last line of stdout is {"kernels": [...]} (eight kernels:
 K1's forward and backward, K2-K7; launches by path: serve, spec, train,
 train2b, moe_serve, moe_train, migrate (phase 3m), moe_migrate (phase 5's
 round trip), live (phase 3w's update and gate, phase 5's update and
-gate), runtime (phase 3r's tasks, hosted server and updates)), the last
+gate), runtime (phase 3r's tasks, hosted server and updates), deploy
+(phase 3d's handle and HTTP sections)), the last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
 
@@ -271,6 +300,11 @@ prints each burst's figures and no result line.
 
 builds the kernels and phase 3's llama3-8b server, serves phase 3's burst,
 then runs phase 3r on its tensors (runtime_only); no result line.
+
+    python3 chip_smoke.py --deploy
+
+builds the kernels and phase 3's llama3-8b server, serves phase 3's burst,
+then runs phase 3d on its tensors (deploy_only); no result line.
 """
 
 from __future__ import annotations
@@ -288,6 +322,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.request
 
 import torch
 
@@ -1321,7 +1356,7 @@ def new_server(label: str, **kwargs):
     from ray_tpu_torch.serve import LLMServer
 
     t0 = time.monotonic()
-    server = LLMServer(**kwargs)
+    server = LLMServer._target(**kwargs)
     torch.cuda.synchronize()
     st = server.engine.capture_stats
     log(f"{label}: built + warmed in {time.monotonic() - t0:.1f}s, of which capture "
@@ -1597,6 +1632,19 @@ def runtime_only(card: str) -> None:
     server.shutdown()
 
 
+def deploy_only(card: str) -> None:
+    """`--deploy`: phase 3's server and plain burst, then phase 3d on its
+    tensors (no other phase, no result line)."""
+    server = new_server("phase 3: LLMServer llama3-8b", model_name="llama3-8b",
+                        engine_config=ENGINE, seed=0)
+    requests = burst_requests(server.engine.cfg, torch.Generator().manual_seed(1))
+    results, wall, errors = run_requests(server, requests)
+    if errors:
+        fail(f"phase 3 burst: {errors}")
+    deploy_path(server, card, report_burst("plain", requests, results, wall))
+    server.shutdown()
+
+
 def serve_main_path(card: str, profile: bool) -> dict:
     from ray_tpu_torch.ops import dispatch
     from ray_tpu_torch.serve import programs
@@ -1653,6 +1701,7 @@ def serve_main_path(card: str, profile: bool) -> dict:
     migrate = migrate_path(server, card)  # phase 3m, on this server
     live = live_path(server, card)  # phase 3w, on this server
     runtime = runtime_path(server, card, requests, results, plain)  # phase 3r, its tensors
+    deploy = deploy_path(server, card, plain)  # phase 3d, its tensors
     params = server.engine.params
     server.shutdown()
     del server
@@ -1691,7 +1740,8 @@ def serve_main_path(card: str, profile: bool) -> dict:
         if not hit:
             fail(f"the logprob gate {LOGPROB_TOL} passes planted fault {name}")
     return {"launches": launches, "migrate": migrate, "live": live, "runtime": runtime,
-            "params": params, "cfg": cfg, "requests": requests, "results": results}
+            "deploy": deploy, "params": params, "cfg": cfg, "requests": requests,
+            "results": results}
 
 
 # ------------------------------------------------------------- phase 3m
@@ -2493,7 +2543,8 @@ class ServerHost:
         from ray_tpu_torch.serve import LLMServer
 
         t0 = time.monotonic()
-        self.server = LLMServer(params_fn=lambda: (params, cfg), engine_config=engine_config)
+        self.server = LLMServer._target(params_fn=lambda: (params, cfg),
+                                        engine_config=engine_config)
         torch.cuda.synchronize()
         self.built_s = time.monotonic() - t0
         self.params = params
@@ -2814,6 +2865,453 @@ def runtime_path(server, card: str, requests, plain_results, plain_figures: str)
         fail(f"phase 3r (f): threads outlived shutdown(): {left}")
     release()
     log(f"phase 3r took {time.monotonic() - t_phase:.1f}s")
+    return launches
+
+
+# ------------------------------------------------------------- phase 3d
+
+
+class IdTokenizer:
+    """Phase 3d's tokenizer for the OpenAI front: each token id decodes to a
+    character of its own, U+10000 + id, which encodes back to that id;
+    other text encodes to its utf-8 bytes, as ByteTokenizer's does. So a
+    returned text gives back its token ids exactly at llama3-8b's
+    vocabulary, where ByteTokenizer drops every id past 255. Like
+    ByteTokenizer it names no stop token."""
+
+    eos_token_id = None
+
+    def encode(self, text: str) -> list:
+        ids = []
+        for ch in text:
+            code = ord(ch)
+            ids.extend([code - 0x10000] if code >= 0x10000 else ch.encode("utf-8"))
+        return ids
+
+    def decode(self, ids) -> str:
+        return "".join(chr(0x10000 + int(i)) for i in ids)
+
+
+def _swaps_pairs(f):
+    """DeploymentHandle.remote: each pair of calls trades responses."""
+    held = []
+
+    def remote(self, *args, **kwargs):
+        response = f(self, *args, **kwargs)
+        held.append(response)
+        if len(held) == 2:
+            a, b = held
+            a._ref, b._ref = b._ref, a._ref
+            held.clear()
+        return response
+
+    return remote
+
+
+def _drops_last_chunk(f):
+    """SSEStream.__next__, what the HTTP proxy sends: one chunk ahead, so
+    the last chunk never goes out."""
+    def next_chunk(self):
+        if not hasattr(self, "_ahead"):
+            self._ahead = f(self)
+        chunk, self._ahead = self._ahead, f(self)
+        return chunk
+
+    return next_chunk
+
+
+# Planted serve-runtime faults, each of which its gate must catch: name ->
+# (module of ray_tpu_torch.serve, class, attribute, wrapper maker)
+DEPLOY_FAULTS = {
+    # the handle hands two requests each other's responses: the gate that
+    # each response answers its own request (its request_id, and its
+    # logprobs under the forward over its own prompt)
+    "handle_swaps_responses": ("handle", "DeploymentHandle", "remote", _swaps_pairs),
+    # the HTTP proxy's event stream loses its last chunk: the SSE gate
+    "sse_last_chunk_dropped": ("openai_api", "SSEStream", "__next__", _drops_last_chunk),
+}
+# a deployment's replicas are built over the caller's card tensors: the
+# process RSS may grow by less than this share of the tree's bytes, and the
+# card's memory by less than it per replica (a copy would take the whole)
+DEPLOY_COPY_SHARE_MAX = 0.25
+
+
+def deploy_fault(name: str):
+    module, cls, attr, make = DEPLOY_FAULTS[name]
+    owner = getattr(__import__(f"ray_tpu_torch.serve.{module}", fromlist=[cls]), cls)
+    return swapped(owner, **{attr: make(getattr(owner, attr))})
+
+
+def wait_ready(deployment: str, n: int, t0: float) -> list:
+    """-> the deployment's n replica handles once each has finished its
+    __init__ (its health_check answers), with the seconds after t0 at
+    which each did."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.serve.controller import get_or_create_controller
+
+    replicas, _ = rt.get(get_or_create_controller().get_replicas.remote(deployment),
+                         timeout=60)
+    if len(replicas) != n:
+        fail(f"phase 3d: deployment {deployment} has {len(replicas)} replicas, not {n}")
+    refs = [r.health_check.remote() for r in replicas]
+    ready_s = [None] * n
+    pending = list(range(n))
+    while pending:
+        done, _ = rt.wait([refs[i] for i in pending], num_returns=1, timeout=900)
+        if not done:
+            fail(f"phase 3d: a replica of {deployment} was not ready within 900 s")
+        for i in [i for i in pending if refs[i] in done]:
+            rt.get(refs[i], timeout=60)
+            ready_s[i] = time.monotonic() - t0
+            pending.remove(i)
+    return list(zip(replicas, ready_s))
+
+
+def tagged(requests, label: str) -> list:
+    """The requests, each with a request_id of its own."""
+    return [dict(r, request_id=f"3d-{label}-{i}") for i, r in enumerate(requests)]
+
+
+def answered(requests, results) -> bool:
+    """Every response carries its own request's request_id."""
+    return all(res["request_id"] == req["request_id"] for req, res in zip(requests, results))
+
+
+def handle_burst(handle, requests) -> tuple:
+    """All requests through the handle at once, each response awaited on a
+    thread of its own -> (results, seconds from each call to its result,
+    wall s)."""
+    results, latency, errors = [None] * len(requests), [None] * len(requests), []
+
+    def wait(i, response, t):
+        try:
+            results[i] = response.result(timeout=600)
+            latency[i] = time.monotonic() - t
+        except Exception as e:  # noqa: BLE001 — reported as this phase's failure
+            errors.append(f"request {i}: {e!r}")
+
+    t0 = time.monotonic()
+    threads = []
+    for i, req in enumerate(requests):
+        t = time.monotonic()
+        threads.append(threading.Thread(target=wait, args=(i, handle.remote(req), t)))
+        threads[-1].start()
+    for t in threads:
+        t.join(660)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"phase 3d handle burst: {errors or 'a request did not finish'}")
+    return results, latency, time.monotonic() - t0
+
+
+def http_post(port: int, path: str, body: dict):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    return urllib.request.urlopen(req, timeout=600)
+
+
+def sse_request(port: int, path: str, body: dict) -> dict:
+    """One streamed request: its chunks before [DONE], each one's arrival on
+    the host clock, whether [DONE] came, when the request was sent and when
+    the response's headers came back."""
+    t0 = time.monotonic()
+    chunks, stamps, done = [], [], False
+    with http_post(port, path, dict(body, stream=True)) as r:
+        t_head = time.monotonic()
+        for line in r:
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                done = True
+                break
+            chunks.append(json.loads(line[len("data: "):]))
+            stamps.append(time.monotonic())
+    return {"chunks": chunks, "stamps": stamps, "done": done, "t0": t0, "t_head": t_head}
+
+
+def sse_result(stream: dict, tok: IdTokenizer) -> dict:
+    """A streamed completion as an engine result: token ids of its content
+    chunks' text, their logprobs and the terminal chunk's finish reason."""
+    chunks = stream["chunks"]
+    content = [c["choices"][0] for c in chunks if "finish_reason" not in c["choices"][0]]
+    last = chunks[-1]["choices"][0] if chunks else {}
+    return {"token_ids": tok.encode("".join(c["text"] for c in content)),
+            "logprobs": [c["logprobs"]["token_logprobs"][0] for c in content],
+            "finish_reason": last.get("finish_reason"), "content_chunks": len(content)}
+
+
+def sse_whole(stream: dict, res: dict, max_tokens: int) -> bool:
+    """The SSE gate's shape: max_tokens content chunks of one token each,
+    then a terminal chunk with the finish reason, then [DONE]."""
+    return (stream["done"] and res["content_chunks"] == max_tokens == len(res["token_ids"])
+            and res["finish_reason"] == "length"
+            and len(stream["chunks"]) == max_tokens + 1)
+
+
+def sse_figures(label: str, streams: list, wall: float) -> str:
+    """TTFT (request sent to first content chunk), time per output token
+    after the first and tokens/s, on the client's clock; per request also
+    when the headers came (the proxy, the handle and the replica's hop)."""
+    ttfts, tpots, tokens = [], [], 0
+    log(f"{label}: headers after {_ms([1e3 * (s['t_head'] - s['t0']) for s in streams])} ms, "
+        f"first chunk after {_ms([1e3 * (s['stamps'][0] - s['t0']) for s in streams])} ms")
+    for s in streams:
+        n = len(s["stamps"]) - 1  # content chunks; the last is the terminal one
+        ttfts.append(s["stamps"][0] - s["t0"])
+        tpots.append((s["stamps"][n - 1] - s["stamps"][0]) / (n - 1))
+        tokens += n
+    ttfts, tpots = sorted(ttfts), sorted(tpots)
+    figures = (f"TTFT p50 {statistics.median(ttfts):.4f} s max {ttfts[-1]:.4f} s, TPOT p50 "
+               f"{1e3 * statistics.median(tpots):.2f} ms, {tokens / wall:.2f} tok/s over "
+               f"{wall:.2f} s")
+    log(f"{label} (client clock): {figures}")
+    return figures
+
+
+def sse_burst(port: int, requests) -> tuple:
+    """Phase 3's burst as concurrent streamed completions with logprobs,
+    the prompts as token-id lists -> (streams, wall s)."""
+    streams, errors = [None] * len(requests), []
+
+    def run(i):
+        req = requests[i]
+        body = {"prompt": req["prompt_ids"], "max_tokens": req["max_tokens"], "logprobs": 1,
+                "temperature": req.get("temperature", 0.0), "top_p": req.get("top_p", 1.0)}
+        try:
+            streams[i] = sse_request(port, "/v1/completions", body)
+        except Exception as e:  # noqa: BLE001 — reported as this phase's failure
+            errors.append(f"request {i}: {e!r}")
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(660)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"phase 3d HTTP burst: {errors or 'a request did not finish'}")
+    return streams, time.monotonic() - t0
+
+
+def replica_line(label: str, replica, ready_s: float, stats: dict) -> None:
+    st = stats["capture"]
+    log(f"phase 3d: {label} replica {replica._actor_id.hex()[:8]} ready {ready_s:.1f}s after "
+        f"serve.run; its capture {st['seconds']:.1f}s for {st['programs']} programs, graph "
+        f"pools and static buffers {st.get('pool_bytes', 0) / 2**30:.3f} GiB")
+
+
+def deploy_path(server, card: str, plain_figures: str) -> dict:
+    """Phase 3d: the serve runtime on the card, over phase 3's tensors.
+    serve.run(LLMServer.options(num_replicas=2).bind(...)) starts two
+    replicas over the same parameter tensors (no host copy: RSS and card
+    memory read around it); phase 3's burst of fresh prompts through the
+    handle, then one greedy prompt whole and streamed through the handle;
+    then build_openai_app on the same tensors over HTTP: the burst as
+    concurrent SSE streams with logprobs, one completion whole and
+    streamed, one chat completion and /v1/models. Gates: phase 3's logprob
+    gate on every response, the streams token for token equal to the
+    whole requests, the SSE streams whole, both replicas served, every
+    launch from a graph replay; each planted DEPLOY_FAULTS entry must fail
+    its gate; serve.shutdown() leaves no thread the phase started. Returns
+    the launch counts of the handle and HTTP sections, the yardstick
+    forwards left out."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.ops import dispatch
+    from ray_tpu_torch.serve.openai_api import _chat_prompt
+
+    cfg, params = server.engine.cfg, server.engine.params
+    t_phase = time.monotonic()
+    rng = torch.Generator().manual_seed(3)  # fresh prompts, seeded, host-side
+    tok = IdTokenizer()
+    nbytes = sum(t.nbytes for _, t in named_leaves(params))
+    serve.shutdown()
+    rt.shutdown()
+    rt.init()  # what serve.run starts on its own: thread mode, this host's CPUs and cards
+    runtime_threads = set(threading.enumerate())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rss0, mem0 = rss_bytes(), torch.cuda.memory_allocated()
+
+    def params_fn():
+        return params, cfg
+
+    t0 = time.monotonic()
+    handle = serve.run(serve.LLMServer.options(num_replicas=2).bind(
+        model_name="llama3-8b", params_fn=params_fn, engine_config=ENGINE), name="llm")
+    replicas = wait_ready("llm", 2, t0)
+    torch.cuda.synchronize()
+    rss1, mem1 = rss_bytes(), torch.cuda.memory_allocated()
+    for i, (replica, ready_s) in enumerate(replicas):
+        replica_line(f"LLMServer llama3-8b {i}", replica, ready_s,
+                     rt.get(replica.handle_request.remote("stats", ({},), {}), timeout=60))
+    served0 = [rt.get(r.stats.remote(), timeout=60)["total"] for r, _ in replicas]
+    log(f"phase 3d: two replicas over phase 3's parameter tree ({nbytes / 1e9:.2f} GB): process "
+        f"RSS {rss0 / 2**30:.3f} -> {rss1 / 2**30:.3f} GiB, card memory "
+        f"{mem0 / 2**30:.2f} -> {mem1 / 2**30:.2f} GiB")
+    if rss1 - rss0 > DEPLOY_COPY_SHARE_MAX * nbytes:
+        fail(f"phase 3d: RSS grew {(rss1 - rss0) / 2**30:.2f} GiB building the replicas")
+    if mem1 - mem0 > 2 * DEPLOY_COPY_SHARE_MAX * nbytes:
+        fail(f"phase 3d: card memory grew {(mem1 - mem0) / 2**30:.2f} GiB for two replicas")
+
+    # the handle: phase 3's burst, then one greedy prompt whole and streamed
+    dispatch.reset_launches()
+    requests = tagged(burst_requests(cfg, rng), "handle")
+    results, latency, wall = handle_burst(handle, requests)
+    short = {"prompt_ids": torch.randint(1, cfg.vocab_size, (12,), generator=rng).tolist(),
+             "max_tokens": 32}
+    whole = handle.remote(short).result(timeout=300)
+    t = time.monotonic()
+    streamed, stamps = [], []
+    for token in handle.options("stream").remote(short).result(timeout=300):
+        streamed.append(int(token))
+        stamps.append(time.monotonic())
+    launches = dispatch.launch_counts()
+    require_no_eager_launches("phase 3d handle")
+    handle_figures = report_burst("phase 3d handle", requests, results, wall)
+    hop = sorted(c - r["latency_s"] for c, r in zip(latency, results))
+    log(f"phase 3d: through the handle: {handle_figures}; phase 3 direct, the same burst "
+        f"shapes on the same card: {plain_figures}; the handle's hop (call to result, less "
+        f"the engine's latency) p50 {1e3 * statistics.median(hop):.2f} ms max "
+        f"{1e3 * hop[-1]:.2f} ms; a 12-token prompt streamed through the handle: first token "
+        f"{stamps[0] - t:.4f} s, {len(streamed)} tokens in {stamps[-1] - t:.3f} s")
+    served = [rt.get(r.stats.remote(), timeout=60)["total"] - n
+              for (r, _), n in zip(replicas, served0)]
+    with deploy_fault("handle_swaps_responses"):
+        swapped_requests = tagged(burst_requests(cfg, rng), "swapped")
+        swapped_results, _, _ = handle_burst(handle, swapped_requests)
+
+    # the OpenAI front over HTTP, on the same tensors
+    t1 = time.monotonic()
+    serve.run(serve.build_openai_app(model_name="llama3-8b", params_fn=params_fn,
+                                     engine_config=ENGINE, tokenizer=tok), name="v1")
+    ((front, ready_s),) = wait_ready("openai", 1, t1)
+    replica_line("OpenAIServer llama3-8b", front, ready_s,
+                 rt.get(front.handle_request.remote("stats", ({},), {}), timeout=60))
+    port = serve.http_port()
+    # the proxy's health route, which also builds this process's HTTP client:
+    # its first use, raced by five threads, cost the first burst ~250 ms
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/-/healthz", timeout=60) as r:
+        health = json.loads(r.read())
+    dispatch.reset_launches()
+    http_requests = burst_requests(cfg, rng)
+    streams, http_wall = sse_burst(port, http_requests)
+    http_results = [sse_result(s, tok) for s in streams]
+    prompt = torch.randint(1, cfg.vocab_size, (12,), generator=rng).tolist()
+    body = {"prompt": prompt, "max_tokens": 32, "logprobs": 1}
+    with http_post(port, "/v1/completions", body) as r:
+        completion = json.loads(r.read())["result"]
+    one = sse_request(port, "/v1/completions", body)
+    messages = [{"role": "user", "content": "Name three prime numbers."}]
+    with http_post(port, "/v1/chat/completions",
+                   {"messages": messages, "max_tokens": 32, "logprobs": True}) as r:
+        chat = json.loads(r.read())["result"]
+    with http_post(port, "/v1/models", {}) as r:
+        models = json.loads(r.read())["result"]
+    launches = {name: n + dispatch.launch_counts()[name] for name, n in launches.items()}
+    require_no_eager_launches("phase 3d HTTP")
+    for i, res in enumerate(http_results):
+        log(f"phase 3d HTTP request {i}: prompt {len(http_requests[i]['prompt_ids'])} tokens, "
+            f"first tokens {res['token_ids'][:6]}")
+    http_figures = sse_figures("phase 3d HTTP (SSE, logprobs)", streams, http_wall)
+    with deploy_fault("sse_last_chunk_dropped"):
+        dropped = sse_request(port, "/v1/completions", body)
+    peak = torch.cuda.max_memory_allocated()
+
+    # teardown: no thread of the serve runtime outlives serve.shutdown()
+    t_down = time.monotonic()
+    serve.shutdown()
+    deadline = time.monotonic() + 15
+    while True:
+        left = [t.name for t in threading.enumerate()
+                if t not in runtime_threads and t.is_alive()]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    log(f"phase 3d: serve.shutdown() took {time.monotonic() - t_down:.2f}s; threads the phase "
+        f"started still alive after it: {left or 'none'}")
+    if left:
+        fail(f"phase 3d: threads outlived serve.shutdown(): {left}")
+    rt.shutdown()
+    release()
+    log(f"phase 3d: peak card memory {peak / 2**30:.2f} GiB (phase 3's server and tensors "
+        f"included); after shutdown {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    log(f"launches on the deploy path (handle and HTTP sections, the replicas' warm-up and "
+        f"the yardstick forwards not): {launches}")
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0:
+            fail(f"phase 3d never launched kernel {name}")
+
+    # the gates
+    log(f"phase 3d: requests served per replica {served}")
+    if not answered(requests, results):
+        fail("phase 3d: a response through the handle answers another request")
+    if min(served) < 1:
+        fail(f"phase 3d: a replica served no request: {served}")
+    gated = {
+        "handle burst": (requests, results),
+        "handle greedy prompt": ([short], [whole]),
+        "HTTP burst": (http_requests, http_results),
+        "HTTP completion": ([{"prompt_ids": prompt}],
+                            [{"token_ids": tok.encode(completion["choices"][0]["text"]),
+                              "logprobs": completion["choices"][0]["logprobs"]
+                              ["token_logprobs"]}]),
+        "HTTP chat completion": (
+            [{"prompt_ids": tok.encode(_chat_prompt(messages))}],
+            [{"token_ids": tok.encode(chat["choices"][0]["message"]["content"]),
+              "logprobs": [c["logprob"] for c in chat["choices"][0]["logprobs"]["content"]]}]),
+    }
+    for label, (reqs, res) in gated.items():
+        gaps = logprob_gaps(params, cfg, reqs, res)
+        log(f"phase 3d {label}: logprob |engine - forward| per request max "
+            f"{[round(g[0], 4) for g in gaps]} mean {[round(g[1], 4) for g in gaps]} "
+            f"(tol {LOGPROB_TOL})")
+        for i, gap in enumerate(gaps):
+            if not within_logprob_tol(gap):
+                fail(f"phase 3d {label} request {i}: logprobs differ from the forward by max "
+                     f"{gap[0]:.4f}, mean {gap[1]:.4f} (tol {LOGPROB_TOL})")
+    for i, (req, res, stream) in enumerate(zip(http_requests, http_results, streams)):
+        if not sse_whole(stream, res, req["max_tokens"]):
+            fail(f"phase 3d HTTP request {i}: the stream is not whole: {res['content_chunks']} "
+                 f"content chunks, finish_reason {res['finish_reason']}, [DONE] "
+                 f"{stream['done']}")
+    one_res = sse_result(one, tok)
+    text = completion["choices"][0]["text"]
+    same_text = tok.decode(one_res["token_ids"]) == text
+    log(f"phase 3d: the SSE stream of the greedy completion is whole "
+        f"{sse_whole(one, one_res, 32)} and reassembles into its non-streamed text {same_text}; "
+        f"the handle's stream equals its whole request {streamed == whole['token_ids']}; "
+        f"/v1/models lists {[m['id'] for m in models['data']]}, /-/healthz {health}")
+    if not (sse_whole(one, one_res, 32) and same_text):
+        fail("phase 3d: the SSE stream does not reassemble into the non-streamed completion")
+    if streamed != whole["token_ids"]:
+        fail("phase 3d: the handle's stream differs from the whole request's tokens")
+    if [m["id"] for m in models["data"]] != ["llama3-8b"] or health != {"status": "ok"}:
+        fail(f"phase 3d: /v1/models lists {models['data']}")
+    if completion["choices"][0]["finish_reason"] != "length" \
+            or len(tok.encode(text)) != 32:
+        fail(f"phase 3d: the completion's finish_reason "
+             f"{completion['choices'][0]['finish_reason']}, {len(tok.encode(text))} tokens")
+    # the negative controls
+    gaps = logprob_gaps(params, cfg, swapped_requests, swapped_results)
+    caught_swap = (not answered(swapped_requests, swapped_results)
+                   or any(not within_logprob_tol(g) for g in gaps))
+    log(f"phase 3d planted fault handle_swaps_responses: responses answer their own requests "
+        f"{answered(swapped_requests, swapped_results)}; logprob |engine - forward| per "
+        f"request max {[round(g[0], 4) for g in gaps]} mean {[round(g[1], 4) for g in gaps]}")
+    dropped_res = sse_result(dropped, tok)
+    caught_drop = not (sse_whole(dropped, dropped_res, 32)
+                       and tok.decode(dropped_res["token_ids"]) == text)
+    log(f"phase 3d planted fault sse_last_chunk_dropped: {len(dropped['chunks'])} chunks, "
+        f"finish_reason {dropped_res['finish_reason']}, [DONE] {dropped['done']}")
+    for name, hit in (("handle_swaps_responses", caught_swap),
+                      ("sse_last_chunk_dropped", caught_drop)):
+        if not hit:
+            fail(f"phase 3d: its gate passes planted fault {name}")
+    log(f"phase 3d: through HTTP: {http_figures}; through the handle: {handle_figures}; "
+        f"phase 3 direct: {plain_figures} ({card})")
+    log(f"phase 3d took {time.monotonic() - t_phase:.1f}s")
     return launches
 
 
@@ -4469,6 +4967,9 @@ def main() -> None:
     ap.add_argument("--runtime", action="store_true",
                     help="only build the kernels, serve phase 3's burst, then run phase 3r "
                          "(the task/actor runtime on its tensors); prints no result line")
+    ap.add_argument("--deploy", action="store_true",
+                    help="only build the kernels, serve phase 3's burst, then run phase 3d "
+                         "(the serve runtime on its tensors); prints no result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4512,6 +5013,9 @@ def main() -> None:
     if args.runtime:
         runtime_only(card)
         return
+    if args.deploy:
+        deploy_only(card)
+        return
     gen = torch.Generator(device="cuda").manual_seed(0)
     tile_identity_checks(gen)
     figures = norm_checks(gen)
@@ -4521,8 +5025,9 @@ def main() -> None:
     gc.collect()  # the server is shut down: free its pool, keep its weights
     torch.cuda.empty_cache()
     spec = spec_main_path(card, args.profile, served)
-    serve_launches, migrate_launches, live_launches, runtime_launches = (
-        served["launches"], served["migrate"], served["live"], served["runtime"])
+    serve_launches, migrate_launches, live_launches, runtime_launches, deploy_launches = (
+        served["launches"], served["migrate"], served["live"], served["runtime"],
+        served["deploy"])
     del served
     gc.collect()  # free the weights
     torch.cuda.empty_cache()
@@ -4540,7 +5045,7 @@ def main() -> None:
                    "migrate": migrate_launches[name],
                    "moe_migrate": moe_served["migrate"][name],
                    "live": live_launches[name] + moe_served["live"][name],
-                   "runtime": runtime_launches[name]}
+                   "runtime": runtime_launches[name], "deploy": deploy_launches[name]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **figures[name]})

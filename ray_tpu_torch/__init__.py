@@ -22,7 +22,10 @@ The task/actor runtime is the reference's in thread mode (`init`,
 and the virtual cluster of `cluster_utils`): every task and actor runs on
 the node agents' threads in the process that owns the card, the
 accelerator resource is "GPU", and a tree of CUDA tensors passes through
-the object store by reference. A GPU actor can host an `LLMServer`. The
+the object store by reference. A GPU actor can host an `LLMServer`. On it
+stands the serve runtime (`ray_tpu_torch.serve`: deployments, the
+controller, router, handles, batching, multiplexing, the HTTP proxy and
+the OpenAI front), and `LLMServer` is a deployment of it. The
 reference's concurrency sanitizer (`util/sanitizer.maybe_install()` at
 import) waits for ROADMAP A5c, with the rest of the health and profiling
 planes.

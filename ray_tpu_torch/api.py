@@ -173,7 +173,11 @@ def is_initialized() -> bool:
 def _auto_init() -> Runtime:
     if not _cw.runtime_initialized():
         init()
-    return _cw.get_runtime()
+    rt = _cw.get_runtime()
+    # every API entry is a point where this thread holds no runtime lock:
+    # apply the releases that dropped handles queued (ReferenceCounter)
+    rt.reference_counter.release_dropped()
+    return rt
 
 
 # ---------------------------------------------------------------------------

@@ -250,6 +250,13 @@ declare(
     "span are always traced regardless of this rate.",
 )
 
+# Health-aware routing (core/health.py ReplicaHealth)
+declare(
+    "health_quarantine_s", 5.0,
+    "How long health-aware routing (core/health.py ReplicaHealth) "
+    "quarantines a degraded replica before sending one probe request.",
+)
+
 # SLO digests (util/slo.py)
 declare(
     "slo_digests", True,

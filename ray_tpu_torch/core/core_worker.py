@@ -21,6 +21,7 @@ shutdown has none to stop.
 
 from __future__ import annotations
 
+import collections
 import threading
 import time
 from dataclasses import dataclass, field
@@ -151,6 +152,9 @@ class ReferenceCounter:
         self._counts: Dict[ObjectID, int] = {}
         self._escaped: set = set()
         self.gc_enabled = True
+        # releases queued by ObjectRef.__del__ (remove_ref), applied by
+        # release_dropped
+        self._released: "collections.deque[ObjectID]" = collections.deque()
 
     def add_ref(self, object_id: ObjectID) -> None:
         with self._lock:
@@ -161,15 +165,34 @@ class ReferenceCounter:
             self._escaped.add(object_id)
 
     def remove_ref(self, object_id: ObjectID) -> None:
+        """ObjectRef.__del__'s call. The garbage collector runs finalizers
+        wherever an allocation triggers it, inside any critical section of
+        the thread it interrupts (this counter's own, the store's, the
+        runtime's), so this takes no lock and frees nothing: it queues the
+        release (a deque append) for release_dropped. The reference counts
+        down and frees here, under a lock that is not reentrant, and a
+        collection inside add_ref deadlocks the thread on it."""
+        self._released.append(object_id)
+
+    def release_dropped(self) -> None:
+        """Count down the queued releases and free each object whose last
+        handle is gone. Called where the calling thread holds no runtime
+        lock: at every API entry (api._auto_init) and on each pass of the
+        runtime's monitor loop."""
+        to_free = []
         with self._lock:
-            n = self._counts.get(object_id, 0) - 1
-            if n > 0:
-                self._counts[object_id] = n
-                return
-            self._counts.pop(object_id, None)
-            should_free = self.gc_enabled and object_id not in self._escaped
-        if should_free and not self._runtime.is_shutdown:
-            self._runtime.free_object(object_id)
+            while self._released:
+                object_id = self._released.popleft()
+                n = self._counts.get(object_id, 0) - 1
+                if n > 0:
+                    self._counts[object_id] = n
+                    continue
+                self._counts.pop(object_id, None)
+                if self.gc_enabled and object_id not in self._escaped:
+                    to_free.append(object_id)
+        if not self._runtime.is_shutdown:
+            for object_id in to_free:
+                self._runtime.free_object(object_id)
 
     def count(self, object_id: ObjectID) -> int:
         with self._lock:
@@ -999,6 +1022,7 @@ class Runtime:
             for agent in agents:
                 if not agent._stopped.is_set():
                     agent._sync_load()
+            self.reference_counter.release_dropped()
             for node_id in self.control_plane.check_health(timeout):
                 logger.warning("health check: reaping node %s", node_id.hex()[:8])
                 self.remove_node(node_id)

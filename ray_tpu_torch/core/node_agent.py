@@ -180,6 +180,11 @@ class _ActorRunner:
             self.mailbox.put(None)
 
 
+# how long a stopped async actor's lane waits for its executor threads: a
+# thread still running a call past this is left to finish on its own
+EXECUTOR_JOIN_S = 10.0
+
+
 class _AsyncActorRunner(_ActorRunner):
     """Event-loop lane for an async actor: tasks run as coroutines on ONE
     asyncio loop; max_concurrency bounds concurrent AWAITS (a semaphore),
@@ -196,6 +201,12 @@ class _AsyncActorRunner(_ActorRunner):
         def loop_main():
             asyncio.set_event_loop(self.loop)
             self.loop.run_forever()
+            # stopped (stop()): let the cancelled tasks unwind, then end the
+            # default executor's threads (asyncio.to_thread), which would
+            # otherwise idle on for the life of the process
+            self.loop.run_until_complete(
+                self.loop.shutdown_default_executor(timeout=EXECUTOR_JOIN_S))
+            self.loop.close()
 
         loop_thread = threading.Thread(
             target=loop_main, daemon=True,
@@ -784,6 +795,14 @@ class NodeAgent:
             runner.held_resources = {}
             self._sync_load()
         self._sweep_actor_pending(runner)
+        # the lanes end at their stop sentinel (an async lane once its
+        # executor's threads have ended): wait a bounded while, so a killed
+        # actor leaves no thread behind; a lane still inside a long method
+        # is left to finish on its own
+        deadline = time.monotonic() + 2.0
+        for t in runner.threads:
+            if t is not threading.current_thread():
+                t.join(timeout=max(0.0, deadline - time.monotonic()))
         return True
 
     def _sweep_actor_pending(self, runner: _ActorRunner) -> None:

@@ -54,6 +54,9 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS + ("flash_attention_lse"
 # the share of LAUNCHES that graph replays added
 REPLAYED: Dict[str, int] = dict(LAUNCHES)
 _launch_lock = threading.Lock()
+# the launches of a graph capture in progress on this thread
+# (recording_launches); other threads' launches count as usual meanwhile
+_recording = threading.local()
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point -> argtypes (the stream is the last pointer of each)
@@ -157,21 +160,16 @@ def add_launches(counts: Dict[str, int]) -> None:
 @contextlib.contextmanager
 def recording_launches():
     """Around a graph capture: yields a dict that, when the block ends,
-    holds the launches the wrappers counted inside it, which are taken back
-    out of `LAUNCHES` (a capture enqueues nothing; its replays launch). No
-    other thread may launch meanwhile: a capture runs before the engine's
-    threads start."""
-    before = launch_counts()
+    holds the launches the wrappers made on this thread inside it, which
+    never reach `LAUNCHES` (a capture enqueues nothing; its replays
+    launch). Other threads, such as other engines' serving threads, count
+    their launches as usual meanwhile."""
     counts: Dict[str, int] = {}
+    _recording.counts = counts
     try:
         yield counts
     finally:
-        with _launch_lock:
-            for name in LAUNCHES:
-                n = LAUNCHES[name] - before[name]
-                LAUNCHES[name] = before[name]
-                if n:
-                    counts[name] = n
+        _recording.counts = None
 
 
 def _nvcc() -> str:
@@ -282,6 +280,11 @@ def launch(kernel: str, entry: str, device: torch.device, *args, also: str = "")
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err}: "
                            f"{lib.rtt_error_string(err).decode()}")
+    recording = getattr(_recording, "counts", None)
+    if recording is not None:
+        for name in (kernel, also) if also else (kernel,):
+            recording[name] = recording.get(name, 0) + 1
+        return
     with _launch_lock:
         LAUNCHES[kernel] += 1
         if also:

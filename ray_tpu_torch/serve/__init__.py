@@ -1,5 +1,39 @@
-"""ray_tpu_torch.serve — the continuous-batching engine and its LLM server."""
+"""ray_tpu_torch.serve — online serving: the controller reconciles
+declarative deployments into replica actors, a pow-2 router balances
+requests, the HTTP proxy exposes JSON routes and the OpenAI front, and
+LLMServer/InferenceEngine provide continuously-batched paged-KV LLM
+inference on the card.
 
-from .config import SpeculationConfig  # noqa: F401
+The port's counterpart of ray_tpu/serve/__init__.py. Disaggregated
+serving (DisaggCoordinator, EngineWorker, deploy_disagg, DisaggConfig),
+the fleet controller and the gRPC ingress wait for ROADMAP A6b.
+"""
+
+from .api import (  # noqa: F401
+    delete,
+    get_app_handle,
+    get_deployment_handle,
+    grpc_port,
+    http_port,
+    run,
+    shutdown,
+    start_grpc,
+    status,
+)
+from .batching import batch  # noqa: F401
+from .multiplex import get_multiplexed_model_id, multiplexed  # noqa: F401
+from .config import (  # noqa: F401
+    AutoscalingConfig,
+    DeploymentConfig,
+    SpeculationConfig,
+)
+from .deployment import Application, Deployment, deployment  # noqa: F401
 from .engine import EngineConfig, InferenceEngine, Request  # noqa: F401
+from .handle import DeploymentHandle, DeploymentResponse  # noqa: F401
 from .llm import LLMServer  # noqa: F401
+from .openai_api import (  # noqa: F401
+    ByteTokenizer,
+    OpenAIServer,
+    build_openai_app,
+)
+from .proxy_actor import ProxyActor, start_proxy  # noqa: F401

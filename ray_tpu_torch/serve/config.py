@@ -1,11 +1,11 @@
-"""Serve config schema of the port: speculative decoding, and the defaults
-that the reference keeps in its global config (ray_tpu/core/config.py),
-which the port does not have yet.
+"""Serve config schema of the port: deployment options and autoscaling
+bounds, speculative decoding, and the defaults that the reference keeps
+in its global config (ray_tpu/core/config.py).
 
-Counterpart of ray_tpu/serve/config.py's SpeculationConfig, as this
-package's own copy (the port imports nothing of ray_tpu). Autoscaling,
-disaggregation and deployment options belong to the serve runtime, which
-this package does not port yet.
+Counterpart of ray_tpu/serve/config.py's AutoscalingConfig,
+DeploymentConfig and SpeculationConfig, as this package's own copy (the
+port imports nothing of ray_tpu). DisaggConfig waits for disaggregated
+serving (ROADMAP A6b).
 """
 
 from __future__ import annotations
@@ -24,6 +24,36 @@ SPEC_OVERLAP_DEFAULT = True
 # and the importer stages slabs as they land) or "token" (wire v1: every
 # layer in each frame).
 KV_FRAME_LAYOUT_DEFAULT = "layer"
+
+
+@dataclasses.dataclass
+class AutoscalingConfig:
+    min_replicas: int = 1
+    max_replicas: int = 1
+    target_ongoing_requests: float = 2.0
+    upscale_delay_s: float = 3.0
+    downscale_delay_s: float = 30.0
+    # smoothing on the observed load before comparing against target
+    metrics_interval_s: float = 1.0
+
+
+@dataclasses.dataclass
+class DeploymentConfig:
+    num_replicas: int = 1
+    max_ongoing_requests: int = 8
+    autoscaling_config: Optional[AutoscalingConfig] = None
+    ray_actor_options: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    health_check_period_s: float = 10.0
+    health_check_timeout_s: float = 30.0
+    # how long a replica that is being stopped may take to finish its
+    # requests and run its class's shutdown() (ServeReplica.
+    # prepare_for_shutdown) before it is killed
+    graceful_shutdown_timeout_s: float = 10.0
+    # STARTING budget: a replica whose __init__ never completes within
+    # this window is replaced. Generous by default — LLM replicas
+    # legitimately spend minutes loading weights and warming compiles
+    # (reference serve's initialization deadline is likewise long).
+    startup_timeout_s: float = 600.0
 
 
 @dataclasses.dataclass

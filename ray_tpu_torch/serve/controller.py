@@ -1,0 +1,455 @@
+"""Serve controller: declarative app specs reconciled into replica actors.
+
+Reference: `python/ray/serve/_private/controller.py :: ServeController` +
+`deployment_state.py :: DeploymentStateManager` (replica state machine) +
+`autoscaling_policy.py`. One named controller actor runs a reconcile loop:
+diff target vs live replicas, start/stop, health-check, autoscale from
+replica queue metrics.
+
+The port's copy of ray_tpu/serve/controller.py, in thread mode. Two
+differences, both about stopping: a replica the controller retires
+(deploy over an old version, delete, scale-down, shutdown) is first asked
+to finish its requests and run its class's shutdown()
+(ServeReplica.prepare_for_shutdown, within the deployment's
+graceful_shutdown_timeout_s) and is killed after, where the reference
+kills it at once; and shutdown() joins the reconcile loop before it
+retires the replicas, so no pass can start a replica after it. A replica
+that is dead or fails its health checks is still killed at once.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+from .. import api
+from ..core.logging import get_logger
+from .config import AutoscalingConfig, DeploymentConfig
+from .replica import ServeReplica
+
+logger = get_logger("serve.controller")
+
+CONTROLLER_NAME = "SERVE_CONTROLLER"
+_HEALTH_FAIL_THRESHOLD = 3  # consecutive misses before a replica is replaced
+
+
+class _DeploymentState:
+    def __init__(self, name, cls_or_fn, init_args, init_kwargs, config: DeploymentConfig):
+        self.name = name
+        self.cls_or_fn = cls_or_fn
+        self.init_args = init_args
+        self.init_kwargs = init_kwargs
+        self.config = config
+        self.replicas: List[Any] = []
+        self.version = 0
+        # Monotonic membership counter: bumped on ANY change to `replicas`
+        # (replacement, scale up/down, drain). Routers cache replica sets
+        # keyed on this, so an unbumped change would leave every existing
+        # handle routing to dead replicas.
+        self.membership = 0
+        # consecutive health-check failures per live replica (keyed by actor
+        # id); replicas are only replaced after _HEALTH_FAIL_THRESHOLD misses
+        # so a long compile or GC pause doesn't get a healthy replica killed.
+        self.fail_counts: Dict[Any, int] = {}
+        # in-flight async health probes: actor id -> (ref, issued_at)
+        self.health_pending: Dict[Any, Any] = {}
+        # STARTING -> RUNNING tracking (reference deployment_state
+        # semantics): a replica's __init__ may legitimately block for
+        # minutes (model load, engine warmup compiles), so health-probe
+        # timeouts only count as misses once the replica has STARTED —
+        # marked by the readiness probe issued at spawn completing.
+        # STARTING replicas are replaced only on provable actor death or
+        # after startup_timeout_s with no readiness.
+        self.started: set = set()
+        self.ready_pending: Dict[Any, Any] = {}  # actor id -> (ref, spawned)
+        self.last_health_check = 0.0
+        self.target = config.num_replicas
+        self._last_scale_up = 0.0
+        self._last_scale_down = 0.0
+        if config.autoscaling_config:
+            self.target = max(config.autoscaling_config.min_replicas, 1)
+
+
+@api.remote
+class ServeController:
+    def __init__(self, reconcile_period_s: float = 0.25):
+        self._deployments: Dict[str, _DeploymentState] = {}
+        self._routes: Dict[str, str] = {}  # route -> deployment name
+        self._lock = threading.RLock()
+        self._stop = threading.Event()
+        self._period = reconcile_period_s
+        # retiring replicas: (handle, prepare_for_shutdown ref, kill deadline)
+        self._retiring: List[Any] = []
+        self._thread = threading.Thread(target=self._reconcile_loop, daemon=True,
+                                        name="serve-controller-reconcile")
+        self._thread.start()
+
+    # ---- control API ------------------------------------------------------
+
+    def deploy(self, name: str, cls_or_fn, init_args, init_kwargs, config: DeploymentConfig) -> bool:
+        with self._lock:
+            old = self._deployments.get(name)
+            state = _DeploymentState(name, cls_or_fn, init_args, init_kwargs, config)
+            if old is not None:
+                state.version = old.version + 1
+                state.membership = old.membership + 1
+                self._drain(old)
+            self._deployments[name] = state
+        self._reconcile_once()
+        return True
+
+    def delete_deployment(self, name: str) -> bool:
+        with self._lock:
+            state = self._deployments.pop(name, None)
+            if state is not None:
+                self._drain(state)
+        return state is not None
+
+    def delete_all(self) -> None:
+        with self._lock:
+            for state in self._deployments.values():
+                self._drain(state)
+            self._deployments.clear()
+
+    def get_replicas(self, name: str):
+        """-> (replica handles, version) for routers."""
+        with self._lock:
+            state = self._deployments.get(name)
+            if state is None:
+                return [], -1
+            return list(state.replicas), state.membership
+
+    # ---- route table (consumed by per-host proxies) -----------------------
+    def set_route(self, route: str, deployment_name: str) -> bool:
+        with self._lock:
+            self._routes[route] = deployment_name
+        return True
+
+    def delete_route(self, route: str, deployment_name: str = "") -> bool:
+        """Remove a route — only if it still points at deployment_name
+        (empty = unconditional): app B re-claiming app A's route must not
+        be torn down when A is later deleted."""
+        with self._lock:
+            if deployment_name and self._routes.get(route) != deployment_name:
+                return False
+            return self._routes.pop(route, None) is not None
+
+    def get_routes(self) -> Dict[str, str]:
+        """route -> deployment name; per-host proxies poll this so apps
+        deployed after a proxy started still get routed (reference:
+        proxies watch the controller's LongPoll config updates)."""
+        with self._lock:
+            return dict(self._routes)
+
+    def set_target(self, name: str, target: int) -> bool:
+        """External actuation (serve/fleet.py policy engine): set a
+        deployment's target replica count directly. Clamped to the
+        deployment's autoscaling bounds when it has any, so the fleet
+        policy and the internal load-based autoscaler can't fight over
+        out-of-bounds targets; the delay clocks are touched so the
+        internal policy doesn't immediately revert the decision."""
+        with self._lock:
+            state = self._deployments.get(name)
+            if state is None:
+                return False
+            target = max(0, int(target))
+            cfg = state.config.autoscaling_config
+            if cfg is not None:
+                target = min(max(target, cfg.min_replicas), cfg.max_replicas)
+            now = time.monotonic()
+            if target > state.target:
+                state._last_scale_up = now
+            elif target < state.target:
+                state._last_scale_down = now
+            state.target = target
+        self._reconcile_once()
+        return True
+
+    def status(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                name: {
+                    "target_replicas": s.target,
+                    "live_replicas": len(s.replicas),
+                    "version": s.version,
+                }
+                for name, s in self._deployments.items()
+            }
+
+    def shutdown(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=60.0)
+        self.delete_all()
+        self._reap_retired(block=True)
+
+    # ---- reconcile --------------------------------------------------------
+
+    def _retire(self, state: _DeploymentState, replica) -> None:
+        """Ask a replica to drain and run its class's shutdown(); the
+        reconcile loop (or shutdown) kills it once that returns or the
+        graceful timeout (plus a margin for the shutdown itself) runs out."""
+        timeout_s = state.config.graceful_shutdown_timeout_s
+        try:
+            ref = replica.prepare_for_shutdown.remote(timeout_s)
+        except Exception:
+            ref = None
+        with self._lock:
+            self._retiring.append((replica, ref, time.monotonic() + timeout_s + 5.0))
+
+    def _reap_retired(self, block: bool = False) -> None:
+        """Kill the retiring replicas whose graceful stop has returned or
+        timed out; with block, wait for all of them."""
+        with self._lock:
+            retiring, self._retiring = self._retiring, []
+        keep = []
+        for replica, ref, deadline in retiring:
+            if ref is not None:
+                wait_s = max(0.0, deadline - time.monotonic()) if block else 0
+                ready, _ = api.wait([ref], timeout=wait_s)
+                if not ready and time.monotonic() < deadline:
+                    keep.append((replica, ref, deadline))
+                    continue
+            try:
+                api.kill(replica)
+            except Exception:
+                pass
+        with self._lock:
+            self._retiring.extend(keep)
+
+    def _drain(self, state: _DeploymentState) -> None:
+        for r in state.replicas:
+            self._retire(state, r)
+        if state.replicas:
+            state.membership += 1
+        state.replicas = []
+
+    def _reconcile_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self._reconcile_once()
+            except Exception:
+                logger.warning("reconcile error", exc_info=True)
+            self._stop.wait(self._period)
+
+    def _check_health(self, state: _DeploymentState) -> List[Any]:
+        """Probe replica health without ever blocking the reconcile loop.
+
+        Two planes, like upstream serve: (1) the control plane's actor table
+        gives instant detection of provable death (crash/kill); (2) async
+        ``health_check`` probes, issued once per ``health_check_period_s``
+        and harvested with zero timeout on later passes, catch hangs. A slow
+        probe only counts as a miss after ``health_check_timeout_s``, and a
+        replica is replaced only on death or _HEALTH_FAIL_THRESHOLD
+        consecutive misses — a long first-compile (which can stall every
+        thread in the process for 10s+) never gets a live replica killed.
+        """
+        from ..core.core_worker import RayActorError
+        from ..core.control_plane import ActorState
+
+        cfg = state.config
+        rt = api._auto_init()
+        now = time.monotonic()
+        dead: Dict[Any, Any] = {}  # actor id -> handle (deduped)
+        by_id = {r._actor_id: r for r in state.replicas}
+        for rid, (ref, spawned) in list(state.ready_pending.items()):
+            if rid not in by_id:
+                state.ready_pending.pop(rid, None)
+                continue
+            ready, _ = api.wait([ref], timeout=0)
+            if ready:
+                state.ready_pending.pop(rid, None)
+                try:
+                    api.get(ref, timeout=0)
+                except Exception:
+                    pass  # init raised -> actor-table death handles it
+                state.started.add(rid)  # STARTING -> RUNNING
+            elif now - spawned > cfg.startup_timeout_s:
+                state.ready_pending.pop(rid, None)
+                dead[rid] = by_id[rid]  # never became ready: replace
+        for r in state.replicas:  # plane 1: actor-table death
+            info = rt.control_plane.get_actor(r._actor_id)
+            if info is not None and info.state is ActorState.DEAD:
+                dead[r._actor_id] = r
+        for rid, (ref, issued) in list(state.health_pending.items()):
+            r = by_id.get(rid)
+            if r is None:
+                state.health_pending.pop(rid, None)
+                continue
+            ready, _ = api.wait([ref], timeout=0)
+            if ready:
+                state.health_pending.pop(rid, None)
+                try:
+                    api.get(ref, timeout=0)
+                    state.fail_counts.pop(rid, None)
+                    state.started.add(rid)  # STARTING -> RUNNING
+                    continue
+                except Exception as e:
+                    if isinstance(e, RayActorError):
+                        dead[rid] = r
+                        continue
+            elif now - issued <= cfg.health_check_timeout_s:
+                continue  # probe still in flight and within budget
+            else:
+                state.health_pending.pop(rid, None)
+            if rid not in state.started:
+                # STARTING: __init__ may block for minutes (engine warmup
+                # compiles); misses don't count — actor-table death is the
+                # only thing that replaces a starting replica
+                continue
+            fails = state.fail_counts.get(rid, 0) + 1
+            state.fail_counts[rid] = fails
+            if fails >= _HEALTH_FAIL_THRESHOLD:
+                dead[rid] = r
+        if now - state.last_health_check >= cfg.health_check_period_s:
+            state.last_health_check = now
+            for r in state.replicas:
+                rid = r._actor_id
+                if rid not in state.health_pending and rid not in dead:
+                    try:
+                        state.health_pending[rid] = (r.health_check.remote(), now)
+                    except Exception:
+                        dead[rid] = r
+        return list(dead.values())
+
+    def _reconcile_once(self) -> None:
+        self._reap_retired()
+        with self._lock:
+            states = list(self._deployments.values())
+        for state in states:
+            self._autoscale(state)
+            to_replace = self._check_health(state)
+            live = [r for r in state.replicas if r not in to_replace]
+            for r in to_replace:
+                logger.warning(
+                    "replica of %s is dead or unresponsive; replacing", state.name
+                )
+                state.fail_counts.pop(r._actor_id, None)
+                state.health_pending.pop(r._actor_id, None)
+                state.ready_pending.pop(r._actor_id, None)
+                state.started.discard(r._actor_id)
+                try:
+                    api.kill(r)
+                except Exception:
+                    pass
+            changed = len(live) != len(state.replicas)
+            state.replicas = live
+            # drop stale counters (scaled-down / drained / replaced replicas)
+            live_ids = {r._actor_id for r in live}
+            state.fail_counts = {
+                rid: c for rid, c in state.fail_counts.items() if rid in live_ids
+            }
+            state.started &= live_ids
+            state.ready_pending = {
+                rid: v for rid, v in state.ready_pending.items()
+                if rid in live_ids
+            }
+            with self._lock:
+                if self._deployments.get(state.name) is not state:
+                    # deploy()/delete drained this state mid-iteration: do not
+                    # respawn replicas onto an orphaned state object.
+                    self._drain(state)
+                    continue
+            if len(state.replicas) < state.target:
+                # weight deployment: ObjectRef init args (model weights,
+                # tokenizer blobs) are about to be pulled by every new
+                # replica at once — pre-seed them through the collective
+                # relay tree so replicas pull from each other's hosts
+                # instead of all hammering the owner. Best-effort: a
+                # failed broadcast just means replicas pull on demand.
+                self._broadcast_init_refs(state)
+            while len(state.replicas) < state.target:
+                changed = True
+                opts = dict(state.config.ray_actor_options)
+                opts.setdefault("num_cpus", 1.0)
+                opts["max_concurrency"] = max(
+                    state.config.max_ongoing_requests + 2, 4
+                )
+                replica = ServeReplica.options(**opts).remote(
+                    state.name,
+                    state.cls_or_fn,
+                    state.init_args,
+                    state.init_kwargs,
+                    state.config.max_ongoing_requests,
+                )
+                state.replicas.append(replica)
+                # readiness probe: completes when __init__ has finished
+                # (the actor's first task can only run then) — the
+                # STARTING -> RUNNING edge for health accounting
+                try:
+                    state.ready_pending[replica._actor_id] = (
+                        replica.health_check.remote(), time.monotonic())
+                except Exception:
+                    pass
+            while len(state.replicas) > state.target:
+                changed = True
+                self._retire(state, state.replicas.pop())
+            if changed:
+                with self._lock:
+                    state.membership += 1
+
+    def _broadcast_init_refs(self, state: _DeploymentState) -> None:
+        """Pre-seed ObjectRef init args cluster-wide before a scale-up
+        wave (api.broadcast relay tree). Broadcast each distinct ref at
+        most once per deployment generation — weights don't change under
+        one state object."""
+        from ..api import ObjectRef
+
+        seeded = getattr(state, "_broadcast_seeded", None)
+        if seeded is None:
+            seeded = state._broadcast_seeded = set()
+        refs = [v for v in (*state.init_args,
+                            *state.init_kwargs.values())
+                if isinstance(v, ObjectRef)]
+        for ref in refs:
+            if ref.object_id in seeded:
+                continue
+            try:
+                api.broadcast(ref, timeout=60.0)
+                seeded.add(ref.object_id)
+            except Exception:  # noqa: BLE001 — pre-seeding is best-effort
+                logger.debug("init-arg broadcast failed for %s",
+                             state.name, exc_info=True)
+
+    def _autoscale(self, state: _DeploymentState) -> None:
+        cfg: Optional[AutoscalingConfig] = state.config.autoscaling_config
+        if cfg is None or not state.replicas:
+            return
+        # probe only RUNNING replicas: one replica blocked in __init__
+        # (the long STARTING grace) would time this batched get out and
+        # freeze scaling for the whole deployment exactly when load is
+        # piling onto the live replicas
+        ready = [r for r in state.replicas if r._actor_id in state.started]
+        if not ready:
+            return
+        try:
+            loads = api.get(
+                [r.queue_len.remote() for r in ready], timeout=5.0
+            )
+        except Exception:
+            return
+        avg = sum(loads) / max(len(loads), 1)
+        now = time.monotonic()
+        if avg > cfg.target_ongoing_requests and state.target < cfg.max_replicas:
+            if now - state._last_scale_up > cfg.upscale_delay_s:
+                state.target += 1
+                state._last_scale_up = now
+                logger.info("autoscale %s -> %d (avg load %.2f)", state.name, state.target, avg)
+        elif avg < cfg.target_ongoing_requests / 2 and state.target > cfg.min_replicas:
+            if now - state._last_scale_down > cfg.downscale_delay_s:
+                state.target -= 1
+                state._last_scale_down = now
+                logger.info("autoscale %s -> %d (avg load %.2f)", state.name, state.target, avg)
+
+
+def get_or_create_controller():
+    try:
+        return api.get_actor(CONTROLLER_NAME)
+    except ValueError:
+        # in_process: the controller drives the runtime (spawns/kills
+        # replica actors) — worker processes have no runtime back-channel.
+        # num_cpus=0: system actor (the reference's controller likewise
+        # requests zero CPUs), so it never starves replicas on small hosts.
+        return ServeController.options(
+            name=CONTROLLER_NAME, in_process=True, num_cpus=0
+        ).remote()

@@ -1,13 +1,15 @@
-"""LLMServer: the colocated serving front of one InferenceEngine.
+"""LLMServer: the serving deployment over one InferenceEngine.
 
-Counterpart of ray_tpu/serve/llm.py's LLMServer in the colocated role, as
-a plain class: one server = one engine = one card. It swaps its weights
-live (`update_weights`, from a tree in hand or an object-plane ref) and
-exposes the engine's weights version and prefix-cache digest. The runtime
-hosts it as a GPU actor (`ray_tpu_torch.remote(num_gpus=1)` over a class
-that builds one). The deployment decorator, disaggregated roles and LoRA
-adapters belong to the serve runtime, which this package does not port
-yet.
+Counterpart of ray_tpu/serve/llm.py's LLMServer in the colocated role:
+`serve.run(LLMServer.bind(...))` starts its replicas, each one engine on
+the card, and serve's router spreads requests over them while each engine
+batches continuously. `LLMServer._target(...)` builds the plain class,
+outside any replica (the runtime can also host that as a GPU actor). It
+swaps its weights live (`update_weights`, from a tree in hand or an
+object-plane ref) and exposes the engine's weights version and
+prefix-cache digest. The disaggregated roles, LoRA adapters and the
+methods that stand on them (prefill_request, decode_request,
+decode_stream, kv_ingest) wait for ROADMAP A6b.
 """
 
 from __future__ import annotations
@@ -16,9 +18,11 @@ from typing import Any, Dict, Optional
 
 from ..models import get_config, init_params
 from ..ops.dispatch import resolve_device
+from .deployment import deployment
 from .engine import EngineConfig, InferenceEngine
 
 
+@deployment(name="llm", max_ongoing_requests=32)
 class LLMServer:
     """Token-level LLM server.
 
@@ -106,13 +110,16 @@ class LLMServer:
     def stats(self, _request: Any = None) -> Dict[str, Any]:
         out = self.engine.stats()
         out["role"] = self.role
+        # what warm-up took: programs captured, seconds, graph pool bytes
+        out["capture"] = dict(self.engine.capture_stats)
         return out
 
     def check_health(self) -> None:
         pass
 
     def shutdown(self) -> None:
-        """Stop the engine's threads."""
+        """Stop the engine's threads (a serve replica calls this when it
+        retires: ServeReplica.prepare_for_shutdown)."""
         self.engine.stop()
 
 

@@ -1,0 +1,405 @@
+"""OpenAI-compatible serving surface over the inference engine.
+
+Reference analogue: `ray.serve.llm :: build_openai_app` (A4 in SURVEY.md
+§2.3), which fronts vLLM with /v1/completions + /v1/chat/completions.
+Here the app is one deployment whose methods map to proxy routes:
+
+    app = build_openai_app(model_name=..., tokenizer="byte")
+    serve.run(app, name="v1")
+    # POST /v1/completions        {"prompt": "...", "max_tokens": 8}
+    # POST /v1/chat_completions   {"messages": [{"role": "user", ...}]}
+    # POST /v1/models
+    # "stream": true -> server-sent events through the HTTP proxy
+
+Tokenizers: "byte" (utf-8 bytes, zero deps — any model with vocab >= 256)
+or a HuggingFace tokenizer name (lazy transformers import).
+
+The port's copy of ray_tpu/serve/openai_api.py, colocated: one engine on
+the card per replica, built from `params_fn` or from random weights of
+the named config drawn from `seed` on `device` (the card unless the caller
+names another), as LLMServer does. Each request opens its trace with
+`tracing.maybe_begin` (sampled at the `trace_sample_rate` flag) and runs
+under `tracing.activate`. Coordinator mode over disaggregated roles
+(`build_openai_app(disagg=...)`, `disagg_deployments=`) waits for ROADMAP
+A6b and raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import time
+import uuid
+from typing import Any, Dict, Iterable, List, Optional
+
+from ..models import get_config, init_params
+from ..ops.dispatch import resolve_device
+from ..util import tracing
+from .deployment import deployment
+from .engine import EngineConfig, InferenceEngine
+
+_A6B_DISAGG = ("disaggregated serving (serve/disagg.py: prefill and decode roles "
+               "joined by KV channels) waits for ROADMAP A6b")
+
+
+class SSEStream:
+    """Iterator wrapper for streaming responses that carries the request
+    id alongside the chunks, so the HTTP proxy can emit an X-Request-Id
+    header (which doubles as the trace id) before the first event."""
+
+    def __init__(self, request_id: str, gen):
+        self.request_id = request_id
+        self._gen = gen
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self._gen)
+
+    def close(self):
+        self._gen.close()
+
+
+class ByteTokenizer:
+    """utf-8 bytes as token ids. No vocab files, no downloads — the test
+    and smoke-path tokenizer (models only need vocab_size >= 256)."""
+
+    eos_token_id: Optional[int] = None
+
+    def encode(self, text: str) -> List[int]:
+        return list(text.encode("utf-8"))
+
+    def decode(self, ids: Iterable[int]) -> str:
+        return bytes(i for i in ids if 0 <= i < 256).decode("utf-8", "replace")
+
+
+class HFTokenizer:
+    """HuggingFace tokenizer wrapper (lazy import of `transformers`; needs
+    the tokenizer's files on local disk or in a warm cache)."""
+
+    def __init__(self, name: str):
+        from transformers import AutoTokenizer
+
+        self._tok = AutoTokenizer.from_pretrained(name)
+        self.eos_token_id = self._tok.eos_token_id
+
+    def encode(self, text: str) -> List[int]:
+        return list(self._tok.encode(text))
+
+    def decode(self, ids: Iterable[int]) -> str:
+        return self._tok.decode(list(ids))
+
+
+def _make_tokenizer(spec) -> Any:
+    if spec is None or spec == "byte":
+        return ByteTokenizer()
+    if isinstance(spec, str):
+        return HFTokenizer(spec)
+    return spec  # duck-typed: encode/decode/eos_token_id
+
+
+def _chat_prompt(messages: List[Dict[str, str]]) -> str:
+    """Minimal chat template: role-tagged lines, assistant turn opened."""
+    lines = [f"{m.get('role', 'user')}: {m.get('content', '')}" for m in messages]
+    lines.append("assistant:")
+    return "\n".join(lines)
+
+
+@deployment(name="openai", max_ongoing_requests=64)
+class OpenAIServer:
+    """OpenAI-shaped routes over one continuously-batched engine."""
+
+    def __init__(
+        self,
+        model_name: str = "tiny-llama",
+        engine_config: Optional[Dict[str, Any]] = None,
+        params_fn=None,
+        model_overrides: Optional[Dict[str, Any]] = None,
+        tokenizer: Any = "byte",
+        speculation: Any = None,
+        draft_params_fn=None,
+        disagg: Any = None,
+        disagg_deployments: Optional[List[str]] = None,
+        device=None,
+        seed: int = 0,
+    ):
+        if disagg is not None or disagg_deployments is not None:
+            raise NotImplementedError(f"OpenAIServer in coordinator mode: {_A6B_DISAGG}")
+        self.model_name = model_name
+        self.tokenizer = _make_tokenizer(tokenizer)
+        device = resolve_device(device)
+        if params_fn is not None:
+            params, cfg = params_fn()
+        else:
+            cfg = get_config(model_name, **(model_overrides or {}))
+            params = init_params(cfg, seed=seed, device=device, dtype=cfg.dtype)
+        ecfg_kw = dict(engine_config or {})
+        ecfg_kw.setdefault("eos_token_id", self.tokenizer.eos_token_id)
+        if speculation is not None:
+            if ecfg_kw.get("speculation") is not None:
+                raise ValueError(
+                    "pass speculation either as the OpenAIServer kwarg or "
+                    "inside engine_config, not both")
+            ecfg_kw["speculation"] = speculation
+        ecfg = EngineConfig(**ecfg_kw)
+        draft_params = (draft_params_fn()
+                        if draft_params_fn is not None else None)
+        self.engine = InferenceEngine(params, cfg, ecfg, device=device,
+                                      draft_params=draft_params)
+        # capture every device program (prefill, chunks, decode spans and
+        # speculation) at replica init, and so build the kernels, rather
+        # than under the first requests
+        self.engine.warmup()
+
+    # ------------------------------------------------------------- routes
+
+    def _stop_ids(self, body) -> "Optional[list]":
+        """OpenAI `stop`: string or list of strings -> token-id sequences
+        via this app's tokenizer (plus stop_token_ids passthrough).
+
+        Contract: matching is TOKEN-level on the encoded stop string —
+        exact for the byte tokenizer (1 byte = 1 token always), while a
+        merging tokenizer (HF) only fires when the model emits the stop
+        text on the same token boundaries. Full detokenized string
+        matching (vLLM's behavior) would need decode-per-token in the
+        engine loop; use stop_token_ids for exact token-level control."""
+        stops = []
+        raw = body.get("stop")
+        if isinstance(raw, str):
+            raw = [raw]
+        for s in raw or []:
+            ids = self.tokenizer.encode(str(s))
+            if ids:
+                stops.append(ids)
+        for tid in body.get("stop_token_ids") or []:
+            stops.append([int(tid)])
+        return stops or None
+
+    def _generate(self, ids, max_tokens, temperature, top_p, stop):
+        return self.engine.generate(ids, max_tokens=max_tokens,
+                                    temperature=temperature, top_p=top_p,
+                                    stop=stop)
+
+    def completions(self, body: Dict[str, Any]):
+        prompt = body.get("prompt", "")
+        ids = (
+            list(prompt)
+            if isinstance(prompt, (list, tuple))
+            else self.tokenizer.encode(str(prompt))
+        )
+        max_tokens = int(body.get("max_tokens", 16))
+        temperature = float(body.get("temperature", 0.0))
+        top_p = float(body.get("top_p", 1.0))
+        stop = self._stop_ids(body)
+        root = tracing.maybe_begin("request:completions")
+        # the trace id IS the request id when sampled, so the response's
+        # X-Request-Id can be looked up at /api/v0/traces/<id>
+        rid = (f"cmpl-{root.trace_id}" if root is not None
+               else f"cmpl-{uuid.uuid4().hex[:24]}")
+        want_lp = bool(body.get("logprobs"))
+        if body.get("stream"):
+            return SSEStream(rid, self._stream_sse(
+                rid, "text_completion", ids, max_tokens, temperature, top_p,
+                stop, root=root, want_logprobs=want_lp,
+            ))
+        try:
+            with tracing.activate(root):
+                out = self._generate(ids, max_tokens, temperature, top_p,
+                                     stop)
+        finally:
+            if root is not None:
+                root.finish()
+        text = self.tokenizer.decode(out["token_ids"])
+        choice = {"index": 0, "text": text,
+                  "finish_reason": out["finish_reason"] or "length"}
+        if want_lp:
+            choice["logprobs"] = self._completion_logprobs(out)
+        return {
+            "id": rid,
+            "object": "text_completion",
+            "created": int(time.time()),
+            "model": self.model_name,
+            "choices": [choice],
+            "usage": {
+                "prompt_tokens": len(ids),
+                "completion_tokens": len(out["token_ids"]),
+                "total_tokens": len(ids) + len(out["token_ids"]),
+            },
+        }
+
+    def chat_completions(self, body: Dict[str, Any]):
+        messages = body.get("messages", [])
+        ids = self.tokenizer.encode(_chat_prompt(messages))
+        max_tokens = int(body.get("max_tokens", 16))
+        temperature = float(body.get("temperature", 0.0))
+        top_p = float(body.get("top_p", 1.0))
+        stop = self._stop_ids(body)
+        root = tracing.maybe_begin("request:chat_completions")
+        rid = (f"chatcmpl-{root.trace_id}" if root is not None
+               else f"chatcmpl-{uuid.uuid4().hex[:24]}")
+        want_lp = bool(body.get("logprobs"))
+        if body.get("stream"):
+            return SSEStream(rid, self._stream_sse(
+                rid, "chat.completion", ids, max_tokens, temperature, top_p,
+                stop, root=root, want_logprobs=want_lp))
+        try:
+            with tracing.activate(root):
+                out = self._generate(ids, max_tokens, temperature, top_p,
+                                     stop)
+        finally:
+            if root is not None:
+                root.finish()
+        text = self.tokenizer.decode(out["token_ids"])
+        choice = {
+            "index": 0,
+            "message": {"role": "assistant", "content": text},
+            "finish_reason": out["finish_reason"] or "length",
+        }
+        if want_lp:
+            lps = out.get("logprobs") or []
+            choice["logprobs"] = {"content": [
+                {"token": self.tokenizer.decode([t]), "logprob": lp}
+                for t, lp in zip(out["token_ids"], lps)]}
+        return {
+            "id": rid,
+            "object": "chat.completion",
+            "created": int(time.time()),
+            "model": self.model_name,
+            "choices": [choice],
+            "usage": {
+                "prompt_tokens": len(ids),
+                "completion_tokens": len(out["token_ids"]),
+                "total_tokens": len(ids) + len(out["token_ids"]),
+            },
+        }
+
+    def models(self, _body: Any = None):
+        return {
+            "object": "list",
+            "data": [
+                {"id": self.model_name, "object": "model", "owned_by": "ray_tpu"}
+            ],
+        }
+
+    def stats(self, _body: Any = None):
+        out = self.engine.stats()
+        # what warm-up took: programs captured, seconds, graph pool bytes
+        out["capture"] = dict(self.engine.capture_stats)
+        return out
+
+    def check_health(self) -> None:
+        pass
+
+    def shutdown(self) -> None:
+        """Stop the engine's threads (a serve replica calls this when it
+        retires: ServeReplica.prepare_for_shutdown)."""
+        self.engine.stop()
+
+    # ------------------------------------------------------------ helpers
+
+    def _completion_logprobs(self, out: Dict[str, Any]) -> Dict[str, Any]:
+        """OpenAI text-completion `logprobs` block from an engine result.
+        Sampled-token logprobs only (top_logprobs alternatives would need
+        a top-k readback the decode program doesn't do); entries are None
+        where the engine has no logprob (spec-decode commits, migration
+        seeds)."""
+        toks = [self.tokenizer.decode([t]) for t in out["token_ids"]]
+        offsets, pos = [], 0
+        for t in toks:
+            offsets.append(pos)
+            pos += len(t)
+        return {
+            "tokens": toks,
+            "token_logprobs": list(out.get("logprobs") or []),
+            "top_logprobs": None,
+            "text_offset": offsets,
+        }
+
+    def _stream_sse(self, rid, obj, ids, max_tokens, temperature, top_p=1.0,
+                    stop=None, root=None, want_logprobs=False):
+        """Generator of OpenAI stream chunks; the HTTP proxy emits each as
+        a server-sent event (in-process runtime: generators cross the
+        handle live). `root` is the sampled request span — admission runs
+        under it, and it finishes with the stream (covering every decode
+        step through stream teardown)."""
+        tokenizer, model = self.tokenizer, self.model_name
+        engine = self.engine
+
+        def gen():
+            # admission happens on FIRST PULL, inside the generator: a
+            # client that disconnects before consuming anything never
+            # admits a request at all (a never-started generator's
+            # finally cannot run, so nothing may need cancelling either)
+            with tracing.activate(root):
+                req, stream = engine.open_stream(
+                    ids, max_tokens=max_tokens, temperature=temperature,
+                    top_p=top_p, stop=stop,
+                )
+                finish = lambda: req.finish_reason  # noqa: E731
+                cancel = lambda: engine.cancel(req.request_id)  # noqa: E731
+                # commit appends the logprob before the token is
+                # emitted, so by the time chunk i is yielded the
+                # engine-path logprob for it is already in place
+                lp_at = lambda i: (  # noqa: E731
+                    req.output_logprobs[i]
+                    if i < len(req.output_logprobs) else None)
+            try:
+                yield from body(stream, finish, lp_at)
+            finally:
+                # consumer gone (GeneratorExit on client disconnect) or
+                # exhausted — cancel is a no-op on a finished request, and
+                # frees the slot/pages of an abandoned one (reference:
+                # serve's disconnect-driven cancellation)
+                cancel()
+                if root is not None:
+                    root.finish()
+
+        def body(stream, finish, lp_at):
+            created = int(time.time())
+            for i, tok in enumerate(stream):
+                piece = tokenizer.decode([tok])
+                if obj == "chat.completion":
+                    delta = {"delta": {"content": piece}, "index": 0}
+                    if want_logprobs:
+                        delta["logprobs"] = {"content": [
+                            {"token": piece, "logprob": lp_at(i)}]}
+                else:
+                    delta = {"text": piece, "index": 0}
+                    if want_logprobs:
+                        delta["logprobs"] = {
+                            "tokens": [piece],
+                            "token_logprobs": [lp_at(i)]}
+                yield {
+                    "id": rid,
+                    "object": obj + ".chunk",
+                    "created": created,
+                    "model": model,
+                    "choices": [delta],
+                }
+            # terminal chunk carries the real finish_reason (OpenAI wire)
+            if obj == "chat.completion":
+                last = {"delta": {}, "index": 0,
+                        "finish_reason": finish() or "length"}
+            else:
+                last = {"text": "", "index": 0,
+                        "finish_reason": finish() or "length"}
+            yield {
+                "id": rid,
+                "object": obj + ".chunk",
+                "created": created,
+                "model": model,
+                "choices": [last],
+            }
+
+        return gen()
+
+
+def build_openai_app(disagg: Any = None, disagg_app_name: str = "llm",
+                     **kwargs):
+    """-> bound OpenAIServer deployment; serve.run(app, name='v1') exposes
+    POST /v1/completions, /v1/chat_completions, /v1/models.
+
+    `disagg={...}` (role-aware prefill/decode apps behind a coordinator)
+    waits for ROADMAP A6b and raises NotImplementedError."""
+    if disagg is not None:
+        raise NotImplementedError(f"build_openai_app(disagg=...): {_A6B_DISAGG}")
+    return OpenAIServer.bind(**kwargs)

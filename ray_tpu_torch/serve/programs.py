@@ -33,6 +33,7 @@ every request.
 from __future__ import annotations
 
 import gc
+import threading
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -234,6 +235,8 @@ class PagedModel:
 
 # eager runs of a program's body before its capture
 WARM_RUNS = 2
+# one graph capture at a time in this process (CapturedProgram)
+_CAPTURE_LOCK = threading.Lock()
 
 
 def host_tensor(array, dtype: torch.dtype) -> torch.Tensor:
@@ -304,27 +307,37 @@ class CapturedProgram:
         device = self.inputs[0].device
         if device.type != "cuda":
             return
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(WARM_RUNS):
-                self.fn(*self.inputs)
-        torch.cuda.current_stream(device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        for gen in generators:
-            graph.register_generator_state(gen)
-        # no garbage collection during the capture: a collection could
-        # destroy another engine's dropped graphs, and destroying a graph
-        # while a stream captures invalidates the capture
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with dispatch.recording_launches() as launches:
-                with torch.cuda.graph(graph, pool=pool):
-                    outputs = self.fn(*self.inputs)
-        finally:
-            if collecting:
-                gc.enable()
+        # One program at a time in the process, warm runs and capture
+        # together: several engines may build at once (the replicas of a
+        # deployment), and their side streams and capture streams come from
+        # torch's shared pool of streams, so another engine's warm runs
+        # could land on the very stream that captures. No garbage
+        # collection during the capture: a collection could destroy another
+        # engine's dropped graphs, and destroying a graph while a stream
+        # captures invalidates the capture. "thread_local": other threads'
+        # CUDA calls (another engine allocating or serving on its own
+        # streams) go on meanwhile, and only this thread's unsafe calls fail
+        # the capture.
+        with _CAPTURE_LOCK:
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                for _ in range(WARM_RUNS):
+                    self.fn(*self.inputs)
+            torch.cuda.current_stream(device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            for gen in generators:
+                graph.register_generator_state(gen)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with dispatch.recording_launches() as launches:
+                    with torch.cuda.graph(graph, pool=pool,
+                                          capture_error_mode="thread_local"):
+                        outputs = self.fn(*self.inputs)
+            finally:
+                if collecting:
+                    gc.enable()
         self.graph, self.outputs, self.launches = graph, _as_outputs(outputs), launches
 
     def __call__(self, *args: torch.Tensor) -> Tuple[torch.Tensor, ...]:

@@ -1,0 +1,135 @@
+"""Replica actor: wraps the user callable, tracks in-flight load.
+
+Reference: `python/ray/serve/_private/replica.py :: UserCallableWrapper`.
+
+The port's copy of ray_tpu/serve/replica.py, with upstream serve's
+graceful stop (`prepare_for_shutdown`): the controller asks a replica it
+retires to finish its requests and run its class's `shutdown()` (an
+LLMServer's stops its engine's threads) before it kills the actor, where
+the reference kills it at once and leaves such threads running.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Dict, Optional
+
+from .. import api
+
+
+@api.remote
+class ServeReplica:
+    def __init__(self, deployment_name: str, cls_or_fn, init_args, init_kwargs,
+                 max_ongoing_requests: int = 8):
+        self.deployment_name = deployment_name
+        self.max_ongoing_requests = max_ongoing_requests
+        self._ongoing = 0
+        self._total = 0
+        self._lock = threading.Lock()
+        self._sem = None  # asyncio.Semaphore, created on the actor's loop
+        import inspect
+
+        if inspect.isclass(cls_or_fn):
+            self._callable = cls_or_fn(*init_args, **(init_kwargs or {}))
+            self._is_function = False
+        else:
+            self._callable = cls_or_fn
+            self._is_function = True
+
+    async def handle_request(self, method: str, args: tuple, kwargs: dict,
+                             multiplexed_model_id: str = "") -> Any:
+        """Async-actor entry (reference: serve replicas run on the async
+        actor event loop): async user handlers are awaited — overlapping
+        requests interleave at their awaits on ONE replica — and sync
+        handlers run in a thread (asyncio.to_thread propagates the
+        multiplex contextvar) so they can't stall the loop."""
+        import asyncio
+        import inspect
+
+        from .multiplex import _current_model_id
+
+        if self._sem is None:
+            # lazily bound to the replica's event loop: this runs on the
+            # single event loop before any await, so there is no
+            # interleaving point — a lock here would be theater
+            self._sem = asyncio.Semaphore(max(1, self.max_ongoing_requests))  # raylint: disable=R1
+        with self._lock:
+            # counts queued + executing: the autoscaler's load signal must
+            # see pressure beyond max_ongoing, not just what's running
+            self._ongoing += 1
+            self._total += 1
+        token = _current_model_id.set(multiplexed_model_id)
+        try:
+            # max_ongoing_requests is the CONCURRENCY contract: excess
+            # requests queue here (visible in queue_len) instead of fanning
+            # out unboundedly into handler threads
+            async with self._sem:
+                if self._is_function:
+                    target = self._callable
+                else:
+                    target = getattr(self._callable, method or "__call__")
+                if inspect.iscoroutinefunction(target):
+                    return await target(*args, **(kwargs or {}))
+                return await asyncio.to_thread(target, *args, **(kwargs or {}))
+        finally:
+            _current_model_id.reset(token)
+            with self._lock:
+                self._ongoing -= 1
+
+    def loaded_model_ids(self) -> list:
+        """Model ids resident in any multiplex cache on this replica."""
+        if self._is_function:
+            return []
+        ids = []
+        for name in dir(type(self._callable)):
+            fn = getattr(type(self._callable), name, None)
+            attr = getattr(fn, "__multiplex_cache_attr__", None)
+            if attr is not None:
+                cache = getattr(self._callable, attr, None)
+                if cache is not None:
+                    ids.extend(cache.model_ids())
+        return ids
+
+    def queue_len(self) -> int:
+        with self._lock:
+            return self._ongoing
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            out = {
+                "deployment": self.deployment_name,
+                "ongoing": self._ongoing,
+                "total": self._total,
+            }
+        models = self.loaded_model_ids()
+        if models:  # surfaced via controller status / state API
+            out["multiplexed_models"] = models
+        return out
+
+    def health_check(self) -> bool:
+        chk = getattr(self._callable, "check_health", None)
+        if chk is not None:
+            chk()
+        return True
+
+    async def prepare_for_shutdown(self, timeout_s: float = 10.0) -> bool:
+        """Graceful stop (upstream serve's `prepare_for_shutdown`): wait up
+        to timeout_s for the requests in flight to finish, then call the
+        user class's `shutdown()` where it has one. -> whether the replica
+        drained in time."""
+        import asyncio
+
+        deadline = time.monotonic() + timeout_s
+        while self.queue_len() and time.monotonic() < deadline:
+            await asyncio.sleep(0.01)
+        drained = not self.queue_len()
+        stop = None if self._is_function else getattr(self._callable, "shutdown", None)
+        if callable(stop):
+            await asyncio.to_thread(stop)
+        return drained
+
+    def reconfigure(self, user_config: Any) -> None:
+        fn = getattr(self._callable, "reconfigure", None)
+        if fn is not None:
+            fn(user_config)

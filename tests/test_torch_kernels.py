@@ -951,3 +951,58 @@ def test_runtime_passes_a_cuda_tree_by_reference(card, dtype):
         assert int(torch.count_nonzero(tree["w"])) == 0  # the owner's copy changed
     finally:
         rt.shutdown()
+
+
+# The serve runtime (ray_tpu_torch.serve) on the card: two replicas of an
+# LLMServer deployment over one parameter tree build at once (their graph
+# captures take turns), serve a burst through the handle and over HTTP from
+# graph replays alone, and serve.shutdown() leaves none of their threads.
+
+def test_deployment_replicas_serve_from_graph_replays(card, dtype):
+    import json
+    import threading
+    import urllib.request
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    cfg = get_config("tiny-llama", d_model=256, dtype=name)
+    params = init_params(cfg, seed=0, device=card, dtype=name)
+    ecfg = dict(max_batch_size=4, page_size=16, max_pages=64, max_seq_len=128,
+                prefill_buckets=(16, 32), prefill_chunk=32, cache_dtype=name)
+    serve.shutdown()
+    rt.shutdown()
+    before = set(threading.enumerate())
+    rt.init(num_cpus=4, system_config=RUNTIME)
+    try:
+        handle = serve.run(serve.LLMServer.options(num_replicas=2).bind(
+            params_fn=lambda: (params, cfg), engine_config=ecfg), name="llm")
+        from ray_tpu_torch.serve.controller import get_or_create_controller
+
+        replicas, _ = rt.get(get_or_create_controller().get_replicas.remote("llm"), timeout=60)
+        assert all(rt.get([r.health_check.remote() for r in replicas], timeout=600))
+        dispatch.reset_launches()
+        prompts = [[1 + i, 2, 3, 4 + i] * (1 + 6 * i) for i in range(4)]  # 4 .. 76 tokens
+        responses = [handle.remote({"prompt_ids": p, "max_tokens": 8}) for p in prompts]
+        outs = [r.result(timeout=300) for r in responses]
+        req = urllib.request.Request(f"http://127.0.0.1:{serve.http_port()}/llm",
+                                     data=json.dumps({"prompt_ids": prompts[0],
+                                                      "max_tokens": 8}).encode())
+        http = json.loads(urllib.request.urlopen(req, timeout=300).read())["result"]
+        counts, eager = dispatch.launch_counts(), dispatch.eager_launch_counts()
+        assert all(len(o["token_ids"]) == 8 and o["finish_reason"] == "length" for o in outs)
+        assert http["token_ids"] == outs[0]["token_ids"]  # same greedy path, either replica
+        for kernel in ("rms_norm", "flash_attention", "paged_attention_decode",
+                       "paged_attention_chunk"):
+            assert counts[kernel] > 0, kernel
+        assert not any(eager.values()), eager
+        served = [rt.get(r.stats.remote(), timeout=60)["total"] for r in replicas]
+        assert min(served) >= 1, served
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    # the replicas' lanes and engine threads, the controller's loop and the
+    # HTTP server's thread end with serve.shutdown, the runtime's own with it
+    left = [t.name for t in threading.enumerate() if t not in before and t.is_alive()]
+    assert left == []

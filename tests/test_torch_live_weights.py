@@ -288,8 +288,9 @@ def test_updates_write_through_shared_tensors(llama):
 def test_llm_server_weight_methods(llama):
     cfg = llama["tcfg"]
     kw = dict(ENGINE_KW)
-    server = LLMServer(params_fn=lambda: (params_from_numpy(llama["np"][0], device="cpu"), cfg),
-                       engine_config=kw, device="cpu")
+    server = LLMServer._target(params_fn=lambda: (params_from_numpy(llama["np"][0], device="cpu"),
+                                                  cfg),
+                               engine_config=kw, device="cpu")
     fresh = InferenceEngine(params_from_numpy(llama["np"][1], device="cpu"), cfg,
                             EngineConfig(**kw), device="cpu")
     try:
@@ -333,8 +334,8 @@ def test_llm_server_speculation_kwarg(llama):
         return params_from_numpy(llama["np"][0], device="cpu"), cfg
 
     spec = {"mode": "ngram", "num_speculative_tokens": 2}
-    server = LLMServer(params_fn=params_fn, engine_config=dict(ENGINE_KW), device="cpu",
-                       speculation=spec)
+    server = LLMServer._target(params_fn=params_fn, engine_config=dict(ENGINE_KW), device="cpu",
+                               speculation=spec)
     try:
         assert server.stats()["spec_mode"] == "ngram"
         out = server({"prompt_ids": [1, 2, 3, 1, 2, 3, 1, 2], "max_tokens": 6})
@@ -343,5 +344,5 @@ def test_llm_server_speculation_kwarg(llama):
         server.shutdown()
     with pytest.raises(ValueError, match="either as the LLMServer kwarg or inside "
                                          "engine_config, not both"):
-        LLMServer(params_fn=params_fn, engine_config=dict(ENGINE_KW, speculation=spec),
-                  device="cpu", speculation=spec)
+        LLMServer._target(params_fn=params_fn, engine_config=dict(ENGINE_KW, speculation=spec),
+                          device="cpu", speculation=spec)

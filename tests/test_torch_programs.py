@@ -16,6 +16,7 @@ compared exactly; logprobs against the reference within 1e-4 (f32, sums in
 another order).
 """
 
+import threading
 import types
 
 import jax
@@ -235,6 +236,28 @@ def test_capture_launches_are_added_once_per_replay(monkeypatch):
     assert dispatch.launch_counts() == now
 
 
+def test_a_capture_records_only_its_own_threads_launches(monkeypatch):
+    # two engines in one process (the replicas of a deployment): a launch on
+    # another thread during a capture counts as an eager launch of its own
+    # and stays out of the capture's recording
+    fake_lib = types.SimpleNamespace(rtt_rms_norm=lambda *args: 0)
+    monkeypatch.setattr(dispatch, "_lib", fake_lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    dev = torch.device("cuda")
+    before = dispatch.launch_counts()
+    other = threading.Thread(target=dispatch.launch, args=("rms_norm", "rtt_rms_norm", dev))
+    with dispatch.recording_launches() as recorded:
+        dispatch.launch("flash_attention", "rtt_rms_norm", dev)
+        other.start()
+        other.join(10)
+    assert not other.is_alive()
+    assert recorded == {"flash_attention": 1}
+    after = dispatch.launch_counts()
+    assert after["rms_norm"] == before["rms_norm"] + 1
+    assert after["flash_attention"] == before["flash_attention"]
+
+
 def test_llm_server_draft_params_fn_matches_reference_server():
     spec = {"mode": "draft", "num_speculative_tokens": 3, "draft_model": "tiny-llama",
             "draft_model_overrides": {"n_layers": 1}}
@@ -254,8 +277,8 @@ def test_llm_server_draft_params_fn_matches_reference_server():
     want_server = JLLMServer._target(params_fn=lambda: (jparams, jcfg),
                                      engine_config=dict(ecfg, speculation=dict(spec)),
                                      draft_params_fn=lambda: jdraft)
-    server = LLMServer(params_fn=lambda: (tparams, tcfg), engine_config=ecfg, device="cpu",
-                       draft_params_fn=draft_params_fn)
+    server = LLMServer._target(params_fn=lambda: (tparams, tcfg), engine_config=ecfg, device="cpu",
+                               draft_params_fn=draft_params_fn)
     try:
         assert calls == [1]
         draft = server.engine._spec.proposer.model.params

@@ -532,3 +532,73 @@ def test_runtimes_leave_no_thread_or_override_behind():
     from ray_tpu_torch.core.config import config
 
     assert config._overrides == {} and not ray_tpu_torch.is_initialized()
+
+
+class _CollectingDict(dict):
+    """A count table whose lookups run the garbage collector, as an
+    allocation inside ReferenceCounter.add_ref's critical section can."""
+
+    def get(self, key, default=None):
+        import gc
+
+        gc.collect()
+        return super().get(key, default)
+
+
+class _StubRuntime:
+    """What ReferenceCounter and ObjectRef read of a runtime."""
+
+    is_shutdown = False
+
+    def __init__(self):
+        from ray_tpu_torch.core.core_worker import ReferenceCounter
+
+        self.reference_counter = ReferenceCounter(self)
+        self.freed = []
+
+    def free_object(self, object_id):
+        self.freed.append(object_id)
+
+
+def test_a_finalizer_inside_add_ref_does_not_deadlock():
+    # The reference's ReferenceCounter counts down inside ObjectRef.__del__
+    # under a lock that is not reentrant: a collection that runs a dropped
+    # ref's finalizer while add_ref holds that lock deadlocks the thread
+    # (tests/test_data.py::TestBoundedShuffle::test_peak_residency_bounded
+    # hung that way under -n 6: ray_tpu/core/core_worker.py add_ref ->
+    # ids.__hash__ -> ObjectRef.__del__ -> remove_ref). The port queues the
+    # release and applies it where no lock is held (release_dropped).
+    from ray_tpu_torch.core.core_worker import ObjectRef
+    from ray_tpu_torch.core.ids import ObjectID
+
+    rt = _StubRuntime()
+    rc = rt.reference_counter
+    dropped_id, kept_id = ObjectID.generate(), ObjectID.generate()
+    cycle = [ObjectRef(dropped_id, rt)]
+    cycle.append(cycle)  # only the collector frees it, and so runs the finalizer
+    del cycle
+    rc._counts = _CollectingDict(rc._counts)
+    made = []
+    t = threading.Thread(target=lambda: made.append(ObjectRef(kept_id, rt)), daemon=True)
+    t.start()
+    t.join(10)
+    assert not t.is_alive(), "add_ref deadlocked on a finalizer"
+    assert rc.count(dropped_id) == 1 and rt.freed == []  # queued, not applied
+    rc.release_dropped()
+    assert rc.count(dropped_id) == 0 and rt.freed == [dropped_id]
+    assert rc.count(kept_id) == 1
+
+
+def test_a_dropped_ref_is_freed_at_the_next_api_entry():
+    rt = ray_tpu_torch.init(num_cpus=2, system_config=dict(THREAD_MODE))
+    try:
+        ref = ray_tpu_torch.put(np.arange(10))
+        oid = ref.object_id
+        agent = next(iter(rt.agents.values()))
+        assert agent.store.contains(oid)
+        del ref
+        assert rt.reference_counter.count(oid) == 1  # queued by the finalizer
+        ray_tpu_torch.put(0)  # an API entry applies the queued release
+        assert rt.reference_counter.count(oid) == 0 and not agent.store.contains(oid)
+    finally:
+        ray_tpu_torch.shutdown()

@@ -52,8 +52,9 @@ class PortHost:
     """The small class a user writes: an LLMServer over weights from a ref."""
 
     def __init__(self, tree, cfg):
-        self.server = LLMServer(params_fn=lambda: (params_from_numpy(tree, device="cpu"), cfg),
-                                engine_config=dict(ENGINE_KW), device="cpu")
+        self.server = LLMServer._target(params_fn=lambda: (params_from_numpy(tree, device="cpu"),
+                                                           cfg),
+                                        engine_config=dict(ENGINE_KW), device="cpu")
 
     def generate(self, request):
         return self.server(request)
@@ -113,8 +114,9 @@ def test_update_through_a_ref_equals_one_from_the_tree(weights):
     cfg = weights["tcfg"]
     ray_tpu_torch.shutdown()
     ray_tpu_torch.init(num_cpus=4, system_config=dict(THREAD_MODE))
-    by_tree = LLMServer(params_fn=lambda: (params_from_numpy(weights["np"], device="cpu"), cfg),
-                        engine_config=dict(ENGINE_KW), device="cpu")
+    by_tree = LLMServer._target(params_fn=lambda: (params_from_numpy(weights["np"], device="cpu"),
+                                                   cfg),
+                                engine_config=dict(ENGINE_KW), device="cpu")
     host = ray_tpu_torch.remote(max_concurrency=2)(PortHost).remote(
         ray_tpu_torch.put(weights["np"]), cfg)
     try:
@@ -161,9 +163,9 @@ def test_ref_update_is_bit_identical_to_a_tree_update(weights):
     cfg = weights["tcfg"]
     ray_tpu_torch.shutdown()
     ray_tpu_torch.init(num_cpus=2, system_config=dict(THREAD_MODE))
-    servers = [LLMServer(params_fn=lambda: (params_from_numpy(weights["np"], device="cpu"),
+    servers = [LLMServer._target(params_fn=lambda: (params_from_numpy(weights["np"], device="cpu"),
                                             cfg),
-                         engine_config=dict(ENGINE_KW), device="cpu") for _ in range(2)]
+                                 engine_config=dict(ENGINE_KW), device="cpu") for _ in range(2)]
     try:
         tree = params_from_numpy(weights["np1"], device="cpu")
         servers[0].update_weights({"weights": tree})

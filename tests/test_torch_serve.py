@@ -141,7 +141,7 @@ def test_sampled_requests_stay_in_range(tiny_llama):
 def test_llm_server_returns_reference_keys(tiny_llama):
     jcfg, jparams, _tcfg, _tparams = tiny_llama
     jeng = JInferenceEngine(jparams, jcfg, JEngineConfig(**ENGINE_KW))
-    server = LLMServer(model_name="tiny-llama", device="cpu", engine_config=ENGINE_KW)
+    server = LLMServer._target(model_name="tiny-llama", device="cpu", engine_config=ENGINE_KW)
     try:
         want = jeng.generate([1, 2, 3], max_tokens=8)
         got = server({"prompt_ids": [1, 2, 3], "max_tokens": 8})
@@ -162,7 +162,7 @@ def test_entry_points_need_a_device_without_a_card(tiny_llama):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(tcfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        LLMServer(model_name="tiny-llama")
+        LLMServer._target(model_name="tiny-llama")
 
 
 def test_unported_features_raise(tiny_llama):
@@ -175,8 +175,8 @@ def test_unported_features_raise(tiny_llama):
 def test_moe_config_serves_through_llm_server():
     """MoE configs are ported (tests/test_torch_moe.py holds them against
     the reference): tiny-moe serves through the user's entry point."""
-    server = LLMServer(model_name="tiny-moe", device="cpu", seed=1,
-                       engine_config=dict(ENGINE_KW, decode_span=4))
+    server = LLMServer._target(model_name="tiny-moe", device="cpu", seed=1,
+                               engine_config=dict(ENGINE_KW, decode_span=4))
     try:
         out = server({"prompt_ids": [3, 1, 4, 1, 5, 9, 2, 6], "max_tokens": 6})
         again = server({"prompt_ids": [3, 1, 4, 1, 5, 9, 2, 6], "max_tokens": 6})
@@ -213,7 +213,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "from ray_tpu_torch.util import slo, tracing\n"
         "from ray_tpu_torch.serve import Request\n"
         "from ray_tpu_torch.serve.engine import prompt_page_fingerprints\n"
-        "server = ray_tpu_torch.LLMServer(\n"
+        "server = ray_tpu_torch.LLMServer._target(\n"
         "    model_name='tiny-moe', device='cpu', engine_config=dict(\n"
         "        max_batch_size=2, page_size=8, max_pages=32, max_seq_len=64,\n"
         "        prefill_buckets=(16,), prefill_chunk=16,\n"
