@@ -233,6 +233,20 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      the bf16 parameters; then phase 4's launch, lr-0 and loss gates
      (train_steps), and the step time, tokens/s, MFU and peak memory beside
      phase 4's;
+  4p. the reference's pretrain -> checkpoint -> serve flow at llama-2b
+     (pretrain_path): data.from_numpy token rows stream through
+     iter_device_batches into TorchTrainer(...).fit() under phase 4f's
+     recipe for 12 steps, with AsyncCheckpointWriter checkpoints after
+     steps 3, 7 and 11; the losses against train.lm run directly on the
+     same batches (step 0 bit-identical, every step within LOSS_GAP_TOL),
+     exact launch counts, the kept checkpoints bit for bit as reported; a
+     second fit fails after step 9 and resumes from step 7's checkpoint
+     (losses as before, card memory and threads back where they were);
+     then serve.run(LLMServer.bind(params_fn=<load_pytree of the last
+     checkpoint>)) serves phase 3's burst under phase 3's logprob gate,
+     every launch from a graph replay, the wgmma and split kernels by
+     name; two planted faults (a snapshot taken after the next update, a
+     restart whose error keeps its frames) must fail their gates;
   5. LLMServer serving moe-1b (8 experts, top 2) at full width and depth,
      random bf16 weights from seed 0, phase 3's engine sizes and burst
      shapes: every serving kernel runs, every launch from a graph replay;
@@ -272,7 +286,8 @@ K1's forward and backward, K2-K7; launches by path: serve, spec, train,
 train2b, moe_serve, moe_train, migrate (phase 3m), moe_migrate (phase 5's
 round trip), live (phase 3w's update and gate, phase 5's update and
 gate), runtime (phase 3r's tasks, hosted server and updates), deploy
-(phase 3d's handle and HTTP sections)), the last
+(phase 3d's handle and HTTP sections), pretrain (phase 4p's first fit and
+its served burst)), the last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
 
@@ -305,6 +320,11 @@ then runs phase 3r on its tensors (runtime_only); no result line.
 
 builds the kernels and phase 3's llama3-8b server, serves phase 3's burst,
 then runs phase 3d on its tensors (deploy_only); no result line.
+
+    python3 chip_smoke.py --pretrain
+
+builds the kernels and runs phase 4p alone (pretrain_path: data ->
+TorchTrainer -> checkpoints -> serve.run at llama-2b); no result line.
 """
 
 from __future__ import annotations
@@ -317,6 +337,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2942,7 +2963,7 @@ def deploy_fault(name: str):
     return swapped(owner, **{attr: make(getattr(owner, attr))})
 
 
-def wait_ready(deployment: str, n: int, t0: float) -> list:
+def wait_ready(deployment: str, n: int, t0: float, label: str = "phase 3d") -> list:
     """-> the deployment's n replica handles once each has finished its
     __init__ (its health_check answers), with the seconds after t0 at
     which each did."""
@@ -2952,14 +2973,14 @@ def wait_ready(deployment: str, n: int, t0: float) -> list:
     replicas, _ = rt.get(get_or_create_controller().get_replicas.remote(deployment),
                          timeout=60)
     if len(replicas) != n:
-        fail(f"phase 3d: deployment {deployment} has {len(replicas)} replicas, not {n}")
+        fail(f"{label}: deployment {deployment} has {len(replicas)} replicas, not {n}")
     refs = [r.health_check.remote() for r in replicas]
     ready_s = [None] * n
     pending = list(range(n))
     while pending:
         done, _ = rt.wait([refs[i] for i in pending], num_returns=1, timeout=900)
         if not done:
-            fail(f"phase 3d: a replica of {deployment} was not ready within 900 s")
+            fail(f"{label}: a replica of {deployment} was not ready within 900 s")
         for i in [i for i in pending if refs[i] in done]:
             rt.get(refs[i], timeout=60)
             ready_s[i] = time.monotonic() - t0
@@ -2977,7 +2998,7 @@ def answered(requests, results) -> bool:
     return all(res["request_id"] == req["request_id"] for req, res in zip(requests, results))
 
 
-def handle_burst(handle, requests) -> tuple:
+def handle_burst(handle, requests, label: str = "phase 3d") -> tuple:
     """All requests through the handle at once, each response awaited on a
     thread of its own -> (results, seconds from each call to its result,
     wall s)."""
@@ -2999,7 +3020,7 @@ def handle_burst(handle, requests) -> tuple:
     for t in threads:
         t.join(660)
     if errors or any(t.is_alive() for t in threads):
-        fail(f"phase 3d handle burst: {errors or 'a request did not finish'}")
+        fail(f"{label} handle burst: {errors or 'a request did not finish'}")
     return results, latency, time.monotonic() - t0
 
 
@@ -4611,6 +4632,530 @@ def train2b_path(card: str, adamw: dict, profile: bool) -> dict:
     return ran
 
 
+# ------------------------------------------------------------- phase 4p
+
+# the reference's pretrain -> checkpoint -> serve flow at llama-2b under
+# phase 4f's recipe: 12 steps of 4 x 2048 tokens from data.from_numpy,
+# checkpoints of {params, opt_state, step} after steps 3, 7 and 11 (two
+# kept), a restart that fails after step 9 and resumes from step 7's
+PRETRAIN_STEPS = 12
+PRETRAIN_CKPT_STEPS = (3, 7, 11)
+PRETRAIN_FAIL_AT = 9
+PRETRAIN_BATCH = (4, 2048)  # rows x tokens a step, phase 4f's
+# a fit() may leave this much more card memory allocated than it found
+# (one train2b state is ~3.7 GB of bf16 parameters and adafactor state)
+PRETRAIN_MEMORY_TOL = 0.5 * 2**30
+# what a retired llama-2b replica may leave allocated beside the weights its
+# caller holds: after a sound shutdown 0.19 and 0.41 GiB stayed on the H100,
+# not attributed (PERF.md, phase 4p); a replica whose instance is kept holds
+# its KV pool, f32 head copy and graph pools besides
+SERVE_RETIRED_MEMORY_TOL = 0.75 * 2**30
+# threads a training gang starts: its members' actor lanes, the data
+# plane's host prefetch and the checkpoint writer
+GANG_THREADS = ("actor-", "data-host-prefetch", "checkpoint-writer")
+
+
+def split_tokens(batch):
+    """Phase 4p's host transform: rows of T + 1 ids -> tokens, targets."""
+    toks = batch["tokens"]
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def pretrain_loop(cfg, marks: dict):
+    """The training loop phase 4p's TorchTrainer runs, as a user writes it:
+    phase 4f's recipe from seed 0, or the state of get_checkpoint() (the
+    batches before it skipped); batches from get_dataset_shard("train").
+    iter_device_batches; a report every step with its loss, its time and
+    the host's wait inside next(). At config["ckpt_steps"] the state
+    {params, opt_state, step} goes to an AsyncCheckpointWriter under the
+    trial directory (the host
+    copy before the next step; the write overlaps it) with the checksums of
+    the parameters in the step's report; the checkpoint is reported once its
+    write has finished, with the next step's report (at once after the last
+    step). The first attempt raises after step config["fail_at"]. `marks`
+    (shared with fit()'s caller: the gang runs in this process) gets the
+    monotonic times of the failure and of the first resumed step."""
+    def loop(config):
+        from ray_tpu_torch import train
+
+        ckpt = train.get_checkpoint()
+        marks["attempts"] = attempt = marks.get("attempts", 0) + 1
+        marks.setdefault("entered", []).append(time.monotonic())
+        opt = train.make_optimizer(learning_rate=3e-4, warmup_steps=2, total_steps=100,
+                                   factored=True)
+        if ckpt is None:
+            state = train.init_train_state(cfg, opt, seed=0)
+            bf16_params(state)
+        else:
+            t0 = time.perf_counter()
+            state = train.load_pytree(os.path.join(ckpt.path, "state"))
+            marks["resume_load_s"] = time.perf_counter() - t0
+        start = state["step"]  # steps taken before this attempt
+        step = train.make_train_step(cfg, opt)
+        writer = train.AsyncCheckpointWriter()
+        pending = None  # (path, step) of a checkpoint being written
+        batches = iter(train.get_dataset_shard("train").iter_device_batches(
+            batch_size=PRETRAIN_BATCH[0], transform=split_tokens))
+        for i in range(config["steps"]):
+            t0 = time.perf_counter()
+            batch = next(batches)
+            wait_s = time.perf_counter() - t0
+            if i < start:
+                continue  # consumed by the attempt this one resumes
+            if ckpt is not None and i == start:
+                marks["resumed_at"] = time.monotonic()
+            t1 = time.perf_counter()
+            state, m = step(state, batch)
+            metrics = {"step": i, "attempt": attempt, "loss": float(m["loss"]),
+                       "step_s": time.perf_counter() - t1, "wait_s": wait_s}
+            done = None
+            if pending is not None:
+                t2 = time.perf_counter()
+                writer.wait()
+                done, pending = pending, None
+                metrics["ckpt_wait_s"] = time.perf_counter() - t2
+            if i in config["ckpt_steps"]:
+                metrics["checksums"] = list(leaf_checksums(state["params"]).values())
+                path = os.path.join(train.get_context().get_trial_dir(), f"step{i}")
+                writer.save({"params": state["params"], "opt_state": state["opt_state"],
+                             "step": state["step"]}, os.path.join(path, "state"))
+                pending = (path, i)
+                if i == config["steps"] - 1:
+                    writer.wait()
+                    done, pending = pending, None
+            report_ckpt = None
+            if done is not None:
+                report_ckpt = train.Checkpoint(done[0])
+                report_ckpt.set_metadata({"step": done[1]})
+                (written,) = [s for s in writer.stats if s["path"].startswith(done[0] + os.sep)]
+                metrics.update(ckpt_step=done[1], snapshot_s=written["snapshot_s"],
+                               write_s=written["write_s"], ckpt_bytes=written["bytes"])
+            if attempt == 1 and i == config.get("fail_at"):
+                marks["failed_at"] = time.monotonic()
+                raise RuntimeError(f"phase 4p: planted failure after step {i}")
+            train.report(metrics, checkpoint=report_ckpt)
+        writer.wait()
+        marks["ended"] = time.monotonic()
+
+    return loop
+
+
+def gang_threads() -> set:
+    return {t for t in threading.enumerate() if t.name.startswith(GANG_THREADS) and t.is_alive()}
+
+
+def pretrain_fit(cfg, ds, storage: str, name: str, label: str, **config) -> dict:
+    """One TorchTrainer.fit() of pretrain_loop over `ds` on the card, its
+    checkpoints under <storage>/<name> (the trial directory). Reads
+    card memory just before it and just after (and after a garbage
+    collection), the gang's threads left, and the launch counts of the fit
+    alone. -> {"result", "marks", "wall", "launches", "mem0", "mem1",
+    "mem1_gc", "threads_left"}."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import dispatch
+
+    from ray_tpu_torch.train import checkpoint, worker_group
+
+    marks: dict = {}
+    config = {"steps": PRETRAIN_STEPS, "ckpt_steps": PRETRAIN_CKPT_STEPS, **config}
+    shutdown, run, poll = (worker_group.WorkerGroup.shutdown, worker_group.TrainWorker._cls.run,
+                           worker_group.WorkerGroup.poll)
+
+    # where the end of a fit() goes: the member's run returning, fit()'s
+    # polls of the gang, the gang's teardown
+    def timed_shutdown(group):
+        t = time.monotonic()
+        shutdown(group)
+        marks.setdefault("teardown_s", []).append(time.monotonic() - t)
+
+    def timed_run(worker, *args, **kwargs):
+        try:
+            return run(worker, *args, **kwargs)
+        finally:
+            marks["run_returned"] = time.monotonic()
+
+    register = checkpoint.CheckpointManager.register
+
+    def timed_register(manager, *args):  # evicting a checkpoint deletes its files
+        t = time.monotonic()
+        try:
+            return register(manager, *args)
+        finally:
+            marks.setdefault("register_s", []).append(time.monotonic() - t)
+
+    def timed_poll(group):
+        t = time.monotonic()
+        try:
+            return poll(group)
+        finally:
+            marks["poll_max_s"] = max(marks.get("poll_max_s", 0.0), time.monotonic() - t)
+            marks["last_poll_end"] = time.monotonic()
+
+    trainer = train.TorchTrainer(
+        pretrain_loop(cfg, marks), train_loop_config=config,
+        scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=train.RunConfig(
+            name=name, storage_path=storage,
+            checkpoint_config=train.CheckpointConfig(num_to_keep=2),
+            failure_config=train.FailureConfig(max_failures=1)),
+        datasets={"train": ds})
+    threads0 = gang_threads()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    dispatch.reset_launches()
+    t0 = time.monotonic()
+    with swapped(worker_group.WorkerGroup, shutdown=timed_shutdown, poll=timed_poll), \
+            swapped(worker_group.TrainWorker._cls, run=timed_run), \
+            swapped(checkpoint.CheckpointManager, register=timed_register):
+        result = trainer.fit()
+    torch.cuda.synchronize()
+    marks["returned"] = time.monotonic()
+    marks["called"] = t0
+    wall = marks["returned"] - t0
+    launches = dispatch.launch_counts()
+    mem1 = torch.cuda.memory_allocated()
+    gc.collect()
+    mem1_gc = torch.cuda.memory_allocated()
+    deadline = time.monotonic() + 5
+    while (gang_threads() - threads0) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    left = sorted(t.name for t in gang_threads() - threads0)
+    log(f"{label}: fit() {wall:.2f}s over {marks.get('attempts')} attempt(s), error "
+        f"{result.error!r}; card memory {mem0 / 2**30:.3f} GiB before, {mem1 / 2**30:.3f} after "
+        f"({mem1_gc / 2**30:.3f} after a garbage collection); gang threads left "
+        f"{left or 'none'}")
+    return {"result": result, "marks": marks, "wall": wall, "launches": launches,
+            "mem0": mem0, "mem1": mem1, "mem1_gc": mem1_gc, "threads_left": left}
+
+
+def checkpoint_checks(result, label: str) -> list:
+    """Every checkpoint the fit kept, loaded onto the card: -> [(step, its
+    reported checksums, the loaded parameters' checksums, load s)]."""
+    from ray_tpu_torch import train
+
+    reported = {m["step"]: m["checksums"] for m in result.metrics_history if "checksums" in m}
+    out = []
+    for ckpt in sorted(
+            (os.path.join(result.path, n) for n in os.listdir(result.path)
+             if n.startswith("step")), key=lambda p: int(p.rsplit("step", 1)[-1])):
+        step = train.Checkpoint(ckpt).get_metadata().get("step")
+        t0 = time.perf_counter()
+        loaded = train.load_pytree(os.path.join(ckpt, "state"))
+        load_s = time.perf_counter() - t0
+        sums = list(leaf_checksums(loaded["params"]).values())
+        out.append((step, reported.get(step), sums, load_s, loaded["step"]))
+        del loaded
+        release()
+    log(f"{label}: checkpoints kept {[o[0] for o in out]}; " + "; ".join(
+        f"step {s}: state step {n}, loaded in {t:.3f}s, checksums equal the reported ones "
+        f"{got == want}" for s, want, got, t, n in out))
+    return out
+
+
+def late_snapshot_writer():
+    """Planted fault checkpoint_after_update: an AsyncCheckpointWriter whose
+    save() keeps references to the live tensors and copies them to the host
+    only at the next wait(), after the next step's in-place update."""
+    from ray_tpu_torch.train import checkpoint
+
+    class LateSnapshot(checkpoint.AsyncCheckpointWriter):
+        _late = None
+
+        def save(self, tree, path):
+            self.wait()
+            self._late = (tree, path)
+
+        def wait(self):
+            late, self._late = self._late, None
+            if late is not None:
+                super().save(*late)
+            super().wait()
+
+    return LateSnapshot
+
+
+def pretrain_path(card: str) -> dict:
+    """Phase 4p: the reference's pretrain -> checkpoint -> serve flow
+    (examples/pretrain_and_serve.py) at llama-2b, full width and depth,
+    through the port's entry points on the card.
+    (a) data.from_numpy of [48, 2049] int32 token rows (numpy seed 0, six
+        blocks); the loop reads iter_device_batches(batch_size=4).
+    (b) The yardstick: the same 12 batches through train.lm directly from
+        the same initial weights.
+    (c) TorchTrainer(...).fit() for 12 steps, checkpoints after steps 3, 7
+        and 11 (num_to_keep=2). Gates: step 0's loss bit-identical to (b)'s,
+        every loss within LOSS_GAP_TOL of (b)'s, exact launch counts, each
+        kept checkpoint's parameters bit for bit as reported (checksums),
+        two checkpoint directories left.
+    (d) fit() again, failing after step 9 on its first attempt under
+        FailureConfig(max_failures=1): it resumes from step 7's checkpoint.
+        Gates: steps 8-11 within LOSS_GAP_TOL of (c)'s, card memory after
+        fit() within PRETRAIN_MEMORY_TOL of before, no gang thread left.
+    (e) serve.run(LLMServer.bind(params_fn=<load_pytree of (c)'s checkpoint
+        on the card>)) and phase 3's burst through the handle. Gates: every
+        request returns its 32 tokens, phase 3's logprob gate against
+        forward over the loaded weights, no launch outside a graph, the
+        wgmma and split kernels by name, no thread left by serve.shutdown().
+    (f) Planted faults: checkpoint_after_update (the checksum gate) and
+        restart_keeps_state (the memory gate) must each be caught.
+    Returns {"launches": (c)'s + (e)'s}."""
+    import tempfile
+
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data, serve, train
+    from ray_tpu_torch.core import core_worker, node_agent
+    from ray_tpu_torch.models import get_config
+    from ray_tpu_torch.ops import dispatch
+
+    t_phase = time.monotonic()
+
+    def retire(runtime_threads) -> tuple:
+        """serve.shutdown(), then the threads it left (waiting up to 15 s)
+        and the card memory allocated beyond mem_p."""
+        serve.shutdown()
+        deadline = time.monotonic() + 15
+        while True:
+            left = [t.name for t in threading.enumerate()
+                    if t not in runtime_threads and t.is_alive()]
+            if not left or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        release()
+        return left, torch.cuda.memory_allocated() - mem_p
+
+    cfg = get_config("llama-2b")
+    (B, T), S = PRETRAIN_BATCH, PRETRAIN_STEPS
+    rows = np.random.default_rng(0).integers(0, cfg.vocab_size, (B * S, T + 1)).astype(np.int32)
+    serve.shutdown()
+    rt.shutdown()
+    rt.init()  # thread mode, this host's CPUs and its card
+    storage = tempfile.mkdtemp(prefix="phase4p-")
+    try:
+        ds = data.from_numpy({"tokens": rows}, parallelism=6)
+        log(f"phase 4p: llama-2b (d_model {cfg.d_model}, layers {cfg.n_layers}, heads "
+            f"{cfg.n_heads}/{cfg.kv_heads}, vocab {cfg.vocab_size}), train2b recipe, {S} steps "
+            f"of {B} x {T}; data.from_numpy int32 [{B * S}, {T + 1}] in "
+            f"{ds.stats()['num_blocks']} blocks ({rows[:B].nbytes} bytes a batch); "
+            f"checkpoints in {storage}")
+
+        # (b) the yardstick: train.lm directly on the same batches
+        opt = train.make_optimizer(learning_rate=3e-4, warmup_steps=2, total_steps=100,
+                                   factored=True)
+        state = train.init_train_state(cfg, opt, seed=0)
+        bf16_params(state)
+        n_params = sum(t.numel() for _, t in named_leaves(state["params"]))
+        step = train.make_train_step(cfg, opt)
+        direct, direct_s = [], []
+        for i in range(S):  # the batches as the loop gets them: split on the host
+            batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+                     for k, v in split_tokens({"tokens": rows[B * i:B * (i + 1)]}).items()}
+            t1 = time.perf_counter()
+            state, m = step(state, batch)
+            direct.append(float(m["loss"]))
+            direct_s.append(time.perf_counter() - t1)
+        del state, step, m, batch
+        release()
+        log(f"phase 4p (b) train.lm directly: losses {[round(x, 5) for x in direct]}; step "
+            f"time p50 {statistics.median(direct_s[1:]):.4f}s (steps 1-{S - 1})")
+
+        # (c) the trainer
+        fit_c = pretrain_fit(cfg, ds, storage, "c", "phase 4p (c)")
+        res_c = fit_c["result"]
+        if res_c.error is not None:
+            fail(f"phase 4p (c): fit() failed: {res_c.error!r}")
+        hist = [m for m in res_c.metrics_history]
+        losses = [m["loss"] for m in hist]
+        gaps = [abs(a - b) for a, b in zip(losses, direct)]
+        step_s = [m["step_s"] for m in hist]
+        waits = [m["wait_s"] for m in hist]
+        log(f"phase 4p (c) fit(): losses {[round(x, 5) for x in losses]}; step 0 "
+            f"{losses[0]!r} against (b)'s {direct[0]!r}; largest |loss - (b)| "
+            f"{max(gaps):.3e} (tol {LOSS_GAP_TOL})")
+        if [m["step"] for m in hist] != list(range(S)):
+            fail(f"phase 4p (c): reported steps {[m['step'] for m in hist]}")
+        if losses[0] != direct[0]:
+            fail(f"phase 4p (c): step 0's loss {losses[0]!r} is not (b)'s {direct[0]!r}")
+        if max(gaps) > LOSS_GAP_TOL:
+            fail(f"phase 4p (c): a loss differs from train.lm's by {max(gaps):.3e}")
+        launches_c = fit_c["launches"]
+        log(f"launches on the pretrain path, (c)'s fit ({S} steps): {launches_c}")
+        for name, n in train_launches(cfg, S).items():
+            if launches_c[name] != n:
+                fail(f"phase 4p (c) launched {name} {launches_c[name]} times, expected {n}")
+        kept = checkpoint_checks(res_c, "phase 4p (c)")
+        if [k[0] for k in kept] != list(PRETRAIN_CKPT_STEPS[-2:]):
+            fail(f"phase 4p (c): checkpoints kept {[k[0] for k in kept]}, not the last two")
+        for s, want, got, _, n in kept:
+            if got != want or n != s + 1:
+                fail(f"phase 4p (c): the step-{s} checkpoint does not hold the reported "
+                     f"parameters (state step {n})")
+        writes = [m for m in hist if "write_s" in m]
+        snaps = [m["snapshot_s"] for m in hist if "snapshot_s" in m]
+        ck_bytes = writes[-1]["ckpt_bytes"]
+        step_p50, direct_p50 = statistics.median(step_s[1:]), statistics.median(direct_s[1:])
+        tok_s = B * T / step_p50
+        log(f"phase 4p (c) ({card}): step time through fit() p50 {step_p50:.4f}s against "
+            f"train.lm directly {direct_p50:.4f}s; {tok_s:.1f} tokens/s, MFU "
+            f"{6 * n_params * B * T / step_p50 / 989e12:.4f} (6 N tokens / step time / "
+            f"989e12, N {n_params / 1e9:.4f} B); the host's wait inside next() of the device "
+            f"iterator per step p50 {1e3 * statistics.median(waits):.3f} ms max "
+            f"{1e3 * max(waits):.3f} ms; checkpoint {ck_bytes / 1e9:.3f} GB: card-to-host "
+            f"snapshot {[round(x, 4) for x in snaps]} s ({ck_bytes / 1e9 / statistics.median(snaps):.2f} "
+            f"GB/s p50), write {[round(m['write_s'], 3) for m in writes]} s "
+            f"({ck_bytes / 1e9 / statistics.median([m['write_s'] for m in writes]):.2f} GB/s "
+            f"p50), the next step's wait for the write "
+            f"{[round(m['ckpt_wait_s'], 3) for m in hist if 'ckpt_wait_s' in m]} s; "
+            f"load_pytree {[round(k[3], 3) for k in kept]} s; fit() {fit_c['wall']:.2f}s")
+        if len([n for n in os.listdir(res_c.path) if n.startswith("step")]) != 2:
+            fail("phase 4p (c): num_to_keep=2 left another number of checkpoint directories")
+
+        # (d) a restart that resumes from step 7's checkpoint
+        fit_d = pretrain_fit(cfg, ds, storage, "d", "phase 4p (d)", fail_at=PRETRAIN_FAIL_AT)
+        res_d, marks = fit_d["result"], fit_d["marks"]
+        hist_d = res_d.metrics_history
+        resumed = [m for m in hist_d if m["attempt"] == 2]
+        gap_d = max(abs(m["loss"] - losses[m["step"]]) for m in resumed) if resumed else math.inf
+        entered = marks.get("entered", []) + [math.nan, math.nan]
+        overhead = marks.get("resumed_at", math.nan) - marks.get("failed_at", math.nan)
+        log(f"phase 4p (d) ({card}): attempts {marks.get('attempts')}, first attempt's steps "
+            f"{[m['step'] for m in hist_d if m['attempt'] == 1]}, resumed steps "
+            f"{[m['step'] for m in resumed]}; largest |loss - (c)| over them {gap_d:.3e}; restart "
+            f"overhead (failure to the first resumed step) {overhead:.3f}s: the gang's "
+            f"restart {entered[1] - marks.get('failed_at', math.nan):.3f}s, then load_pytree "
+            f"{marks.get('resume_load_s', math.nan):.3f}s and the skipped batches; fit() "
+            f"{fit_d['wall']:.2f}s against (c)'s {fit_c['wall']:.2f}s (each: call to the "
+            f"first loop entry {entered[0] - marks['called']:.3f} / "
+            f"{fit_c['marks']['entered'][0] - fit_c['marks']['called']:.3f}s, the loop's end to "
+            f"fit()'s return {marks['returned'] - marks.get('ended', math.nan):.3f} / "
+            f"{fit_c['marks']['returned'] - fit_c['marks']['ended']:.3f}s: the loop's end to "
+            f"its run's return {marks['run_returned'] - marks['ended']:.3f} / "
+            f"{fit_c['marks']['run_returned'] - fit_c['marks']['ended']:.3f}s, to fit()'s "
+            f"last poll's end {marks['last_poll_end'] - marks['ended']:.3f} / "
+            f"{fit_c['marks']['last_poll_end'] - fit_c['marks']['ended']:.3f}s (longest poll "
+            f"{marks['poll_max_s']:.3f} / {fit_c['marks']['poll_max_s']:.3f}s; registering each "
+            f"reported checkpoint, num_to_keep=2 deleting the oldest: "
+            f"{[round(x, 3) for x in marks.get('register_s', [])]} / "
+            f"{[round(x, 3) for x in fit_c['marks'].get('register_s', [])]}s), the gang's "
+            f"teardown {[round(x, 3) for x in marks.get('teardown_s', [])]} / "
+            f"{[round(x, 3) for x in fit_c['marks'].get('teardown_s', [])]}s)")
+        if res_d.error is not None or marks.get("attempts") != 2:
+            fail(f"phase 4p (d): {res_d.error!r} after {marks.get('attempts')} attempts")
+        if [m["step"] for m in resumed] != list(range(PRETRAIN_CKPT_STEPS[1] + 1, S)):
+            fail(f"phase 4p (d): resumed at steps {[m['step'] for m in resumed]}, not from "
+                 f"step {PRETRAIN_CKPT_STEPS[1]}'s checkpoint")
+        if gap_d > LOSS_GAP_TOL:
+            fail(f"phase 4p (d): a resumed loss differs from (c)'s by {gap_d:.3e}")
+        if abs(fit_d["mem1"] - fit_d["mem0"]) > PRETRAIN_MEMORY_TOL:
+            fail(f"phase 4p (d): card memory {fit_d['mem0'] / 2**30:.3f} GiB before fit(), "
+                 f"{fit_d['mem1'] / 2**30:.3f} after")
+        if fit_d["threads_left"]:
+            fail(f"phase 4p (d): threads outlived fit(): {fit_d['threads_left']}")
+
+        # (e) serve the checkpoint (c) kept last
+        torch.cuda.synchronize()
+        mem_e0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loaded = train.load_pytree(os.path.join(res_c.checkpoint.path, "state"))
+        load_s = time.perf_counter() - t0
+        params = loaded["params"]
+        del loaded
+        sums = list(leaf_checksums(params).values())
+        if sums != kept[-1][1]:
+            fail("phase 4p (e): the served weights are not step 11's")
+        torch.cuda.synchronize()
+        mem_p = torch.cuda.memory_allocated()  # the loaded tree, which this phase holds on
+        runtime_threads = set(threading.enumerate())
+        t0 = time.monotonic()
+        handle = serve.run(serve.LLMServer.bind(
+            model_name="llama-2b", params_fn=lambda: (params, cfg), engine_config=ENGINE),
+            name="pretrained")
+        ((replica, ready_s),) = wait_ready("llm", 1, t0, "phase 4p (e)")  # LLMServer's name
+        dispatch.reset_launches()
+        requests = burst_requests(cfg, torch.Generator().manual_seed(5))
+        results, _, wall = handle_burst(handle, requests, "phase 4p (e)")
+        launches_e = dispatch.launch_counts()
+        require_no_eager_launches("phase 4p (e)")
+        figures = report_burst("phase 4p (e)", requests, results, wall)
+        gaps_e = logprob_gaps(params, cfg, requests, results)
+        log(f"phase 4p (e) ({card}): load_pytree of step 11's checkpoint onto the card "
+            f"{load_s:.3f}s; the replica built and warmed in {ready_s:.1f}s; {figures}; "
+            f"logprob |engine - forward| per request max {[round(g[0], 4) for g in gaps_e]} "
+            f"mean {[round(g[1], 4) for g in gaps_e]} (tol {LOGPROB_TOL}); launches {launches_e}")
+        for i, gap in enumerate(gaps_e):
+            if not within_logprob_tol(gap):
+                fail(f"phase 4p (e) request {i}: logprobs differ from the forward by max "
+                     f"{gap[0]:.4f}, mean {gap[1]:.4f}")
+        for name in SERVE_KERNELS:
+            if launches_e[name] <= 0:
+                fail(f"phase 4p (e) never launched kernel {name}")
+        long_prompt = {"prompt_ids": requests[3]["prompt_ids"], "max_tokens": 4}
+        short_prompt = {"prompt_ids": requests[1]["prompt_ids"], "max_tokens": 4}
+        names = launched_kernels(lambda: (handle.remote(short_prompt).result(timeout=300),
+                                          handle.remote(long_prompt).result(timeout=300)))
+        stems = ("flash_fwd_wgmma_kernel", "paged_chunk_wgmma_kernel",
+                 "paged_decode_split_kernel", "paged_combine_kernel", "rms_norm_fwd_vec_kernel")
+        log(f"phase 4p (e): kernels of a 100- and a 700-token prompt under the profiler, by "
+            f"name: " + "; ".join(
+                f"{stem} x{sum(stem in n for n in names)} "
+                f"({next((n[:110] for n in names if stem in n), 'none')})" for stem in stems))
+        require_kernels("phase 4p (e)", names, stems)
+        del handle, replica
+        left, kept_e = retire(runtime_threads)
+        log(f"phase 4p (e): after serve.shutdown() threads left {left or 'none'}; the retired "
+            f"replica left {kept_e / 2**30:.3f} GiB of card memory beside the loaded tree "
+            f"(tol {SERVE_RETIRED_MEMORY_TOL / 2**30:.2f} GiB)")
+        if left:
+            fail(f"phase 4p (e): threads outlived serve.shutdown(): {left}")
+        if kept_e > SERVE_RETIRED_MEMORY_TOL:
+            fail(f"phase 4p (e): the retired replica's engine kept {kept_e / 2**30:.3f} GiB")
+        # planted fault replica_kept_after_shutdown: the killed actor keeps its instance
+        with swapped(node_agent, _release_instance=lambda runner: None):
+            planted_handle = serve.run(serve.LLMServer.bind(
+                model_name="llama-2b", params_fn=lambda: (params, cfg), engine_config=ENGINE),
+                name="pretrained")
+            planted_handle.remote(short_prompt).result(timeout=300)
+            del planted_handle
+            _, kept_planted = retire(runtime_threads)
+        caught_replica = kept_planted > SERVE_RETIRED_MEMORY_TOL
+        log(f"phase 4p planted fault replica_kept_after_shutdown: the retired replica left "
+            f"{kept_planted / 2**30:.3f} GiB: the memory gate fails {caught_replica}")
+        del params
+        release()
+        log(f"phase 4p (e): card memory {mem_e0 / 2**30:.3f} GiB before load_pytree, "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} after with the loaded tree dropped")
+
+        # (f) the planted faults
+        with swapped(train, AsyncCheckpointWriter=late_snapshot_writer()):
+            late = pretrain_fit(cfg, ds, storage, "f1", "phase 4p planted checkpoint_after_update",
+                                steps=3, ckpt_steps=(1,))
+        late_kept = checkpoint_checks(late["result"], "phase 4p planted checkpoint_after_update")
+        caught_late = any(got != want for _, want, got, _, _ in late_kept)
+        log(f"phase 4p planted fault checkpoint_after_update: the checkpoint's checksums differ "
+            f"from those reported at its step {caught_late}")
+        with swapped(core_worker, release_frames=lambda error: None):
+            kept_state = pretrain_fit(cfg, ds, storage, "f2", "phase 4p planted restart_keeps_state",
+                                      steps=5, ckpt_steps=(1,), fail_at=3)
+        caught_kept = abs(kept_state["mem1"] - kept_state["mem0"]) > PRETRAIN_MEMORY_TOL
+        log(f"phase 4p planted fault restart_keeps_state: card memory "
+            f"{kept_state['mem0'] / 2**30:.3f} GiB before fit(), {kept_state['mem1'] / 2**30:.3f} "
+            f"after: the memory gate fails {caught_kept}")
+        for name, hit in (("checkpoint_after_update", caught_late),
+                          ("restart_keeps_state", caught_kept),
+                          ("replica_kept_after_shutdown", caught_replica)):
+            if not hit:
+                fail(f"phase 4p: its gates pass planted fault {name}")
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+        release()
+    log(f"phase 4p: card memory after the runtime's shutdown {torch.cuda.memory_allocated() / 2**30:.3f} "
+        f"GiB; the phase took {time.monotonic() - t_phase:.1f}s ({card})")
+    return {"launches": {name: launches_c[name] + launches_e[name] for name in launches_c}}
+
+
 # gather against dense at the training shape, in f32 (layer 0's weights
 # cast): both give each token the same k weighted expert rows, summed in
 # another order, so any gap beyond f32 rounding (~1e-7 of the output's
@@ -4970,6 +5515,9 @@ def main() -> None:
     ap.add_argument("--deploy", action="store_true",
                     help="only build the kernels, serve phase 3's burst, then run phase 3d "
                          "(the serve runtime on its tensors); prints no result line")
+    ap.add_argument("--pretrain", action="store_true",
+                    help="only build the kernels, then run phase 4p (pretrain -> checkpoint "
+                         "-> serve at llama-2b); prints no result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -5016,6 +5564,9 @@ def main() -> None:
     if args.deploy:
         deploy_only(card)
         return
+    if args.pretrain:
+        pretrain_path(card)
+        return
     gen = torch.Generator(device="cuda").manual_seed(0)
     tile_identity_checks(gen)
     figures = norm_checks(gen)
@@ -5033,6 +5584,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     trained = train_main_path(card, args.profile)
     train2b = train2b_path(card, trained, args.profile)
+    pretrain = pretrain_path(card)
     moe_served = moe_serve_path(card, args.profile)
     moe_trained = moe_train_path(card, args.profile)
     kernels = []
@@ -5045,7 +5597,8 @@ def main() -> None:
                    "migrate": migrate_launches[name],
                    "moe_migrate": moe_served["migrate"][name],
                    "live": live_launches[name] + moe_served["live"][name],
-                   "runtime": runtime_launches[name], "deploy": deploy_launches[name]}
+                   "runtime": runtime_launches[name], "deploy": deploy_launches[name],
+                   "pretrain": pretrain["launches"][name]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **figures[name]})

@@ -427,6 +427,21 @@ def get_actor(name: str) -> ActorHandle:
     return ActorHandle(info.actor_id, info.name or "Actor")
 
 
+def _free(refs: Sequence[ObjectRef]) -> None:
+    """Eagerly release objects AND their lineage records (reference:
+    `ray._private.internal_api.free`). For intermediates that cascade-free
+    only when a distant consumer drops its ref — all-to-all shuffle rounds
+    — waiting for the cascade means peak residency ~= everything; callers
+    that KNOW an object is consumed free it explicitly. Unreconstructable
+    afterwards; never call on refs a user may still resolve."""
+    rt = _auto_init()
+    for ref in refs:
+        try:
+            rt.free_object(ref.object_id)
+        except Exception:  # noqa: BLE001 — freeing is best-effort
+            pass
+
+
 def cluster_resources() -> Dict[str, float]:
     rt = _auto_init()
     totals: Dict[str, float] = {}

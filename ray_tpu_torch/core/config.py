@@ -269,6 +269,9 @@ declare(
     "queries over (rotated in slo._SLICES sub-windows).",
 )
 
+# Data plane (data/iterator.py)
+declare("device_prefetch_depth", 2, "Host->HBM double buffering depth.")
+
 
 class Config:
     """Resolved configuration view. Thread-safe."""

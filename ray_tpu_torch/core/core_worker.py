@@ -24,6 +24,7 @@ from __future__ import annotations
 import collections
 import threading
 import time
+import traceback
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -64,6 +65,20 @@ def _timeline_now_us() -> float:
     return timeline._now_us()
 
 
+def release_frames(error: Optional[BaseException]) -> None:
+    """Drop the local variables of every finished frame in the tracebacks
+    of `error` and the exceptions chained to it (the file, function and
+    line of each frame stay, so the traceback still prints). A kept error
+    then pins none of what its frames held: a failed training loop's state
+    on the card, for one. A deliberate difference: the reference's errors
+    keep their frames' locals."""
+    seen = set()
+    while error is not None and id(error) not in seen:
+        seen.add(id(error))
+        traceback.clear_frames(error.__traceback__)
+        error = error.__cause__ or error.__context__
+
+
 class RayTaskError(Exception):
     """Wraps an application exception raised inside a task; re-raised on get."""
 
@@ -71,6 +86,7 @@ class RayTaskError(Exception):
         super().__init__(f"task {task_name} failed: {cause!r}")
         self.task_name = task_name
         self.cause = cause
+        release_frames(cause)
 
     def __reduce__(self):
         # default Exception pickling replays only the formatted message —

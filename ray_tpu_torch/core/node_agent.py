@@ -127,6 +127,16 @@ def _is_async_actor(cls) -> bool:
     )
 
 
+def _release_instance(runner: "_ActorRunner") -> None:
+    """Drop a dead actor's instance once none of its lanes runs: the
+    record stays (for has_actor and the actor's death cause), what the
+    instance held (an engine's weights and pools on the card) goes with
+    the last reference. A deliberate difference: the reference's agent
+    keeps a killed actor's instance for as long as the node lives."""
+    if not any(t.is_alive() for t in runner.threads):
+        runner.instance = None
+
+
 class _ActorRunner:
     """Dedicated execution lane for one actor: FIFO mailbox + instance state.
 
@@ -803,6 +813,7 @@ class NodeAgent:
         for t in runner.threads:
             if t is not threading.current_thread():
                 t.join(timeout=max(0.0, deadline - time.monotonic()))
+        _release_instance(runner)
         return True
 
     def _sweep_actor_pending(self, runner: _ActorRunner) -> None:
@@ -938,6 +949,8 @@ class NodeAgent:
         for t in lanes:
             if t is not threading.current_thread():
                 t.join(timeout=max(0.0, deadline - time.monotonic()))
+        for runner in actors:
+            _release_instance(runner)
 
 
 class ObjectDirectory:

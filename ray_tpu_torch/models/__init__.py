@@ -10,5 +10,6 @@ from .transformer import (  # noqa: F401
     loss_fn,
     loss_from_logits,
     params_from_numpy,
+    params_to_numpy,
     prefill,
 )

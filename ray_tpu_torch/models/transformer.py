@@ -131,6 +131,21 @@ def params_from_numpy(tree, device=None, dtype: Any = None) -> Params:
     return convert(tree)
 
 
+def params_to_numpy(tree) -> dict:
+    """The inverse of params_from_numpy: this package's parameters (any
+    device; bf16 leaves widened to float32, exactly) -> numpy arrays in the
+    reference's layout, for `ray_tpu`'s models and engine."""
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        t = node.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy().copy()
+
+    return convert(tree)
+
+
 def layer_views(layers: Params) -> list:
     """Every layer's parameters as views into the stacked [L, ...] tensors,
     one dict per layer. One unbind per tensor: under autograd the layers'

@@ -1,0 +1,132 @@
+"""Per-worker train session: report()/get_context()/get_checkpoint().
+
+Reference analogue: `python/ray/train/_internal/session.py ::
+_TrainSession, report, get_context`. The session rides a thread-local so
+report() works from anywhere inside the user's train_func, while the
+worker actor's poll thread drains the buffer concurrently.
+
+The port's copy of ray_tpu/train/session.py; `report` records its instant
+in the port's util/timeline.py.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+from typing import Any, Dict, List, Optional
+
+from .checkpoint import Checkpoint
+
+_local = threading.local()
+
+
+@dataclasses.dataclass
+class TrainContext:
+    world_rank: int = 0
+    world_size: int = 1
+    local_rank: int = 0
+    experiment_name: str = "default"
+    storage_path: str = ""
+    trial_dir: str = ""
+    gang_name: str = ""
+    # the slice topology granted to the gang; always None in the port until
+    # ScalingConfig.topology is ported (ROADMAP A7b)
+    topology: Optional[Dict[str, Any]] = None
+
+    def get_world_rank(self) -> int:
+        return self.world_rank
+
+    def get_world_size(self) -> int:
+        return self.world_size
+
+    def get_local_rank(self) -> int:
+        return self.local_rank
+
+    def get_trial_dir(self) -> str:
+        return self.trial_dir
+
+
+@dataclasses.dataclass
+class _Report:
+    metrics: Dict[str, Any]
+    checkpoint: Optional[Checkpoint]
+    rank: int
+
+
+class _TrainSession:
+    def __init__(
+        self,
+        context: TrainContext,
+        resume_checkpoint: Optional[Checkpoint] = None,
+        datasets: Optional[Dict[str, Any]] = None,
+    ):
+        self.context = context
+        self.resume_checkpoint = resume_checkpoint
+        self.datasets = datasets or {}
+        self._reports: "queue.Queue[_Report]" = queue.Queue()
+        self.finished = False
+
+    def report(self, metrics: Dict[str, Any], checkpoint: Optional[Checkpoint] = None):
+        from ..util import timeline
+
+        timeline.record(
+            "train/report", "i", cat="train", pid="train",
+            tid=f"rank{self.context.world_rank}",
+            args={k: v for k, v in metrics.items()
+                  if isinstance(v, (int, float, str))},
+        )
+        self._reports.put(_Report(dict(metrics), checkpoint, self.context.world_rank))
+
+    def drain(self) -> List[_Report]:
+        out = []
+        while True:
+            try:
+                out.append(self._reports.get_nowait())
+            except queue.Empty:
+                return out
+
+
+def _set_session(session: Optional[_TrainSession]) -> None:
+    _local.session = session
+
+
+def _get_session() -> Optional[_TrainSession]:
+    return getattr(_local, "session", None)
+
+
+# --- public API (ray_tpu_torch.train.report / get_context / get_checkpoint) --
+
+
+def report(metrics: Dict[str, Any], checkpoint: Optional[Checkpoint] = None) -> None:
+    """Report metrics (and optionally a checkpoint) from inside train_func."""
+    s = _get_session()
+    if s is None:
+        raise RuntimeError("ray_tpu_torch.train.report() called outside a train session")
+    s.report(metrics, checkpoint)
+
+
+def get_context() -> TrainContext:
+    s = _get_session()
+    if s is None:
+        return TrainContext()  # degenerate single-process context
+    return s.context
+
+
+def get_checkpoint() -> Optional[Checkpoint]:
+    """The checkpoint to resume from (set after a gang restart)."""
+    s = _get_session()
+    return s.resume_checkpoint if s is not None else None
+
+
+def get_dataset_shard(name: str = "train"):
+    """This worker's shard of a Dataset passed to TorchTrainer(datasets=...)
+    (reference: `ray.train.get_dataset_shard` — Train splits each dataset
+    across the gang with streaming_split; each rank iterates its own)."""
+    s = _get_session()
+    if s is None or name not in s.datasets:
+        raise RuntimeError(
+            f"no dataset shard {name!r}: pass datasets={{{name!r}: ds}} to "
+            "TorchTrainer and call get_dataset_shard inside train_func"
+        )
+    return s.datasets[name]

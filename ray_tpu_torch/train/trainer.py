@@ -1,0 +1,195 @@
+"""TorchTrainer: gang-scheduled training with restart-from-checkpoint FT.
+
+Reference analogue: `python/ray/train/base_trainer.py :: BaseTrainer.fit` +
+`data_parallel_trainer.py` + `_internal/backend_executor.py`. Control flow
+mirrors the reference's (worker group -> run train_func -> stream reports
+-> FailureConfig restarts).
+
+The port's copy of ray_tpu/train/trainer.py, whose class is `JaxTrainer`:
+the port names it `TorchTrainer`, upstream Ray's name for a PyTorch
+trainer, with the reference's signature. A gang member is an actor on the
+node agents' threads; with `use_gpu` it holds the card. A failed attempt's
+error keeps no frame locals (core_worker.release_frames), so a restart
+does not hold the failed attempt's state on the card.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+import uuid
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from .. import api
+from ..core import core_worker
+from ..core.logging import get_logger
+from .checkpoint import Checkpoint, CheckpointManager
+from .config import RunConfig, ScalingConfig
+from .result import Result
+from .session import _Report
+from .worker_group import WorkerGroup
+
+logger = get_logger("train.trainer")
+
+
+class TrainingFailedError(RuntimeError):
+    pass
+
+
+class TorchTrainer:
+    """Runs `train_loop_per_worker(config)` on a gang of workers.
+
+    Inside the loop, use ray_tpu_torch.train.{get_context, report,
+    get_checkpoint, get_dataset_shard}. With scaling_config.use_gpu each
+    member holds one "GPU"; without a card that raises at fit().
+    """
+
+    def __init__(
+        self,
+        train_loop_per_worker: Callable[[Dict[str, Any]], Any],
+        *,
+        train_loop_config: Optional[Dict[str, Any]] = None,
+        scaling_config: Optional[ScalingConfig] = None,
+        run_config: Optional[RunConfig] = None,
+        datasets: Optional[Dict[str, Any]] = None,
+        resume_from_checkpoint: Optional[Checkpoint] = None,
+    ):
+        self.train_loop = train_loop_per_worker
+        self.config = dict(train_loop_config or {})
+        self.scaling = scaling_config or ScalingConfig()
+        self.run_config = run_config or RunConfig()
+        self.datasets = datasets or {}
+        self.resume_checkpoint = resume_from_checkpoint
+
+    # ------------------------------------------------------------------
+
+    def _storage_dir(self) -> str:
+        base = self.run_config.storage_path or os.path.expanduser("~/ray_tpu_torch_results")
+        name = self.run_config.name or f"train_{uuid.uuid4().hex[:8]}"
+        path = os.path.join(base, name)
+        os.makedirs(path, exist_ok=True)
+        return path
+
+    def fit(self) -> Result:
+        if self.scaling.use_gpu and not torch.cuda.is_available():
+            raise RuntimeError(
+                "ScalingConfig(use_gpu=True) needs a CUDA device, and none is "
+                "available")
+        api._auto_init()
+        storage = self._storage_dir()
+        ckpt_cfg = self.run_config.checkpoint_config
+        manager = CheckpointManager(
+            ckpt_cfg.num_to_keep,
+            ckpt_cfg.checkpoint_score_attribute,
+            ckpt_cfg.checkpoint_score_order,
+        )
+        max_failures = self.run_config.failure_config.max_failures
+        failures = 0
+        resume = self.resume_checkpoint
+        history = []
+        last_metrics: Dict[str, Any] = {}
+        error: Optional[BaseException] = None
+
+        base_config = dict(self.config)
+        split_datasets = self._split_datasets() if self.datasets else None
+
+        while True:
+            gang = f"train-{uuid.uuid4().hex[:8]}"
+            group = None
+            try:
+                group = WorkerGroup(
+                    self.scaling, gang,
+                    self.run_config.name or "train", storage,
+                )
+                refs = group.run(
+                    self.train_loop, base_config, resume,
+                    datasets_per_rank=split_datasets,
+                )
+                self._stream(group, refs, manager, history)
+                last_metrics = history[-1] if history else {}
+                break
+            except (api.RayTaskError, api.RayActorError, api.GetTimeoutError, RuntimeError) as e:
+                failures += 1
+                # the driver-side frames (this attempt's refs) and the
+                # worker's (its training state) keep no locals
+                core_worker.release_frames(e)
+                resume = manager.latest or resume
+                logger.warning(
+                    "training gang failed (%s); failures=%d/%s; resume=%s",
+                    e, failures, max_failures, resume,
+                )
+                if max_failures >= 0 and failures > max_failures:
+                    error = TrainingFailedError(
+                        f"training failed after {failures} attempt(s): {e}"
+                    )
+                    error.__cause__ = e
+                    break
+            finally:
+                if group is not None:
+                    group.shutdown()
+
+        for cb in self.run_config.callbacks:
+            try:
+                cb(history)
+            except Exception:
+                logger.warning("callback %r failed", cb, exc_info=True)
+
+        return Result(
+            metrics=last_metrics,
+            checkpoint=manager.best if ckpt_cfg.checkpoint_score_attribute else manager.latest,
+            error=error,
+            metrics_history=history,
+            path=storage,
+        )
+
+    # ------------------------------------------------------------------
+
+    def _split_datasets(self) -> Dict[str, Any]:
+        """streaming_split each dataset across gang members: the value per
+        name is a per-rank list; WorkerGroup hands rank i its i-th shard."""
+        n = self.scaling.num_workers
+        out = {}
+        for name, ds in self.datasets.items():
+            splitter = getattr(ds, "streaming_split", None)
+            if splitter is not None and n > 1:
+                # equal=True row-balances the shards: every SPMD rank must
+                # see the SAME batch count, or one rank exits the loop
+                # while the others sit in a collective (gang hang)
+                out[name] = splitter(n, equal=True)
+            else:
+                out[name] = [ds] * n
+        return out
+
+    def _stream(self, group: WorkerGroup, refs, manager: CheckpointManager, history):
+        """Poll reports while the gang runs; raise on any worker failure."""
+        pending = list(refs)
+        while pending:
+            done, pending = api.wait(pending, num_returns=len(pending), timeout=0.2)
+            self._collect(group.poll(), manager, history)
+            for ref in done:
+                api.get(ref)  # raises the worker's error, if any
+        self._collect(group.poll(), manager, history)
+
+    def _collect(self, reports, manager: CheckpointManager, history) -> None:
+        # order by rank so rank-0 metrics win ties within a step
+        for rep in sorted(reports, key=lambda r: r.rank):
+            if isinstance(rep, _Report):
+                if rep.rank == 0:
+                    history.append(rep.metrics)
+                    if rep.checkpoint is not None:
+                        manager.register(rep.checkpoint, rep.metrics)
+                    # streaming callback protocol (integrations.py):
+                    # on_report(metrics) fires per rank-0 report; the
+                    # plain-callable protocol still gets history at the end
+                    for cb in self.run_config.callbacks:
+                        on_report = getattr(cb, "on_report", None)
+                        if callable(on_report):
+                            try:
+                                on_report(rep.metrics)
+                            except Exception:
+                                logger.warning(
+                                    "callback %r on_report failed",
+                                    cb, exc_info=True,
+                                )

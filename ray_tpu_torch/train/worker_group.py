@@ -1,0 +1,189 @@
+"""The training gang: a placement-group-backed group of worker actors.
+
+Reference analogue: `python/ray/train/_internal/worker_group.py ::
+WorkerGroup` + `backend_executor.py :: BackendExecutor`.
+
+The port's copy of ray_tpu/train/worker_group.py: a member asks for
+`num_gpus=` where the reference's asks for `num_tpus=`, and the group's
+bundles hold "GPU". Slice topologies and the multi-host bootstrap
+(`setup_distributed`, comm/bootstrap.py) wait for ROADMAP A7b.
+"""
+
+from __future__ import annotations
+
+import traceback
+from typing import Any, Callable, Dict, List, Optional
+
+from .. import api
+from ..core.logging import get_logger
+from .checkpoint import Checkpoint
+from .config import ScalingConfig
+from .session import TrainContext, _TrainSession, _get_session, _set_session
+
+logger = get_logger("train.worker_group")
+
+
+@api.remote
+class TrainWorker:
+    """One gang member. Runs the user train_func on its runner thread while
+    poll() (second concurrency slot) streams reports back to the trainer."""
+
+    def __init__(self, rank: int, world_size: int, gang_name: str):
+        self.rank = rank
+        self.world_size = world_size
+        self.gang_name = gang_name
+        self.session: Optional[_TrainSession] = None
+
+    def setup_distributed(self, num_processes: int) -> bool:
+        raise NotImplementedError(
+            "TrainWorker.setup_distributed: the multi-host bootstrap "
+            "(comm/bootstrap.py) waits for ROADMAP A7b")
+
+    def run(
+        self,
+        train_func: Callable[[Dict[str, Any]], Any],
+        config: Dict[str, Any],
+        context: TrainContext,
+        resume_checkpoint: Optional[Checkpoint],
+        datasets: Optional[Dict[str, Any]] = None,
+    ) -> Any:
+        self.session = _TrainSession(context, resume_checkpoint,
+                                     datasets=datasets)
+        _set_session(self.session)
+        try:
+            return train_func(config)
+        finally:
+            self.session.finished = True
+            _set_session(None)
+
+    def poll(self) -> List[Any]:
+        if self.session is None:
+            return []
+        return self.session.drain()
+
+    def is_finished(self) -> bool:
+        return self.session is not None and self.session.finished
+
+
+class WorkerGroup:
+    def __init__(
+        self,
+        scaling: ScalingConfig,
+        gang_name: str,
+        experiment_name: str,
+        storage_path: str,
+    ):
+        self.scaling = scaling
+        self.gang_name = gang_name
+        self.experiment_name = experiment_name
+        self.storage_path = storage_path
+        self.workers: List[Any] = []
+        self.pg = None
+        self._start()
+
+    def _start(self) -> None:
+        from ..core.task_spec import PlacementGroupSchedulingStrategy
+
+        n = self.scaling.num_workers
+        res = self.scaling.worker_resources()
+        rt = api._auto_init()
+        try:
+            self.pg = rt.pg_manager.create(
+                [dict(res) for _ in range(n)],
+                strategy=self.scaling.placement_strategy,
+            )
+            if not self.pg.ready(timeout=60.0):
+                raise RuntimeError("placement group not ready within 60s")
+        except Exception as e:
+            logger.warning("gang %s: no placement group (%s); best-effort placement", self.gang_name, e)
+            if self.pg is not None:
+                # drop the queued/failed group now — otherwise it would
+                # materialize later and hold chips no worker ever uses
+                try:
+                    rt.pg_manager.remove(self.pg)
+                except Exception:
+                    pass
+            self.pg = None
+        self.workers = []
+        for rank in range(n):
+            if self.pg is not None:
+                # schedule INTO the group's reserved bundle: the demand is
+                # drawn from the bundle tracker, never double-reserved from
+                # the node ledger.
+                bundle = self.pg.bundles[rank]
+                opts = dict(
+                    max_concurrency=2,
+                    in_process=self.scaling.workers_in_process,
+                    num_cpus=bundle.get("CPU", 0.0),
+                    num_gpus=bundle.get("GPU", 0.0),
+                    scheduling_strategy=PlacementGroupSchedulingStrategy(
+                        placement_group_id=self.pg.id, bundle_index=rank
+                    ),
+                )
+            else:
+                opts = dict(
+                    max_concurrency=2,
+                    in_process=self.scaling.workers_in_process,
+                    num_cpus=res.get("CPU", 1.0),
+                    num_gpus=res.get("GPU", 0.0),
+                )
+            self.workers.append(
+                TrainWorker.options(**opts).remote(rank, n, self.gang_name)
+            )
+
+    def run(
+        self,
+        train_func: Callable,
+        config: Dict[str, Any],
+        resume_checkpoint: Optional[Checkpoint],
+        datasets_per_rank: Optional[Dict[str, List[Any]]] = None,
+    ) -> List[Any]:
+        refs = []
+        for rank, w in enumerate(self.workers):
+            cfg = dict(config)
+            rank_datasets = None
+            if datasets_per_rank is not None:
+                rank_datasets = {
+                    name: shards[rank] for name, shards in datasets_per_rank.items()
+                }
+                # legacy surface: loops written against config["datasets"]
+                # keep working; train.get_dataset_shard reads the session
+                # copy (the explicit parameter), so a user-provided
+                # "datasets" CONFIG key is never mistaken for shards
+                cfg["datasets"] = rank_datasets
+            ctx = TrainContext(
+                world_rank=rank,
+                world_size=self.scaling.num_workers,
+                local_rank=rank,
+                experiment_name=self.experiment_name,
+                storage_path=self.storage_path,
+                trial_dir=self.storage_path,
+                gang_name=self.gang_name,
+            )
+            refs.append(w.run.remote(train_func, cfg, ctx, resume_checkpoint,
+                                     datasets=rank_datasets))
+        return refs
+
+    def poll(self) -> List[Any]:
+        reports = []
+        for w in self.workers:
+            try:
+                reports.extend(api.get(w.poll.remote(), timeout=30.0))
+            except Exception:
+                logger.debug("poll failed:\n%s", traceback.format_exc())
+        return reports
+
+    def shutdown(self) -> None:
+        for w in self.workers:
+            try:
+                api.kill(w)
+            except Exception:
+                pass
+        self.workers = []
+        if self.pg is not None:
+            rt = api._auto_init()
+            try:
+                rt.pg_manager.remove(self.pg)
+            except Exception:
+                pass
+            self.pg = None

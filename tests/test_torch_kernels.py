@@ -1006,3 +1006,64 @@ def test_deployment_replicas_serve_from_graph_replays(card, dtype):
     # HTTP server's thread end with serve.shutdown, the runtime's own with it
     left = [t.name for t in threading.enumerate() if t not in before and t.is_alive()]
     assert left == []
+
+
+# The data plane and checkpoints on the card (ray_tpu_torch.data,
+# ray_tpu_torch.train.checkpoint): device batches are staged in pinned host
+# memory and copied on a side stream, and a consumer on a stream of its own
+# must see every batch whole; a checkpoint of card tensors comes back bit
+# for bit, and the asynchronous writer's file holds the values of the save,
+# not of a later in-place update.
+
+def test_iter_device_batches_on_the_card_equal_the_host_batches(card, dtype):
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+
+    rng = np.random.default_rng(0)
+    cols = {"x": rng.standard_normal((64, 4099)).astype(np.float32),
+            "t": rng.integers(0, 32000, (64, 9)).astype(np.int32)}
+    rt.shutdown()
+    rt.init(num_cpus=4, system_config=RUNTIME)
+    try:
+        ds = data.from_numpy(cols, parallelism=5)
+        host = list(ds.iter_batches(batch_size=8, prefetch_batches=0))
+        consumer = torch.cuda.Stream()
+        got = []
+        with torch.cuda.stream(consumer):
+            for b in ds.iter_device_batches(batch_size=8, prefetch=3,
+                                            transform=lambda b: (b["x"], {"t": b["t"]})):
+                x, rest = b
+                assert x.device.type == "cuda" and rest["t"].device.type == "cuda"
+                # work on the consumer's stream reads the batch right away
+                got.append(((x.to(dtype) * 1).cpu(), (rest["t"] + 0).cpu()))
+        torch.cuda.synchronize()
+    finally:
+        rt.shutdown()
+    assert len(got) == len(host) == 8
+    for (x, t), h in zip(got, host):
+        assert torch.equal(x, torch.from_numpy(h["x"]).to(dtype))
+        assert torch.equal(t, torch.from_numpy(h["t"]))
+
+
+def test_checkpoint_of_card_tensors_roundtrips_bit_exact(card, dtype, tmp_path):
+    from ray_tpu_torch import train
+
+    tree = {"w": _rand((257, 129), dtype, card), "b16": _rand((7, 3), torch.bfloat16, card),
+            "i": torch.arange(-5, 5, device=card), "host": np.arange(3.0), "step": 3,
+            "v": [None, _rand((4, 4), torch.float32, card)]}
+    path = train.save_pytree(tree, str(tmp_path / "ck"))
+    back = train.load_pytree(path)  # onto the card: no device named
+
+    def same(a, b):
+        return (b.device.type == "cuda" and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+    assert all(same(tree[k], back[k]) for k in ("w", "b16", "i"))
+    assert back["v"][0] is None and same(tree["v"][1], back["v"][1])
+    assert back["step"] == 3 and np.array_equal(back["host"], tree["host"])
+    writer = train.AsyncCheckpointWriter()
+    want = tree["w"].clone()
+    writer.save(tree, str(tmp_path / "async"))
+    tree["w"].add_(1)  # the next step's in-place update, on the card
+    writer.wait()
+    assert same(want, train.load_pytree(str(tmp_path / "async"))["w"])

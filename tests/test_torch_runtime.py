@@ -602,3 +602,41 @@ def test_a_dropped_ref_is_freed_at_the_next_api_entry():
         assert rt.reference_counter.count(oid) == 0 and not agent.store.contains(oid)
     finally:
         ray_tpu_torch.shutdown()
+
+
+class _Payload:
+    """What an actor holds (an engine's weights, say), weakly referable."""
+
+
+def test_a_killed_actors_instance_is_released_where_the_reference_keeps_it():
+    import gc
+    import weakref
+
+    released = {}
+    for name in PACKAGES:
+        p = Pkg(name)
+        p.api.shutdown()
+        p.api.init(num_cpus=2, system_config=dict(THREAD_MODE), **p.acc(0))
+        try:
+            held = []
+
+            @p.api.remote
+            class Holder:
+                def __init__(self):
+                    self.payload = _Payload()
+                    held.append(weakref.ref(self.payload))
+
+                def ping(self):
+                    return 1
+
+            h = Holder.remote()
+            assert p.api.get(h.ping.remote(), timeout=WAIT_S) == 1
+            p.api.kill(h)
+            deadline = time.monotonic() + 2
+            while held[0]() is not None and time.monotonic() < deadline:
+                gc.collect()
+                time.sleep(0.05)
+            released[name] = held[0]() is None
+        finally:
+            p.api.shutdown()
+    assert released == {"ray_tpu": False, "ray_tpu_torch": True}

@@ -206,6 +206,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     code = (
         "import json, sys\n"
         "import ray_tpu_torch, ray_tpu_torch.serve, ray_tpu_torch.models, ray_tpu_torch.train\n"
+        "import ray_tpu_torch.data, ray_tpu_torch.train.trainer, ray_tpu_torch.train.checkpoint\n"
         "import ray_tpu_torch.serve.spec_decode, ray_tpu_torch.serve.config\n"
         "import ray_tpu_torch.serve.programs, ray_tpu_torch.models.generate\n"
         "import ray_tpu_torch.parallel.moe\n"
@@ -257,6 +258,20 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "    assert ray_tpu_torch.get(add.remote(ray_tpu_torch.put(1), 2), timeout=30) == 3\n"
         "    c = Counter.remote()\n"
         "    assert ray_tpu_torch.get([c.inc.remote() for _ in range(3)], timeout=30) == [1, 2, 3]\n"
+        "    ray_tpu_torch.kill(c)  # its CPU goes to the data tasks beside the gang\n"
+        "    from ray_tpu_torch import data, train\n"
+        "    import tempfile\n"
+        "    ds = data.from_numpy({'x': __import__('numpy').arange(8)}, parallelism=2)\n"
+        "    def loop(config):\n"
+        "        for b in train.get_dataset_shard('train').iter_device_batches(\n"
+        "                batch_size=4, device='cpu'):\n"
+        "            train.report({'s': int(b['x'].sum())})\n"
+        "    with tempfile.TemporaryDirectory() as d:\n"
+        "        r = train.TorchTrainer(loop, datasets={'train': ds},\n"
+        "                               run_config=train.RunConfig(storage_path=d)).fit()\n"
+        "        assert r.error is None and [m['s'] for m in r.metrics_history] == [6, 22]\n"
+        "        p = train.save_pytree({'w': tree['embed']}, d + '/ck')\n"
+        "        assert train.load_pytree(p, device='cpu')['w'].equal(tree['embed'])\n"
         "finally:\n"
         "    ray_tpu_torch.api.shutdown()\n"
         "cluster = ray_tpu_torch.cluster_utils.Cluster()\n"
