@@ -246,7 +246,30 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      checkpoint>)) serves phase 3's burst under phase 3's logprob gate,
      every launch from a graph replay, the wgmma and split kernels by
      name; two planted faults (a snapshot taken after the next update, a
-     restart whose error keeps its frames) must fail their gates;
+     restart whose error keeps its frames) must fail their gates; each
+     fit() logs through an MLflowLoggerCallback (its local files), whose
+     history must hold the losses fit() reported;
+  4t. tune/ and the shared ingest service at llama-2b (tune_path): four
+     tenants, one at weight 3, drain the same rows (phase 4f's batch, once
+     a step: tune_rows) from one IngestService
+     to the card, and while all four wait the weight-3 tenant must get
+     >= FAIR_SHARE_MIN times a weight-1 tenant's blocks; then a Tuner runs
+     four trials (lr 0, 1e-4, 3e-4, 1e-3) under phase 4f's recipe as GPU
+     actors sharing the card (resources_per_trial {"GPU": 0.25}), each
+     reading its batches as a tenant of one ingest service, under
+     AsyncHyperBandScheduler(max_t=12, grace_period=2, reduction_factor=2):
+     step 0 bit-equal across trials, to train.lm's and to phase 4f's; a
+     trial stopped early, the lr-0 trial not the best; a full trial's
+     losses within LOSS_GAP_TOL of train.lm directly; each trial's own
+     thread's launches and the fit's exact; a stopped trial's lanes and
+     state freed within its
+     step (STOP_SLACK_S); card memory and threads back after fit(). Then
+     PopulationBasedTraining over two trials restores checkpoints (saved
+     with sorted keys) through load_pytree(target=<the trial's init
+     state>): the first loss after a restore equals the source's at that
+     step, with no earlier copy alive. Three planted faults (a stop that
+     does not stop the trainable, tenants' weights ignored, the old
+     key-order check of the restore) must fail their gates;
   5. LLMServer serving moe-1b (8 experts, top 2) at full width and depth,
      random bf16 weights from seed 0, phase 3's engine sizes and burst
      shapes: every serving kernel runs, every launch from a graph replay;
@@ -287,7 +310,7 @@ train2b, moe_serve, moe_train, migrate (phase 3m), moe_migrate (phase 5's
 round trip), live (phase 3w's update and gate, phase 5's update and
 gate), runtime (phase 3r's tasks, hosted server and updates), deploy
 (phase 3d's handle and HTTP sections), pretrain (phase 4p's first fit and
-its served burst)), the last
+its served burst), tune (phase 4t's ASHA and PBT fits)), the last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
 
@@ -325,6 +348,12 @@ then runs phase 3d on its tensors (deploy_only); no result line.
 
 builds the kernels and runs phase 4p alone (pretrain_path: data ->
 TorchTrainer -> checkpoints -> serve.run at llama-2b); no result line.
+
+    python3 chip_smoke.py --tune
+
+builds the kernels and runs phase 4t alone (tune_path: the ingest
+service's fair share, ASHA and PBT over llama-2b trials on the card); no
+result line.
 """
 
 from __future__ import annotations
@@ -344,6 +373,7 @@ import sys
 import threading
 import time
 import urllib.request
+import weakref
 
 import torch
 
@@ -4791,11 +4821,13 @@ def pretrain_fit(cfg, ds, storage: str, name: str, label: str, **config) -> dict
             marks["poll_max_s"] = max(marks.get("poll_max_s", 0.0), time.monotonic() - t)
             marks["last_poll_end"] = time.monotonic()
 
+    logger = train.MLflowLoggerCallback(experiment_name="phase4p", name=name,
+                                        dir=os.path.join(storage, "mlflow"))
     trainer = train.TorchTrainer(
         pretrain_loop(cfg, marks), train_loop_config=config,
         scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
         run_config=train.RunConfig(
-            name=name, storage_path=storage,
+            name=name, storage_path=storage, callbacks=[logger],
             checkpoint_config=train.CheckpointConfig(num_to_keep=2),
             failure_config=train.FailureConfig(max_failures=1)),
         datasets={"train": ds})
@@ -4820,6 +4852,13 @@ def pretrain_fit(cfg, ds, storage: str, name: str, label: str, **config) -> dict
     while (gang_threads() - threads0) and time.monotonic() < deadline:
         time.sleep(0.05)
     left = sorted(t.name for t in gang_threads() - threads0)
+    with open(os.path.join(logger.dir, name, "history.jsonl")) as f:
+        logged = [json.loads(line)["loss"] for line in f]
+    reported = [m["loss"] for m in result.metrics_history]
+    log(f"{label}: the MLflowLoggerCallback's history.jsonl holds {len(logged)} losses, "
+        f"equal to the {len(reported)} fit() reported: {logged == reported}")
+    if logged != reported:
+        fail(f"{label}: the logger's losses {logged} are not fit()'s {reported}")
     log(f"{label}: fit() {wall:.2f}s over {marks.get('attempts')} attempt(s), error "
         f"{result.error!r}; card memory {mem0 / 2**30:.3f} GiB before, {mem1 / 2**30:.3f} after "
         f"({mem1_gc / 2**30:.3f} after a garbage collection); gang threads left "
@@ -5154,6 +5193,689 @@ def pretrain_path(card: str) -> dict:
     log(f"phase 4p: card memory after the runtime's shutdown {torch.cuda.memory_allocated() / 2**30:.3f} "
         f"GiB; the phase took {time.monotonic() - t_phase:.1f}s ({card})")
     return {"launches": {name: launches_c[name] + launches_e[name] for name in launches_c}}
+
+
+# ------------------------------------------------------------- phase 4t
+
+# a Tuner of llama-2b trials under phase 4f's recipe, GPU actors sharing the
+# card, each reading its batches as a tenant of one ingest service
+TUNE_LRS = (0.0, 1e-4, 3e-4, 1e-3)
+TUNE_HEAVY_LR = 1e-3  # its tenant weighs 3, the others 1
+TUNE_MAX_T = 12
+TUNE_SHARE = 0.25  # resources_per_trial {"GPU": 0.25}: four trials on the card
+# fit() may leave this much more card memory allocated than it found
+TUNE_MEMORY_TOL = 0.1 * 2**30
+# what a stop may take beyond the step the trainable is inside when the
+# controller decides: the stop's round trip to the runner's second lane, the
+# report that raises, the unwinding and the kill's join of the lanes
+STOP_SLACK_S = 0.25
+# the weight-3 tenant's dispatches over a weight-1 tenant's while all four
+# have blocks waiting: deficit round-robin gives 3
+FAIR_SHARE_MIN = 2.0
+PBT_LRS = (0.0, 1e-3)
+PBT_MUTATIONS = [3e-4, 1e-3]
+PBT_INTERVAL = 4
+# PBT trials take 11 steps: PBT consults a trial at every multiple of the
+# interval, its last report included, and a bottom trial exploited at its
+# last step restarts from a checkpoint before it, runs to that step again
+# and is exploited again, without end (the reference's controller and
+# scheduler do the same; its tests checkpoint every step)
+PBT_STEPS = 11
+TUNE_THREADS = ("actor-", "ingest-", "data-host-prefetch")
+
+
+def tune_rows(cfg) -> "np.ndarray":
+    """Phase 4t's token rows, [4 x TUNE_MAX_T, 2049] int32: phase 4f's batch
+    (synthetic_batch seed 0) once a step, so that every trial's step 0 is
+    4f's and a trial with a learning rate learns what 4f learns (its loss
+    falls over the steps) while the lr-0 trial's stays at step 0's. Fresh
+    rows would teach a trial nothing in 12 steps: on uniform tokens every
+    lr stays at ln V, and a Zipf law's rows after 4f's batch made every
+    lr > 0 jump to 13-20 nats at step 2 on the H100 (PERF.md, phase 4t)."""
+    import numpy as np
+
+    from ray_tpu_torch import train
+
+    (B, T) = PRETRAIN_BATCH
+    first = train.synthetic_batch(cfg, B, T, seed=0, device="cpu")
+    head = torch.cat([first["tokens"], first["targets"][:, -1:]], dim=1).numpy()
+    return np.tile(head, (TUNE_MAX_T, 1)).astype(np.int32)
+
+
+def thread_launches(cfg, steps: int) -> dict:
+    """The launches of `steps` training steps that the calling thread makes
+    itself: the forward's K1 (2 x layers + 1) and K2 with lse (layers). The
+    backward, remat's recompute of the forward included, runs on autograd's
+    device thread, which the trials share: those launches are held in the
+    fit's totals (train_launches of every trial's steps together)."""
+    L = cfg.n_layers
+    return {"rms_norm": (2 * L + 1) * steps, "flash_attention": L * steps,
+            "flash_attention_lse": L * steps, "rms_norm_bwd": 0,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+
+
+def state_tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in state_tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in state_tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def sorted_tree(tree):
+    """Every dict of the tree with its keys sorted, as jax.tree maps and
+    jax.device_get hand a dict back (the reference's flagship saves so)."""
+    if isinstance(tree, dict):
+        return {k: sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def tune_threads() -> set:
+    return {t for t in threading.enumerate() if t.name.startswith(TUNE_THREADS) and t.is_alive()}
+
+
+def logging_next(dispatched: list):
+    """FairShareScheduler.next that also notes each dispatch in
+    `dispatched`: (tenant, the tenants' waiting blocks just before it)."""
+    from ray_tpu_torch.data import tenant
+
+    nxt = tenant.FairShareScheduler.next
+
+    def logged(sched):
+        waiting = {n: len(st.pending) for n, st in list(sched._tenants.items())}
+        out = nxt(sched)
+        if out is not None:
+            dispatched.append((out[0], waiting))
+        return out
+
+    return logged
+
+
+def fair_share(dispatched: list, weights: dict) -> tuple:
+    """Over the dispatches made while every tenant had blocks waiting: the
+    weight-3 tenant's count over the mean weight-1 tenant's, and how many
+    dispatches that window held."""
+    window = [t for t, waiting in dispatched
+              if set(waiting) >= set(weights) and all(waiting[n] > 0 for n in weights)]
+    heavy = [n for n, w in weights.items() if w > 1]
+    light = [n for n, w in weights.items() if w == 1]
+    light_mean = sum(window.count(n) for n in light) / max(len(light), 1)
+    return sum(window.count(n) for n in heavy) / max(light_mean, 1e-9), len(window)
+
+
+def tenant_drain(rows, label: str) -> tuple:
+    """Four tenants (one at weight 3) register phase 4t's rows with one
+    ingest service, start their epochs together and drain them to the card
+    through iter_device_batches, on four threads: -> (fair_share ratio,
+    the contended window's dispatches, shares)."""
+    from ray_tpu_torch import data
+    from ray_tpu_torch.data import tenant
+
+    weights = {f"drain-{i}": (3.0 if i == 0 else 1.0) for i in range(4)}
+    svc = data.IngestService(pool_min=1, pool_max=1, autoscale=False,
+                             quantum_bytes=2 * rows[0].nbytes)
+    dispatched: list = []
+    barrier = threading.Barrier(len(weights))
+    got: dict = {}
+
+    def drain(name, weight):
+        it = svc.register(data.from_numpy({"tokens": rows}, parallelism=len(rows)),
+                          tenant=name, weight=weight)
+        barrier.wait(timeout=60)
+        n = 0
+        for b in it.iter_device_batches(batch_size=PRETRAIN_BATCH[0], device="cuda",
+                                        transform=split_tokens):
+            n += b["tokens"].shape[0]
+        torch.cuda.current_stream().synchronize()
+        got[name] = n
+        it.deregister()
+
+    try:
+        with swapped(tenant.FairShareScheduler, next=logging_next(dispatched)):
+            threads = [threading.Thread(target=drain, args=kv, name=f"tenant-{kv[0]}")
+                       for kv in weights.items()]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+        shares = svc.shares()
+    finally:
+        svc.shutdown()
+    ratio, window = fair_share(dispatched, weights)
+    log_line = ", ".join(f"{n} (weight {weights[n]:g}) share {s['share']:.3f} blocks "
+                         f"{int(s['served_blocks'])}" for n, s in sorted(shares.items()))
+    log(f"{label}: four tenants drained {sorted(got.values())} rows each; while all four "
+        f"waited, {window} dispatches, the weight-3 tenant's over a weight-1 tenant's "
+        f"{ratio:.2f} (gate >= {FAIR_SHARE_MIN}); {log_line}")
+    return ratio, window, got == {n: len(rows) for n in weights}
+
+
+class StopTimes:
+    """TuneController._stop_trial, timed: for each stop, when the controller
+    decided and when the stop returned; a watcher thread notes when the
+    trial's lane threads had ended and its state's tensors (weak references
+    the trainable left in `held`) were freed, without holding the
+    controller up."""
+
+    def __init__(self, held: dict):
+        from ray_tpu_torch.tune import tune_controller
+
+        self.held = held
+        self.stops: dict = {}
+        self.watchers: list = []
+        self._stop = tune_controller.TuneController._stop_trial
+        self.cls = tune_controller.TuneController
+
+    def __call__(self, ctl, trial, **kw):
+        decided = time.monotonic()
+        actor = ctl._actors.get(trial.trial_id)
+        prefix = f"actor-{actor._actor_id.hex()[:8]}" if actor is not None else None
+        lanes = [t for t in threading.enumerate() if prefix and t.name.startswith(prefix)]
+        refs = list(self.held.get(trial.trial_id, []))
+        rec = dict(early=kw.get("early"))
+        rec["decided"] = decided
+        self.stops.setdefault(trial.trial_id, []).append(rec)
+
+        def watch():
+            deadline = decided + 60.0
+            while time.monotonic() < deadline and (any(t.is_alive() for t in lanes)
+                                                   or any(r() is not None for r in refs)):
+                time.sleep(0.002)
+            rec.update(freed=time.monotonic() - decided,
+                       lanes_alive=any(t.is_alive() for t in lanes),
+                       state_alive=any(r() is not None for r in refs))
+
+        watcher = threading.Thread(target=watch, daemon=True, name="stop-watch")
+        watcher.start()
+        self.watchers.append(watcher)
+        self._stop(ctl, trial, **kw)
+        rec["returned"] = time.monotonic() - decided
+
+    def join(self) -> None:
+        for w in self.watchers:
+            w.join(timeout=90)
+
+    def installed(self):
+        return swapped(self.cls, _stop_trial=lambda ctl, trial, **kw: self(ctl, trial, **kw))
+
+
+def tune_trainable(cfg, rows, marks: dict):
+    """A trial as a user writes it: phase 4f's recipe at config["lr"], its
+    batches from an IngestIterator of the shared service (its tenant named
+    after the trial), a report after every step. `marks` (shared with the
+    caller: trials run in this process) gets each trial's losses, step
+    times, launches and weak references to its state."""
+    def trainable(config):
+        from ray_tpu_torch import data, train, tune
+        from ray_tpu_torch.ops import dispatch
+
+        trial = tune.get_context().experiment_name
+        rec = marks["trials"].setdefault(trial, {"lr": config["lr"], "losses": [],
+                                                 "step_s": [], "starts": [], "ends": []})
+        it = data.IngestClient().register(
+            data.from_numpy({"tokens": rows}, parallelism=len(rows)), tenant=trial,
+            weight=3.0 if config["lr"] == TUNE_HEAVY_LR else 1.0)
+        try:
+            opt = train.make_optimizer(learning_rate=config["lr"], warmup_steps=2,
+                                       total_steps=100, factored=True)
+            state = train.init_train_state(cfg, opt, seed=0)
+            bf16_params(state)
+            marks["held"][trial] = [weakref.ref(t) for t in state_tensors(state)]
+            step = train.make_train_step(cfg, opt)
+            batches = iter(it.iter_device_batches(batch_size=PRETRAIN_BATCH[0], device="cuda",
+                                                  transform=split_tokens))
+            with dispatch.tallying_launches() as launches:
+                rec["launches"] = launches
+                for i in range(config["steps"]):
+                    batch = next(batches)
+                    rec["starts"].append(time.monotonic())
+                    t0 = time.perf_counter()
+                    state, m = step(state, batch)
+                    rec["losses"].append(float(m["loss"]))
+                    rec["step_s"].append(time.perf_counter() - t0)
+                    rec["ends"].append(time.monotonic())
+                    tune.report({"loss": rec["losses"][-1], "training_iteration": i + 1})
+        finally:
+            it.deregister()
+
+    return trainable
+
+
+def pbt_trainable(cfg, rows, storage: str, marks: dict):
+    """A PBT trial: phase 4f's recipe at config["lr"]; after every
+    PBT_INTERVAL steps (before the last) it saves {params, opt_state, step}
+    with save_pytree, its keys sorted, and reports the checkpoint; a trial
+    handed a checkpoint restores it with load_pytree(target=<its own init
+    state>) and skips the batches before it. Each incarnation's record
+    (losses by step, what it restored, its copies alive at its start) goes
+    to marks["pbt"][trial]."""
+    def trainable(config):
+        from ray_tpu_torch import data, train, tune
+
+        trial = tune.get_context().experiment_name
+        lives = marks["pbt"].setdefault(trial, [])
+        rec = {"lr": config["lr"], "losses": {}, "held": [],
+               "copies_alive": sum(any(r() is not None for r in life["held"])
+                                   for life in lives)}
+        lives.append(rec)
+        it = data.IngestClient().register(
+            data.from_numpy({"tokens": rows}, parallelism=len(rows)),
+            tenant=f"{trial}-{len(lives)}", weight=1.0)
+        try:
+            opt = train.make_optimizer(learning_rate=config["lr"], warmup_steps=2,
+                                       total_steps=100, factored=True)
+            state = train.init_train_state(cfg, opt, seed=0)
+            bf16_params(state)
+            start, ckpt = 0, tune.get_checkpoint()
+            if ckpt is not None:
+                t0 = time.perf_counter()
+                state = train.load_pytree(os.path.join(ckpt.path, "state"), target=state)
+                rec["restore_s"] = time.perf_counter() - t0
+                rec["restored"] = ckpt.get_metadata()
+                start = rec["restored"]["iteration"]
+            rec["held"] = [weakref.ref(t) for t in state_tensors(state)]
+            marks["held"][trial] = rec["held"]
+            step = train.make_train_step(cfg, opt)
+            batches = iter(it.iter_device_batches(batch_size=PRETRAIN_BATCH[0], device="cuda",
+                                                  transform=split_tokens))
+            for i in range(config["steps"]):
+                batch = next(batches)
+                if i < start:
+                    continue  # consumed by the trial this one restored
+                state, m = step(state, batch)
+                rec["losses"][i] = float(m["loss"])
+                out = None
+                if (i + 1) % PBT_INTERVAL == 0 and i + 1 < config["steps"]:
+                    path = os.path.join(storage, f"{trial}-{len(lives)}-it{i + 1}")
+                    t0 = time.perf_counter()
+                    train.save_pytree(sorted_tree(state), os.path.join(path, "state"))
+                    rec.setdefault("save_s", []).append(time.perf_counter() - t0)
+                    out = train.Checkpoint(path)
+                    out.set_metadata({"trial": trial, "life": len(lives) - 1,
+                                      "iteration": i + 1})
+                tune.report({"loss": rec["losses"][i], "training_iteration": i + 1},
+                            checkpoint=out)
+        finally:
+            it.deregister()
+
+    return trainable
+
+
+def _check_target_in_order(tree, target, where: str = "tree") -> None:
+    """Planted fault restore_ignores_target_order: load_pytree's target check
+    as it was, which refuses a dict whose keys come in another order."""
+    if isinstance(target, dict):
+        if not isinstance(tree, dict) or list(tree) != list(target):
+            raise ValueError(f"load_pytree: {where}'s keys are not the target's, in order")
+        for k in target:
+            _check_target_in_order(tree[k], target[k], f"{where}[{k!r}]")
+    elif isinstance(target, (list, tuple)):
+        for i, (a, b) in enumerate(zip(tree, target)):
+            _check_target_in_order(a, b, f"{where}[{i}]")
+
+
+def restore_gate(path: str, target, sums: dict) -> bool:
+    """A PBT restore's gate on one checkpoint: load_pytree(path,
+    target=target) holds the checkpoint's parameters (checksums) in the
+    target's key order and dtypes."""
+    from ray_tpu_torch import train
+
+    try:
+        back = train.load_pytree(path, target=target)
+    except ValueError as e:
+        log(f"  the restore raised: {e}")
+        return False
+    ok = (list(back["params"]) == list(target["params"])
+          and all(a.dtype == b.dtype for a, b in zip(state_tensors(back), state_tensors(target)))
+          and leaf_checksums(back["params"]) == sums)
+    del back
+    return ok
+
+
+def tune_path(card: str, solo: dict | None = None) -> dict:
+    """Phase 4t: tune/ and the shared ingest service at llama-2b, full width
+    and depth, through the port's entry points on the card.
+    (a) Four tenants (one at weight 3) drain phase 4t's rows from one
+        IngestService to the card (tenant_drain): while all four wait, the
+        weight-3 tenant gets >= FAIR_SHARE_MIN times a weight-1 tenant's
+        dispatches.
+    (b) Tuner(trainable, param_space={"lr": grid_search(TUNE_LRS)},
+        TuneConfig(max_concurrent_trials=4, resources_per_trial={"GPU":
+        0.25}, scheduler=AsyncHyperBandScheduler(max_t=12, grace_period=2,
+        reduction_factor=2))): four llama-2b trials under phase 4f's recipe
+        share the card, each a tenant of one ingest service. Gates: every
+        trial's step 0 bit-equal to the others', to train.lm's on the same
+        batch and to phase 4f's; a trial stopped early and the lr-0 trial
+        not the best; a trial that ran to max_t within LOSS_GAP_TOL of
+        train.lm run directly on the same batches at its lr; each trial's
+        thread's launches thread_launches(its steps) and the fit's
+        train_launches(every trial's steps); each early stop freed the
+        trial's lanes and state within its longest step plus STOP_SLACK_S
+        of the decision, with at most one step begun after it; card
+        memory after fit() within TUNE_MEMORY_TOL of
+        before, no trial or ingest thread left.
+    (c) PopulationBasedTraining over two trials (lr 0 and 1e-3): a restored
+        trial's first loss equals its source's loss at that step within
+        LOSS_GAP_TOL, and no earlier copy of it is alive when it starts.
+    (d) Planted faults: trial_kept_running_after_stop (the runner's stop a
+        no-op, as the reference's kill), tenant_weight_ignored (every
+        tenant weighs 1) and restore_ignores_target_order (the old target
+        check) must each fail their gate.
+    `solo`: phase 4f's figures, when it ran. Returns {"launches": (b)'s and
+    (c)'s fits}."""
+    import tempfile
+
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data, train, tune
+    from ray_tpu_torch.data import tenant
+    from ray_tpu_torch.models import get_config
+    from ray_tpu_torch.ops import dispatch
+    from ray_tpu_torch.tune import schedulers, tune_controller
+
+    t_phase = time.monotonic()
+    cfg = get_config("llama-2b")
+    (B, T) = PRETRAIN_BATCH
+    rows = tune_rows(cfg)
+    rt.shutdown()
+    rt.init()  # thread mode, this host's CPUs and its card
+    storage = tempfile.mkdtemp(prefix="phase4t-")
+    try:
+        log(f"phase 4t: llama-2b, train2b recipe, trials of up to {TUNE_MAX_T} steps of "
+            f"{B} x {T}; rows int32 {list(rows.shape)}, one a block; {card}")
+
+        # (a) the shared ingest service's fair share, and its planted fault
+        ratio, window, whole = tenant_drain(rows, "phase 4t (a)")
+        if not whole or window < 8 or ratio < FAIR_SHARE_MIN:
+            fail(f"phase 4t (a): the weight-3 tenant got {ratio:.2f}x a weight-1 tenant's "
+                 f"blocks over {window} contended dispatches (rows whole: {whole})")
+        with swapped(tenant.TenantSpec, resolved_weight=lambda spec: 1.0):
+            planted_ratio, planted_window, _ = tenant_drain(
+                rows, "phase 4t planted tenant_weight_ignored")
+        caught_weight = planted_window < 8 or planted_ratio < FAIR_SHARE_MIN
+
+        # step 0 as phase 4f takes it: a fresh state, its synthetic batch
+        opt = train.make_optimizer(learning_rate=0.0, warmup_steps=2, total_steps=100,
+                                   factored=True)
+        state = train.init_train_state(cfg, opt, seed=0)
+        bf16_params(state)
+        f4_loss0 = float(train.make_train_step(cfg, opt)(
+            state, train.synthetic_batch(cfg, B, T, seed=0))[1]["loss"])
+        del state
+        release()
+
+        # (b) ASHA over four trials sharing the card
+        marks: dict = {"trials": {}, "held": {}}
+        clock = StopTimes(marks["held"])
+        svc = data.get_ingest_service(pool_min=1, pool_max=2, autoscale=False,
+                                      quantum_bytes=2 * rows[0].nbytes)
+        threads0 = tune_threads()
+        torch.cuda.synchronize()
+        # cuBLAS keeps a workspace per handle, and each trial's thread takes
+        # a handle: cleared before both readings, so that they count tensors
+        torch._C._cuda_clearCublasWorkspaces()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ingest_log: list = []
+        dispatch.reset_launches()
+        t0 = time.monotonic()
+        with clock.installed(), swapped(tenant.FairShareScheduler,
+                                        next=logging_next(ingest_log)):
+            grid = tune.Tuner(
+                tune_trainable(cfg, rows, marks),
+                param_space={"lr": tune.grid_search(list(TUNE_LRS)), "steps": TUNE_MAX_T},
+                tune_config=tune.TuneConfig(
+                    metric="loss", mode="min", max_concurrent_trials=4,
+                    resources_per_trial={"CPU": 1.0, "GPU": TUNE_SHARE},
+                    scheduler=tune.AsyncHyperBandScheduler(
+                        metric="loss", mode="min", max_t=TUNE_MAX_T, grace_period=2,
+                        reduction_factor=2))).fit()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches_b = dispatch.launch_counts()
+        clock.join()
+        peak = torch.cuda.max_memory_allocated()
+        shares = svc.shares()
+        stall = {}
+        for _, tags, v in data.executor._m_stall.samples():
+            tags = dict(tags)
+            if tags.get("stage") == "ingest":
+                stall[tags.get("tenant")] = v
+        from ray_tpu_torch.core.metrics import registry
+
+        hits = registry.get("ingest_cache_hits_total")
+        data.shutdown_ingest_service()
+        release()
+        torch._C._cuda_clearCublasWorkspaces()
+        mem1 = torch.cuda.memory_allocated()
+        deadline = time.monotonic() + 5
+        while (tune_threads() - threads0) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        left = sorted(t.name for t in tune_threads() - threads0)
+        trials = {t.trial_id: t for t in grid.trials}
+        recs = marks["trials"]
+        for tid, t in sorted(trials.items(), key=lambda kv: kv[1].config["lr"]):
+            r = recs.get(tid, {})
+            log(f"phase 4t (b) trial lr {t.config['lr']:g}: {t.status.value}"
+                f"{' (stopped early)' if t.stopped_early else ''}, steps {len(r.get('losses', []))}"
+                f" (reported {len(t.results)}), losses "
+                f"{[round(x, 5) for x in r.get('losses', [])]}, step time while sharing the card "
+                f"p50 {statistics.median(r.get('step_s') or [math.nan]):.4f}s max "
+                f"{max(r.get('step_s') or [math.nan]):.4f}s; launches {r.get('launches')}; "
+                f"ingest share {shares.get(tid, {}).get('share', math.nan):.3f}, blocks "
+                f"{int(shares.get(tid, {}).get('served_blocks', 0))}, stall "
+                f"{stall.get(tid, 0.0):.4f}s, cache hits "
+                f"{hits.get({'tenant': tid}) if hits is not None else 0:.0f}")
+            for s in clock.stops.get(tid, []):
+                log(f"  stop (early {s['early']}): returned {s['returned']:.3f}s, lanes ended "
+                    f"and state freed {s['freed']:.3f}s after the decision (lanes alive "
+                    f"{s['lanes_alive']}, state alive {s['state_alive']}); steps begun after "
+                    f"it {sum(t0 > s['decided'] for t0 in r.get('starts', []))}")
+        errors = [t.error for t in grid.trials if t.error]
+        if errors:
+            fail(f"phase 4t (b): trials failed: {errors}")
+        losses0 = [r["losses"][0] for r in recs.values() if r["losses"]]
+        best = grid.get_best_result()
+        stopped = [t for t in grid.trials if t.stopped_early]
+        full = [t for t in grid.trials if len(recs[t.trial_id]["losses"]) == TUNE_MAX_T]
+        ends = [e for r in recs.values() for e in r["ends"]]
+        steps_all = sum(len(r["losses"]) for r in recs.values())
+        span = max(ends) - min(e - s for r in recs.values() for e, s in zip(r["ends"], r["step_s"]))
+
+        # the yardstick: train.lm directly on the same batches at a full trial's lr
+        lr_full = max(t.config["lr"] for t in full) if full else TUNE_LRS[-1]
+        opt = train.make_optimizer(learning_rate=lr_full, warmup_steps=2, total_steps=100,
+                                   factored=True)
+        state = train.init_train_state(cfg, opt, seed=0)
+        bf16_params(state)
+        step = train.make_train_step(cfg, opt)
+        direct, direct_s = [], []
+        for i in range(TUNE_MAX_T):
+            batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+                     for k, v in split_tokens({"tokens": rows[B * i:B * (i + 1)]}).items()}
+            t1 = time.perf_counter()
+            state, m = step(state, batch)
+            direct.append(float(m["loss"]))
+            direct_s.append(time.perf_counter() - t1)
+        del state, step, m, batch
+        release()
+        solo_s = statistics.median(direct_s[1:])
+        f4_s = f" and phase 4f alone {solo['step_s']:.4f}s" if solo else ""
+        shared_s = [statistics.median(r["step_s"][1:] or r["step_s"]) for r in recs.values()]
+        log(f"phase 4t (b) ({card}): fit() {wall:.2f}s, {len(trials)} trials, {steps_all} "
+            f"steps; step time while sharing the card p50 by trial "
+            f"{[round(x, 4) for x in shared_s]}s against train.lm alone {solo_s:.4f}s{f4_s}; "
+            f"the card's summed {steps_all * B * T / span:.1f} tokens/s over the "
+            f"{span:.2f}s its trials stepped (alone {B * T / solo_s:.1f}); peak memory "
+            f"{peak / 2**30:.2f} GiB; card memory {mem0 / 2**30:.3f} GiB before fit(), "
+            f"{mem1 / 2**30:.3f} after; threads left {left or 'none'}; step 0 "
+            f"{sorted(set(losses0))} against train.lm's {direct[0]!r} and phase 4f's "
+            f"{f4_loss0!r}; the trial of lr {lr_full:g} against train.lm directly "
+            f"{[round(x, 5) for x in direct]}; launches of the fit {launches_b}")
+        if len(set(losses0)) != 1 or losses0[0] != direct[0] or losses0[0] != f4_loss0:
+            fail(f"phase 4t (b): step 0's losses {losses0} are not all train.lm's "
+                 f"{direct[0]!r} and phase 4f's {f4_loss0!r}")
+        if not stopped:
+            fail("phase 4t (b): ASHA stopped no trial")
+        if best.config["lr"] == 0.0:
+            fail("phase 4t (b): the lr-0 trial is the best result")
+        if not full:
+            fail("phase 4t (b): no trial ran to max_t")
+        (full_id,) = [t.trial_id for t in full if t.config["lr"] == lr_full]
+        gap = max(abs(a - b) for a, b in zip(recs[full_id]["losses"], direct))
+        if gap > LOSS_GAP_TOL:
+            fail(f"phase 4t (b): the full trial's losses differ from train.lm's by {gap:.3e}")
+        for tid, r in recs.items():
+            want = thread_launches(cfg, len(r["losses"]))
+            got = {name: r["launches"].get(name, 0) for name in want}
+            if got != want:
+                fail(f"phase 4t (b): trial {tid}'s thread launched {got}, expected {want}")
+        want = train_launches(cfg, steps_all)
+        if {name: launches_b[name] for name in want} != want:
+            fail(f"phase 4t (b): the fit launched {launches_b}, expected {want} "
+                 f"({steps_all} steps)")
+        for name in ("rms_norm", "rms_norm_bwd", "flash_attention", "flash_attention_lse",
+                     "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            if launches_b[name] <= 0:
+                fail(f"phase 4t (b) never launched kernel {name}")
+        for t in stopped:
+            s = clock.stops[t.trial_id][0]
+            limit = max(recs[t.trial_id]["step_s"]) + STOP_SLACK_S
+            later = sum(t0 > s["decided"] for t0 in recs[t.trial_id]["starts"])
+            if s["lanes_alive"] or s["state_alive"] or s["freed"] > limit or later > 1:
+                fail(f"phase 4t (b): trial {t.trial_id} began {later} steps after the stop "
+                     f"decision and was freed {s['freed']:.3f}s after it (limit "
+                     f"{limit:.3f}s; lanes alive {s['lanes_alive']}, state alive "
+                     f"{s['state_alive']})")
+        if abs(mem1 - mem0) > TUNE_MEMORY_TOL:
+            fail(f"phase 4t (b): card memory {mem0 / 2**30:.3f} GiB before fit(), "
+                 f"{mem1 / 2**30:.3f} after")
+        if left:
+            fail(f"phase 4t (b): threads outlived fit(): {left}")
+        asha_ratio, asha_window = fair_share(ingest_log, {
+            tid: (3.0 if t.config["lr"] == TUNE_HEAVY_LR else 1.0) for tid, t in trials.items()})
+        log(f"phase 4t (b): the trials' ingest dispatches while all four waited {asha_window}, "
+            f"the weight-3 tenant's over a weight-1 tenant's {asha_ratio:.2f}")
+
+        # (c) PBT over two trials, restores through load_pytree(target=)
+        marks = {"pbt": {}, "held": {}}
+        clock = StopTimes(marks["held"])
+        data.get_ingest_service(pool_min=1, pool_max=2, autoscale=False)
+        dispatch.reset_launches()
+        t0 = time.monotonic()
+        with clock.installed():
+            pbt = tune.Tuner(
+                pbt_trainable(cfg, rows, storage, marks),
+                param_space={"lr": tune.grid_search(list(PBT_LRS)), "steps": PBT_STEPS},
+                tune_config=tune.TuneConfig(
+                    metric="loss", mode="min", max_concurrent_trials=2,
+                    resources_per_trial={"CPU": 1.0, "GPU": TUNE_SHARE},
+                    scheduler=tune.PopulationBasedTraining(
+                        metric="loss", mode="min", perturbation_interval=PBT_INTERVAL,
+                        hyperparam_mutations={"lr": PBT_MUTATIONS}, seed=0))).fit()
+        torch.cuda.synchronize()
+        launches_c = dispatch.launch_counts()
+        clock.join()
+        data.shutdown_ingest_service()
+        release()
+        wall_c = time.monotonic() - t0
+        restores = []
+        for tid, lives in marks["pbt"].items():
+            for n, life in enumerate(lives):
+                log(f"phase 4t (c) trial {tid} life {n}: lr {life['lr']:g}, steps "
+                    f"{sorted(life['losses'])}, losses "
+                    f"{[round(life['losses'][i], 5) for i in sorted(life['losses'])]}; copies "
+                    f"alive at its start {life['copies_alive']}; saves "
+                    f"{[round(x, 3) for x in life.get('save_s', [])]}s"
+                    + (f"; restored {life['restored']} in {life['restore_s']:.3f}s"
+                       if "restored" in life else ""))
+                if "restored" in life:
+                    # the source's loss at that step: the life that wrote the
+                    # checkpoint, if it took the step before it was stopped
+                    i, src = life["restored"]["iteration"], life["restored"]
+                    want = marks["pbt"][src["trial"]][src["life"]]["losses"].get(i)
+                    restores.append((tid, i, life["losses"].get(i, math.nan), want,
+                                     life["copies_alive"]))
+        for tid, stops in clock.stops.items():
+            for s in stops:
+                log(f"  stop of {tid} (early {s['early']}): freed {s['freed']:.3f}s after the "
+                    f"decision")
+        log(f"phase 4t (c) ({card}): fit() {wall_c:.2f}s; restores (trial, step, its first "
+            f"loss, the source's loss at that step, copies alive) {restores}")
+        if pbt.errors or not [r for r in restores if r[3] is not None]:
+            fail(f"phase 4t (c): no restore whose source took the step after it "
+                 f"({[t.error for t in pbt.errors]})")
+        for tid, i, got, want, alive in restores:
+            if (want is not None and not abs(got - want) <= LOSS_GAP_TOL) or alive:
+                fail(f"phase 4t (c): trial {tid}'s first loss after restoring step {i} is "
+                     f"{got!r}, its source's {want!r}; earlier copies alive {alive}")
+
+        # (d) the planted faults
+        ckpt = sorted(p for p in os.listdir(storage) if "-it" in p)[0]
+        path = os.path.join(storage, ckpt, "state")
+        sums = leaf_checksums(train.load_pytree(path)["params"])
+        opt = train.make_optimizer(learning_rate=0.0, warmup_steps=2, total_steps=100,
+                                   factored=True)
+        target = train.init_train_state(cfg, opt, seed=0)
+        bf16_params(target)
+        sound_restore = restore_gate(path, target, sums)
+        from ray_tpu_torch.train import checkpoint
+
+        with swapped(checkpoint, _check_target=_check_target_in_order):
+            caught_order = not restore_gate(path, target, sums)
+        del target
+        release()
+        if not sound_restore:
+            fail(f"phase 4t (d): load_pytree of {ckpt} with its init target fails the restore gate")
+        held: dict = {"trials": {}, "held": {}}
+
+        def one_trial(label):
+            clk = StopTimes(held["held"])
+
+            class StopAt(schedulers.FIFOScheduler):
+                def on_result(self, trial, result, all_trials):
+                    return schedulers.STOP if result["training_iteration"] == 2 else \
+                        schedulers.CONTINUE
+
+            data.get_ingest_service(pool_min=1, pool_max=1, autoscale=False)
+            with clk.installed():
+                g = tune.Tuner(tune_trainable(cfg, rows, held),
+                               param_space={"lr": 0.0, "steps": 8},
+                               tune_config=tune.TuneConfig(
+                                   resources_per_trial={"CPU": 1.0, "GPU": TUNE_SHARE},
+                                   scheduler=StopAt())).fit()
+            data.shutdown_ingest_service()
+            clk.join()
+            ((tid, (s, *_)),) = clk.stops.items()
+            r = held["trials"][tid]
+            limit = max(r["step_s"][:3]) + STOP_SLACK_S
+            log(f"{label}: stopped at iteration 2, ran {len(r['losses'])} steps, "
+                f"{sum(t0 > s['decided'] for t0 in r['starts'])} begun after the decision, "
+                f"freed {s['freed']:.3f}s after it (limit {limit:.3f}s)")
+            held["trials"].clear()
+            release()
+            later = sum(t0 > s["decided"] for t0 in r["starts"])
+            return s["freed"] > limit or later > 1 or s["lanes_alive"] or s["state_alive"] \
+                or bool(g.errors)
+
+        if one_trial("phase 4t (d) one trial stopped by a scheduler"):
+            fail("phase 4t (d): a trial stopped at iteration 2 was not freed within its step")
+        with swapped(tune_controller.TrialRunner._cls, stop=lambda runner: True):
+            caught_running = one_trial("phase 4t planted trial_kept_running_after_stop")
+        for name, hit in (("trial_kept_running_after_stop", caught_running),
+                          ("tenant_weight_ignored", caught_weight),
+                          ("restore_ignores_target_order", caught_order)):
+            log(f"phase 4t planted fault {name}: its gate fails {bool(hit)}")
+            if not hit:
+                fail(f"phase 4t: its gates pass planted fault {name}")
+    finally:
+        data.shutdown_ingest_service()
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+        release()
+    log(f"phase 4t: the phase took {time.monotonic() - t_phase:.1f}s ({card})")
+    return {"launches": {name: launches_b[name] + launches_c[name] for name in launches_b}}
 
 
 # gather against dense at the training shape, in f32 (layer 0's weights
@@ -5518,6 +6240,10 @@ def main() -> None:
     ap.add_argument("--pretrain", action="store_true",
                     help="only build the kernels, then run phase 4p (pretrain -> checkpoint "
                          "-> serve at llama-2b); prints no result line")
+    ap.add_argument("--tune", action="store_true",
+                    help="only build the kernels, then run phase 4t (a Tuner of llama-2b "
+                         "trials sharing the card, reading from one ingest service); prints "
+                         "no result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -5567,6 +6293,9 @@ def main() -> None:
     if args.pretrain:
         pretrain_path(card)
         return
+    if args.tune:
+        tune_path(card)
+        return
     gen = torch.Generator(device="cuda").manual_seed(0)
     tile_identity_checks(gen)
     figures = norm_checks(gen)
@@ -5585,6 +6314,7 @@ def main() -> None:
     trained = train_main_path(card, args.profile)
     train2b = train2b_path(card, trained, args.profile)
     pretrain = pretrain_path(card)
+    tuned = tune_path(card, train2b)
     moe_served = moe_serve_path(card, args.profile)
     moe_trained = moe_train_path(card, args.profile)
     kernels = []
@@ -5598,7 +6328,7 @@ def main() -> None:
                    "moe_migrate": moe_served["migrate"][name],
                    "live": live_launches[name] + moe_served["live"][name],
                    "runtime": runtime_launches[name], "deploy": deploy_launches[name],
-                   "pretrain": pretrain["launches"][name]}
+                   "pretrain": pretrain["launches"][name], "tune": tuned["launches"][name]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **figures[name]})

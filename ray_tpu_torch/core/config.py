@@ -272,6 +272,62 @@ declare(
 # Data plane (data/iterator.py)
 declare("device_prefetch_depth", 2, "Host->HBM double buffering depth.")
 
+# Shared ingest service (data/ingest.py, data/tenant.py)
+declare(
+    "ingest_default_weight", 1.0,
+    "Fair-share weight assigned to an ingest tenant that registers "
+    "without an explicit one. Weights are relative: a weight-3 tenant "
+    "is admitted ~3x the blocks of a weight-1 tenant under contention.",
+)
+declare(
+    "ingest_inflight_bytes", 32 * 1024 * 1024,
+    "Per-tenant in-flight byte budget for the ingest admission loop: "
+    "once this many estimated output bytes are dispatched-but-"
+    "unconsumed for one tenant, its further blocks wait regardless of "
+    "deficit, so one fast-draining tenant cannot park the whole pool's "
+    "output in the object plane.",
+)
+declare(
+    "ingest_quantum_bytes", 4 * 1024 * 1024,
+    "Deficit round-robin quantum: byte credit granted per admission "
+    "round per unit of tenant weight. Larger quanta batch a tenant's "
+    "dispatches; smaller quanta interleave tenants more finely.",
+)
+declare(
+    "ingest_cache_ttl_s", 300.0,
+    "Ephemeral block-cache TTL: a preprocessed block (PIN_INGEST) not "
+    "re-served for this long is evicted by the service janitor. "
+    "Deregistered tenants' blocks are condemned immediately and "
+    "collected on the next janitor pass.",
+)
+declare("ingest_pool_min", 1, "Ingest worker-pool floor (autoscale lower bound).")
+declare("ingest_pool_max", 4, "Ingest worker-pool ceiling (autoscale upper bound).")
+declare(
+    "ingest_eval_period_s", 0.5,
+    "How often the ingest pool controller evaluates per-tenant "
+    "data_stage_stall_seconds deltas for scale-up/scale-down decisions.",
+)
+declare(
+    "ingest_stall_scale_threshold", 0.1,
+    "Per-tenant stall-seconds accumulated within one controller eval "
+    "period that counts as scale-up pressure on the ingest pool.",
+)
+
+# the ingest pool's autoscaler (in the reference also the node autoscaler's
+# and the serve fleet's, which wait for ROADMAP A5c and A6b)
+declare(
+    "autoscale_cooldown_s", 15.0,
+    "Minimum gap between scale-up waves of the ingest worker pool. Demand "
+    "arriving inside the cooldown is absorbed by the in-flight wave instead "
+    "of launching more capacity, so one stall burst cannot flap the pool.",
+)
+declare(
+    "autoscale_step_max", 2,
+    "Cap on how many workers one evaluation pass of the ingest pool's "
+    "controller may add or retire. Bounds the blast radius of a noisy "
+    "demand signal.",
+)
+
 
 class Config:
     """Resolved configuration view. Thread-safe."""

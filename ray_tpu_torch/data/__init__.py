@@ -5,15 +5,22 @@ windows; `iter_device_batches` stages host batches in pinned memory and
 copies them to the card on a side stream ahead of the consumer, so
 training steps never stall on input.
 
-The port's copy of ray_tpu/data, on the thread-mode runtime. The shared
-ingest service (`ingest.py`: IngestClient, IngestIterator, IngestService,
-get_ingest_service, shutdown_ingest_service) and `tenant.py` (TenantSpec)
-wait for ROADMAP A8.
+The port's copy of ray_tpu/data, on the thread-mode runtime, with the
+shared ingest service (`ingest.py`: IngestClient, IngestIterator,
+IngestService, get_ingest_service, shutdown_ingest_service) and its
+fair-share tenants (`tenant.py`: TenantSpec).
 """
 
 from .aggregate import AggregateFn, Count, Max, Mean, Min, Std, Sum  # noqa: F401
 from .block import Block, BlockAccessor, BlockMetadata  # noqa: F401
 from .dataset import Dataset, GroupedData  # noqa: F401
+from .ingest import (  # noqa: F401
+    IngestClient,
+    IngestIterator,
+    IngestService,
+    get_ingest_service,
+    shutdown_ingest_service,
+)
 from .iterator import DataIterator  # noqa: F401
 from .read_api import (  # noqa: F401
     from_arrow,
@@ -29,14 +36,4 @@ from .read_api import (  # noqa: F401
     read_parquet,
     read_text,
 )
-
-_A8 = ("IngestClient", "IngestIterator", "IngestService", "get_ingest_service",
-       "shutdown_ingest_service", "TenantSpec")
-
-
-def __getattr__(name):
-    if name in _A8:
-        raise NotImplementedError(
-            f"ray_tpu_torch.data.{name}: the shared ingest service (data/ingest.py, "
-            "data/tenant.py) waits for ROADMAP A8")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+from .tenant import TenantSpec  # noqa: F401

@@ -57,6 +57,8 @@ _launch_lock = threading.Lock()
 # the launches of a graph capture in progress on this thread
 # (recording_launches); other threads' launches count as usual meanwhile
 _recording = threading.local()
+# this thread's own launches while a tally is open (tallying_launches)
+_tally = threading.local()
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point -> argtypes (the stream is the last pointer of each)
@@ -170,6 +172,20 @@ def recording_launches():
         yield counts
     finally:
         _recording.counts = None
+
+
+@contextlib.contextmanager
+def tallying_launches():
+    """Yields a dict that, while the block runs, counts the launches the
+    wrappers make on this thread, which count in `LAUNCHES` as usual. So
+    work that shares the card with other threads (trials of a tune run)
+    can read its own launches."""
+    counts: Dict[str, int] = {}
+    _tally.counts = counts
+    try:
+        yield counts
+    finally:
+        _tally.counts = None
 
 
 def _nvcc() -> str:
@@ -289,3 +305,7 @@ def launch(kernel: str, entry: str, device: torch.device, *args, also: str = "")
         LAUNCHES[kernel] += 1
         if also:
             LAUNCHES[also] += 1
+    tally = getattr(_tally, "counts", None)
+    if tally is not None:
+        for name in (kernel, also) if also else (kernel,):
+            tally[name] = tally.get(name, 0) + 1

@@ -14,8 +14,10 @@ Usage inside train_loop_per_worker:
 
 `lm` trains the decoder on one device. The gang (`TorchTrainer`, its
 configs, session, checkpoints) is the port's copy of ray_tpu/train on the
-thread-mode runtime. The pipeline trainer (`train/pipeline.py`) waits for
-ROADMAP A7b, the logger callbacks (`train/integrations.py`) for A8.
+thread-mode runtime, with the logger callbacks (`integrations.py`:
+MLflowLoggerCallback, WandbLoggerCallback, in their local-file layout when
+the client library is absent). The pipeline trainer (`train/pipeline.py`)
+waits for ROADMAP A7b.
 """
 
 from .checkpoint import (  # noqa: F401
@@ -33,6 +35,7 @@ from .config import (  # noqa: F401
     RunConfig,
     ScalingConfig,
 )
+from .integrations import MLflowLoggerCallback, WandbLoggerCallback  # noqa: F401
 from .lm import (  # noqa: F401
     init_train_state,
     make_eval_step,
@@ -51,9 +54,6 @@ from .session import (  # noqa: F401
 from .trainer import TorchTrainer, TrainingFailedError  # noqa: F401
 
 _WAITING = {
-    "MLflowLoggerCallback": "the logger callbacks (train/integrations.py) wait for ROADMAP A8",
-    "WandbLoggerCallback": "the logger callbacks (train/integrations.py) wait for ROADMAP A8",
-    "integrations": "the logger callbacks (train/integrations.py) wait for ROADMAP A8",
     "DEFAULT_STAGE_RULES": "the pipeline trainer (train/pipeline.py) waits for ROADMAP A7b",
     "LMStageModule": "the pipeline trainer (train/pipeline.py) waits for ROADMAP A7b",
     "PipelineConfig": "the pipeline trainer (train/pipeline.py) waits for ROADMAP A7b",

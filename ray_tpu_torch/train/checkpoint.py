@@ -9,9 +9,12 @@ pytrees through orbax, a JAX library; the port writes its own format
 dicts, lists and tuples) and, for each leaf, its kind, shape, dtype and
 byte count, then one raw file per leaf, written from a host copy. Leaves
 may be torch tensors (a bf16 leaf is stored as its raw 2-byte words),
-numpy arrays or scalars, Python scalars or None. `load_pytree` gives the same tree
-back bit for bit. The two formats do not read each other. Restoring onto
-another layout (`shardings=`) waits for the meshes of ROADMAP A7b.
+numpy arrays or scalars, Python scalars or None; a numpy array of an
+extension dtype that numpy holds as raw bytes (ml_dtypes' bfloat16) is
+stored as, and comes back as, a torch tensor of that dtype.
+`load_pytree` gives the same tree back bit for bit. The two formats do not
+read each other. Restoring onto another layout (`shardings=`) waits for the
+meshes of ROADMAP A7b.
 """
 
 from __future__ import annotations
@@ -195,6 +198,18 @@ def _write_tree(host_tree: Any, path: str, force: bool) -> int:
         if isinstance(x, np.ndarray):
             if x.dtype.hasobject:
                 raise TypeError("save_pytree: numpy arrays of objects are not leaves")
+            if x.dtype.kind == "V":
+                # an extension dtype numpy only knows as raw bytes (ml_dtypes'
+                # bfloat16 reads '<V2'): kept as the torch dtype of its name,
+                # so it comes back as a torch leaf of that dtype
+                dt = getattr(torch, x.dtype.name, None)
+                if (not isinstance(dt, torch.dtype) or x.dtype.fields is not None
+                        or dt.itemsize != x.dtype.itemsize):
+                    raise TypeError(f"save_pytree: numpy dtype {x.dtype.name!r} "
+                                    f"({x.dtype.str}) has no torch counterpart")
+                raw = np.ascontiguousarray(x).reshape(-1).view(np.uint8)
+                return leaf_file(raw, {"kind": "torch", "dtype": str(dt).split(".")[-1],
+                                       "shape": list(x.shape)})
             raw = x.reshape(-1).view(np.uint8)
             return leaf_file(raw, {"kind": "numpy", "dtype": x.dtype.str,
                                    "shape": list(x.shape)})
@@ -232,9 +247,13 @@ def save_pytree(tree: Any, path: str, *, force: bool = True) -> str:
 
 def _check_target(tree: Any, target: Any, where: str = "tree") -> None:
     if isinstance(target, dict):
-        if not isinstance(tree, dict) or list(tree) != list(target):
-            got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
-            raise ValueError(f"load_pytree: {where} has {got}, the target {sorted(target)}")
+        if not isinstance(tree, dict):
+            raise ValueError(f"load_pytree: {where} is a {type(tree).__name__}, the "
+                             f"target a dict of {sorted(target)}")
+        missing, extra = sorted(set(target) - set(tree)), sorted(set(tree) - set(target))
+        if missing or extra:
+            raise ValueError(f"load_pytree: {where} lacks the target's keys {missing} "
+                             f"and has keys the target lacks {extra}")
         for k in target:
             _check_target(tree[k], target[k], f"{where}[{k!r}]")
     elif isinstance(target, (list, tuple)):
@@ -252,6 +271,25 @@ def _check_target(tree: Any, target: Any, where: str = "tree") -> None:
         raise ValueError(f"load_pytree: {where} is {tree!r}, the target {target!r}")
 
 
+def _as_target(tree: Any, target: Any, dev) -> Any:
+    """`tree` (checked against `target`) with its dicts in the target's key
+    order and each leaf whose target leaf has a dtype cast to that dtype,
+    as orbax restores a template: a torch target leaf gives a torch tensor
+    on `dev`, a numpy one a numpy array."""
+    if isinstance(target, dict):
+        return {k: _as_target(tree[k], target[k], dev) for k in target}
+    if isinstance(target, (list, tuple)):
+        return type(target)(_as_target(a, b, dev) for a, b in zip(tree, target))
+    if isinstance(target, torch.Tensor):
+        leaf = tree if isinstance(tree, torch.Tensor) else torch.from_numpy(np.asarray(tree))
+        return leaf.to(dev, target.dtype)
+    if isinstance(target, (np.ndarray, np.generic)):
+        arr = (tree.cpu().numpy() if isinstance(tree, torch.Tensor) else np.asarray(tree))
+        arr = arr.astype(target.dtype, copy=False)
+        return arr if isinstance(target, np.ndarray) else arr[()]
+    return tree
+
+
 def load_pytree(
     path: str,
     target: Any = None,
@@ -263,8 +301,10 @@ def load_pytree(
     - device: where torch leaves go (the card unless the caller names
       another; raises without a card). numpy leaves and scalars come back
       as they were saved.
-    - target: a tree of the expected structure; its leaves' shapes are
-      checked (anything with `.shape`), and a mismatch raises ValueError.
+    - target: a tree of the expected structure; its dict keys (in any
+      order) and its leaves' shapes (anything with `.shape`) are checked,
+      and a mismatch raises ValueError. The result takes the target's key
+      order and each target leaf's dtype, as orbax restores a template.
     - shardings: waits for ROADMAP A7b (meshes) and raises.
     """
     if shardings is not None:
@@ -313,6 +353,7 @@ def load_pytree(
         torch.cuda.synchronize(dev)
     if target is not None:
         _check_target(tree, target)
+        tree = _as_target(tree, target, dev)
     return tree
 
 

@@ -6,7 +6,10 @@ report() works from anywhere inside the user's train_func, while the
 worker actor's poll thread drains the buffer concurrently.
 
 The port's copy of ray_tpu/train/session.py; `report` records its instant
-in the port's util/timeline.py.
+in the port's util/timeline.py. A session can be stopped (`stop()`, which
+the tune controller calls before it kills a trial): its next `report`
+raises SessionStopped, so the trainable unwinds there and frees what it
+holds. The reference has no such signal: a killed trial's thread trains on.
 """
 
 from __future__ import annotations
@@ -47,6 +50,12 @@ class TrainContext:
         return self.trial_dir
 
 
+class SessionStopped(BaseException):
+    """Raised by `report()` once the session is stopped. A BaseException, so
+    that a trainable's `except Exception` does not swallow it; the tune
+    controller's TrialRunner catches it."""
+
+
 @dataclasses.dataclass
 class _Report:
     metrics: Dict[str, Any]
@@ -66,9 +75,17 @@ class _TrainSession:
         self.datasets = datasets or {}
         self._reports: "queue.Queue[_Report]" = queue.Queue()
         self.finished = False
+        self._stopping = threading.Event()
+
+    def stop(self) -> None:
+        """The next report() raises SessionStopped instead of reporting."""
+        self._stopping.set()
 
     def report(self, metrics: Dict[str, Any], checkpoint: Optional[Checkpoint] = None):
         from ..util import timeline
+
+        if self._stopping.is_set():
+            raise SessionStopped(f"session {self.context.gang_name!r} was stopped")
 
         timeline.record(
             "train/report", "i", cat="train", pid="train",

@@ -1067,3 +1067,67 @@ def test_checkpoint_of_card_tensors_roundtrips_bit_exact(card, dtype, tmp_path):
     tree["w"].add_(1)  # the next step's in-place update, on the card
     writer.wait()
     assert same(want, train.load_pytree(str(tmp_path / "async"))["w"])
+
+
+def test_tune_trials_share_the_card_and_a_stopped_one_frees_it(card, dtype):
+    # two tiny-llama trials as GPU actors on one card ({"GPU": 0.5} each);
+    # the lr-0 trial reports after the other at every rung, so ASHA stops it
+    # at the first rung where its loss is the worse: its trainable unwinds
+    # at its next report, its lane threads end, and what it held on the
+    # card is freed. cuBLAS keeps a workspace per handle, and each trial's
+    # thread takes a handle: the workspaces are cleared before both
+    # readings, so that they count only tensors
+    import threading
+    import weakref
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train, tune
+
+    cfg = get_config("tiny-llama", d_model=256,
+                     dtype="bfloat16" if dtype == torch.bfloat16 else "float32")
+    held, lanes, reports = {}, {}, {}
+
+    def trainable(config):
+        opt = train.make_optimizer(learning_rate=config["lr"], warmup_steps=1, total_steps=20)
+        state = train.init_train_state(cfg, opt, seed=0)
+        trial = tune.get_context().experiment_name
+        held[trial] = [weakref.ref(t) for t in state["params"]["layers"].values()]
+        lanes[trial] = [t for t in threading.enumerate()
+                        if t.name.startswith("actor-") and t is threading.current_thread()]
+        step = train.make_train_step(cfg, opt)
+        batch = train.synthetic_batch(cfg, 2, 64, seed=0)
+        for i in range(8):
+            state, m = step(state, batch)
+            loss = float(m["loss"])
+            if config["lr"] == 0.0:
+                time.sleep(0.3)  # report after the other trial
+            reports[trial] = i + 1
+            tune.report({"loss": loss, "training_iteration": i + 1})
+
+    rt.shutdown()
+    rt.init(num_cpus=4, system_config=RUNTIME)
+    try:
+        gc.collect()  # what earlier tests in this process dropped
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        before = torch.cuda.memory_allocated()
+        grid = tune.Tuner(trainable, param_space={"lr": tune.grid_search([1e-2, 0.0])},
+                          tune_config=tune.TuneConfig(
+                              metric="loss", mode="min", max_concurrent_trials=2,
+                              resources_per_trial={"CPU": 1.0, "GPU": 0.5},
+                              scheduler=tune.AsyncHyperBandScheduler(
+                                  metric="loss", mode="min", max_t=8, grace_period=2,
+                                  reduction_factor=2))).fit()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        after = torch.cuda.memory_allocated()
+    finally:
+        rt.shutdown()
+    assert not grid.errors
+    (stopped,) = [t for t in grid.trials if t.stopped_early]
+    assert stopped.config["lr"] == 0.0
+    assert reports[stopped.trial_id] <= len(stopped.results) + 1 < 8
+    assert not any(t.is_alive() for t in lanes[stopped.trial_id])
+    assert all(r() is None for rs in held.values() for r in rs)
+    assert abs(after - before) <= 0.01 * 2**30

@@ -202,11 +202,17 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     # it also serves tiny-moe with speculation, so the MoE path is checked
     # too, moves a prompt's KV out of the engine and back in, swaps the
     # weights live and renders the metrics, the digests and a trace; then
-    # it starts the runtime (a task, an actor, the virtual cluster)
+    # it starts the runtime (a task, an actor, the virtual cluster, the
+    # training gang, the ingest service, a Tuner, a Pool and a logger)
     code = (
         "import json, sys\n"
         "import ray_tpu_torch, ray_tpu_torch.serve, ray_tpu_torch.models, ray_tpu_torch.train\n"
         "import ray_tpu_torch.data, ray_tpu_torch.train.trainer, ray_tpu_torch.train.checkpoint\n"
+        "import ray_tpu_torch.tune, ray_tpu_torch.util, ray_tpu_torch.train.integrations\n"
+        "import ray_tpu_torch.data.ingest\n"
+        "from ray_tpu_torch import tune, util\n"
+        "from ray_tpu_torch.data import ingest\n"
+        "from ray_tpu_torch.train import integrations\n"
         "import ray_tpu_torch.serve.spec_decode, ray_tpu_torch.serve.config\n"
         "import ray_tpu_torch.serve.programs, ray_tpu_torch.models.generate\n"
         "import ray_tpu_torch.parallel.moe\n"
@@ -272,6 +278,17 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "        assert r.error is None and [m['s'] for m in r.metrics_history] == [6, 22]\n"
         "        p = train.save_pytree({'w': tree['embed']}, d + '/ck')\n"
         "        assert train.load_pytree(p, device='cpu')['w'].equal(tree['embed'])\n"
+        "        cb = integrations.MLflowLoggerCallback(name='r', dir=d)\n"
+        "        cb([{'loss': 1.0}])\n"
+        "    svc = ingest.get_ingest_service(pool_min=1, pool_max=1, autoscale=False)\n"
+        "    it = svc.register(ds, tenant='t', weight=2.0)\n"
+        "    assert sum(len(b['x']) for b in it.iter_batches(batch_size=4)) == 8\n"
+        "    ingest.shutdown_ingest_service()\n"
+        "    g = tune.Tuner(lambda c: tune.report({'loss': c['x']}),\n"
+        "                   param_space={'x': tune.grid_search([1, 2])}).fit()\n"
+        "    assert g.get_best_result().config['x'] == 1\n"
+        "    with util.Pool(processes=2) as pool:\n"
+        "        assert pool.map(abs, [-1, -2]) == [1, 2]\n"
         "finally:\n"
         "    ray_tpu_torch.api.shutdown()\n"
         "cluster = ray_tpu_torch.cluster_utils.Cluster()\n"

@@ -301,6 +301,96 @@ def test_load_pytree_checks_the_target(tmp_path):
     assert ttrain.load_pytree(path, device="cpu", target={"a": np.zeros((2, 3)), "b": [0, 0]})
 
 
+def sorted_tree(tree):
+    """The tree with every dict's keys sorted, as jax.tree maps and
+    jax.device_get return a dict."""
+    if isinstance(tree, dict):
+        return {k: sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def as_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: as_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy() if tree.dtype == torch.bfloat16 else tree.numpy()
+    return np.asarray(tree)
+
+
+def test_load_pytree_matches_the_target_by_key_and_dtype_as_the_reference_does(tmp_path):
+    # C4: a target whose keys come in another order restores, in the
+    # target's order and dtypes, in both packages
+    a = np.arange(6, dtype=np.float32).reshape(2, 3)
+    b = np.arange(4, dtype=np.int32)
+    jpath = jtrain.save_pytree({"a": jnp.asarray(a), "b": jnp.asarray(b)},
+                               str(tmp_path / "orbax"))
+    jback = jtrain.load_pytree(jpath, target={"b": jnp.zeros(4, jnp.int32),
+                                              "a": jnp.zeros((2, 3), jnp.float16)})
+    tpath = ttrain.save_pytree({"a": torch.from_numpy(a), "b": torch.from_numpy(b)},
+                               str(tmp_path / "port"))
+    tback = ttrain.load_pytree(tpath, device="cpu", target={
+        "b": torch.zeros(4, dtype=torch.int32), "a": torch.zeros(2, 3, dtype=torch.float16)})
+    # the port keeps the target's order; jax hands a dict back sorted
+    assert list(tback) == ["b", "a"] and set(jback) == {"a", "b"}
+    for k in ("a", "b"):
+        assert np.asarray(jback[k]).dtype == tback[k].numpy().dtype
+        np.testing.assert_array_equal(np.asarray(jback[k]), tback[k].numpy())
+    with pytest.raises(ValueError, match=r"lacks the target's keys \['c'\].*lacks \['b'\]"):
+        ttrain.load_pytree(tpath, device="cpu", target={"a": torch.zeros(2, 3),
+                                                        "c": torch.zeros(4)})
+
+
+def test_the_flagship_load_of_a_sorted_tree_into_init_params(tmp_path):
+    # C4 as examples/pretrain_and_serve.py loads a checkpoint: a tiny-llama
+    # tree saved with its keys sorted, restored with target=init_params(...)
+    import jax
+
+    import ray_tpu.models as jmodels
+    import ray_tpu_torch.models as tmodels
+
+    jcfg, tcfg = jmodels.get_config("tiny-llama"), tmodels.get_config("tiny-llama")
+    jparams = jmodels.init_params(jcfg, jax.random.PRNGKey(0))
+    host = jax.tree.map(np.asarray, jparams)
+    jpath = jtrain.save_pytree(sorted_tree(jparams), str(tmp_path / "orbax"))
+    jback = jtrain.load_pytree(jpath, target=jmodels.init_params(jcfg, jax.random.PRNGKey(1)))
+    tparams = tmodels.params_from_numpy(host, device="cpu")
+    tpath = ttrain.save_pytree(sorted_tree(tparams), str(tmp_path / "port"))
+    template = tmodels.init_params(tcfg, seed=1, device="cpu")
+    assert list(template) != sorted(template)  # the order the save did not keep
+    tback = ttrain.load_pytree(tpath, device="cpu", target=template)
+    assert list(tback) == list(template)
+    got, want = as_numpy(tback), jax.tree.map(np.asarray, jback)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    # the target's dtype wins, in both packages
+    half = ttrain.load_pytree(tpath, device="cpu", target={
+        k: v.to(torch.float16) if k == "embed" else v for k, v in template.items()})
+    jhalf = jtrain.load_pytree(jpath, target={
+        k: v.astype(jnp.float16) if k == "embed" else v
+        for k, v in jmodels.init_params(jcfg, jax.random.PRNGKey(1)).items()})
+    assert half["embed"].dtype == torch.float16 and jhalf["embed"].dtype == jnp.float16
+    np.testing.assert_array_equal(half["embed"].numpy(), np.asarray(jhalf["embed"]))
+
+
+def test_a_numpy_bf16_leaf_comes_back_as_a_value(tmp_path):
+    # C5: ml_dtypes' bfloat16 reads '<V2' to numpy; the reference round-trips
+    # it through orbax, the port stores and returns it as a torch bf16 tensor
+    # (a deliberate difference: the port imports no ml_dtypes)
+    import ml_dtypes
+
+    a = np.arange(4, dtype=np.float32).astype(ml_dtypes.bfloat16)
+    jback = jtrain.load_pytree(jtrain.save_pytree({"w": a}, str(tmp_path / "orbax")))
+    tback = ttrain.load_pytree(ttrain.save_pytree({"w": a}, str(tmp_path / "port")),
+                               device="cpu")
+    assert tback["w"].dtype == torch.bfloat16 and tback["w"].shape == (4,)
+    np.testing.assert_array_equal(tback["w"].float().numpy(),
+                                  np.asarray(jback["w"]).astype(np.float32))
+    with pytest.raises(TypeError, match="no torch counterpart"):
+        ttrain.save_pytree({"v": np.zeros(2, np.dtype("V3"))}, str(tmp_path / "void"))
+
+
 def test_async_writer_snapshots_before_an_in_place_change(tmp_path):
     writer = ttrain.AsyncCheckpointWriter()
     params = {"w": torch.arange(6.0).reshape(2, 3).to(torch.bfloat16),
@@ -351,9 +441,9 @@ def test_not_ported_yet_raises_naming_the_roadmap_item(tmp_path):
 
     with pytest.raises(NotImplementedError, match="A7b"):
         TrainWorker._cls(0, 1, "g").setup_distributed(1)
-    for name in ("MLflowLoggerCallback", "WandbLoggerCallback"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            getattr(ttrain, name)
+    for name in ("MLflowLoggerCallback", "WandbLoggerCallback"):  # ported since A8
+        assert getattr(ttrain, name).__module__ == "ray_tpu_torch.train.integrations"
+        assert getattr(ttrain, name).__name__ == getattr(jtrain, name).__name__
     with pytest.raises(NotImplementedError, match="A7b"):
         getattr(ttrain, "PipelineTrainer")
     assert ttrain.ScalingConfig(use_gpu=True).worker_resources() == {"CPU": 1.0, "GPU": 1.0}
