@@ -176,6 +176,38 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      wall. Launches are counted over the handle and HTTP sections, the
      replicas' warm-up and the yardstick forwards left out: K1, K2, K5 and
      K6 must have run;
+  3g. disaggregated prefill/decode serving (disagg_path), on phase 3's
+     tensors after 3d, before phase 3's server shuts down: a prefill-role
+     and a decode-role LLMServer (build and capture time per role) behind
+     DisaggCoordinator([EngineWorker], [EngineWorker]). (a) each greedy
+     prompt of a fresh burst (23/100/200/700 tokens, 32 out), alone, on
+     the decode engine itself and then through the coordinator under the
+     stream, channel and object transports: tokens and logprobs bit for
+     bit the decode engine's (exact_gate); four requests decoding on the
+     decode engine, alone and while two 700-token prompts migrate into it
+     (TPOT, longest gap). (b) a fresh burst at once, the sampled request
+     included: phase 3's logprob gate; its TTFT/TPOT/tok/s beside phase
+     3's and 3d's. (c) (a)'s 700-token prompt, warm on the decode engine,
+     through a coordinator with prefix routing on: no prefill hop, zero
+     migration bytes, kv_migrations unchanged, exact against (a). Per
+     request: TTFT, the prefill leg's prefill_s, migration seconds and
+     bytes, TPOT. (e) each planted DISAGG_FAULTS entry on the KV sender's
+     channel (two requests' frames crossed in one flush; a request's last
+     frame lost, which must fail with KvMigrationError within
+     kv_stream_idle_s and leave the next request exact and the decode
+     pages free) must fail its gate. (d) build_openai_app(disagg=...)
+     (deploy_disagg through the serve runtime) over the same tensors
+     behind serve.http_port(): a coordinator over the role deployments and
+     greedy SSE completions one at a time give (a)'s tokens; a burst as
+     concurrent SSE streams comes back whole (TTFT/TPOT/tok/s on the
+     client's clock), and one as concurrent whole completions passes phase
+     3's logprob gate; no thread the phase started outlives
+     serve.shutdown(), and the card
+     memory left after the replicas retire stays within
+     SERVE_RETIRED_MEMORY_TOL. Launches are counted only while the
+     coordinators serve (a)-(c) and (d); the decode engine's own runs, the
+     builds, the planted runs and the yardstick forwards are left out: K1,
+     K2, K5 and K6 must have run, every launch from a graph replay;
   3s. the speculation path: the serving server is shut down and its
      parameters go to LLMServer(engine_config={"speculation": ...}), again
      llama3-8b at full width and depth, twice. (1) mode "draft", k = 4,
@@ -309,7 +341,8 @@ K1's forward and backward, K2-K7; launches by path: serve, spec, train,
 train2b, moe_serve, moe_train, migrate (phase 3m), moe_migrate (phase 5's
 round trip), live (phase 3w's update and gate, phase 5's update and
 gate), runtime (phase 3r's tasks, hosted server and updates), deploy
-(phase 3d's handle and HTTP sections), pretrain (phase 4p's first fit and
+(phase 3d's handle and HTTP sections), disagg (the coordinators' requests
+of phase 3g's (a)-(c) and (d)), pretrain (phase 4p's first fit and
 its served burst), tune (phase 4t's ASHA and PBT fits)), the last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -343,6 +376,11 @@ then runs phase 3r on its tensors (runtime_only); no result line.
 
 builds the kernels and phase 3's llama3-8b server, serves phase 3's burst,
 then runs phase 3d on its tensors (deploy_only); no result line.
+
+    python3 chip_smoke.py --disagg
+
+builds the kernels and phase 3's llama3-8b server, serves phase 3's burst,
+then runs phase 3g on its tensors (disagg_only); no result line.
 
     python3 chip_smoke.py --pretrain
 
@@ -1752,7 +1790,8 @@ def serve_main_path(card: str, profile: bool) -> dict:
     migrate = migrate_path(server, card)  # phase 3m, on this server
     live = live_path(server, card)  # phase 3w, on this server
     runtime = runtime_path(server, card, requests, results, plain)  # phase 3r, its tensors
-    deploy = deploy_path(server, card, plain)  # phase 3d, its tensors
+    deploy, deploy_figures = deploy_path(server, card, plain)  # phase 3d, its tensors
+    disagg = disagg_path(server, card, plain, deploy_figures)  # phase 3g, its tensors
     params = server.engine.params
     server.shutdown()
     del server
@@ -1791,8 +1830,8 @@ def serve_main_path(card: str, profile: bool) -> dict:
         if not hit:
             fail(f"the logprob gate {LOGPROB_TOL} passes planted fault {name}")
     return {"launches": launches, "migrate": migrate, "live": live, "runtime": runtime,
-            "deploy": deploy, "params": params, "cfg": cfg, "requests": requests,
-            "results": results}
+            "deploy": deploy, "disagg": disagg, "params": params, "cfg": cfg,
+            "requests": requests, "results": results}
 
 
 # ------------------------------------------------------------- phase 3m
@@ -3166,7 +3205,7 @@ def deploy_path(server, card: str, plain_figures: str) -> dict:
     launch from a graph replay; each planted DEPLOY_FAULTS entry must fail
     its gate; serve.shutdown() leaves no thread the phase started. Returns
     the launch counts of the handle and HTTP sections, the yardstick
-    forwards left out."""
+    forwards left out, and the HTTP burst's figures."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import serve
     from ray_tpu_torch.ops import dispatch
@@ -3363,7 +3402,457 @@ def deploy_path(server, card: str, plain_figures: str) -> dict:
     log(f"phase 3d: through HTTP: {http_figures}; through the handle: {handle_figures}; "
         f"phase 3 direct: {plain_figures} ({card})")
     log(f"phase 3d took {time.monotonic() - t_phase:.1f}s")
-    return launches
+    return launches, http_figures
+
+
+# ------------------------------------------------------------- phase 3g
+
+# the transports phase 3g (a) runs each greedy prompt under
+DISAGG_TRANSPORTS = ("stream", "channel", "object")
+# how long a planted fault's importer may wait for a frame before it fails
+# its request (DisaggConfig.kv_stream_idle_s), and the slack on top of it
+DISAGG_FAULT_IDLE_S = 3.0
+DISAGG_FAULT_SLACK_S = 5.0
+
+
+def _crosses_requests(f):
+    """DistChannel.put_many, what _KvSender flushes: frames wait until a
+    second request's frames arrive, then the two requests' frames go out
+    in one batch with each request's first frame carrying the other's KV;
+    later batches pass."""
+    held, lock, crossed = [], threading.Lock(), []
+
+    def put_many(self, values, timeout=None):
+        with lock:
+            if crossed:
+                batch = list(values)
+            else:
+                held.extend(values)
+                rids = list(dict.fromkeys(rid for rid, _ in held))
+                if len(rids) < 2:
+                    return
+                batch = list(held)
+                held.clear()
+                crossed.append(True)
+                i = next(k for k, (rid, _) in enumerate(batch) if rid == rids[0])
+                j = next(k for k, (rid, _) in enumerate(batch) if rid == rids[1])
+                (ra, fa), (rb, fb) = batch[i], batch[j]
+                batch[i], batch[j] = (ra, fb), (rb, fa)
+        return f(self, batch, timeout)
+
+    return put_many
+
+
+def _drops_last_frame(f):
+    """DistChannel.put_many: every request's last frame is lost."""
+    def put_many(self, values, timeout=None):
+        kept = [(rid, fr) for rid, fr in values if not fr.get("last")]
+        return f(self, kept, timeout) if kept else None
+
+    return put_many
+
+
+# Planted disaggregation faults, on the KV sender's channel: name ->
+# wrapper maker of DistChannel.put_many
+DISAGG_FAULTS = {
+    # two requests coalesced in one flush trade their first frames: the
+    # exactness gate (or the import's own checks) must catch it
+    "sender_crosses_requests": _crosses_requests,
+    # a request's last frame never arrives: its import must fail with
+    # KvMigrationError within kv_stream_idle_s, and the next request run
+    "sender_drops_last_frame": _drops_last_frame,
+}
+
+
+def disagg_fault(name: str):
+    from ray_tpu_torch.core import channels
+
+    return swapped(channels.DistChannel,
+                   put_many=DISAGG_FAULTS[name](channels.DistChannel.put_many))
+
+
+def greedy(requests) -> list:
+    return [r for r in requests if not r.get("temperature")]
+
+
+def disagg_lines(label: str, requests, results, prefills: dict) -> None:
+    """Per request: TTFT, the prefill leg's time, migration seconds and
+    bytes, TPOT after the first token."""
+    for req, res in zip(requests, results):
+        pre = prefills.get(res["request_id"], {})
+        n = len(res["token_ids"])
+        tpot = (res["latency_s"] - res["ttft_s"]) / max(1, n - 1)
+        log(f"{label}, {len(req['prompt_ids'])}-token prompt: TTFT {res['ttft_s']:.4f} s, "
+            f"prefill_s {pre.get('prefill_s', float('nan')):.4f} s, migration "
+            f"{1e3 * res['migration_s']:.2f} ms / {res['migration_bytes'] / 2**20:.2f} MiB "
+            f"({res['kv_transport']}), TPOT {1e3 * tpot:.2f} ms")
+
+
+def disagg_burst(co, requests, label: str) -> tuple:
+    """All requests through the coordinator at once -> (results, wall s)."""
+    results, errors = [None] * len(requests), []
+
+    def run(i):
+        r = requests[i]
+        try:
+            results[i] = co.generate(r["prompt_ids"], max_tokens=r["max_tokens"],
+                                     temperature=r.get("temperature", 0.0),
+                                     top_p=r.get("top_p", 1.0), timeout_s=300)
+        except Exception as e:  # noqa: BLE001 — reported as this phase's failure
+            errors.append(f"request {i}: {e!r}")
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(360)
+    torch.cuda.synchronize()
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"{label}: {errors or 'a request did not finish'}")
+    return results, time.monotonic() - t0
+
+
+def disagg_path(server, card: str, plain_figures: str, deploy_figures=None) -> dict:
+    """Phase 3g: disaggregated prefill/decode serving on the card, over
+    phase 3's tensors. A prefill-role and a decode-role LLMServer (each
+    captures every program, decode spans on the prefill replica included)
+    behind a DisaggCoordinator of EngineWorkers. (a) each greedy prompt of
+    a fresh burst, alone, first on the decode engine itself, then through
+    the coordinator under each of DISAGG_TRANSPORTS (prefix routing off):
+    tokens and logprobs bit for bit the decode engine's own (exact_gate);
+    then four requests decode on the decode engine, alone and while two
+    700-token prompts migrate into it. (b) a fresh burst, the sampled
+    request included, at once through the stream transport: phase 3's
+    logprob gate. (c) (a)'s 700-token stream prompt again through a
+    coordinator with prefix routing on: it runs on the decode replica with
+    no prefill hop (zero migration bytes, kv_migrations unchanged), exact
+    against (a). (e) each planted DISAGG_FAULTS entry must fail its gate.
+    (d) build_openai_app(disagg=...) (deploy_disagg through the serve
+    runtime: llm-prefill and llm-decode replicas over the same tensors)
+    behind serve.http_port(): a coordinator over the deployments and the
+    SSE route each give (a)'s stream prompts, sent one at a time, (a)'s
+    tokens; a burst as concurrent SSE streams comes back whole, and one as
+    concurrent whole completions passes phase 3's logprob gate; after
+    serve.shutdown() no thread the phase started is alive and
+    card memory is back within SERVE_RETIRED_MEMORY_TOL. Launches are
+    counted only while the coordinators serve (a)-(c) and (d): the decode
+    engine's own runs (the wants of (a) and (e), the busy requests of the
+    decode-gap measurement), the builds, the planted runs and the
+    yardstick forwards are left out. Every SERVE_KERNELS entry must have
+    run there, every launch from a graph replay. Returns those counts."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.ops import dispatch
+    from ray_tpu_torch.serve.disagg import DisaggCoordinator, EngineWorker, KvMigrationError
+
+    cfg, params = server.engine.cfg, server.engine.params
+    t_phase = time.monotonic()
+    rng = torch.Generator().manual_seed(5)  # fresh prompts, seeded, host-side
+    tok = IdTokenizer()
+
+    def params_fn():
+        return params, cfg
+
+    class Worker(EngineWorker):
+        """An EngineWorker that keeps each prefill leg's result."""
+
+        prefills: dict = {}
+
+        def prefill_request(self, request):
+            res = super().prefill_request(request)
+            self.prefills[res["request_id"]] = res
+            return res
+
+    serve.shutdown()
+    rt.shutdown()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem_start = torch.cuda.memory_allocated()
+    pre = new_server("phase 3g: prefill-role LLMServer llama3-8b", params_fn=params_fn,
+                     engine_config=ENGINE, role="prefill")
+    dec = new_server("phase 3g: decode-role LLMServer llama3-8b", params_fn=params_fn,
+                     engine_config=ENGINE, role="decode")
+    pw, dw = Worker(pre.engine, "prefill"), Worker(dec.engine, "decode")
+
+    counted = dict.fromkeys(dispatch.launch_counts(), 0)
+
+    def count(label: str) -> None:
+        """Add the launches since the last reset to `counted`: those of
+        the disaggregated path alone, each from a graph replay."""
+        require_no_eager_launches(label)
+        for name, n in dispatch.launch_counts().items():
+            counted[name] += n
+
+    # (a) exact, alone, per transport: the decode engine's own runs first,
+    # outside the counted window
+    prompts_by = {t: greedy(burst_requests(cfg, rng)) for t in DISAGG_TRANSPORTS}
+    wants = {t: [dec(dict(r)) for r in reqs] for t, reqs in prompts_by.items()}
+    dispatch.reset_launches()
+    for transport in DISAGG_TRANSPORTS:
+        co = DisaggCoordinator([pw], [dw], {"kv_transfer": transport, "small_blob_bytes": 0,
+                                            "prefix_routing": False})
+        reqs, want = prompts_by[transport], wants[transport]
+        got = [co.generate(r["prompt_ids"], max_tokens=r["max_tokens"], timeout_s=300)
+               for r in reqs]
+        co.close()
+        disagg_lines(f"phase 3g (a) {transport}", reqs, got, Worker.prefills)
+        if not exact_gate(f"phase 3g (a) {transport}", [r["prompt_ids"] for r in reqs],
+                          got, want):
+            fail(f"phase 3g (a): the {transport} transport's tokens or logprobs differ from "
+                 f"the decode engine's own run")
+        if any(g["kv_transport"] != transport for g in got):
+            fail(f"phase 3g (a): a request rode {[g['kv_transport'] for g in got]}, not "
+                 f"{transport}")
+    count("phase 3g (a)")
+    long_req = max(prompts_by["stream"], key=lambda r: len(r["prompt_ids"]))
+
+    # decode gaps on the decode engine, alone and while imports stage: the
+    # busy requests run on the decode engine itself, so nothing here counts
+    co = DisaggCoordinator([pw], [dw], {"prefix_routing": False})
+    filler = torch.randint(1, cfg.vocab_size, (800,), generator=rng).tolist()
+    busy = keep_busy(dec.engine, filler, n=4, max_tokens=120)
+    alone = finish_busy(busy)
+    busy = keep_busy(dec.engine, filler[400:], n=4, max_tokens=120)
+    moved = [torch.randint(1, cfg.vocab_size, (700,), generator=rng).tolist()
+             for _ in range(2)]
+    for p in moved:
+        co.generate(p, max_tokens=32, timeout_s=300)
+    during = finish_busy(busy)
+    co.close()
+    log(f"phase 3g: four requests decoding on the decode engine, alone: {alone}; while two "
+        f"700-token prompts migrated into it (stream): {during} ({card})")
+
+    # (b) under load: a fresh burst at once, the sampled request included
+    dispatch.reset_launches()
+    co = DisaggCoordinator([pw], [dw], {"prefix_routing": False})
+    requests = burst_requests(cfg, rng)
+    results, wall = disagg_burst(co, requests, "phase 3g (b)")
+    co.close()
+    disagg_lines("phase 3g (b) stream", requests, results, Worker.prefills)
+    burst_figures = report_burst("phase 3g (b) disagg", requests, results, wall)
+
+    # (c) the prefix route: (a)'s 700-token stream prompt, warm on the decode engine
+    co = DisaggCoordinator([pw], [dw], {"prefix_gossip_s": 0.0})
+    before = co.stats()["kv_migrations"]
+    routed = co.generate(long_req["prompt_ids"], max_tokens=32, timeout_s=300)
+    after = co.stats()["kv_migrations"]
+    co.close()
+    count("phase 3g (b)-(c)")
+    want_long = wants["stream"][prompts_by["stream"].index(long_req)]
+    log(f"phase 3g (c): the {len(long_req['prompt_ids'])}-token prompt routed by prefix: "
+        f"transport {routed['kv_transport']}, {routed.get('prefix_warm_tokens')} warm tokens, "
+        f"migration bytes {routed['migration_bytes']}, kv_migrations {before} -> {after}, "
+        f"TTFT {routed['ttft_s']:.4f} s")
+    if (routed["kv_transport"] != "skipped" or routed["migration_bytes"] != 0
+            or after != before):
+        fail(f"phase 3g (c): the warm prompt migrated: {routed['kv_transport']}, "
+             f"{routed['migration_bytes']} bytes, kv_migrations {before} -> {after}")
+    if not exact_gate("phase 3g (c) prefix route", [long_req["prompt_ids"]], [routed],
+                      [want_long]):
+        fail("phase 3g (c): the routed prompt differs from (a)'s")
+
+    # (e) the planted faults, each on fresh prompts against the decode
+    # engine's own run of them
+    free0 = dec.engine.stats()["free_pages"]
+    cross = [torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist() for n in (100, 200)]
+    cross_want = [dec({"prompt_ids": p, "max_tokens": 32}) for p in cross]
+    co = DisaggCoordinator([pw], [dw], {"prefix_routing": False,
+                                        "kv_stream_idle_s": DISAGG_FAULT_IDLE_S})
+    with disagg_fault("sender_crosses_requests"):
+        out, errs = [None, None], []
+
+        def run(i):
+            try:
+                out[i] = co.generate(cross[i], max_tokens=32, timeout_s=120)
+            except Exception as e:  # noqa: BLE001 — what the gate reads
+                errs.append(repr(e))
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(180)
+    caught_cross = bool(errs) or not all(
+        o is not None and o["token_ids"] == w["token_ids"] and o["logprobs"] == w["logprobs"]
+        for o, w in zip(out, cross_want))
+    log(f"phase 3g planted fault sender_crosses_requests: errors {errs or 'none'}; tokens "
+        f"equal the decode engine's {[o is not None and o['token_ids'] == w['token_ids'] for o, w in zip(out, cross_want)]}")
+    lost = torch.randint(1, cfg.vocab_size, (200,), generator=rng).tolist()
+    t = time.monotonic()
+    with disagg_fault("sender_drops_last_frame"):
+        try:
+            co.generate(lost, max_tokens=32, timeout_s=120)
+            dropped_err = None
+        except KvMigrationError as e:
+            dropped_err = str(e)
+    dropped_s = time.monotonic() - t
+    after_fault = torch.randint(1, cfg.vocab_size, (200,), generator=rng).tolist()
+    after_want = dec({"prompt_ids": after_fault, "max_tokens": 32})
+    after_got = co.generate(after_fault, max_tokens=32, timeout_s=300)
+    co.close()
+    deadline = time.monotonic() + 15
+    while dec.engine.stats()["free_pages"] != free0 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    free1 = dec.engine.stats()["free_pages"]
+    log(f"phase 3g planted fault sender_drops_last_frame: KvMigrationError after "
+        f"{dropped_s:.2f} s (idle {DISAGG_FAULT_IDLE_S} s): {dropped_err}; the next request "
+        f"exact {after_got['token_ids'] == after_want['token_ids']}; decode pages free "
+        f"{free0} -> {free1}")
+    caught_drop = (dropped_err is not None
+                   and dropped_s < DISAGG_FAULT_IDLE_S + DISAGG_FAULT_SLACK_S)
+    for name, hit in (("sender_crosses_requests", caught_cross),
+                      ("sender_drops_last_frame", caught_drop)):
+        if not hit:
+            fail(f"phase 3g: its gate passes planted fault {name}")
+    if not exact_gate("phase 3g after the dropped frame", [after_fault], [after_got],
+                      [after_want]) or free1 != free0:
+        fail(f"phase 3g: the run did not go on after the dropped frame (pages {free0} -> "
+             f"{free1})")
+    pre.shutdown()
+    dec.shutdown()
+    Worker.prefills.clear()
+    del co, pre, dec, pw, dw  # a coordinator holds its workers, and they the engines
+    release()
+    log(f"phase 3g: card memory after the roles' engines stopped "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB ({mem_start / 2**30:.2f} GiB before "
+        f"they were built)")
+
+    # (d) the entry points users call: build_openai_app(disagg=...) over HTTP
+    rt.init()
+    runtime_threads = set(threading.enumerate())
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    app = serve.build_openai_app(disagg={"prefill_replicas": 1, "decode_replicas": 1},
+                                 model_name="llama3-8b", params_fn=params_fn,
+                                 engine_config=ENGINE, tokenizer=tok)
+    serve.run(app, name="v1")
+    for dep in ("llm-prefill", "llm-decode", "openai"):
+        ((replica, ready_s),) = wait_ready(dep, 1, t0, "phase 3g")
+        stats = rt.get(replica.handle_request.remote("stats", ({},), {}), timeout=60)
+        if "capture" in stats:
+            log(f"phase 3g: {dep} replica ready {ready_s:.1f}s after build_openai_app; role "
+                f"{stats['role']}, capture {stats['capture']['seconds']:.1f}s for "
+                f"{stats['capture']['programs']} programs")
+    port = serve.http_port()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/-/healthz", timeout=60) as r:
+        json.loads(r.read())
+    dispatch.reset_launches()
+    co = DisaggCoordinator.from_deployments("llm-prefill", "llm-decode", {})
+    reqs, want = prompts_by["stream"], wants["stream"]
+    via_co = [co.generate(r["prompt_ids"], max_tokens=r["max_tokens"], timeout_s=300)
+              for r in reqs]
+    one_by_one = []
+    for r in reqs:  # alone, as (a) ran them
+        one_by_one.append(sse_result(sse_request(port, "/v1/completions", {
+            "prompt": r["prompt_ids"], "max_tokens": r["max_tokens"], "logprobs": 1}), tok))
+    # the burst as concurrent SSE streams (a stream through the front's
+    # coordinator carries its logprobs only in the summary at its end, so
+    # its chunks' logprobs are null, as the reference's), then as
+    # concurrent whole completions, whose logprobs the gate reads
+    http_requests = burst_requests(cfg, rng)
+    streams, http_wall = sse_burst(port, http_requests)
+    http_results = [sse_result(s, tok) for s in streams]
+    whole_requests = burst_requests(cfg, rng)
+    whole_results = [None] * len(whole_requests)
+
+    def complete(i):
+        r = whole_requests[i]
+        with http_post(port, "/v1/completions", {
+                "prompt": r["prompt_ids"], "max_tokens": r["max_tokens"], "logprobs": 1,
+                "temperature": r.get("temperature", 0.0),
+                "top_p": r.get("top_p", 1.0)}) as resp:
+            c = json.loads(resp.read())["result"]["choices"][0]
+        whole_results[i] = {"token_ids": tok.encode(c["text"]),
+                            "logprobs": c["logprobs"]["token_logprobs"]}
+
+    threads = [threading.Thread(target=complete, args=(i,)) for i in range(len(whole_requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(660)
+    if any(r is None for r in whole_results):
+        fail("phase 3g (d): a whole completion did not come back")
+    co.close()
+    del co
+    with http_post(port, "/v1/stats", {}) as r:
+        co_stats = json.loads(r.read())["result"]
+    count("phase 3g (d)")
+    http_figures = sse_figures("phase 3g (d) HTTP (SSE, logprobs)", streams, http_wall)
+    peak = torch.cuda.max_memory_allocated()
+    t_down = time.monotonic()
+    serve.shutdown()
+    deadline = time.monotonic() + 15
+    while True:
+        left = [t.name for t in threading.enumerate()
+                if t not in runtime_threads and t.is_alive()]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    rt.shutdown()
+    release()
+    kept = torch.cuda.memory_allocated() - mem0
+    log(f"phase 3g (d): serve.shutdown() took {time.monotonic() - t_down:.2f}s; threads the "
+        f"phase started still alive after it: {left or 'none'}; card memory before the "
+        f"replicas {mem0 / 2**30:.2f} GiB, left after retirement {kept / 2**30:+.3f} GiB "
+        f"(tol {SERVE_RETIRED_MEMORY_TOL / 2**30:.2f} GiB); peak over the phase "
+        f"{peak / 2**30:.2f} GiB (phase 3's server and tensors included, "
+        f"{mem_start / 2**30:.2f} GiB at the phase's start) ({card})")
+    log(f"phase 3g (d): coordinator stats over HTTP {co_stats}")
+    if left:
+        fail(f"phase 3g: threads outlived serve.shutdown(): {left}")
+    if kept > SERVE_RETIRED_MEMORY_TOL:
+        fail(f"phase 3g: {kept / 2**30:.3f} GiB stayed allocated after the replicas retired")
+    if not exact_gate("phase 3g (d) coordinator over the deployments",
+                      [r["prompt_ids"] for r in reqs], via_co, want):
+        fail("phase 3g (d): the deployments' tokens differ from (a)'s")
+    for i, (res, w) in enumerate(zip(one_by_one, want)):
+        if res["token_ids"] != w["token_ids"] or res["finish_reason"] != "length":
+            fail(f"phase 3g (d) HTTP request {i}: tokens differ from (a)'s")
+    log(f"phase 3g (d): {len(one_by_one)} greedy SSE completions one at a time give (a)'s "
+        f"tokens")
+    for i, (req, res, stream) in enumerate(zip(http_requests, http_results, streams)):
+        if not sse_whole(stream, res, req["max_tokens"]):
+            fail(f"phase 3g (d) HTTP request {i}: the stream is not whole")
+    if co_stats.get("kv_migrations", 0) < len(one_by_one) + 2 * len(http_requests):
+        fail(f"phase 3g (d): the front's coordinator counted {co_stats.get('kv_migrations')} "
+             f"migrations")
+
+    # the gates that run the yardstick forward
+    for label, (reqs_, res_) in {"(b) burst": (requests, results),
+                                 "(d) HTTP burst": (whole_requests, whole_results)}.items():
+        gaps = logprob_gaps(params, cfg, reqs_, res_)
+        log(f"phase 3g {label}: logprob |engine - forward| per request max "
+            f"{[round(g[0], 4) for g in gaps]} mean {[round(g[1], 4) for g in gaps]} "
+            f"(tol {LOGPROB_TOL})")
+        for i, gap in enumerate(gaps):
+            if not within_logprob_tol(gap):
+                fail(f"phase 3g {label} request {i}: logprobs differ from the forward by max "
+                     f"{gap[0]:.4f}, mean {gap[1]:.4f} (tol {LOGPROB_TOL})")
+    log(f"launches on the disagg path (the coordinators' requests of (a)-(c) and (d); the "
+        f"decode engine's own runs, builds, planted runs and yardstick forwards not): "
+        f"{counted}")
+    for name in SERVE_KERNELS:
+        if counted[name] <= 0:
+            fail(f"phase 3g never launched kernel {name}")
+    log(f"phase 3g: disaggregated burst {burst_figures}; through HTTP {http_figures}; phase 3 "
+        f"direct {plain_figures}; phase 3d through HTTP {deploy_figures or 'not run'} ({card})")
+    log(f"phase 3g took {time.monotonic() - t_phase:.1f}s")
+    return counted
+
+
+def disagg_only(card: str) -> None:
+    """`--disagg`: phase 3's server and plain burst, then phase 3g on its
+    tensors (no other phase, no result line)."""
+    server = new_server("phase 3: LLMServer llama3-8b", model_name="llama3-8b",
+                        engine_config=ENGINE, seed=0)
+    requests = burst_requests(server.engine.cfg, torch.Generator().manual_seed(1))
+    results, wall, errors = run_requests(server, requests)
+    if errors:
+        fail(f"phase 3 burst: {errors}")
+    disagg_path(server, card, report_burst("plain", requests, results, wall))
+    server.shutdown()
 
 
 # ------------------------------------------------------------- phase 3s
@@ -5221,6 +5710,9 @@ PBT_INTERVAL = 4
 # and is exploited again, without end (the reference's controller and
 # scheduler do the same; its tests checkpoint every step)
 PBT_STEPS = 11
+# the longest the lr-0 trial waits at a milestone for the controller to take
+# the other trial's report of it (see pbt_trainable)
+PBT_TURN_S = 120.0
 TUNE_THREADS = ("actor-", "ingest-", "data-host-prefetch")
 
 
@@ -5448,11 +5940,20 @@ def pbt_trainable(cfg, rows, storage: str, marks: dict):
     handed a checkpoint restores it with load_pytree(target=<its own init
     state>) and skips the batches before it. Each incarnation's record
     (losses by step, what it restored, its copies alive at its start) goes
-    to marks["pbt"][trial]."""
+    to marks["pbt"][trial].
+    PBT compares a trial at its milestone with the others' last reports and
+    exploits only a source that has reported a checkpoint, so which trial
+    runs ahead on the shared card decides whether an exploit happens at
+    all. The lr-0 trial therefore reports each milestone only once the
+    controller has taken another trial's report of the same milestone
+    (marks["handled"], filled by handled_reports), or after PBT_TURN_S:
+    then it is the bottom trial and that report's checkpoint its source."""
     def trainable(config):
         from ray_tpu_torch import data, train, tune
+        from ray_tpu_torch.train.session import _get_session
 
         trial = tune.get_context().experiment_name
+        session = _get_session()
         lives = marks["pbt"].setdefault(trial, [])
         rec = {"lr": config["lr"], "losses": {}, "held": [],
                "copies_alive": sum(any(r() is not None for r in life["held"])
@@ -5493,12 +5994,38 @@ def pbt_trainable(cfg, rows, storage: str, marks: dict):
                     out = train.Checkpoint(path)
                     out.set_metadata({"trial": trial, "life": len(lives) - 1,
                                       "iteration": i + 1})
+                if config["lr"] == 0.0 and (i + 1) % PBT_INTERVAL == 0:
+                    # until another trial's report of this milestone is taken,
+                    # or this life is stopped (the report below then raises)
+                    deadline = time.monotonic() + PBT_TURN_S
+                    with marks["turn"]:
+                        while not (any(n >= i + 1 for t, n in marks["handled"].items()
+                                       if t != trial) or session._stopping.is_set()) \
+                                and time.monotonic() < deadline:
+                            marks["turn"].wait(0.05)
                 tune.report({"loss": rec["losses"][i], "training_iteration": i + 1},
                             checkpoint=out)
         finally:
             it.deregister()
 
     return trainable
+
+
+def handled_reports(marks: dict):
+    """TuneController._handle_reports that, once the controller has taken a
+    trial's reports, notes the trial's last reported iteration in
+    marks["handled"] and wakes the trainables waiting on marks["turn"]."""
+    from ray_tpu_torch.tune import tune_controller
+
+    handle = tune_controller.TuneController._handle_reports
+
+    def handled(controller, trial):
+        handle(controller, trial)
+        with marks["turn"]:
+            marks["handled"][trial.trial_id] = trial.metric("training_iteration", 0)
+            marks["turn"].notify_all()
+
+    return handled
 
 
 def _check_target_in_order(tree, target, where: str = "tree") -> None:
@@ -5554,9 +6081,11 @@ def tune_path(card: str, solo: dict | None = None) -> dict:
         of the decision, with at most one step begun after it; card
         memory after fit() within TUNE_MEMORY_TOL of
         before, no trial or ingest thread left.
-    (c) PopulationBasedTraining over two trials (lr 0 and 1e-3): a restored
-        trial's first loss equals its source's loss at that step within
-        LOSS_GAP_TOL, and no earlier copy of it is alive when it starts.
+    (c) PopulationBasedTraining over two trials (lr 0 and 1e-3), the lr-0
+        trial reporting each milestone after the controller has taken the
+        other's (pbt_trainable): a restored trial's first loss equals its
+        source's loss at that step within LOSS_GAP_TOL, and no earlier copy
+        of it is alive when it starts.
     (d) Planted faults: trial_kept_running_after_stop (the runner's stop a
         no-op, as the reference's kill), tenant_weight_ignored (every
         tenant weighs 1) and restore_ignores_target_order (the old target
@@ -5759,12 +6288,13 @@ def tune_path(card: str, solo: dict | None = None) -> dict:
             f"the weight-3 tenant's over a weight-1 tenant's {asha_ratio:.2f}")
 
         # (c) PBT over two trials, restores through load_pytree(target=)
-        marks = {"pbt": {}, "held": {}}
+        marks = {"pbt": {}, "held": {}, "handled": {}, "turn": threading.Condition()}
         clock = StopTimes(marks["held"])
         data.get_ingest_service(pool_min=1, pool_max=2, autoscale=False)
         dispatch.reset_launches()
         t0 = time.monotonic()
-        with clock.installed():
+        with clock.installed(), swapped(tune_controller.TuneController,
+                                        _handle_reports=handled_reports(marks)):
             pbt = tune.Tuner(
                 pbt_trainable(cfg, rows, storage, marks),
                 param_space={"lr": tune.grid_search(list(PBT_LRS)), "steps": PBT_STEPS},
@@ -6237,6 +6767,10 @@ def main() -> None:
     ap.add_argument("--deploy", action="store_true",
                     help="only build the kernels, serve phase 3's burst, then run phase 3d "
                          "(the serve runtime on its tensors); prints no result line")
+    ap.add_argument("--disagg", action="store_true",
+                    help="only build the kernels, serve phase 3's burst, then run phase 3g "
+                         "(disaggregated prefill/decode serving on its tensors); prints no "
+                         "result line")
     ap.add_argument("--pretrain", action="store_true",
                     help="only build the kernels, then run phase 4p (pretrain -> checkpoint "
                          "-> serve at llama-2b); prints no result line")
@@ -6290,6 +6824,9 @@ def main() -> None:
     if args.deploy:
         deploy_only(card)
         return
+    if args.disagg:
+        disagg_only(card)
+        return
     if args.pretrain:
         pretrain_path(card)
         return
@@ -6308,6 +6845,7 @@ def main() -> None:
     serve_launches, migrate_launches, live_launches, runtime_launches, deploy_launches = (
         served["launches"], served["migrate"], served["live"], served["runtime"],
         served["deploy"])
+    disagg_launches = served["disagg"]
     del served
     gc.collect()  # free the weights
     torch.cuda.empty_cache()
@@ -6328,6 +6866,7 @@ def main() -> None:
                    "moe_migrate": moe_served["migrate"][name],
                    "live": live_launches[name] + moe_served["live"][name],
                    "runtime": runtime_launches[name], "deploy": deploy_launches[name],
+                   "disagg": disagg_launches[name],
                    "pretrain": pretrain["launches"][name], "tune": tuned["launches"][name]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,

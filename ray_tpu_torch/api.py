@@ -13,8 +13,9 @@ Waiting for ROADMAP A5b: the worker-process pool and actor processes
 for A5c: joining a cluster (`address=`), restoring a snapshot
 (`resume_from=`, `control_plane_snapshot_path`), the federated control
 plane (`control_plane_shards`), the control-plane RPC head
-(`control_plane_rpc_port`) and compiled graphs (`ActorMethod.bind`). Each
-raises NotImplementedError naming its item.
+(`control_plane_rpc_port`) and compiled-graph edges to a joined host
+(dag.py). Each raises NotImplementedError naming its item. Compiled graphs
+over this process's actors (`ActorMethod.bind`, ray_tpu_torch.dag) run.
 """
 
 from __future__ import annotations
@@ -164,6 +165,11 @@ def shutdown() -> None:
         _cw.set_runtime(None)
         # init()-scoped system_config must not leak into the next runtime
         config.reset()
+    # the channel service (and the KV senders over it) ends with the
+    # runtime: no thread of it outlives shutdown
+    from .core import channels
+
+    channels.shutdown_service()
 
 
 def is_initialized() -> bool:
@@ -302,11 +308,10 @@ class ActorMethod:
         return ActorMethod(self._handle, self._name, num_returns)
 
     def bind(self, *args):
-        """Bind into a compiled graph: the reference's ray_tpu.dag, which
-        waits for ROADMAP A5c."""
-        raise NotImplementedError(
-            "ActorMethod.bind: compiled graphs (dag.py, core/channels.py) "
-            "wait for ROADMAP A5c")
+        """Bind into a compiled graph (see ray_tpu_torch.dag)."""
+        from .dag import MethodNode
+
+        return MethodNode(self._handle, self._name, args)
 
 
 class ActorHandle:

@@ -1081,12 +1081,24 @@ class Runtime:
                 batch = list(self._pending)
                 self._pending.clear()
             leftover: List[_PendingTask] = []
+            # an actor's calls run in submission order: once one of them is
+            # left over (its actor still starting), its later calls in this
+            # batch wait behind it, and the leftovers go back AHEAD of what
+            # was submitted meanwhile (the reference appends them behind,
+            # so a call made during this pass can overtake them: C7)
+            held = set()
             for item in batch:
-                if not self._try_place(item):
+                actor_id = (item.spec.actor_id
+                            if item.spec.kind is TaskKind.ACTOR_TASK else None)
+                if actor_id is not None and actor_id in held:
                     leftover.append(item)
+                elif not self._try_place(item):
+                    leftover.append(item)
+                    if actor_id is not None:
+                        held.add(actor_id)
             if leftover:
                 with self._pending_cv:
-                    self._pending.extend(leftover)
+                    self._pending[:0] = leftover
                 time.sleep(0.002)
 
     def _usable_agent(self, node_id: Optional[NodeID]):

@@ -3,9 +3,11 @@
 The port's copy of the routing half of ray_tpu/core/health.py
 (`ReplicaHealth`, `:627-757`), which the serve router (serve/router.py)
 stands on. The head-side `HealthPlane` (alert rules over federated
-digests and metrics, the alert lifecycle, `get_health_plane`) waits for
-ROADMAP A5c with the rest of the control-plane tooling: reaching it raises
-NotImplementedError naming that item.
+digests and metrics, the alert lifecycle) waits for ROADMAP A5c with the
+rest of the control-plane tooling: creating or reaching one raises
+NotImplementedError naming that item. Until then no plane exists, so
+`get_health_plane(create=False)` returns None, as the reference's does
+before one is created (the disagg coordinator asks that way).
 """
 
 from __future__ import annotations
@@ -146,7 +148,10 @@ class ReplicaHealth:
 
 
 def get_health_plane(create: bool = True):
-    """The process-wide HealthPlane: waits for ROADMAP A5c."""
+    """The process-wide HealthPlane: none exists before ROADMAP A5c, so
+    create=False returns None and create=True raises naming that item."""
+    if not create:
+        return None
     raise NotImplementedError(f"get_health_plane: {_A5C}")
 
 

@@ -4,9 +4,10 @@ requests, the HTTP proxy exposes JSON routes and the OpenAI front, and
 LLMServer/InferenceEngine provide continuously-batched paged-KV LLM
 inference on the card.
 
-The port's counterpart of ray_tpu/serve/__init__.py. Disaggregated
-serving (DisaggCoordinator, EngineWorker, deploy_disagg, DisaggConfig),
-the fleet controller and the gRPC ingress wait for ROADMAP A6b.
+The port's counterpart of ray_tpu/serve/__init__.py, with disaggregated
+prefill/decode serving (DisaggCoordinator, EngineWorker, deploy_disagg,
+DisaggConfig). The fleet controller (FleetConfig, FleetController) and
+the gRPC ingress wait for ROADMAP A6b.
 """
 
 from .api import (  # noqa: F401
@@ -25,9 +26,15 @@ from .multiplex import get_multiplexed_model_id, multiplexed  # noqa: F401
 from .config import (  # noqa: F401
     AutoscalingConfig,
     DeploymentConfig,
+    DisaggConfig,
     SpeculationConfig,
 )
 from .deployment import Application, Deployment, deployment  # noqa: F401
+from .disagg import (  # noqa: F401
+    DisaggCoordinator,
+    EngineWorker,
+    deploy_disagg,
+)
 from .engine import EngineConfig, InferenceEngine, Request  # noqa: F401
 from .handle import DeploymentHandle, DeploymentResponse  # noqa: F401
 from .llm import LLMServer  # noqa: F401

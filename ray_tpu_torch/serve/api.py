@@ -129,14 +129,24 @@ def delete(name: str = "default") -> None:
 def shutdown() -> None:
     """Stop the HTTP proxy (its thread joined), then the controller: its
     reconcile loop is joined and every replica retires gracefully
-    (ServeController.shutdown) before the controller is killed. The
-    runtime stays up."""
+    (ServeController.shutdown) before the controller is killed. Last, the
+    channel service and the KV senders the disaggregated roles streamed
+    through end. The runtime stays up."""
     global _proxy
     with _state_lock:
         if _proxy is not None:
             _proxy.stop()
             _proxy = None
         _apps.clear()
+    try:
+        _retire_controller()
+    finally:
+        from ..core import channels
+
+        channels.shutdown_service()
+
+
+def _retire_controller() -> None:
     if not core_api.is_initialized():
         return
     try:

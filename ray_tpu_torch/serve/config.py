@@ -3,9 +3,8 @@ bounds, speculative decoding, and the defaults that the reference keeps
 in its global config (ray_tpu/core/config.py).
 
 Counterpart of ray_tpu/serve/config.py's AutoscalingConfig,
-DeploymentConfig and SpeculationConfig, as this package's own copy (the
-port imports nothing of ray_tpu). DisaggConfig waits for disaggregated
-serving (ROADMAP A6b).
+DeploymentConfig, SpeculationConfig and DisaggConfig, as this package's
+own copy (the port imports nothing of ray_tpu).
 """
 
 from __future__ import annotations
@@ -125,5 +124,145 @@ class SpeculationConfig:
         if unknown:
             raise ValueError(
                 f"unknown speculation option(s) {sorted(unknown)}; "
+                f"valid: {sorted(known)}")
+        return cls(**value)
+
+
+@dataclasses.dataclass
+class DisaggConfig:
+    """Disaggregated prefill/decode serving (serve/disagg.py).
+
+    Requests prefill on dedicated prefill-role replicas, then their paged
+    KV migrates to a decode-role replica that streams the remaining
+    tokens — the two phases stop contending for the same chips.
+
+    kv_transfer:
+      "object"  — the prefill replica puts the KV blob into the object
+                  store (api.put); the decode replica gets it from there. Blobs at or under
+                  small_blob_bytes ride a DistChannel instead when the
+                  decode replica advertises one (the object plane's
+                  per-object bookkeeping isn't worth it for small KV).
+      "channel" — every blob moves over a consumer-homed DistChannel to
+                  the decode replica (lowest latency; no spill/replay).
+      "stream"  — the default: KV frames stream to the decode replica's
+                  DistChannel AS PREFILL COMMITS PAGES (page-window
+                  slices, coalesced per destination), and the decode
+                  engine ingests them eagerly via begin/ingest/finish
+                  _kv_import — migration overlaps prefill compute
+                  instead of starting after the first token.
+    """
+
+    prefill_replicas: int = 1
+    decode_replicas: int = 1
+    kv_transfer: str = "stream"
+    # object mode: blobs at or under this many bytes fall back to the
+    # decode replica's DistChannel when one is available
+    small_blob_bytes: int = 262144
+    # place every replica (prefill AND decode) on a distinct host via a
+    # STRICT_SPREAD placement group; falls back to default placement when
+    # the cluster has too few hosts (one host: both roles on its card)
+    strict_spread: bool = True
+    # stream mode: tokens per KV frame (smaller = earlier overlap, more
+    # frames), frames coalesced per destination up to this many bytes
+    # per channel put, per-frame idle timeout before the importer aborts
+    # (a dead prefill must fail the request, never hang it), and how
+    # long the decode inbox parks unclaimed frames before sweeping them
+    kv_stream_tokens: int = 256
+    kv_coalesce_bytes: int = 1 << 20
+    kv_stream_idle_s: float = 30.0
+    kv_inbox_ttl_s: float = 120.0
+    # stream-mode frame layout forwarded to the prefill engines: "layer"
+    # (wire v2 — per-layer-group slabs, the stream starts during the
+    # first layers of the device->host pull), "token" (wire v1 — full
+    # layer stack per frame), or "" to follow KV_FRAME_LAYOUT_DEFAULT
+    kv_frame_layout: str = ""
+    # prefix-aware role routing: a request whose leading prompt pages
+    # are warm on a decode replica (per its PrefixCache digest, gossiped
+    # every prefix_gossip_s) runs there directly — no prefill hop, no
+    # migration — once at least prefix_route_min_tokens are warm
+    prefix_routing: bool = True
+    prefix_route_min_tokens: int = 32
+    prefix_gossip_s: float = 2.0
+    # live request resume: a decode replica dying
+    # mid-stream re-runs the request's remaining tokens on a healthy peer
+    # (prompt + committed tokens replayed as the continuation prompt) and
+    # the client stream continues from the last committed token — a
+    # latency blip, never a failed request. resume_max_attempts bounds
+    # how many distinct replica deaths ONE stream survives.
+    live_resume: bool = True
+    resume_max_attempts: int = 2
+    # adapter-residency gossip: how often the coordinator refreshes each
+    # decode replica's loaded-LoRA set for adapter-aware routing
+    adapter_gossip_s: float = 5.0
+    # graceful scale-down: a replica removed from membership keeps
+    # serving its in-flight streams for up to this long before the
+    # coordinator drops its routing state
+    drain_grace_s: float = 30.0
+
+    TRANSFERS = ("object", "channel", "stream")
+
+    def __post_init__(self) -> None:
+        if self.kv_transfer not in self.TRANSFERS:
+            raise ValueError(
+                f"kv_transfer must be one of {self.TRANSFERS}, "
+                f"got {self.kv_transfer!r}")
+        if int(self.prefill_replicas) < 1 or int(self.decode_replicas) < 1:
+            raise ValueError(
+                "disagg needs at least one replica per role, got "
+                f"prefill_replicas={self.prefill_replicas} "
+                f"decode_replicas={self.decode_replicas}")
+        if int(self.small_blob_bytes) < 0:
+            raise ValueError(
+                f"small_blob_bytes must be >= 0, got {self.small_blob_bytes}")
+        if int(self.kv_stream_tokens) < 1:
+            raise ValueError(
+                f"kv_stream_tokens must be >= 1, got {self.kv_stream_tokens}")
+        if self.kv_frame_layout not in ("", "layer", "token"):
+            raise ValueError(
+                "kv_frame_layout must be '', 'layer' or 'token', "
+                f"got {self.kv_frame_layout!r}")
+        if int(self.kv_coalesce_bytes) < 0:
+            raise ValueError(
+                f"kv_coalesce_bytes must be >= 0, "
+                f"got {self.kv_coalesce_bytes}")
+        if float(self.kv_stream_idle_s) <= 0:
+            raise ValueError(
+                f"kv_stream_idle_s must be > 0, got {self.kv_stream_idle_s}")
+        if float(self.kv_inbox_ttl_s) <= 0:
+            raise ValueError(
+                f"kv_inbox_ttl_s must be > 0, got {self.kv_inbox_ttl_s}")
+        if int(self.prefix_route_min_tokens) < 1:
+            raise ValueError(
+                f"prefix_route_min_tokens must be >= 1, "
+                f"got {self.prefix_route_min_tokens}")
+        if float(self.prefix_gossip_s) < 0:
+            raise ValueError(
+                f"prefix_gossip_s must be >= 0, got {self.prefix_gossip_s}")
+        if int(self.resume_max_attempts) < 0:
+            raise ValueError(
+                f"resume_max_attempts must be >= 0, "
+                f"got {self.resume_max_attempts}")
+        if float(self.adapter_gossip_s) < 0:
+            raise ValueError(
+                f"adapter_gossip_s must be >= 0, got {self.adapter_gossip_s}")
+        if float(self.drain_grace_s) < 0:
+            raise ValueError(
+                f"drain_grace_s must be >= 0, got {self.drain_grace_s}")
+
+    @classmethod
+    def parse(cls, value) -> "DisaggConfig":
+        """Normalize a YAML/JSON dict (or an existing instance), rejecting
+        unknown keys with a clear error instead of silently ignoring a
+        typo'd knob."""
+        if isinstance(value, cls):
+            return value
+        if not isinstance(value, dict):
+            raise ValueError(
+                f"disagg must be a mapping, got {type(value).__name__}")
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(value) - known
+        if unknown:
+            raise ValueError(
+                f"unknown disagg option(s) {sorted(unknown)}; "
                 f"valid: {sorted(known)}")
         return cls(**value)

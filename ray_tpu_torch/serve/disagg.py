@@ -1,0 +1,1896 @@
+"""Disaggregated prefill/decode serving with KV-cache migration.
+
+The port's copy of ray_tpu/serve/disagg.py. The engine
+(serve/engine.py) already isolates prefill from decode within one
+replica; under heavy mixed traffic the two phases still contend for the
+same card. This module splits them across replicas: requests prefill on
+prefill-role replicas, their paged KV migrates to a decode-role replica,
+and tokens stream from there.
+
+Pieces:
+
+- `DisaggCoordinator` — admits requests, picks one replica per role by
+  power-of-two-choices over role-specific load (router.pow2_choice),
+  and drives the prefill → migrate → decode pipeline. Works over local
+  `EngineWorker`s (in-process engines) or `ReplicaWorker`s wrapping
+  serve replica actors (from_deployments / deploy_disagg).
+- KV transfer — kv_transfer="stream" (the default) pipelines page-window
+  KV frames to the decode replica's `KvInbox` over a persistent
+  per-replica-pair `DistChannel` AS PREFILL COMMITS PAGES (frames
+  coalesced per destination by `_KvSender`), and the decode engine
+  ingests them eagerly (begin/ingest/finish_kv_import) — migration
+  overlaps prefill compute instead of starting after the first token.
+  kv_transfer="object" is `api.put` + `api.get` on the object store;
+  blobs at or under DisaggConfig.small_blob_bytes fall back to the
+  decode replica's channel, as does every blob with
+  kv_transfer="channel".
+- Prefix-aware role routing — requests whose leading prompt pages are
+  warm on a decode replica (matched against its PrefixCache digest,
+  cached per replica for prefix_gossip_s) run there directly: no
+  prefill hop, no migration at all.
+- `deploy_disagg` — two role deployments (`{name}-prefill`,
+  `{name}-decode`) placed on distinct hosts via a STRICT_SPREAD
+  placement group (default placement on one host, where both roles
+  share its card), returning a coordinator bound to both.
+
+On one card every replica lives in this process, so the KV channel is an
+in-process queue: a frame's host arrays cross by reference. Frames carry
+float32 (engine.py's `_gather_kv` widens the pool's bf16 on the host), so
+serve_kv_migration_bytes reads twice the reference's for the same tokens.
+
+Two differences from the reference. The per-destination sender threads
+end. `DisaggCoordinator.close()` stops the senders of the channels it
+resolved, and the channel service's shutdown (api.shutdown(),
+serve.shutdown()) stops every one; a sender stopped while a request
+still streams flushes what it holds first, and the next send starts a
+new one. And the stream transport's disagg.kv_export span carries the
+bytes and frames it streamed (the reference updates a dict that its span
+had copied, so its span carries neither).
+
+Metrics: serve_kv_migration_seconds / serve_kv_migration_bytes (the
+migration tax, per transport), serve_disagg_queue_depth{role} /
+serve_disagg_inflight{role} (admission pressure per role),
+serve_fleet_resumes.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+import uuid
+from collections import deque
+from typing import Any, Dict, List, Optional, Tuple
+
+from .. import api
+from ..core import channels
+from ..core.health import ReplicaHealth
+from ..core.logging import get_logger
+from ..core.metrics import MICRO_BUCKETS, Counter, Gauge, Histogram
+from ..util import slo, tracing
+from .config import DisaggConfig
+from .engine import InferenceEngine, Request, prompt_page_fingerprints
+from .router import _replica_key, pick_resident, pow2_choice
+
+logger = get_logger("serve.disagg")
+
+_m_migration_s = Histogram(
+    "serve_kv_migration_seconds",
+    "KV blob fetch + import time on the decode side, tagged transport",
+    buckets=MICRO_BUCKETS,
+)
+_m_migration_b = Counter(
+    "serve_kv_migration_bytes",
+    "KV bytes migrated prefill -> decode, tagged transport",
+)
+_m_queue_depth = Gauge(
+    "serve_disagg_queue_depth",
+    "requests admitted by the coordinator awaiting a replica pick, by role",
+)
+_m_inflight = Gauge(
+    "serve_disagg_inflight",
+    "requests currently executing on a role's replica, by role",
+)
+_m_resumes = Counter(
+    "serve_fleet_resumes",
+    "mid-stream replica deaths survived by live request resume",
+)
+_m_resume_s = Histogram(
+    "serve_fleet_resume_seconds",
+    "stall a client stream sees while its request resumes on a peer",
+    buckets=MICRO_BUCKETS,
+)
+
+
+def _norm_request(request: Dict[str, Any]) -> Dict[str, Any]:
+    """Engine kwargs from the serve-level request dict (the LLMServer
+    request shape: prompt_ids / max_tokens / ... / stop_token_ids)."""
+    return {
+        "request_id": request.get("request_id") or uuid.uuid4().hex,
+        "prompt": list(request["prompt_ids"]),
+        "max_tokens": int(request.get("max_tokens", 32)),
+        "temperature": float(request.get("temperature", 0.0)),
+        "top_p": float(request.get("top_p", 1.0)),
+        "top_k": int(request.get("top_k", 0)),
+        "stop": request.get("stop_token_ids"),
+    }
+
+
+# --------------------------------------------------------------------------
+# replica-side primitives (shared by EngineWorker and LLMServer)
+# --------------------------------------------------------------------------
+
+
+class KvMigrationError(RuntimeError):
+    """The streamed KV migration died mid-flight: the prefill replica
+    failed or vanished, or the stream went idle past kv_stream_idle_s.
+    The import is torn down cleanly (pages freed, inbox evicted) before
+    this raises — the disagg analogue of the pipeline trainer's
+    PipelineStallError."""
+
+
+class _StreamDied(ValueError):
+    """Internal: a decode-side stream reported a terminal error in its
+    trailing summary dict — converted to an exception so the live-resume
+    loop treats it exactly like a raised mid-stream death. Subclasses
+    ValueError so exhausted-resume propagation matches what
+    DisaggStream.tokens() historically raised for summary errors."""
+
+
+class KvInbox:
+    """The decode replica's channel-transfer ingest: one consumer-homed
+    DistChannel per process, demultiplexing (request_id, item) frames
+    onto per-request waiters — items from concurrent prefills may
+    interleave in any order. An item is either a one-shot KV blob
+    (legacy object/channel transports) or one streamed frame; each
+    request's items queue in arrival order.
+
+    Hygiene: cancel() evicts a request's parked items and drops its late
+    arrivals (a request cancelled between prefill and ingest used to
+    leak its blob here forever), and every drain pass sweeps items
+    nobody claimed within ttl_s."""
+
+    def __init__(self, maxsize: int = 64, ttl_s: float = 120.0):
+        addr = channels.service_address() or channels.ensure_service()
+        self.channel = channels.DistChannel(addr, maxsize=maxsize)
+        self.ttl_s = float(ttl_s)
+        self._cv = threading.Condition()
+        self._parked: Dict[str, deque] = {}
+        self._stamped: Dict[str, float] = {}  # rid -> last arrival
+        self._dead: Dict[str, float] = {}  # cancelled rid -> forget-at
+        self._draining = False
+
+    def cancel(self, request_id: str, linger_s: float = 30.0) -> None:
+        """Evict a cancelled request's parked items NOW and drop its
+        late-arriving frames for linger_s (the in-flight tail of a
+        stream whose consumer just gave up)."""
+        with self._cv:
+            self._parked.pop(request_id, None)
+            self._stamped.pop(request_id, None)
+            self._dead[request_id] = time.monotonic() + linger_s
+            self._cv.notify_all()
+
+    def parked(self) -> int:
+        with self._cv:
+            return sum(len(q) for q in self._parked.values())
+
+    def _sweep(self) -> None:
+        # caller holds _cv: drop unclaimed requests past ttl_s and
+        # expired dead-marks (bounded: one dict pass per drain)
+        now = time.monotonic()
+        for rid, t in list(self._stamped.items()):
+            if now - t > self.ttl_s:
+                self._parked.pop(rid, None)
+                self._stamped.pop(rid, None)
+        for rid, t in list(self._dead.items()):
+            if now > t:
+                self._dead.pop(rid, None)
+
+    def _park(self, item) -> None:
+        # caller holds _cv
+        rid = item[0]
+        if rid in self._dead:
+            return
+        self._parked.setdefault(rid, deque()).append(item[1])
+        self._stamped[rid] = time.monotonic()
+
+    def _next(self, request_id: str, timeout: float, what: str) -> Any:
+        """Block until this request's next item arrives. Exactly one
+        thread drains the channel at a time; others wait on the
+        condition for their items to be parked."""
+        import queue as _queue
+
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._cv:
+                q = self._parked.get(request_id)
+                if q:
+                    out = q.popleft()
+                    if not q:
+                        self._parked.pop(request_id, None)
+                        self._stamped.pop(request_id, None)
+                    return out
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(
+                        f"{what} for {request_id} not received in {timeout}s")
+                if self._draining:
+                    self._cv.wait(timeout=0.25)
+                    continue
+                self._draining = True
+            item = None
+            try:
+                item = self.channel.get(timeout=0.5)
+            except _queue.Empty:
+                pass
+            finally:
+                with self._cv:
+                    self._draining = False
+                    if item is not None:
+                        self._park(item)
+                    self._sweep()
+                    self._cv.notify_all()
+
+    def take(self, request_id: str, timeout: float = 120.0) -> Any:
+        """One-shot transports: block until this request's blob arrives."""
+        return self._next(request_id, timeout, "KV blob")
+
+    def next_chunk(self, request_id: str, timeout: float = 30.0) -> Any:
+        """Streamed transport: block until the request's next frame."""
+        return self._next(request_id, timeout, "KV frame")
+
+
+class _KvSender:
+    """Persistent per-destination KV frame pump: engine kv_sink
+    callables enqueue (request_id, frame) pairs here, and ONE thread per
+    destination channel drains them, coalescing everything pending (up
+    to coalesce_bytes) into a single channel put_many — one wire frame
+    per batch to a remote decode replica, a plain enqueue loop locally.
+    Prefill threads therefore never block on the wire; a dead
+    destination surfaces on the NEXT send (failing that request), while
+    the decode side times out on its idle window. stop() ends the thread
+    after it has flushed what was queued before it."""
+
+    def __init__(self, channel, coalesce_bytes: int = 1 << 20):
+        self.channel = channel
+        self.coalesce = max(0, int(coalesce_bytes))
+        self._q: "queue.Queue" = queue.Queue(maxsize=512)
+        self.error: Optional[str] = None
+        self._thread = threading.Thread(
+            target=self._run, daemon=True,
+            name=f"kv-sender-{channel.chan_id[:8]}")
+        self._thread.start()
+
+    def send(self, request_id: str, frame: Dict[str, Any]) -> None:
+        if self.error is not None:
+            raise RuntimeError(self.error)
+        self._q.put((request_id, frame), timeout=60.0)
+
+    def stop(self, timeout: float = 10.0) -> None:
+        """Flush what is queued, then end the thread; a later send raises
+        and _sender_for starts a fresh sender."""
+        if self.error is None:
+            self.error = "kv sender stopped"
+        try:
+            self._q.put(None, timeout=timeout)
+        except queue.Full:
+            pass
+        self._thread.join(timeout=timeout)
+
+    @staticmethod
+    def _nbytes(frame: Dict[str, Any]) -> int:
+        k = frame.get("k")
+        v = frame.get("v")
+        return (int(getattr(k, "nbytes", 0) or 0)
+                + int(getattr(v, "nbytes", 0) or 0))
+
+    def _run(self) -> None:
+        import queue as _queue
+
+        stopping = False
+        while not stopping:
+            item = self._q.get()
+            if item is None:
+                return
+            batch = [item]
+            nbytes = self._nbytes(item[1])
+            while nbytes < self.coalesce:
+                try:
+                    nxt = self._q.get_nowait()
+                except _queue.Empty:
+                    break
+                if nxt is None:  # stop: flush this batch, then end
+                    stopping = True
+                    break
+                batch.append(nxt)
+                nbytes += self._nbytes(nxt[1])
+            try:
+                self.channel.put_many(batch, timeout=_KV_SEND_TIMEOUT_S)
+            except Exception as e:  # noqa: BLE001 — poison the sender
+                self.error = f"kv stream send failed: {e!r}"
+                logger.warning("kv sender for %s died: %s",
+                               self.channel.chan_id[:8], self.error)
+                return
+
+
+_KV_SEND_TIMEOUT_S = 120.0
+_kv_senders: Dict[Tuple[str, str], _KvSender] = {}
+_kv_senders_lock = threading.Lock()
+
+
+def _sender_for(channel, coalesce_bytes: int) -> _KvSender:
+    """The process-wide sender for a destination channel (persistent
+    per replica pair); a poisoned or stopped sender is replaced on next
+    use."""
+    key = (channel.owner_addr, channel.chan_id)
+    with _kv_senders_lock:
+        s = _kv_senders.get(key)
+        if s is None or s.error is not None:
+            s = _kv_senders[key] = _KvSender(channel, coalesce_bytes)
+        return s
+
+
+def _stop_senders(channels_=None) -> None:
+    """Stop the senders of the given destination channels (every sender
+    when None) and join their threads."""
+    keys = (None if channels_ is None else
+            {(c.owner_addr, c.chan_id) for c in channels_})
+    with _kv_senders_lock:
+        picked = [k for k in _kv_senders if keys is None or k in keys]
+        senders = [_kv_senders.pop(k) for k in picked]
+    for s in senders:
+        s.stop()
+
+
+# the runtime's shutdown (api.shutdown(), serve.shutdown()) ends them all
+channels.on_shutdown(_stop_senders)
+
+
+def replica_prefill(engine: InferenceEngine,
+                    request: Dict[str, Any]) -> Dict[str, Any]:
+    """Prefill-role entry: run a prefill_only request and hand its KV to
+    the decode side. kv_transfer=="stream" (with a destination channel)
+    pipelines frames DURING prefill; otherwise the transfer decision
+    lives HERE because only the exporter knows the blob size: object
+    plane by default, DistChannel when kv_transfer=="channel" or the
+    blob is at or under small_blob_bytes and a destination was given."""
+    opts = _norm_request(request)
+    kv_dest = request.get("kv_dest")
+    if request.get("kv_transfer") == "stream" and kv_dest is not None:
+        return _prefill_streamed(engine, request, opts, kv_dest)
+    with tracing.span_if_traced(
+            "disagg.prefill", {"request_id": opts["request_id"]},
+            context=request.get("trace_ctx")):
+        req = Request(prefill_only=True, **opts)
+        engine.add_request(req)
+        blob = engine.export_kv_pages(
+            req, timeout_s=float(request.get("timeout_s", 600.0)))
+        nbytes = int(blob["k"].nbytes) + int(blob["v"].nbytes)
+        kv_transfer = request.get("kv_transfer", "object")
+        small = int(request.get("small_blob_bytes", 0))
+        with tracing.span_if_traced("disagg.kv_export", {"bytes": nbytes}):
+            if kv_dest is not None and (
+                    kv_transfer == "channel" or nbytes <= small):
+                kv_dest.put((req.request_id, blob))
+                handoff = {"kind": "channel", "bytes": nbytes}
+            else:
+                handoff = {"kind": "object", "ref": api.put(blob),
+                           "bytes": nbytes}
+    return {
+        "request_id": req.request_id,
+        "first_token": int(blob["first_token"]),
+        "ttft_s": (req.first_token_at or 0) - req.submitted_at,
+        "prefill_s": (req.finished_at or 0) - req.submitted_at,
+        "kv": handoff,
+    }
+
+
+def _prefill_streamed(engine: InferenceEngine, request: Dict[str, Any],
+                      opts: Dict[str, Any], kv_dest) -> Dict[str, Any]:
+    """Streamed prefill: the engine pushes page-window KV frames to the
+    per-destination sender AS IT COMMITS PAGES, so migration overlaps
+    prefill compute. The kv_export span is built manually: the sink
+    fires on engine threads where this thread's trace-local is
+    invisible."""
+    rid = opts["request_id"]
+    timeout = float(request.get("timeout_s", 600.0))
+    sender = _sender_for(kv_dest,
+                         int(request.get("kv_coalesce_bytes", 1 << 20)))
+    sent = {"bytes": 0, "frames": 0}
+
+    def sink(frame: Dict[str, Any]) -> None:
+        sent["bytes"] += _KvSender._nbytes(frame)
+        sent["frames"] += 1
+        sender.send(rid, frame)
+
+    with tracing.span_if_traced(
+            "disagg.prefill", {"request_id": rid, "stream": True},
+            context=request.get("trace_ctx")):
+        cur = tracing.current_span()
+        xattrs = {"request_id": rid, "stream": True}
+        xspan = None
+        if cur is not None:
+            # covers admission through the last frame (finished below) —
+            # the export leg of the overlap evidence
+            xspan = tracing.Span("disagg.kv_export", attrs=xattrs,
+                                 trace_id=cur.trace_id,
+                                 parent_id=cur.span_id)
+        req = Request(
+            prefill_only=True, kv_sink=sink,
+            kv_window=int(request.get("kv_stream_tokens", 256)),
+            kv_frame_layout=str(request.get("kv_frame_layout", "")), **opts)
+        engine.add_request(req)
+        done = req.done.wait(timeout)
+        if xspan is not None:
+            xspan.attrs.update(bytes=sent["bytes"], frames=sent["frames"])
+            xspan.finish()
+        if not done:
+            engine.cancel(req.request_id)
+            _push_error_frame(kv_dest, rid,
+                              f"prefill for {rid} timed out after {timeout}s")
+            raise TimeoutError(f"request {rid} timed out")
+        if req.error:
+            # unblock the eager importer NOW instead of letting it wait
+            # out its idle window
+            _push_error_frame(kv_dest, rid, req.error)
+            raise ValueError(req.error)
+    return {
+        "request_id": rid,
+        "first_token": int(req.output[-1]) if req.output else -1,
+        "ttft_s": (req.first_token_at or 0) - req.submitted_at,
+        "prefill_s": (req.finished_at or 0) - req.submitted_at,
+        "kv": {"kind": "stream", "bytes": sent["bytes"],
+               "frames": sent["frames"]},
+    }
+
+
+def _push_error_frame(kv_dest, request_id: str, error: str) -> None:
+    """Best-effort poison frame so the decode-side importer fails fast
+    instead of idling out."""
+    try:
+        kv_dest.put((request_id, {"request_id": request_id, "error": error}),
+                    timeout=5.0)
+    except Exception:  # noqa: BLE001 — importer still has its idle timeout
+        pass
+
+
+def _fetch_blob(request: Dict[str, Any],
+                inbox: Optional[KvInbox]) -> Dict[str, Any]:
+    handoff = request["kv"]
+    timeout = float(request.get("timeout_s", 600.0))
+    if handoff["kind"] == "object":
+        # the object store: on one host the blob comes back by reference
+        return api.get(handoff["ref"], timeout=timeout)
+    if inbox is None:
+        raise ValueError("channel handoff but this replica has no KV inbox")
+    return inbox.take(request["request_id"], timeout=timeout)
+
+
+def _import_streamed(engine: InferenceEngine, request: Dict[str, Any],
+                     inbox: KvInbox, stream: bool) -> Request:
+    """Eager streamed import: begin on frame 0, ingest every frame as it
+    arrives, finalize on the last — so the kv_migration span OPENS while
+    prefill is still computing (the overlap the stream transport is
+    for). A dead stream (idle past kv_stream_idle_s, or a poison frame
+    from a failed prefill) tears the import down cleanly — pages freed,
+    inbox evicted — and raises KvMigrationError instead of hanging.
+
+    migration_s accounting: the span records WALL time (it deliberately
+    overlaps prefill — that overlap is the trace evidence), but the
+    reported migration_s / serve_kv_migration_seconds count only ACTIVE
+    import work (begin + per-frame ingest + finalize). Time spent
+    waiting for the next frame is prefill/queueing time the request
+    would pay anyway; billing it to migration made the metric explode
+    with queue depth while the actual transfer tax stayed flat."""
+    rid = request["request_id"]
+    idle = float(request.get("kv_stream_idle_s", 30.0))
+    opts = _norm_request(request)
+    req = Request(stream_q=queue.Queue() if stream else None, **opts)
+    total = 0
+    frames = 0
+    begun = False
+    active = 0.0
+    try:
+        with tracing.span_if_traced("disagg.kv_migration",
+                                    {"transport": "stream"}) as mspan:
+            while True:
+                frame = inbox.next_chunk(rid, timeout=idle)
+                if "error" in frame:
+                    raise KvMigrationError(
+                        f"kv stream for {rid} failed upstream: "
+                        f"{frame['error']}")
+                ta = time.monotonic()
+                if not begun:
+                    # frame 0 carries the blob metadata begin needs
+                    if not engine.begin_kv_import(
+                            req, int(frame["true_len"]), frame):
+                        raise KvMigrationError(
+                            req.error or f"kv import rejected for {rid}")
+                    begun = True
+                engine.ingest_kv_chunk(req, frame)
+                active += time.monotonic() - ta
+                total += _KvSender._nbytes(frame)
+                frames += 1
+                if frame.get("last"):
+                    first = int(frame["first_token"])
+                    break
+            if mspan is not None:
+                mspan.attrs.update(bytes=total, frames=frames)
+            with tracing.span_if_traced("disagg.kv_import"):
+                ta = time.monotonic()
+                engine.finish_kv_import(
+                    req, first, first_logprob=frame.get("first_logprob"))
+                active += time.monotonic() - ta
+    except BaseException as e:
+        inbox.cancel(rid)
+        engine.abort_kv_import(
+            req, error=f"kv stream import failed: {e}")
+        if isinstance(e, (KvMigrationError, KeyboardInterrupt, SystemExit)):
+            raise
+        raise KvMigrationError(
+            f"kv stream for {rid} died mid-transfer: {e}") from e
+    tags = {"transport": "stream"}
+    _m_migration_s.observe(active, tags=tags)
+    _m_migration_b.inc(total, tags=tags)
+    if getattr(engine, "_slo_on", False):
+        slo.observe("serve_kv_migration_seconds", active, tags=tags)
+    req._migration_s = active
+    request["kv"]["bytes"] = total  # the importer is who knows the size
+    return req
+
+
+def _import_request(engine: InferenceEngine, request: Dict[str, Any],
+                    inbox: Optional[KvInbox],
+                    stream: bool = False) -> Request:
+    """Decode-role entry: fetch the blob (or drain the stream), import
+    it, observe the migration tax. Returns the live engine request."""
+    handoff = request["kv"]
+    if handoff["kind"] == "stream":
+        if inbox is None:
+            raise ValueError(
+                "stream handoff but this replica has no KV inbox")
+        return _import_streamed(engine, request, inbox, stream)
+    t0 = time.monotonic()
+    with tracing.span_if_traced(
+            "disagg.kv_migration",
+            {"transport": handoff["kind"],
+             "bytes": int(handoff.get("bytes", 0))}):
+        blob = _fetch_blob(request, inbox)
+    opts = _norm_request(request)
+    req = Request(stream_q=queue.Queue() if stream else None, **opts)
+    with tracing.span_if_traced("disagg.kv_import"):
+        engine.import_kv_pages(req, blob)
+    elapsed = time.monotonic() - t0
+    tags = {"transport": handoff["kind"]}
+    _m_migration_s.observe(elapsed, tags=tags)
+    _m_migration_b.inc(int(handoff.get("bytes", 0)), tags=tags)
+    if getattr(engine, "_slo_on", False):
+        slo.observe("serve_kv_migration_seconds", elapsed, tags=tags)
+    req._migration_s = elapsed
+    return req
+
+
+def replica_decode(engine: InferenceEngine, request: Dict[str, Any],
+                   inbox: Optional[KvInbox] = None) -> Dict[str, Any]:
+    with tracing.span_if_traced(
+            "disagg.decode", {"request_id": request.get("request_id", "")},
+            context=request.get("trace_ctx")):
+        req = _import_request(engine, request, inbox)
+        timeout = float(request.get("timeout_s", 600.0))
+        if not req.done.wait(timeout):
+            engine.cancel(req.request_id)
+            raise TimeoutError(f"decode for {req.request_id} timed out")
+    if req.error:
+        raise ValueError(req.error)
+    return {
+        "request_id": req.request_id,
+        "token_ids": list(req.output),
+        "logprobs": list(req.output_logprobs),
+        "weights_version": req.weights_version,
+        "finish_reason": req.finish_reason,
+        "migration_s": req._migration_s,
+        "migration_bytes": int(request["kv"].get("bytes", 0)),
+        "kv_transport": request["kv"]["kind"],
+    }
+
+
+def replica_decode_stream(engine: InferenceEngine, request: Dict[str, Any],
+                          inbox: Optional[KvInbox] = None):
+    """Streaming decode: yields token ids (the seeded first token
+    included), then ONE trailing dict with finish_reason/error — the
+    coordinator strips it (generators cross actor handles live in the
+    in-process runtime, so this rides the same path `stream` does)."""
+    ctx = request.get("trace_ctx")
+    span = None
+    if ctx is not None or tracing.current_span() is not None:
+        # manual span: decode covers import through stream exhaustion, so
+        # it must outlive this call and finish when the generator does
+        span = tracing.Span(
+            "disagg.decode",
+            attrs={"request_id": request.get("request_id", ""),
+                   "stream": True},
+            **({"trace_id": ctx["trace_id"], "parent_id": ctx["span_id"]}
+               if ctx is not None else
+               {"trace_id": tracing.current_span().trace_id,
+                "parent_id": tracing.current_span().span_id}))
+    with tracing.activate(span):
+        req = _import_request(engine, request, inbox, stream=True)
+    timeout = float(request.get("timeout_s", 600.0))
+
+    def gen():
+        try:
+            while True:
+                tok = req.stream_q.get(timeout=timeout)
+                if tok is None:
+                    break
+                yield tok
+            yield {
+                "finish_reason": req.finish_reason,
+                "error": req.error,
+                "logprobs": list(req.output_logprobs),
+                "weights_version": req.weights_version,
+                "migration_s": req._migration_s,
+                "migration_bytes": int(request["kv"].get("bytes", 0)),
+                "kv_transport": request["kv"]["kind"],
+            }
+        finally:
+            if span is not None:
+                span.finish()
+
+    return gen()
+
+
+def replica_generate(engine: InferenceEngine,
+                     request: Dict[str, Any]) -> Dict[str, Any]:
+    """Prefix-routed entry: the full request runs HERE because its
+    leading prompt pages are already warm in this replica's PrefixCache
+    — no prefill hop, no migration."""
+    opts = _norm_request(request)
+    with tracing.span_if_traced(
+            "disagg.decode", {"request_id": opts["request_id"],
+                              "routed": "prefix"},
+            context=request.get("trace_ctx")):
+        res = engine.generate(
+            opts["prompt"], max_tokens=opts["max_tokens"],
+            temperature=opts["temperature"],
+            request_id=opts["request_id"],
+            timeout_s=float(request.get("timeout_s", 600.0)),
+            top_p=opts["top_p"], top_k=opts["top_k"], stop=opts["stop"])
+    return {**res, "migration_s": 0.0, "migration_bytes": 0,
+            "kv_transport": "skipped"}
+
+
+def replica_generate_stream(engine: InferenceEngine,
+                            request: Dict[str, Any]):
+    """Streaming variant of replica_generate: yields token ids, then the
+    same trailing summary dict replica_decode_stream emits."""
+    opts = _norm_request(request)
+    ctx = request.get("trace_ctx")
+    span = None
+    if ctx is not None or tracing.current_span() is not None:
+        cur = tracing.current_span()
+        span = tracing.Span(
+            "disagg.decode",
+            attrs={"request_id": opts["request_id"], "stream": True,
+                   "routed": "prefix"},
+            **({"trace_id": ctx["trace_id"], "parent_id": ctx["span_id"]}
+               if ctx is not None else
+               {"trace_id": cur.trace_id, "parent_id": cur.span_id}))
+    req, inner = engine.open_stream(
+        opts["prompt"], max_tokens=opts["max_tokens"],
+        temperature=opts["temperature"], request_id=opts["request_id"],
+        timeout_s=float(request.get("timeout_s", 600.0)),
+        top_p=opts["top_p"], top_k=opts["top_k"], stop=opts["stop"])
+
+    def gen():
+        err = None
+        try:
+            try:
+                yield from inner
+            except ValueError as e:
+                err = str(e)
+            yield {
+                "finish_reason": req.finish_reason,
+                "error": err or req.error,
+                "logprobs": list(req.output_logprobs),
+                "weights_version": req.weights_version,
+                "migration_s": 0.0,
+                "migration_bytes": 0,
+                "kv_transport": "skipped",
+            }
+        finally:
+            if span is not None:
+                span.finish()
+
+    return gen()
+
+
+# --------------------------------------------------------------------------
+# workers: one per replica, tracking role-specific load locally
+# --------------------------------------------------------------------------
+
+
+class _LoadTracker:
+    def __init__(self):
+        self._outstanding = 0
+        self._load_lock = threading.Lock()
+
+    def load(self) -> int:
+        return self._outstanding
+
+    def _begin(self) -> None:
+        with self._load_lock:
+            self._outstanding += 1
+
+    def _end(self) -> None:
+        with self._load_lock:
+            self._outstanding -= 1
+
+
+class EngineWorker(_LoadTracker):
+    """One in-process InferenceEngine acting as a prefill or decode
+    replica, with no serve runtime around it."""
+
+    def __init__(self, engine: InferenceEngine, name: str = "engine"):
+        super().__init__()
+        self.engine = engine
+        self.name = name
+        self.key = f"engine-worker-{id(self)}"
+        self._inbox: Optional[KvInbox] = None
+        self._inbox_lock = threading.Lock()
+        self._adapters: Dict[str, Any] = {}  # LoRA id -> resolved weights
+        self._adapter_lock = threading.Lock()
+
+    def kv_dest(self, ttl_s: Optional[float] = None):
+        with self._inbox_lock:
+            if self._inbox is None:
+                self._inbox = KvInbox(
+                    ttl_s=ttl_s if ttl_s is not None else 120.0)
+            return self._inbox.channel
+
+    def prefix_digest(self) -> Dict[str, Any]:
+        return self.engine.prefix_digest()
+
+    def load_adapter(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        """Pin a LoRA adapter resident: weights inline, or an ObjectRef
+        resolved through the object store. Residency bookkeeping only, as
+        in the reference: the engine applies no adapter."""
+        adapter_id = str(request["adapter_id"])
+        weights = request.get("weights")
+        if weights is None and request.get("ref") is not None:
+            weights = api.get(request["ref"],
+                              timeout=float(request.get("timeout_s", 60.0)))
+        with self._adapter_lock:
+            self._adapters[adapter_id] = weights
+        return {"adapter_id": adapter_id, "resident": True}
+
+    def list_adapters(self) -> List[str]:
+        with self._adapter_lock:
+            return sorted(self._adapters)
+
+    def update_weights(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        """Live base-weight swap (no drain): {"weights"|"ref", "version"?}.
+        An ObjectRef resolves through the object store (on one host, by
+        reference)."""
+        weights = request.get("weights")
+        if weights is None and request.get("ref") is not None:
+            weights = api.get(request["ref"],
+                              timeout=float(request.get("timeout_s", 60.0)))
+        if weights is None:
+            raise ValueError("update_weights needs 'weights' or 'ref'")
+        v = self.engine.update_params(weights,
+                                      version=request.get("version"))
+        return {"weights_version": v}
+
+    def weights_version(self) -> int:
+        return self.engine.weights_version
+
+    def _ensure_adapter(self, request: Dict[str, Any]) -> None:
+        """Adapter-aware admission: a request naming a non-resident
+        adapter pulls it lazily via its adapter_ref (residency routing
+        makes this the cold-start path, not the common one)."""
+        adapter_id = request.get("adapter_id")
+        if not adapter_id:
+            return
+        with self._adapter_lock:
+            if adapter_id in self._adapters:
+                return
+        if request.get("adapter_ref") is None:
+            raise ValueError(
+                f"adapter {adapter_id!r} not resident on {self.name} and "
+                f"the request carries no adapter_ref to pull it from")
+        self.load_adapter({"adapter_id": adapter_id,
+                           "ref": request["adapter_ref"],
+                           "timeout_s": request.get("timeout_s", 60.0)})
+
+    def prefill_request(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        self._begin()
+        try:
+            return replica_prefill(self.engine, request)
+        finally:
+            self._end()
+
+    def decode_request(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        self._begin()
+        try:
+            self._ensure_adapter(request)
+            return replica_decode(self.engine, request, self._inbox)
+        finally:
+            self._end()
+
+    def decode_stream(self, request: Dict[str, Any]):
+        # load accounting brackets the whole stream, not just the call
+        self._begin()
+        try:
+            self._ensure_adapter(request)
+        except BaseException:
+            self._end()
+            raise
+
+        def gen():
+            try:
+                yield from replica_decode_stream(
+                    self.engine, request, self._inbox)
+            finally:
+                self._end()
+
+        return gen()
+
+    def generate_request(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        self._begin()
+        try:
+            self._ensure_adapter(request)
+            return replica_generate(self.engine, request)
+        finally:
+            self._end()
+
+    def generate_stream(self, request: Dict[str, Any]):
+        self._begin()
+        try:
+            self._ensure_adapter(request)
+        except BaseException:
+            self._end()
+            raise
+
+        def gen():
+            try:
+                yield from replica_generate_stream(self.engine, request)
+            finally:
+                self._end()
+
+        return gen()
+
+    def cancel(self, request_id: str) -> bool:
+        hit = self.engine.cancel(request_id)
+        if self._inbox is not None:
+            # a blob/stream parked (or still in flight) for this request
+            # must not outlive it — the leak the inbox sweeps guard
+            self._inbox.cancel(request_id)
+        return hit
+
+
+class ReplicaWorker(_LoadTracker):
+    """One serve replica actor (LLMServer) addressed directly, NOT via a
+    DeploymentHandle: channel transfer needs the KV destination and the
+    decode call to land on the SAME replica, which per-call handle
+    routing cannot guarantee."""
+
+    def __init__(self, replica: Any):
+        super().__init__()
+        self._replica = replica
+        self.key = _replica_key(replica)
+        self._kv_dest = None
+        self._kv_dest_lock = threading.Lock()
+
+    def _call(self, method: str, request: Dict[str, Any],
+              timeout: float) -> Any:
+        ref = self._replica.handle_request.remote(method, (request,), {}, "")
+        return api.get(ref, timeout=timeout)
+
+    def kv_dest(self, ttl_s: Optional[float] = None):
+        # serialize the first fetch: kv_ingest is idempotent replica-side,
+        # but concurrent fetchers would still each pay the round trip
+        with self._kv_dest_lock:
+            if self._kv_dest is None:
+                req = {} if ttl_s is None else \
+                    {"kv_inbox_ttl_s": float(ttl_s)}
+                self._kv_dest = self._call("kv_ingest", req, 30.0)
+            return self._kv_dest
+
+    def prefix_digest(self) -> Dict[str, Any]:
+        return self._call("prefix_digest", {}, 30.0)
+
+    def load_adapter(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        return self._call("load_adapter", request,
+                          float(request.get("timeout_s", 60.0)) + 30.0)
+
+    def list_adapters(self) -> List[str]:
+        return self._call("list_adapters", {}, 30.0)
+
+    def update_weights(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        return self._call("update_weights", request,
+                          float(request.get("timeout_s", 60.0)) + 30.0)
+
+    def weights_version(self) -> int:
+        return self._call("weights_version", {}, 30.0)
+
+    def prefill_request(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        self._begin()
+        try:
+            return self._call("prefill_request", request,
+                              float(request.get("timeout_s", 600.0)) + 30.0)
+        finally:
+            self._end()
+
+    def decode_request(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        self._begin()
+        try:
+            return self._call("decode_request", request,
+                              float(request.get("timeout_s", 600.0)) + 30.0)
+        finally:
+            self._end()
+
+    def decode_stream(self, request: Dict[str, Any]):
+        self._begin()
+        try:
+            inner = self._call("decode_stream", request,
+                               float(request.get("timeout_s", 600.0)) + 30.0)
+        except BaseException:
+            self._end()
+            raise
+
+        def gen():
+            try:
+                yield from inner
+            finally:
+                self._end()
+
+        return gen()
+
+    def generate_request(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        self._begin()
+        try:
+            return self._call("generate_request", request,
+                              float(request.get("timeout_s", 600.0)) + 30.0)
+        finally:
+            self._end()
+
+    def generate_stream(self, request: Dict[str, Any]):
+        self._begin()
+        try:
+            inner = self._call("generate_stream", request,
+                               float(request.get("timeout_s", 600.0)) + 30.0)
+        except BaseException:
+            self._end()
+            raise
+
+        def gen():
+            try:
+                yield from inner
+            finally:
+                self._end()
+
+        return gen()
+
+    def cancel(self, request_id: str) -> bool:
+        try:
+            return self._call("cancel", {"request_id": request_id}, 30.0)
+        except Exception:  # noqa: BLE001 — best-effort on a dying replica
+            return False
+
+
+# --------------------------------------------------------------------------
+# the coordinator
+# --------------------------------------------------------------------------
+
+
+class DisaggStream:
+    """Handle for one streaming disagg request: `tokens()` yields ids;
+    finish_reason/error/migration stats populate once exhausted."""
+
+    def __init__(self, request_id: str, raw_gen, coordinator):
+        self.request_id = request_id
+        self.finish_reason: Optional[str] = None
+        self.error: Optional[str] = None
+        self.migration_s: Optional[float] = None
+        self.migration_bytes: Optional[int] = None
+        # per-token sampled logprobs + the generation (weights) version
+        # the tokens were sampled under — populated from the trailing
+        # summary once the stream is exhausted (a resumed stream carries
+        # None for tokens committed before the resume: the dead replica's
+        # logprobs died with it)
+        self.logprobs: Optional[List[Optional[float]]] = None
+        self.weights_version: Optional[int] = None
+        self._raw = raw_gen
+        self._co = coordinator
+
+    def logprob_at(self, i: int) -> Optional[float]:
+        """Logprob of the i-th streamed token, if known yet (summaries
+        arrive at stream end, so this is None while still streaming)."""
+        if self.logprobs is not None and 0 <= i < len(self.logprobs):
+            return self.logprobs[i]
+        return None
+
+    def tokens(self):
+        for item in self._raw:
+            if isinstance(item, dict):  # the replica's trailing summary
+                self.finish_reason = item.get("finish_reason")
+                self.error = item.get("error")
+                self.migration_s = item.get("migration_s")
+                self.migration_bytes = item.get("migration_bytes")
+                self.logprobs = item.get("logprobs")
+                self.weights_version = item.get("weights_version")
+                break
+            yield item
+        # the summary break leaves the pipeline suspended at its final
+        # yield — close it so the finallys (replica load accounting,
+        # inflight gauge, _live entry) unwind NOW rather than at GC;
+        # fleet scale-down reads replica load and a lingering count
+        # would pin the fleet "busy"
+        self._raw.close()
+        if self.error:
+            raise ValueError(self.error)
+
+    def cancel(self) -> None:
+        self._co.cancel(self.request_id)
+        # unwind the stream's finallys NOW (inflight gauge, _live entry)
+        # rather than whenever the abandoned generator gets collected
+        self._raw.close()
+
+
+class DisaggCoordinator:
+    """Admission + role routing + KV handoff for disaggregated serving.
+
+    Pick order is decode-first: channel transfer must know its
+    destination inbox before the prefill replica pushes the blob."""
+
+    def __init__(self, prefill_workers: List[Any], decode_workers: List[Any],
+                 config: Any = None):
+        self.cfg = DisaggConfig.parse(config or {})
+        self._workers = {
+            "prefill": list(prefill_workers),
+            "decode": list(decode_workers),
+        }
+        self._lock = threading.Lock()
+        self._live: Dict[str, Any] = {}  # request_id -> (pworker, dworker)
+        # per-replica-identity caches, invalidated on membership change
+        # (_sync): the decode replica's KV destination channel (resolving
+        # it is a round-trip to the replica — once per replica lifetime,
+        # not once per request) and its prefix-cache digest (refreshed
+        # every prefix_gossip_s)
+        self._kv_dest_cache: Dict[Any, Any] = {}
+        self._prefix_digests: Dict[Any, Tuple[float, Any]] = {}
+        # gossiped LoRA residency per decode replica (refreshed every
+        # adapter_gossip_s): adapter-aware routing prefers replicas that
+        # already hold the request's adapter
+        self._adapter_residency: Dict[Any, Tuple[float, frozenset]] = {}
+        # gossiped weights generation per replica (same cadence as the
+        # adapter gossip): routers and the RL trainer read fleet skew
+        # from here without a per-request round trip
+        self._weights_gossip: Dict[Any, Tuple[float, Optional[int]]] = {}
+        # graceful scale-down: replicas removed from membership but still
+        # carrying in-flight streams park here (key -> (deadline, worker))
+        # with their caches intact until drained or past drain_grace_s
+        self._draining: Dict[Any, Tuple[float, Any]] = {}
+        # live resume bookkeeping: original request_id -> the request_id
+        # currently running on a replica (changes on each resume attempt)
+        self._resumed: Dict[str, str] = {}
+        # serve mode (from_deployments): re-synced against the controller
+        self._deployments: Optional[Dict[str, str]] = None
+        self._controller = None
+        self._last_sync = 0.0
+        self._sync_period = 1.0
+        self._pg = None  # placement group owned by deploy_disagg
+        # Health-aware routing (core/health.py): transport errors and
+        # degraded latency quarantine a replica out of _pick long before
+        # the control plane's heartbeat timeout marks its node DEAD; a
+        # probe request un-quarantines it on recovery. Head-plane alerts
+        # naming a replica (labels["replica"]) quarantine it too.
+        self.health = ReplicaHealth()
+        from ..core.health import get_health_plane
+        plane = get_health_plane(create=False)
+        if plane is not None:
+            plane.subscribe(self._on_alert)
+
+    def _on_alert(self, alert: Dict[str, Any]) -> None:
+        rep = (alert.get("labels") or {}).get("replica")
+        if not rep or alert.get("state") != "firing":
+            return
+        with self._lock:
+            keys = [w.key for ws in self._workers.values() for w in ws]
+        for key in keys:
+            if str(key) == rep:
+                self.health.quarantine(key, reason=alert.get("rule", "alert"))
+
+    # -------------------------------------------------------------- serve
+
+    @classmethod
+    def from_deployments(cls, prefill_deployment: str, decode_deployment: str,
+                         config: Any = None,
+                         controller: Any = None) -> "DisaggCoordinator":
+        co = cls([], [], config)
+        co._deployments = {
+            "prefill": prefill_deployment,
+            "decode": decode_deployment,
+        }
+        co._controller = controller
+        co._sync(force=True)
+        return co
+
+    def _controller_handle(self):
+        # double-checked: two racing _sync threads must not both resolve
+        # the controller; callers never hold self._lock here
+        if self._controller is None:
+            with self._lock:
+                if self._controller is None:
+                    self._controller = api.get_actor("SERVE_CONTROLLER")
+        return self._controller
+
+    def _sync(self, force: bool = False) -> None:
+        """Refresh per-role worker lists from the controller, REUSING the
+        worker object for any replica that survived (its in-flight count
+        and cached KV channel must not reset on a version bump — the same
+        invariant Pow2Router.update_replicas keeps)."""
+        if self._deployments is None:
+            return
+        now = time.monotonic()
+        with self._lock:
+            if not force and now - self._last_sync < self._sync_period:
+                return
+            self._last_sync = now
+        for role, name in self._deployments.items():
+            replicas, _version = api.get(
+                self._controller_handle().get_replicas.remote(name))
+            with self._lock:
+                cur = {w.key: w for w in self._workers[role]}
+                self._workers[role] = [
+                    cur.get(_replica_key(r)) or ReplicaWorker(r)
+                    for r in replicas
+                ]
+                # replicas that went away: a removed replica still
+                # carrying in-flight streams is DRAINED, not dropped —
+                # it leaves the pick set now (it's no longer in
+                # _workers) but keeps its kv_dest/digest caches so its
+                # live streams finish; caches drop once its load hits
+                # zero or drain_grace_s expires. Idle removals drop
+                # immediately — a replaced replica gets a fresh kv_dest
+                # on next use instead of a stale channel to a dead
+                # process.
+                gone = set(cur) - {w.key for w in self._workers[role]}
+                for key in gone:
+                    w = cur[key]
+                    try:
+                        busy = w.load() > 0
+                    except Exception:  # noqa: BLE001 — treat as idle
+                        busy = False
+                    if busy and self.cfg.drain_grace_s > 0:
+                        self._draining.setdefault(
+                            key, (now + self.cfg.drain_grace_s, w))
+                        continue
+                    self._drop_worker_state(key)
+                self._sweep_draining(now)
+
+    def _sweep_draining(self, now: float) -> None:
+        # caller holds self._lock: draining replicas whose last stream
+        # finished (or whose grace expired) finally drop their caches
+        for key, (dl, w) in list(self._draining.items()):
+            try:
+                drained = w.load() <= 0
+            except Exception:  # noqa: BLE001
+                drained = True
+            if drained or now > dl:
+                self._draining.pop(key, None)
+                self._drop_worker_state(key)
+
+    def _drop_worker_state(self, key) -> None:
+        # caller holds self._lock
+        self._kv_dest_cache.pop(key, None)
+        self._prefix_digests.pop(key, None)
+        self._adapter_residency.pop(key, None)
+        self._weights_gossip.pop(key, None)
+
+    # -------------------------------------------------------------- picks
+
+    def _pick(self, role: str, deadline: float):
+        _m_queue_depth.add(1, tags={"role": role})
+        try:
+            with tracing.span_if_traced("disagg.queue_wait", {"role": role}):
+                while True:
+                    self._sync()
+                    with self._lock:
+                        workers = list(self._workers[role])
+                    if workers:
+                        elig = self.health.eligible([w.key for w in workers])
+                        cand = [w for w in workers if w.key in elig] or workers
+                        idx = pow2_choice(
+                            len(cand),
+                            lambda i: cand[i].load()
+                            + self.health.penalty(cand[i].key))
+                        return cand[idx]
+                    if time.monotonic() > deadline:
+                        raise RuntimeError(f"no {role} replicas available")
+                    time.sleep(0.1)
+                    self._sync(force=True)
+        finally:
+            _m_queue_depth.add(-1, tags={"role": role})
+
+    def _kv_dest_for(self, worker):
+        """The decode replica's KV channel, resolved ONCE per replica
+        identity (not per request, not per resync) and dropped by _sync
+        when the replica leaves the membership."""
+        with self._lock:
+            dest = self._kv_dest_cache.get(worker.key)
+        if dest is None:
+            dest = worker.kv_dest(self.cfg.kv_inbox_ttl_s)
+            with self._lock:
+                self._kv_dest_cache[worker.key] = dest
+        return dest
+
+    def _prefix_digest_for(self, worker):
+        """The decode replica's prefix-cache digest, refreshed at most
+        every prefix_gossip_s (0 = every request). A digest fetch that
+        fails caches None — the replica just doesn't attract routes
+        until the next refresh."""
+        now = time.monotonic()
+        with self._lock:
+            hit = self._prefix_digests.get(worker.key)
+        if hit is not None and (self.cfg.prefix_gossip_s > 0
+                                and now - hit[0] < self.cfg.prefix_gossip_s):
+            return hit[1]
+        try:
+            digest = worker.prefix_digest()
+        except Exception:  # noqa: BLE001 — replica mid-death; skip it
+            digest = None
+        with self._lock:
+            self._prefix_digests[worker.key] = (now, digest)
+        return digest
+
+    def _adapter_residency_for(self, worker) -> frozenset:
+        """The decode replica's resident-LoRA set, refreshed at most
+        every adapter_gossip_s (0 = every request). A failed fetch
+        gossips empty — the replica just stops attracting adapter
+        routes until the next refresh."""
+        now = time.monotonic()
+        with self._lock:
+            hit = self._adapter_residency.get(worker.key)
+        if hit is not None and (self.cfg.adapter_gossip_s > 0
+                                and now - hit[0] < self.cfg.adapter_gossip_s):
+            return hit[1]
+        try:
+            resident = frozenset(worker.list_adapters())
+        except Exception:  # noqa: BLE001 — replica mid-death; skip it
+            resident = frozenset()
+        with self._lock:
+            self._adapter_residency[worker.key] = (now, resident)
+        return resident
+
+    def _weights_version_for(self, worker) -> Optional[int]:
+        """The replica's gossiped weights generation, refreshed at most
+        every adapter_gossip_s (0 = every call). A failed fetch gossips
+        None — unknown, not version zero."""
+        now = time.monotonic()
+        with self._lock:
+            hit = self._weights_gossip.get(worker.key)
+        if hit is not None and (self.cfg.adapter_gossip_s > 0
+                                and now - hit[0] < self.cfg.adapter_gossip_s):
+            return hit[1]
+        try:
+            version = int(worker.weights_version())
+        except Exception:  # noqa: BLE001 — replica mid-death; skip it
+            version = None
+        with self._lock:
+            self._weights_gossip[worker.key] = (now, version)
+        return version
+
+    def weights_versions(self) -> Dict[str, Optional[int]]:
+        """Fleet weight-generation skew map: replica key -> gossiped
+        weights_version (None = unknown/unreachable), both roles."""
+        with self._lock:
+            workers = (list(self._workers["prefill"])
+                       + list(self._workers["decode"]))
+        return {str(w.key): self._weights_version_for(w) for w in workers}
+
+    def _pick_decode(self, base: Dict[str, Any], deadline: float):
+        """Decode pick, adapter-aware: a request naming a LoRA adapter
+        prefers replicas gossiping it resident (pow2 among them); when
+        none do, the normal pick stands and the chosen replica pulls
+        the adapter lazily via adapter_ref."""
+        adapter_id = base.get("adapter_id")
+        if adapter_id:
+            with self._lock:
+                workers = list(self._workers["decode"])
+            elig = self.health.eligible([w.key for w in workers])
+            cand = [w for w in workers if w.key in elig] or workers
+            resident = [w for w in cand
+                        if adapter_id in self._adapter_residency_for(w)]
+            if resident:
+                return pick_resident(
+                    cand, resident,
+                    lambda w: w.load() + self.health.penalty(w.key))
+        return self._pick("decode", deadline)
+
+    def _prefix_route(self, base: Dict[str, Any]):
+        """Prefix-aware role routing: if some decode replica already
+        holds the request's leading prompt pages warm (per its gossiped
+        PrefixCache digest), return (worker, warm_tokens) so the request
+        runs there directly — skipping prefill AND migration. None when
+        routing is off or nothing is warm enough."""
+        if not self.cfg.prefix_routing:
+            return None
+        prompt = base["prompt_ids"]
+        with self._lock:
+            workers = list(self._workers["decode"])
+        if not workers:
+            return None
+        elig = self.health.eligible([w.key for w in workers])
+        cand = [w for w in workers if w.key in elig] or workers
+        fps_by_ps: Dict[int, List[str]] = {}
+        best, best_tokens = None, 0
+        for w in cand:
+            digest = self._prefix_digest_for(w)
+            if not digest or not digest.get("hashes"):
+                continue
+            ps = int(digest["page_size"])
+            if ps not in fps_by_ps:
+                fps_by_ps[ps] = prompt_page_fingerprints(prompt, ps)
+            fps = fps_by_ps[ps]
+            warm = set(digest["hashes"])
+            n = 0
+            for fp in fps:
+                if fp not in warm:
+                    break
+                n += 1
+            if n * ps > best_tokens:
+                best, best_tokens = w, n * ps
+        if best is not None and best_tokens >= self.cfg.prefix_route_min_tokens:
+            return best, best_tokens
+        return None
+
+    def _base_request(self, prompt, max_tokens, temperature, top_p, top_k,
+                      stop, request_id, timeout_s, adapter_id=None,
+                      adapter_ref=None) -> Dict[str, Any]:
+        base = {
+            "prompt_ids": list(prompt),
+            "max_tokens": int(max_tokens),
+            "temperature": float(temperature),
+            "top_p": float(top_p),
+            "top_k": int(top_k),
+            "stop_token_ids": stop,
+            "request_id": request_id or uuid.uuid4().hex,
+            "timeout_s": float(timeout_s),
+            "kv_transfer": self.cfg.kv_transfer,
+            "small_blob_bytes": self.cfg.small_blob_bytes,
+            "kv_stream_tokens": self.cfg.kv_stream_tokens,
+            "kv_coalesce_bytes": self.cfg.kv_coalesce_bytes,
+            "kv_stream_idle_s": self.cfg.kv_stream_idle_s,
+            "kv_frame_layout": self.cfg.kv_frame_layout,
+            # None when untraced: replicas skip all span work on that path
+            "trace_ctx": tracing.current_context(),
+        }
+        if adapter_id:
+            base["adapter_id"] = str(adapter_id)
+            base["adapter_ref"] = adapter_ref
+        return base
+
+    def _run_prefill(self, base: Dict[str, Any], deadline: float,
+                     dworker) -> Dict[str, Any]:
+        kv_dest = None
+        if self.cfg.kv_transfer == "channel" or self.cfg.small_blob_bytes > 0:
+            kv_dest = self._kv_dest_for(dworker)
+        pworker = self._pick("prefill", deadline)
+        self._live[base["request_id"]] = (pworker, dworker)
+        t0 = time.monotonic()
+        try:
+            with _m_inflight.track(tags={"role": "prefill"}):
+                res = pworker.prefill_request({**base, "kv_dest": kv_dest})
+        except BaseException:
+            self.health.record_error(pworker.key)
+            raise
+        self.health.observe(pworker.key, time.monotonic() - t0,
+                            role="prefill")
+        return res
+
+    def _spawn_prefill(self, base: Dict[str, Any], deadline: float,
+                       dworker, kv_dest):
+        """Stream mode: launch the prefill leg on its own thread so the
+        decode-side eager import runs CONCURRENTLY (that concurrency IS
+        the overlap). Returns (thread, box); box['res'] or box['err']
+        is set when the leg finishes. A failed prefill also poisons the
+        stream so the importer fails fast instead of idling out."""
+        pworker = self._pick("prefill", deadline)
+        self._live[base["request_id"]] = (pworker, dworker)
+        ctx = tracing.current_context()
+        box: Dict[str, Any] = {}
+
+        def run():
+            t0 = time.monotonic()
+            try:
+                with tracing.activate(ctx):
+                    with _m_inflight.track(tags={"role": "prefill"}):
+                        box["res"] = pworker.prefill_request(
+                            {**base, "kv_dest": kv_dest})
+                self.health.observe(pworker.key, time.monotonic() - t0,
+                                    role="prefill")
+            except BaseException as e:  # noqa: BLE001 — reported via box
+                box["err"] = e
+                self.health.record_error(pworker.key)
+                _push_error_frame(kv_dest, base["request_id"], str(e))
+
+        t = threading.Thread(
+            target=run, daemon=True,
+            name=f"disagg-prefill-{base['request_id'][:8]}")
+        t.start()
+        return t, box
+
+    # ---------------------------------------------------------- blocking
+
+    def _generate_streamed(self, base: Dict[str, Any], deadline: float,
+                           dworker) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """Stream transport: prefill runs on a side thread pushing KV
+        frames while THIS thread blocks in the decode replica's eager
+        import — the two legs overlap by construction. Returns
+        (decode result, prefill result)."""
+        kv_dest = self._kv_dest_for(dworker)
+        pt, pbox = self._spawn_prefill(base, deadline, dworker, kv_dest)
+        td = time.monotonic()
+        try:
+            with _m_inflight.track(tags={"role": "decode"}):
+                dres = dworker.decode_request(
+                    {**base, "kv": {"kind": "stream"}})
+        except BaseException as e:
+            self.health.record_error(dworker.key)
+            pt.join(timeout=30.0)
+            if "err" in pbox:
+                # the decode-side failure is downstream of the prefill
+                # leg dying — surface the root cause
+                raise pbox["err"] from e
+            raise
+        self.health.observe(dworker.key, time.monotonic() - td,
+                            role="decode")
+        pt.join(timeout=30.0)
+        if "err" in pbox:
+            raise pbox["err"]
+        pres = pbox.get("res") or {"ttft_s": 0.0, "prefill_s": 0.0,
+                                   "kv": {"kind": "stream"}}
+        return dres, pres
+
+    def _generate_routed(self, base: Dict[str, Any], dworker,
+                         warm: int) -> Dict[str, Any]:
+        """Prefix-routed: the whole request runs on the decode replica
+        whose cache is warm — no prefill leg at all."""
+        with tracing.span_if_traced(
+                "disagg.route", {"prefix_warm_tokens": warm,
+                                 "replica": str(dworker.key)}):
+            td = time.monotonic()
+            try:
+                with _m_inflight.track(tags={"role": "decode"}):
+                    dres = dworker.generate_request(base)
+            except BaseException:
+                self.health.record_error(dworker.key)
+                raise
+            self.health.observe(dworker.key, time.monotonic() - td,
+                                role="decode")
+        return dres
+
+    def generate(self, prompt: List[int], max_tokens: int = 32,
+                 temperature: float = 0.0, top_p: float = 1.0,
+                 top_k: int = 0, stop: Optional[List[List[int]]] = None,
+                 request_id: Optional[str] = None,
+                 timeout_s: float = 600.0,
+                 adapter_id: Optional[str] = None,
+                 adapter_ref: Any = None) -> Dict[str, Any]:
+        with tracing.span_if_traced("disagg.admit", {"kind": "generate"}):
+            base = self._base_request(prompt, max_tokens, temperature, top_p,
+                                      top_k, stop, request_id, timeout_s,
+                                      adapter_id, adapter_ref)
+            t0 = time.monotonic()
+            deadline = t0 + timeout_s
+            routed = self._prefix_route(base)
+            try:
+                if routed is not None:
+                    dworker, warm = routed
+                    self._live[base["request_id"]] = (dworker,)
+                    dres = self._generate_routed(base, dworker, warm)
+                    return {
+                        "request_id": base["request_id"],
+                        "token_ids": dres["token_ids"],
+                        "logprobs": dres.get("logprobs"),
+                        "weights_version": dres.get("weights_version"),
+                        "finish_reason": dres["finish_reason"],
+                        "ttft_s": dres.get("ttft_s", 0.0),
+                        "latency_s": time.monotonic() - t0,
+                        "migration_s": 0.0,
+                        "migration_bytes": 0,
+                        "kv_transport": "skipped",
+                        "prefix_warm_tokens": warm,
+                    }
+                dworker = self._pick_decode(base, deadline)
+                if self.cfg.kv_transfer == "stream":
+                    dres, pres = self._generate_streamed(
+                        base, deadline, dworker)
+                else:
+                    pres = self._run_prefill(base, deadline, dworker)
+                    td = time.monotonic()
+                    try:
+                        with _m_inflight.track(tags={"role": "decode"}):
+                            dres = dworker.decode_request(
+                                {**base, "kv": pres["kv"]})
+                    except BaseException:
+                        self.health.record_error(dworker.key)
+                        raise
+                    self.health.observe(dworker.key, time.monotonic() - td,
+                                        role="decode")
+            finally:
+                self._live.pop(base["request_id"], None)
+        return {
+            "request_id": base["request_id"],
+            "token_ids": dres["token_ids"],
+            "logprobs": dres.get("logprobs"),
+            "weights_version": dres.get("weights_version"),
+            "finish_reason": dres["finish_reason"],
+            "ttft_s": pres["ttft_s"],
+            "latency_s": time.monotonic() - t0,
+            "migration_s": dres["migration_s"],
+            "migration_bytes": dres["migration_bytes"],
+            "kv_transport": dres["kv_transport"],
+        }
+
+    # --------------------------------------------------------- streaming
+
+    def _open_raw(self, base: Dict[str, Any], deadline: float):
+        """Open ONE decode-side token stream for `base` — prefix-routed,
+        streamed, or prefill-then-decode — and return (raw_gen, dworker).
+        This is the unit the live-resume loop re-enters: a continuation
+        request goes through exactly the same path selection (including
+        re-export on a prefill replica + re-import on the new decode
+        peer) as a fresh one."""
+        routed = self._prefix_route(base)
+        dworker = None
+        try:
+            if routed is not None:
+                dworker, warm = routed
+                self._live[base["request_id"]] = (dworker,)
+                with tracing.span_if_traced(
+                        "disagg.route",
+                        {"prefix_warm_tokens": warm,
+                         "replica": str(dworker.key)}):
+                    raw = dworker.generate_stream(base)
+            elif self.cfg.kv_transfer == "stream":
+                dworker = self._pick_decode(base, deadline)
+                kv_dest = self._kv_dest_for(dworker)
+                pt, pbox = self._spawn_prefill(
+                    base, deadline, dworker, kv_dest)
+                try:
+                    raw = dworker.decode_stream(
+                        {**base, "kv": {"kind": "stream"}})
+                except BaseException as e:
+                    pt.join(timeout=30.0)
+                    if "err" in pbox:
+                        raise pbox["err"] from e
+                    raise
+            else:
+                dworker = self._pick_decode(base, deadline)
+                pres = self._run_prefill(base, deadline, dworker)
+                raw = dworker.decode_stream({**base, "kv": pres["kv"]})
+        except BaseException:
+            if dworker is not None:
+                self.health.record_error(dworker.key)
+            self._live.pop(base["request_id"], None)
+            raise
+        return raw, dworker
+
+    def _resume_stream(self, base: Dict[str, Any], committed: List[int],
+                       deadline: float, dead_worker, attempt: int):
+        """Live request resume: mint the continuation request (original
+        prompt + committed tokens replayed as the new prompt, max_tokens
+        reduced by what the client already has) and open it through the
+        normal pipeline on a healthy peer — the continuation's first
+        output token is exactly the next token of the logical stream.
+        Token-identical continuation assumes deterministic sampling
+        (temperature 0): the new prefill recomputes KV for the replayed
+        tokens, so greedy decoding continues the identical sequence."""
+        rid = base["request_id"]
+        self.health.quarantine(dead_worker.key, reason="stream-died")
+        try:
+            dead_worker.cancel(self._resumed.get(rid, rid))
+        except Exception:  # noqa: BLE001 — replica likely already dead
+            pass
+        cont = dict(base)
+        cont["prompt_ids"] = (list(base["prompt_ids"])
+                              + [int(t) for t in committed])
+        cont["max_tokens"] = int(base["max_tokens"]) - len(committed)
+        cont["request_id"] = f"{rid}-r{attempt}"
+        raw, dworker = self._open_raw(cont, deadline)
+        with self._lock:
+            # client-facing identity stays the ORIGINAL request_id:
+            # cancel() follows _resumed to reach the live engine request
+            self._resumed[rid] = cont["request_id"]
+            workers = self._live.pop(cont["request_id"], None)
+            if workers is not None:
+                self._live[rid] = workers
+        return raw, dworker
+
+    def open_stream(self, prompt: List[int], max_tokens: int = 32,
+                    temperature: float = 0.0, top_p: float = 1.0,
+                    top_k: int = 0, stop: Optional[List[List[int]]] = None,
+                    request_id: Optional[str] = None,
+                    timeout_s: float = 600.0,
+                    adapter_id: Optional[str] = None,
+                    adapter_ref: Any = None) -> DisaggStream:
+        """Run the prefill leg (TTFT is paid here — concurrently with
+        the eager import under the stream transport, synchronously
+        otherwise), then return a stream over the decode replica's
+        tokens — the seeded first token arrives as the stream's first
+        item. A prefix-routed request skips the prefill leg entirely.
+
+        With live_resume on (the default), a replica dying MID-STREAM
+        quarantines it and re-opens the request's remaining tokens on a
+        healthy peer (up to resume_max_attempts deaths per stream): the
+        client sees a latency blip, never a failed request."""
+        with tracing.span_if_traced("disagg.admit", {"kind": "stream"}):
+            base = self._base_request(prompt, max_tokens, temperature, top_p,
+                                      top_k, stop, request_id, timeout_s,
+                                      adapter_id, adapter_ref)
+            deadline = time.monotonic() + timeout_s
+            raw, dworker = self._open_raw(base, deadline)
+        rid = base["request_id"]
+
+        def finishing():
+            nonlocal raw, dworker
+            committed: List[int] = []
+            attempts = 0
+            prior = 0  # tokens committed before the CURRENT raw opened
+            _m_inflight.add(1, tags={"role": "decode"})
+            try:
+                while True:
+                    t0 = time.monotonic()
+                    try:
+                        for item in raw:
+                            if isinstance(item, dict):
+                                if item.get("error"):
+                                    # terminal error in the trailing
+                                    # summary: same resume treatment as
+                                    # a raised mid-stream death
+                                    raise _StreamDied(item["error"])
+                                if prior:
+                                    # resumed: the summary's logprobs
+                                    # cover only the continuation — pad
+                                    # for the dead replica's tokens
+                                    item["logprobs"] = (
+                                        [None] * prior
+                                        + list(item.get("logprobs") or []))
+                                self.health.observe(
+                                    dworker.key, time.monotonic() - t0,
+                                    role="decode")
+                                yield item
+                                return
+                            committed.append(item)
+                            yield item
+                        return  # defensive: raw ended without a summary
+                    except GeneratorExit:
+                        raise
+                    except BaseException as e:
+                        self.health.record_error(dworker.key)
+                        attempts += 1
+                        if (not self.cfg.live_resume
+                                or attempts > self.cfg.resume_max_attempts
+                                or time.monotonic() > deadline):
+                            raise
+                        remaining = int(base["max_tokens"]) - len(committed)
+                        if remaining <= 0:
+                            # every token was already committed: the
+                            # stream is logically complete
+                            yield {"finish_reason": "length", "error": None,
+                                   "logprobs": [None] * len(committed),
+                                   "weights_version": None,
+                                   "migration_s": 0.0, "migration_bytes": 0,
+                                   "kv_transport": "resumed"}
+                            return
+                        tr = time.monotonic()
+                        try:
+                            raw, dworker = self._resume_stream(
+                                base, committed, deadline, dworker, attempts)
+                            prior = len(committed)
+                        except BaseException:
+                            logger.warning("live resume of %s failed", rid,
+                                           exc_info=True)
+                            raise e  # surface the original death
+                        _m_resumes.inc()
+                        _m_resume_s.observe(time.monotonic() - tr)
+                        logger.info(
+                            "resumed %s on %s after %d committed tokens "
+                            "(attempt %d)", rid, dworker.key,
+                            len(committed), attempts)
+            finally:
+                _m_inflight.add(-1, tags={"role": "decode"})
+                # the normal exit leaves raw suspended just past its
+                # trailing summary yield — close it so the replica-side
+                # finallys (load accounting) run NOW, not at GC; fleet
+                # scale-down reads w.load() and a leaked count pins the
+                # replica "busy" forever
+                try:
+                    raw.close()
+                except Exception:  # noqa: BLE001 — replica already dead
+                    pass
+                with self._lock:
+                    self._live.pop(rid, None)
+                    self._resumed.pop(rid, None)
+
+        return DisaggStream(rid, finishing(), self)
+
+    def generate_stream(self, prompt: List[int], **kw):
+        return self.open_stream(prompt, **kw).tokens()
+
+    # ------------------------------------------------------------- admin
+
+    def cancel(self, request_id: str) -> bool:
+        with self._lock:
+            # pop the routing state NOW: an abandoned/cancelled request
+            # must not linger in _live (and its queue-depth / inflight
+            # gauge contributions unwind via the pick/stream finallys)
+            workers = self._live.pop(request_id, None)
+            live_rid = self._resumed.pop(request_id, request_id)
+        if workers is None:
+            return False
+        hit = False
+        for w in workers:
+            # a resumed request runs under its continuation id on the
+            # replica — cancel both identities, best-effort
+            for rid in {request_id, live_rid}:
+                try:
+                    hit = w.cancel(rid) or hit
+                except Exception:  # noqa: BLE001 — best-effort
+                    pass
+        return hit
+
+    def workers(self, role: str) -> List[Any]:
+        """Current pick-set snapshot for a role (fleet actuation reads
+        this to address replicas directly, e.g. adapter distribution)."""
+        with self._lock:
+            return list(self._workers[role])
+
+    def add_worker(self, role: str, worker) -> None:
+        """Fleet actuation (in-process fleets): join a replica to the
+        role's pick set. Serve-mode coordinators scale through the
+        controller's set_target instead — _sync picks the change up."""
+        with self._lock:
+            self._workers[role].append(worker)
+
+    def remove_worker(self, role: str, key=None):
+        """Fleet actuation: remove one replica from the role's pick set
+        GRACEFULLY — it stops receiving new requests now, but a busy
+        replica parks in the draining set (caches intact) until its
+        in-flight streams finish or drain_grace_s expires. key=None
+        removes the least-loaded replica. Returns the removed worker
+        (None when the role is empty / key unknown)."""
+        now = time.monotonic()
+        with self._lock:
+            ws = self._workers[role]
+            if key is None:
+                idx = min(range(len(ws)), key=lambda i: ws[i].load()) \
+                    if ws else None
+            else:
+                idx = next((i for i, w in enumerate(ws) if w.key == key),
+                           None)
+            if idx is None:
+                return None
+            w = ws.pop(idx)
+            try:
+                busy = w.load() > 0
+            except Exception:  # noqa: BLE001 — treat as idle
+                busy = False
+            if busy and self.cfg.drain_grace_s > 0:
+                self._draining.setdefault(
+                    w.key, (now + self.cfg.drain_grace_s, w))
+            else:
+                self._drop_worker_state(w.key)
+            # in-process fleets have no _sync heartbeat, so removals are
+            # also the drain sweep's tick
+            self._sweep_draining(now)
+            return w
+
+    def adapter_residency(self) -> Dict[str, List[str]]:
+        """Gossiped LoRA residency: replica key -> sorted adapter ids."""
+        with self._lock:
+            return {str(k): sorted(res)
+                    for k, (_ts, res) in self._adapter_residency.items()}
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            self._sweep_draining(time.monotonic())
+            return {
+                "prefill_replicas": len(self._workers["prefill"]),
+                "decode_replicas": len(self._workers["decode"]),
+                "prefill_inflight": sum(
+                    w.load() for w in self._workers["prefill"]),
+                "decode_inflight": sum(
+                    w.load() for w in self._workers["decode"]),
+                "kv_transfer": self.cfg.kv_transfer,
+                "health": self.health.snapshot(),
+                "kv_migrations": sum(
+                    _m_migration_s.count(tags={"transport": t})
+                    for t in ("object", "channel", "stream")),
+                "draining": sorted(str(k) for k in self._draining),
+                "resumes": int(_m_resumes.get()),
+            }
+
+    def close(self) -> None:
+        """Stop the KV senders of the channels this coordinator resolved
+        and release the placement group deploy_disagg reserved (the role
+        deployments themselves are torn down by serve.shutdown)."""
+        with self._lock:
+            dests = list(self._kv_dest_cache.values())
+        _stop_senders([d for d in dests if d is not None])
+        if self._pg is not None:
+            from ..sched.placement_group import remove_placement_group
+
+            try:
+                remove_placement_group(self._pg)
+            except Exception:  # noqa: BLE001 — already removed / head gone
+                pass
+            self._pg = None
+
+
+# --------------------------------------------------------------------------
+# deployment entry point
+# --------------------------------------------------------------------------
+
+
+def _role_placement(cfg: DisaggConfig):
+    """One STRICT_SPREAD placement group covering every replica of both
+    roles: each bundle lands on a distinct host, and replicas acquire
+    bundles (bundle_index=-1) as they spawn — so prefill and decode
+    replicas are pairwise host-disjoint. When the cluster has fewer
+    hosts than replicas (one host with its card) the group is infeasible
+    and we fall back to DEFAULT placement — no strategy at all, so the
+    replicas stay in-process, share the card, and KV handoff rides the
+    local store and in-process channels."""
+    from ..core.task_spec import PlacementGroupSchedulingStrategy
+    from ..sched.placement_group import PlacementGroupError, placement_group
+
+    total = cfg.prefill_replicas + cfg.decode_replicas
+    if cfg.strict_spread:
+        try:
+            pg = placement_group([{"CPU": 1.0}] * total,
+                                 strategy="STRICT_SPREAD")
+            if pg.ready(timeout=30.0):
+                return PlacementGroupSchedulingStrategy(pg.id, -1), pg
+            logger.info("STRICT_SPREAD group never materialized; "
+                        "falling back to default placement")
+        except PlacementGroupError as e:
+            logger.info("STRICT_SPREAD infeasible (%s); "
+                        "falling back to default placement", e)
+    return None, None
+
+
+def deploy_disagg(model_name: str = "tiny-llama", disagg: Any = None,
+                  name: str = "llm",
+                  engine_config: Optional[Dict[str, Any]] = None,
+                  **llm_kwargs) -> DisaggCoordinator:
+    """Deploy a disaggregated LLM app: `{name}-prefill` and
+    `{name}-decode` LLMServer deployments (role-aware), host-disjoint
+    via STRICT_SPREAD when the cluster allows, plus a coordinator bound
+    to both. Extra kwargs flow to every LLMServer replica (device=,
+    params_fn=, seed=, ...): each replica builds its engine on the card
+    unless device= names another."""
+    from . import api as serve_api
+    from .llm import LLMServer
+
+    cfg = DisaggConfig.parse(disagg or {})
+    strategy, pg = _role_placement(cfg)
+    actor_opts = (
+        {"ray_actor_options": {"scheduling_strategy": strategy}}
+        if strategy is not None else {})
+    for role, n in (("prefill", cfg.prefill_replicas),
+                    ("decode", cfg.decode_replicas)):
+        dep = LLMServer.options(
+            name=f"{name}-{role}",
+            num_replicas=n,
+            **actor_opts,
+        )
+        app = dep.bind(model_name=model_name, engine_config=engine_config,
+                       role=role, **llm_kwargs)
+        serve_api.run(app, name=f"{name}-{role}")
+    co = DisaggCoordinator.from_deployments(
+        f"{name}-prefill", f"{name}-decode", cfg)
+    co._pg = pg
+    return co

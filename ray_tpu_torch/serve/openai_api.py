@@ -19,9 +19,9 @@ the card per replica, built from `params_fn` or from random weights of
 the named config drawn from `seed` on `device` (the card unless the caller
 names another), as LLMServer does. Each request opens its trace with
 `tracing.maybe_begin` (sampled at the `trace_sample_rate` flag) and runs
-under `tracing.activate`. Coordinator mode over disaggregated roles
-(`build_openai_app(disagg=...)`, `disagg_deployments=`) waits for ROADMAP
-A6b and raises NotImplementedError.
+under `tracing.activate`. In coordinator mode (`build_openai_app(
+disagg=...)`) the server holds no engine: a DisaggCoordinator over the
+`{name}-prefill` / `{name}-decode` role deployments serves every route.
 """
 
 from __future__ import annotations
@@ -35,10 +35,6 @@ from ..ops.dispatch import resolve_device
 from ..util import tracing
 from .deployment import deployment
 from .engine import EngineConfig, InferenceEngine
-
-_A6B_DISAGG = ("disaggregated serving (serve/disagg.py: prefill and decode roles "
-               "joined by KV channels) waits for ROADMAP A6b")
-
 
 class SSEStream:
     """Iterator wrapper for streaming responses that carries the request
@@ -122,10 +118,19 @@ class OpenAIServer:
         device=None,
         seed: int = 0,
     ):
-        if disagg is not None or disagg_deployments is not None:
-            raise NotImplementedError(f"OpenAIServer in coordinator mode: {_A6B_DISAGG}")
         self.model_name = model_name
         self.tokenizer = _make_tokenizer(tokenizer)
+        if disagg_deployments is not None:
+            # coordinator mode: no local engine — requests prefill and
+            # decode on the role deployments
+            from .disagg import DisaggCoordinator
+
+            prefill_name, decode_name = disagg_deployments
+            self._coordinator = DisaggCoordinator.from_deployments(
+                prefill_name, decode_name, disagg)
+            self.engine = None
+            return
+        self._coordinator = None
         device = resolve_device(device)
         if params_fn is not None:
             params, cfg = params_fn()
@@ -175,6 +180,10 @@ class OpenAIServer:
         return stops or None
 
     def _generate(self, ids, max_tokens, temperature, top_p, stop):
+        if self._coordinator is not None:
+            return self._coordinator.generate(
+                ids, max_tokens=max_tokens, temperature=temperature,
+                top_p=top_p, stop=stop)
         return self.engine.generate(ids, max_tokens=max_tokens,
                                     temperature=temperature, top_p=top_p,
                                     stop=stop)
@@ -281,6 +290,8 @@ class OpenAIServer:
         }
 
     def stats(self, _body: Any = None):
+        if self._coordinator is not None:
+            return self._coordinator.stats()
         out = self.engine.stats()
         # what warm-up took: programs captured, seconds, graph pool bytes
         out["capture"] = dict(self.engine.capture_stats)
@@ -290,9 +301,13 @@ class OpenAIServer:
         pass
 
     def shutdown(self) -> None:
-        """Stop the engine's threads (a serve replica calls this when it
-        retires: ServeReplica.prepare_for_shutdown)."""
-        self.engine.stop()
+        """Stop the engine's threads, or close the coordinator (a serve
+        replica calls this when it retires:
+        ServeReplica.prepare_for_shutdown)."""
+        if self._coordinator is not None:
+            self._coordinator.close()
+        else:
+            self.engine.stop()
 
     # ------------------------------------------------------------ helpers
 
@@ -322,7 +337,7 @@ class OpenAIServer:
         under it, and it finishes with the stream (covering every decode
         step through stream teardown)."""
         tokenizer, model = self.tokenizer, self.model_name
-        engine = self.engine
+        engine, coordinator = self.engine, self._coordinator
 
         def gen():
             # admission happens on FIRST PULL, inside the generator: a
@@ -330,18 +345,27 @@ class OpenAIServer:
             # admits a request at all (a never-started generator's
             # finally cannot run, so nothing may need cancelling either)
             with tracing.activate(root):
-                req, stream = engine.open_stream(
-                    ids, max_tokens=max_tokens, temperature=temperature,
-                    top_p=top_p, stop=stop,
-                )
-                finish = lambda: req.finish_reason  # noqa: E731
-                cancel = lambda: engine.cancel(req.request_id)  # noqa: E731
-                # commit appends the logprob before the token is
-                # emitted, so by the time chunk i is yielded the
-                # engine-path logprob for it is already in place
-                lp_at = lambda i: (  # noqa: E731
-                    req.output_logprobs[i]
-                    if i < len(req.output_logprobs) else None)
+                if coordinator is not None:
+                    ds = coordinator.open_stream(
+                        ids, max_tokens=max_tokens, temperature=temperature,
+                        top_p=top_p, stop=stop,
+                    )
+                    stream = ds.tokens()
+                    finish, cancel = (lambda: ds.finish_reason), ds.cancel
+                    lp_at = ds.logprob_at
+                else:
+                    req, stream = engine.open_stream(
+                        ids, max_tokens=max_tokens, temperature=temperature,
+                        top_p=top_p, stop=stop,
+                    )
+                    finish = lambda: req.finish_reason  # noqa: E731
+                    cancel = lambda: engine.cancel(req.request_id)  # noqa: E731
+                    # commit appends the logprob before the token is
+                    # emitted, so by the time chunk i is yielded the
+                    # engine-path logprob for it is already in place
+                    lp_at = lambda i: (  # noqa: E731
+                        req.output_logprobs[i]
+                        if i < len(req.output_logprobs) else None)
             try:
                 yield from body(stream, finish, lp_at)
             finally:
@@ -398,8 +422,25 @@ def build_openai_app(disagg: Any = None, disagg_app_name: str = "llm",
     """-> bound OpenAIServer deployment; serve.run(app, name='v1') exposes
     POST /v1/completions, /v1/chat_completions, /v1/models.
 
-    `disagg={...}` (role-aware prefill/decode apps behind a coordinator)
-    waits for ROADMAP A6b and raises NotImplementedError."""
-    if disagg is not None:
-        raise NotImplementedError(f"build_openai_app(disagg=...): {_A6B_DISAGG}")
-    return OpenAIServer.bind(**kwargs)
+    With `disagg={...}` (DisaggConfig shape), this function first deploys
+    role-aware `{disagg_app_name}-prefill` / `{disagg_app_name}-decode`
+    LLMServer apps (engine-bearing kwargs, device= and params_fn= among
+    them, flow to them) and binds the OpenAIServer in coordinator mode:
+    routes prefill on one role and stream tokens from the other, the KV
+    migrating between them as `kv_transfer` says."""
+    if disagg is None:
+        return OpenAIServer.bind(**kwargs)
+    from .config import DisaggConfig
+    from .disagg import deploy_disagg
+
+    cfg = DisaggConfig.parse(disagg)
+    tok = _make_tokenizer(kwargs.pop("tokenizer", "byte"))
+    model_name = kwargs.pop("model_name", "tiny-llama")
+    engine_config = dict(kwargs.pop("engine_config", None) or {})
+    engine_config.setdefault("eos_token_id", tok.eos_token_id)
+    deploy_disagg(model_name=model_name, disagg=cfg, name=disagg_app_name,
+                  engine_config=engine_config, **kwargs)
+    return OpenAIServer.bind(
+        model_name=model_name, tokenizer=tok, disagg=cfg,
+        disagg_deployments=[f"{disagg_app_name}-prefill",
+                            f"{disagg_app_name}-decode"])

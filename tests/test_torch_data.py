@@ -26,6 +26,7 @@ import ray_tpu
 import ray_tpu.data
 import ray_tpu_torch
 import ray_tpu_torch.data
+from _torch_fixtures import _fresh_metric_registries  # noqa: F401
 
 THREAD_MODE = {"worker_processes": 0, "actor_processes": False}
 WAIT_S = 60

@@ -37,6 +37,7 @@ from ray_tpu_torch.core import core_worker as tcore_worker, metrics as tmetrics
 from ray_tpu_torch.core import object_ledger as tledger
 from ray_tpu_torch.data import executor as texecutor, iterator as titerator, tenant as ttenant
 from ray_tpu_torch.data.ingest import IngestService as TService
+from _torch_fixtures import _fresh_metric_registries  # noqa: F401
 
 pytestmark = pytest.mark.ingest
 
@@ -468,21 +469,28 @@ def test_flow_outcomes_are_the_reference_tests_asserts(monkeypatch):
 def test_ingest_iterator_feeds_device_batches():
     # the port's iter_device_batches(device=) on a tenant's iterator: the
     # same rows as iter_batches, each column a tensor on the device, 64-bit
-    # columns narrowed as the reference's jax.numpy.asarray does
+    # columns narrowed as the reference's jax.numpy.asarray does. A cold
+    # epoch yields its blocks in the order the pool's two workers finish
+    # them, a warm one in block order (_epoch_stream), so the batch-by-batch
+    # comparison is between two warm epochs; the cold one holds the same rows
     def flow(p):
         svc = p.Service(pool_min=2, pool_max=2, autoscale=False)
         try:
             rows = np.random.default_rng(0).integers(0, 1000, (64, 9)).astype(np.int64)
             it = svc.register(p.data.from_numpy({"tokens": rows}, parallelism=4),
                               tenant="trial", weight=3.0)
+            cold = [b["tokens"] for b in it.iter_batches(batch_size=8)]
             host = [b["tokens"] for b in it.iter_batches(batch_size=8)]
             dev = [b["tokens"] for b in it.iter_device_batches(batch_size=8, device="cpu")]
-            return host, dev, svc.shares()["trial"]
+            return rows, cold, host, dev, svc.shares()["trial"]
         finally:
             svc.shutdown()
 
-    host, dev, share = run("ray_tpu_torch", flow)
-    assert len(dev) == len(host) == 8
+    rows, cold, host, dev, share = run("ray_tpu_torch", flow)
+    assert len(dev) == len(host) == len(cold) == 8
+    np.testing.assert_array_equal(np.concatenate(host), rows)
+    by_row = lambda a: a[np.lexsort(a.T)]  # noqa: E731
+    np.testing.assert_array_equal(by_row(np.concatenate(cold)), by_row(rows))
     for h, d in zip(host, dev):
         assert str(d.dtype) == "torch.int32" and d.device.type == "cpu"
         np.testing.assert_array_equal(d.numpy(), h)

@@ -19,6 +19,7 @@ import ray_tpu
 import ray_tpu.train as jtrain
 import ray_tpu_torch
 import ray_tpu_torch.train as ttrain
+from _torch_fixtures import _fresh_metric_registries  # noqa: F401
 
 THREAD_MODE = {"worker_processes": 0, "actor_processes": False}
 

@@ -1131,3 +1131,66 @@ def test_tune_trials_share_the_card_and_a_stopped_one_frees_it(card, dtype):
     assert not any(t.is_alive() for t in lanes[stopped.trial_id])
     assert all(r() is None for rs in held.values() for r in rs)
     assert abs(after - before) <= 0.01 * 2**30
+
+
+# Disaggregated serving on the card (ray_tpu_torch.serve.disagg): a
+# prefill-role and a decode-role engine over one parameter tree, joined by
+# the stream transport, give the decode engine's own run of each prompt bit
+# for bit (bucketed and chunked prefill, K2 and K6 on the prefill side, K5
+# on the decode side), and after close() and the engines' stop no thread
+# of theirs is left and the card's memory is back where it was.
+
+def test_disagg_pair_streams_kv_and_decodes_exactly(card, dtype):
+    import threading
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.serve.disagg import DisaggCoordinator, EngineWorker
+
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    cfg = get_config("tiny-llama", d_model=256, dtype=name)
+    params = init_params(cfg, seed=0, device=card, dtype=name)
+    ecfg = EngineConfig(max_batch_size=4, page_size=16, max_pages=64, max_seq_len=128,
+                        prefill_buckets=(16, 32), prefill_chunk=32, cache_dtype=name)
+    rt.shutdown()
+    gc.collect()
+    torch.cuda.synchronize()
+    # the engines' side streams get cuBLAS workspaces that outlive them:
+    # cleared before both readings, as the tune test does
+    torch._C._cuda_clearCublasWorkspaces()
+    before_threads = set(threading.enumerate())
+    before_mem = torch.cuda.memory_allocated()
+    pre = InferenceEngine(params, cfg, ecfg)
+    dec = InferenceEngine(params, cfg, ecfg)
+    try:
+        pre.warmup()
+        dec.warmup()
+        co = DisaggCoordinator([EngineWorker(pre, "prefill")], [EngineWorker(dec, "decode")],
+                               {"kv_stream_tokens": 16, "prefix_routing": False})
+        rng = np.random.default_rng(0)
+        dispatch.reset_launches()
+        for n in (5, 29, 90):  # bucketed, bucketed, chunked
+            prompt = [int(t) for t in rng.integers(1, cfg.vocab_size, size=n)]
+            want = dec.generate(prompt, max_tokens=8)
+            got = co.generate(prompt, max_tokens=8, timeout_s=120)
+            assert got["kv_transport"] == "stream" and got["migration_bytes"] > 0
+            assert got["token_ids"] == want["token_ids"], n
+            assert got["logprobs"] == want["logprobs"], n
+        counts, eager = dispatch.launch_counts(), dispatch.eager_launch_counts()
+        for kernel in ("rms_norm", "flash_attention", "paged_attention_decode",
+                       "paged_attention_chunk"):
+            assert counts[kernel] > 0, kernel
+        assert not any(eager.values()), eager
+        co.close()
+        del co  # it holds the workers, and they the engines
+    finally:
+        pre.stop()
+        dec.stop()
+        rt.shutdown()
+    del pre, dec
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    left = [t.name for t in threading.enumerate() if t not in before_threads and t.is_alive()]
+    assert left == []
+    kept = torch.cuda.memory_allocated() - before_mem
+    assert kept <= 0.01 * 2**30, f"{kept / 2**20:.1f} MiB stayed allocated"

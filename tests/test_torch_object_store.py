@@ -22,6 +22,7 @@ from ray_tpu.core import object_store as jstore
 from ray_tpu_torch.core import object_store as tstore
 from ray_tpu_torch.core.config import config as tconfig
 from ray_tpu_torch.core.ids import ObjectID
+from _torch_fixtures import _fresh_metric_registries  # noqa: F401
 
 THREAD_MODE = {"worker_processes": 0, "actor_processes": False}
 WAIT_S = 20
@@ -169,8 +170,12 @@ def test_in_process_runtime_refuses_what_waits(runtime):
             return 1
 
     a = Isolated.remote()
-    with pytest.raises(NotImplementedError, match="A5c"):
-        a.ping.bind()
+    # compiled graphs over this process's actors are ported: bind builds a
+    # node (tests/test_torch_dag.py runs the graphs)
+    from ray_tpu_torch.dag import MethodNode
+
+    node = a.ping.bind()
+    assert isinstance(node, MethodNode) and node.method == "ping" and node.args == ()
     # an actor that asks for its own process gets an error, not a thread
     b = Isolated.options(in_process=False).remote()
     with pytest.raises(ray_tpu_torch.RayActorError, match="A5b"):

@@ -31,6 +31,7 @@ import ray_tpu_torch
 import ray_tpu_torch.serve
 import ray_tpu_torch.util.tracing
 from ray_tpu_torch.models import get_config, params_from_numpy
+from _torch_fixtures import _fresh_metric_registries  # noqa: F401
 
 THREAD_MODE = {"worker_processes": 0, "actor_processes": False}
 # TestOpenAI._ENGINE and TestEngine's LLMServer engine (tests/test_serve.py)

@@ -31,6 +31,7 @@ import ray_tpu_torch.data
 import ray_tpu_torch.serve
 import ray_tpu_torch.train
 from ray_tpu_torch.models import get_config, params_from_numpy, params_to_numpy
+from _torch_fixtures import _fresh_metric_registries  # noqa: F401
 
 THREAD_MODE = {"worker_processes": 0, "actor_processes": False}
 LOSS_TOL = dict(rtol=1e-4, atol=0)  # tests/test_torch_train.py

@@ -24,6 +24,7 @@ import ray_tpu
 import ray_tpu.cluster_utils
 import ray_tpu_torch
 import ray_tpu_torch.cluster_utils
+from _torch_fixtures import _fresh_metric_registries  # noqa: F401
 
 THREAD_MODE = {"worker_processes": 0, "actor_processes": False}
 PACKAGES = {"ray_tpu": (ray_tpu, ray_tpu.cluster_utils, "TPU"),
@@ -194,6 +195,11 @@ def actor_ordering(p):
             return self.items
 
     a = Log.remote("start")
+    # the actor answers once before the burst: the reference can reorder
+    # calls made while its actor is still starting (C7; the port's order
+    # in that window is pinned by
+    # test_calls_made_while_an_actor_starts_run_in_submission_order)
+    p.api.get(a.get.remote(), timeout=WAIT_S)
     refs = [a.add.remote(i) for i in range(20)]
     counts = p.api.get(refs, timeout=WAIT_S)
     return counts, p.api.get(a.get.remote(), timeout=WAIT_S)
@@ -526,12 +532,73 @@ def test_runtimes_leave_no_thread_or_override_behind():
     names = ("cluster-scheduler", "health-monitor")
     rt = ray_tpu_torch.init(num_cpus=2, system_config=dict(THREAD_MODE))
     assert rt is ray_tpu_torch.init()  # a second init hands back the first
+    from ray_tpu_torch.core import channels
+
+    channels.ensure_service()  # the channel service ends with the runtime
+    service = channels._service
     ray_tpu_torch.shutdown()
     assert not any(t.name in names and t.is_alive() for t in (rt._sched_thread,
                                                               rt._monitor_thread))
+    assert not service._thread.is_alive() and channels.service_address() is None
     from ray_tpu_torch.core.config import config
 
     assert config._overrides == {} and not ray_tpu_torch.is_initialized()
+
+
+def _order_with_a_call_made_during_the_pass(p):
+    """An actor whose __init__ is slow gets calls 0..4; in the first pass
+    of the scheduling loop that holds them back after all five are in (the
+    actor still starting), a sixth call is submitted from inside the pass,
+    as a caller thread's call can land there. Returns the order the actor
+    ran them."""
+    rt = p.api.init(num_cpus=4, system_config=dict(THREAD_MODE), **p.acc(0))
+    try:
+        @p.api.remote
+        class Log:
+            def __init__(self):
+                time.sleep(0.2)
+                self.items = []
+
+            def add(self, x):
+                self.items.append(x)
+
+            def get(self):
+                return self.items
+
+        a = Log.remote()
+        place, armed, late = rt._try_place, threading.Event(), []
+
+        def try_place(item):
+            placed = place(item)
+            if not placed and armed.is_set() and not late:
+                late.append(a.add.remote("late"))
+            return placed
+
+        rt._try_place = try_place
+        done = [a.add.remote(i) for i in range(5)]
+        armed.set()
+        deadline = time.monotonic() + WAIT_S
+        while not late and time.monotonic() < deadline:
+            time.sleep(0.01)
+        p.api.get(done + late, timeout=WAIT_S)
+        return p.api.get(a.get.remote(), timeout=WAIT_S)
+    finally:
+        p.api.shutdown()
+
+
+def test_calls_made_while_an_actor_starts_run_in_submission_order():
+    # C7: the scheduling loop appended the calls it could not place yet
+    # (their actor still in __init__) behind those submitted during its
+    # pass, so a later call ran first; the port puts them back ahead and
+    # holds an actor's later calls of the same pass behind them. The
+    # reference's loop (ray_tpu/core/core_worker.py _scheduling_loop)
+    # still reorders.
+    ray_tpu.shutdown()
+    ray_tpu_torch.shutdown()
+    assert _order_with_a_call_made_during_the_pass(Pkg("ray_tpu_torch")) == [
+        0, 1, 2, 3, 4, "late"]
+    ref = _order_with_a_call_made_during_the_pass(Pkg("ray_tpu"))
+    assert ref[0] == "late" and sorted(ref[1:]) == [0, 1, 2, 3, 4]
 
 
 class _CollectingDict(dict):

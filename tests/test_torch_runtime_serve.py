@@ -28,6 +28,7 @@ from ray_tpu_torch import LLMServer, get_config
 from ray_tpu_torch.models import params_from_numpy
 from ray_tpu_torch.util import timeline as ttimeline
 from ray_tpu_torch.util import tracing as ttracing
+from _torch_fixtures import _fresh_metric_registries  # noqa: F401
 
 THREAD_MODE = {"worker_processes": 0, "actor_processes": False}
 ENGINE_KW = dict(max_batch_size=4, page_size=8, max_pages=64, max_seq_len=64,

@@ -20,6 +20,7 @@ import ray_tpu_torch
 import ray_tpu_torch.cluster_utils
 from ray_tpu.sched import topology as jtopo
 from ray_tpu_torch.sched import topology as ttopo
+from _torch_fixtures import _fresh_metric_registries  # noqa: F401
 
 THREAD_MODE = {"worker_processes": 0, "actor_processes": False}
 WAIT_S = 20

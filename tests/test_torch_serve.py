@@ -201,15 +201,18 @@ def test_init_params_is_seeded_and_typed():
 def test_port_imports_neither_jax_nor_ray_tpu():
     # it also serves tiny-moe with speculation, so the MoE path is checked
     # too, moves a prompt's KV out of the engine and back in, swaps the
-    # weights live and renders the metrics, the digests and a trace; then
-    # it starts the runtime (a task, an actor, the virtual cluster, the
-    # training gang, the ingest service, a Tuner, a Pool and a logger)
+    # weights live and renders the metrics, the digests and a trace, runs
+    # one request through a disaggregated coordinator over two engines;
+    # then it starts the runtime (a task, an actor, a compiled graph, the
+    # virtual cluster, the training gang, the ingest service, a Tuner, a
+    # Pool and a logger)
     code = (
         "import json, sys\n"
         "import ray_tpu_torch, ray_tpu_torch.serve, ray_tpu_torch.models, ray_tpu_torch.train\n"
         "import ray_tpu_torch.data, ray_tpu_torch.train.trainer, ray_tpu_torch.train.checkpoint\n"
         "import ray_tpu_torch.tune, ray_tpu_torch.util, ray_tpu_torch.train.integrations\n"
         "import ray_tpu_torch.data.ingest\n"
+        "import ray_tpu_torch.serve.disagg, ray_tpu_torch.core.channels, ray_tpu_torch.dag\n"
         "from ray_tpu_torch import tune, util\n"
         "from ray_tpu_torch.data import ingest\n"
         "from ray_tpu_torch.train import integrations\n"
@@ -245,6 +248,18 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "metrics.registry.render_prometheus()\n"
         "    assert slo.snapshot() and config.config.slo_digests\n"
         "    assert isinstance(server.prefix_digest()['hashes'], list)\n"
+        "    from ray_tpu_torch.serve.disagg import DisaggCoordinator, EngineWorker\n"
+        "    dec = ray_tpu_torch.LLMServer._target(\n"
+        "        model_name='tiny-moe', device='cpu', role='decode', engine_config=dict(\n"
+        "            max_batch_size=2, page_size=4, max_pages=64, max_seq_len=64,\n"
+        "            prefill_buckets=(16,)))\n"
+        "    try:\n"
+        "        co = DisaggCoordinator([EngineWorker(server.engine)], [EngineWorker(dec.engine)])\n"
+        "        res = co.generate([7, 8, 9, 10, 11], max_tokens=3)\n"
+        "        assert res['kv_transport'] == 'stream' and len(res['token_ids']) == 3\n"
+        "        co.close()\n"
+        "    finally:\n"
+        "        dec.shutdown()\n"
         "finally:\n"
         "    server.shutdown()\n"
         "import ray_tpu_torch.api, ray_tpu_torch.cluster_utils\n"
@@ -264,6 +279,16 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "    assert ray_tpu_torch.get(add.remote(ray_tpu_torch.put(1), 2), timeout=30) == 3\n"
         "    c = Counter.remote()\n"
         "    assert ray_tpu_torch.get([c.inc.remote() for _ in range(3)], timeout=30) == [1, 2, 3]\n"
+        "    @ray_tpu_torch.remote\n"
+        "    class Double:\n"
+        "        def process(self, x):\n"
+        "            return 2 * x\n"
+        "    from ray_tpu_torch.dag import InputNode\n"
+        "    d = Double.remote()\n"
+        "    with InputNode() as inp:\n"
+        "        graph = d.process.bind(inp).experimental_compile()\n"
+        "    assert graph.execute(21).get(timeout=30) == 42\n"
+        "    ray_tpu_torch.kill(d)\n"
         "    ray_tpu_torch.kill(c)  # its CPU goes to the data tasks beside the gang\n"
         "    from ray_tpu_torch import data, train\n"
         "    import tempfile\n"

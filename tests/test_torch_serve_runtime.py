@@ -35,6 +35,7 @@ import ray_tpu.serve.controller
 import ray_tpu_torch
 import ray_tpu_torch.serve
 import ray_tpu_torch.serve.controller
+from _torch_fixtures import _fresh_metric_registries  # noqa: F401
 
 THREAD_MODE = {"worker_processes": 0, "actor_processes": False}
 PACKAGES = {"ray_tpu": (ray_tpu, ray_tpu.serve, ray_tpu.serve.controller, "TPU"),
@@ -492,6 +493,10 @@ def test_shutdown_without_a_runtime_starts_none():
 
 
 def test_unported_entry_points_raise():
+    # disaggregated serving is ported (tests/test_torch_disagg.py serves
+    # through build_openai_app(disagg=...)): its config is parsed, not
+    # refused, and no health plane exists to subscribe to; the fleet, the
+    # gRPC ingress and the health plane itself still wait
     from ray_tpu_torch import serve
     from ray_tpu_torch.core import health
 
@@ -499,13 +504,18 @@ def test_unported_entry_points_raise():
         serve.start_grpc()
     with pytest.raises(NotImplementedError, match="A6b"):
         serve.grpc_port()
-    with pytest.raises(NotImplementedError, match="A6b"):
-        serve.build_openai_app(disagg={"prefill_replicas": 1, "decode_replicas": 1})
+    with pytest.raises(ValueError, match="kv_transfer"):
+        serve.build_openai_app(disagg={"kv_transfer": "carrier-pigeon"})
+    assert health.get_health_plane(create=False) is None
     with pytest.raises(NotImplementedError, match="A5c"):
         health.get_health_plane()
     with pytest.raises(NotImplementedError, match="A5c"):
+        health.shutdown_health_plane()
+    with pytest.raises(NotImplementedError, match="A5c"):
         health.HealthPlane  # noqa: B018 — reaching the name is what raises
-    for name in ("DisaggConfig", "DisaggCoordinator", "FleetController", "deploy_disagg"):
+    for name in ("DisaggConfig", "DisaggCoordinator", "EngineWorker", "deploy_disagg"):
+        assert getattr(serve, name).__module__.startswith("ray_tpu_torch.serve.")
+    for name in ("FleetConfig", "FleetController"):
         assert not hasattr(serve, name)
 
 

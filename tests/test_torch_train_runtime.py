@@ -27,6 +27,7 @@ import ray_tpu.train as jtrain
 import ray_tpu_torch
 import ray_tpu_torch.train as ttrain
 from ray_tpu_torch.core import core_worker
+from _torch_fixtures import _fresh_metric_registries  # noqa: F401
 
 THREAD_MODE = {"worker_processes": 0, "actor_processes": False}
 PACKAGES = {"ray_tpu": (ray_tpu, jtrain, jtrain.JaxTrainer),

@@ -33,6 +33,7 @@ from ray_tpu.tune import schedulers as jsched
 from ray_tpu.tune.trial import Trial as JTrial
 from ray_tpu_torch.tune import schedulers as tsched
 from ray_tpu_torch.tune.trial import Trial as TTrial
+from _torch_fixtures import _fresh_metric_registries  # noqa: F401
 
 THREAD_MODE = {"worker_processes": 0, "actor_processes": False}
 PACKAGES = {"ray_tpu": (ray_tpu, jtune), "ray_tpu_torch": (ray_tpu_torch, ttune)}

@@ -18,6 +18,7 @@ import ray_tpu
 import ray_tpu.util as jutil
 import ray_tpu_torch
 import ray_tpu_torch.util as tutil
+from _torch_fixtures import _fresh_metric_registries  # noqa: F401
 
 THREAD_MODE = {"worker_processes": 0, "actor_processes": False}
 PACKAGES = {"ray_tpu": (ray_tpu, jutil), "ray_tpu_torch": (ray_tpu_torch, tutil)}
