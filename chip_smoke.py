@@ -204,10 +204,58 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      3's logprob gate; no thread the phase started outlives
      serve.shutdown(), and the card
      memory left after the replicas retire stays within
-     SERVE_RETIRED_MEMORY_TOL. Launches are counted only while the
+     SERVE_RETIRED_MEMORY_TOL (split by kind, memory_split: graph pools,
+     f32 head copies, cuBLAS workspaces, the rest, cached blocks; and the
+     allocation sites of what is left, from the allocator's recorded
+     stacks). Launches are counted only while the
      coordinators serve (a)-(c) and (d); the decode engine's own runs, the
      builds, the planted runs and the yardstick forwards are left out: K1,
      K2, K5 and K6 must have run, every launch from a graph replay;
+  3f. the health plane and the serve fleet (fleet_path), on phase 3's
+     tensors after 3g, before phase 3's server shuts down: the process's
+     HealthPlane with the stock rules (FLEET_SYSTEM_CONFIG: queue_depth past
+     4 requests for two passes 0.25 s apart), deploy_disagg with one
+     prefill and one decode replica, and a FleetController(FLEET_CONFIG:
+     one to two replicas a role, 0.5 s evaluations, no cooldown, three idle
+     evaluations, pressure past four waiting requests a replica) acting
+     through the serve controller. (a) a burst of 16
+     greedy requests (23/100/200/700-token prompts, 32 out): queue_depth
+     fires on the prefill role, the fleet raises its target to 2 (and holds
+     it while the replica builds), the controller builds the replica on the
+     card, the coordinator's _sync adds it, and of eight requests sent once
+     it is ready it serves at least one; every request bit for bit phase
+     3's engine's own run of its
+     prompt (exact_gate); alert -> target -> serving latency, the build and
+     capture, TTFT/TPOT/tok/s beside 3g's (b); the fleet steps the role
+     down as soon as the traffic stops, while (b) runs, and (e) (below) is
+     read after (b). (b) four
+     greedy streams of 96 tokens on the decode replica when an alert naming
+     it is injected: quarantine, drain, restart and rejoin each count once,
+     every stream not finished on the replica resumes on the replacement
+     (serve_fleet_resumes counts them), equal to phase 3's engine's own run
+     up to its resume and, tokens and logprobs bit for bit, to that
+     engine's own run of its continuation after it; where a resumed stream
+     leaves the uninterrupted run (the peer recomputes the committed
+     tokens' KV in a prefill, whose bf16 rounds otherwise), the two runs'
+     tokens lie within LOGPROB_TOL["max"] of each other under a plain f32
+     forward (forward_f32_plain), and the longest gap between tokens is
+     printed. (c) sync_weights of phase 3's tree as version 1: every
+     replica's stats() reports it and a fresh prompt keeps its tokens. (d)
+     distribute_adapter: serve_fleet_adapter_residency equals the decode
+     replicas and an adapter-named request reaches a resident one. (e) with
+     no traffic each role steps down one replica per idle window to one and
+     holds for three evaluations; (a) and (e) run again after (d), and the
+     card memory after the second retirement stays within
+     SERVE_RETIRED_MEMORY_TOL of the first's (C10's gate). Each planted
+     FLEET_FAULTS entry (a target recorded but never sent to the
+     controller; a replica reported synced without the call; a restart
+     before the drain with resume off) must fail its gate. status() shows
+     the alerts; no thread the phase started outlives serve.shutdown() and
+     the plane's stop, and the card memory after them is back within
+     SERVE_RETIRED_MEMORY_TOL of the phase's start (C14). Launches are counted only while the coordinator
+     serves (a)-(d), replica builds (BuildLaunches), the engine's own runs
+     and planted runs left out: K1, K2, K5 and K6 must have run, every
+     launch from a graph replay;
   3s. the speculation path: the serving server is shut down and its
      parameters go to LLMServer(engine_config={"speculation": ...}), again
      llama3-8b at full width and depth, twice. (1) mode "draft", k = 4,
@@ -342,7 +390,8 @@ train2b, moe_serve, moe_train, migrate (phase 3m), moe_migrate (phase 5's
 round trip), live (phase 3w's update and gate, phase 5's update and
 gate), runtime (phase 3r's tasks, hosted server and updates), deploy
 (phase 3d's handle and HTTP sections), disagg (the coordinators' requests
-of phase 3g's (a)-(c) and (d)), pretrain (phase 4p's first fit and
+of phase 3g's (a)-(c) and (d)), fleet (the coordinator's requests of phase
+3f's (a)-(d), both cycles), pretrain (phase 4p's first fit and
 its served burst), tune (phase 4t's ASHA and PBT fits)), the last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -381,6 +430,11 @@ then runs phase 3d on its tensors (deploy_only); no result line.
 
 builds the kernels and phase 3's llama3-8b server, serves phase 3's burst,
 then runs phase 3g on its tensors (disagg_only); no result line.
+
+    python3 chip_smoke.py --fleet
+
+builds the kernels and phase 3's llama3-8b server, serves phase 3's burst,
+then runs phase 3f on its tensors (fleet_only); no result line.
 
     python3 chip_smoke.py --pretrain
 
@@ -1791,7 +1845,8 @@ def serve_main_path(card: str, profile: bool) -> dict:
     live = live_path(server, card)  # phase 3w, on this server
     runtime = runtime_path(server, card, requests, results, plain)  # phase 3r, its tensors
     deploy, deploy_figures = deploy_path(server, card, plain)  # phase 3d, its tensors
-    disagg = disagg_path(server, card, plain, deploy_figures)  # phase 3g, its tensors
+    disagg, disagg_figures = disagg_path(server, card, plain, deploy_figures)  # phase 3g
+    fleet = fleet_path(server, card, disagg_figures)  # phase 3f, its tensors
     params = server.engine.params
     server.shutdown()
     del server
@@ -1830,7 +1885,7 @@ def serve_main_path(card: str, profile: bool) -> dict:
         if not hit:
             fail(f"the logprob gate {LOGPROB_TOL} passes planted fault {name}")
     return {"launches": launches, "migrate": migrate, "live": live, "runtime": runtime,
-            "deploy": deploy, "disagg": disagg, "params": params, "cfg": cfg,
+            "deploy": deploy, "disagg": disagg, "fleet": fleet, "params": params, "cfg": cfg,
             "requests": requests, "results": results}
 
 
@@ -3488,8 +3543,10 @@ def disagg_lines(label: str, requests, results, prefills: dict) -> None:
             f"({res['kv_transport']}), TPOT {1e3 * tpot:.2f} ms")
 
 
-def disagg_burst(co, requests, label: str) -> tuple:
-    """All requests through the coordinator at once -> (results, wall s)."""
+def disagg_burst(co, requests, label: str, sync: bool = True) -> tuple:
+    """All requests through the coordinator at once -> (results, wall s).
+    sync=False leaves out the closing device-wide synchronize, which
+    fails while another thread captures a graph (a replica building)."""
     results, errors = [None] * len(requests), []
 
     def run(i):
@@ -3507,7 +3564,8 @@ def disagg_burst(co, requests, label: str) -> tuple:
         t.start()
     for t in threads:
         t.join(360)
-    torch.cuda.synchronize()
+    if sync:
+        torch.cuda.synchronize()
     if errors or any(t.is_alive() for t in threads):
         fail(f"{label}: {errors or 'a request did not finish'}")
     return results, time.monotonic() - t0
@@ -3721,8 +3779,14 @@ def disagg_path(server, card: str, plain_figures: str, deploy_figures=None) -> d
     # (d) the entry points users call: build_openai_app(disagg=...) over HTTP
     rt.init()
     runtime_threads = set(threading.enumerate())
-    torch.cuda.synchronize()
-    mem0 = torch.cuda.memory_allocated()
+    global MEMORY_SPLIT_HEAD_BYTES
+    MEMORY_SPLIT_HEAD_BYTES = cfg.vocab_size * cfg.d_model * 4
+    split0 = memory_split("phase 3g (d) before the replicas")
+    mem0 = split0["allocated"]
+    # allocation sites of what the retirement leaves (Python stacks of the
+    # blocks allocated from here on)
+    torch.cuda.memory._record_memory_history(enabled="all", context="alloc", stacks="python",
+                                             max_entries=200000)
     t0 = time.monotonic()
     app = serve.build_openai_app(disagg={"prefill_replicas": 1, "decode_replicas": 1},
                                  model_name="llama3-8b", params_fn=params_fn,
@@ -3793,6 +3857,12 @@ def disagg_path(server, card: str, plain_figures: str, deploy_figures=None) -> d
     rt.shutdown()
     release()
     kept = torch.cuda.memory_allocated() - mem0
+    left_snapshot = torch.cuda.memory._snapshot()
+    torch.cuda.memory._record_memory_history(enabled=None)
+    memory_split("phase 3g (d) after the replicas retired", split0)
+    log(f"phase 3g (d): allocation sites of the blocks allocated since the replicas' build and "
+        f"still allocated: {sites_of_new_blocks(left_snapshot)} ({card})")
+    del left_snapshot
     log(f"phase 3g (d): serve.shutdown() took {time.monotonic() - t_down:.2f}s; threads the "
         f"phase started still alive after it: {left or 'none'}; card memory before the "
         f"replicas {mem0 / 2**30:.2f} GiB, left after retirement {kept / 2**30:+.3f} GiB "
@@ -3839,7 +3909,7 @@ def disagg_path(server, card: str, plain_figures: str, deploy_figures=None) -> d
     log(f"phase 3g: disaggregated burst {burst_figures}; through HTTP {http_figures}; phase 3 "
         f"direct {plain_figures}; phase 3d through HTTP {deploy_figures or 'not run'} ({card})")
     log(f"phase 3g took {time.monotonic() - t_phase:.1f}s")
-    return counted
+    return counted, burst_figures
 
 
 def disagg_only(card: str) -> None:
@@ -3852,6 +3922,1081 @@ def disagg_only(card: str) -> None:
     if errors:
         fail(f"phase 3 burst: {errors}")
     disagg_path(server, card, report_burst("plain", requests, results, wall))
+    server.shutdown()
+
+
+# ------------------------------------------------------------- phase 3f
+
+# the fleet's policy in phase 3f: one or two replicas a role, a decision every
+# half second, no cooldown, a role steps down after three quiet evaluations;
+# a role is pressured past four waiting requests a replica, so that the four
+# streams of (b) (their continuations after a remediation) are not a
+# backlog by themselves, and the burst is
+FLEET_CONFIG = {"min_replicas": 1, "max_replicas": 2, "eval_period_s": 0.5, "cooldown_s": 0.0,
+                "idle_periods": 3, "target_queue_depth": 4.0}
+# the health plane in phase 3f: queue_depth fires once more than 4 requests wait
+# for a role on two passes 0.25 s apart (the burst holds up to 16 on the prefill
+# role, whose leg serves one prompt at a time); four streams stay under it
+FLEET_SYSTEM_CONFIG = {"health_queue_depth_max": 4, "health_eval_period_s": 0.25}
+FLEET_BURST = 16  # concurrent greedy requests, 23/100/200/700-token prompts
+FLEET_FOLLOW = 8  # requests sent at once when the new replica is ready (700/200, 8 out)
+FLEET_FOLLOW_TOKENS = 8
+FLEET_STREAMS = 4
+FLEET_STREAM_TOKENS = 96
+FLEET_STREAM_HEAD = 1  # tokens every stream has before the remediation (its first:
+# the decode replica takes the four imports one span apart, so the first stream
+# is far into its 96 tokens when the last begins)
+FLEET_STREAM_PROMPT = 100  # the streams' prompts, one length: they decode side by side
+# the longest a replica build, a scale step or a request may take in phase 3f
+FLEET_WAIT_S = 180.0
+FLEET_DEPLOYMENTS = {"prefill": "fleet-prefill", "decode": "fleet-decode"}
+
+
+def _records_target_only(f):
+    """FleetController._set_target: the new target is recorded (and its
+    action logged), but the serve controller is never asked for it."""
+    def _set_target(self, role, target, kind, **detail):
+        saved, self._deployments = self._deployments, None
+        try:
+            return f(self, role, target, kind, **detail)
+        finally:
+            self._deployments = saved
+
+    return _set_target
+
+
+def _reports_one_unsynced(f):
+    """FleetController.sync_weights: the last worker of the decode role is
+    reported synced at the requested version without being called."""
+    def sync_weights(self, *args, **kwargs):
+        skipped = self.co.workers("decode")[-1]
+        skipped.update_weights = lambda request: {"weights_version": request.get("version")}
+        try:
+            return f(self, *args, **kwargs)
+        finally:
+            del skipped.update_weights
+
+    return sync_weights
+
+
+def _restarts_before_drain(f):
+    """FleetController.remediate: the replica is restarted while it is
+    still in the pick set, then drained, with the coordinator's live resume
+    off (its streams die with it)."""
+    def remediate(self, role, key, reason="alert"):
+        w = next((w for w in self.co.workers(role) if w.key == key), None)
+        if w is None:
+            return False
+        self.co.cfg.live_resume = False
+        self._restart_replica(self._deployment(role), w)
+        self.co.remove_worker(role, key)
+        return True
+
+    return remediate
+
+
+# Planted fleet faults: name -> (FleetController attribute, wrapper maker);
+# each must fail its gate
+FLEET_FAULTS = {
+    # (a)'s gate "a new replica joins and serves" must fail
+    "target_recorded_not_actuated": ("_set_target", _records_target_only),
+    # (c)'s gate "every replica reports the synced version" must fail
+    "sync_reports_unsynced_replica": ("sync_weights", _reports_one_unsynced),
+    # (b)'s gate "every stream finishes token-identical" must fail
+    "restart_before_drain_without_resume": ("remediate", _restarts_before_drain),
+}
+
+
+def fleet_fault(name: str):
+    from ray_tpu_torch.serve.fleet import FleetController
+
+    attr, maker = FLEET_FAULTS[name]
+    return swapped(FleetController, **{attr: maker(getattr(FleetController, attr))})
+
+
+class ThreadSampler:
+    """`--build-profile`: while any replica builds, read every thread's CPU
+    time every SAMPLE_S seconds (user and system ticks in
+    /proc/self/task/<tid>/stat, which a thread that has ended no longer
+    has) and charge what it used since the
+    last read to its name and to its innermost Python frame then
+    (sys._current_frames); `report` prints the CPU seconds by thread name
+    and by frame, beside the window's wall seconds."""
+
+    SAMPLE_S = 0.02
+
+    def __init__(self):
+        from collections import Counter
+
+        self.lock = threading.Lock()
+        self.active = 0
+        self.wall = 0.0
+        self.cpu, self.frames = Counter(), Counter()
+        self.counts = Counter()
+        self.thread = None
+
+    def enter(self):
+        with self.lock:
+            self.active += 1
+            if self.thread is None:
+                self.thread = threading.Thread(target=self._run, name="build-sampler",
+                                               daemon=True)
+                self.thread.start()
+
+    def exit(self):
+        with self.lock:
+            self.active -= 1
+
+    def _run(self):
+        me = threading.get_ident()
+        tick = os.sysconf("SC_CLK_TCK")
+        last = {}
+        t_last = time.monotonic()
+        while True:
+            with self.lock:
+                if self.active <= 0:
+                    self.thread = None
+                    return
+            threads = {t.ident: (t.name.split("-")[0], t.native_id)
+                       for t in threading.enumerate()}
+            frames = sys._current_frames()
+            now = time.monotonic()
+            self.wall += now - t_last
+            t_last = now
+            for tid, (name, native) in threads.items():
+                if tid == me or native is None:
+                    continue
+                try:
+                    with open(f"/proc/self/task/{native}/stat") as f:
+                        fields = f.read().rsplit(")", 1)[1].split()
+                    used = (int(fields[11]) + int(fields[12])) / tick
+                except (OSError, ValueError, IndexError):  # ended since
+                    continue
+                delta = used - last.get(tid, used)
+                last[tid] = used
+                self.cpu[name] += delta
+                frame = frames.get(tid)
+                if frame is None or delta <= 0:
+                    continue
+                where = frame.f_code.co_filename
+                where = os.path.relpath(where, HERE) if where.startswith(HERE) \
+                    else os.path.basename(where)
+                self.frames[f"{name} {where}:{frame.f_lineno} {frame.f_code.co_name}"] += delta
+            names = [n for n, _ in threads.values()]
+            for name in set(names):
+                self.counts[name] = max(self.counts[name], names.count(name))
+            time.sleep(self.SAMPLE_S)
+
+    def report(self, label: str) -> None:
+        threads = ", ".join(f"{k} {v:.2f} s (up to {self.counts[k]} threads)"
+                            for k, v in self.cpu.most_common() if v > 0.05)
+        frames = "; ".join(f"{k} {v:.2f} s" for k, v in self.frames.most_common(16))
+        log(f"{label}: {self.wall:.1f} s of wall time while replicas built; CPU time by thread "
+            f"name {threads}; by the innermost frame at each read {frames}")
+
+
+BUILD_SAMPLER = None  # a ThreadSampler under --build-profile
+
+
+class BuildLaunches:
+    """Kernel launches made while a replica builds (LLMServer's __init__ on
+    its actor's lane: the engine's warm runs and eager passes before each
+    capture), so that a counted window can leave them out; and each build's
+    seconds."""
+
+    def __init__(self):
+        from ray_tpu_torch.serve.llm import LLMServer
+
+        self.cls = LLMServer._target
+        self.lock = threading.Lock()
+        self.tallies, self.seconds = [], []
+        self.mark = {}
+
+    def __enter__(self):
+        from ray_tpu_torch.ops import dispatch
+
+        orig = self.saved = self.cls.__init__
+        me = self
+
+        def __init__(inner, *args, **kwargs):
+            t0 = time.monotonic()
+            if BUILD_SAMPLER is not None:
+                BUILD_SAMPLER.enter()
+            try:
+                with dispatch.tallying_launches() as tally:
+                    with me.lock:
+                        me.tallies.append(tally)
+                    orig(inner, *args, **kwargs)
+            finally:
+                if BUILD_SAMPLER is not None:
+                    BUILD_SAMPLER.exit()
+            with me.lock:
+                me.seconds.append(time.monotonic() - t0)
+
+        self.cls.__init__ = __init__
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__init__ = self.saved
+
+    def total(self) -> dict:
+        out = {}
+        with self.lock:
+            tallies = list(self.tallies)
+        for tally in tallies:
+            while True:
+                try:
+                    items = list(tally.items())
+                    break
+                except RuntimeError:  # a build's first launch of a kernel added a key
+                    continue
+            for name, n in items:
+                out[name] = out.get(name, 0) + n
+        return out
+
+    def reset(self) -> None:
+        """Where a counted window begins (with dispatch.reset_launches)."""
+        self.mark = self.total()
+
+    def since(self) -> dict:
+        now = self.total()
+        return {k: n - self.mark.get(k, 0) for k, n in now.items()}
+
+
+def fleet_requests(cfg, rng, n: int = FLEET_BURST, max_tokens: int = 32,
+                   lengths=(23, 100, 200, 700)) -> list:
+    """n greedy requests, prompts of the given lengths in turn."""
+    return [{"prompt_ids": torch.randint(1, cfg.vocab_size, (lengths[i % len(lengths)],),
+                                         generator=rng).tolist(),
+             "max_tokens": max_tokens} for i in range(n)]
+
+
+def replica_stats(w) -> dict:
+    return w._call("stats", {}, 60.0)
+
+
+def wait_new_replica(co, role: str, before: set, fleet, label: str) -> tuple:
+    """-> (worker, seconds) once a replica of `role` that `before` did not
+    hold is in the coordinator's pick set and has finished its __init__;
+    (None, seconds) when none comes: within FLEET_WAIT_S, or at once when
+    the serve controller's target for the role's deployment stays below
+    the fleet's for 3 s (no replica is being built)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.serve.controller import get_or_create_controller
+
+    ctrl = get_or_create_controller()
+    name = FLEET_DEPLOYMENTS[role]
+    t0 = time.monotonic()
+    short_since = None
+    while time.monotonic() - t0 < FLEET_WAIT_S:
+        co._sync(force=True)
+        new = [w for w in co.workers(role) if w.key not in before]
+        if new:
+            rt.get(new[0]._replica.health_check.remote(), timeout=FLEET_WAIT_S)
+            return new[0], time.monotonic() - t0
+        st = rt.get(ctrl.status.remote(), timeout=60).get(name, {})
+        if st.get("target_replicas", 0) < fleet.status()["targets"][role]:
+            short_since = short_since or time.monotonic()
+            if time.monotonic() - short_since > 3.0:
+                log(f"{label}: the serve controller's target for {name} stays at "
+                    f"{st.get('target_replicas')}, the fleet's is "
+                    f"{fleet.status()['targets'][role]}")
+                return None, time.monotonic() - t0
+        else:
+            short_since = None
+        time.sleep(0.1)
+    return None, time.monotonic() - t0
+
+
+def open_streams(co, prompts, max_tokens: int):
+    """Each prompt as a coordinator stream opened and drained on its own
+    thread, every token's arrival stamped -> (streams, threads, out);
+    streams[i] is set once its stream opens, out[i] ends up as {"tokens",
+    "at", "error", "finish_reason"}."""
+    out = [{"tokens": [], "at": [], "error": None, "finish_reason": None} for _ in prompts]
+    streams = [None] * len(prompts)
+
+    def drain(i):  # opened here, so that the streams start side by side
+        try:
+            streams[i] = co.open_stream(prompts[i], max_tokens=max_tokens,
+                                        timeout_s=FLEET_WAIT_S)
+            for tok in streams[i].tokens():
+                out[i]["tokens"].append(tok)
+                out[i]["at"].append(time.monotonic())
+            out[i]["finish_reason"] = streams[i].finish_reason
+        except Exception as e:  # noqa: BLE001 — what the gate reads
+            out[i]["error"] = repr(e)
+
+    threads = [threading.Thread(target=drain, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    return streams, threads, out
+
+
+def streams_at(out, n: int, timeout: float = 60.0) -> None:
+    deadline = time.monotonic() + timeout
+    while any(len(o["tokens"]) < n and o["error"] is None for o in out):
+        if time.monotonic() > deadline:
+            fail(f"phase 3f: a stream did not reach {n} tokens in {timeout} s")
+        time.sleep(0.005)
+
+
+def resume_point(stream) -> int:
+    """Tokens a stream had committed when it resumed on a peer (its summary
+    carries None for their logprobs, which died with the replica); 0 for a
+    stream that never resumed."""
+    lps = stream.logprobs or []
+    return next((i for i, lp in enumerate(lps) if lp is not None), len(lps))
+
+
+def forward_f32_plain(params, cfg, seq: list) -> torch.Tensor:
+    """The log-softmax of the token after `seq` under a plain f32 forward:
+    the bf16 weights cast to f32 one matrix at a time, rms_norm_reference
+    and mha_reference in place of K1 and K2, f32 activations throughout. A
+    higher-precision witness for the engine's bf16 runs; llama-shaped
+    models (RMSNorm, RoPE, SwiGLU, dense)."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.ops.attention import mha_reference
+    from ray_tpu_torch.ops.norm import rms_norm_reference
+    from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
+
+    if (cfg.norm, cfg.positional, cfg.activation, cfg.is_moe) != ("rmsnorm", "rope", "swiglu",
+                                                                  False):
+        fail(f"forward_f32_plain: {cfg.name} is not llama-shaped")
+
+    def mm(x, w):
+        d = w.shape[0]
+        return (x.reshape(-1, d) @ w.reshape(d, -1).float()).reshape(*x.shape[:-1],
+                                                                    *w.shape[1:])
+
+    with torch.no_grad():
+        dev = params["embed"].device
+        x = params["embed"][torch.tensor([seq], device=dev)].float()
+        cos, sin = rope_frequencies(cfg.hdim, cfg.max_seq_len, cfg.rope_theta, device=dev)
+        for lp in transformer.layer_views(params["layers"]):
+            h = rms_norm_reference(x, lp["ln1"], cfg.norm_eps)
+            q = apply_rope(mm(h, lp["wq"]), cos, sin)
+            k = apply_rope(mm(h, lp["wk"]), cos, sin)
+            o = mha_reference(q, k, mm(h, lp["wv"]), causal=True)
+            x = x + mm(o.reshape(*o.shape[:2], -1), lp["wo"].reshape(-1, lp["wo"].shape[-1]))
+            h = rms_norm_reference(x, lp["ln2"], cfg.norm_eps)
+            x = x + mm(F.silu(mm(h, lp["w_gate"])) * mm(h, lp["w_in"]), lp["w_out"])
+        h = rms_norm_reference(x[0, -1], params["final_norm"], cfg.norm_eps)
+        logits = h @ transformer.lm_head_weight(params, cfg).float()
+        if cfg.logits_softcap:
+            logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
+        return torch.log_softmax(logits, dim=-1)
+
+
+def resume_gate(label: str, requests, out, streams, resumed_at, wants_by_prompt,
+                witness=None) -> bool:
+    """Per stream: no error; its tokens up to the resume point equal the
+    engine's own uninterrupted run of its prompt, and from there its tokens
+    and logprobs equal, bit for bit, the engine's own run of the
+    continuation (the prompt and the committed tokens as one prompt: what
+    the peer was asked). The peer recomputes the committed tokens' KV in a
+    prefill, whose bf16 GEMMs round otherwise than the decode steps that
+    first made it, so a resumed stream may leave the uninterrupted run
+    where two tokens nearly tie. With `witness` (prefix -> the next token's
+    f32 log-softmax, forward_f32_plain), at the first token where a resumed
+    stream leaves the uninterrupted run, the two runs' tokens must lie
+    within LOGPROB_TOL["max"] of each other under the witness: a tie that
+    bf16 rounding can break, not a resume that lost its place. Printed
+    there: the engine's logprob of each run's token, the witness's
+    logprobs of both and its top two."""
+    ok = True
+    for i, (r, o, s, k) in enumerate(zip(requests, out, streams, resumed_at)):
+        whole = wants_by_prompt(r)
+        if o["error"] is not None:
+            log(f"{label} stream {i}: failed after {len(o['tokens'])} tokens: {o['error']}")
+            ok = False
+            continue
+        head = o["tokens"][:k] == whole["token_ids"][:k]
+        if k:
+            cont = wants_by_prompt({"prompt_ids": r["prompt_ids"] + o["tokens"][:k],
+                                    "max_tokens": len(whole["token_ids"]) - k})
+            tail = (o["tokens"][k:] == cont["token_ids"]
+                    and list(s.logprobs[k:]) == list(cont["logprobs"]))
+        else:
+            tail = o["tokens"] == whole["token_ids"] and list(s.logprobs) == whole["logprobs"]
+        same = sum(a == b for a, b in zip(o["tokens"], whole["token_ids"]))
+        first = next((j for j, (a, b) in enumerate(zip(o["tokens"], whole["token_ids"]))
+                      if a != b), None)
+        tie, why = True, ""
+        if first is not None and witness is not None:
+            a, b = whole["token_ids"][first], o["tokens"][first]
+            lp = witness(r["prompt_ids"] + whole["token_ids"][:first])
+            top = torch.topk(lp, 2)
+            gap = (lp[a] - lp[b]).item()
+            tie = abs(gap) <= LOGPROB_TOL["max"]
+            why = (f"; at {first} the uninterrupted run took {a} (engine logprob "
+                   f"{whole['logprobs'][first]}), the resumed one {b} (engine logprob "
+                   f"{s.logprobs[first]}); the f32 witness: logprob {a} "
+                   f"{lp[a].item():.4f}, {b} {lp[b].item():.4f}, gap {gap:+.4f} (tol "
+                   f"{LOGPROB_TOL['max']}), top two {top.indices.tolist()} gap "
+                   f"{(top.values[0] - top.values[1]).item():.4f}")
+        log(f"{label} stream {i}: resumed after {k} tokens; error {o['error']}; the tokens "
+            f"before it the uninterrupted run's {head}; after it the continuation's own run "
+            f"(tokens and logprobs) {tail}; {same} of {len(whole['token_ids'])} tokens equal the "
+            f"uninterrupted run (first difference at {first}){why}")
+        ok = ok and o["error"] is None and head and tail and tie
+    return ok
+
+
+def remediations() -> dict:
+    from ray_tpu_torch.core.metrics import registry
+
+    rem = registry.get("serve_fleet_remediations")
+    return {s: rem.get(tags={"stage": s}) for s in ("quarantine", "drain", "restart", "rejoin")}
+
+
+def memory_split(label: str, base: dict | None = None) -> dict:
+    """The card memory allocated now (after a collection and emptying the
+    cache), split by kind: blocks in CUDA-graph pools (the allocator's
+    private pools), blocks of exactly MEMORY_SPLIT_HEAD_BYTES (f32 head
+    copies), blocks of exactly the cuBLAS workspace size (a workspace per
+    cuBLAS handle and stream; read by size, not cleared, since a captured
+    graph may hold one), the rest; and the cached blocks (reserved, not
+    allocated). With `base` (an earlier split), prints the difference."""
+    ws = cublas_workspace_sizes()
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    alloc = torch.cuda.memory_allocated()
+    graph = head = cublas = 0
+    for seg in torch.cuda.memory_snapshot():
+        active = [b["size"] for b in seg["blocks"] if b["state"] == "active_allocated"]
+        if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0):
+            graph += sum(active)
+            continue
+        head += sum(n for n in active if n == MEMORY_SPLIT_HEAD_BYTES)
+        cublas += sum(n for n in active if n in ws)
+    out = {"allocated": alloc, "graph_pools": graph, "head_copies": head,
+           "cublas_workspaces": cublas, "other": alloc - graph - head - cublas,
+           "cached": torch.cuda.memory_reserved() - alloc}
+    if base is not None:
+        diff = {k: out[k] - base[k] for k in out}
+        log(f"{label}: card memory against before, GiB: "
+            + ", ".join(f"{k} {v / 2**30:+.3f}" for k, v in diff.items())
+            + f" (cuBLAS workspaces of {sorted(n / 2**20 for n in ws)} MiB)")
+    return out
+
+
+_WORKSPACE_SIZES = None
+
+
+def cublas_workspace_sizes() -> set:
+    """The sizes of the blocks a cuBLAS matmul allocates besides its output
+    on a stream it has not run on: its workspaces (one set per cuBLAS
+    handle and stream). Probed once; the probe's own workspaces stay."""
+    global _WORKSPACE_SIZES
+    if _WORKSPACE_SIZES is None:
+        from collections import Counter
+
+        def blocks():
+            return Counter(b["size"] for seg in torch.cuda.memory_snapshot()
+                           for b in seg["blocks"] if b["state"] == "active_allocated")
+
+        a = torch.ones(64, 64, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        before = blocks()
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            out = a @ a
+        torch.cuda.synchronize()
+        new = blocks() - before
+        new[max(512, out.untyped_storage().nbytes())] -= 1
+        _WORKSPACE_SIZES = {n for n, k in new.items() if k > 0}
+        log(f"cuBLAS workspaces on a new stream: blocks of "
+            f"{sorted(n / 2**20 for n in _WORKSPACE_SIZES)} MiB")
+        del out, a
+    return _WORKSPACE_SIZES
+
+
+# bytes of one f32 head copy (set by the phase that knows the model)
+MEMORY_SPLIT_HEAD_BYTES = 0
+
+
+def sites_of_new_blocks(snapshot, top: int = 8) -> str:
+    """Allocation sites (the innermost frame in ray_tpu_torch, else the
+    innermost Python frame) of the blocks still allocated that carry a
+    recorded stack, largest total first."""
+    sites = {}
+    for seg in snapshot["segments"]:
+        for b in seg["blocks"]:
+            if b["state"] != "active_allocated" or not b.get("frames"):
+                continue
+            frames = b["frames"]
+            frame = next((f for f in frames if "ray_tpu_torch" in f.get("filename", "")),
+                         frames[0])
+            where = frame["filename"]
+            where = (os.path.relpath(where, HERE) if where.startswith(HERE)
+                     else os.path.basename(where))
+            key = f"{where}:{frame['line']} {frame['name']}"
+            n, size = sites.get(key, (0, 0))
+            sites[key] = (n + 1, size + b["size"])
+    ranked = sorted(sites.items(), key=lambda kv: -kv[1][1])[:top]
+    return "; ".join(f"{k}: {n} blocks {s / 2**20:.1f} MiB" for k, (n, s) in ranked) or "none"
+
+
+def fleet_cycle(co, fleet, plane, builds, count, wants_by_prompt, cfg, rng, label: str,
+                card: str) -> dict:
+    """(a): a burst of FLEET_BURST greedy requests through the coordinator
+    trips queue_depth; the fleet raises that role's target, the serve
+    controller builds the replica and the coordinator's _sync adds it
+    (the fleet holds the target while it builds: FleetController._settled);
+    once it is ready, FLEET_FOLLOW requests at once, of which it must serve
+    one. Every request bit for bit the engine's own run of its prompt.
+    Returns the burst's figures, the role and the new worker."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.ops import dispatch
+
+    before = {r: {w.key for w in co.workers(r)} for r in ("prefill", "decode")}
+    requests = fleet_requests(cfg, rng)
+    follow = fleet_requests(cfg, rng, n=FLEET_FOLLOW, max_tokens=FLEET_FOLLOW_TOKENS,
+                            lengths=(700, 200))
+    n_hist = len(plane.history())
+    t_burst = time.time()
+    dispatch.reset_launches()
+    builds.reset()
+    results, wall = disagg_burst(co, requests, f"phase 3f {label} burst", sync=False)
+    fired = [a for a in plane.history()[n_hist:]
+             if a["rule"] == "queue_depth" and a["state"] == "firing"]
+    status = rt.status(as_dict=True)
+    ups = [a for a in fleet.actions if a["kind"] == "scale-up" and a["at"] >= t_burst]
+    if not fired or not ups:
+        fail(f"phase 3f {label}: the burst fired {len(fired)} queue_depth alerts and the fleet "
+             f"took {len(ups)} scale-up actions")
+    role = ups[0]["role"]
+    log(f"phase 3f {label}: queue_depth fired for {[a['labels'] for a in fired]} (value "
+        f"{fired[0]['value']}, threshold {fired[0]['threshold']}); status() alerts "
+        f"{[(a['rule'], a['labels']) for a in status['alerts']]}; the fleet: {ups[0]}")
+    if ups[0]["to"] != 2:
+        fail(f"phase 3f {label}: the fleet raised {role} to {ups[0]['to']}, not 2")
+    new, waited = wait_new_replica(co, role, before[role], fleet, f"phase 3f {label}")
+    if new is None:
+        fail(f"phase 3f {label}: no new {role} replica joined the coordinator in {waited:.1f} s")
+    t_ready = time.time()
+    st = replica_stats(new)
+    follow_results, follow_wall = disagg_burst(co, follow, f"phase 3f {label} follow-up",
+                                               sync=False)
+    t_served = time.time()
+    served = co.health.snapshot().get(str(new.key), {}).get("ok", 0)
+    count(f"phase 3f {label}")
+    log(f"phase 3f {label}: alert at +{fired[0]['since'] - t_burst:.2f} s of the burst, target "
+        f"{role} 1 -> 2 at +{ups[0]['at'] - t_burst:.2f} s, the new replica in the pick set and "
+        f"ready at +{t_ready - t_burst:.2f} s, {served} of the follow-up's {len(follow)} requests "
+        f"served on it by +{t_served - t_burst:.2f} s ({follow_wall:.2f} s); its build "
+        f"{builds.seconds[-1]:.1f} s, capture {st['capture']['seconds']:.1f} s for "
+        f"{st['capture']['programs']} programs ({card})")
+    if served <= 0:
+        fail(f"phase 3f {label}: the new {role} replica served no request")
+    figures = report_burst(f"phase 3f {label} burst", requests, results, wall)
+    got = results + follow_results
+    reqs = requests + follow
+    if not exact_gate(f"phase 3f {label}", [r["prompt_ids"] for r in reqs], got,
+                      [wants_by_prompt(r) for r in reqs]):
+        fail(f"phase 3f {label}: a request's tokens or logprobs differ from the engine's own "
+             f"run of its prompt")
+    return {"figures": figures, "role": role, "new": new}
+
+
+def scale_down(co, fleet, label: str, seen_replicas: dict, n_actions: int) -> None:
+    """(e): no traffic; every role steps down one replica per idle window
+    to min_replicas (every step down since fleet.actions[n_actions]: the
+    fleet may step a role down between (a)'s traffic and here), then holds
+    for three evaluations, and every replica in `seen_replicas` (actor id
+    -> handle) that left the deployments is dead."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.serve.controller import get_or_create_controller
+
+    ctrl = get_or_create_controller()
+    lo = FLEET_CONFIG["min_replicas"]
+    t0 = time.monotonic()
+    while any(v > lo for v in fleet.status()["targets"].values()):
+        if time.monotonic() - t0 > FLEET_WAIT_S:
+            fail(f"phase 3f {label}: targets {fleet.status()['targets']} after {FLEET_WAIT_S} s "
+                 f"without traffic")
+        time.sleep(0.05)
+    downs = [a for a in fleet.actions[n_actions:] if a["kind"] == "scale-down"]
+    window = FLEET_CONFIG["idle_periods"] * FLEET_CONFIG["eval_period_s"]
+    for role in ("prefill", "decode"):
+        steps = [a for a in downs if a["role"] == role]
+        if any(a["from"] - a["to"] != 1 for a in steps):
+            fail(f"phase 3f {label}: {role} stepped down by more than one: {steps}")
+        gaps = [b["at"] - a["at"] for a, b in zip(steps, steps[1:])]
+        if any(g < window - 0.1 for g in gaps):
+            fail(f"phase 3f {label}: {role} stepped down twice within one idle window: {gaps}")
+    held = []
+    for _ in range(3):
+        time.sleep(FLEET_CONFIG["eval_period_s"])
+        held.append(dict(fleet.status()["targets"]))
+    if any(h != {"prefill": lo, "decode": lo} for h in held):
+        fail(f"phase 3f {label}: the targets did not hold at {lo}: {held}")
+    rt_ = rt.api._auto_init()
+    while True:  # the retired replicas stopped and killed by the controller
+        live = {r: rt.get(ctrl.get_replicas.remote(name), timeout=60)[0]
+                for r, name in FLEET_DEPLOYMENTS.items()}
+        gone = [h for h in seen_replicas.values()
+                if all(h._actor_id != x._actor_id for xs in live.values() for x in xs)]
+        dead = [rt_.control_plane.get_actor(h._actor_id).state.name == "DEAD" for h in gone]
+        if all(len(xs) == lo for xs in live.values()) and all(dead):
+            break
+        if time.monotonic() - t0 > FLEET_WAIT_S:
+            fail(f"phase 3f {label}: the controller holds "
+                 f"{ {r: len(xs) for r, xs in live.items()} } replicas, retired ones dead "
+                 f"{dead}")
+        time.sleep(0.1)
+    co._sync(force=True)
+    steps_of_cycle = [a for a in fleet.actions[n_actions:] if "from" in a]
+    log(f"phase 3f {label}: scaled down in {time.monotonic() - t0:.2f} s: "
+        f"{[(a['role'], a['from'], a['to'], round(a['at'] - downs[0]['at'], 2)) for a in downs]}; "
+        f"all actions of the cycle "
+        f"{[(a['kind'], a['role'], a['from'], a['to']) for a in steps_of_cycle]}; "
+        f"targets then {held}; pick sets "
+        f"{ {r: len(co.workers(r)) for r in ('prefill', 'decode')} }")
+
+
+def fleet_path(server, card: str, disagg_figures: str) -> dict:
+    """Phase 3f: the health plane and the serve fleet over phase 3's
+    tensors. The process's HealthPlane (stock rules, FLEET_SYSTEM_CONFIG),
+    deploy_disagg with one prefill and one decode replica, and a
+    FleetController(FLEET_CONFIG) that scales them through the serve
+    controller. (a) a burst of FLEET_BURST greedy requests trips
+    queue_depth (fleet_cycle); the fleet raises the role's target to 2,
+    the controller builds the replica, the coordinator picks it up, and it
+    serves one of FLEET_FOLLOW requests sent once it is ready; every
+    request bit for bit the engine's own run of its prompt (phase 3's
+    server, before any window). (e) with no traffic each role steps down
+    one replica per idle window and holds (scale_down); the fleet does so
+    as soon as the new replica is ready and idle, while (b) runs, so (e)
+    is read after (b). (b) four greedy streams of FLEET_STREAM_TOKENS decode on the decode
+    replica when an alert naming it is injected: quarantine, drain, restart
+    and rejoin each count once, every stream not finished on the replica
+    resumes on the replacement (serve_fleet_resumes counts them), each
+    equal to the engine's own run up to its resume and,
+    bit for bit, to the engine's own run of its continuation after it,
+    and where it leaves the uninterrupted run the two tokens nearly tie
+    under a plain f32 forward (resume_gate with forward_f32_plain); the
+    longest gap between tokens is printed. (c) sync_weights
+    of phase 3's tree as version 1: every replica reports it, and a fresh
+    prompt gives its tokens. (d) distribute_adapter: residency equals the
+    decode replicas, and an adapter-named request reaches a resident
+    replica. Then (a) and (e) again: the card memory left after the second
+    retirement must stay within SERVE_RETIRED_MEMORY_TOL of the first's. Each
+    FLEET_FAULTS entry must fail its gate. status() shows the alerts; no
+    thread the phase started outlives serve.shutdown() and the plane's
+    stop, and the card memory after them is within
+    SERVE_RETIRED_MEMORY_TOL of the phase's start (C14; the allocation
+    sites of what is left are printed). Launches are counted only while the coordinator serves (a)-(d)
+    (replica builds left out): K1, K2, K5 and K6 must have run, every
+    launch from a graph replay. Returns those counts."""
+    global MEMORY_SPLIT_HEAD_BYTES
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core import health
+    from ray_tpu_torch.core.metrics import registry
+    from ray_tpu_torch.ops import dispatch
+    from ray_tpu_torch.serve.controller import get_or_create_controller
+    from ray_tpu_torch.serve.disagg import deploy_disagg
+    from ray_tpu_torch.serve.fleet import FleetController
+
+    cfg, params = server.engine.cfg, server.engine.params
+    MEMORY_SPLIT_HEAD_BYTES = cfg.vocab_size * cfg.d_model * 4
+    t_phase = time.monotonic()
+    rng = torch.Generator().manual_seed(9)  # fresh prompts, seeded, host-side
+
+    def params_fn():
+        return params, cfg
+
+    want_cache = {}
+
+    def wants_by_prompt(r):
+        return want_cache[tuple(r["prompt_ids"]), r["max_tokens"]]
+
+    def want(requests):
+        """The engine's own runs of the requests (phase 3's server, all at
+        once: its prefill runs one prompt at a time and its decode spans
+        at the full batch, so a run does not depend on its neighbours)."""
+        res, _wall, errs = run_requests(server, [dict(r) for r in requests])
+        if errs:
+            fail(f"phase 3f wants: {errs}")
+        for r, g in zip(requests, res):
+            want_cache[tuple(r["prompt_ids"]), r["max_tokens"]] = g
+
+    # every prompt of the phase and the engine's own run of it, up front
+    # (outside every counted window)
+    draw = torch.Generator().manual_seed(9)
+    burst_prompts = [fleet_requests(cfg, draw)
+                     + fleet_requests(cfg, draw, n=FLEET_FOLLOW,
+                                      max_tokens=FLEET_FOLLOW_TOKENS, lengths=(700, 200))
+                     for _ in range(2)]
+    stream_reqs = fleet_requests(cfg, draw, n=FLEET_STREAMS, max_tokens=FLEET_STREAM_TOKENS,
+                                 lengths=(FLEET_STREAM_PROMPT,))
+    sync_req, adapter_req = fleet_requests(cfg, draw, n=2)
+    planted_streams = fleet_requests(cfg, draw, n=FLEET_STREAMS,
+                                     max_tokens=FLEET_STREAM_TOKENS,
+                                     lengths=(FLEET_STREAM_PROMPT,))
+    for reqs in burst_prompts + [stream_reqs, [sync_req, adapter_req], planted_streams]:
+        want(reqs)
+    rng = torch.Generator().manual_seed(9)  # fleet_cycle draws the bursts above again
+
+    serve.shutdown()
+    rt.shutdown()
+    rt.init(system_config=FLEET_SYSTEM_CONFIG)
+    runtime_threads = set(threading.enumerate())
+    plane = health.get_health_plane(create=True)  # stock rules, started
+    log(f"phase 3f: the health plane's rules {[(r.name, r.expr) for r in plane.rules]}, "
+        f"every {plane.period_s} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = memory_split("phase 3f start")
+    # allocation sites of whatever the phase leaves on the card (the stacks
+    # of the blocks allocated from here on)
+    torch.cuda.memory._record_memory_history(enabled="all", context="alloc", stacks="python",
+                                             max_entries=200000)
+    counted = dict.fromkeys(dispatch.launch_counts(), 0)
+    seen = {}
+
+    with BuildLaunches() as builds:
+        def count(label: str) -> None:
+            """Add the launches since the last reset, less the replica
+            builds', to `counted`: each must come from a graph replay."""
+            built = builds.since()
+            eager = {k: n - built.get(k, 0) for k, n in dispatch.eager_launch_counts().items()
+                     if n - built.get(k, 0)}
+            log(f"{label}: eager launches of the port's kernels, replica builds left out: "
+                f"{eager or 'none'}")
+            if eager:
+                fail(f"{label}: kernels launched outside graph replays: {eager}")
+            for name, n in dispatch.launch_counts().items():
+                counted[name] += n - built.get(name, 0)
+
+        def note_replicas():
+            ctrl = get_or_create_controller()
+            for name in FLEET_DEPLOYMENTS.values():
+                for h in rt.get(ctrl.get_replicas.remote(name), timeout=60)[0]:
+                    seen[h._actor_id] = h
+
+        t0 = time.monotonic()
+        co = deploy_disagg("llama3-8b", {"prefill_replicas": 1, "decode_replicas": 1,
+                                         "prefix_routing": False, "adapter_gossip_s": 0.0},
+                           name="fleet", engine_config=ENGINE, params_fn=params_fn,
+                           device=params["embed"].device.type)
+        for role, name in FLEET_DEPLOYMENTS.items():
+            wait_ready(name, 1, t0, "phase 3f")
+        note_replicas()
+        log(f"phase 3f: deploy_disagg built one prefill and one decode replica in "
+            f"{time.monotonic() - t0:.1f} s (builds {[round(s, 1) for s in builds.seconds]} s); "
+            f"card memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB ({card})")
+
+        # the planted faults whose gates need no fleet of their own first
+        caught = {}
+
+        def private():
+            """A plane of its own for a planted fleet: its alerts reach no
+            other subscriber."""
+            return health.HealthPlane(rules=[], metrics_fn=lambda: [], digests_fn=lambda: [])
+
+        with fleet_fault("target_recorded_not_actuated"):
+            own = private()
+            pf = FleetController(co, dict(FLEET_CONFIG), deployments=FLEET_DEPLOYMENTS, plane=own)
+            own.inject("queue_depth", {"role": "prefill"}, value=99.0)
+            pf.evaluate_once()
+            before = {w.key for w in co.workers("prefill")}
+            new, waited = wait_new_replica(co, "prefill", before, pf, "phase 3f planted fault "
+                                           "target_recorded_not_actuated")
+            caught["target_recorded_not_actuated"] = new is None
+            log(f"phase 3f planted fault target_recorded_not_actuated: fleet target "
+                f"{pf.status()['targets']}, new replica {new is not None} after {waited:.1f} s")
+            if new is not None:
+                fail("phase 3f: its gate passes planted fault target_recorded_not_actuated")
+
+        fleet = FleetController(co, dict(FLEET_CONFIG), deployments=FLEET_DEPLOYMENTS,
+                                plane=plane)
+        fleet.start()
+        cycle1_at = len(fleet.actions)
+        rem0 = remediations()
+        resumes0 = registry.get("serve_fleet_resumes").get()
+
+        # (a), cycle 1; the fleet steps the role down as soon as the
+        # traffic stops, while (b) runs (the coordinator syncs at the
+        # step-down, and a continuation that meets a retired replica opens
+        # again: ROADMAP C13); (e) is read after (b)
+        cyc1 = fleet_cycle(co, fleet, plane, builds, count, wants_by_prompt, cfg, rng,
+                           "(a) cycle 1", card)
+        note_replicas()
+        peak_after_a = torch.cuda.max_memory_allocated()
+
+        # (b) remediation with live resume, on the decode replica
+        co._sync(force=True)
+        victim = co.workers("decode")[0]
+        dispatch.reset_launches()
+        builds.reset()
+        streams, threads, out = open_streams(co, [r["prompt_ids"] for r in stream_reqs],
+                                             FLEET_STREAM_TOKENS)
+        streams_at(out, FLEET_STREAM_HEAD)
+        t_inject = time.monotonic()
+        live = sum(len(o["tokens"]) < FLEET_STREAM_TOKENS for o in out)
+        plane.inject("replica_fault", {"replica": str(victim.key)}, value=1.0,
+                     expr="injected: a replica named by an alert")
+        t_remediated = time.monotonic()
+        for t in threads:
+            t.join(FLEET_WAIT_S)
+        t_rejoin = time.monotonic()
+        while remediations()["rejoin"] - rem0["rejoin"] < 1:
+            if time.monotonic() - t_rejoin > FLEET_WAIT_S:
+                break
+            time.sleep(0.05)
+        count("phase 3f (b)")
+        note_replicas()
+        stages = {s: n - rem0[s] for s, n in remediations().items()}
+        resumed = registry.get("serve_fleet_resumes").get() - resumes0
+        gaps = [max((b - a for a, b in zip(o["at"], o["at"][1:])), default=0.0) for o in out]
+        after = [sum(1 for at in o["at"] if at > t_inject) for o in out]
+        log(f"phase 3f (b): {FLEET_STREAMS} streams of {FLEET_STREAM_TOKENS} tokens on decode "
+            f"replica {victim.key}, {live} still decoding when the alert was injected (each "
+            f"with {FLEET_STREAM_HEAD}+ tokens); the remediation took "
+            f"{t_remediated - t_inject:.2f} s; remediation stages {stages}; resumes {resumed}; "
+            f"tokens after the alert {after}; the longest gap between tokens per stream "
+            f"{[round(g, 3) for g in gaps]} s (the resume blip: the replacement's build and the "
+            f"continuation's prefill); errors {[o['error'] for o in out]} ({card})")
+        resumed_at = [resume_point(s) for s in streams]
+        conts = [{"prompt_ids": r["prompt_ids"] + o["tokens"][:k],
+                  "max_tokens": FLEET_STREAM_TOKENS - k}
+                 for r, o, k in zip(stream_reqs, out, resumed_at) if k]
+        want(conts)  # the engine's own runs of the continuations, after the count
+        if not resume_gate("phase 3f (b)", stream_reqs, out, streams, resumed_at,
+                           wants_by_prompt, witness=lambda seq: forward_f32_plain(params, cfg,
+                                                                                  seq)):
+            fail("phase 3f (b): a stream is not the engine's own run up to its resume and "
+                 "of its continuation after it, or leaves the uninterrupted run where the f32 "
+                 "witness sees no tie")
+        if stages != {"quarantine": 1, "drain": 1, "restart": 1, "rejoin": 1}:
+            fail(f"phase 3f (b): remediation stages {stages}")
+        # a stream whose last tokens the replica had already made (a decode
+        # span's worth) finishes on them; every other one resumes
+        if not resumed or resumed != sum(k > 0 for k in resumed_at):
+            fail(f"phase 3f (b): {resumed} resumes, streams resumed after {resumed_at} tokens "
+                 f"({live} decoding at the alert)")
+        if any(w.key == victim.key for w in co.workers("decode")):
+            fail("phase 3f (b): the remediated replica is back in the pick set")
+        scale_down(co, fleet, "(e) cycle 1", seen, cycle1_at)
+        mem1 = memory_split("phase 3f after cycle 1's retirement", mem0)
+
+        # (c) sync_weights of phase 3's tree as version 1, over the replicas
+        # the deployments hold now (the fleet may have stepped a role down
+        # since the coordinator last synced: a request would sync it too)
+        co._sync(force=True)
+        dispatch.reset_launches()
+        builds.reset()
+        t0 = time.monotonic()
+        synced = fleet.sync_weights(weights=params, version=1)
+        sync_s = time.monotonic() - t0
+        workers = co.workers("prefill") + co.workers("decode")
+        versions = {str(w.key): replica_stats(w)["weights_version"] for w in workers}
+        got_sync = co.generate(sync_req["prompt_ids"], max_tokens=sync_req["max_tokens"],
+                               timeout_s=FLEET_WAIT_S)
+        log(f"phase 3f (c): sync_weights over {len(workers)} replicas in {sync_s:.2f} s: "
+            f"{synced['synced']}, failed {synced['failed']}; stats() weights_version {versions}")
+        if synced["failed"] or set(versions.values()) != {1}:
+            fail(f"phase 3f (c): replicas report weights_version {versions}")
+        if not exact_gate("phase 3f (c) after the sync", [sync_req["prompt_ids"]], [got_sync],
+                          [wants_by_prompt(sync_req)]):
+            fail("phase 3f (c): the prompt's tokens changed across the sync")
+
+        # (d) distribute_adapter, then a request naming it
+        co._sync(force=True)
+        out_d = fleet.distribute_adapter("fleet-lora", weights={"rank": 8, "seed": 0})
+        residency = registry.get("serve_fleet_adapter_residency").get(
+            tags={"adapter": "fleet-lora"})
+        decode = co.workers("decode")
+        hits0 = {str(w.key): replica_stats(w)["adapter_requests"].get("fleet-lora", 0)
+                 for w in decode}
+        got_ad = co.generate(adapter_req["prompt_ids"], max_tokens=adapter_req["max_tokens"],
+                             adapter_id="fleet-lora", timeout_s=FLEET_WAIT_S)
+        hits = {str(w.key): replica_stats(w)["adapter_requests"].get("fleet-lora", 0)
+                - hits0[str(w.key)] for w in decode}
+        resident = {k for k, v in co.adapter_residency().items() if "fleet-lora" in v}
+        count("phase 3f (c)-(d)")
+        log(f"phase 3f (d): distribute_adapter loaded {out_d['loaded']}, failed "
+            f"{out_d['failed']}; serve_fleet_adapter_residency {residency} over {len(decode)} "
+            f"decode replicas; the adapter's request reached {hits} (resident: {sorted(resident)})")
+        if out_d["failed"] or residency != len(decode):
+            fail(f"phase 3f (d): residency {residency} for {len(decode)} decode replicas")
+        if sum(hits.values()) != 1 or not all(k in resident for k, v in hits.items() if v):
+            fail(f"phase 3f (d): the adapter's request went to {hits}, resident {resident}")
+        if not exact_gate("phase 3f (d) adapter request", [adapter_req["prompt_ids"]], [got_ad],
+                          [wants_by_prompt(adapter_req)]):
+            fail("phase 3f (d): the adapter-named request's tokens differ")
+
+        # (a) and (e) again
+        cycle2_at = len(fleet.actions)
+        cyc2 = fleet_cycle(co, fleet, plane, builds, count, wants_by_prompt, cfg, rng,
+                           "(a) cycle 2", card)
+        note_replicas()
+        scale_down(co, fleet, "(e) cycle 2", seen, cycle2_at)
+        mem2 = memory_split("phase 3f after cycle 2's retirement", mem1)
+        fleet.stop()
+        grew = mem2["allocated"] - mem1["allocated"]
+        log(f"phase 3f (e): card memory after cycle 1's retirement "
+            f"{mem1['allocated'] / 2**30:.3f} GiB, after cycle 2's {mem2['allocated'] / 2**30:.3f} "
+            f"GiB ({grew / 2**30:+.3f} GiB, tol {SERVE_RETIRED_MEMORY_TOL / 2**30:.2f}; between "
+            f"them (b)'s replica was replaced and cycle 2's built and retired); "
+            f"{mem0['allocated'] / 2**30:.3f} GiB at the phase's start ({card})")
+        if abs(grew) > SERVE_RETIRED_MEMORY_TOL:
+            fail(f"phase 3f (e): {grew / 2**30:+.3f} GiB between the two cycles' retirements")
+
+        # the planted faults that need the fleet's replicas
+        with fleet_fault("sync_reports_unsynced_replica"):
+            pf = FleetController(co, dict(FLEET_CONFIG), deployments=FLEET_DEPLOYMENTS,
+                                 plane=private())
+            res = pf.sync_weights(weights=params, version=2)
+            versions = {str(w.key): replica_stats(w)["weights_version"]
+                        for w in co.workers("prefill") + co.workers("decode")}
+            caught["sync_reports_unsynced_replica"] = (
+                bool(res["failed"]) or set(versions.values()) != {2})
+            log(f"phase 3f planted fault sync_reports_unsynced_replica: reported "
+                f"{res['synced']}; stats() weights_version {versions}")
+        with fleet_fault("restart_before_drain_without_resume"):
+            own = private()
+            pf = FleetController(co, dict(FLEET_CONFIG), deployments=FLEET_DEPLOYMENTS, plane=own)
+            victim = co.workers("decode")[0]
+            _s, threads, pout = open_streams(co, [r["prompt_ids"] for r in planted_streams],
+                                             FLEET_STREAM_TOKENS)
+            streams_at(pout, FLEET_STREAM_HEAD)
+            own.inject("replica_fault", {"replica": str(victim.key)}, value=1.0)
+            for t in threads:
+                t.join(FLEET_WAIT_S)
+            caught["restart_before_drain_without_resume"] = not resume_gate(
+                "phase 3f planted fault restart_before_drain_without_resume", planted_streams,
+                pout, _s, [resume_point(x) for x in _s], wants_by_prompt)
+            log(f"phase 3f planted fault restart_before_drain_without_resume: streams' errors "
+                f"{[o['error'] for o in pout]}, tokens {[len(o['tokens']) for o in pout]}")
+        co.cfg.live_resume = True
+        # the replacement's build ends before serve.shutdown(): a replica
+        # killed in its __init__ goes on building after the runtime stops
+        wait_ready(FLEET_DEPLOYMENTS["decode"], 1, time.monotonic(), "phase 3f")
+        for name, hit in caught.items():
+            if not hit:
+                fail(f"phase 3f: its gate passes planted fault {name}")
+
+        payload = rt.status(as_dict=True)
+        hist = plane.history()
+        rules = sorted({(a["rule"], a["state"]) for a in hist})
+        log(f"phase 3f: status() nodes {len(payload['nodes'])}, alerts now "
+            f"{[a['rule'] for a in payload['alerts']]}; the plane's history {rules}")
+        for rule, state in (("queue_depth", "firing"), ("queue_depth", "resolved"),
+                            ("replica_fault", "firing")):
+            if (rule, state) not in rules:
+                fail(f"phase 3f: the plane's history lacks {rule} {state}")
+        peak = torch.cuda.max_memory_allocated()
+        cyc1_figures = cyc1["figures"]
+        co.close()
+        del co, fleet, pf, own, victim, workers, decode, cyc1, cyc2, streams, _s
+        t_down = time.monotonic()
+        serve.shutdown()
+        health.shutdown_health_plane()
+        deadline = time.monotonic() + 15
+        while True:
+            left = [t.name for t in threading.enumerate()
+                    if t not in runtime_threads and t.is_alive()]
+            if not left or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        rt.shutdown()
+    release()
+    kept = torch.cuda.memory_allocated() - mem0["allocated"]
+    left_snapshot = torch.cuda.memory._snapshot()
+    torch.cuda.memory._record_memory_history(enabled=None)
+    log(f"phase 3f: serve.shutdown() and the plane's stop took {time.monotonic() - t_down:.2f} s; "
+        f"threads the phase started still alive after them: {left or 'none'}; peak card memory "
+        f"{peak / 2**30:.2f} GiB (after (a) {peak_after_a / 2**30:.2f}; phase 3's server and "
+        f"tensors included, {mem0['allocated'] / 2**30:.2f} GiB at the phase's start); left after "
+        f"the phase {kept / 2**30:+.3f} GiB (tol {SERVE_RETIRED_MEMORY_TOL / 2**30:.2f} GiB), "
+        f"allocated at: {sites_of_new_blocks(left_snapshot)} ({card})")
+    del left_snapshot
+    if left:
+        fail(f"phase 3f: threads outlived serve.shutdown() and the plane's stop: {left}")
+    if kept > SERVE_RETIRED_MEMORY_TOL:
+        fail(f"phase 3f: {kept / 2**30:.3f} GiB stayed allocated after every replica retired")
+    log(f"launches on the fleet path (the coordinator's requests of (a)-(d) in both cycles; "
+        f"builds, the engine's own runs and planted runs not): {counted}")
+    for name in SERVE_KERNELS:
+        if counted[name] <= 0:
+            fail(f"phase 3f never launched kernel {name}")
+    log(f"phase 3f: cycle 1 burst {cyc1_figures}; phase 3g (b) {disagg_figures} ({card})")
+    if BUILD_SAMPLER is not None:
+        BUILD_SAMPLER.report("phase 3f --build-profile")
+    log(f"phase 3f took {time.monotonic() - t_phase:.1f}s")
+    return counted
+
+
+def warm_runs_ab(server, card: str) -> None:
+    """`--build-profile`: LLMServers over `server`'s tensors built directly
+    (no runtime) with programs.WARM_RUNS 2, 1, 2, 1 in turns, each under
+    its own ThreadSampler; each serves four greedy requests that must equal
+    `server`'s runs of them, tokens and logprobs bit for bit."""
+    from ray_tpu_torch.serve import LLMServer, programs
+
+    cfg = server.engine.cfg
+    reqs = fleet_requests(cfg, torch.Generator().manual_seed(5), n=4)
+    want, _wall, errs = run_requests(server, [dict(r) for r in reqs])
+    if errs:
+        fail(f"warm-run A/B: {errs}")
+    saved = programs.WARM_RUNS
+    try:
+        for warm in (2, 1, 2, 1):
+            programs.WARM_RUNS = warm
+            sampler = ThreadSampler()
+            sampler.enter()
+            t0 = time.monotonic()
+            try:
+                other = LLMServer._target(model_name="llama3-8b", engine_config=ENGINE,
+                                          params_fn=lambda: (server.engine.params, cfg))
+                torch.cuda.synchronize()
+            finally:
+                sampler.exit()
+            built = time.monotonic() - t0
+            got, _wall, errs = run_requests(other, [dict(r) for r in reqs])
+            same = not errs and all(
+                g["token_ids"] == w["token_ids"] and g["logprobs"] == w["logprobs"]
+                for g, w in zip(got, want))
+            log(f"warm-run A/B: WARM_RUNS {warm}: built directly in {built:.1f} s (capture "
+                f"{other.engine.capture_stats['seconds']:.1f} s); four requests bit for bit "
+                f"the first server's {same} ({card})")
+            time.sleep(2 * ThreadSampler.SAMPLE_S)
+            sampler.report(f"warm-run A/B: WARM_RUNS {warm}")
+            other.shutdown()
+            del other
+            release()
+            if not same:
+                fail(f"warm-run A/B: WARM_RUNS {warm} changed the served tokens: {errs}")
+    finally:
+        programs.WARM_RUNS = saved
+
+
+def fleet_only(card: str) -> None:
+    """`--fleet`: phase 3's server and plain burst, then phase 3f on its
+    tensors (no other phase, no result line). With --build-profile, phase
+    3's build is sampled too, and warm_runs_ab runs before 3f."""
+    sampler = ThreadSampler() if BUILD_SAMPLER is not None else None
+    if sampler is not None:
+        sampler.enter()
+    server = new_server("phase 3: LLMServer llama3-8b", model_name="llama3-8b",
+                        engine_config=ENGINE, seed=0)
+    if sampler is not None:
+        sampler.exit()
+        time.sleep(2 * ThreadSampler.SAMPLE_S)
+        sampler.report("phase 3's direct build --build-profile")
+        warm_runs_ab(server, card)
+    requests = burst_requests(server.engine.cfg, torch.Generator().manual_seed(1))
+    results, wall, errors = run_requests(server, requests)
+    if errors:
+        fail(f"phase 3 burst: {errors}")
+    fleet_path(server, card, "not run")
     server.shutdown()
 
 
@@ -6771,6 +7916,13 @@ def main() -> None:
                     help="only build the kernels, serve phase 3's burst, then run phase 3g "
                          "(disaggregated prefill/decode serving on its tensors); prints no "
                          "result line")
+    ap.add_argument("--fleet", action="store_true",
+                    help="only build the kernels, serve phase 3's burst, then run phase 3f "
+                         "(the health plane and the serve fleet on its tensors); prints no "
+                         "result line")
+    ap.add_argument("--build-profile", action="store_true",
+                    help="with --fleet: sample every thread's stack while phase 3f's replicas "
+                         "build, and print where the threads were busy")
     ap.add_argument("--pretrain", action="store_true",
                     help="only build the kernels, then run phase 4p (pretrain -> checkpoint "
                          "-> serve at llama-2b); prints no result line")
@@ -6809,6 +7961,7 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    cublas_workspace_sizes()  # probed before any other GEMM on a side stream
     if args.ab:
         ab_compare(args.ab, card)
         return
@@ -6826,6 +7979,12 @@ def main() -> None:
         return
     if args.disagg:
         disagg_only(card)
+        return
+    if args.fleet:
+        global BUILD_SAMPLER
+        if args.build_profile:
+            BUILD_SAMPLER = ThreadSampler()
+        fleet_only(card)
         return
     if args.pretrain:
         pretrain_path(card)
@@ -6845,7 +8004,7 @@ def main() -> None:
     serve_launches, migrate_launches, live_launches, runtime_launches, deploy_launches = (
         served["launches"], served["migrate"], served["live"], served["runtime"],
         served["deploy"])
-    disagg_launches = served["disagg"]
+    disagg_launches, fleet_launches = served["disagg"], served["fleet"]
     del served
     gc.collect()  # free the weights
     torch.cuda.empty_cache()
@@ -6866,7 +8025,7 @@ def main() -> None:
                    "moe_migrate": moe_served["migrate"][name],
                    "live": live_launches[name] + moe_served["live"][name],
                    "runtime": runtime_launches[name], "deploy": deploy_launches[name],
-                   "disagg": disagg_launches[name],
+                   "disagg": disagg_launches[name], "fleet": fleet_launches[name],
                    "pretrain": pretrain["launches"][name], "tune": tuned["launches"][name]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,

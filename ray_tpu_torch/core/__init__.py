@@ -2,6 +2,7 @@
 ids, the flag registry (config), the control plane, the cluster scheduler,
 the object store, ledger and transfer plane, the node agents and the
 owner-side Runtime (core_worker), in thread mode, and the Prometheus
-metrics. The process pool, the shm store and actor processes wait for
-ROADMAP A5b; cross-host, RPC, federation, persistence and the health plane
-for A5c (health.py holds only the serve router's ReplicaHealth)."""
+metrics, and the health plane (health.py: alert rules, the alert
+lifecycle, the routers' ReplicaHealth). The process pool, the shm store
+and actor processes wait for ROADMAP A5b; cross-host, RPC, federation and
+persistence for A5c."""

@@ -250,6 +250,35 @@ declare(
     "span are always traced regardless of this rate.",
 )
 
+# The health plane (core/health.py HealthPlane) and its default rules
+declare(
+    "slo_ttft_ms", 0.0,
+    "p95-TTFT service-level objective in ms. >0 arms the default "
+    "health-plane rule `p95(serve_ttft_seconds) > slo for 2 periods`; "
+    "0 leaves TTFT alerting to user-supplied rules.",
+)
+declare(
+    "health_eval_period_s", 2.0,
+    "How often the head health plane (core/health.py) evaluates its "
+    "alert rules against digests, federated metrics, and heartbeats.",
+)
+declare(
+    "health_queue_depth_max", 64,
+    "Default alert threshold for serve_disagg_queue_depth (sustained "
+    "two evaluation periods).",
+)
+declare(
+    "health_memory_fraction_max", 0.92,
+    "Default alert threshold for host_memory_used_fraction (sustained "
+    "two evaluation periods).",
+)
+declare(
+    "rl_sync_stall_max_pct", 5.0,
+    "Alert threshold for the rl goodput ledger's weight_sync share: the "
+    "rl_sync_stall health rule fires when weight re-sync consumes more "
+    "than this percent of loop wall time.",
+)
+
 # Health-aware routing (core/health.py ReplicaHealth)
 declare(
     "health_quarantine_s", 5.0,
@@ -313,19 +342,21 @@ declare(
     "period that counts as scale-up pressure on the ingest pool.",
 )
 
-# the ingest pool's autoscaler (in the reference also the node autoscaler's
-# and the serve fleet's, which wait for ROADMAP A5c and A6b)
+# the ingest pool's autoscaler and the serve fleet's (in the reference also
+# the node autoscaler's, which waits for ROADMAP A5c)
 declare(
     "autoscale_cooldown_s", 15.0,
-    "Minimum gap between scale-up waves of the ingest worker pool. Demand "
-    "arriving inside the cooldown is absorbed by the in-flight wave instead "
-    "of launching more capacity, so one stall burst cannot flap the pool.",
+    "Minimum gap between scale-up waves (the ingest worker pool's and "
+    "serve/fleet.py replica-target bumps). Demand arriving inside the "
+    "cooldown is absorbed by the in-flight wave instead of launching more "
+    "capacity, so one burst cannot flap the pool or the fleet.",
 )
 declare(
     "autoscale_step_max", 2,
-    "Cap on how many workers one evaluation pass of the ingest pool's "
-    "controller may add or retire. Bounds the blast radius of a noisy "
-    "demand signal.",
+    "Cap on how many scale-up actions one evaluation pass may take "
+    "(workers the ingest pool's controller adds or retires, the "
+    "replica-target delta per FleetController period). Bounds the blast "
+    "radius of a noisy demand signal.",
 )
 
 

@@ -131,10 +131,21 @@ def _release_instance(runner: "_ActorRunner") -> None:
     """Drop a dead actor's instance once none of its lanes runs: the
     record stays (for has_actor and the actor's death cause), what the
     instance held (an engine's weights and pools on the card) goes with
-    the last reference. A deliberate difference: the reference's agent
-    keeps a killed actor's instance for as long as the node lives."""
-    if not any(t.is_alive() for t in runner.threads):
+    the last reference. kill_actor calls this after a bounded join, and a
+    lane still running then calls it again as it ends (_lane_ended). A
+    deliberate difference: the reference's agent keeps a killed actor's
+    instance for as long as the node lives."""
+    me = threading.current_thread()
+    if not any(t.is_alive() for t in runner.threads if t is not me):
         runner.instance = None
+
+
+def _lane_ended(runner: "_ActorRunner") -> None:
+    """A lane of `runner` ends: the last lane of a dead actor drops its
+    instance (a lane that outlived kill_actor's join, such as an async
+    actor's loop waiting for a long call in its executor)."""
+    if runner.dead:
+        _release_instance(runner)
 
 
 class _ActorRunner:
@@ -171,6 +182,7 @@ class _ActorRunner:
         while True:
             item = self.mailbox.get()
             if item is None:
+                _lane_ended(self)
                 return
             if item[0] == "__direct__":
                 # compiled-graph fast path (ray_tpu.dag): a pre-bound
@@ -217,6 +229,7 @@ class _AsyncActorRunner(_ActorRunner):
             self.loop.run_until_complete(
                 self.loop.shutdown_default_executor(timeout=EXECUTOR_JOIN_S))
             self.loop.close()
+            _lane_ended(self)
 
         loop_thread = threading.Thread(
             target=loop_main, daemon=True,

@@ -35,10 +35,7 @@ Everything here is gated on `config.object_ledger` (cached ~1s —
 `reload_enabled()` after toggling mid-process, as the bench overhead
 suite does).
 
-The port's copy of ray_tpu/core/object_ledger.py. The health plane that
-the sweep's alerts go to (core/health.py) and the channels whose stats
-`channels_section` federates (core/channels.py) wait for ROADMAP A5c:
-until then the sweep raises no alert and the section is empty.
+The port's copy of ray_tpu/core/object_ledger.py, in thread mode.
 """
 
 from __future__ import annotations
@@ -490,11 +487,28 @@ def _leak(kind: str, row: Dict[str, Any], detail: str) -> Dict[str, Any]:
 
 def _assert_alerts(leaks: List[Dict[str, Any]], counts: Dict[str, int],
                    leaked_bytes: Dict[str, int]) -> None:
-    """Re-assert `object_leak` alerts on the health plane. The port has no
-    health plane until ROADMAP A5c (core/health.py), so this returns as
-    the reference does when no plane exists; the sweep's report and its
-    `object_leaks{kind}` gauges stand without it."""
-    return
+    """Re-assert one `object_leak` alert per (kind, node) on the health
+    plane, when one exists: injected alerts expire unless each sweep
+    re-asserts them."""
+    if not leaks:
+        return
+    try:
+        from .health import get_health_plane
+
+        plane = get_health_plane(create=False)
+        if plane is None:
+            return
+        by_group: Dict[Tuple[str, str], int] = {}
+        for l in leaks:
+            key = (l["kind"], l.get("node_id", "") or "?")
+            by_group[key] = by_group.get(key, 0) + 1
+        for (kind, node), n in by_group.items():
+            plane.inject(
+                "object_leak", {"kind": kind, "node_id": node},
+                value=float(n), severity="warning",
+                expr=f"object ledger sweep: {n} {kind} object(s) on {node}")
+    except Exception:  # noqa: BLE001 — alerting never breaks the sweep
+        logger.debug("leak alert injection failed", exc_info=True)
 
 
 # -- status()/health-payload sections ---------------------------------------
@@ -520,6 +534,21 @@ def objects_section(runtime) -> Dict[str, Any]:
 
 
 def channels_section(runtime) -> Dict[str, Dict[str, float]]:
-    """Federated channel stats. The port has no channels until ROADMAP A5c
-    (core/channels.py), so there are none to report."""
-    return {}
+    """Federated channel stats: the head's process-local totals plus each
+    node's `channels` telemetry snapshot."""
+    out: Dict[str, Dict[str, float]] = {}
+    try:
+        from . import channels
+
+        local = channels.channel_stats()
+        if any(local.values()):
+            out["head"] = local
+        if runtime is not None:
+            for node_hex, rec in sorted(
+                    runtime.control_plane.telemetry_snapshots().items()):
+                snap = rec.get("channels")
+                if snap and any(snap.values()):
+                    out[node_hex[:12]] = dict(snap)
+    except Exception:  # noqa: BLE001
+        pass
+    return out

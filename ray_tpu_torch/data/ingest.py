@@ -35,8 +35,8 @@ The port's copy of ray_tpu/data/ingest.py, on the thread-mode runtime: the
 pool's workers are actor lanes in this process, the ingest node a virtual
 node of it. An IngestIterator keeps `iter_device_batches(device=)`, so a
 tenant's batches reach the card through the pinned side-stream copy. The
-health plane's tenant-scoped `data_stall_rising` rule waits for ROADMAP
-A5c; the stall counter it would read is kept.
+health plane's tenant-scoped `data_stall_rising` rule (core/health.py)
+reads the per-tenant stall counter.
 """
 
 from __future__ import annotations

@@ -6,8 +6,10 @@ inference on the card.
 
 The port's counterpart of ray_tpu/serve/__init__.py, with disaggregated
 prefill/decode serving (DisaggCoordinator, EngineWorker, deploy_disagg,
-DisaggConfig). The fleet controller (FleetConfig, FleetController) and
-the gRPC ingress wait for ROADMAP A6b.
+DisaggConfig), the fleet controller that scales, remediates and re-syncs
+its replicas (FleetConfig, FleetController), the declarative config
+(serve/schema.py) and the gRPC ingress (start_grpc; `grpc` is imported
+only when it starts).
 """
 
 from .api import (  # noqa: F401
@@ -36,6 +38,7 @@ from .disagg import (  # noqa: F401
     deploy_disagg,
 )
 from .engine import EngineConfig, InferenceEngine, Request  # noqa: F401
+from .fleet import FleetConfig, FleetController  # noqa: F401
 from .handle import DeploymentHandle, DeploymentResponse  # noqa: F401
 from .llm import LLMServer  # noqa: F401
 from .openai_api import (  # noqa: F401

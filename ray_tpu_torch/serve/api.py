@@ -4,8 +4,7 @@ Reference: `python/ray/serve/api.py :: serve.run` + CLI surface.
 
 The port's copy of ray_tpu/serve/api.py. `run` starts the thread-mode
 runtime when none is up, as the reference's does. The gRPC ingress
-(`start_grpc`, `grpc_port`) waits for ROADMAP A6b and raises
-NotImplementedError.
+(`start_grpc`, serve/grpc_proxy.py) imports `grpc` only when it starts.
 """
 
 from __future__ import annotations
@@ -91,17 +90,41 @@ def http_port() -> Optional[int]:
         return _proxy.port if _proxy else None
 
 
-_A6B_GRPC = ("the gRPC ingress (serve/grpc_proxy.py and its protos) waits for "
-             "ROADMAP A6b")
+_grpc_proxy = None
 
 
 def start_grpc(port: int = 0) -> int:
-    """Start the gRPC ingress: waits for ROADMAP A6b."""
-    raise NotImplementedError(f"start_grpc: {_A6B_GRPC}")
+    """Start the gRPC ingress (reference: the proxy's gRPC server path).
+    Routes resolve live from the app table, so call this before or after
+    serve.run in any order. Returns the bound port."""
+    global _grpc_proxy
+    from .grpc_proxy import GrpcProxy
+
+    handle_cache: Dict[str, DeploymentHandle] = {}
+
+    def routes():
+        # handles cached per deployment: a fresh handle per request would
+        # re-sync against the controller every call and discard the pow-2
+        # router's replica/load state
+        with _state_lock:
+            out = {}
+            for dep_name, route in _apps.values():
+                h = handle_cache.get(dep_name)
+                if h is None:
+                    h = handle_cache[dep_name] = DeploymentHandle(dep_name)
+                out[route] = h
+            return out
+
+    with _state_lock:
+        if _grpc_proxy is None:
+            _grpc_proxy = GrpcProxy(routes, port=port)
+            _grpc_proxy.start()
+        return _grpc_proxy.port
 
 
 def grpc_port() -> Optional[int]:
-    raise NotImplementedError(f"grpc_port: {_A6B_GRPC}")
+    with _state_lock:
+        return _grpc_proxy.port if _grpc_proxy else None
 
 
 def status() -> Dict[str, Any]:
@@ -127,16 +150,20 @@ def delete(name: str = "default") -> None:
 
 
 def shutdown() -> None:
-    """Stop the HTTP proxy (its thread joined), then the controller: its
-    reconcile loop is joined and every replica retires gracefully
-    (ServeController.shutdown) before the controller is killed. Last, the
-    channel service and the KV senders the disaggregated roles streamed
-    through end. The runtime stays up."""
-    global _proxy
+    """Stop the HTTP proxy (its thread joined) and the gRPC proxy (its
+    drain waited out), then the controller: its reconcile loop is joined
+    and every replica retires gracefully (ServeController.shutdown)
+    before the controller is killed. Last, the channel service and the KV
+    senders the disaggregated roles streamed through end. The runtime
+    stays up."""
+    global _proxy, _grpc_proxy
     with _state_lock:
         if _proxy is not None:
             _proxy.stop()
             _proxy = None
+        if _grpc_proxy is not None:
+            _grpc_proxy.stop()
+            _grpc_proxy = None
         _apps.clear()
     try:
         _retire_controller()

@@ -6,15 +6,17 @@ Reference: `python/ray/serve/_private/controller.py :: ServeController` +
 diff target vs live replicas, start/stop, health-check, autoscale from
 replica queue metrics.
 
-The port's copy of ray_tpu/serve/controller.py, in thread mode. Two
-differences, both about stopping: a replica the controller retires
+The port's copy of ray_tpu/serve/controller.py, in thread mode. Three
+differences, all about stopping: a replica the controller retires
 (deploy over an old version, delete, scale-down, shutdown) is first asked
 to finish its requests and run its class's shutdown()
 (ServeReplica.prepare_for_shutdown, within the deployment's
 graceful_shutdown_timeout_s) and is killed after, where the reference
-kills it at once; and shutdown() joins the reconcile loop before it
-retires the replicas, so no pass can start a replica after it. A replica
-that is dead or fails its health checks is still killed at once.
+kills it at once; shutdown() joins the reconcile loop before it retires
+the replicas, so no pass can start a replica after it; and
+`retire_replica` takes one named replica out and replaces it (the fleet's
+remediation). A replica that is dead or fails its health checks is still
+killed at once.
 """
 
 from __future__ import annotations
@@ -166,6 +168,28 @@ class ServeController:
         self._reconcile_once()
         return True
 
+    def retire_replica(self, name: str, actor_id: Any, grace_s: float = 0.0) -> bool:
+        """Take one replica out of a deployment at once and retire it
+        (serve/fleet.py's remediation restart): no router or coordinator
+        lists it again, it is asked to stop within grace_s (its class's
+        shutdown) and killed after, and this reconcile pass starts its
+        replacement. The reference's fleet kills the actor instead and
+        leaves the replacement to the health check."""
+        with self._lock:
+            state = self._deployments.get(name)
+            replica = next((r for r in (state.replicas if state else [])
+                            if r._actor_id == actor_id), None)
+            if replica is None:
+                return False
+            state.replicas.remove(replica)
+            for table in (state.fail_counts, state.health_pending, state.ready_pending):
+                table.pop(actor_id, None)
+            state.started.discard(actor_id)
+            state.membership += 1
+        self._retire(state, replica, grace_s)
+        self._reconcile_once()
+        return True
+
     def status(self) -> Dict[str, Any]:
         with self._lock:
             return {
@@ -185,11 +209,14 @@ class ServeController:
 
     # ---- reconcile --------------------------------------------------------
 
-    def _retire(self, state: _DeploymentState, replica) -> None:
+    def _retire(self, state: _DeploymentState, replica,
+                timeout_s: Optional[float] = None) -> None:
         """Ask a replica to drain and run its class's shutdown(); the
         reconcile loop (or shutdown) kills it once that returns or the
-        graceful timeout (plus a margin for the shutdown itself) runs out."""
-        timeout_s = state.config.graceful_shutdown_timeout_s
+        graceful timeout (the deployment's unless given, plus a margin for
+        the shutdown itself) runs out."""
+        if timeout_s is None:
+            timeout_s = state.config.graceful_shutdown_timeout_s
         try:
             ref = replica.prepare_for_shutdown.remote(timeout_s)
         except Exception:

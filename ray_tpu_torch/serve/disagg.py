@@ -38,14 +38,27 @@ in-process queue: a frame's host arrays cross by reference. Frames carry
 float32 (engine.py's `_gather_kv` widens the pool's bf16 on the host), so
 serve_kv_migration_bytes reads twice the reference's for the same tokens.
 
-Two differences from the reference. The per-destination sender threads
+Five differences from the reference. The per-destination sender threads
 end. `DisaggCoordinator.close()` stops the senders of the channels it
 resolved, and the channel service's shutdown (api.shutdown(),
 serve.shutdown()) stops every one; a sender stopped while a request
 still streams flushes what it holds first, and the next send starts a
-new one. And the stream transport's disagg.kv_export span carries the
+new one. The stream transport's disagg.kv_export span carries the
 bytes and frames it streamed (the reference updates a dict that its span
-had copied, so its span carries neither).
+had copied, so its span carries neither). And a request counts in
+serve_disagg_queue_depth{role="prefill"} until its prefill leg returns,
+not only while its pick runs (which returns at once whenever the role has
+a replica, so the reference's gauge stays at 0 under a burst and the
+health plane's queue_depth rule never fires). And a pick never returns a
+serve replica that is still in its __init__: the request waits in the
+pick (and in the queue depth) until one of the role is ready (the
+reference picks the starting replica, and a streamed request's import, or
+its KV destination's 30 s call, times out while the replica builds).
+And a live resume whose continuation fails to open (its pick met a
+replica the serve controller had retired since the last sync) syncs the
+pick sets and tries again, within resume_max_attempts, where the
+reference ends the stream; a continuation whose prefill leg failed
+blames that leg's replica alone, not the decode peer too.
 
 Metrics: serve_kv_migration_seconds / serve_kv_migration_bytes (the
 migration tax, per transport), serve_disagg_queue_depth{role} /
@@ -100,6 +113,13 @@ _m_resume_s = Histogram(
     "stall a client stream sees while its request resumes on a peer",
     buckets=MICRO_BUCKETS,
 )
+
+
+def _ready(worker) -> bool:
+    """A worker that can take a request now: a serve replica once its
+    __init__ has finished (ReplicaWorker.ready), an in-process one always."""
+    probe = getattr(worker, "ready", None)
+    return probe() if probe is not None else True
 
 
 def _norm_request(request: Dict[str, Any]) -> Dict[str, Any]:
@@ -880,6 +900,22 @@ class ReplicaWorker(_LoadTracker):
         self.key = _replica_key(replica)
         self._kv_dest = None
         self._kv_dest_lock = threading.Lock()
+        self._ready = False
+        self._ready_ref = None
+
+    def ready(self) -> bool:
+        """Whether the replica has finished its __init__ (its health check
+        answered). The controller lists a replica from its spawn on; the
+        coordinator picks it only once it is ready (_pick)."""
+        if not self._ready:
+            try:
+                if self._ready_ref is None:
+                    self._ready_ref = self._replica.health_check.remote()
+                done, _ = api.wait([self._ready_ref], timeout=0)
+            except Exception:  # noqa: BLE001 — a dead replica is not ready
+                return False
+            self._ready = bool(done)
+        return self._ready
 
     def _call(self, method: str, request: Dict[str, Any],
               timeout: float) -> Any:
@@ -1190,14 +1226,23 @@ class DisaggCoordinator:
 
     # -------------------------------------------------------------- picks
 
-    def _pick(self, role: str, deadline: float):
+    def _pick(self, role: str, deadline: float, held: bool = False):
+        """Pick one replica of `role`, the request counted in
+        serve_disagg_queue_depth{role} while it waits. With `held` the
+        count stays after a successful pick, and the caller drops it when
+        the replica's leg returns (the prefill legs: see
+        _release_prefill_queue)."""
         _m_queue_depth.add(1, tags={"role": role})
+        picked = False
         try:
             with tracing.span_if_traced("disagg.queue_wait", {"role": role}):
                 while True:
                     self._sync()
                     with self._lock:
                         workers = list(self._workers[role])
+                    # a serve replica still in its __init__ takes nothing:
+                    # the request waits here until one of the role is ready
+                    workers = [w for w in workers if _ready(w)]
                     if workers:
                         elig = self.health.eligible([w.key for w in workers])
                         cand = [w for w in workers if w.key in elig] or workers
@@ -1205,13 +1250,25 @@ class DisaggCoordinator:
                             len(cand),
                             lambda i: cand[i].load()
                             + self.health.penalty(cand[i].key))
+                        picked = True
                         return cand[idx]
                     if time.monotonic() > deadline:
                         raise RuntimeError(f"no {role} replicas available")
                     time.sleep(0.1)
                     self._sync(force=True)
         finally:
-            _m_queue_depth.add(-1, tags={"role": role})
+            if not (held and picked):
+                _m_queue_depth.add(-1, tags={"role": role})
+
+    @staticmethod
+    def _release_prefill_queue() -> None:
+        """A prefill leg returned (or failed): its request leaves the
+        prefill queue. The reference drops the count at the pick, which
+        returns at once whenever the role has a replica, so its gauge
+        reads 0 under any burst while requests wait behind the replica's
+        prefills; here a request counts until its prefill is done, so the
+        stock queue_depth rule and the fleet see a prefill backlog."""
+        _m_queue_depth.add(-1, tags={"role": "prefill"})
 
     def _kv_dest_for(self, worker):
         """The decode replica's KV channel, resolved ONCE per replica
@@ -1376,7 +1433,7 @@ class DisaggCoordinator:
         kv_dest = None
         if self.cfg.kv_transfer == "channel" or self.cfg.small_blob_bytes > 0:
             kv_dest = self._kv_dest_for(dworker)
-        pworker = self._pick("prefill", deadline)
+        pworker = self._pick("prefill", deadline, held=True)
         self._live[base["request_id"]] = (pworker, dworker)
         t0 = time.monotonic()
         try:
@@ -1385,6 +1442,8 @@ class DisaggCoordinator:
         except BaseException:
             self.health.record_error(pworker.key)
             raise
+        finally:
+            self._release_prefill_queue()
         self.health.observe(pworker.key, time.monotonic() - t0,
                             role="prefill")
         return res
@@ -1396,7 +1455,7 @@ class DisaggCoordinator:
         the overlap). Returns (thread, box); box['res'] or box['err']
         is set when the leg finishes. A failed prefill also poisons the
         stream so the importer fails fast instead of idling out."""
-        pworker = self._pick("prefill", deadline)
+        pworker = self._pick("prefill", deadline, held=True)
         self._live[base["request_id"]] = (pworker, dworker)
         ctx = tracing.current_context()
         box: Dict[str, Any] = {}
@@ -1414,11 +1473,17 @@ class DisaggCoordinator:
                 box["err"] = e
                 self.health.record_error(pworker.key)
                 _push_error_frame(kv_dest, base["request_id"], str(e))
+            finally:
+                self._release_prefill_queue()
 
         t = threading.Thread(
             target=run, daemon=True,
             name=f"disagg-prefill-{base['request_id'][:8]}")
-        t.start()
+        try:
+            t.start()
+        except BaseException:
+            self._release_prefill_queue()
+            raise
         return t, box
 
     # ---------------------------------------------------------- blocking
@@ -1545,6 +1610,7 @@ class DisaggCoordinator:
         peer) as a fresh one."""
         routed = self._prefix_route(base)
         dworker = None
+        blame = True  # the decode replica's fault, unless its prefill leg failed
         try:
             if routed is not None:
                 dworker, warm = routed
@@ -1565,6 +1631,8 @@ class DisaggCoordinator:
                 except BaseException as e:
                     pt.join(timeout=30.0)
                     if "err" in pbox:
+                        # the prefill leg's replica took the blame
+                        blame = False
                         raise pbox["err"] from e
                     raise
             else:
@@ -1572,7 +1640,7 @@ class DisaggCoordinator:
                 pres = self._run_prefill(base, deadline, dworker)
                 raw = dworker.decode_stream({**base, "kv": pres["kv"]})
         except BaseException:
-            if dworker is not None:
+            if dworker is not None and blame:
                 self.health.record_error(dworker.key)
             self._live.pop(base["request_id"], None)
             raise
@@ -1686,14 +1754,25 @@ class DisaggCoordinator:
                                    "kv_transport": "resumed"}
                             return
                         tr = time.monotonic()
-                        try:
-                            raw, dworker = self._resume_stream(
-                                base, committed, deadline, dworker, attempts)
-                            prior = len(committed)
-                        except BaseException:
-                            logger.warning("live resume of %s failed", rid,
-                                           exc_info=True)
-                            raise e  # surface the original death
+                        dead = dworker
+                        while True:
+                            try:
+                                raw, dworker = self._resume_stream(
+                                    base, committed, deadline, dead,
+                                    attempts)
+                                break
+                            except BaseException:
+                                logger.warning("live resume of %s failed",
+                                               rid, exc_info=True)
+                                attempts += 1
+                                if (attempts > self.cfg.resume_max_attempts
+                                        or time.monotonic() > deadline):
+                                    raise e  # surface the original death
+                                # the continuation may have met a replica
+                                # the serve controller retired since the
+                                # last sync: refresh the pick sets, retry
+                                self._sync(force=True)
+                        prior = len(committed)
                         _m_resumes.inc()
                         _m_resume_s.observe(time.monotonic() - tr)
                         logger.info(

@@ -240,9 +240,13 @@ class LLMServer:
         pass
 
     def shutdown(self) -> None:
-        """Stop the engine's threads (a serve replica calls this when it
-        retires: ServeReplica.prepare_for_shutdown)."""
+        """Stop the engine's threads, then fail the requests still live
+        with an error (a serve replica calls this when it retires:
+        ServeReplica.prepare_for_shutdown). A stream failed here resumes
+        on a peer under a disaggregated coordinator; left live, it would
+        wait for tokens that never come."""
         self.engine.stop()
+        self.engine._fail_all("the replica shut down")
 
 
 def _generate_args(request: Dict[str, Any]) -> Dict[str, Any]:

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import gc
 import threading
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -233,10 +233,31 @@ class PagedModel:
         return self._run_layers(x, rope_pos, page_idx, slot_idx, attend)
 
 
-# eager runs of a program's body before its capture
-WARM_RUNS = 2
+# eager runs of a program's body before its capture: one makes the first
+# launches, library handles and workspaces; a second changed no served token
+# or logprob and doubled the Python work of an engine build (llama3-8b on the
+# H100: 8.8-12.6 s to build with two, 5.6-6.1 s with one; chip_smoke.py
+# --fleet --build-profile)
+WARM_RUNS = 1
 # one graph capture at a time in this process (CapturedProgram)
 _CAPTURE_LOCK = threading.Lock()
+# the side stream every capture's warm runs take, one per device
+_WARM_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _warm_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The one side stream on which every CapturedProgram's warm runs go
+    on `device` (callers hold _CAPTURE_LOCK), made at first use. cuBLAS
+    keeps a workspace (32 MiB on the H100) per (handle, stream) for the
+    life of the process; a fresh stream from torch's pool for each capture
+    gave every engine build new pairs, a dozen workspaces that outlived
+    the engine, until each handle had met all of the pool's streams
+    (ROADMAP C10)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = _WARM_STREAMS.get(index)
+    if stream is None:
+        stream = _WARM_STREAMS[index] = torch.cuda.Stream(device)
+    return stream
 
 
 def host_tensor(array, dtype: torch.dtype) -> torch.Tensor:
@@ -267,7 +288,7 @@ class CapturedProgram:
     tuple of tensors.
 
     On a CUDA device it is a CUDA graph. `fn` first runs eagerly
-    WARM_RUNS times on a side stream, so that first launches, library
+    WARM_RUNS time(s) on a side stream, so that first launches, library
     handles and workspaces happen outside the capture; then once under
     `torch.cuda.graph`. A failed capture raises; nothing falls back to
     eager launches. A call copies its arguments into the static inputs
@@ -309,9 +330,9 @@ class CapturedProgram:
             return
         # One program at a time in the process, warm runs and capture
         # together: several engines may build at once (the replicas of a
-        # deployment), and their side streams and capture streams come from
-        # torch's shared pool of streams, so another engine's warm runs
-        # could land on the very stream that captures. No garbage
+        # deployment), and the warm runs' stream and the capture stream
+        # come from torch's shared pool of streams, so another engine's
+        # warm runs could land on the very stream that captures. No garbage
         # collection during the capture: a collection could destroy another
         # engine's dropped graphs, and destroying a graph while a stream
         # captures invalidates the capture. "thread_local": other threads'
@@ -319,7 +340,7 @@ class CapturedProgram:
         # streams) go on meanwhile, and only this thread's unsafe calls fail
         # the capture.
         with _CAPTURE_LOCK:
-            side = torch.cuda.Stream(device)
+            side = _warm_stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(side):
                 for _ in range(WARM_RUNS):

@@ -1194,3 +1194,131 @@ def test_disagg_pair_streams_kv_and_decodes_exactly(card, dtype):
     assert left == []
     kept = torch.cuda.memory_allocated() - before_mem
     assert kept <= 0.01 * 2**30, f"{kept / 2**20:.1f} MiB stayed allocated"
+
+
+# The fleet on the card (ray_tpu_torch.serve.fleet): a tiny-llama
+# prefill/decode pair under a FleetController that builds and retires decode
+# engines through spawn_fn/retire_fn scales decode 1 -> 2 on a queue_depth
+# alert and back to 1 when the role idles; every request, on either decode
+# engine, is the first decode engine's own run bit for bit, and after the
+# retirement and the engines' stop no thread is left and the card's memory
+# is back where it was (cuBLAS workspaces cleared before both readings).
+
+def test_fleet_scales_decode_engines_on_the_card(card, dtype):
+    import threading
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.health import HealthPlane
+    from ray_tpu_torch.serve.disagg import DisaggCoordinator, EngineWorker
+    from ray_tpu_torch.serve.fleet import FleetController
+
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    cfg = get_config("tiny-llama", d_model=256, dtype=name)
+    params = init_params(cfg, seed=0, device=card, dtype=name)
+    ecfg = EngineConfig(max_batch_size=4, page_size=16, max_pages=64, max_seq_len=128,
+                        prefill_buckets=(16, 32), prefill_chunk=32, cache_dtype=name)
+    rt.shutdown()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    before_threads = set(threading.enumerate())
+    before_mem = torch.cuda.memory_allocated()
+    engines = []
+
+    def engine():
+        e = InferenceEngine(params, cfg, ecfg)
+        e.warmup()
+        engines.append(e)
+        return e
+
+    retired = []
+
+    def spawn(role):
+        return EngineWorker(engine(), f"{role}-{len(engines)}")
+
+    def retire(role, w):
+        w.engine.stop()
+        retired.append(w)
+
+    plane = HealthPlane(rules=[], metrics_fn=lambda: [], digests_fn=lambda: [])
+    pre, dec = engine(), engine()
+    co = DisaggCoordinator([EngineWorker(pre, "prefill")], [EngineWorker(dec, "decode")],
+                           {"kv_stream_tokens": 16, "prefix_routing": False})
+    fleet = FleetController(co, {"min_replicas": 1, "max_replicas": 2, "cooldown_s": 0.0,
+                                 "idle_periods": 1, "rebalance_roles": False},
+                            spawn_fn=spawn, retire_fn=retire, plane=plane)
+    try:
+        rng = np.random.default_rng(0)
+        prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, size=n)]
+                   for n in (5, 29, 90, 12)]  # bucketed, bucketed, chunked, bucketed
+        wants = [dec.generate(p, max_tokens=8) for p in prompts]
+        plane.inject("queue_depth", {"role": "decode"}, value=9.0)
+        assert fleet.evaluate_once()["decode"] == 2
+        assert len(co.workers("decode")) == 2
+        dispatch.reset_launches()
+        keys = [w.key for w in co.workers("decode")]
+        for key in keys:  # each prompt on each decode engine in turn
+            for other in keys:
+                if other == key:
+                    co.health.observe(key)  # out of quarantine
+                else:
+                    co.health.quarantine(other, duration=60.0)
+            ok0 = co.health.snapshot().get(str(key), {}).get("ok", 0)
+            for p, want in zip(prompts, wants):
+                stream = co.open_stream(p, max_tokens=8, timeout_s=120)
+                assert list(stream.tokens()) == want["token_ids"]
+                assert stream.logprobs == want["logprobs"]
+            assert co.health.snapshot()[str(key)]["ok"] - ok0 >= len(prompts)
+        counts, eager = dispatch.launch_counts(), dispatch.eager_launch_counts()
+        for kernel in ("rms_norm", "flash_attention", "paged_attention_decode",
+                       "paged_attention_chunk"):
+            assert counts[kernel] > 0, kernel
+        assert not any(eager.values()), eager
+        plane.evaluate(now=time.time() + 60.0)  # the injected alert expires: decode idles
+        assert fleet.evaluate_once()["decode"] == 1
+        assert len(co.workers("decode")) == 1 and len(retired) == 1
+        co.close()
+        del co, fleet, retired, stream
+    finally:
+        for e in engines:
+            e.stop()
+        rt.shutdown()
+    del engines, pre, dec
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    left = [t.name for t in threading.enumerate() if t not in before_threads and t.is_alive()]
+    assert left == []
+    kept = torch.cuda.memory_allocated() - before_mem
+    assert kept <= 0.01 * 2**30, f"{kept / 2**20:.1f} MiB stayed allocated"
+
+
+# C10: an engine's captures run their warm runs on one process-wide side
+# stream (programs._warm_stream), so building, warming up and stopping an
+# engine again and again in one process leaves no new cuBLAS workspace (32
+# MiB per cuBLAS handle and stream, kept for the process's life) after the
+# first build; with a fresh pool stream per capture each build left a dozen
+# more. The workspaces are NOT cleared here: their growth is what is held.
+
+def test_engine_builds_leave_no_growing_cublas_workspaces(card, dtype):
+    from ray_tpu_torch.serve import programs
+
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    cfg = get_config("tiny-llama", d_model=256, dtype=name)
+    params = init_params(cfg, seed=0, device=card, dtype=name)
+    ecfg = EngineConfig(max_batch_size=4, page_size=16, max_pages=64, max_seq_len=128,
+                        prefill_buckets=(16, 32), prefill_chunk=32, cache_dtype=name)
+    left = []
+    for _ in range(4):
+        engine = InferenceEngine(params, cfg, ecfg)
+        engine.warmup()
+        assert engine.generate([1, 2, 3, 4, 5], max_tokens=4)["finish_reason"] == "length"
+        engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        left.append(torch.cuda.memory_allocated())
+    assert len(programs._WARM_STREAMS) == 1
+    grew = max(left[1:]) - left[0]
+    assert grew <= 32 * 2**20, f"{[n / 2**20 for n in left]} MiB after each build"

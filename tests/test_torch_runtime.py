@@ -707,3 +707,43 @@ def test_a_killed_actors_instance_is_released_where_the_reference_keeps_it():
         finally:
             p.api.shutdown()
     assert released == {"ray_tpu": False, "ray_tpu_torch": True}
+
+
+def test_a_killed_async_actor_busy_past_the_join_is_released_when_its_call_ends():
+    # an async actor (a serve replica) killed while a call it runs on a
+    # thread (asyncio.to_thread, as prepare_for_shutdown does) takes longer
+    # than kill_actor's 2 s join (6 s): its instance goes once the call
+    # ends, not never (C14)
+    import asyncio
+    import gc
+    import weakref
+
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=2, system_config=dict(THREAD_MODE), num_gpus=0)
+    try:
+        held, started = [], threading.Event()
+
+        @ray_tpu_torch.remote
+        class Busy:
+            def __init__(self):
+                self.payload = _Payload()
+                held.append(weakref.ref(self.payload))
+
+            async def work(self):
+                started.set()
+                await asyncio.to_thread(time.sleep, 6.0)
+                return 1
+
+        b = Busy.remote()
+        b.work.remote()
+        assert started.wait(WAIT_S)
+        t0 = time.monotonic()
+        ray_tpu_torch.kill(b)
+        gc.collect()
+        alive_after_kill = held[0]() is not None
+        while held[0]() is not None and time.monotonic() - t0 < 20:
+            gc.collect()
+            time.sleep(0.05)
+        assert alive_after_kill and held[0]() is None
+    finally:
+        ray_tpu_torch.shutdown()

@@ -202,7 +202,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     # it also serves tiny-moe with speculation, so the MoE path is checked
     # too, moves a prompt's KV out of the engine and back in, swaps the
     # weights live and renders the metrics, the digests and a trace, runs
-    # one request through a disaggregated coordinator over two engines;
+    # one request through a disaggregated coordinator over two engines,
+    # one health-plane pass and one fleet evaluation over it (importing the
+    # plane, the fleet, the schema and the gRPC proxy loads neither grpc
+    # nor protobuf);
     # then it starts the runtime (a task, an actor, a compiled graph, the
     # virtual cluster, the training gang, the ingest service, a Tuner, a
     # Pool and a logger)
@@ -213,6 +216,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.tune, ray_tpu_torch.util, ray_tpu_torch.train.integrations\n"
         "import ray_tpu_torch.data.ingest\n"
         "import ray_tpu_torch.serve.disagg, ray_tpu_torch.core.channels, ray_tpu_torch.dag\n"
+        "import ray_tpu_torch.core.health, ray_tpu_torch.serve.fleet, ray_tpu_torch.serve.schema\n"
+        "import ray_tpu_torch.serve.grpc_proxy\n"
+        "assert not [m for m in sys.modules if m == 'grpc' or m.startswith('grpc.')\n"
+        "            or m.startswith('google.protobuf')]\n"
         "from ray_tpu_torch import tune, util\n"
         "from ray_tpu_torch.data import ingest\n"
         "from ray_tpu_torch.train import integrations\n"
@@ -257,6 +264,12 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "        co = DisaggCoordinator([EngineWorker(server.engine)], [EngineWorker(dec.engine)])\n"
         "        res = co.generate([7, 8, 9, 10, 11], max_tokens=3)\n"
         "        assert res['kv_transport'] == 'stream' and len(res['token_ids']) == 3\n"
+        "        from ray_tpu_torch.core.health import HealthPlane\n"
+        "        from ray_tpu_torch.serve.fleet import FleetController\n"
+        "        plane = HealthPlane(period_s=60.0)\n"
+        "        assert plane.evaluate() == []\n"
+        "        targets = FleetController(co, {}, plane=plane).evaluate_once()\n"
+        "        assert targets == {'prefill': 1, 'decode': 1}\n"
         "        co.close()\n"
         "    finally:\n"
         "        dec.shutdown()\n"

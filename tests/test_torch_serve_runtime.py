@@ -15,7 +15,7 @@ explicitly, and every app and runtime is stopped in a `finally`.
 
 Also here, for the port alone: a retired replica runs its class's
 shutdown(), serve.shutdown() leaves no thread of the serve runtime
-behind, the A5c/A6b entry points raise, and `import ray_tpu_torch.serve`
+behind, the A5c entry points raise, and `import ray_tpu_torch.serve`
 plus `serve.run` load neither jax nor ray_tpu (a subprocess).
 """
 
@@ -493,30 +493,30 @@ def test_shutdown_without_a_runtime_starts_none():
 
 
 def test_unported_entry_points_raise():
-    # disaggregated serving is ported (tests/test_torch_disagg.py serves
-    # through build_openai_app(disagg=...)): its config is parsed, not
-    # refused, and no health plane exists to subscribe to; the fleet, the
-    # gRPC ingress and the health plane itself still wait
+    # disaggregated serving, the health plane, the fleet and the gRPC ingress
+    # are ported (tests/test_torch_disagg.py, test_torch_health.py,
+    # test_torch_fleet.py, test_torch_serve_schema.py); what waits for
+    # ROADMAP A5c is reading a remote head's health (status(address=): the
+    # dashboard), the profiler's payload sections and the `ray-tpu serve run`
+    # command (scripts.py)
+    import importlib.util
+
     from ray_tpu_torch import serve
     from ray_tpu_torch.core import health
+    from ray_tpu_torch.serve import schema
 
-    with pytest.raises(NotImplementedError, match="A6b"):
-        serve.start_grpc()
-    with pytest.raises(NotImplementedError, match="A6b"):
-        serve.grpc_port()
     with pytest.raises(ValueError, match="kv_transfer"):
         serve.build_openai_app(disagg={"kv_transfer": "carrier-pigeon"})
+    with pytest.raises(NotImplementedError, match="A5c"):
+        ray_tpu_torch.status(address="127.0.0.1:8265")
+    assert "A5c" in health.HealthPlane._profiling_sections.__doc__
+    assert "A5c" in schema.__doc__ and "serve run" in schema.__doc__
+    assert importlib.util.find_spec("ray_tpu_torch.scripts") is None
+    assert serve.grpc_port() is None  # no proxy until start_grpc()
     assert health.get_health_plane(create=False) is None
-    with pytest.raises(NotImplementedError, match="A5c"):
-        health.get_health_plane()
-    with pytest.raises(NotImplementedError, match="A5c"):
-        health.shutdown_health_plane()
-    with pytest.raises(NotImplementedError, match="A5c"):
-        health.HealthPlane  # noqa: B018 — reaching the name is what raises
-    for name in ("DisaggConfig", "DisaggCoordinator", "EngineWorker", "deploy_disagg"):
+    for name in ("DisaggConfig", "DisaggCoordinator", "EngineWorker", "deploy_disagg",
+                 "FleetConfig", "FleetController"):
         assert getattr(serve, name).__module__.startswith("ray_tpu_torch.serve.")
-    for name in ("FleetConfig", "FleetController"):
-        assert not hasattr(serve, name)
 
 
 def test_replica_health_matches_reference():
