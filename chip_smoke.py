@@ -217,7 +217,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      4 requests for two passes 0.25 s apart), deploy_disagg with one
      prefill and one decode replica, and a FleetController(FLEET_CONFIG:
      one to two replicas a role, 0.5 s evaluations, no cooldown, three idle
-     evaluations, pressure past four waiting requests a replica) acting
+     evaluations, the default pressure past two waiting requests a replica,
+     legs a replica runs, or will have run before another could be built,
+     not counted as waiting) acting
      through the serve controller. (a) a burst of 16
      greedy requests (23/100/200/700-token prompts, 32 out): queue_depth
      fires on the prefill role, the fleet raises its target to 2 (and holds
@@ -239,7 +241,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      tokens' KV in a prefill, whose bf16 rounds otherwise), the two runs'
      tokens lie within LOGPROB_TOL["max"] of each other under a plain f32
      forward (forward_f32_plain), and the longest gap between tokens is
-     printed. (c) sync_weights of phase 3's tree as version 1: every
+     printed; the fleet takes no prefill scale-up action from (b)'s start
+     to its rejoin (C15). (c) sync_weights of phase 3's tree as version 1: every
      replica's stats() reports it and a fresh prompt keeps its tokens. (d)
      distribute_adapter: serve_fleet_adapter_residency equals the decode
      replicas and an adapter-named request reaches a resident one. (e) with
@@ -350,6 +353,28 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      step, with no earlier copy alive. Three planted faults (a stop that
      does not stop the trainable, tenants' weights ignored, the old
      key-order check of the restore) must fail their gates;
+  4r. rl/ at llama-600m (rl_path): (a) GRPO at the reference's bench_grpo
+     configuration (f32 parameters from seed 0, group 8, 16 new tokens,
+     factored): an lr-0 step leaves the parameters bit-identical, then
+     three steps at 1e-5 with finite losses, the frozen reference policy
+     bit-identical to the init, KL > 0 after the first nonzero step,
+     exact launches (grpo_launches), samples/s printed, and the gradient
+     gate on the GRPO loss at the init: in bf16 the kernel path's gap to
+     the f32 plain path's gradients within WITNESS_RATIO times the bf16
+     plain path's (at an untrained init the two bf16 paths part by more
+     than GRAD_TOL), and in f32 phase 4's gate; (b) OnlineRLLoop over a
+     FleetController of a prefill- and a decode-role engine over bf16
+     copies of the trainer's weights, three iterations: rollouts stamped
+     with logprobs and the loop's version, iteration 1's rollout logprobs
+     within LOGPROB_TOL of the trainer's, every replica, asked itself, at
+     the loop's version after each sync, the ledger a partition, no
+     fleet scale-up (C15), K3/K4 in the updates; a greedy stream of a
+     300-token prompt across a sync ends whole, and K1/K2/K5/K6 ran in
+     graph replays over the iterations and the stream; rollout tok/s,
+     phase times, the sync stall fraction and rewards printed; (c) three
+     planted RL_FAULTS fail their gates; (d) card memory and threads back
+     after the loop and engines stop; (e) PPO on CartPole with the
+     learner on the card, one update against the CPU's within 1e-4;
   5. LLMServer serving moe-1b (8 experts, top 2) at full width and depth,
      random bf16 weights from seed 0, phase 3's engine sizes and burst
      shapes: every serving kernel runs, every launch from a graph replay;
@@ -392,7 +417,8 @@ gate), runtime (phase 3r's tasks, hosted server and updates), deploy
 (phase 3d's handle and HTTP sections), disagg (the coordinators' requests
 of phase 3g's (a)-(c) and (d)), fleet (the coordinator's requests of phase
 3f's (a)-(d), both cycles), pretrain (phase 4p's first fit and
-its served burst), tune (phase 4t's ASHA and PBT fits)), the last
+its served burst), tune (phase 4t's ASHA and PBT fits), rl (phase 4r's
+GRPO steps at lr 1e-5 and the online loop's iterations)), the last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
 
@@ -446,6 +472,11 @@ TorchTrainer -> checkpoints -> serve.run at llama-2b); no result line.
 builds the kernels and runs phase 4t alone (tune_path: the ingest
 service's fair share, ASHA and PBT over llama-2b trials on the card); no
 result line.
+
+    python3 chip_smoke.py --rl
+
+builds the kernels and runs phase 4r alone (rl_path: GRPO and the online
+RL loop at llama-600m, PPO with its learner on the card); no result line.
 """
 
 from __future__ import annotations
@@ -3929,11 +3960,13 @@ def disagg_only(card: str) -> None:
 
 # the fleet's policy in phase 3f: one or two replicas a role, a decision every
 # half second, no cooldown, a role steps down after three quiet evaluations;
-# a role is pressured past four waiting requests a replica, so that the four
-# streams of (b) (their continuations after a remediation) are not a
-# backlog by themselves, and the burst is
+# the default target_queue_depth (a role is pressured past two waiting
+# requests a replica): the four streams of (b) (their continuations after a
+# remediation) run as prefill legs, one at a time, that the prefill replica
+# runs long before another could be built, which the fleet does not read as
+# a backlog (ROADMAP C15), and the burst's alert scales the role
 FLEET_CONFIG = {"min_replicas": 1, "max_replicas": 2, "eval_period_s": 0.5, "cooldown_s": 0.0,
-                "idle_periods": 3, "target_queue_depth": 4.0}
+                "idle_periods": 3}
 # the health plane in phase 3f: queue_depth fires once more than 4 requests wait
 # for a role on two passes 0.25 s apart (the burst holds up to 16 on the prefill
 # role, whose leg serves one prompt at a time); four streams stay under it
@@ -4735,6 +4768,7 @@ def fleet_path(server, card: str, disagg_figures: str) -> dict:
         victim = co.workers("decode")[0]
         dispatch.reset_launches()
         builds.reset()
+        t_b = time.time()
         streams, threads, out = open_streams(co, [r["prompt_ids"] for r in stream_reqs],
                                              FLEET_STREAM_TOKENS)
         streams_at(out, FLEET_STREAM_HEAD)
@@ -4783,6 +4817,17 @@ def fleet_path(server, card: str, disagg_figures: str) -> dict:
                  f"({live} decoding at the alert)")
         if any(w.key == victim.key for w in co.workers("decode")):
             fail("phase 3f (b): the remediated replica is back in the pick set")
+        # C15: the resumed streams' prefill legs run on the one prefill
+        # replica, one at a time, and drain long before a replica could be
+        # built; at the default target_queue_depth they must not build one
+        prefill_ups = [a for a in fleet.actions
+                       if a["kind"] == "scale-up" and a["role"] == "prefill" and a["at"] >= t_b]
+        log(f"phase 3f (b): prefill scale-up actions during the remediation and its resumes: "
+            f"{prefill_ups} (target_queue_depth {fleet.cfg.target_queue_depth}); "
+            f"{backlog_measure(co)}")
+        if prefill_ups:
+            fail(f"phase 3f (b): the fleet scaled the prefill role up during the resumes: "
+                 f"{prefill_ups}")
         scale_down(co, fleet, "(e) cycle 1", seen, cycle1_at)
         mem1 = memory_split("phase 3f after cycle 1's retirement", mem0)
 
@@ -6029,24 +6074,27 @@ def grad_gaps(names, grads, ref) -> dict:
             for n, g, r in zip(names, grads, ref)}
 
 
-def gradient_gate(label: str, params, batch, cfg, plain, faults, each_pass=None) -> None:
+def gradient_gate(label: str, params, batch, cfg, plain, faults, each_pass=None,
+                  grads_fn=loss_and_grads) -> None:
     """One step's loss and gradients on the kernel path against the `plain`
     path's (a context): the losses within LOSS_GAP_TOL and, per leaf, the
     relative L2 gap within GRAD_TOL; each planted fault (name -> (module,
     attribute, wrapper maker), planted on the kernel path) must exceed
-    GRAD_TOL somewhere. `each_pass`: a context every pass runs in."""
+    GRAD_TOL somewhere. `each_pass`: a context every pass runs in;
+    `grads_fn(params, batch, cfg)` -> (loss, grads in named_leaves order):
+    the LM loss's by default."""
     each_pass = each_pass or contextlib.nullcontext
     names = [n for n, _ in named_leaves(params)]
     with each_pass():
-        loss_k, g_kernel = loss_and_grads(params, batch, cfg)
+        loss_k, g_kernel = grads_fn(params, batch, cfg)
     with each_pass(), plain():
-        loss_p, g_plain = loss_and_grads(params, batch, cfg)
+        loss_p, g_plain = grads_fn(params, batch, cfg)
     sound = grad_gaps(names, g_kernel, g_plain)
     del g_kernel
     faulted = {}
     for name, (module, attr, make) in faults.items():
         with each_pass(), planted(module, (attr, make)):
-            _loss, g = loss_and_grads(params, batch, cfg)
+            _loss, g = grads_fn(params, batch, cfg)
         faulted[name] = grad_gaps(names, g, g_plain)
         del g
     del g_plain
@@ -7553,6 +7601,620 @@ def tune_path(card: str, solo: dict | None = None) -> dict:
     return {"launches": {name: launches_b[name] + launches_c[name] for name in launches_b}}
 
 
+# ------------------------------------------------------------- phase 4r
+
+RL_DEVICE = "cuda"  # where phase 4r's learners and engines run
+RL_MODEL = "llama-600m"
+RL_STEPS = 3  # GRPO steps at RL_LR after the lr-0 step, and online-RL iterations
+RL_LR = 1e-5
+RL_GROUP = 8
+RL_NEW_TOKENS = 16
+RL_PROMPT_LEN = 32
+RL_STREAM_TOKENS = 600  # the greedy stream held across a sync in 4r (b)
+RL_STREAM_PROMPT = 300  # its prompt: past ENGINE's 256-token prefill chunk
+RL_GATE_TOKENS = 1024  # a row of 4r (a)'s gradient gate: 8 rows, phase 4's 8192 targets
+RL_MEMORY_TOL = SERVE_RETIRED_MEMORY_TOL
+PPO_UPDATE_TOL = 1e-4
+# the faults 4r's gates must catch: the frozen reference policy bound to the
+# trained one, EngineWorker.update_weights reporting the version without the
+# swap, and the rollouts' logprobs dropped (logp_old backfilled with the
+# current policy's)
+RL_FAULTS = ("ref_policy_aliased", "sync_reported_without_swap", "rollout_logprobs_discarded")
+
+
+def unique_reward(prompt_ids, completion_ids) -> float:
+    """bench_grpo's reward: the unique-token ratio of the completion."""
+    return len(set(completion_ids)) / max(len(completion_ids), 1)
+
+
+def grpo_launches(cfg, steps: int) -> dict:
+    """The exact launches of `steps` GRPO train_steps (RL_NEW_TOKENS new
+    tokens, remat): generate's prefill (K2 without lse once a layer, K1's
+    forward 2L + 1) and its RL_NEW_TOKENS decode steps (K1 2L + 1 each;
+    the contiguous-cache decode attends in plain PyTorch), two no-grad
+    _seq_logp forwards (K2 L, K1 2L + 1 each), and the update's forward and
+    backward as phase 4's step (K2 with lse twice a layer, K1 4L + 1 and
+    its backward 2L + 1, K3 and K4 once a layer)."""
+    L, N = cfg.n_layers, RL_NEW_TOKENS
+    fwd = 2 * L + 1
+    return {"rms_norm": (fwd * (1 + N) + 2 * fwd + 4 * L + 1) * steps,
+            "rms_norm_bwd": fwd * steps,
+            "flash_attention": 5 * L * steps, "flash_attention_lse": 2 * L * steps,
+            "flash_attention_bwd_dq": L * steps, "flash_attention_bwd_dkv": L * steps,
+            "paged_attention_decode": 0, "paged_attention_chunk": 0,
+            "paged_attention_verify": 0}
+
+
+def tree_snapshot(tree) -> list:
+    from ray_tpu_torch.rl.module import tree_leaves
+
+    return [t.detach().clone() for t in tree_leaves(tree)]
+
+
+def same_as(tree, snapshot) -> bool:
+    from ray_tpu_torch.rl.module import tree_leaves
+
+    return all(torch.equal(t.detach(), s) for t, s in zip(tree_leaves(tree), snapshot))
+
+
+def new_grpo(cfg, config):
+    """A GRPO learner over f32 parameters from seed 0."""
+    from ray_tpu_torch import rl
+    from ray_tpu_torch.models import init_params
+
+    params = init_params(cfg, seed=0, device=RL_DEVICE, dtype=torch.float32)
+    return rl.GRPO(params, cfg, unique_reward, config, device=RL_DEVICE)
+
+
+def grpo_steps(label: str, grpo, prompt, snapshot, steps: int) -> dict:
+    """One train_step at learning rate 0, then `steps` at RL_LR. Gates: the
+    lr-0 step leaves the parameters bit-identical, every loss is finite,
+    ref_params stays bit-identical to `snapshot` (the init) and the KL is
+    > 0 from the second RL_LR step on (the first starts from the init).
+    Returns {"problems" (empty when every gate held), "outs", "times",
+    "launches" (of the RL_LR steps)}."""
+    from ray_tpu_torch.ops import dispatch
+    from ray_tpu_torch.train.lm import Adafactor
+
+    problems = []
+    out0 = grpo.train_step(prompt)
+    if not same_as(grpo.params, snapshot):
+        problems.append("the lr-0 step changed the parameters")
+    grpo.optimizer = Adafactor(lambda count: RL_LR, grad_clip=None)
+    outs, times = [out0], []
+    dispatch.reset_launches()
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        outs.append(grpo.train_step(prompt))  # its floats wait for the step
+        times.append(time.perf_counter() - t1)
+    launches = dispatch.launch_counts()
+    for i, o in enumerate(outs):
+        log(f"{label} step {i} (lr {0.0 if i == 0 else RL_LR}): loss {o['loss']:.6f} pg "
+            f"{o['pg_loss']:.6f} kl {o['kl']:.4e} reward {o['reward_mean']:.4f}"
+            + ("" if i == 0 else f" {times[i - 1]:.3f}s"))
+    if not all(math.isfinite(o["loss"]) for o in outs):
+        problems.append(f"non-finite losses {[o['loss'] for o in outs]}")
+    if not same_as(grpo.ref_params, snapshot):
+        problems.append("ref_params moved")
+    if not all(o["kl"] > 0 for o in outs[2:]):
+        problems.append(f"KL {[o['kl'] for o in outs]} not > 0 after the first nonzero step")
+    log(f"{label}: problems {problems or 'none'}")
+    return {"problems": problems, "outs": outs, "times": times, "launches": launches}
+
+
+def grpo_loss_grads(grpo):
+    """gradient_gate's grads_fn: GRPO's loss on a batch's tokens and
+    advantages, on-policy on the path it runs on: logp_old and logp_ref are
+    that path's own no-grad _seq_logp (ratio 1, r 1, so the KL term adds
+    no gradient), as at the first update of a GRPO iteration."""
+    from ray_tpu_torch.rl.module import tree_leaves
+
+    def fn(params, batch, cfg):
+        own, _ = grpo._seq_logp(params, batch["tokens"], batch["prompt_len"])
+        loss, _ = grpo._loss(params, dict(batch, logp_old=own, logp_ref=own))
+        return float(loss.detach()), torch.autograd.grad(loss, tree_leaves(params))
+    return fn
+
+
+# The bf16 gradient gate of 4r (a), against a witness. At this untrained
+# init the two bf16 paths part by 0.029-0.051 per leaf (GRAD_TOL is for
+# phase 4's trained weights, where they part by 0.0038), so neither is
+# held against the other: both are held against the f32 plain path's
+# gradients, and per leaf the kernel path's gap to that witness must stay
+# within WITNESS_RATIO times the plain path's, plus WITNESS_FLOOR (where
+# the plain path's gap is near 0; the f32 paths agree to 1e-5); each
+# planted backward fault (BWD_FAULTS, on the bf16 kernel path) must exceed
+# that somewhere.
+WITNESS_RATIO = 2.0
+WITNESS_FLOOR = 1e-3
+
+
+def witness_gate(label: str, grpo, batch, faults) -> None:
+    """GRPO's loss and gradients (grpo_loss_grads) on the bf16 kernel path
+    and the bf16 plain path, each against the f32 plain path's (the
+    witness): the bf16 losses within LOSS_GAP_TOL of each other, and per
+    leaf the kernel path's relative L2 gap to the witness within
+    WITNESS_RATIO times the plain path's plus WITNESS_FLOOR; each planted
+    fault (name -> (module, attribute, wrapper maker)) must exceed that on
+    some leaf."""
+    fn = grpo_loss_grads(grpo)
+    names = [n for n, _ in named_leaves(grpo.params)]
+    with swapped(grpo, cfg=dataclasses.replace(grpo.cfg, dtype="float32")), plain_path():
+        loss_w, witness = fn(grpo.params, batch, None)
+    with plain_path():
+        loss_p, g = fn(grpo.params, batch, None)
+    plain = grad_gaps(names, g, witness)
+    loss_k, g = fn(grpo.params, batch, None)
+    kernel = grad_gaps(names, g, witness)
+    del g
+    faulted = {}
+    for name, (module, attr, make) in faults.items():
+        with planted(module, (attr, make)):
+            _loss, g = fn(grpo.params, batch, None)
+        faulted[name] = grad_gaps(names, g, witness)
+        del g
+    del witness
+    release()
+
+    def ratios(gaps):  # <= 1 within the limit
+        return {n: gaps[n] / (WITNESS_RATIO * plain[n] + WITNESS_FLOOR) for n in names}
+
+    def fmt(gaps):
+        return " ".join(f"{n} {x:.5f}" for n, x in gaps.items())
+
+    log(f"{label} (relative L2 per leaf to the f32 plain path, the kernel path's within "
+        f"{WITNESS_RATIO}x the plain path's + {WITNESS_FLOOR}; 'of limit' is the largest "
+        f"share of that limit): loss f32 plain {loss_w:.6f}, bf16 kernel "
+        f"{loss_k:.6f}, bf16 plain {loss_p:.6f} (|gap| {abs(loss_k - loss_p):.3e}, limit "
+        f"{LOSS_GAP_TOL})")
+    log(f"  bf16 plain: max {max(plain.values()):.5f}: {fmt(plain)}")
+    sound = ratios(kernel)
+    log(f"  bf16 kernel: max {max(kernel.values()):.5f}, of limit {max(sound.values()):.3f}: "
+        f"{fmt(kernel)}")
+    for name, gaps in faulted.items():
+        log(f"  planted {name}: max {max(gaps.values()):.5f}, of limit "
+            f"{max(ratios(gaps).values()):.3f}: {fmt(gaps)}")
+    if not abs(loss_k - loss_p) <= LOSS_GAP_TOL:
+        fail(f"{label}: kernel and plain losses differ by {abs(loss_k - loss_p):.3e}")
+    worst = max(sound, key=sound.get)
+    if not sound[worst] <= 1.0:
+        fail(f"{label}: the kernel path's gradients leave the witness by {kernel[worst]:.5f} "
+             f"on {worst}, the plain path's by {plain[worst]:.5f}")
+    for name, gaps in faulted.items():
+        if not max(ratios(gaps).values()) > 1.0:
+            fail(f"{label} ({WITNESS_RATIO}x + {WITNESS_FLOOR}) passes planted fault {name}")
+
+
+def grpo_part(card: str, cfg, prompt) -> tuple:
+    """4r (a), and (c)'s first fault. Returns ((a)'s launches, whether
+    the planted ref_policy_aliased failed its gate)."""
+    from ray_tpu_torch import ops, rl
+
+    gcfg = rl.GRPOConfig(group_size=RL_GROUP, max_new_tokens=RL_NEW_TOKENS, temperature=1.0,
+                         factored=True, lr=0.0)
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    grpo = new_grpo(cfg, gcfg)
+    snapshot = tree_snapshot(grpo.ref_params)
+    torch.cuda.synchronize()
+    log(f"phase 4r (a): GRPO {cfg.name} ({sum(s.numel() for s in snapshot) / 1e9:.4f} B "
+        f"params, f32 masters, {cfg.dtype} compute, remat {cfg.remat}), group {RL_GROUP}, "
+        f"{RL_NEW_TOKENS} new tokens, factored, prompt 1..{len(prompt)}; built in "
+        f"{time.monotonic() - t0:.1f}s, memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    # phase 4's gradient gate on the GRPO loss at the init, each path
+    # on-policy (grpo_loss_grads), with seeded positive advantages, over
+    # RL_GROUP rows of the prompt and RL_GATE_TOKENS - RL_PROMPT_LEN seeded
+    # completion tokens (phase 4's 8192 targets): in bf16, the compute this
+    # path runs (the wgmma kernels), against the f32 witness (witness_gate),
+    # and in f32 (the FMA kernels), kernel path against plain path
+    gen = torch.Generator().manual_seed(3)
+    completions = torch.randint(0, cfg.vocab_size, (RL_GROUP, RL_GATE_TOKENS - len(prompt)),
+                                generator=gen)
+    tokens = torch.cat([torch.tensor([prompt] * RL_GROUP), completions], dim=1).to(RL_DEVICE)
+    adv = 0.5 + torch.rand(RL_GROUP, generator=gen)
+    gate_batch = {"tokens": tokens, "prompt_len": len(prompt), "advantages": adv.to(RL_DEVICE)}
+    faults = {name: (getattr(ops, module), attr, make)
+              for name, (module, attr, make) in BWD_FAULTS.items()}
+    witness_gate("phase 4r (a) gradient gate (the GRPO loss, bf16, at the init)", grpo,
+                 gate_batch, faults)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with swapped(grpo, cfg=cfg32):
+        gradient_gate("phase 4r (a) gradient gate (the GRPO loss, f32, at the init)",
+                      grpo.params, gate_batch, cfg32, plain_path, faults,
+                      grads_fn=grpo_loss_grads(grpo))
+    ran = grpo_steps("phase 4r (a)", grpo, prompt, snapshot, RL_STEPS)
+    if ran["problems"]:
+        fail(f"phase 4r (a): {ran['problems']}")
+    want = grpo_launches(cfg, RL_STEPS)
+    log(f"phase 4r (a): launches over {RL_STEPS} steps {ran['launches']} (reckoned {want})")
+    for name, n in want.items():
+        if ran["launches"][name] != n:
+            fail(f"phase 4r (a): {name} launched {ran['launches'][name]} times, expected {n}")
+    dt = sum(ran["times"])
+    log(f"phase 4r (a): GRPO {RL_GROUP * RL_STEPS / dt:.3f} samples/s ({RL_STEPS} steps of "
+        f"{RL_GROUP} in {dt:.3f}s: {[round(t, 3) for t in ran['times']]}), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+    launches = ran["launches"]
+    del grpo, gate_batch, tokens, ran
+    release()
+    # (c) RL_FAULTS ref_policy_aliased: the frozen policy bound to the trained one
+    aliased = new_grpo(cfg, gcfg)
+    aliased.ref_params = aliased.params
+    caught = bool(grpo_steps("phase 4r planted ref_policy_aliased", aliased, prompt, snapshot,
+                             2)["problems"])
+    del aliased, snapshot
+    release()
+    return launches, caught
+
+
+class LogprobFreeStream:
+    """A DisaggStream whose logprobs read None: planted fault
+    rollout_logprobs_discarded (the loop backfills logp_old with the
+    current policy's)."""
+
+    def __init__(self, ds):
+        self._ds = ds
+
+    def __getattr__(self, name):
+        return getattr(self._ds, name)
+
+    @property
+    def logprobs(self):
+        return None
+
+
+def _sync_without_swap(self, request):
+    """Planted fault sync_reported_without_swap: EngineWorker.update_weights
+    reports the version without swapping anything in."""
+    return {"weights_version": request.get("version")}
+
+
+def backlog_measure(co) -> str:
+    """What the fleet's prefill backlog (DisaggCoordinator.backlog) rests
+    on: the legs' service time the coordinator measured, and what each
+    prefill replica runs at once and took to build."""
+    workers = co.workers("prefill")
+    return (f"prefill leg service time {co._leg_s['prefill'] * 1e3:.2f} ms (moving average "
+            f"of the returned), replicas run {[w.admits('prefill') for w in workers]} legs at once and "
+            f"built in {[round(w.build_s(), 2) for w in workers]} s")
+
+
+def rl_iteration_gates(loop, history, seen, workers) -> list:
+    """The online loop's gates after a run of iterations: every rollout
+    carries a logprob per token and the loop's weights_version at
+    submission (seen["versions"], one per iteration), every replica,
+    asked itself, reports loop.version, and each iteration's ledger is a
+    partition of its wall. Returns the problems. The rl_weights_version_skew
+    gauge is printed, not gated: the loop sets it from the coordinator's
+    gossip, which may lag a sync by adapter_gossip_s, so uniformly stale
+    versions read 0 as well."""
+    from ray_tpu_torch.core.metrics import registry
+
+    problems = []
+    for i, (m, trajs, v0) in enumerate(zip(history, seen["trajs"], seen["versions"])):
+        bad = [t for t in trajs if t.weights_version != v0 or len(t.logprobs) != len(
+            t.completion) or any(lp is None for lp in t.logprobs)]
+        if len(trajs) != int(m["submitted"]) or bad:
+            problems.append(f"iteration {i}: {len(bad)} of {len(trajs)} rollouts lack logprobs "
+                            f"or version {v0} ({int(m['submitted'])} submitted)")
+        parts = sum(m[f"ledger_{k}"] for k in ("rollout", "reward", "train", "weight_sync",
+                                               "other"))
+        if not abs(parts - m["ledger_wall_seconds"]) <= 1e-9 * max(1.0, parts):
+            problems.append(f"iteration {i}: the ledger's parts {parts} are not its wall "
+                            f"{m['ledger_wall_seconds']}")
+    if len(seen["trajs"]) != len(history):
+        problems.append(f"{len(seen['trajs'])} trained groups recorded for {len(history)} "
+                        f"iterations")
+    versions = {str(w.key): int(w.weights_version()) for w in workers}
+    skew = registry.get("rl_weights_version_skew").get()
+    log(f"phase 4r (b): replica versions {versions}, loop {loop.version}, "
+        f"rl_weights_version_skew (gossip, advisory) {skew}")
+    if set(versions.values()) != {loop.version}:
+        problems.append(f"replica versions {versions}, loop {loop.version}")
+    return problems
+
+
+def online_part(card: str, cfg) -> tuple:
+    """4r (b), and (c)'s other two faults, on a runtime the caller
+    started. Returns ((b)'s launches, {fault: whether its gate failed})."""
+    import numpy as np
+
+    from ray_tpu_torch import rl
+    from ray_tpu_torch.core.metrics import registry
+    from ray_tpu_torch.models import init_params
+    from ray_tpu_torch.ops import dispatch
+    from ray_tpu_torch.rl.module import tree_map
+    from ray_tpu_torch.serve.disagg import DisaggCoordinator, EngineWorker
+    from ray_tpu_torch.serve.fleet import FleetController
+
+    L = cfg.n_layers
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(1, cfg.vocab_size, (RL_PROMPT_LEN,), generator=gen).tolist()
+               for _ in range(2)]
+    half = cfg.vocab_size // 2
+
+    def half_vocab(prompt_ids, completion_ids):
+        return float(np.mean([t < half for t in completion_ids])) if completion_ids else 0.0
+
+    loop = fleet = None
+    servers = []
+    try:
+        params = init_params(cfg, seed=0, device=RL_DEVICE, dtype=torch.float32)
+        for role in ("prefill", "decode"):
+            servers.append(new_server(
+                f"phase 4r (b): {role}-role LLMServer {cfg.name} (bf16 copies of the trainer's "
+                f"weights)", params_fn=lambda: (tree_map(
+                    lambda t: t.detach().to(torch.bfloat16).clone(), params), cfg),
+                engine_config=ENGINE, role=role, device=RL_DEVICE))
+        workers = [EngineWorker(servers[0].engine, "prefill"),
+                   EngineWorker(servers[1].engine, "decode")]
+        co = DisaggCoordinator(workers[:1], workers[1:], {"small_blob_bytes": 0})
+        fleet = FleetController(co)  # the fleet's defaults
+        loop = rl.OnlineRLLoop(params, cfg, half_vocab, fleet, prompts, rl.OnlineRLConfig(
+            grpo=rl.GRPOConfig(group_size=RL_GROUP, max_new_tokens=RL_NEW_TOKENS,
+                               temperature=1.0, lr=RL_LR, factored=True)), device=RL_DEVICE)
+        del params
+        fleet.start()
+        real_train = loop._train_groups
+
+        def recording(seen, gaps=None):
+            """_train_groups that keeps each iteration's trajectories and,
+            with `gaps`, holds the first iteration's rollout logprobs
+            against the trainer's _seq_logp of the same tokens first."""
+            def train(groups):
+                trajs = [t for g in groups.values() for t in g]
+                seen["trajs"].append(trajs)
+                if gaps is not None and len(seen["trajs"]) == 1:
+                    for t in trajs:
+                        lp, _ = loop.grpo._seq_logp(loop.grpo.params,
+                                                    [t.prompt + t.completion], len(t.prompt))
+                        want = lp[0, len(t.prompt) - 1:].float()
+                        got = torch.tensor([x if x is not None else float("nan")
+                                            for x in t.logprobs], device=want.device)
+                        d = (got - want).abs()
+                        gaps.append((d.max().item(), d.mean().item()))
+                return real_train(groups)
+            return train
+
+        seen, gaps = {"trajs": [], "versions": []}, []
+        loop._train_groups = recording(seen, gaps)
+        ups0 = len(fleet.actions)
+        dispatch.reset_launches()
+        history = []
+        for _ in range(RL_STEPS):
+            seen["versions"].append(loop.version)
+            history.append(loop.run_iteration())
+        launches_it, eager_it = dispatch.launch_counts(), dispatch.eager_launch_counts()
+        for m in history:
+            log(f"phase 4r (b) iteration {int(m['training_iteration'])}: reward "
+                f"{m['reward_mean']:.4f} loss {m['loss']:.6f} kl {m['kl']:.4e}, "
+                f"{int(m['trajectories'])} trajectories; wall {m['ledger_wall_seconds']:.3f}s: "
+                f"rollout {m['ledger_rollout']:.3f}s reward {m['ledger_reward']:.4f}s train "
+                f"{m['ledger_train']:.3f}s weight_sync {m['ledger_weight_sync']:.4f}s other "
+                f"{m['ledger_other']:.4f}s, sync stall fraction "
+                f"{m['ledger_sync_stall_fraction']:.4f}; {card}")
+        tokens = sum(len(t.completion) for trajs in seen["trajs"] for t in trajs)
+        rollout_s = sum(m["ledger_rollout"] for m in history)
+        log(f"phase 4r (b): rollouts {tokens / rollout_s:.1f} tok/s ({tokens} completion tokens "
+            f"in {rollout_s:.3f}s of rollout), rl_sync_stall_fraction gauge "
+            f"{registry.get('rl_sync_stall_fraction').get():.4f}, rewards by iteration "
+            f"{[round(m['reward_mean'], 4) for m in history]}; launches {launches_it}, of which "
+            f"outside graph replays (the updates and the trainer's forwards) {eager_it}; {card}")
+        log(f"phase 4r (b): iteration 1's rollout logprobs against the trainer's _seq_logp, "
+            f"(max, mean) per rollout {[tuple(round(x, 4) for x in g) for g in gaps]} "
+            f"(tol {LOGPROB_TOL})")
+        problems = rl_iteration_gates(loop, history, seen, workers)
+        if not gaps or not all(within_logprob_tol(g) for g in gaps):
+            problems.append("iteration 1's rollout logprobs leave LOGPROB_TOL")
+        ups = [a for a in fleet.actions[ups0:] if a["kind"] == "scale-up"]
+        log(f"phase 4r (b): fleet actions under the rollouts {fleet.actions[ups0:]} "
+            f"(target_queue_depth {fleet.cfg.target_queue_depth}); {backlog_measure(co)}")
+        if ups:
+            problems.append(f"the fleet scaled up under the rollouts (C15): {ups}")
+        trained = int(sum(m["groups_trained"] for m in history))
+        for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            if eager_it[name] != L * trained:
+                problems.append(f"{name} ran {eager_it[name]} times in {trained} updates, "
+                                f"expected {L * trained}")
+        if problems:
+            fail(f"phase 4r (b): {problems}")
+
+        # a greedy stream of a RL_STREAM_PROMPT-token prompt (past the prefill
+        # chunk: K6 on the prefill replica, where the 32-token rollouts take a
+        # bucket) in flight across a fourth sync, still in (b)'s count
+        box = {"tokens": []}
+        stream_prompt = torch.randint(1, cfg.vocab_size, (RL_STREAM_PROMPT,),
+                                      generator=gen).tolist()
+        ds = co.open_stream(stream_prompt, max_tokens=RL_STREAM_TOKENS)
+
+        def consume():
+            try:
+                for tok in ds.tokens():
+                    box["tokens"].append(tok)
+            except Exception as e:  # noqa: BLE001 — the gate reports it
+                box["error"] = repr(e)
+
+        reader = threading.Thread(target=consume, name="rl-stream-reader")
+        reader.start()
+        while len(box["tokens"]) < 8 and reader.is_alive():
+            time.sleep(0.005)
+        at_sync = len(box["tokens"])
+        t1 = time.monotonic()
+        loop._sync_weights()
+        sync_s = time.monotonic() - t1
+        after_sync = len(box["tokens"])
+        reader.join(FLEET_WAIT_S)
+        toks = box["tokens"]
+        launches, eager = dispatch.launch_counts(), dispatch.eager_launch_counts()
+        log(f"phase 4r (b): a greedy stream of {RL_STREAM_TOKENS} tokens after a "
+            f"{RL_STREAM_PROMPT}-token prompt had {at_sync} tokens when a sync to version "
+            f"{loop.version} began and {after_sync} when it returned ({sync_s * 1e3:.1f} ms; the "
+            f"decode engine's update_stats {servers[1].engine.update_stats}), {len(toks)} at its "
+            f"end, error {box.get('error')}; replica versions {co.weights_versions()}; "
+            f"launches over (b) {launches}, outside graph replays {eager}; {card}")
+        if not (at_sync < RL_STREAM_TOKENS and len(toks) == RL_STREAM_TOKENS
+                and all(0 <= t < cfg.vocab_size for t in toks) and "error" not in box):
+            fail("phase 4r (b): the stream across the sync did not end whole and in vocab")
+        problems = [f"{name} ran in no graph replay" for name in (
+            "rms_norm", "flash_attention", "paged_attention_decode", "paged_attention_chunk")
+            if launches[name] - eager[name] <= 0]
+        if any(eager[n] for n in ("paged_attention_decode", "paged_attention_chunk",
+                                  "paged_attention_verify")):
+            problems.append(f"paged kernels outside graph replays: {eager}")
+        if problems:
+            fail(f"phase 4r (b): {problems}")
+
+        # (c) the other two faults, one iteration each on this loop
+        caught = {}
+        seen_c = {"trajs": [], "versions": [loop.version]}
+        loop._train_groups = recording(seen_c)
+        with swapped(EngineWorker, update_weights=_sync_without_swap):
+            hist_c = [loop.run_iteration()]
+        caught["sync_reported_without_swap"] = rl_iteration_gates(loop, hist_c, seen_c, workers)
+        loop._sync_weights()  # swap for real: every replica at loop.version again
+        real_open = co.open_stream
+        seen_c = {"trajs": [], "versions": [loop.version]}
+        loop._train_groups = recording(seen_c)
+        with swapped(co, open_stream=lambda *a, **k: LogprobFreeStream(real_open(*a, **k))):
+            hist_c = [loop.run_iteration()]
+        caught["rollout_logprobs_discarded"] = rl_iteration_gates(loop, hist_c, seen_c,
+                                                                  workers)
+        for name, problems in caught.items():
+            log(f"phase 4r planted fault {name}: its gates report {problems}")
+        return launches, {name: bool(p) for name, p in caught.items()}
+    finally:
+        if loop is not None:
+            loop.stop()
+        if fleet is not None:
+            fleet.stop()
+        for server in servers:
+            server.shutdown()
+
+
+def ppo_part(card: str) -> None:
+    """4r (e): PPO on CartPole with the learner on the card, on a runtime
+    the caller started."""
+    import numpy as np
+
+    from ray_tpu_torch import rl
+    from ray_tpu_torch.rl.module import tree_leaves, tree_map
+
+    algo = rl.PPO(rl.PPOConfig(env_fn=rl.CartPole, num_env_runners=2,
+                               rollout_steps_per_runner=256, minibatch_size=128, num_epochs=2),
+                  device=RL_DEVICE)
+    t1 = time.monotonic()
+    outs = [algo.train() for _ in range(RL_STEPS)]
+    log(f"phase 4r (e): PPO on CartPole, the learner on the card: losses "
+        f"{[round(o['loss'], 6) for o in outs]}, episode return mean "
+        f"{[round(o['episode_return_mean'], 2) for o in outs]}, {RL_STEPS} iterations in "
+        f"{time.monotonic() - t1:.2f}s")
+    if not all(math.isfinite(o["loss"]) for o in outs):
+        fail("phase 4r (e): a PPO loss is not finite")
+    rng = np.random.default_rng(0)
+    n = 128
+    batch = {"obs": rng.normal(size=(n, 4)).astype(np.float32),
+             "actions": rng.integers(0, 2, n).astype(np.int32),
+             "logp_old": np.log(rng.uniform(0.2, 0.8, n)).astype(np.float32),
+             "advantages": rng.normal(size=n).astype(np.float32),
+             "returns": rng.normal(size=n).astype(np.float32)}
+    host = rl.PPO(rl.PPOConfig(env_fn=rl.CartPole, num_env_runners=0), device="cpu",
+                  params=tree_map(lambda t: t.detach().cpu().clone(), algo.params))
+    host.opt_state = {"count": algo.opt_state["count"],
+                      "mu": tree_map(lambda t: t.cpu().clone(), algo.opt_state["mu"]),
+                      "nu": tree_map(lambda t: t.cpu().clone(), algo.opt_state["nu"])}
+    _, _, aux_c = algo._update(algo.params, algo.opt_state, batch)
+    _, _, aux_h = host._update(host.params, host.opt_state, batch)
+    gap = max(float((a.detach().cpu() - h.detach()).abs().max())
+              for a, h in zip(tree_leaves(algo.params), tree_leaves(host.params)))
+    loss_gap = abs(float(aux_c["loss"]) - float(aux_h["loss"]))
+    log(f"phase 4r (e): one update on the card against the same on the CPU: largest "
+        f"parameter gap {gap:.3e}, loss gap {loss_gap:.3e} (limit {PPO_UPDATE_TOL}); {card}")
+    if not (gap <= PPO_UPDATE_TOL and loss_gap <= PPO_UPDATE_TOL):
+        fail("phase 4r (e): the update on the card leaves the CPU's")
+
+
+def rl_path(card: str) -> dict:
+    """Phase 4r: rl/ on the card (RL_MODEL, RL_DEVICE). (a) GRPO at
+    bench_grpo's configuration (f32 parameters from seed 0, group 8, 16
+    new tokens, temperature 1.0, factored, prompt 1..32, the unique-token
+    reward): a train_step at learning rate 0 leaves the parameters
+    bit-identical, then RL_STEPS at RL_LR: finite losses, ref_params
+    bit-identical to the init, KL > 0 after the first nonzero step,
+    launches exactly grpo_launches; the gradient gate on the GRPO loss at
+    the init, each path on-policy, at seeded positive advantages over 8
+    rows of RL_GATE_TOKENS seeded tokens (BWD_FAULTS): in bf16 each path
+    against the f32 plain path's gradients (witness_gate), and in f32
+    kernel path against plain path (phase 4's gradient_gate). (b)
+    OnlineRLLoop over FleetController(
+    DisaggCoordinator(a prefill- and a decode-role LLMServer engine over
+    bf16 copies of the trainer's weights)) at the fleet's defaults, its
+    evaluation loop running: two seeded 32-token prompts, group 8, 16 new
+    tokens, the half-vocab reward, RL_STEPS iterations; every rollout
+    stamped with a logprob a token and the loop's version at submission,
+    iteration 1's rollout logprobs within LOGPROB_TOL of the trainer's
+    _seq_logp, every replica, asked itself, at loop.version after the
+    syncs (the skew gauge, from gossip, printed), each ledger a
+    partition, no fleet scale-up (C15), K3/K4
+    in the updates (once a layer an update); then a greedy stream of a
+    RL_STREAM_PROMPT-token prompt held across a fourth sync ends whole and
+    in vocab; over the iterations and the stream, K1, K2, K5 and K6 in
+    graph replays (K6 from the stream's chunked prefill: a 32-token
+    rollout prompt takes a prefill bucket, and the prefix cache matches
+    only chunk-aligned runs). (c) RL_FAULTS (the reference policy aliased to the trained
+    one, a sync reported without the swap, rollout logprobs discarded)
+    must each fail its gate. (d) after loop.stop() and the engines'
+    shutdown, card memory within RL_MEMORY_TOL of the phase's start and no
+    thread the phase started alive. (e) PPO on CartPole with the learner
+    on the card: RL_STEPS iterations with finite losses, and one update on
+    the card against the same update on the CPU within PPO_UPDATE_TOL.
+    Returns {"launches": (a)'s and (b)'s counts}."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import get_config
+
+    t_phase = time.monotonic()
+    release()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    threads0 = {t.ident for t in threading.enumerate()}
+    cfg = get_config(RL_MODEL)
+    launches_a, caught_alias = grpo_part(card, cfg, list(range(1, RL_PROMPT_LEN + 1)))
+    t_b = time.monotonic()
+    rt.init(num_cpus=8, system_config=RUNTIME_FLAGS)
+    try:
+        launches_b, caught = online_part(card, cfg)
+    finally:
+        rt.shutdown()
+    caught["ref_policy_aliased"] = caught_alias
+    if sorted(caught) != sorted(RL_FAULTS):
+        fail(f"phase 4r: planted {sorted(caught)}, not RL_FAULTS")
+    for name, hit in caught.items():
+        log(f"phase 4r planted fault {name}: its gate fails {hit}")
+        if not hit:
+            fail(f"phase 4r: its gates pass planted fault {name}")
+    # (d) cleanup
+    deadline = time.monotonic() + 10.0
+    while True:
+        left = [t.name for t in threading.enumerate() if t.ident not in threads0]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    release()
+    mem = torch.cuda.memory_allocated()
+    log(f"phase 4r (d): (b) and (c) took {time.monotonic() - t_b:.1f}s; card memory "
+        f"{mem / 2**30:.3f} GiB against {mem0 / 2**30:.3f} GiB at the phase's start (limit "
+        f"+{RL_MEMORY_TOL / 2**30:.2f}); threads the phase started still alive: {left}")
+    if mem - mem0 > RL_MEMORY_TOL or left:
+        fail("phase 4r (d): the phase left card memory or threads behind")
+    rt.init(num_cpus=8, system_config=RUNTIME_FLAGS)
+    try:
+        ppo_part(card)
+    finally:
+        rt.shutdown()
+    release()
+    log(f"phase 4r: the phase took {time.monotonic() - t_phase:.1f}s ({card})")
+    return {"launches": {n: launches_a[n] + launches_b[n] for n in launches_a}}
+
+
 # gather against dense at the training shape, in f32 (layer 0's weights
 # cast): both give each token the same k weighted expert rows, summed in
 # another order, so any gap beyond f32 rounding (~1e-7 of the output's
@@ -7930,6 +8592,10 @@ def main() -> None:
                     help="only build the kernels, then run phase 4t (a Tuner of llama-2b "
                          "trials sharing the card, reading from one ingest service); prints "
                          "no result line")
+    ap.add_argument("--rl", action="store_true",
+                    help="only build the kernels, then run phase 4r (GRPO and the online RL "
+                         "loop at llama-600m, PPO with the learner on the card); prints no "
+                         "result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -7992,6 +8658,9 @@ def main() -> None:
     if args.tune:
         tune_path(card)
         return
+    if args.rl:
+        rl_path(card)
+        return
     gen = torch.Generator(device="cuda").manual_seed(0)
     tile_identity_checks(gen)
     figures = norm_checks(gen)
@@ -8012,6 +8681,7 @@ def main() -> None:
     train2b = train2b_path(card, trained, args.profile)
     pretrain = pretrain_path(card)
     tuned = tune_path(card, train2b)
+    rl_ran = rl_path(card)
     moe_served = moe_serve_path(card, args.profile)
     moe_trained = moe_train_path(card, args.profile)
     kernels = []
@@ -8026,7 +8696,8 @@ def main() -> None:
                    "live": live_launches[name] + moe_served["live"][name],
                    "runtime": runtime_launches[name], "deploy": deploy_launches[name],
                    "disagg": disagg_launches[name], "fleet": fleet_launches[name],
-                   "pretrain": pretrain["launches"][name], "tune": tuned["launches"][name]}
+                   "pretrain": pretrain["launches"][name], "tune": tuned["launches"][name],
+                   "rl": rl_ran["launches"][name]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **figures[name]})

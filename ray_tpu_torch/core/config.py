@@ -272,6 +272,28 @@ declare(
     "Default alert threshold for host_memory_used_fraction (sustained "
     "two evaluation periods).",
 )
+# Online RL post-training (rl/online.py)
+declare(
+    "rl_staleness_max_versions", 1,
+    "Online-RL staleness bound: a rollout trajectory whose stamped "
+    "weights_version trails the trainer's current generation by more "
+    "than this many versions is stale. What happens to it is "
+    "rl_staleness_policy's call.",
+)
+declare(
+    "rl_staleness_policy", "drop",
+    "What the online-RL trainer does with stale trajectories: 'drop' "
+    "discards them (counted in rl_stale_trajectories dropped), "
+    "'correct' keeps them — the clipped importance ratio against the "
+    "rollout-time logprobs (GRPO's logp_old) absorbs the off-policy "
+    "gap.",
+)
+declare(
+    "rl_trajectory_channel_capacity", 64,
+    "Bound of the scored-trajectory DistChannel between the reward "
+    "stage and the online-RL trainer: a slow trainer backpressures "
+    "rollout generation instead of buffering unboundedly.",
+)
 declare(
     "rl_sync_stall_max_pct", 5.0,
     "Alert threshold for the rl goodput ledger's weight_sync share: the "

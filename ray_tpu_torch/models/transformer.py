@@ -488,7 +488,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int
         kc[l, :, :T] = k
         vc[l, :, :T] = v
     if last_index is None:
-        x_last = x[:, -1]
+        x_last = x[:, -1].contiguous()  # the norm kernel takes contiguous rows
     else:
         x_last = x[torch.arange(B, device=x.device), last_index.long()]
     return _lm_head(x_last, params, cfg, head), {"k": kc, "v": vc}

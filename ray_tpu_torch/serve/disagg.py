@@ -54,6 +54,15 @@ serve replica that is still in its __init__: the request waits in the
 pick (and in the queue depth) until one of the role is ready (the
 reference picks the starting replica, and a streamed request's import, or
 its KV destination's 30 s call, times out while the replica builds).
+And the coordinator keeps, per role, the legs it has picked that are
+still running (`_legs`, the held prefill legs) and the service time of
+those that returned, and `backlog` tells the fleet which part of the
+queue depth waits: the requests still in a pick, and the legs beyond what
+the role's ready replicas run at once (each worker's `admits(role)`: a
+prefill engine's largest prefill tier, one prompt by default) that those
+replicas will not have run before a new replica could be built (each
+worker's `build_s()`). So legs in service, and a short queue of them that
+drains sooner than a build, are not a reason to scale (C15).
 And a live resume whose continuation fails to open (its pick met a
 replica the serve controller had retired since the last sync) syncs the
 pick sets and tries again, within resume_max_attempts, where the
@@ -120,6 +129,28 @@ def _ready(worker) -> bool:
     __init__ has finished (ReplicaWorker.ready), an in-process one always."""
     probe = getattr(worker, "ready", None)
     return probe() if probe is not None else True
+
+
+def _admits(worker, role: str) -> int:
+    """How many legs of `role` a worker runs at once: what it reports
+    (admits(role): EngineConfig.admits), else one."""
+    probe = getattr(worker, "admits", None)
+    if probe is None:
+        return 1
+    try:
+        return max(0, int(probe(role)))
+    except Exception:  # noqa: BLE001 — a replica that cannot say admits none
+        return 0
+
+
+def _build_s(worker) -> float:
+    """Seconds the worker took to build (build_s()), else 0: a worker that
+    cannot say is taken as one that builds at once."""
+    probe = getattr(worker, "build_s", None)
+    try:
+        return max(0.0, float(probe())) if probe is not None else 0.0
+    except Exception:  # noqa: BLE001
+        return 0.0
 
 
 def _norm_request(request: Dict[str, Any]) -> Dict[str, Any]:
@@ -804,6 +835,14 @@ class EngineWorker(_LoadTracker):
     def weights_version(self) -> int:
         return self.engine.weights_version
 
+    def admits(self, role: str) -> int:
+        """Legs of `role` the engine runs at once (EngineConfig.admits)."""
+        return self.engine.ecfg.admits(role)
+
+    def build_s(self) -> float:
+        """Seconds the engine took to build (the weights were its caller's)."""
+        return self.engine.build_s
+
     def _ensure_adapter(self, request: Dict[str, Any]) -> None:
         """Adapter-aware admission: a request naming a non-resident
         adapter pulls it lazily via its adapter_ref (residency routing
@@ -902,6 +941,8 @@ class ReplicaWorker(_LoadTracker):
         self._kv_dest_lock = threading.Lock()
         self._ready = False
         self._ready_ref = None
+        self._admits: Dict[str, int] = {}
+        self._build: Optional[float] = None
 
     def ready(self) -> bool:
         """Whether the replica has finished its __init__ (its health check
@@ -948,6 +989,18 @@ class ReplicaWorker(_LoadTracker):
 
     def weights_version(self) -> int:
         return self._call("weights_version", {}, 30.0)
+
+    def admits(self, role: str) -> int:
+        """Legs of `role` the replica's engine runs at once, asked once."""
+        if role not in self._admits:
+            self._admits[role] = int(self._call("admits", {"role": role}, 30.0))
+        return self._admits[role]
+
+    def build_s(self) -> float:
+        """Seconds the replica's __init__ took, asked once."""
+        if self._build is None:
+            self._build = float(self._call("build_s", {}, 30.0))
+        return self._build
 
     def prefill_request(self, request: Dict[str, Any]) -> Dict[str, Any]:
         self._begin()
@@ -1110,6 +1163,12 @@ class DisaggCoordinator:
         # live resume bookkeeping: original request_id -> the request_id
         # currently running on a replica (changes on each resume attempt)
         self._resumed: Dict[str, str] = {}
+        # legs picked and still running, by role (the held picks: prefill
+        # legs): leg token -> (pick time, admission waves ahead of it then),
+        # and a leg's service time, a moving average over those that
+        # returned (backlog())
+        self._legs: Dict[str, Dict[Any, Tuple[float, int]]] = {"prefill": {}, "decode": {}}
+        self._leg_s = {"prefill": 0.0, "decode": 0.0}
         # serve mode (from_deployments): re-synced against the controller
         self._deployments: Optional[Dict[str, str]] = None
         self._controller = None
@@ -1226,12 +1285,12 @@ class DisaggCoordinator:
 
     # -------------------------------------------------------------- picks
 
-    def _pick(self, role: str, deadline: float, held: bool = False):
+    def _pick(self, role: str, deadline: float, leg: Any = None):
         """Pick one replica of `role`, the request counted in
-        serve_disagg_queue_depth{role} while it waits. With `held` the
-        count stays after a successful pick, and the caller drops it when
-        the replica's leg returns (the prefill legs: see
-        _release_prefill_queue)."""
+        serve_disagg_queue_depth{role} while it waits. With `leg` (a token
+        of the caller's) the count stays after a successful pick, the leg
+        is in service, and the caller drops both when the replica's leg
+        returns (the prefill legs: see _release_prefill_queue)."""
         _m_queue_depth.add(1, tags={"role": role})
         picked = False
         try:
@@ -1251,24 +1310,62 @@ class DisaggCoordinator:
                             lambda i: cand[i].load()
                             + self.health.penalty(cand[i].key))
                         picked = True
+                        if leg is not None:
+                            admitted = max(1, sum(_admits(w, role) for w in workers))
+                            with self._lock:
+                                legs = self._legs[role]
+                                legs[leg] = (time.monotonic(), len(legs) // admitted + 1)
                         return cand[idx]
                     if time.monotonic() > deadline:
                         raise RuntimeError(f"no {role} replicas available")
                     time.sleep(0.1)
                     self._sync(force=True)
         finally:
-            if not (held and picked):
+            if leg is None or not picked:
                 _m_queue_depth.add(-1, tags={"role": role})
 
-    @staticmethod
-    def _release_prefill_queue() -> None:
+    def _release_prefill_queue(self, leg: Any) -> None:
         """A prefill leg returned (or failed): its request leaves the
-        prefill queue. The reference drops the count at the pick, which
-        returns at once whenever the role has a replica, so its gauge
-        reads 0 under any burst while requests wait behind the replica's
-        prefills; here a request counts until its prefill is done, so the
-        stock queue_depth rule and the fleet see a prefill backlog."""
+        prefill queue and the legs in service, and its duration over the
+        admission waves it waited for is a sample of a leg's service time.
+        The reference drops the count at the pick, which returns at once
+        whenever the role has a replica, so its gauge reads 0 under any
+        burst while requests wait behind the replica's prefills; here a
+        request counts until its prefill is done, so the stock queue_depth
+        rule sees a prefill backlog (and backlog() tells the fleet which
+        part of it waits)."""
+        with self._lock:
+            t0, waves = self._legs["prefill"].pop(leg)
+            s = (time.monotonic() - t0) / waves
+            prev = self._leg_s["prefill"]
+            self._leg_s["prefill"] = s if prev == 0.0 else 0.5 * (prev + s)
         _m_queue_depth.add(-1, tags={"role": "prefill"})
+
+    def backlog(self, role: str, building: bool = False) -> float:
+        """The requests of `role` that wait, out of its queue depth
+        (serve_disagg_queue_depth{role}, which counts a prefill leg until
+        it returns): those still in a pick, unless a replica of the role
+        is `building` for them, and the legs in service beyond what the
+        role's ready replicas run at once that those replicas will not
+        have run before a new replica could be built. A leg's service time
+        is the moving average of those returned or the age of the oldest
+        running, whichever is longer; the build time is the least a ready
+        replica of the role reports."""
+        now = time.monotonic()
+        with self._lock:
+            legs = [t0 for t0, _ in self._legs[role].values()]
+            leg_s = self._leg_s[role]
+            workers = list(self._workers[role])
+        workers = [w for w in workers if _ready(w)]
+        queue = float(_m_queue_depth.get(tags={"role": role}))
+        in_pick = 0.0 if building else max(0.0, queue - len(legs))
+        admitted = sum(_admits(w, role) for w in workers)
+        waiting = max(0, len(legs) - admitted)
+        if waiting and admitted:
+            leg_s = max(leg_s, now - min(legs))
+            build_s = min(_build_s(w) for w in workers)
+            waiting = max(0, waiting - admitted * int(build_s // leg_s))
+        return in_pick + waiting
 
     def _kv_dest_for(self, worker):
         """The decode replica's KV channel, resolved ONCE per replica
@@ -1433,7 +1530,8 @@ class DisaggCoordinator:
         kv_dest = None
         if self.cfg.kv_transfer == "channel" or self.cfg.small_blob_bytes > 0:
             kv_dest = self._kv_dest_for(dworker)
-        pworker = self._pick("prefill", deadline, held=True)
+        leg = object()
+        pworker = self._pick("prefill", deadline, leg=leg)
         self._live[base["request_id"]] = (pworker, dworker)
         t0 = time.monotonic()
         try:
@@ -1443,7 +1541,7 @@ class DisaggCoordinator:
             self.health.record_error(pworker.key)
             raise
         finally:
-            self._release_prefill_queue()
+            self._release_prefill_queue(leg)
         self.health.observe(pworker.key, time.monotonic() - t0,
                             role="prefill")
         return res
@@ -1455,7 +1553,8 @@ class DisaggCoordinator:
         the overlap). Returns (thread, box); box['res'] or box['err']
         is set when the leg finishes. A failed prefill also poisons the
         stream so the importer fails fast instead of idling out."""
-        pworker = self._pick("prefill", deadline, held=True)
+        leg = object()
+        pworker = self._pick("prefill", deadline, leg=leg)
         self._live[base["request_id"]] = (pworker, dworker)
         ctx = tracing.current_context()
         box: Dict[str, Any] = {}
@@ -1474,7 +1573,7 @@ class DisaggCoordinator:
                 self.health.record_error(pworker.key)
                 _push_error_frame(kv_dest, base["request_id"], str(e))
             finally:
-                self._release_prefill_queue()
+                self._release_prefill_queue(leg)
 
         t = threading.Thread(
             target=run, daemon=True,
@@ -1482,7 +1581,7 @@ class DisaggCoordinator:
         try:
             t.start()
         except BaseException:
-            self._release_prefill_queue()
+            self._release_prefill_queue(leg)
             raise
         return t, box
 

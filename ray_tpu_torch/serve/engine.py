@@ -97,8 +97,8 @@ from ..models.transformer import _require_flash, torch_dtype
 from ..ops.dispatch import resolve_device
 from ..util import slo, tracing
 from .config import KV_FRAME_LAYOUT_DEFAULT, SpeculationConfig
-from .programs import (SAMPLER_MODES, CapturedProgram, PagedModel, _categorical, host_tensor,
-                       read_back)
+from .programs import (_CAPTURE_LOCK, SAMPLER_MODES, CapturedProgram, PagedModel, _categorical,
+                       host_tensor, read_back)
 from .spec_decode import SpecDecoder
 
 logger = logging.getLogger("ray_tpu_torch.serve.engine")
@@ -207,6 +207,14 @@ class EngineConfig:
             t *= 2
             tiers.add(min(t, cap))
         return sorted(tiers)
+
+    def admits(self, role: str) -> int:
+        """Legs of `role` an engine runs at once: a prefill replica's
+        prefill thread takes one padded batch of at most the largest tier
+        (one prompt unless prefill_batch_size > 1; a chunked prompt
+        prefills alone, a chunk an iteration), any other role its decode
+        slots."""
+        return self.prefill_tiers()[-1] if role == "prefill" else self.max_batch_size
 
 
 @dataclasses.dataclass
@@ -412,6 +420,7 @@ class InferenceEngine:
         another; with no card and no device this raises. draft_params: the
         parameters of a named speculation draft model (default: random
         from seed 0)."""
+        t_build = time.monotonic()
         _require_flash(model_cfg)
         self.cfg = model_cfg
         self.ecfg = engine_cfg
@@ -508,6 +517,13 @@ class InferenceEngine:
             if draft_params is not None:
                 draft_params = _to_device(draft_params, self.device)
             self._spec = SpecDecoder(self, scfg, draft_params=draft_params)
+        self._init_s = time.monotonic() - t_build
+
+    @property
+    def build_s(self) -> float:
+        """Seconds this engine took to build: its __init__ (weights onto the
+        device, the page pool) and its captures so far (warmup)."""
+        return self._init_s + float(self.capture_stats.get("seconds", 0.0))
 
     # ------------------------------------------------------------ programs
 
@@ -665,20 +681,26 @@ class InferenceEngine:
 
     def _capture(self, specs, pool):
         """Capture `specs` into `pool` -> (seconds, bytes the captures added
-        to the reserved memory on the card, else None)."""
+        to the reserved memory on the card, else None). The measure's
+        device-wide synchronize and empty_cache run under the process's
+        capture lock with the captures: beside another engine's capture
+        (two replicas building at once) either would invalidate it, and
+        fail here too (ROADMAP C17)."""
         card = self.device.type == "cuda"
         t0 = time.monotonic()
-        if card:
+        with _CAPTURE_LOCK:
+            if card:
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(self.device)
+            for key, body, inputs, generators in specs:
+                self._programs[key] = CapturedProgram(body, inputs, pool=pool,
+                                                      generators=generators)
+            if not card:
+                return time.monotonic() - t0, None
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(self.device)
-        for key, body, inputs, generators in specs:
-            self._programs[key] = CapturedProgram(body, inputs, pool=pool, generators=generators)
-        if not card:
-            return time.monotonic() - t0, None
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
-        return time.monotonic() - t0, torch.cuda.memory_reserved(self.device) - reserved
+            return time.monotonic() - t0, torch.cuda.memory_reserved(self.device) - reserved
 
     def _chunk_body(self, toks, start, table, last_idx):
         """The chunk program: one C-token prefill chunk of one sequence

@@ -30,7 +30,13 @@ coordinator (serve/disagg.py):
   quarantine → drain → restart → rejoin, each stage counted in
   serve_fleet_remediations{stage}.
 
-Four differences from the reference. A role's idle periods count only
+Five differences from the reference. A role's pressure is its backlog,
+not the queue depth (DisaggCoordinator.backlog; the port's queue depth
+counts a request until its prefill leg returns, C11): the prefill legs the
+role's ready replicas run, or will have run before another replica could
+be built, are not in it, so the legs of a burst or of resumed streams do
+not build a replica, and requests waiting in a pick count only while no
+replica of the role is building for them (C15). A role's idle periods count only
 while it holds its target of ready replicas (`_settled`; a serve-mode
 fleet syncs the coordinator's membership at each evaluation), so a
 replica the fleet asked for is never stepped down before it has served.
@@ -67,7 +73,7 @@ from ..core.config import config
 from ..core.health import get_health_plane
 from ..core.logging import get_logger
 from ..core.metrics import Counter, Gauge
-from .disagg import _m_queue_depth, _ready
+from .disagg import _ready
 
 logger = get_logger("serve.fleet")
 
@@ -213,11 +219,19 @@ class FleetController:
     # ----------------------------------------------------------- sense
 
     def _pressure(self, role: str, alerts: List[Dict[str, Any]],
-                  live: int) -> Tuple[bool, float]:
+                  workers: List[Any]) -> Tuple[bool, float]:
         """-> (pressured, demand_value) for one role: firing scale rules
-        naming the role, or sustained queue depth past
-        target_queue_depth per live replica."""
-        queue = float(_m_queue_depth.get(tags={"role": role}))
+        naming the role, or a backlog past target_queue_depth per live
+        replica. The backlog is DisaggCoordinator.backlog: the requests
+        still picking, unless a replica of the role is building (one not
+        ready, or a remediation's replacement not yet joined), since those
+        wait for it; and the legs in service that the ready replicas will
+        not have run before another replica could be built. The reference
+        reads the queue depth, which there counts only the requests still
+        picking (C11, C15)."""
+        live = len(workers)
+        building = bool(self._rejoins.get(role)) or not all(_ready(w) for w in workers)
+        queue = self.co.backlog(role, building=building)
         alert_hot = any(
             a.get("state") == "firing"
             and a.get("rule") in _SCALE_RULES
@@ -247,7 +261,7 @@ class FleetController:
                 workers = self.co.workers(role)
                 live = len(workers)
                 target = self._targets.get(role, live)
-                pressured, demand = self._pressure(role, alerts, live)
+                pressured, demand = self._pressure(role, alerts, workers)
                 self._pressured[role] = pressured
                 _m_demand.set(demand, tags={"role": role})
                 if pressured:

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import collections
 import threading
+import time
 from typing import Any, Dict, List, Optional
 
 from ..models import get_config, init_params
@@ -63,6 +64,7 @@ class LLMServer:
                  model_overrides: Optional[Dict[str, Any]] = None, device=None,
                  seed: int = 0, draft_params_fn=None, speculation: Any = None,
                  role: str = "colocated"):
+        t_build = time.monotonic()
         if role not in self.ROLES:
             raise ValueError(f"role must be one of {self.ROLES}, got {role!r}")
         self.role = role
@@ -96,6 +98,7 @@ class LLMServer:
         # speculation) at init, and so build the kernels, rather than under
         # the first requests
         self.engine.warmup()
+        self._build_s = time.monotonic() - t_build
 
     def __call__(self, request: Dict[str, Any]) -> Dict[str, Any]:
         return self.engine.generate(**_generate_args(request))
@@ -221,6 +224,16 @@ class LLMServer:
 
     def weights_version(self, _request: Any = None) -> int:
         return self.engine.weights_version
+
+    def admits(self, request: Optional[Dict[str, Any]] = None) -> int:
+        """Legs of the request's "role" (default: this replica's) that the
+        engine runs at once (EngineConfig.admits): the coordinator's
+        backlog() reads it."""
+        return self.engine.ecfg.admits((request or {}).get("role", self.role))
+
+    def build_s(self, _request: Any = None) -> float:
+        """Seconds this replica's __init__ took: weights, engine, captures."""
+        return self._build_s
 
     def prefix_digest(self, _request: Any = None) -> Dict[str, Any]:
         """The engine's prefix-cache fingerprint, for prefix-aware routing."""

@@ -239,8 +239,12 @@ class PagedModel:
 # H100: 8.8-12.6 s to build with two, 5.6-6.1 s with one; chip_smoke.py
 # --fleet --build-profile)
 WARM_RUNS = 1
-# one graph capture at a time in this process (CapturedProgram)
-_CAPTURE_LOCK = threading.Lock()
+# one graph capture at a time in this process (CapturedProgram), and no
+# device-wide synchronize or empty_cache beside one (InferenceEngine._capture
+# holds it around its own): either, from another thread, invalidates the
+# capture running (ROADMAP C17). Reentrant, as the engine takes it around
+# the programs it captures.
+_CAPTURE_LOCK = threading.RLock()
 # the side stream every capture's warm runs take, one per device
 _WARM_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
 

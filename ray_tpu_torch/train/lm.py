@@ -45,10 +45,12 @@ _BLOCK_RMS_CLIP = 1.0
 
 
 def _leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a nested dict, in sorted key order (a fixed order for
-    sums such as the global norm)."""
+    """The tensors of a nested dict (in sorted key order: a fixed order for
+    sums such as the global norm) and lists (in order)."""
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
     return [tree]
 
 
@@ -72,7 +74,9 @@ class AdamW:
     """optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, b1, b2,
     eps=1e-8, weight_decay)), applied in place. opt_state = {"count": number
     of updates so far, "mu": first moments, "nu": second moments}, the
-    moments shaped like the parameters, in f32."""
+    moments shaped like the parameters (a tree of dicts and lists), in f32.
+    At weight decay 0, no clip and a constant schedule it is optax.adam
+    (rl.module.adam)."""
 
     schedule: Any
     b1: float
@@ -84,6 +88,8 @@ class AdamW:
         def zeros(tree):
             if isinstance(tree, dict):
                 return {k: zeros(v) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return [zeros(v) for v in tree]
             return torch.zeros_like(tree, dtype=torch.float32)
 
         return {"count": 0, "mu": zeros(params), "nu": zeros(params)}

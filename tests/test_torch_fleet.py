@@ -862,23 +862,126 @@ def test_a_resume_that_meets_a_retired_replica_opens_again_where_the_reference_e
         ray_tpu_torch.shutdown()
 
 
-def test_four_prefill_legs_on_one_replica_scale_the_role_at_the_default_target_queue_depth():
-    """C15 (open): a request counts in the prefill queue depth until its
-    prefill leg returns (C11), so the four continuations of a remediation's
-    resumed streams on the one prefill replica read as pressure past the
-    default target_queue_depth of 2 a replica, and the fleet builds a
-    prefill replica for a backlog that drains in one leg each; at 4.0 it
-    holds. With a 0.5 s evaluation and three idle periods the role steps
-    down 1.5 s after the new replica is ready, so repeated resumes build
-    and retire replicas in turns."""
-    def targets(**cfg):
-        co = tdisagg.DisaggCoordinator([FakeWorker("p")], [FakeWorker("d")],
-                                       {"small_blob_bytes": 0})
-        fleet = tfleet.FleetController(co, dict({"cooldown_s": 0.0}, **cfg), plane=FakePlane())
-        tdisagg._m_queue_depth.set(4.0, tags={"role": "prefill"})
-        try:
-            return fleet.evaluate_once()["prefill"]
-        finally:
-            tdisagg._m_queue_depth.set(0.0, tags={"role": "prefill"})
+class HeldPrefill(FakeWorker):
+    """A prefill worker that runs `slots` legs at once, took `build` seconds
+    to build, and whose legs run until `release` is set; `ready` says
+    whether it takes picks yet."""
 
-    assert (targets(), targets(target_queue_depth=4.0)) == (2, 1)
+    def __init__(self, key, slots, build=0.0, ready=True):
+        super().__init__(key)
+        self.slots = slots
+        self.build = build
+        self.release = threading.Event()
+        self.is_ready = ready
+
+    def ready(self):
+        return self.is_ready
+
+    def admits(self, role):
+        return self.slots
+
+    def build_s(self):
+        return self.build
+
+    def prefill_request(self, request):
+        self.release.wait(WAIT_S)
+        raise RuntimeError("the double prefills nothing")
+
+    def kv_dest(self, ttl_s=None):
+        return None
+
+
+def prefill_target_under_legs(prefill, n=4, hold_s=0.0):
+    """n requests at once on a coordinator whose prefill role holds
+    `prefill` (a HeldPrefill, or None for no replica at all: one joins
+    after the reading), under the fleet's default target_queue_depth (2 a
+    replica), read `hold_s` after they are all counted: the prefill queue
+    depth, the legs in service and the fleet's prefill target while they
+    are held, then the queue depth and the legs in service after they
+    return."""
+    co = tdisagg.DisaggCoordinator([prefill] if prefill else [], [FakeWorker("d")],
+                                   {"small_blob_bytes": 0, "kv_transfer": "object"})
+    fleet = tfleet.FleetController(co, {"cooldown_s": 0.0}, plane=FakePlane())
+    gauge = tdisagg._m_queue_depth
+    threads = [threading.Thread(target=lambda: pytest.raises(RuntimeError, co.generate,
+                                                             [1, 2, 3], max_tokens=2),
+                                daemon=True) for _ in range(n)]
+    for t in threads:
+        t.start()
+    try:
+        deadline = time.monotonic() + WAIT_S
+        while (gauge.get(tags={"role": "prefill"}) < n
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        time.sleep(hold_s)
+        held = (gauge.get(tags={"role": "prefill"}), len(co._legs["prefill"]),
+                fleet.evaluate_once()["prefill"])
+    finally:
+        if prefill is None:
+            prefill = HeldPrefill("joined", slots=4)
+            co.add_worker("prefill", prefill)
+        prefill.is_ready = True
+        prefill.release.set()
+        for t in threads:
+            t.join(timeout=WAIT_S)
+    return held, (gauge.get(tags={"role": "prefill"}), len(co._legs["prefill"]))
+
+
+def test_four_prefill_legs_on_one_replica_hold_the_role_at_the_default_target_queue_depth():
+    """C15 (repaired): a request counts in the prefill queue depth until its
+    prefill leg returns (C11), but the fleet reads the backlog. Four legs
+    on one replica that runs one prompt at once (a prefill engine at its
+    default prefill_batch_size) and took 60 s to build: one runs and three
+    wait, but the replica runs them long before another could be built, so
+    the role holds at one replica under the default target_queue_depth of
+    2 a replica (before the repair the four read 4 > 2 and built a second
+    replica); on a replica that runs four at once, none waits."""
+    assert prefill_target_under_legs(HeldPrefill("p", slots=1, build=60.0)) == (
+        (4.0, 4, 1), (0.0, 0))
+    assert prefill_target_under_legs(HeldPrefill("p", slots=4)) == ((4.0, 4, 1), (0.0, 0))
+
+
+def test_prefill_legs_that_wait_scale_the_role():
+    """The requests that really wait still count, and raise the target to
+    2: four legs on a one-leg replica that builds at once (three wait past
+    it), four legs on a one-leg replica that builds in 0.05 s once the
+    oldest has run 0.3 s (a leg takes longer than a build, so none of the
+    three waiting is run before a new replica could take it), and four
+    requests in the pick of a role with no replica. Four requests in the
+    pick while the role's replica builds wait for that build: the role
+    holds at 1 (a second build beside it is what C15's flapping was)."""
+    assert prefill_target_under_legs(HeldPrefill("p", slots=1)) == ((4.0, 4, 2), (0.0, 0))
+    assert prefill_target_under_legs(HeldPrefill("p", slots=1, build=0.05), hold_s=0.3) == (
+        (4.0, 4, 2), (0.0, 0))
+    assert prefill_target_under_legs(None) == ((4.0, 0, 2), (0.0, 0))
+    assert prefill_target_under_legs(HeldPrefill("p", slots=4, ready=False)) == (
+        (4.0, 0, 1), (0.0, 0))
+
+
+def test_an_engine_worker_reports_what_its_engine_runs_at_once_and_its_build(tiny):
+    """A real engine behind EngineWorker: as a prefill replica it runs one
+    prompt at once at the default prefill_batch_size (its prefill thread's
+    largest tier: 32 with prefill_batch_size 4), as a decode replica its
+    max_batch_size slots, and it reports the seconds its build took. Four
+    legs held on it as the prefill role: three wait, and none counts as
+    backlog while a leg is short of the build time; a replica that builds
+    at once leaves all three in it."""
+    p = Pkg("ray_tpu_torch", tiny)
+    worker = tdisagg.EngineWorker(p.engine(), "p")
+    batched = tdisagg.EngineWorker(p.engine(prefill_batch_size=4), "pb")
+    assert [(w.admits("prefill"), w.admits("decode")) for w in (worker, batched)] == [
+        (1, ENGINE_KW["max_batch_size"]), (32, ENGINE_KW["max_batch_size"])]
+    assert worker.build_s() > 0.0
+    co = tdisagg.DisaggCoordinator([worker], [FakeWorker("d")], {"small_blob_bytes": 0})
+    legs = [object() for _ in range(4)]
+    try:
+        for leg in legs:
+            co._pick("prefill", time.monotonic() + WAIT_S, leg=leg)
+        worker.engine._init_s = 3600.0
+        long_build = co.backlog("prefill")
+        worker.engine._init_s, worker.engine.capture_stats = 0.0, {}
+        instant_build = co.backlog("prefill")
+    finally:
+        for leg in legs:
+            co._release_prefill_queue(leg)
+    assert (long_build, instant_build, len(co._legs["prefill"])) == (0.0, 3.0, 0)

@@ -1197,6 +1197,71 @@ def test_disagg_pair_streams_kv_and_decodes_exactly(card, dtype):
 
 
 # The fleet on the card (ray_tpu_torch.serve.fleet): a tiny-llama
+# An engine that builds while another thread captures, beside an engine
+# that serves (ROADMAP C17). An engine's captures sit between a device-wide
+# synchronize and empty_cache (the memory they add is measured); either, run
+# while another thread captures, fails and invalidates that capture, as two
+# replicas building at once did. A program whose capture is held open for
+# half a second (a host sleep in its body) stands for the other build: the
+# engine builds meanwhile, a third engine serves greedy requests throughout,
+# and all three finish, since the engine's measure takes the process's
+# capture lock with its captures.
+
+def test_an_engine_builds_beside_another_capture_and_a_serving_engine(card, dtype):
+    import threading
+
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    cfg = get_config("tiny-llama", d_model=256, dtype=name)
+    params = init_params(cfg, seed=0, device=card, dtype=name)
+    ecfg = EngineConfig(max_batch_size=4, page_size=16, max_pages=64, max_seq_len=128,
+                        prefill_buckets=(16, 32), prefill_chunk=32, cache_dtype=name)
+    serving = InferenceEngine(params, cfg, ecfg)
+    serving.warmup()
+    prompt = [1, 2, 3, 4, 5]
+    want = serving.generate(prompt, max_tokens=8)["token_ids"]
+    building = InferenceEngine(params, cfg, ecfg)
+    stop, capturing = threading.Event(), threading.Event()
+    served, errors, held = [], [], {}
+
+    def serve():
+        while not stop.is_set():
+            try:
+                served.append(serving.generate(prompt, max_tokens=8)["token_ids"])
+            except Exception as e:  # noqa: BLE001 — asserted below
+                errors.append(repr(e))
+                return
+
+    def body(x):
+        if torch.cuda.is_current_stream_capturing():
+            capturing.set()
+            time.sleep(0.5)
+        return (x * 2,)
+
+    def capture():
+        try:
+            held["program"] = CapturedProgram(body, [torch.ones(4, device=card)])
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=f, daemon=True) for f in (serve, capture)]
+    for t in threads:
+        t.start()
+    try:
+        assert capturing.wait(120)
+        building.warmup()  # its captures, and the measure around them
+        threads[1].join(timeout=120)
+        stop.set()
+        threads[0].join(timeout=120)
+        assert errors == []
+        assert held["program"](torch.full((4,), 3.0, device=card))[0].tolist() == [6.0] * 4
+        assert building.generate(prompt, max_tokens=8)["token_ids"] == want
+        assert served and all(tokens == want for tokens in served)
+    finally:
+        stop.set()
+        building.stop()
+        serving.stop()
+
+
 # prefill/decode pair under a FleetController that builds and retires decode
 # engines through spawn_fn/retire_fn scales decode 1 -> 2 on a queue_depth
 # alert and back to 1 when the role idles; every request, on either decode
