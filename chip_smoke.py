@@ -332,6 +332,24 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      restart whose error keeps its frames) must fail their gates; each
      fit() logs through an MLflowLoggerCallback (its local files), whose
      history must hold the losses fit() reported;
+  4i. llama-2b pretraining fed by worker processes (procs_path), the
+     runtime at its defaults (worker and actor processes on): synthetic
+     documents (numpy seed 0) packed into [N, 2049] rows by map_batches
+     tasks in the forkserver worker pool, shifted into inputs and targets
+     by a callable class's actor pool in actor processes,
+     iter_device_batches(batch_size=4) into TorchTrainer.fit for 12 steps
+     on the card in this process. Gates: (a) the tasks and pool actors ran
+     in other pids and no child holds a /dev/nvidia* file or maps a CUDA
+     library beyond what the package's import maps;
+     (b) the rows bit-equal to thread mode's, the losses to train.lm's over
+     them, exact launches; (c) a worker and a pool actor SIGKILLed
+     mid-epoch change neither; (d) a CUDA-tensor task runs in this pid and
+     is counted, env_vars reach a worker, Pool.map runs in workers; (e)
+     native, shm-handoff and chunked pulls of 180-300 MiB blobs byte-equal
+     with their GB/s; (f) after shutdown no child but the resource tracker,
+     no /dev/shm segment of the run, card memory as before. Three planted
+     faults (pool_runs_in_process, child_touches_cuda,
+     buffer_released_before_copy) must each be caught;
   4t. tune/ and the shared ingest service at llama-2b (tune_path): four
      tenants, one at weight 3, drain the same rows (phase 4f's batch, once
      a step: tune_rows) from one IngestService
@@ -477,6 +495,12 @@ result line.
 
 builds the kernels and runs phase 4r alone (rl_path: GRPO and the online
 RL loop at llama-600m, PPO with its learner on the card); no result line.
+
+    python3 chip_smoke.py --procs
+
+builds the kernels and runs phase 4i alone (procs_path: llama-2b
+pretraining fed by the worker-process pool and actor processes, the
+transfer plane's native and shm-handoff pulls); no result line.
 """
 
 from __future__ import annotations
@@ -498,6 +522,7 @@ import time
 import urllib.request
 import weakref
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -2705,7 +2730,9 @@ def live_path(server, card: str) -> dict:
 
 # ------------------------------------------------------------- phase 3r
 
-# the runtime's process flags: thread mode, the port's only mode (ROADMAP A5b)
+# the runtime's process flags for the phases before 4i: thread mode, so their
+# gates and figures stay comparable with the runs made before the port took
+# the reference's defaults (worker and actor processes on; phase 4i)
 RUNTIME_FLAGS = {"worker_processes": 0, "actor_processes": False}
 # a put/get of a device tree must not copy it through the host: the process
 # RSS may grow by less than this across phase 3r (b)'s put and get
@@ -3304,7 +3331,9 @@ def deploy_path(server, card: str, plain_figures: str) -> dict:
     nbytes = sum(t.nbytes for _, t in named_leaves(params))
     serve.shutdown()
     rt.shutdown()
-    rt.init()  # what serve.run starts on its own: thread mode, this host's CPUs and cards
+    # what serve.run started on its own before the process flags took the
+    # reference's defaults: thread mode, this host's CPUs and cards
+    rt.init(system_config=RUNTIME_FLAGS)
     runtime_threads = set(threading.enumerate())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3655,6 +3684,7 @@ def disagg_path(server, card: str, plain_figures: str, deploy_figures=None) -> d
 
     serve.shutdown()
     rt.shutdown()
+    rt.init(system_config=RUNTIME_FLAGS)  # the object transport's store, in thread mode
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mem_start = torch.cuda.memory_allocated()
@@ -3808,7 +3838,7 @@ def disagg_path(server, card: str, plain_figures: str, deploy_figures=None) -> d
         f"they were built)")
 
     # (d) the entry points users call: build_openai_app(disagg=...) over HTTP
-    rt.init()
+    rt.init(system_config=RUNTIME_FLAGS)
     runtime_threads = set(threading.enumerate())
     global MEMORY_SPLIT_HEAD_BYTES
     MEMORY_SPLIT_HEAD_BYTES = cfg.vocab_size * cfg.d_model * 4
@@ -4678,7 +4708,7 @@ def fleet_path(server, card: str, disagg_figures: str) -> dict:
 
     serve.shutdown()
     rt.shutdown()
-    rt.init(system_config=FLEET_SYSTEM_CONFIG)
+    rt.init(system_config={**FLEET_SYSTEM_CONFIG, **RUNTIME_FLAGS})
     runtime_threads = set(threading.enumerate())
     plane = health.get_health_plane(create=True)  # stock rules, started
     log(f"phase 3f: the health plane's rules {[(r.name, r.expr) for r in plane.rules]}, "
@@ -6651,7 +6681,7 @@ def pretrain_path(card: str) -> dict:
     rows = np.random.default_rng(0).integers(0, cfg.vocab_size, (B * S, T + 1)).astype(np.int32)
     serve.shutdown()
     rt.shutdown()
-    rt.init()  # thread mode, this host's CPUs and its card
+    rt.init(system_config=RUNTIME_FLAGS)  # thread mode, this host's CPUs and its card
     storage = tempfile.mkdtemp(prefix="phase4p-")
     try:
         ds = data.from_numpy({"tokens": rows}, parallelism=6)
@@ -6875,6 +6905,606 @@ def pretrain_path(card: str) -> dict:
     log(f"phase 4p: card memory after the runtime's shutdown {torch.cuda.memory_allocated() / 2**30:.3f} "
         f"GiB; the phase took {time.monotonic() - t_phase:.1f}s ({card})")
     return {"launches": {name: launches_c[name] + launches_e[name] for name in launches_c}}
+
+
+# ------------------------------------------------------------- phase 4i
+
+# llama-2b pretraining fed by worker processes: synthetic documents, packed
+# into rows by map_batches tasks in the worker-process pool and shifted into
+# inputs and targets by a callable class's actor pool, in actor processes
+PROCS_DOCS = 96  # documents, their lengths drawn uniformly from PROCS_DOC_TOKENS
+PROCS_DOC_TOKENS = (256, 3072)
+PROCS_BLOCKS = 8  # blocks of documents: packing tasks
+PROCS_POOL_ACTORS = 2
+PROCS_PACK_STALL_S = 0.05  # a tokenizer's time per block, stood in by a sleep
+PROCS_STAGED_BYTES = 180 * 2**20  # under 3/4 of the 256 MiB staging arena: staged
+PROCS_CHUNKED_BYTES = 300 * 2**20  # past the arena: the chunked fallback
+PROCS_FAULTS = ("pool_runs_in_process", "child_touches_cuda", "buffer_released_before_copy")
+PROCS_CHILD_WAIT_S = 10.0
+PROCS_DEVICE = "cuda"  # where gate (d)'s tensor lives
+
+
+def procs_documents(cfg) -> dict:
+    """PROCS_DOCS token-id documents of llama-2b's vocabulary from numpy seed
+    0, zero-padded into one [docs, longest] int32 array beside their lengths
+    (a block of rows is what the Dataset holds)."""
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(*PROCS_DOC_TOKENS, PROCS_DOCS).astype(np.int32)
+    docs = np.zeros((PROCS_DOCS, int(lengths.max())), np.int32)
+    for i, n in enumerate(lengths):
+        docs[i, :n] = rng.integers(1, cfg.vocab_size, n)
+    return {"doc": docs, "len": lengths}
+
+
+def pack_documents(block, width: int):
+    """The packing task: a block's documents, each followed by id 0 (the
+    end of a document), cut into rows of `width` ids; the tail that does
+    not fill a row is dropped. Also the pid it ran in."""
+    time.sleep(PROCS_PACK_STALL_S)
+    stream = np.concatenate([np.append(d[:n], 0) for d, n in zip(block["doc"], block["len"])])
+    rows = stream[:len(stream) // width * width].reshape(-1, width).astype(np.int32)
+    return {"ids": rows, "pack_pid": np.full(len(rows), os.getpid(), np.int64)}
+
+
+class ShiftTokens:
+    """The actor pool's callable class: rows -> inputs and targets, and the
+    pid of the actor that shifted them."""
+
+    def __init__(self):
+        self.pid = os.getpid()
+
+    def __call__(self, batch):
+        ids = batch["ids"]
+        return {"tokens": ids[:, :-1], "targets": ids[:, 1:], "pack_pid": batch["pack_pid"],
+                "shift_pid": np.full(len(ids), self.pid, np.int64)}
+
+
+def procs_dataset(docs: dict):
+    from ray_tpu_torch import data
+
+    return (data.from_numpy(docs, parallelism=PROCS_BLOCKS)
+            .map_batches(pack_documents, fn_kwargs={"width": PRETRAIN_BATCH[1] + 1})
+            .map_batches(ShiftTokens, compute="actors", concurrency=PROCS_POOL_ACTORS))
+
+
+def procs_epoch(ds) -> dict:
+    """Every row of one epoch through iter_batches, in order, as arrays."""
+    cols: dict = {}
+    for batch in ds.iter_batches(batch_size=PRETRAIN_BATCH[0], drop_last=False):
+        for k, v in batch.items():
+            cols.setdefault(k, []).append(np.asarray(v))
+    return {k: np.concatenate(v) for k, v in cols.items()}
+
+
+def process_tree() -> dict:
+    """{pid: command line} of every live descendant of this process."""
+    parents, cmds = {}, {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if fields[0] != "Z":
+            parents[int(entry)], cmds[int(entry)] = int(fields[1]), cmd
+    out, frontier = {}, [os.getpid()]
+    while frontier:
+        p = frontier.pop()
+        for child, parent in parents.items():
+            if parent == p and child not in out:
+                out[child] = cmds[child]
+                frontier.append(child)
+    return out
+
+
+def cuda_in(pid: int) -> list:
+    """What of the card a process holds: its open /dev/nvidia* files and its
+    libcuda* mappings (read from /proc)."""
+    found = []
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                found.append(target)
+        with open(f"/proc/{pid}/maps") as f:
+            found += sorted({line.split()[-1] for line in f if "libcuda" in line})
+    except OSError:
+        pass
+    return found
+
+
+_IMPORT_BASELINE = None
+
+
+def import_baseline() -> set:
+    """What of the card a fresh interpreter holds once it has imported the
+    package, as the forkserver does, before any CUDA call: torch's import
+    maps the CUDA runtime and driver libraries (no device file opens until
+    CUDA starts). Gate (a) lets a child hold these and nothing more."""
+    global _IMPORT_BASELINE
+    if _IMPORT_BASELINE is None:
+        import inspect
+
+        code = (f"import json, os, sys\nsys.path.insert(0, {HERE!r})\nimport ray_tpu_torch\n"
+                f"{inspect.getsource(cuda_in)}\nprint(json.dumps(cuda_in(os.getpid())))")
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                             timeout=120, check=True)
+        _IMPORT_BASELINE = set(json.loads(out.stdout.strip().splitlines()[-1]))
+        log(f"phase 4i: a fresh interpreter that imports ray_tpu_torch holds "
+            f"{sorted(_IMPORT_BASELINE) or 'nothing'} of the card")
+    return _IMPORT_BASELINE
+
+
+def compute_apps() -> list:
+    """nvidia-smi's compute apps (pids of the card's host; a container's
+    own pids may differ, so gate (a) counts them)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30)
+    return [int(x) for x in out.stdout.split() if x.strip().isdigit()]
+
+
+def child_report(label: str) -> tuple:
+    """Gate (a)'s reading of the children now: ({pid: what of the card it
+    holds beyond import_baseline()} for every descendant holding more,
+    nvidia-smi's compute apps)."""
+    base = import_baseline()
+    held = {pid: [x for x in cuda_in(pid) if x not in base] for pid in process_tree()}
+    held = {pid: h for pid, h in held.items() if h}
+    apps = compute_apps()
+    log(f"{label}: {len(process_tree())} processes under the driver (pid {os.getpid()}); "
+        f"holding the card beyond the import: {held or 'none'}; nvidia-smi compute apps {apps}")
+    return held, apps
+
+
+def card_sum(t):
+    return os.getpid(), float(t.sum())
+
+
+def read_flag():
+    return os.environ.get("RTT_PROCS_FLAG"), os.getpid()
+
+
+def procs_pids(_):
+    return os.getpid()
+
+
+def procs_fit(cfg, ds, storage: str, name: str, chaos=None) -> dict:
+    """One TorchTrainer.fit() of PRETRAIN_STEPS steps at llama-2b on the
+    card (phase 4f's recipe from seed 0), fed by iter_device_batches over
+    `ds`; its gang member runs in this process. Each step reports its loss;
+    the transform on the host keeps each batch's rows and pids. `chaos`
+    runs on its own thread while the fit runs. -> {"result", "rows",
+    "pids", "launches", "wall", "mid"}."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import dispatch
+
+    seen = {"tokens": [], "pack_pid": [], "shift_pid": []}
+
+    def transform(batch):
+        for k in seen:
+            seen[k].append(np.asarray(batch[k]))
+        return {"tokens": batch["tokens"], "targets": batch["targets"]}
+
+    marks = {}
+
+    def loop(config):
+        opt = train.make_optimizer(learning_rate=3e-4, warmup_steps=2, total_steps=100,
+                                   factored=True)
+        state = train.init_train_state(cfg, opt, seed=0)
+        bf16_params(state)
+        step = train.make_train_step(cfg, opt)
+        batches = iter(train.get_dataset_shard("train").iter_device_batches(
+            batch_size=PRETRAIN_BATCH[0], transform=transform))
+        for i in range(PRETRAIN_STEPS):
+            batch = next(batches)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss = float(m["loss"])
+            step_s = time.perf_counter() - t0
+            if i == PRETRAIN_STEPS // 2:  # mid-epoch: the children as they are
+                marks["mid"] = child_report(f"phase 4i ({name}) at step {i}")
+            train.report({"step": i, "loss": loss, "step_s": step_s})
+
+    trainer = train.TorchTrainer(
+        loop, scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=train.RunConfig(name=name, storage_path=storage), datasets={"train": ds})
+    stop = threading.Event()
+    chaos_thread = None
+    if chaos is not None:
+        chaos_thread = threading.Thread(target=chaos, args=(stop,), name="phase4i-chaos")
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    t0 = time.monotonic()
+    if chaos_thread is not None:
+        chaos_thread.start()
+    try:
+        result = trainer.fit()
+    finally:
+        stop.set()
+        if chaos_thread is not None:
+            chaos_thread.join(timeout=60)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dispatch.launch_counts()
+    if result.error is not None:
+        fail(f"phase 4i ({name}): fit() failed: {result.error!r}")
+    # the host stage runs ahead of the steps: the rows the steps took come first
+    return {"result": result, "launches": launches, "wall": wall, "mid": marks.get("mid"),
+            "rows": np.concatenate(seen["tokens"])[:PRETRAIN_BATCH[0] * PRETRAIN_STEPS],
+            "pids": set(np.concatenate(seen["pack_pid"] + seen["shift_pid"]).tolist())}
+
+
+def kill_mid_epoch(pool_fn, actor_pids_fn, killed: dict):
+    """The chaos of gate (c): SIGKILL the newest pool task's worker as soon as
+    one is in flight, and one pool actor's process once it has started."""
+    import signal
+
+    def chaos(stop):
+        deadline = time.monotonic() + 120
+        while not stop.is_set() and time.monotonic() < deadline and len(killed) < 2:
+            pool = pool_fn()
+            if "worker" not in killed and pool:
+                pid = pool.kill_newest_worker()
+                if pid is not None:
+                    killed["worker"] = pid
+            if "actor" not in killed:
+                pids = actor_pids_fn()
+                if pids:
+                    time.sleep(0.1)  # it has taken its first block by now
+                    try:
+                        os.kill(pids[0], signal.SIGKILL)
+                        killed["actor"] = pids[0]
+                    except OSError:
+                        pass
+            time.sleep(0.001)
+
+    return chaos
+
+
+def pool_actor_pids(runtime) -> list:
+    """Pids of the live actor processes of data's actor pool."""
+    agent = runtime.driver_agent
+    with agent._lock:
+        runners = list(agent._actors.values())
+    return [r.process.pid for r in runners
+            if r.process is not None and r.process.alive()
+            and "_MapPoolWorker" in repr(r.instance)]
+
+
+def transfer_figures(card: str) -> list:
+    """Gate (e): a ~180 MiB host blob between two transfer endpoints in this
+    process natively (handoff off) and through the same-host shm handoff,
+    and a 300 MiB one over the chunked fallback; each byte-equal, with its
+    GB/s. -> the three [path, bytes, seconds] rows."""
+    from ray_tpu_torch.core import object_transfer as ot
+    from ray_tpu_torch.core.config import config
+    from ray_tpu_torch.core.ids import ObjectID, TaskID
+    from ray_tpu_torch.core.object_store import MemoryObjectStore
+
+    rng = np.random.default_rng(1)
+    store = MemoryObjectStore(capacity_bytes=2 * PROCS_CHUNKED_BYTES)
+    server = ot.ObjectTransferServer(store)
+    client = ot.ObjectTransferClient()
+    rows = []
+    try:
+        deadline = time.monotonic() + 60
+        while server._plane.native is None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        warm = ObjectID.for_task_return(TaskID.of(), 0)
+        store.put(warm, np.zeros(16))
+        config.apply_overrides({"object_transfer_shm_handoff": False})
+        client.pull(server.address, warm)  # starts the client's native plane
+        while client._plane.native is None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        for path, nbytes, handoff in (("native", PROCS_STAGED_BYTES, False),
+                                      ("shm", PROCS_STAGED_BYTES, True),
+                                      ("chunked", PROCS_CHUNKED_BYTES, True)):
+            blob = rng.integers(0, 255, nbytes, dtype=np.uint8)
+            oid = ObjectID.for_task_return(TaskID.of(), 0)
+            store.put(oid, blob)
+            config.apply_overrides({"object_transfer_shm_handoff": handoff})
+            client._call(server.address, "stage", oid.hex(), False)  # staged before the clock
+            before = ot._pull_seconds.count({"path": path})
+            t0 = time.perf_counter()
+            got = client.pull(server.address, oid)
+            dt = time.perf_counter() - t0
+            took = ot._pull_seconds.count({"path": path}) - before
+            equal = bool(np.array_equal(got, blob))
+            log(f"phase 4i (e) ({card}): a {nbytes / 2**20:.0f} MiB blob over the {path} path "
+                f"in {dt:.4f}s, {nbytes / dt / 1e9:.3f} GB/s; byte-equal {equal}; the pull took "
+                f"that path {took} time(s)")
+            if not equal or took != 1:
+                fail(f"phase 4i (e): the {path} pull of {nbytes} bytes: equal {equal}, "
+                     f"took the path {took} times")
+            rows.append([path, nbytes, dt])
+            store.delete(oid)
+            del got, blob
+    finally:
+        config.apply_overrides({"object_transfer_shm_handoff": True})
+        client.close()
+        server.stop()
+    return rows
+
+
+def procs_path(card: str) -> dict:
+    """Phase 4i: llama-2b pretraining fed by worker processes, at the
+    runtime's defaults (worker processes and actor processes on).
+    The pipeline: data.from_numpy of PROCS_DOCS synthetic documents (numpy
+    seed 0, llama-2b's vocabulary) in PROCS_BLOCKS blocks; map_batches
+    tasks pack them into [N, 2049] rows (pack_documents, in the pool);
+    a callable class's actor pool shifts them into inputs and targets
+    (ShiftTokens, in actor processes); iter_device_batches(batch_size=4)
+    feeds TorchTrainer.fit at llama-2b, full width and depth, for
+    PRETRAIN_STEPS steps, its gang member on the card in this process.
+    (a) Every packing task and pool actor ran in a pid not this one; no
+        child process holds a /dev/nvidia* file or maps a libcuda* library
+        beyond what importing the package maps in a fresh interpreter
+        (import_baseline), read mid-fit and after; nvidia-smi lists one
+        compute app, the driver's.
+    (b) The epoch's rows bit-equal to the same pipeline in thread mode; the
+        fit's losses bit-equal to train.lm over those rows from the same
+        weights; launches exactly train_launches.
+    (c) A second fit while the newest pool task's worker and one pool actor
+        are SIGKILLed mid-epoch: the tasks retry and the actor restarts; its
+        rows and losses equal (b)'s.
+    (d) A CPU task given a CUDA tensor runs in this pid and the fallback
+        counter rises by 1; a runtime_env env_vars task reads its variable
+        in a worker; util.multiprocessing.Pool.map runs in worker pids.
+    (e) The transfer plane (transfer_figures).
+    (f) After rt.shutdown(): no child process but multiprocessing's
+        resource tracker within PROCS_CHILD_WAIT_S, no /dev/shm segment of
+        this run's names, card memory within PRETRAIN_MEMORY_TOL of before.
+    Planted faults (PROCS_FAULTS): pool_runs_in_process (gate a),
+    child_touches_cuda (the CUDA-tensor rule removed: gate a),
+    buffer_released_before_copy (the lane frees a task's result buffers
+    before the driver copies them out: gate b). Prints `df /dev/shm`, the
+    forkserver's boot, a pool task's round trip and a shm put/get in GB/s.
+    Returns {"launches": (b)'s}."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.core import node_agent, process_pool, shm_store
+    from ray_tpu_torch.core.config import config as rtconfig
+    from ray_tpu_torch.models import get_config
+    from ray_tpu_torch.util import multiprocessing as rtmp
+
+    t_phase = time.monotonic()
+    cfg = get_config("llama-2b")
+    (B, T), S = PRETRAIN_BATCH, PRETRAIN_STEPS
+    df = subprocess.run(["df", "-h", "/dev/shm"], capture_output=True, text=True).stdout
+    log(f"phase 4i: df -h /dev/shm:\n{df.rstrip()}")
+    docs = procs_documents(cfg)
+    driver = os.getpid()
+    before_tree = set(process_tree())
+    import_baseline()  # read once, before any fit
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    storage = tempfile.mkdtemp(prefix="phase4i-")
+
+    def fallbacks() -> float:
+        return sum(v for _, _, v in node_agent._pool_fallback_counter.samples())
+
+    def run_names() -> list:
+        return sorted(n for n in os.listdir("/dev/shm")
+                      if n.startswith(("rtt_pool_", "rtt_xs_", "rtt_xc_"))
+                      and f"_{driver}_" in n)
+
+    def children_hold_card(held, apps) -> bool:  # the driver's context is the one app
+        return bool(held) or len(apps) > 1
+
+    try:
+        # (b)'s yardstick rows: the pipeline in thread mode
+        rt.shutdown()
+        rt.init(system_config=RUNTIME_FLAGS)
+        want = procs_epoch(procs_dataset(docs))
+        rt.shutdown()
+        n_rows = len(want["tokens"])
+        log(f"phase 4i: llama-2b (d_model {cfg.d_model}, layers {cfg.n_layers}), {PROCS_DOCS} "
+            f"documents of {PROCS_DOC_TOKENS} tokens in {PROCS_BLOCKS} blocks packed into "
+            f"{n_rows} rows of {T + 1} ids (thread mode); {S} steps of {B} x {T}")
+        if n_rows < B * S:
+            fail(f"phase 4i: the documents pack into {n_rows} rows, fewer than {B * S}")
+
+        # the runtime at its defaults; its first pool task waits for the
+        # forkserver's boot (the server imports the package) and a fork
+        t0 = time.monotonic()
+        runtime = rt.init()
+        cfg_procs = (int(rtconfig.worker_processes), bool(rtconfig.actor_processes))
+        pool = runtime.driver_agent._ensure_pool()
+        pool.run(procs_pids, (0,), {})
+        boot_s = time.monotonic() - t0
+        trips = []
+        for _ in range(50):
+            t1 = time.perf_counter()
+            pool.run(procs_pids, (0,), {})
+            trips.append(time.perf_counter() - t1)
+        arena = shm_store.ShmObjectStore(f"/rtt_pool_{driver}_bw", capacity=512 * 2**20)
+        blob = np.random.default_rng(2).integers(0, 255, 256 * 2**20, dtype=np.uint8)
+        oid = b"procs-bandwidth-0000"
+        t1 = time.perf_counter()
+        arena.put(oid, blob)
+        put_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        back = arena.get_bytes(oid)
+        get_s = time.perf_counter() - t1
+        arena.close()
+        if back != blob.tobytes():
+            fail("phase 4i: the shm store's get differs from its put")
+        del back
+        log(f"phase 4i ({card}): worker_processes {cfg_procs[0]}, actor_processes "
+            f"{cfg_procs[1]}; init() to the first pool task's return (the forkserver's boot "
+            f"and a fork) {boot_s:.3f}s; a pool task's round trip p50 "
+            f"{1e3 * statistics.median(trips):.3f} ms max {1e3 * max(trips):.3f} ms (50 calls); "
+            f"a 256 MiB shm "
+            f"put {blob.nbytes / put_s / 1e9:.3f} GB/s, get (copy out) "
+            f"{blob.nbytes / get_s / 1e9:.3f} GB/s")
+        del blob
+        if cfg_procs[0] <= 0 or not cfg_procs[1]:
+            fail(f"phase 4i: init() at its defaults gave {cfg_procs}")
+
+        # (a) + (b): the fit
+        fit_b = procs_fit(cfg, procs_dataset(docs), storage, "b")
+        losses = [m["loss"] for m in fit_b["result"].metrics_history]
+        steps = [m["step_s"] for m in fit_b["result"].metrics_history]
+        held_mid, apps_mid = fit_b["mid"]
+        held_end, apps_end = child_report("phase 4i (a) after the fit")
+        in_driver = driver in fit_b["pids"]
+        log(f"phase 4i (a): the packing tasks and pool actors ran in pids "
+            f"{sorted(fit_b['pids'])} (driver {driver})")
+        if in_driver or not fit_b["pids"]:
+            fail(f"phase 4i (a): work ran in the driver's process: {sorted(fit_b['pids'])}")
+        if children_hold_card(held_mid, apps_mid) or children_hold_card(held_end, apps_end):
+            fail(f"phase 4i (a): a child process holds the card: {held_mid or held_end}, "
+                 f"apps {apps_mid} / {apps_end}")
+        rows_equal = np.array_equal(fit_b["rows"], want["tokens"][:B * S])
+        # the yardstick: train.lm directly over the thread-mode rows
+        opt = train.make_optimizer(learning_rate=3e-4, warmup_steps=2, total_steps=100,
+                                   factored=True)
+        state = train.init_train_state(cfg, opt, seed=0)
+        bf16_params(state)
+        step = train.make_train_step(cfg, opt)
+        direct, direct_s = [], []
+        for i in range(S):
+            batch = {k: torch.from_numpy(np.ascontiguousarray(want[k][B * i:B * (i + 1)])).cuda()
+                     for k in ("tokens", "targets")}
+            t1 = time.perf_counter()
+            state, m = step(state, batch)
+            direct.append(float(m["loss"]))
+            direct_s.append(time.perf_counter() - t1)
+        del state, step, m, batch
+        release()
+        log(f"phase 4i (b): the fit's {len(fit_b['rows'])} rows bit-equal to thread mode's "
+            f"{rows_equal}; losses {[round(x, 5) for x in losses]}; bit-equal to train.lm's "
+            f"{losses == direct}")
+        log(f"phase 4i (b) ({card}): step time through fit() p50 {statistics.median(steps[1:]):.4f}s "
+            f"against train.lm directly {statistics.median(direct_s[1:]):.4f}s; fit() "
+            f"{fit_b['wall']:.2f}s")
+        if not rows_equal:
+            fail("phase 4i (b): the fit's rows differ from the thread-mode pipeline's")
+        if losses != direct:
+            fail(f"phase 4i (b): losses {losses} are not train.lm's {direct}")
+        launches = fit_b["launches"]
+        log(f"launches on the procs path, (b)'s fit ({S} steps): {launches}")
+        for name, n in train_launches(cfg, S).items():
+            if launches[name] != n:
+                fail(f"phase 4i (b) launched {name} {launches[name]} times, expected {n}")
+
+        # (c): the same fit while a worker and a pool actor are killed
+        killed: dict = {}
+        chaos = kill_mid_epoch(lambda: runtime.driver_agent._pool,
+                               lambda: pool_actor_pids(runtime), killed)
+        fit_c = procs_fit(cfg, procs_dataset(docs), storage, "c", chaos=chaos)
+        losses_c = [m["loss"] for m in fit_c["result"].metrics_history]
+        epoch_c = procs_epoch(procs_dataset(docs))
+        log(f"phase 4i (c): SIGKILLed {killed}; the fit's rows equal (b)'s "
+            f"{np.array_equal(fit_c['rows'], fit_b['rows'])}, losses equal "
+            f"{losses_c == losses}; a second epoch's rows equal thread mode's "
+            f"{np.array_equal(epoch_c['tokens'], want['tokens'])}")
+        if set(killed) != {"worker", "actor"}:
+            fail(f"phase 4i (c): killed only {killed}")
+        if not np.array_equal(fit_c["rows"], fit_b["rows"]) or losses_c != losses:
+            fail("phase 4i (c): after the kills the rows or the losses differ from (b)'s")
+        if not np.array_equal(epoch_c["tokens"], want["tokens"]):
+            fail("phase 4i (c): an epoch after the kills differs from thread mode's")
+
+        # (d): where in-process work goes
+        before = fallbacks()
+        on_card = torch.arange(1024, dtype=torch.float32, device=PROCS_DEVICE)
+        pid_d, total = rt.get(rt.remote(card_sum).remote(on_card), timeout=120)
+        flag, pid_env = rt.get(rt.remote(read_flag).options(
+            runtime_env={"env_vars": {"RTT_PROCS_FLAG": "on"}}).remote(), timeout=120)
+        with rtmp.Pool(processes=2) as mp_pool:
+            pool_pids = set(mp_pool.map(procs_pids, range(8)))
+        log(f"phase 4i (d): a CUDA-tensor task ran in pid {pid_d} (driver {driver}), sum "
+            f"{total}, fallbacks +{fallbacks() - before}; the env_vars task read {flag!r} in "
+            f"pid {pid_env}; Pool.map ran in {sorted(pool_pids)}")
+        if pid_d != driver or fallbacks() - before != 1 or total != 1023 * 1024 / 2:
+            fail("phase 4i (d): the CUDA-tensor task left the driver's process or was not counted")
+        if flag != "on" or pid_env == driver or driver in pool_pids:
+            fail("phase 4i (d): the env_vars task or Pool.map ran in the driver's process")
+        del on_card
+
+        # (e): the transfer plane
+        transfer = transfer_figures(card)
+
+        # (f): cleanup
+        rt.shutdown()
+        del runtime, pool
+        release()
+        deadline = time.monotonic() + PROCS_CHILD_WAIT_S
+        while True:
+            left = {p: c for p, c in process_tree().items()
+                    if p not in before_tree and "resource_tracker" not in c}
+            if not left or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        mem1 = torch.cuda.memory_allocated()
+        log(f"phase 4i (f): after rt.shutdown() processes left {left or 'none'}; /dev/shm "
+            f"segments of this run {run_names() or 'none'}; card memory {mem0 / 2**30:.3f} GiB "
+            f"before the phase, {mem1 / 2**30:.3f} after")
+        if left or run_names():
+            fail(f"phase 4i (f): left behind {left} {run_names()}")
+        if abs(mem1 - mem0) > PRETRAIN_MEMORY_TOL:
+            fail(f"phase 4i (f): card memory {mem0} before, {mem1} after")
+
+        # the planted faults, each on a runtime of its own
+        copy_out = process_pool._copy_out
+
+        def freed_before_copy(store, buffer_ids):
+            for bid in buffer_ids:
+                store.delete(bid)
+            return copy_out(store, buffer_ids)
+
+        def pool_runs_in_process():  # gate (a): the packing tasks' pids
+            with swapped(process_pool.ProcessPool,
+                         run=lambda self, fn, args, kwargs, **kw: fn(*args, **kwargs)):
+                epoch = procs_epoch(procs_dataset(docs))
+            return driver in set(epoch["pack_pid"].tolist())
+
+        def child_touches_cuda():  # gate (a): the CUDA-tensor rule removed
+            with swapped(process_pool, _off_cpu=lambda obj: False):
+                on_card = torch.ones(8, device=PROCS_DEVICE)
+                rt.get(rt.remote(card_sum).remote(on_card), timeout=300)
+                held, apps = child_report("phase 4i planted child_touches_cuda")
+            return children_hold_card(held, apps)
+
+        def buffer_released_before_copy():  # gate (b): the epoch's rows
+            with swapped(process_pool, _copy_out=freed_before_copy):
+                try:
+                    epoch = procs_epoch(procs_dataset(docs))
+                except Exception as e:  # noqa: BLE001 — no rows, none equal to (b)'s
+                    log(f"phase 4i planted buffer_released_before_copy: the epoch raised "
+                        f"{e!r:.200}")
+                    return True
+            return not np.array_equal(epoch["tokens"], want["tokens"])
+
+        planted_runs = {"pool_runs_in_process": pool_runs_in_process,
+                        "child_touches_cuda": child_touches_cuda,
+                        "buffer_released_before_copy": buffer_released_before_copy}
+        for name in PROCS_FAULTS:
+            rt.init()
+            try:
+                caught = planted_runs[name]()
+            finally:
+                rt.shutdown()
+            log(f"phase 4i planted fault {name}: caught {caught}")
+            if not caught:
+                fail(f"phase 4i: its gates pass planted fault {name}")
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+        release()
+    log(f"phase 4i: the phase took {time.monotonic() - t_phase:.1f}s ({card}); transfer rows "
+        f"{[[p, n, round(s, 4)] for p, n, s in transfer]}")
+    return {"launches": launches}
 
 
 # ------------------------------------------------------------- phase 4t
@@ -7301,7 +7931,7 @@ def tune_path(card: str, solo: dict | None = None) -> dict:
     (B, T) = PRETRAIN_BATCH
     rows = tune_rows(cfg)
     rt.shutdown()
-    rt.init()  # thread mode, this host's CPUs and its card
+    rt.init(system_config=RUNTIME_FLAGS)  # thread mode, this host's CPUs and its card
     storage = tempfile.mkdtemp(prefix="phase4t-")
     try:
         log(f"phase 4t: llama-2b, train2b recipe, trials of up to {TUNE_MAX_T} steps of "
@@ -8592,6 +9222,10 @@ def main() -> None:
                     help="only build the kernels, then run phase 4t (a Tuner of llama-2b "
                          "trials sharing the card, reading from one ingest service); prints "
                          "no result line")
+    ap.add_argument("--procs", action="store_true",
+                    help="only build the kernels, then run phase 4i (llama-2b pretraining fed "
+                         "by worker processes, the runtime at its defaults); prints no result "
+                         "line")
     ap.add_argument("--rl", action="store_true",
                     help="only build the kernels, then run phase 4r (GRPO and the online RL "
                          "loop at llama-600m, PPO with the learner on the card); prints no "
@@ -8661,6 +9295,9 @@ def main() -> None:
     if args.rl:
         rl_path(card)
         return
+    if args.procs:
+        procs_path(card)
+        return
     gen = torch.Generator(device="cuda").manual_seed(0)
     tile_identity_checks(gen)
     figures = norm_checks(gen)
@@ -8680,6 +9317,7 @@ def main() -> None:
     trained = train_main_path(card, args.profile)
     train2b = train2b_path(card, trained, args.profile)
     pretrain = pretrain_path(card)
+    procs = procs_path(card)
     tuned = tune_path(card, train2b)
     rl_ran = rl_path(card)
     moe_served = moe_serve_path(card, args.profile)
@@ -8696,7 +9334,8 @@ def main() -> None:
                    "live": live_launches[name] + moe_served["live"][name],
                    "runtime": runtime_launches[name], "deploy": deploy_launches[name],
                    "disagg": disagg_launches[name], "fleet": fleet_launches[name],
-                   "pretrain": pretrain["launches"][name], "tune": tuned["launches"][name],
+                   "pretrain": pretrain["launches"][name], "procs": procs["launches"][name],
+                   "tune": tuned["launches"][name],
                    "rl": rl_ran["launches"][name]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -17,12 +17,13 @@ Entry points run
 on the card unless the caller passes device="cpu"; on the CPU every kernel
 takes its plain version.
 
-The task/actor runtime is the reference's in thread mode (`init`,
-`remote`, `get`, `put`, `wait`, actors, the object store, placement groups
-and the virtual cluster of `cluster_utils`): every task and actor runs on
-the node agents' threads in the process that owns the card, the
-accelerator resource is "GPU", and a tree of CUDA tensors passes through
-the object store by reference. A GPU actor can host an `LLMServer`. On it
+The task/actor runtime is the reference's (`init`, `remote`, `get`, `put`,
+`wait`, actors, the object store, placement groups and the virtual cluster
+of `cluster_utils`): CPU tasks run in forked worker processes over a
+shared-memory store and CPU actors in processes of their own, while device
+tasks and actors run on the node agents' threads in the process that owns
+the card; the accelerator resource is "GPU", and a tree of CUDA tensors
+passes through the object store by reference. A GPU actor can host an `LLMServer`. On it
 stands the serve runtime (`ray_tpu_torch.serve`: deployments, the
 controller, router, handles, batching, multiplexing, the HTTP and gRPC
 proxies and the OpenAI front), and `LLMServer` is a deployment of it;

@@ -3,14 +3,15 @@
 The port's copy of ray_tpu/api.py (the reference's counterpart of upstream
 ray's `python/ray/_private/worker.py :: init/get/put/wait/remote`,
 `python/ray/remote_function.py :: RemoteFunction`,
-`python/ray/actor.py :: ActorClass/ActorHandle/ActorMethod`), in thread
-mode: every task and actor runs on the node agents' threads in this
-process, which owns the card. The accelerator resource is "GPU"
-(`num_gpus=`), counted from `torch.cuda.device_count()`.
+`python/ray/actor.py :: ActorClass/ActorHandle/ActorMethod`). CPU tasks
+run in forked worker processes and CPU actors in processes of their own
+(`worker_processes`, `actor_processes`, on by default as in the
+reference); device tasks and actors, the ones that demand "GPU", run on
+the node agents' threads in this process, which owns the card. The
+accelerator resource is "GPU" (`num_gpus=`), counted from
+`torch.cuda.device_count()`.
 
-Waiting for ROADMAP A5b: the worker-process pool and actor processes
-(`worker_processes`, `actor_processes`; init() refuses either on). Waiting
-for A5c: joining a cluster (`address=`), restoring a snapshot
+Waiting for ROADMAP A5c: joining a cluster (`address=`), restoring a snapshot
 (`resume_from=`, `control_plane_snapshot_path`), the federated control
 plane (`control_plane_shards`), the control-plane RPC head
 (`control_plane_rpc_port`) and compiled-graph edges to a joined host
@@ -27,7 +28,7 @@ import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 from .core import core_worker as _cw
-from .core.config import config, require_thread_mode
+from .core.config import config
 from .core.control_plane import ActorState
 from .core.core_worker import (
     GetTimeoutError,
@@ -86,8 +87,7 @@ def init(
     address (join a cluster head as a worker host) and resume_from
     (restore a control-plane snapshot) wait for ROADMAP A5c and raise
     NotImplementedError, as do the system_config flags that would serve the
-    control plane over RPC, federate it or snapshot it, and (ROADMAP A5b)
-    those that turn on worker or actor processes.
+    control plane over RPC, federate it or snapshot it.
     """
     if address is not None:
         raise NotImplementedError(
@@ -103,7 +103,6 @@ def init(
         raise RuntimeError("ray_tpu_torch.init() called twice")
     config.apply_overrides(system_config)
     try:
-        require_thread_mode()
         if config.control_plane_snapshot_path:
             raise NotImplementedError(
                 "control_plane_snapshot_path: control-plane snapshots "
@@ -178,6 +177,15 @@ def is_initialized() -> bool:
 
 def _auto_init() -> Runtime:
     if not _cw.runtime_initialized():
+        if os.environ.get("RAY_TPU_IN_POOL_WORKER"):
+            # falling through to init() would start a PRIVATE runtime in a
+            # worker process whose refs and handles mean nothing to the
+            # driver; the reference's head back-channel waits for A5c
+            raise RuntimeError(
+                "the ray_tpu_torch API is not available inside worker "
+                "processes (pool tasks / isolated actors): return plain "
+                "values, or create an actor that must drive the runtime "
+                "with @ray_tpu_torch.remote(in_process=True)")
         init()
     rt = _cw.get_runtime()
     # every API entry is a point where this thread holds no runtime lock:

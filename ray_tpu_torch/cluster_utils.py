@@ -7,9 +7,9 @@ scheduling spread, node failure, object transfer and actor restart are
 testable on one machine. Nodes can advertise topology-labelled "GPU"
 resources and slice coordinates.
 
-The port's copy of ray_tpu/cluster_utils.py. Every node agent refuses the
-process flags (`worker_processes`, `actor_processes`), which wait for
-ROADMAP A5b, as init() does.
+The port's copy of ray_tpu/cluster_utils.py. Its node agents share one
+worker-process pool (process_pool.acquire_shared_pool), as the
+reference's do.
 """
 
 from __future__ import annotations

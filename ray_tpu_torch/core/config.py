@@ -5,10 +5,8 @@ upstream ray's `ray_config_def.h :: RAY_CONFIG` X-macro list): every
 runtime knob is declared once here with a type, default and doc; values
 resolve with precedence  init(system_config=...)  >  env RAY_TPU_<NAME>  >
 default. The names, docs and defaults are the reference's, so one
-environment configures both packages, with two exceptions until the
-process pool and actor processes are ported (ROADMAP A5b):
-`worker_processes` defaults to 0 and `actor_processes` to False. Only the
-flags the port reads are declared.
+environment configures both packages. Only the flags the port reads are
+declared.
 """
 
 from __future__ import annotations
@@ -19,7 +17,7 @@ import tempfile
 import threading
 from typing import Any, Callable, Dict, Optional
 
-__all__ = ["Config", "config", "declare", "require_thread_mode"]
+__all__ = ["Config", "config", "declare"]
 
 _TRUE = {"1", "true", "yes", "on"}
 _FALSE = {"0", "false", "no", "off"}
@@ -66,22 +64,24 @@ def declare(name: str, default: Any, doc: str = "") -> None:
 
 # Core / scheduling, the object store and the control plane (the runtime)
 declare(
-    "worker_processes", 0,
-    "CPU-only tasks execute in this many spawned worker processes sharing a "
+    "worker_processes", max(2, min(8, (os.cpu_count() or 2) // 2)),
+    "CPU-only tasks execute in this many forked worker processes sharing a "
     "shm object arena (crash isolation, like the reference's worker pool); "
     "0 = execute on the node agent's threads. Device tasks always stay on "
-    "threads in the device-owning process. The port has no process pool "
-    "yet (ROADMAP A5b): 0 is its default, and init() refuses any other "
-    "value with NotImplementedError.",
+    "threads in the device-owning process. Default derives from host CPUs.",
 )
 declare(
-    "actor_processes", False,
+    "prestart_worker_processes", True,
+    "Warm the worker-process pool in the background at node-agent creation "
+    "(reference: worker_pool.cc prestart), so the forkserver cost overlaps "
+    "driver setup instead of the first task submission.",
+)
+declare(
+    "actor_processes", True,
     "CPU actors (num_gpus=0, max_concurrency=1) get a dedicated worker "
     "process with a mailbox RPC (crash isolation, the reference's actor "
     "model). Device actors and high-concurrency system actors stay in the "
-    "device-owning process; unpicklable state falls back in-process. The "
-    "port has no actor processes yet (ROADMAP A5b): off is its default, "
-    "and init() refuses on with NotImplementedError.",
+    "device-owning process; unpicklable state falls back in-process.",
 )
 declare("task_max_retries", 3, "Default retries for tasks on worker/node death.")
 declare("actor_max_restarts", 0, "Default actor restarts on failure.")
@@ -137,6 +137,12 @@ declare(
     "Upper bound on concurrent stripe lanes a single chunked pull spreads "
     "across distinct sealed holders (diminishing returns past a few "
     "stripes on one NIC).",
+)
+declare(
+    "object_transfer_shm_handoff", True,
+    "Same-host pulls attach the holder's staging arena by name and map "
+    "the blob zero-copy over /dev/shm instead of copying bytes through a "
+    "loopback socket (detected via a boot-id host token).",
 )
 declare(
     "object_broadcast_relay", True,
@@ -418,24 +424,6 @@ class Config:
         if name.startswith("_"):
             raise AttributeError(name)
         return self.get(name)
-
-
-def require_thread_mode() -> None:
-    """Refuse the process flags: the worker-process pool and the actor
-    processes wait for ROADMAP A5b, and a task or actor they would take must
-    not run on a thread in their stead. init() and every node agent call
-    this, so a `system_config` or a RAY_TPU_* variable that turns either on
-    fails at once."""
-    on = []
-    if int(config.worker_processes) > 0:
-        on.append(f"worker_processes={config.worker_processes}")
-    if bool(config.actor_processes):
-        on.append("actor_processes=True")
-    if on:
-        raise NotImplementedError(
-            f"{', '.join(on)}: worker processes and actor processes wait for "
-            "ROADMAP A5b; the port runs every task and actor on the node "
-            "agent's threads (worker_processes=0, actor_processes=False)")
 
 
 config = Config()

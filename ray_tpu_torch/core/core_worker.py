@@ -1388,6 +1388,10 @@ class Runtime:
         for fut in futures:
             if fut is not None:
                 fut.finish(error)
+        # tasks waiting on these objects as arguments fail with the error
+        # instead of waiting on forever (ROADMAP C19)
+        for oid in item.spec.return_ids:
+            self.directory.mark_failed(oid, error)
 
     def _mark_task(self, task_id: TaskID, state: str) -> None:
         from ..util import timeline
@@ -1494,6 +1498,12 @@ class Runtime:
         for t in (self._sched_thread, self._monitor_thread):
             if t is not threading.current_thread():
                 t.join(timeout=5.0)
+        # the agents released the shared pool and ended their actor
+        # processes: end the forkserver too, once nothing forked from it
+        # lives on (a runtime of another package may still use it)
+        from .process_pool import stop_forkserver
+
+        stop_forkserver()
 
 
 _global_runtime: Optional[Runtime] = None

@@ -13,11 +13,16 @@ owns the card. They share its CUDA context and, unless they pick another,
 its current stream, so a device-side assert in one of them ends the context
 for all (recorded, not isolated: a forked child cannot take CUDA work
 either). PyTorch's CUDA calls release the GIL, so threads give parallelism
-where it matters. The reference's *process* pool for CPU tasks and its
-actor processes (process_pool.py, actor_process.py) wait for ROADMAP A5b:
-until then every task and actor runs on these threads, and a request for a
-process raises NotImplementedError. The profiling entry points wait for
-A5c (util/profiler.py).
+where it matters. A separate *process* pool (process_pool.py) runs CPU-only
+tasks, and CPU actors get processes of their own (actor_process.py), as the
+reference's worker processes do, with the shared-memory store as the object
+plane; every such process forks from the forkserver and never starts CUDA.
+A task whose payload cannot cross (a tensor off the CPU, a ref, an
+unpicklable closure) runs on these threads instead and is counted. Where the
+pool cannot be created (no C++ compiler, too little /dev/shm) a CPU task
+raises, naming the cause: a deliberate difference, the reference logs and
+stays on threads. The profiling entry points wait for A5c
+(util/profiler.py).
 """
 
 from __future__ import annotations
@@ -29,8 +34,9 @@ import traceback
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from . import memory_monitor  # noqa: F401 — declares its config flags
 from .actor_process import ActorProcessCrash
-from .config import config, require_thread_mode
+from .config import config
 from .control_plane import ControlPlane, NodeInfo
 from .ids import ActorID, NodeID, ObjectID, TaskID, WorkerID
 from .logging import get_logger
@@ -45,6 +51,10 @@ _running_gauge = Gauge("ray_tpu_tasks_running", "Tasks currently executing")
 _actors_isolated_counter = Counter(
     "ray_tpu_actors_isolated",
     "Actor creations by isolation outcome (process / in_process / fallback).",
+)
+_pool_fallback_counter = Counter(
+    "ray_tpu_pool_fallbacks",
+    "CPU tasks that bypassed process isolation (unpicklable args/closure)",
 )
 
 
@@ -66,6 +76,22 @@ class TaskResult:
 
 
 DoneCallback = Callable[[TaskResult], None]
+
+
+def _preboot_forkserver() -> None:
+    """Boot the multiprocessing forkserver without spawning any worker:
+    the server process launches via `-c` and never reads the driver's
+    __main__, so this is safe to run concurrently with driver code. The
+    first real worker spawn then skips the server boot."""
+    try:
+        from multiprocessing import forkserver
+
+        from .process_pool import _mp_context
+
+        _mp_context()
+        forkserver.ensure_running()
+    except Exception:  # noqa: BLE001 — warmup is best-effort
+        logger.debug("forkserver preboot failed", exc_info=True)
 
 
 def admits(total: Dict[str, float], available: Dict[str, float],
@@ -309,7 +335,22 @@ class NodeAgent:
         self._actors: Dict[ActorID, _ActorRunner] = {}
         self._lock = threading.Lock()
         self._stopped = threading.Event()
-        require_thread_mode()
+        # CPU-task process pool (config.worker_processes > 0): created lazily
+        # on the first eligible task so thread-mode runtimes pay nothing —
+        # but the forkserver itself pre-boots in the background at agent
+        # creation (the reference PRESTARTS workers, worker_pool.cc), so
+        # most of the spawn cost overlaps driver setup. Only the server
+        # boots here: actually spawning workers would run the __main__
+        # suppression window concurrently with arbitrary driver top-level
+        # code (see process_pool._suppress_main_reimport) — worker spawns
+        # stay inside explicit submission calls.
+        self._pool = None
+        self._pool_lock = threading.Lock()
+        self._warmup: Optional[threading.Thread] = None
+        if config.worker_processes > 0 and config.prestart_worker_processes:
+            self._warmup = threading.Thread(
+                target=_preboot_forkserver, daemon=True, name="pool-warmup")
+            self._warmup.start()
         n_threads = num_task_threads or max(2, int(info.resources_total.get("CPU", 2)))
         self._task_queue: "queue.Queue[Optional[Tuple[TaskSpec, DoneCallback]]]" = queue.Queue()
         self._threads = [
@@ -368,18 +409,28 @@ class NodeAgent:
         if not missing:
             self._enqueue(spec, done)
             return
-        remaining = {"n": len(missing)}
+        remaining = {"n": len(missing), "failed": False}
         lock = threading.Lock()
 
         def on_dep_ready() -> None:
             with lock:
                 remaining["n"] -= 1
-                if remaining["n"] != 0:
+                if remaining["n"] != 0 or remaining["failed"]:
                     return
             self._enqueue(spec, done)
 
+        def on_dep_failed(error: BaseException) -> None:
+            # an argument's task failed for good: this task fails with its
+            # error, once (ROADMAP C19)
+            with lock:
+                if remaining["failed"]:
+                    return
+                remaining["failed"] = True
+            done(TaskResult(spec.task_id, ok=False, error=error,
+                            is_application_error=True))
+
         for dep in missing:
-            self._fetch_async(dep, on_dep_ready)
+            self._fetch_async(dep, on_dep_ready, on_dep_failed)
 
     def _enqueue(self, spec: TaskSpec, done: DoneCallback) -> None:
         if spec.kind is TaskKind.ACTOR_TASK:
@@ -536,11 +587,12 @@ class NodeAgent:
         return self._shape_returns(spec, out)
 
     def _invoke(self, spec: TaskSpec, func, args, kwargs):
-        """Route execution. The reference sends stateless CPU-only tasks to
-        its worker-process pool when `worker_processes` > 0; that pool
-        waits for ROADMAP A5b, so such a task raises here rather than run
-        on a thread in its stead. Device tasks (those that demand "GPU")
-        and actors run on threads in the device-owning process."""
+        """Route execution: stateless CPU-only tasks go to the worker-process
+        pool when enabled (crash isolation, the reference's worker-process
+        model); device tasks (those that demand "GPU") and actors stay on
+        threads in the device-owning process (node_agent docstring). Tasks
+        that can't cross the process boundary (unpicklable closures, refs,
+        tensors off the CPU) fall back to in-process execution."""
         from .runtime_env import resolve, validate
 
         renv = validate(spec.options.runtime_env)
@@ -552,9 +604,34 @@ class NodeAgent:
             and config.worker_processes > 0
             and spec.options.resource_demand().get("GPU", 0.0) <= 0.0
         ):
-            raise NotImplementedError(
-                f"task {spec.name}: worker_processes > 0 sends CPU tasks to a "
-                "worker-process pool, which waits for ROADMAP A5b")
+            from .process_pool import (
+                TaskNotSerializableError,
+                WorkerProcessCrash,
+            )
+
+            pool = self._ensure_pool()
+            if pool is not None:
+                try:
+                    # sealed=True hands back the worker's pickled payload as
+                    # SealedBytes without deserializing in this process —
+                    # _seal_returns stores it as-is (single-return tasks;
+                    # multi-return needs the tuple split, so it deserializes)
+                    return pool.run(
+                        func, tuple(args), dict(kwargs),
+                        sealed=spec.options.num_returns == 1,
+                        runtime_env=renv,
+                    )
+                except TaskNotSerializableError:
+                    if renv:
+                        # isolation was REQUESTED: never silently run without
+                        raise
+                    _pool_fallback_counter.inc(tags={"task": spec.name[:40]})
+                    logger.debug(
+                        "task %s not serializable; executing in-process",
+                        spec.name,
+                    )
+                except WorkerProcessCrash as e:
+                    raise WorkerCrashedError(str(e)) from e
         if renv:
             from .runtime_env import RuntimeEnvError
 
@@ -565,6 +642,37 @@ class NodeAgent:
                 "runtime_env for device work, or drop the constraint."
             )
         return func(*args, **kwargs)
+
+    def _ensure_pool(self):
+        """The shared process pool, acquired at the first CPU task. A pool
+        that cannot be created raises, naming the cause: no CPU task runs
+        on a thread in its stead (a deliberate difference, the reference
+        logs and stays on threads)."""
+        with self._pool_lock:
+            if self._pool is None and not self._stopped.is_set():
+                from .process_pool import (
+                    acquire_shared_pool,
+                    register_inline_only_types,
+                )
+
+                from ..api import ActorHandle
+                from .core_worker import ObjectRef
+
+                register_inline_only_types(ObjectRef, ActorHandle)
+                # refcounted process-wide singleton: virtual nodes share
+                # one OS process, so one pool serves them all
+                self._pool = acquire_shared_pool(config.worker_processes)
+                try:
+                    # host-OOM guard (reference memory_monitor.cc): kills
+                    # the newest pool task under memory pressure; it
+                    # retries via the worker-crash path. The monitor is
+                    # OPTIONAL — its failure must not disable the pool (or
+                    # leak the acquire ref above).
+                    self._pool.ensure_memory_monitor()
+                except Exception:  # noqa: BLE001
+                    logger.warning("memory monitor unavailable",
+                                   exc_info=True)
+            return self._pool or None
 
     def _materialize_args(self, spec: TaskSpec) -> Tuple[tuple, dict]:
         from .core_worker import ObjectRef  # cycle: resolved at call time
@@ -604,6 +712,14 @@ class NodeAgent:
             # the event loop and its coroutines cannot cross an
             # ActorProcess boundary; async actors are in-process by mode
             return False
+        gpu = spec.options.resource_demand().get("GPU", 0.0) > 0.0
+        if spec.options.in_process is False and gpu:
+            # a deliberate difference: the reference lets in_process=False
+            # override its device exemption; here the card belongs to this
+            # process, and CUDA never starts in a child
+            raise ValueError(
+                f"actor {spec.name} demands a GPU and in_process=False: a "
+                "device actor runs in the process that owns the card")
         if spec.options.in_process is not None:
             return not spec.options.in_process
         return (
@@ -616,10 +732,35 @@ class NodeAgent:
         """-> (instance, actor_process_or_None), honoring the isolation
         policy with in-process fallback for unpicklable state."""
         if self._should_isolate(spec):
-            raise NotImplementedError(
-                f"actor {spec.name} would run in its own worker process "
-                "(actor_processes, or in_process=False), which waits for "
-                "ROADMAP A5b")
+            from .actor_process import (
+                ActorNotSerializableError,
+                ActorProcess,
+                _InstanceProxy,
+            )
+            from .runtime_env import resolve, validate
+
+            try:
+                proc = ActorProcess(
+                    spec.func, args, kwargs,
+                    max_concurrency=spec.options.max_concurrency,
+                    runtime_env=resolve(
+                        validate(spec.options.runtime_env), self._cp),
+                )
+                _actors_isolated_counter.inc(tags={"mode": "process"})
+                return _InstanceProxy(
+                    proc, getattr(spec.func, "__name__", "Actor")
+                ), proc
+            except ActorNotSerializableError as e:
+                if spec.options.runtime_env or spec.options.in_process is False:
+                    # isolation was explicitly REQUIRED (env isolation, or
+                    # in_process=False for crash containment): silently
+                    # running in the driver would defeat the request
+                    raise
+                _actors_isolated_counter.inc(tags={"mode": "fallback"})
+                logger.debug(
+                    "actor %s state can't cross a process boundary (%s); "
+                    "running in-process", spec.name, e,
+                )
         else:
             if spec.options.runtime_env:
                 from .runtime_env import RuntimeEnvError
@@ -658,7 +799,12 @@ class NodeAgent:
                 raise WorkerCrashedError("node died during actor creation")
             runner.start(run_one)
             with self._lock:
+                old = self._actors.get(spec.actor_id)
                 self._actors[spec.actor_id] = runner
+            if old is not None and old.dead:
+                # a restart replaces a crashed runner: its lanes end once
+                # they have failed what is left in its mailbox
+                old.stop()
             self._seal_returns(spec, [None])
             _tasks_counter.inc(tags={"outcome": "ok"})
             return TaskResult(spec.task_id, ok=True, values=[None])
@@ -715,6 +861,8 @@ class NodeAgent:
         except (WorkerCrashedError, ActorProcessCrash) as e:
             runner.dead = True
             runner.death_cause = e
+            if runner.process is not None:
+                runner.process.terminate()  # reap the dead child, drop its queues
             _tasks_counter.inc(tags={"outcome": "crashed"})
             done(TaskResult(spec.task_id, ok=False,
                             error=WorkerCrashedError(str(e))))
@@ -851,7 +999,8 @@ class NodeAgent:
             return actor_id in self._actors and not self._actors[actor_id].dead
 
     # ------------------------------------------------------- object transfer
-    def _fetch_async(self, object_id: ObjectID, on_ready: Callable[[], None]) -> None:
+    def _fetch_async(self, object_id: ObjectID, on_ready: Callable[[], None],
+                     on_failed: Optional[Callable[[BaseException], None]] = None) -> None:
         """Pull an object from a remote node's store (the PullManager path,
         `src/ray/object_manager/pull_manager.cc`). In-process 'nodes' share an
         address space so the pull is a store-to-store handoff with byte
@@ -860,6 +1009,10 @@ class NodeAgent:
         def attempt() -> None:
             if self.store.contains(object_id):
                 on_ready()
+                return
+            error = self._directory.failure(object_id)
+            if error is not None and on_failed is not None:
+                on_failed(error)
                 return
             holder = self._directory.locate(object_id, exclude=self.node_id)
             if holder is not None:
@@ -927,6 +1080,14 @@ class NodeAgent:
         # the remote stop frame); a local agent has no one to notify
         del notify
         self._stopped.set()
+        if self._warmup is not None:  # a boot in flight ends before the stop
+            self._warmup.join(timeout=30)
+        with self._pool_lock:
+            pool, self._pool = self._pool, False
+        if pool:
+            from .process_pool import release_shared_pool
+
+            release_shared_pool()
         with self._lock:
             actors = list(self._actors.values())
         for runner in actors:
@@ -966,6 +1127,10 @@ class NodeAgent:
             _release_instance(runner)
 
 
+# failed objects a directory remembers (their errors hold tracebacks)
+_FAILED_KEPT = 4096
+
+
 class ObjectDirectory:
     """Cluster-wide object location registry.
 
@@ -985,6 +1150,10 @@ class ObjectDirectory:
         self._partials: Dict[ObjectID, Dict[NodeID, int]] = {}
         self._agents: Dict[NodeID, NodeAgent] = {}
         self._waiters: Dict[ObjectID, List[Callable[[], None]]] = {}
+        # objects whose producing task failed for good: their error, so a
+        # task waiting on one as an argument fails instead of waiting on
+        # forever (ROADMAP C19; the reference's dependents hang)
+        self._failed: Dict[ObjectID, BaseException] = {}
         # cross-host hook: every add_location also notifies joined worker
         # hosts via pubsub (set by cross_host.enable_cross_host)
         self.on_add: Optional[Callable[[ObjectID, NodeID], None]] = None
@@ -1022,6 +1191,7 @@ class ObjectDirectory:
                 self._partials.setdefault(object_id, {})[node_id] = int(bytes_available)
             return
         with self._lock:
+            self._failed.pop(object_id, None)  # reconstructed after all
             locs = self._locations.setdefault(object_id, [])
             if node_id not in locs:
                 locs.append(node_id)
@@ -1035,6 +1205,21 @@ class ObjectDirectory:
             cb()
         if self.on_add is not None:
             self.on_add(object_id, node_id)
+
+    def mark_failed(self, object_id: ObjectID, error: BaseException) -> None:
+        """The object's producing task failed for good: record the error
+        and wake the tasks waiting on the object, which then fail with it."""
+        with self._lock:
+            self._failed[object_id] = error
+            while len(self._failed) > _FAILED_KEPT:  # the oldest go first
+                del self._failed[next(iter(self._failed))]
+            callbacks = self._waiters.pop(object_id, [])
+        for cb in callbacks:
+            cb()
+
+    def failure(self, object_id: ObjectID) -> Optional[BaseException]:
+        with self._lock:
+            return self._failed.get(object_id)
 
     def remove_location(self, object_id: ObjectID, node_id: NodeID) -> None:
         with self._lock:

@@ -18,7 +18,7 @@ one module:
   lives, who holds it, why" cluster-wide.
 * **Flow accounting** — `record_flow` tags byte/transfer counters with
   `(src, dst, path)` at exactly the sites that increment
-  `object_pull_bytes` (chunked / stripe / relay in object_transfer.py)
+  `object_pull_bytes` (native / chunked / stripe / relay in object_transfer.py)
   plus remote channel sends (channels.py), so the per-edge sums are
   conservative against the pull totals. Window bandwidth gauges
   (`object_flow_window_bps`) ride the same tags; everything federates
@@ -35,7 +35,8 @@ Everything here is gated on `config.object_ledger` (cached ~1s —
 `reload_enabled()` after toggling mid-process, as the bench overhead
 suite does).
 
-The port's copy of ray_tpu/core/object_ledger.py, in thread mode.
+The port's copy of ray_tpu/core/object_ledger.py. A shm store's rows come
+from its handle's own metadata (`ShmObjectStore.ledger_records`).
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ LEAK_KINDS = ("pinned_no_refs", "dead_node_location", "cold_cache")
 _flow_bytes = Counter(
     "object_flow_bytes",
     "Bytes moved per transfer edge, tagged (src, dst, path): path is "
-    "chunked/stripe/relay for object pulls (recorded puller-side at the "
+    "native/chunked/stripe/relay for object pulls (recorded puller-side at the "
     "same sites as object_pull_bytes, so the sums reconcile) and channel "
     "for remote DistChannel sends (recorded sender-side).")
 _flow_transfers = Counter(

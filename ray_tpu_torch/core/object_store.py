@@ -7,9 +7,13 @@ counterpart of upstream ray's Plasma store + LocalObjectManager,
 objects are sealed-once-then-immutable, pinned while referenced, LRU-evicted
 to a disk spill directory under memory pressure, and restored on demand.
 
-``MemoryObjectStore`` is the python-heap store of in-process nodes. The
-reference's C++ shared-memory store (``ray_tpu/core/_shm``) waits for
-ROADMAP A5b.
+Two backends share one interface:
+  * ``MemoryObjectStore`` — python-heap store used by in-process nodes.
+  * The C++ shared-memory store (``ray_tpu_torch/core/_shm``) — mmap'd host
+    shm for cross-process zero-copy, bound via ctypes (see shm_store.py);
+    the worker-process pool and the transfer plane's staging arenas use
+    it, and its ledger records (object_ledger.py) come from the handle's
+    own metadata, since the arena has no enumeration API.
 
 Device trees (a deliberate difference, ROADMAP C). The reference lets
 jax.Array trees through unsealed: they are immutable, and pickling would

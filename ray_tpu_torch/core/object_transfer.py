@@ -13,16 +13,19 @@ Device tensors never cross this plane: this is the HOST object plane (CPU
 tensors, rollouts, checkpoint shards, pickled results) between
 loosely-coupled runtimes.
 
-The port's copy of ray_tpu/core/object_transfer.py, without the native fast
-path and the same-host shm handoff: both stand on the C++ shared-memory
-store (ray_tpu/core/shm_store.py, ray_tpu/core/_shm), which waits for
-ROADMAP A5b and brings them back with it. Every pull takes the chunked path
-over the socket (striped across holders, or down a relay tree), the
-reference's own answer when its native plane is unavailable.
+The port's copy of ray_tpu/core/object_transfer.py, with the native fast
+path (_shm/transfer.cc through shm_store.py: a staged blob streams
+arena-to-arena) and the same-host shm handoff (the puller maps the
+holder's staging arena). Objects past three quarters of STAGING_BYTES, and
+every pull where the native plane is not up yet, take the chunked path
+over the socket (striped across holders, or down a relay tree).
 """
 
 from __future__ import annotations
 
+import hashlib
+import itertools
+import os
 import pickle
 import socket
 import socketserver
@@ -48,12 +51,35 @@ KV_PREFIX = "object_transfer/"  # control-plane KV key prefix for addresses
 # holder-side outstanding-pull load, gossiped so pullers can rank holders
 LOAD_PREFIX = "object_transfer_load/"
 # per-node host identity token (hostname + boot id), advertised so pullers
-# can recognize a same-host holder and rank it first
+# can recognize a same-host holder and rank it first / attach its arena
 HOST_PREFIX = "object_transfer_host/"
 # relay-tree slot claims: object_transfer_relay/{oid_hex}/{slot:06d} ->
 # "address|flow_label|node_hex". Claimed atomically (kv_put overwrite=False)
 # by pullers joining a broadcast; slot k's parent is slot (k-fanout)//fanout
 RELAY_PREFIX = "object_transfer_relay/"
+
+# Native fast path (_shm/transfer.cc): the holder stages the serialized
+# blob in a shm arena once, a C++ thread streams it zero-copy, and the
+# puller lands it straight in its own arena — Python never allocates or
+# copies on the data path. Sized by this env knob; objects larger than
+# the staging arena ride the chunked Python path below.
+STAGING_BYTES = int(os.environ.get("RAY_TPU_TRANSFER_STAGING_BYTES",
+                                   str(256 << 20)))
+
+
+_staging_seq = itertools.count()  # unique arena names (id() can be reused)
+
+
+def _staging_name(tag: str) -> str:
+    return f"/rtt_{tag}_{os.getpid()}_{next(_staging_seq)}"
+
+
+def _stage_id(oid: bytes, raw: bool) -> bytes:
+    """Staging-arena id for (object, raw-flag): sha1 maps the 28-byte
+    ObjectID onto the store's 20-byte ids, deterministically on both ends
+    of the pull. raw=True serves the SEALED payload — a different blob
+    for the same object — so it hashes to a distinct staging id."""
+    return hashlib.sha1(oid + (b"r" if raw else b"")).digest()
 
 _pulled_chunks = Counter(
     "object_transfer_chunks_pulled", "Chunks pulled from remote runtimes."
@@ -97,7 +123,23 @@ class ObjectPullConnectionError(ObjectPullError):
     (plain ObjectPullError — e.g. the object is not there) does not."""
 
 
+_NATIVE_MISS = object()  # sentinel: native path unavailable, use chunks
+_SHM_MISS = object()  # sentinel: same-host arena handoff unavailable
 _RELAY_MISS = object()  # sentinel: relay tree not joined, flat pull
+
+
+def _make_client_native():
+    from .shm_store import NativeTransferClient, ShmObjectStore
+
+    staging = ShmObjectStore(
+        _staging_name("xc"), capacity=STAGING_BYTES, max_objects=1024,
+    )
+    try:
+        native = NativeTransferClient()
+    except Exception:
+        staging.close()
+        raise
+    return staging, native, lambda n: n.close()
 
 
 def _raw_alloc(n: int):
@@ -167,8 +209,10 @@ _host_token_cache: Optional[str] = None
 
 def _host_token() -> str:
     """Stable identity of THIS host across processes: hostname + boot id.
-    Pullers rank a holder with an equal token first (_holder_tier). The
-    boot id guards against recycled hostnames in containers — equal boot
+    Two runtimes with equal tokens share /dev/shm, so a pull between them
+    can attach the holder's staging arena instead of copying over a
+    socket. The boot id guards against recycled hostnames in containers
+    that still don't share a shm namespace-worth of trust — equal boot
     ids on one kernel are the practical same-machine signal."""
     global _host_token_cache
     if _host_token_cache is None:
@@ -208,10 +252,12 @@ def _encode_blob(value: Any) -> bytes:
     return b"".join([_BLOB_MAGIC, _U32.pack(len(meta)), meta, head, *raws])
 
 
-def _decode_blob(blob) -> Any:
-    """Inverse of _encode_blob: buffer-backed leaves come back as
-    read-only views over `blob` (the views keep it alive), so the caller
-    must own the bytes."""
+def _decode_blob(blob, zero_copy: bool = True) -> Any:
+    """Inverse of _encode_blob. zero_copy=True reconstructs buffer-backed
+    leaves as read-only views over `blob` (the views keep it alive) — use
+    when the caller owns the bytes. zero_copy=False materializes copies —
+    required when `blob` is a borrowed mapping (shm arena view) that may
+    be released/unmapped after decode."""
     mv = memoryview(blob)
     if mv.nbytes < 8 or bytes(mv[:4]) != _BLOB_MAGIC:
         return pickle.loads(mv)  # v1 flat pickle
@@ -224,7 +270,7 @@ def _decode_blob(blob) -> Any:
     for n in buf_lens:
         b = mv[off:off + n]
         off += n
-        buffers.append(b.toreadonly())
+        buffers.append(b.toreadonly() if zero_copy else bytes(b))
     return pickle.loads(head, buffers=buffers)
 
 
@@ -300,6 +346,12 @@ class _TransferHandler(socketserver.BaseRequestHandler):
             size = partial.total if partial is not None else \
                 len(server._blob_for(oid_hex, raw=raw))
             return {"id": req["id"], "ok": True, "value": size}
+        if method == "stage":
+            oid_hex, raw = req["args"]
+            size, native_port, shm = server._stage(oid_hex, bool(raw))
+            return {"id": req["id"], "ok": True,
+                    "value": {"size": size, "native_port": native_port,
+                              "shm": shm}}
         if method == "chunk":
             oid_hex, offset, length, *rest = req["args"]
             view = server._read_range(oid_hex, bool(rest and rest[0]),
@@ -315,6 +367,91 @@ class _TransferHandler(socketserver.BaseRequestHandler):
             # can rank them directly (the KV gossip is the cached form)
             return {"id": req["id"], "ok": True, "value": server.outstanding}
         raise WireError(f"unknown method {method!r}")
+
+
+class _NativePlane:
+    """Owns one side's native-path pair (staging arena + C++ endpoint)
+    with the init/commit/teardown choreography the server and client
+    share. `make()` runs on a background thread (a cold environment may
+    have to COMPILE the shm library — no request or pull ever waits on
+    that); `acquire()/release()` hold a use count so `teardown()` never
+    munmaps the arena under an in-flight, GIL-released native call."""
+
+    def __init__(self, name: str, make):
+        self._name = name
+        self._make = make  # () -> (staging, native, stop_native)
+        self.staging = None
+        self.native = None
+        self._stop_native = None
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self._closed = False
+        self._started = False
+        self._users = 0
+
+    def start_async(self) -> None:
+        with self._lock:
+            if self._started or self._closed:
+                return
+            self._started = True
+        threading.Thread(target=self._init, daemon=True,
+                         name=self._name).start()
+
+    def _init(self) -> None:
+        try:
+            staging, native, stop_native = self._make()
+        except Exception:  # noqa: BLE001 — the chunked path remains
+            logger.warning("%s unavailable", self._name, exc_info=True)
+            return
+        with self._lock:
+            if not self._closed:
+                self.staging = staging
+                self.native = native
+                self._stop_native = stop_native
+                return
+        stop_native(native)  # teardown() won the race
+        staging.close()
+
+    def acquire(self):
+        """-> (native, staging) with a use hold, or (None, None). A
+        non-None acquire MUST be paired with release()."""
+        with self._lock:
+            if self._closed or self.native is None:
+                return None, None
+            self._users += 1
+            return self.native, self.staging
+
+    def release(self) -> None:
+        with self._lock:
+            self._users -= 1
+            if self._users == 0:
+                self._cond.notify_all()
+
+    def teardown(self, wait_s: float = 5.0) -> None:
+        with self._lock:
+            self._closed = True
+            native, staging = self.native, self.staging
+            stop_native = self._stop_native
+            self.native = self.staging = self._stop_native = None
+            deadline = time.monotonic() + wait_s
+            while self._users > 0:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    # leaking the MAPPING beats munmapping it under a live
+                    # native call (use-after-unmap in the C recv/send) —
+                    # but the /dev/shm NAME must still go, or the segment
+                    # outlives the process and fills /dev/shm on restarts
+                    logger.warning("%s busy at teardown; leaking arena "
+                                   "mapping (name unlinked)", self._name)
+                    if staging is not None:
+                        staging.unlink_name()
+                    native = staging = None
+                    break
+                self._cond.wait(left)
+        if native is not None:
+            stop_native(native)
+        if staging is not None:
+            staging.close()
 
 
 class _Partial:
@@ -365,6 +502,9 @@ class ObjectTransferServer(socketserver.ThreadingTCPServer):
         self._load = 0
         self._load_lock = threading.Lock()
         self._gossip_stop = threading.Event()
+        self._plane = _NativePlane("native-transfer-server",
+                                   self._make_native)
+        self._plane.start_async()
         self._thread = threading.Thread(
             target=self.serve_forever, daemon=True, name="object-transfer"
         )
@@ -401,6 +541,64 @@ class ObjectTransferServer(socketserver.ThreadingTCPServer):
 
         threading.Thread(target=loop, daemon=True,
                          name="transfer-load-gossip").start()
+
+    def _make_native(self):
+        from .shm_store import NativeTransferServer, ShmObjectStore
+
+        staging = ShmObjectStore(
+            _staging_name("xs"), capacity=STAGING_BYTES, max_objects=1024,
+        )
+        try:
+            native = NativeTransferServer(staging,
+                                          host=self.server_address[0])
+        except Exception:
+            staging.close()
+            raise
+        logger.info("native transfer plane on port %d", native.port)
+        return staging, native, lambda n: n.stop()
+
+    def _stage(self, oid_hex: str, raw: bool) \
+            -> Tuple[int, Optional[int], Optional[dict]]:
+        """Ensure the blob for (oid, raw) sits in the staging arena; ->
+        (size, native_port, shm). native_port None = use the chunked
+        path. `shm` carries the arena name + host token once the blob is
+        staged, so a same-host puller can map it directly (zero-copy
+        handoff) instead of copying over any socket."""
+        partial = self._partial_for(oid_hex, raw)
+        if partial is not None and not partial.done:
+            # mid-relay: serve the committed prefix over the chunk lane
+            return partial.total, None, None
+        try:
+            sid = _stage_id(ObjectID.from_hex(oid_hex).binary(), raw)
+        except (ValueError, TypeError):
+            sid = None  # non-ObjectID key: chunked path only
+        native, staging = self._plane.acquire() if sid is not None \
+            else (None, None)
+        if native is None:
+            return len(self._blob_for(oid_hex, raw=raw)), None, None
+        shm_info = {"arena": staging.name, "token": _host_token()}
+        try:
+            view = staging.get_view(sid)
+            if view is not None:  # already staged: size from the arena,
+                try:              # no re-pickle of the value
+                    return len(view), native.port, shm_info
+                finally:
+                    staging.release(sid)
+            blob = self._blob_for(oid_hex, raw=raw)
+            if len(blob) > (STAGING_BYTES * 3) // 4:
+                return len(blob), None, None
+            try:
+                staging.put(sid, blob)
+            except Exception:  # noqa: BLE001 — races/arena pressure
+                if not staging.contains(sid):
+                    return len(blob), None, None  # cannot stage: chunked
+            # the arena copy now serves all pulls; dropping the byte-cache
+            # entry halves holder-side residency for large objects
+            with self._cache_lock:
+                self._blob_cache.pop((oid_hex, raw), None)
+            return len(blob), native.port, shm_info
+        finally:
+            self._plane.release()
 
     # -- relay partials -----------------------------------------------------
 
@@ -528,6 +726,7 @@ class ObjectTransferServer(socketserver.ThreadingTCPServer):
                 p.cond.notify_all()
         self.shutdown()
         self.server_close()
+        self._plane.teardown()
 
 
 class _PoolSlot:
@@ -669,6 +868,14 @@ class ObjectTransferClient:
         self._global_lock = threading.Lock()
         self._next_id = 0
         self._closed = False
+        self._plane = _NativePlane("native-transfer-client",
+                                   _make_client_native)
+        self._inflight: set = set()  # sids being pulled by THIS client
+        self._inflight_lock = threading.Lock()
+        # same-host staging arenas attached by name (zero-copy handoff);
+        # None marks an arena that failed to attach, so we don't re-dial it
+        self._arenas: Dict[str, Any] = {}
+        self._arena_lock = threading.Lock()
         # flow-accounting identity of the pulling side; empty means the
         # process-wide node id (set per-client in tests/benches that run
         # several logical pullers in one process)
@@ -735,15 +942,47 @@ class ObjectTransferClient:
     def pull(self, address: str, object_id, raw: bool = False,
              peers: Sequence[str] = (), src_node: str = "") -> Any:
         """Pull one object from the holder at `address`; returns the value
-        (raw=True: the sealed payload, store.get_raw parity): ~1MB chunks,
-        pipelined `chunk_window` requests deep per connection; large pulls
-        stripe byte ranges across `peers` that also hold the object
-        (pull_from_any passes the ranked remainder)."""
+        (raw=True: the sealed payload, store.get_raw parity).
+
+        Fast path: one "stage" round trip on the control connection, then
+        the C++ plane streams the blob arena-to-arena (_shm/transfer.cc)
+        and the value unpickles from a zero-copy view. Fallback: ~1MB
+        chunks, pipelined `chunk_window` requests deep per connection;
+        large fallback pulls stripe byte ranges across `peers` that also
+        hold the object (pull_from_any passes the ranked remainder)."""
         oid_hex = object_id.hex() if hasattr(object_id, "hex") else str(object_id)
         src_node = src_node or object_ledger.peer_node(address)
         t0 = time.monotonic()
         with _pull_inflight.track():
-            total = self._call(address, "meta", oid_hex, raw)
+            shm = None
+            try:
+                staged = self._call(address, "stage", oid_hex, raw)
+                total, native_port = staged["size"], staged["native_port"]
+                shm = staged.get("shm")
+            except ObjectPullError as e:
+                if "unknown method" not in str(e):
+                    raise
+                # holder predates the staged protocol: chunked via "meta"
+                total, native_port = self._call(address, "meta", oid_hex,
+                                                raw), None
+            if (shm is not None and config.object_transfer_shm_handoff
+                    and shm.get("token") == _host_token()):
+                # same host: map the holder's staging arena and decode in
+                # place — zero socket bytes, so none of the transfer
+                # counters/flow edges move (the flow matrix showing no
+                # self-edge traffic is the regression-tested contract)
+                value = self._pull_shm(shm.get("arena"), oid_hex, raw)
+                if value is not _SHM_MISS:
+                    _pull_seconds.observe(time.monotonic() - t0,
+                                          {"path": "shm"})
+                    return value
+            if native_port is not None:
+                value = self._pull_native(address, native_port, oid_hex, raw,
+                                          total, src_node)
+                if value is not _NATIVE_MISS:
+                    _pull_seconds.observe(time.monotonic() - t0,
+                                          {"path": "native"})
+                    return value
             blob = None
             if (peers and total >= config.object_transfer_stripe_min_bytes):
                 blob = self._pull_striped(address, peers, oid_hex, raw, total,
@@ -753,6 +992,50 @@ class ObjectTransferClient:
                                           src_node=src_node)
             _pull_seconds.observe(time.monotonic() - t0, {"path": "chunked"})
             return _decode_blob(blob)
+
+    def _attach_arena(self, name: str):
+        """Attach (once) a same-host holder's staging arena by name."""
+        from .shm_store import ShmObjectStore
+
+        with self._arena_lock:
+            if name in self._arenas:
+                return self._arenas[name]
+        try:
+            store = ShmObjectStore(name, create=False)
+        except Exception:  # noqa: BLE001 — arena gone/renamed: socket path
+            store = None
+        with self._arena_lock:
+            return self._arenas.setdefault(name, store)
+
+    def _pull_shm(self, arena_name: Optional[str], oid_hex: str,
+                  raw: bool) -> Any:
+        """Zero-socket same-host pull: read the staged blob straight out
+        of the holder's shm arena. Buffers are copied out of the mapping
+        during decode (the arena may evict the entry after release), but
+        no byte ever crosses a socket. Returns _SHM_MISS when the arena
+        or the staged entry is unavailable."""
+        if not arena_name:
+            return _SHM_MISS
+        store = self._attach_arena(arena_name)
+        if store is None:
+            return _SHM_MISS
+        try:
+            sid = _stage_id(ObjectID.from_hex(oid_hex).binary(), raw)
+        except (ValueError, TypeError):
+            return _SHM_MISS
+        try:
+            view = store.get_view(sid)
+        except Exception:  # noqa: BLE001 — holder tore the arena down
+            return _SHM_MISS
+        if view is None:
+            return _SHM_MISS
+        try:
+            return _decode_blob(view, zero_copy=False)
+        finally:
+            try:
+                store.release(sid)
+            except Exception:  # noqa: BLE001 — release is best-effort
+                pass
 
     def _pull_chunked(self, address: str, oid_hex: str, raw: bool,
                       start: int, end: int, src_node: str = "",
@@ -918,9 +1201,99 @@ class ObjectTransferClient:
             return None
         return buf
 
+    def _pull_native(self, address: str, native_port: int, oid_hex: str,
+                     raw: bool, total: int, src_node: str = "") -> Any:
+        """One native arena-to-arena pull; returns _NATIVE_MISS to send the
+        caller down the chunked path (never raises for availability-class
+        failures — the chunked path is the answer to all of them)."""
+        from .shm_store import PullRejected, ShmStoreError
+
+        self._plane.start_async()  # idempotent; first pull rides chunks
+        native, staging = self._plane.acquire()
+        if native is None:
+            return _NATIVE_MISS
+        host = address.rpartition(":")[0]
+        try:
+            sid = _stage_id(ObjectID.from_hex(oid_hex).binary(), raw)
+        except (ValueError, TypeError):
+            self._plane.release()
+            return _NATIVE_MISS
+        try:
+            transferred = False
+            if not staging.contains(sid):
+                with self._inflight_lock:
+                    winner = sid not in self._inflight
+                    if winner:
+                        self._inflight.add(sid)
+                if not winner:
+                    # another thread of THIS client is pulling the same
+                    # object (clients never share staging arenas, so this
+                    # is the only duplicate source): wait for it to finish
+                    # rather than re-downloading the same bytes
+                    deadline = time.monotonic() + 30.0
+                    while time.monotonic() < deadline:
+                        with self._inflight_lock:
+                            if sid not in self._inflight:
+                                break
+                        time.sleep(0.01)
+                    if not staging.contains(sid):
+                        return _NATIVE_MISS  # winner failed; use chunks
+                else:
+                    try:
+                        n = native.pull_into(host, native_port, sid, staging)
+                        if n is None:
+                            # staged blob evicted between stage and pull:
+                            # restage once (the holder re-pins it), then
+                            # give up to chunks. The holder may have
+                            # restarted its native plane (or resealed a
+                            # different-size blob) since the first stage —
+                            # retry against the RESPONSE's port/size, not
+                            # the stale ones
+                            restaged = self._call(address, "stage", oid_hex,
+                                                  raw)
+                            native_port = restaged.get("native_port")
+                            total = restaged.get("size", total)
+                            if native_port is None:
+                                return _NATIVE_MISS
+                            n = native.pull_into(host, native_port, sid,
+                                                 staging)
+                            if n is None:
+                                return _NATIVE_MISS
+                        transferred = True
+                    finally:
+                        with self._inflight_lock:
+                            self._inflight.discard(sid)
+            view = staging.get_view(sid)
+            if view is None:
+                return _NATIVE_MISS  # evicted locally before the read
+            try:
+                value = _decode_blob(view, zero_copy=False)
+            finally:
+                # release the pin but keep the sealed blob: concurrent and
+                # repeat pulls of the same (immutable) object hit it here,
+                # and the arena's LRU/slot eviction bounds total residency
+                staging.release(sid)
+            if transferred:  # count only bytes that crossed the network
+                _pulled_chunks.inc()
+                _pulled_bytes.inc(total)
+                _pull_bytes.inc(total)
+                object_ledger.record_flow(
+                    src_node or object_ledger.peer_node(address),
+                    self._flow_dst(), "native", total, transfers=1)
+            return value
+        except PullRejected:
+            return _NATIVE_MISS  # does not fit the local arena
+        except ShmStoreError as e:
+            logger.warning("native pull from %s:%d failed (%s); "
+                           "falling back to chunks", host, native_port, e)
+            return _NATIVE_MISS
+        finally:
+            self._plane.release()
+
     def close(self) -> None:
         """Close every pooled connection (including ones held by in-flight
-        pulls, which fail fast with a connection error). Safe to race with concurrent pulls: each socket is
+        pulls, which fail fast with a connection error) and tear down the
+        native plane. Safe to race with concurrent pulls: each socket is
         tracked in exactly one pool slot from dial to close, so nothing
         leaks even if a pull checked its socket out before we got here."""
         with self._global_lock:
@@ -929,6 +1302,14 @@ class ObjectTransferClient:
             self._pools.clear()
         for pool in pools:
             pool.close()
+        # arena attachments: DROP the references, never close() them here.
+        # A concurrent _pull_shm may be mid-read of a view into the
+        # mapping; munmapping under it is a segfault. The holder owns the
+        # segment — each attachment unmaps via __del__ once its last
+        # in-flight reader drops the reference.
+        with self._arena_lock:
+            self._arenas.clear()
+        self._plane.teardown()
 
 
 def serve_object_transfer(runtime, host: str = "127.0.0.1",
@@ -954,8 +1335,9 @@ _default_client_lock = threading.Lock()
 
 
 def _shared_client() -> ObjectTransferClient:
-    """Process-wide default puller. Long-lived so its pooled connections
-    amortize across calls."""
+    """Process-wide default puller. Long-lived so the native path's
+    connections and staging arena amortize across calls — a per-call
+    client would pay arena setup/teardown per object."""
     global _default_client
     with _default_client_lock:
         if _default_client is None:
@@ -965,7 +1347,7 @@ def _shared_client() -> ObjectTransferClient:
 
 def _holder_tier(control_plane, node_hex: str, local_token: str,
                  local_slice) -> int:
-    """Locality tier of a holder: 0 same host, 1 same
+    """Locality tier of a holder: 0 same host (shm distance), 1 same
     slice/pod (ICI-adjacent hosts), 2 everything else. Missing topology
     info degrades to tier 2 — ranking is advisory, never correctness."""
     try:
@@ -1080,9 +1462,16 @@ def _relay_pull(control_plane, client, object_id, holders, relay_server,
     if not holders:
         return _RELAY_MISS
     try:
-        total = client._call(holders[0], "meta", oid_hex, True)
+        staged = client._call(holders[0], "stage", oid_hex, True)
+        total = staged["size"]
+        shm = staged.get("shm")
     except ObjectPullError:
         return _RELAY_MISS
+    except (KeyError, TypeError):
+        return _RELAY_MISS  # pre-staged-protocol holder
+    if (shm is not None and config.object_transfer_shm_handoff
+            and shm.get("token") == _host_token()):
+        return _RELAY_MISS  # same host: the zero-copy handoff wins
     if total < int(config.object_relay_min_bytes):
         return _RELAY_MISS
     fanout = max(1, int(config.object_broadcast_fanout))

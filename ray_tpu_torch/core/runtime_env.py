@@ -41,10 +41,10 @@ wheel paths work offline; index-backed requirements need egress.
 Schema: {"env_vars": {str: str}, "working_dir": str,
 "working_dir_uri": "kv://<sha>", "py_modules": [str], "pip": [str]}.
 
-The port's copy of ray_tpu/core/runtime_env.py. In thread mode (the
-port's only mode until ROADMAP A5b brings the process pool) every task and
-actor runs in-process, so a runtime_env is refused except on a streaming
-task, as the reference refuses it for device work.
+The port's copy of ray_tpu/core/runtime_env.py. `applied(renv)` runs in
+the worker process around each pool task, and for the life of an actor
+process; a task or actor that runs in-process (device work, thread mode)
+refuses a runtime_env, as the reference does.
 """
 
 from __future__ import annotations

@@ -112,8 +112,8 @@ class TaskOptions:
     runtime_env: Optional[Dict[str, Any]] = None
     max_concurrency: int = 1  # actors only
     # actors only: None = policy decides (CPU actors isolate into a worker
-    # process once A5b ports them; device actors stay in-process); True
-    # forces in-process
+    # process; device actors stay in-process); True forces in-process,
+    # False forces a process (refused for a device actor)
     in_process: Optional[bool] = None
 
     def resource_demand(self) -> Dict[str, float]:

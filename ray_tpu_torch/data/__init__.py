@@ -5,7 +5,8 @@ windows; `iter_device_batches` stages host batches in pinned memory and
 copies them to the card on a side stream ahead of the consumer, so
 training steps never stall on input.
 
-The port's copy of ray_tpu/data, on the thread-mode runtime, with the
+The port's copy of ray_tpu/data, on the port's runtime (its tasks in
+worker processes and its actor pool in actor processes by default), with the
 shared ingest service (`ingest.py`: IngestClient, IngestIterator,
 IngestService, get_ingest_service, shutdown_ingest_service) and its
 fair-share tenants (`tenant.py`: TenantSpec).

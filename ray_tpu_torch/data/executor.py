@@ -7,8 +7,10 @@ downstream consumption pulls blocks through, so memory stays bounded and
 CPU preprocessing overlaps device compute (the input-pipeline property the
 card cares about).
 
-The port's copy of ray_tpu/data/executor.py, on the port's thread-mode
-runtime: every task and pool actor runs on a node agent's thread.
+The port's copy of ray_tpu/data/executor.py. Its tasks run in the
+runtime's worker processes and its actor-pool workers in actor processes
+when `worker_processes`/`actor_processes` are on (the defaults), on the
+node agents' threads otherwise.
 """
 
 from __future__ import annotations
@@ -227,11 +229,17 @@ def _run_stage(stage: Callable[[Block], Block], block: Block) -> Block:
     return stage(block)
 
 
-@api.remote(num_cpus=0, in_process=True)
+@api.remote(num_cpus=0, max_restarts=3, max_task_retries=3)
 class _MapPoolWorker:
     """One stateful worker of an actor-pool map stage: a callable-class
     fn constructs ONCE here, then transforms every block this worker is
-    assigned (reference: ActorPoolMapOperator's per-actor UDF init)."""
+    assigned (reference: ActorPoolMapOperator's per-actor UDF init).
+
+    A deliberate difference: the reference pins these workers in-process;
+    here they follow the runtime's actor policy, so under `actor_processes`
+    each is an actor process (a crash kills one worker, which restarts
+    and retries its block). A transform that needs the card belongs in the
+    driver's process: run it in thread mode or after the pipeline."""
 
     def __init__(self, op_blob: bytes):
         import dataclasses
@@ -324,7 +332,7 @@ def _windowed_gen(read_tasks: List[Callable], max_in_flight: int,
     """Submit read tasks with a bounded window; yield block REFS. Tasks
     marked ``.streaming`` (generators of blocks) run as streaming-
     generator tasks — their refs surface while the task still executes;
-    plain tasks take the ordinary task path (retries).
+    plain tasks take the ordinary path (worker-process pool, retries).
 
     Ordered (default): task 0's blocks, then task 1's, ... — a slow task
     0 head-of-line blocks the stream even while peers have sealed output.
@@ -423,7 +431,7 @@ class StreamingExecutor:
         if isinstance(source, Read):
             # generator-valued read tasks stream their blocks out
             # incrementally; plain tasks go through the ordinary task
-            # path (retries)
+            # path (worker-process pool, retries)
             stream: Iterator[Any] = _windowed_gen(
                 source.read_tasks, self.max_in_flight, self.preserve_order,
                 tenant=self.tenant)

@@ -14,7 +14,8 @@ Usage inside train_loop_per_worker:
 
 `lm` trains the decoder on one device. The gang (`TorchTrainer`, its
 configs, session, checkpoints) is the port's copy of ray_tpu/train on the
-thread-mode runtime, with the logger callbacks (`integrations.py`:
+port's runtime (GPU members on threads in the process that owns the card),
+with the logger callbacks (`integrations.py`:
 MLflowLoggerCallback, WandbLoggerCallback, in their local-file layout when
 the client library is absent). The pipeline trainer (`train/pipeline.py`)
 waits for ROADMAP A7b.

@@ -5,10 +5,11 @@ ScalingConfig/RunConfig/FailureConfig/CheckpointConfig`.
 
 The port's copy of ray_tpu/train/config.py. A worker asks for a "GPU"
 where the reference's asks for a "TPU" (`use_gpu` for `use_tpu`). What
-needs more than one device or more than one process waits: a mesh shape
-or a slice topology and the multi-host bootstrap for ROADMAP A7b, actor
-processes for the gang members for A5b; each raises NotImplementedError
-when set.
+needs more than one device waits: a mesh shape or a slice topology and the
+multi-host bootstrap for ROADMAP A7b; each raises NotImplementedError when
+set. `workers_in_process=False` puts CPU gang members in actor processes,
+as the reference does; with `use_gpu=True` it raises ValueError, a
+deliberate difference: the card belongs to the driver's process.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ class ScalingConfig:
     in the process that owns the card.
     use_gpu: each member holds one "GPU" (and one "CPU").
     mesh_shape, topology, distributed_bootstrap=True: wait for ROADMAP A7b
-    (meshes, the multi-host bootstrap); workers_in_process=False waits for
-    A5b (actor processes). None leaves the members in process.
+    (meshes, the multi-host bootstrap). workers_in_process=False puts CPU
+    members in actor processes (refused with use_gpu=True); None leaves
+    the members in process.
     """
 
     num_workers: int = 1
@@ -48,10 +50,11 @@ class ScalingConfig:
             raise NotImplementedError(
                 "ScalingConfig(distributed_bootstrap=True): the multi-host bootstrap "
                 "(comm/bootstrap.py) waits for ROADMAP A7b")
-        if self.workers_in_process is False:
-            raise NotImplementedError(
-                "ScalingConfig(workers_in_process=False): actor processes wait for "
-                "ROADMAP A5b; gang members run on the node agents' threads")
+        if self.workers_in_process is False and self.use_gpu:
+            raise ValueError(
+                "ScalingConfig(use_gpu=True, workers_in_process=False): a GPU gang "
+                "member runs in the process that owns the card, never in an actor "
+                "process")
 
     def worker_resources(self) -> Dict[str, float]:
         if self.resources_per_worker is not None:

@@ -2,8 +2,9 @@
 Ray Tune A5): search spaces, random/grid suggestion, ASHA + PBT schedulers,
 session-based reporting shared with ray_tpu_torch.train.
 
-The port's copy of ray_tpu/tune on the thread-mode runtime: trials are
-actors whose lanes run in the process that owns the card, and
+The port's copy of ray_tpu/tune on the port's runtime: trials are actors
+(two lanes, so in-process under either mode) in the process that owns the
+card, and
 `resources_per_trial={"GPU": 0.25}` packs four on one card."""
 
 from ..train.session import get_checkpoint, get_context, report  # noqa: F401

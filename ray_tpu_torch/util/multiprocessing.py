@@ -7,9 +7,9 @@ worker-process pool supplies the actual process isolation, so this shim
 is thin — argument batching, ordered/unordered result iteration, and the
 context-manager/terminate lifecycle.
 
-The port's copy of ray_tpu/util/multiprocessing.py. Until ROADMAP A5b the
-port runs every task on the node agent's threads, so a Pool's tasks share
-the driver's process.
+The port's copy of ray_tpu/util/multiprocessing.py. Its tasks run in the
+runtime's forked worker processes (`worker_processes` > 0, the default);
+in thread mode they share the driver's process.
 """
 
 from __future__ import annotations

@@ -18,3 +18,67 @@ def _fresh_metric_registries():
 
     jregistry.fresh()
     tregistry.fresh()
+
+
+def descendants(pid=None) -> dict:
+    """{pid: command line} of every live (not zombie) descendant of `pid`
+    (this process by default), read from /proc."""
+    import os
+
+    parents, cmds = {}, {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if fields[0] != "Z":
+            parents[int(entry)], cmds[int(entry)] = int(fields[1]), cmd
+    root = os.getpid() if pid is None else pid
+    out, frontier = {}, [root]
+    while frontier:
+        p = frontier.pop()
+        for child, parent in parents.items():
+            if parent == p and child not in out:
+                out[child] = cmds[child]
+                frontier.append(child)
+    return out
+
+
+def boot_forkserver():
+    """Boot the interpreter's one forkserver with both packages preloaded,
+    so the workers of either fork warm. Whichever package boots it
+    otherwise decides its preload, and the other's workers then import
+    their package on each fork. A server left idle by an earlier test is
+    stopped first."""
+    from multiprocessing import forkserver
+
+    from ray_tpu_torch.core.process_pool import stop_forkserver
+
+    stop_forkserver(wait_s=0.0)
+    forkserver.set_forkserver_preload(
+        ["ray_tpu.core._pdeathsig", "ray_tpu_torch.core._pdeathsig"])
+    forkserver.ensure_running()
+
+
+@pytest.fixture(scope="module")
+def no_process_left():
+    """Fails the module if a process it started outlives it (waiting up to
+    10 s): multiprocessing's resource tracker alone may stay, since it is
+    one per interpreter."""
+    import time
+
+    before = set(descendants())
+    yield
+    deadline = time.monotonic() + 10
+    while True:
+        left = {p: c for p, c in descendants().items()
+                if p not in before and "resource_tracker" not in c}
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    assert not left, f"processes outlived the module: {left}"

@@ -6,10 +6,13 @@ tensors, which are mutable: a CPU tensor is sealed like numpy, a tree that
 holds a tensor off the CPU passes through by reference (the `meta` device
 stands in for CUDA here; tests/test_torch_kernels.py holds the CUDA case on
 the card). Also pinned: a num_gpus task fails fast as infeasible on a box
-without a card, and the process flags (ROADMAP A5b) and the cross-host,
-persistence, federation, RPC, profiling and compiled-graph entry points
-(A5c) raise NotImplementedError naming their item.
+without a card, the process flags start the worker-process pool and actor
+processes (from system_config or the environment), and the cross-host,
+persistence, federation, RPC and profiling entry points (A5c) raise
+NotImplementedError naming their item.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -122,23 +125,47 @@ def test_gpu_task_without_a_card_is_infeasible_as_in_the_reference():
     assert "infeasible" in port[0] and "GPU" not in port[1]
 
 
-@pytest.mark.parametrize("flags", [{"worker_processes": 2}, {"actor_processes": True}],
+def _pid():
+    return os.getpid()
+
+
+class _Where:
+    def pid(self):
+        return os.getpid()
+
+
+@pytest.mark.parametrize("flags", [{"worker_processes": 2, "actor_processes": False},
+                                   {"worker_processes": 0, "actor_processes": True}],
                          ids=["worker_processes", "actor_processes"])
-def test_process_flags_raise_naming_a5b(flags):
+def test_process_flags_start_the_pool_and_actor_processes(flags):
     ray_tpu_torch.shutdown()
-    with pytest.raises(NotImplementedError, match="A5b"):
-        ray_tpu_torch.init(system_config=flags)
-    assert not ray_tpu_torch.is_initialized() and tconfig._overrides == {}
+    ray_tpu_torch.init(num_cpus=2, system_config=flags)
+    try:
+        task = ray_tpu_torch.get(ray_tpu_torch.remote(_pid).remote(), timeout=60)
+        actor = ray_tpu_torch.remote(_Where).remote()
+        home = ray_tpu_torch.get(actor.pid.remote(), timeout=60)
+        # each flag moves its own kind of work out of this process, alone
+        assert (task != os.getpid()) == bool(flags["worker_processes"])
+        assert (home != os.getpid()) == flags["actor_processes"]
+    finally:
+        ray_tpu_torch.shutdown()
+    assert tconfig._overrides == {}
 
 
-def test_process_flag_from_the_environment_raises(monkeypatch):
+def test_process_flag_from_the_environment_starts_the_pool(monkeypatch):
     ray_tpu_torch.shutdown()
     monkeypatch.setenv("RAY_TPU_WORKER_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="A5b"):
-        ray_tpu_torch.init()
-    with pytest.raises(NotImplementedError, match="A5b"):
-        ray_tpu_torch.cluster_utils.Cluster()
-    assert not ray_tpu_torch.is_initialized()
+    monkeypatch.setenv("RAY_TPU_ACTOR_PROCESSES", "0")
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        assert ray_tpu_torch.get(ray_tpu_torch.remote(_pid).remote(), timeout=60) != os.getpid()
+    finally:
+        ray_tpu_torch.shutdown()
+    cluster = ray_tpu_torch.cluster_utils.Cluster()
+    try:
+        assert cluster.runtime.driver_agent._ensure_pool().num_workers == 2
+    finally:
+        cluster.shutdown()
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -176,18 +203,20 @@ def test_in_process_runtime_refuses_what_waits(runtime):
 
     node = a.ping.bind()
     assert isinstance(node, MethodNode) and node.method == "ping" and node.args == ()
-    # an actor that asks for its own process gets an error, not a thread
+    # an actor that asks for its own process gets one, even in thread mode
     b = Isolated.options(in_process=False).remote()
-    with pytest.raises(ray_tpu_torch.RayActorError, match="A5b"):
-        ray_tpu_torch.get(b.ping.remote(), timeout=WAIT_S)
+    assert ray_tpu_torch.get(b.ping.remote(), timeout=WAIT_S) == 1
+    assert "worker process" in repr(runtime.driver_agent._actors[b._actor_id].instance)
     assert ray_tpu_torch.get(a.ping.remote(), timeout=WAIT_S) == 1
 
 
-def test_transfer_plane_pulls_over_the_chunked_path(runtime):
-    # the host plane between runtimes, on localhost: the native path waits
-    # for A5b, so a pull rides ~chunk_bytes chunks over the socket
+def test_transfer_plane_pulls_over_the_chunked_path(runtime, monkeypatch):
+    # the host plane between runtimes, on localhost: an object past three
+    # quarters of the staging arena rides ~chunk_bytes chunks over the
+    # socket (tests/test_torch_transfer_native.py holds the native path)
     from ray_tpu_torch.core import object_transfer
 
+    monkeypatch.setattr(object_transfer, "STAGING_BYTES", 1 << 20)
     value = {"a": np.arange(300_000, dtype=np.float64), "t": torch.arange(7)}
     ref = ray_tpu_torch.put(value)
     server = object_transfer.serve_object_transfer(runtime, "127.0.0.1", 0)
@@ -204,9 +233,14 @@ def test_transfer_plane_pulls_over_the_chunked_path(runtime):
 
 
 @pytest.fixture
-def small_pull_runtime():
+def small_pull_runtime(monkeypatch):
     # striping and the relay tree start at 8 and 4 MiB by default; lowered
-    # here so a small object takes those paths
+    # here so a small object takes those paths, and the staging arena with
+    # them, so the object is too large to stage (as the reference's tests
+    # do): a staged one goes native, or through the same-host handoff
+    from ray_tpu_torch.core import object_transfer
+
+    monkeypatch.setattr(object_transfer, "STAGING_BYTES", 1 << 20)
     ray_tpu_torch.shutdown()
     rt = ray_tpu_torch.init(num_cpus=2, system_config=dict(
         THREAD_MODE, object_transfer_stripe_min_bytes=0,

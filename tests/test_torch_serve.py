@@ -208,9 +208,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     # nor protobuf);
     # then it starts the runtime (a task, an actor, a compiled graph, the
     # virtual cluster, the training gang, the ingest service, a Tuner, a
-    # Pool and a logger)
+    # Pool and a logger), then a runtime in process mode, where a pool
+    # worker and an actor process must not load them either
     code = (
-        "import json, sys\n"
+        "import json, os, sys\n"
         "import ray_tpu_torch, ray_tpu_torch.serve, ray_tpu_torch.models, ray_tpu_torch.train\n"
         "import ray_tpu_torch.data, ray_tpu_torch.train.trainer, ray_tpu_torch.train.checkpoint\n"
         "import ray_tpu_torch.tune, ray_tpu_torch.util, ray_tpu_torch.train.integrations\n"
@@ -327,6 +328,23 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "    assert g.get_best_result().config['x'] == 1\n"
         "    with util.Pool(processes=2) as pool:\n"
         "        assert pool.map(abs, [-1, -2]) == [1, 2]\n"
+        "finally:\n"
+        "    ray_tpu_torch.api.shutdown()\n"
+        "def modules():\n"
+        "    import os, sys\n"
+        "    return os.getpid(), sorted(m for m in sys.modules if m == 'jax' or\n"
+        "                               m.startswith('jax.') or m == 'ray_tpu' or\n"
+        "                               m.startswith('ray_tpu.'))\n"
+        "ray_tpu_torch.api.init(num_cpus=2, system_config={'worker_processes': 1})\n"
+        "try:\n"
+        "    pid, loaded = ray_tpu_torch.get(ray_tpu_torch.remote(modules).remote(), timeout=60)\n"
+        "    assert pid != os.getpid() and loaded == [], (pid, loaded)\n"
+        "    @ray_tpu_torch.remote\n"
+        "    class Modules:\n"
+        "        def get(self):\n"
+        "            return modules()\n"
+        "    pid, loaded = ray_tpu_torch.get(Modules.remote().get.remote(), timeout=60)\n"
+        "    assert pid != os.getpid() and loaded == [], (pid, loaded)\n"
         "finally:\n"
         "    ray_tpu_torch.api.shutdown()\n"
         "cluster = ray_tpu_torch.cluster_utils.Cluster()\n"

@@ -436,8 +436,10 @@ def test_not_ported_yet_raises_naming_the_roadmap_item(tmp_path):
         ttrain.ScalingConfig(topology=(2, 2))
     with pytest.raises(NotImplementedError, match="A7b"):
         ttrain.ScalingConfig(distributed_bootstrap=True)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        ttrain.ScalingConfig(workers_in_process=False)
+    # CPU members may leave the process (test_cpu_gang_members_run_in_actor_processes);
+    # a GPU member may not: the card belongs to the driver's process
+    with pytest.raises(ValueError, match="owns the card"):
+        ttrain.ScalingConfig(use_gpu=True, workers_in_process=False)
     from ray_tpu_torch.train.worker_group import TrainWorker
 
     with pytest.raises(NotImplementedError, match="A7b"):
@@ -490,6 +492,27 @@ def restart_leaves_no_state(tmp):
     finally:
         ray_tpu_torch.shutdown()
     return result, alive, left
+
+
+def _member_pid(config):
+    ttrain.report({"pid": os.getpid(), "rank": ttrain.get_context().get_world_rank()})
+
+
+def test_cpu_gang_members_run_in_actor_processes(tmp_path):
+    # ScalingConfig(workers_in_process=False) puts each CPU member in an
+    # actor process, as the reference's worker_group does
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=4, system_config=dict(THREAD_MODE))
+    try:
+        result = ttrain.TorchTrainer(
+            _member_pid,
+            scaling_config=ttrain.ScalingConfig(num_workers=2, workers_in_process=False),
+            run_config=ttrain.RunConfig(name="procs", storage_path=str(tmp_path))).fit()
+    finally:
+        ray_tpu_torch.shutdown()
+    assert result.error is None
+    pid = result.metrics["pid"]
+    assert pid != os.getpid() and result.metrics["rank"] == 0
 
 
 def test_a_restart_frees_the_failed_attempts_state(tmp_path):
