@@ -393,6 +393,33 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      planted RL_FAULTS fail their gates; (d) card memory and threads back
      after the loop and engines stop; (e) PPO on CartPole with the
      learner on the card, one update against the CPU's within 1e-4;
+  4o. single-host observability and tooling (observe_path) around a named
+     llama3-8b server, in one process: (a) the concurrency sanitizer
+     installed, then init() at its defaults with control-plane snapshots
+     every second, a named GPU actor "llm" building LLMServer from its
+     config (weights from seed 0) and 8 greedy prompts of 32 tokens (one
+     of 700: K6) served through its handle, after a warm-up burst three
+     times without and three times with the flight recorder attached and
+     every request traced (TPOT of each); (b) the node agent's device
+     trace (kind="torch") over a burst must name K1's and K5's kernels,
+     the top kernels by device time printed; (c) its sampling profiler
+     over three bursts takes samples (TPOT under it), and a stack dump of
+     an actor process names the method it sits in; (d)
+     device_memory_snapshot's bytes in use equal memory_allocated and hold
+     the weights, and a pool task's snapshot is zeros with no device file
+     open; (e) the health payload has a utilization row for the node and a
+     goodput ledger that partitions its wall; (f) after a snapshot,
+     shutdown() gives the card's memory back (within 1 GiB), and
+     init(resume_from=) re-creates "llm", whose tokens for the same prompts
+     are bit-equal to (a)'s (time from init to the first token; TPOT of
+     three bursts after a warm-up on stock locks against the sanitizer's);
+     (g) a job runs K1 against its plain version in a driver process of its
+     own and its line is in the job's logs, and a LogMonitor reads a pool
+     task's line with its pid; (h) the core microbenchmarks; (i) no
+     lock-order cycle among the sanitizer's reports (lock holds printed),
+     spans of the served requests in the flight recorder, and a pool
+     worker killed with SIGKILL leaves a postmortem that load_postmortem
+     reads;
   5. LLMServer serving moe-1b (8 experts, top 2) at full width and depth,
      random bf16 weights from seed 0, phase 3's engine sizes and burst
      shapes: every serving kernel runs, every launch from a graph replay;
@@ -436,7 +463,8 @@ gate), runtime (phase 3r's tasks, hosted server and updates), deploy
 of phase 3g's (a)-(c) and (d)), fleet (the coordinator's requests of phase
 3f's (a)-(d), both cycles), pretrain (phase 4p's first fit and
 its served burst), tune (phase 4t's ASHA and PBT fits), rl (phase 4r's
-GRPO steps at lr 1e-5 and the online loop's iterations)), the last
+GRPO steps at lr 1e-5 and the online loop's iterations), observe (phase
+4o's bursts)), the last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
 
@@ -496,6 +524,13 @@ result line.
 builds the kernels and runs phase 4r alone (rl_path: GRPO and the online
 RL loop at llama-600m, PPO with its learner on the card); no result line.
 
+    python3 chip_smoke.py --observe
+
+builds the kernels and runs phase 4o alone (observe_path: profiling,
+device memory, the health payload, snapshot and resume of a named
+llama3-8b actor, jobs, logs, microbenchmarks, the sanitizer and
+postmortems); no result line.
+
     python3 chip_smoke.py --procs
 
 builds the kernels and runs phase 4i alone (procs_path: llama-2b
@@ -514,6 +549,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -9181,6 +9217,417 @@ def readback_ab(card: str, rounds: int = 4) -> None:
     server.shutdown()
 
 
+# ------------------------------------------------------- phase 4o: observability
+
+OBSERVE_MODEL = "llama3-8b"
+OBSERVE_DEVICE = None  # LLMServer's device: None is the card
+OBSERVE_LENGTHS = (23, 100, 200, 700, 50, 64, 300, 150)  # 700: the chunked prefill, K6
+OBSERVE_KERNELS = ("rms_norm", "flash_attention", "paged_attention_decode",
+                   "paged_attention_chunk")
+# the kernel symbols gate (b) looks for in the device trace (PERF.md §6):
+# K1's forward and K5's split decode
+OBSERVE_TRACE_STEMS = ("rms_norm_fwd_", "paged_decode_split_kernel")
+
+
+class NamedServer:
+    """Phase 4o's named GPU actor: an LLMServer built from its config alone
+    (weights from a seed), so that its creation spec holds no tensor and a
+    snapshot can re-create it."""
+
+    def __init__(self, model_name: str, engine_config: dict, seed: int, device=None):
+        from ray_tpu_torch.serve import LLMServer
+
+        t0 = time.monotonic()
+        self.server = LLMServer._target(model_name=model_name, engine_config=engine_config,
+                                        seed=seed, device=device)
+        if self.server.engine.params["embed"].is_cuda:
+            torch.cuda.synchronize()
+        self.built_s = time.monotonic() - t0
+
+    def built(self) -> float:
+        return self.built_s
+
+    def weight_bytes(self) -> int:
+        return sum(t.nbytes for _, t in named_leaves(self.server.engine.params))
+
+    def generate(self, request):
+        return self.server(request)
+
+    def shutdown(self) -> None:
+        self.server.shutdown()
+
+
+class Parked:
+    """A CPU actor (an actor process) for gate (c)'s stack dump."""
+
+    def parked_for_stack_dump(self, seconds: float) -> int:
+        time.sleep(seconds)
+        return os.getpid()
+
+
+def observe_child_snapshot():
+    """A pool task: the child's device-memory snapshot and its device files."""
+    from ray_tpu_torch.util import profiler
+
+    return (os.getpid(), profiler.device_memory_snapshot(),
+            [x for x in cuda_in(os.getpid()) if x.startswith("/dev/nvidia")])
+
+
+def observe_log_line(tag: str) -> int:
+    print(f"{tag} from pid {os.getpid()}", flush=True)
+    return os.getpid()
+
+
+def observe_sleeper(pid_file: str, seconds: float) -> int:
+    with open(pid_file, "w") as f:
+        f.write(str(os.getpid()))
+    time.sleep(seconds)
+    return os.getpid()
+
+
+def observe_requests(cfg) -> list:
+    rng = torch.Generator().manual_seed(21)
+    return [{"prompt_ids": torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist(),
+             "max_tokens": 32} for n in OBSERVE_LENGTHS]
+
+
+def observe_burst(rt, host, requests, label: str, counts: dict, traced: bool = False):
+    """All requests through the actor's handle at once (each under a root
+    span when `traced`); adds the launches to `counts`. -> the results."""
+    from ray_tpu_torch.ops import dispatch
+    from ray_tpu_torch.util import tracing
+
+    dispatch.reset_launches()
+    t0 = time.monotonic()
+    refs = []
+    for r in requests:
+        if traced:
+            with tracing.start_span("phase4o.request", {"prompt": len(r["prompt_ids"])}):
+                refs.append(host.generate.remote(r))
+        else:
+            refs.append(host.generate.remote(r))
+    results = rt.get(refs, timeout=600)
+    wall = time.monotonic() - t0
+    got = dispatch.launch_counts()
+    for k in counts:
+        counts[k] += got[k]
+    missing = [k for k in OBSERVE_KERNELS if got[k] == 0]
+    if missing:
+        fail(f"phase 4o {label}: no launch of {missing} ({got})")
+    report_burst(f"phase 4o {label}", requests, results, wall)
+    return results
+
+
+def observe_bursts(rt, host, requests, label: str, counts: dict, n: int = 3,
+                   traced: bool = False):
+    """`n` bursts in turn (observe_burst, each gated); -> (the last's results,
+    every burst's TPOT p50 in ms), so that a cost is read over repeats."""
+    tpots = []
+    for i in range(n):
+        results = observe_burst(rt, host, requests, f"{label} {i + 1}/{n}", counts, traced)
+        tpots.append(tpot_ms(results))
+    return results, tpots
+
+
+def tpots_line(tpots) -> str:
+    return f"{statistics.median(tpots):.2f} ms ({', '.join(f'{t:.2f}' for t in tpots)})"
+
+
+def tpot_ms(results) -> float:
+    return 1e3 * statistics.median((r["latency_s"] - r["ttft_s"]) / (len(r["token_ids"]) - 1)
+                                   for r in results)
+
+
+def trace_kernels(path: str) -> dict:
+    """{kernel name: device us summed} of a torch.profiler chrome trace."""
+    with open(path) as f:
+        doc = json.load(f)
+    out: dict = {}
+    for ev in doc.get("traceEvents", []):
+        if ev.get("cat") == "kernel" and ev.get("ph") == "X":
+            out[ev["name"]] = out.get(ev["name"], 0.0) + float(ev.get("dur", 0.0))
+    return out
+
+
+def observe_path(card: str) -> dict:
+    """Phase 4o: single-host observability and tooling around a named
+    llama3-8b server on the card; see the module docstring. Returns the
+    launches of the served bursts."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import job_submission, microbenchmark
+    from ray_tpu_torch.core import health, log_monitor, persistence
+    from ray_tpu_torch.core.config import config
+    from ray_tpu_torch.models import get_config
+    from ray_tpu_torch.ops import dispatch
+    from ray_tpu_torch.util import flight_recorder, profiler, sanitizer
+
+    t_phase = time.monotonic()
+    counts = {k: 0 for k in dispatch.KERNELS}
+    cfg = get_config(OBSERVE_MODEL)
+    requests = observe_requests(cfg)
+    rt.shutdown()
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    tmp = tempfile.mkdtemp(prefix="phase4o-")
+    snap_path = os.path.join(tmp, "control_plane.snap")
+
+    # (a) set up: the sanitizer first, then the runtime and the named actor
+    sanitizer.clear_reports()
+    sanitizer.install()
+    t0 = time.monotonic()
+    runtime = rt.init(system_config={"control_plane_snapshot_path": snap_path,
+                                     "control_plane_snapshot_interval_s": 1.0})
+    agent = next(iter(runtime.agents.values()))
+    t_init = time.monotonic() - t0
+    host_cls = rt.remote(num_gpus=1, max_concurrency=8)(NamedServer)
+    host = host_cls.options(name="llm").remote(OBSERVE_MODEL, ENGINE, 0, OBSERVE_DEVICE)
+    built_s = rt.get(host.built.remote(), timeout=900)
+    log(f"phase 4o (a): sanitizer installed, init() in {t_init:.2f}s (worker processes and "
+        f"actor processes at their defaults, snapshots every 1 s), the named GPU actor 'llm' "
+        f"built an LLMServer {OBSERVE_MODEL} in {built_s:.1f}s ({card})")
+    observe_burst(rt, host, requests, "(a) warm-up burst", counts)
+    plain, tpot_plain = observe_bursts(rt, host, requests, "(a) burst, recorder detached",
+                                       counts)
+    flight_recorder.attach(component="driver")
+    attached, tpot_attached = observe_bursts(rt, host, requests,
+                                             "(a) burst, recorder attached", counts,
+                                             traced=True)
+    spans_a = [e for e in flight_recorder.snapshot() if e["kind"] == "span"]
+    want = [r["token_ids"] for r in plain]
+    if [r["token_ids"] for r in attached] != want:
+        fail("phase 4o (a): the same greedy prompts gave other tokens with the recorder on")
+    log(f"phase 4o (a): TPOT p50, median of 3 bursts: {tpots_line(tpot_plain)} without the "
+        f"flight recorder, {tpots_line(tpot_attached)} with it attached and every request "
+        "traced")
+
+    # (b) a device trace over a third burst, through the node agent
+    started = agent.profile_start(kind="torch", duration_s=6.0)
+    traced = observe_burst(rt, host, requests, "(b) burst under the device trace", counts)
+    fetched = agent.profile_fetch(kind="torch")
+    if not fetched["files"]:
+        fail(f"phase 4o (b): the device trace wrote no file ({fetched}, {started})")
+    trace = fetched["files"][0]
+    kernels = trace_kernels(trace)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    log(f"phase 4o (b): device trace {trace}: {os.path.getsize(trace) / 2**20:.1f} MiB, "
+        f"{len(kernels)} kernel names, {sum(kernels.values()) / 1e3:.1f} ms of kernels; "
+        f"TPOT p50 {tpot_ms(traced):.2f} ms under it; top by device time: "
+        + "; ".join(f"{_kernel_name(n)[:60]} {us / 1e3:.2f} ms" for n, us in top))
+    require_kernels("phase 4o (b) device trace", list(kernels), OBSERVE_TRACE_STEMS)
+
+    # (c) the sampling profiler over a burst, and a live child's stack
+    agent.profile_start(kind="cpu", duration_s=30.0)
+    sampled, tpot_sampled = observe_bursts(rt, host, requests, "(c) burst under the sampler",
+                                           counts)
+    prof = agent.profile_fetch(kind="cpu")
+    top_stacks = sorted(profiler.parse_collapsed(prof["collapsed"]).items(),
+                        key=lambda kv: -kv[1])[:3]
+    log(f"phase 4o (c): {prof['samples']} samples at {config.profiler_sample_hz} Hz; TPOT p50 "
+        f"{tpots_line(tpot_sampled)} sampled against {tpots_line(tpot_attached)} before "
+        "(recorder attached in both); hottest stacks: "
+        + " | ".join(f"{n}x ...{s[-100:]}" for s, n in top_stacks))
+    if prof["samples"] <= 0:
+        fail("phase 4o (c): the sampling profiler took no sample")
+    parked = rt.remote(Parked).remote()
+    parked_ref = parked.parked_for_stack_dump.remote(4.0)
+    pids = {}
+    for _ in range(100):
+        pids = agent.profile_fetch(kind="pids")
+        if pids["actors"]:
+            break
+        time.sleep(0.1)
+    if not pids["actors"]:
+        fail(f"phase 4o (c): no actor process to dump ({pids})")
+    child = next(iter(pids["actors"].values()))
+    time.sleep(1.0)  # the call reaches its method
+    stack = agent.profile_fetch(pid=child, kind="stack")
+    found = "parked_for_stack_dump" in stack["text"]
+    log(f"phase 4o (c): stack dump of actor process {child}: {len(stack['text'])} bytes, "
+        f"names parked_for_stack_dump: {found}")
+    if not found:
+        fail(f"phase 4o (c): the child's stack dump does not name its method:\n{stack['text']}")
+    if rt.get(parked_ref, timeout=60) != child:
+        fail("phase 4o (c): the parked call ran in another process")
+    rt.kill(parked)
+
+    # (d) device memory: the allocator's view in the driver, zeros in a child
+    weight_bytes = rt.get(host.weight_bytes.remote(), timeout=60)
+    for _ in range(5):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        snap = profiler.device_memory_snapshot()
+        after = torch.cuda.memory_allocated()
+        if before == after:
+            break
+    dev0 = snap["devices"][0] if snap["devices"] else {}
+    log(f"phase 4o (d): device_memory_snapshot {dev0}, live blocks {snap['live_arrays']} "
+        f"({snap['live_bytes'] / 2**30:.3f} GiB); memory_allocated {before}; weights "
+        f"{weight_bytes / 2**30:.3f} GiB")
+    if snap["backend"] != "cuda" or dev0.get("bytes_in_use") != before or before != after:
+        fail(f"phase 4o (d): the snapshot's bytes_in_use {dev0.get('bytes_in_use')} against "
+             f"memory_allocated {before} / {after}")
+    if before < weight_bytes:
+        fail(f"phase 4o (d): {before} bytes in use, below the weights' {weight_bytes}")
+    cpid, csnap, cfiles = rt.get(rt.remote(observe_child_snapshot).remote(), timeout=120)
+    log(f"phase 4o (d): a pool task (pid {cpid}) reads {csnap}; its device files {cfiles}")
+    if (cpid == os.getpid() or csnap["backend"] is not None or csnap["devices"]
+            or csnap["live_bytes"] or cfiles):
+        fail("phase 4o (d): the pool task's snapshot is not zeros in a child without CUDA")
+
+    # (e) the health payload's utilization and goodput
+    plane = health.get_health_plane()
+    plane.evaluate()
+    payload = plane.payload()
+    util, goodput = payload["utilization"], payload["goodput"]
+    parts = sum(goodput.get(k, 0.0) for k in profiler.LEDGER_COMPONENTS)
+    log(f"phase 4o (e): utilization {util}; goodput {goodput}")
+    if not util.get("head"):
+        fail(f"phase 4o (e): no utilization row for the node ({util})")
+    if not goodput or abs(parts - goodput["wall_seconds"]) > 1e-9 * max(1.0, parts):
+        fail(f"phase 4o (e): the goodput components {parts} do not partition the wall")
+    health.shutdown_health_plane()  # its evaluation thread ends here
+
+    # (f) persistence: a snapshot, shutdown, resume, the same tokens
+    t_wait = time.monotonic()
+    while time.monotonic() - t_wait < 30:
+        if os.path.exists(snap_path) and "llm" in persistence.load_snapshot(
+                snap_path)["named_actors"]:
+            break
+        time.sleep(0.2)
+    else:
+        fail("phase 4o (f): no snapshot named the actor within 30 s")
+    stored = persistence.load_snapshot(snap_path)
+    log(f"phase 4o (f): snapshot {os.path.getsize(snap_path)} bytes, named actors "
+        f"{sorted(stored['named_actors'])}, jobs {len(stored['jobs'])}")
+    rt.get(host.shutdown.remote(), timeout=120)
+    rt.shutdown()
+    del host
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_down = torch.cuda.memory_allocated()
+    log(f"phase 4o (f): card memory {mem0 / 2**30:.3f} GiB before (a), "
+        f"{mem_down / 2**30:.3f} GiB after shutdown()")
+    if mem_down - mem0 > 2**30:
+        fail(f"phase 4o (f): the card holds {(mem_down - mem0) / 2**30:.3f} GiB more after "
+             "shutdown() than before (a)")
+    hold = sanitizer.reports()
+    sanitizer.uninstall()  # the restored runtime runs on stock locks
+    t0 = time.monotonic()
+    rt.init(resume_from=snap_path)
+    restored = rt.get_actor("llm")
+    t_get = time.monotonic() - t0
+    first = restored.generate.remote(requests[0])
+    done, _ = rt.wait([first], num_returns=1, timeout=900)
+    if not done:
+        fail("phase 4o (f): the restored actor answered nothing in 900 s")
+    res0 = rt.get(first)
+    first_token_s = time.monotonic() - t0 - (res0["latency_s"] - res0["ttft_s"])
+    observe_burst(rt, restored, requests, "(f) warm-up burst after resume", counts)
+    again, tpot_again = observe_bursts(rt, restored, requests, "(f) burst after resume",
+                                       counts, traced=True)
+    same = [r["token_ids"] for r in again] == want and res0["token_ids"] == want[0]
+    log(f"phase 4o (f): init(resume_from=) to get_actor {t_get:.2f}s, to the first token "
+        f"{first_token_s:.1f}s; the 8 prompts' tokens bit-equal to (a)'s: {same}; TPOT p50 "
+        f"{tpots_line(tpot_again)} on stock locks against {tpots_line(tpot_attached)} under "
+        "the sanitizer (both with the recorder attached and every request traced)")
+    if not same:
+        fail("phase 4o (f): the restored actor's tokens differ from (a)'s")
+
+    # (g) a job in a driver process of its own, and a pool task's log line
+    code = (f"import sys, torch; sys.path.insert(0, {HERE!r}); import ray_tpu_torch\n"
+            "from ray_tpu_torch import ops\n"
+            "g = torch.Generator(device='cuda').manual_seed(3)\n"
+            "x = torch.randn(8, 4096, device='cuda', generator=g).bfloat16()\n"
+            "w = torch.randn(4096, device='cuda', generator=g).bfloat16()\n"
+            "d = (ops.rms_norm(x, w, 1e-5).float() - ops.rms_norm_reference(x, w, 1e-5)"
+            ".float()).abs().max().item()\n"
+            "print(f'phase4o-job rms_norm max |err| {d:.3e}', flush=True)\n")
+    client = job_submission.JobSubmissionClient()
+    t0 = time.monotonic()
+    job = client.submit_job(entrypoint=f"{sys.executable} -c \"$PHASE4O_CODE\"",
+                            runtime_env={"env_vars": {"PHASE4O_CODE": code}})
+    status = client.wait_until_finish(job, timeout_s=300)
+    logs = client.get_job_logs(job)
+    line = [x for x in logs.splitlines() if x.startswith("phase4o-job")]
+    log(f"phase 4o (g): job {job} {status} in {time.monotonic() - t0:.1f}s: {line}")
+    if status != "SUCCEEDED" or not line:
+        fail(f"phase 4o (g): the job ended {status}; its logs:\n{logs[-2000:]}")
+    seen = []
+    monitor = log_monitor.LogMonitor(sink=seen.append).start()
+    try:
+        wpid = rt.get(rt.remote(observe_log_line).remote("phase4o-log"), timeout=120)
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 10 and not any(
+                "phase4o-log" in r["line"] for r in seen):
+            time.sleep(0.1)
+    finally:
+        monitor.stop()
+    hits = [r for r in seen if "phase4o-log" in r["line"]]
+    log(f"phase 4o (g): the log monitor read {hits} (the task ran in pid {wpid})")
+    if not hits or hits[0]["pid"] != str(wpid):
+        fail("phase 4o (g): the log monitor missed the pool task's line or its pid")
+
+    # (h) the core microbenchmarks
+    rows = microbenchmark.run_all(min_seconds=0.5)
+    log("phase 4o (h): " + "; ".join(f"{r['metric']} {r['value']} {r['unit']}" for r in rows))
+
+    # (i) the sanitizer's reports, the recorder's spans, a killed worker's postmortem
+    cycles = [r for r in hold if r["violation"] == "lock_order_cycle"]
+    holds = [r for r in hold if r["violation"] == "lock_hold"]
+    log(f"phase 4o (i): sanitizer: {len(cycles)} lock-order cycles, {len(holds)} lock holds "
+        f"over the budget: "
+        + "; ".join(f"{r['site']} {r['held_ms']} ms" for r in holds[:12]))
+    if cycles:
+        fail(f"phase 4o (i): the sanitizer saw lock-order cycles: {cycles}")
+    names = sorted({e["name"] for e in spans_a})
+    log(f"phase 4o (i): after (a)'s traced burst the flight recorder held {len(spans_a)} "
+        f"spans: {names[:8]}")
+    if not any(n.startswith("execute:") for n in names) or "engine.generate" not in names:
+        fail(f"phase 4o (i): no span of a served request in the flight recorder ({names})")
+    pid_file = os.path.join(tmp, "sleeper.pid")
+    victim = rt.remote(max_retries=0)(observe_sleeper).remote(pid_file, 60.0)
+    t0 = time.monotonic()
+    while not os.path.exists(pid_file) and time.monotonic() - t0 < 60:
+        time.sleep(0.05)
+    time.sleep(0.2)
+    with open(pid_file) as f:
+        vpid = int(f.read())
+    os.kill(vpid, signal.SIGKILL)
+    try:
+        rt.get(victim, timeout=60)
+        fail("phase 4o (i): the killed task returned")
+    except Exception as e:  # noqa: BLE001 — the crash is what this gate waits for
+        log(f"phase 4o (i): the killed task failed: {type(e).__name__}: {e}")
+    arts = [p for p in flight_recorder.list_postmortems()
+            if os.path.basename(p).startswith(f"postmortem-{vpid}-")]
+    if not arts:
+        fail(f"phase 4o (i): no postmortem of the killed worker {vpid}")
+    art = flight_recorder.load_postmortem(arts[0])
+    log(f"phase 4o (i): postmortem of pid {vpid}: cause {art['cause']!r}, exit code "
+        f"{art['exitcode']}, {len(art['events'])} events, {len(art['spans'])} spans, "
+        f"{len(art['stdout_tail'])} stdout lines")
+    if art["pid"] != vpid or art["exitcode"] != -signal.SIGKILL:
+        fail(f"phase 4o (i): the postmortem reads pid {art['pid']} exit {art['exitcode']}")
+
+    rt.get(restored.shutdown.remote(), timeout=120)
+    rt.shutdown()
+    del restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 4o: wall {time.monotonic() - t_phase:.1f}s; launches over its bursts "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return {"launches": counts}
+
+
+def observe_only(card: str) -> None:
+    """`--observe`: phase 4o alone (no result line)."""
+    observe_path(card)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -9229,6 +9676,12 @@ def main() -> None:
     ap.add_argument("--rl", action="store_true",
                     help="only build the kernels, then run phase 4r (GRPO and the online RL "
                          "loop at llama-600m, PPO with the learner on the card); prints no "
+                         "result line")
+    ap.add_argument("--observe", action="store_true",
+                    help="only build the kernels, then run phase 4o (observability and tooling "
+                         "around a named llama3-8b server: device trace, sampling profile, "
+                         "stack dump, device memory, health payload, snapshot and resume, a "
+                         "job, microbenchmarks, the sanitizer and a postmortem); prints no "
                          "result line")
     args = ap.parse_args()
 
@@ -9298,6 +9751,9 @@ def main() -> None:
     if args.procs:
         procs_path(card)
         return
+    if args.observe:
+        observe_only(card)
+        return
     gen = torch.Generator(device="cuda").manual_seed(0)
     tile_identity_checks(gen)
     figures = norm_checks(gen)
@@ -9320,6 +9776,7 @@ def main() -> None:
     procs = procs_path(card)
     tuned = tune_path(card, train2b)
     rl_ran = rl_path(card)
+    observed = observe_path(card)
     moe_served = moe_serve_path(card, args.profile)
     moe_trained = moe_train_path(card, args.profile)
     kernels = []
@@ -9336,7 +9793,7 @@ def main() -> None:
                    "disagg": disagg_launches[name], "fleet": fleet_launches[name],
                    "pretrain": pretrain["launches"][name], "procs": procs["launches"][name],
                    "tune": tuned["launches"][name],
-                   "rl": rl_ran["launches"][name]}
+                   "rl": rl_ran["launches"][name], "observe": observed["launches"][name]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **figures[name]})

@@ -29,9 +29,8 @@ controller, router, handles, batching, multiplexing, the HTTP and gRPC
 proxies and the OpenAI front), and `LLMServer` is a deployment of it;
 disaggregated prefill/decode serving and the fleet controller that scales
 and remediates its replicas stand on both. `status()` renders the health
-plane (core/health.py). The reference's concurrency sanitizer
-(`util/sanitizer.maybe_install()` at import) waits for ROADMAP A5c, with
-the profiling plane.
+plane (core/health.py). `RAY_TPU_SANITIZE=1` arms the concurrency
+sanitizer at import (util/sanitizer.py).
 """
 
 from .api import (  # noqa: F401
@@ -80,6 +79,15 @@ __all__ = ["EngineConfig", "GetTimeoutError", "InferenceEngine", "LLMServer",
            "init_train_state", "is_initialized", "kill", "make_eval_step", "make_optimizer",
            "make_train_step", "params_from_numpy", "put", "remote", "shutdown",
            "status", "synthetic_batch", "timeline", "wait"]
+
+# RAY_TPU_SANITIZE=1 arms the concurrency sanitizer (instrumented
+# Lock/RLock, lock-order-cycle + hold-time detection) in every process
+# that imports ray_tpu_torch — workers inherit the env var, so one flag
+# covers the whole runtime. No-op (stock primitives, zero overhead)
+# otherwise.
+from .util import sanitizer as _sanitizer  # noqa: E402
+
+_sanitizer.maybe_install()
 
 
 def timeline(path: str) -> int:

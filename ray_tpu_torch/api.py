@@ -11,9 +11,10 @@ the node agents' threads in this process, which owns the card. The
 accelerator resource is "GPU" (`num_gpus=`), counted from
 `torch.cuda.device_count()`.
 
-Waiting for ROADMAP A5c: joining a cluster (`address=`), restoring a snapshot
-(`resume_from=`, `control_plane_snapshot_path`), the federated control
-plane (`control_plane_shards`), the control-plane RPC head
+Control-plane snapshots (`control_plane_snapshot_path`) and restoring
+from one (`init(resume_from=)`) run (core/persistence.py). Waiting for
+ROADMAP A5c: joining a cluster (`address=`), the federated control plane
+(`control_plane_shards`), the control-plane RPC head
 (`control_plane_rpc_port`) and compiled-graph edges to a joined host
 (dag.py). Each raises NotImplementedError naming its item. Compiled graphs
 over this process's actors (`ActorMethod.bind`, ray_tpu_torch.dag) run.
@@ -84,29 +85,25 @@ def init(
     The node advertises this host's CPUs and its CUDA devices as "GPU"
     resources (num_gpus overrides the count; see default_node_resources).
 
-    address (join a cluster head as a worker host) and resume_from
-    (restore a control-plane snapshot) wait for ROADMAP A5c and raise
-    NotImplementedError, as do the system_config flags that would serve the
-    control plane over RPC, federate it or snapshot it.
+    resume_from: path to a control-plane snapshot (see
+    ``system_config={"control_plane_snapshot_path": ...}``); restores the
+    KV/job tables and re-creates named actors from their pickled specs
+    (`ray_tpu_torch.core.persistence` documents the restore policy).
+
+    address (join a cluster head as a worker host) waits for ROADMAP A5c
+    and raises NotImplementedError, as do the system_config flags that
+    would serve the control plane over RPC or federate it.
     """
     if address is not None:
         raise NotImplementedError(
             "init(address=...): joining a cluster as a worker host "
             "(core/cross_host.py) waits for ROADMAP A5c")
-    if resume_from is not None:
-        raise NotImplementedError(
-            "init(resume_from=...): control-plane snapshots "
-            "(core/persistence.py) wait for ROADMAP A5c")
     if _cw.runtime_initialized():
         if ignore_reinit_error:
             return _cw.get_runtime()
         raise RuntimeError("ray_tpu_torch.init() called twice")
     config.apply_overrides(system_config)
     try:
-        if config.control_plane_snapshot_path:
-            raise NotImplementedError(
-                "control_plane_snapshot_path: control-plane snapshots "
-                "(core/persistence.py) wait for ROADMAP A5c")
         if int(config.control_plane_shards) > 0:
             raise NotImplementedError(
                 "control_plane_shards: the federated control plane "
@@ -123,6 +120,20 @@ def init(
                 is_head=True)
     _cw.set_runtime(rt)
     atexit.register(shutdown)
+    if resume_from:
+        from .core import persistence
+
+        try:
+            persistence.restore_into(rt, persistence.load_snapshot(resume_from))
+        except Exception:
+            shutdown()  # no half-initialized global runtime on failed restore
+            raise
+    if config.control_plane_snapshot_path:
+        from .core.persistence import SnapshotWriter
+
+        rt._snapshot_writer = SnapshotWriter(
+            rt, config.control_plane_snapshot_path
+        )
     return rt
 
 

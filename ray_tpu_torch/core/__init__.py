@@ -5,5 +5,6 @@ owner-side Runtime (core_worker), the worker-process pool and actor
 processes over the C++ shared-memory store (process_pool, actor_process,
 shm_store, memory_monitor), the Prometheus metrics, and the health plane
 (health.py: alert rules, the alert lifecycle, the routers'
-ReplicaHealth). Cross-host, RPC, federation and persistence wait for
-ROADMAP A5c."""
+ReplicaHealth), control-plane snapshots (persistence) and the session log
+monitor (log_monitor). Cross-host, RPC and federation wait for ROADMAP
+A5c."""

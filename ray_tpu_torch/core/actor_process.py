@@ -18,8 +18,10 @@ card belongs to the process that owns it. The children fork from the same
 forkserver as the task pool (process_pool._mp_context), and a creation or
 call payload that holds a tensor off the CPU cannot cross, so CUDA never
 starts in an actor process. In-process execution also remains the fallback
-whenever the creation payload cannot cross a process boundary. The flight
-recorder and the profiler's child handlers wait for ROADMAP A5c.
+whenever the creation payload cannot cross a process boundary. Each child
+attaches the flight recorder and the profiler's signal handlers at start,
+and a child that dies unexpectedly leaves a postmortem
+(util/flight_recorder.write_postmortem).
 """
 
 from __future__ import annotations
@@ -53,6 +55,23 @@ def _child_main(req_q, resp_q, log_dir: str = "") -> None:
     set_pdeathsig()  # die with the runtime, never orphan
     os.environ["RAY_TPU_IN_POOL_WORKER"] = "1"  # api.py guards private inits
     _redirect_stdio(log_dir, "actor")
+    try:
+        # flight recorder: mirror this child's recent spans/logs/events to
+        # disk so a SIGKILL still leaves a postmortem (util/flight_recorder)
+        from ..util import flight_recorder
+
+        flight_recorder.attach(log_dir, "actor")
+    except Exception:  # noqa: BLE001 — observability must not block startup
+        pass
+    try:
+        # profiling plane: SIGUSR2 → all-threads stack dump (works even when
+        # every serve thread is wedged — faulthandler is C, no GIL needed),
+        # SIGUSR1 → toggle the sampling profiler (util/profiler)
+        from ..util import profiler
+
+        profiler.install_child_handlers(log_dir)
+    except Exception:  # noqa: BLE001 — observability must not block startup
+        pass
 
     kind, payload = req_q.get()
     if kind != "init":
@@ -190,6 +209,7 @@ class ActorProcess:
             except _q.Empty:
                 deadline -= 0.1
                 if not self._proc.is_alive():
+                    self._note_crash("actor process died during init")
                     raise ActorProcessCrash(
                         f"actor process died during init "
                         f"(exitcode {self._proc.exitcode})"
@@ -206,6 +226,8 @@ class ActorProcess:
                 item = self._resp_q.get(timeout=0.1)
             except _q.Empty:
                 if not self._proc.is_alive():
+                    if not self._dead.is_set():
+                        self._note_crash("actor process died")
                     self._fail_all_waiters()
                     return
                 continue
@@ -218,6 +240,20 @@ class ActorProcess:
                 event, box = waiter
                 box.append(body)
                 event.set()
+
+    def _note_crash(self, cause: str) -> None:
+        """Reap an UNEXPECTED child death into a postmortem artifact (the
+        child's flight mirror + stdout tail; see util/flight_recorder).
+        terminate() never calls this — normal teardown is not a crash.
+        write_postmortem dedups by pid, so racing detection sites are safe."""
+        try:
+            from ..util import flight_recorder
+
+            flight_recorder.write_postmortem(
+                self._proc.pid, cause, exitcode=self._proc.exitcode,
+                stdout_hint="actor")
+        except Exception:  # noqa: BLE001 — reaping must not mask the crash
+            pass
 
     def _fail_all_waiters(self) -> None:
         self._dead.set()
@@ -276,6 +312,7 @@ class ActorProcess:
             raise TimeoutError(f"actor call {method}() timed out")
         body = box[0]
         if body is None:
+            self._note_crash(f"actor process died executing {method}()")
             raise ActorProcessCrash(
                 f"actor process died executing {method}() "
                 f"(exitcode {self._proc.exitcode})"

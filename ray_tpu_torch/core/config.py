@@ -5,8 +5,9 @@ upstream ray's `ray_config_def.h :: RAY_CONFIG` X-macro list): every
 runtime knob is declared once here with a type, default and doc; values
 resolve with precedence  init(system_config=...)  >  env RAY_TPU_<NAME>  >
 default. The names, docs and defaults are the reference's, so one
-environment configures both packages. Only the flags the port reads are
-declared.
+environment configures both packages. The flags of the reference's
+modules that the port does not have yet (the network, the pipeline
+trainer) are left out until their modules come.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import tempfile
 import threading
 from typing import Any, Callable, Dict, Optional
 
-__all__ = ["Config", "config", "declare"]
+__all__ = ["Config", "config", "declare", "describe_flags"]
 
 _TRUE = {"1", "true", "yes", "on"}
 _FALSE = {"0", "false", "no", "off"}
@@ -247,7 +248,44 @@ declare(
     "Empty = persistence off.",
 )
 
+# Serving (serve/engine.py, serve/spec_decode.py, serve/disagg.py)
+declare(
+    "spec_overlap", True,
+    "Speculative decoding: overlap the draft-model propose for round N+1 "
+    "with the host-side commit/bookkeeping of round N (the prefetched "
+    "drafts are validated per slot by request/position stamps, so "
+    "eviction or cancellation in between degrades to a plain token, "
+    "never to a wrong one). Per-engine override: "
+    "SpeculationConfig.overlap.",
+)
+declare(
+    "kv_frame_layout", "layer",
+    "Streamed KV-migration frame layout: 'layer' (wire v2 — frames carry "
+    "a slab of consecutive layers per token range, so the stream starts "
+    "during the first layers of the device->host pull and the importer "
+    "stages slabs as they land) or 'token' (wire v1 — all layers per "
+    "frame). Per-request override: Request.kv_frame_layout; disagg "
+    "coordinators forward DisaggConfig.kv_frame_layout.",
+)
+
 # Observability
+declare("log_to_driver", True, "Tail worker logs back to the driver process.")
+declare(
+    "flight_recorder_entries", 256,
+    "Per-process flight-recorder ring size (recent spans + log lines + "
+    "events, util/flight_recorder.py) flushed into a postmortem artifact "
+    "when a crashed worker is reaped.",
+)
+declare(
+    "flight_recorder_bytes", 262_144,
+    "Size cap for a worker's on-disk flight-recorder mirror file; the "
+    "mirror is rewritten from the in-memory ring when it grows past "
+    "this, so a chatty worker cannot fill the session dir.",
+)
+declare(
+    "control_plane_snapshot_interval_s", 5.0,
+    "Seconds between control-plane snapshots when persistence is on.",
+)
 declare(
     "trace_sample_rate", 0.0,
     "Fraction of serve requests that open a root trace span at the API "
@@ -387,6 +425,21 @@ declare(
     "radius of a noisy demand signal.",
 )
 
+# Correctness tooling (util/sanitizer.py)
+declare(
+    "sanitize", False,
+    "RAY_TPU_SANITIZE=1 swaps threading.Lock/RLock for instrumented "
+    "wrappers at import time: acquisition order feeds a per-process "
+    "lock-order graph (cycles = potential deadlock) and long holds are "
+    "flagged, both reported through the flight recorder. Off = the "
+    "stock primitives, zero overhead.",
+)
+declare(
+    "sanitize_hold_ms", 100.0,
+    "Sanitizer lock-hold budget: releasing a lock held longer than this "
+    "(blocking work under a lock) records a hold-time violation.",
+)
+
 
 class Config:
     """Resolved configuration view. Thread-safe."""
@@ -427,3 +480,10 @@ class Config:
 
 
 config = Config()
+
+
+def describe_flags() -> Dict[str, Dict[str, Any]]:
+    return {
+        f.name: {"default": f.default, "doc": f.doc, "value": config.get(f.name)}
+        for f in _REGISTRY.values()
+    }

@@ -1489,6 +1489,10 @@ class Runtime:
                 ))
             except Exception:
                 logger.debug("timeline export on shutdown failed", exc_info=True)
+        writer = getattr(self, "_snapshot_writer", None)
+        if writer is not None:
+            writer.stop(final_write=True)
+            self._snapshot_writer = None
         self._kick_scheduler()
         self.control_plane.finish_job(self.job_id)
         with self._lock:

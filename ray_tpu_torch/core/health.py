@@ -42,12 +42,11 @@ passes (config health_eval_period_s apart) before the alert fires; one
 clear pass resolves it. ``Rule(demand={"CPU": 1})`` additionally
 advertises resources while the alert is firing (`pending_demand`).
 
-Two parts wait for util/profiler (ROADMAP A5c): `payload()`'s
-`utilization` and `goodput` sections are empty dicts
-(`_profiling_sections`), and `get_health_plane` installs no
-alert-triggered stack dump (the reference's `profiler.install_auto_dump`).
-The dashboard's /api/v0/health routes and the autoscaler's
-`health_plane=` input wait with them.
+`payload()`'s `utilization` and `goodput` sections come from
+util/profiler's gauges and goodput ledger, and `get_health_plane` installs
+its alert-triggered stack dump (`profiler.install_auto_dump`), as in the
+reference. The dashboard's /api/v0/health routes and the autoscaler's
+`health_plane=` input wait for ROADMAP A5c.
 """
 
 from __future__ import annotations
@@ -582,12 +581,53 @@ class HealthPlane:
             "channels": channels,
         }
 
+    _UTIL_GAUGES = {"host_cpu_used_fraction": "cpu_fraction",
+                    "process_rss_bytes": "rss_bytes",
+                    "host_memory_used_fraction": "memory_fraction"}
+
     def _profiling_sections(self, cp) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-        """The payload's per-node utilization and goodput sections. The
-        reference fills them from util/profiler's gauges and goodput
-        ledger; util/profiler waits for ROADMAP A5c, so both are empty
-        here."""
-        return {}, {}
+        """Per-node CPU/RSS/memory gauges + the goodput ledger, both from
+        the same federated family snapshots the rule engine reads
+        (util/profiler sets the gauges; telemetry flushes federate them)."""
+        utilization: Dict[str, Dict[str, float]] = {}
+        goodput: Dict[str, Any] = {}
+        try:
+            from ..util import profiler
+            from .metrics import registry
+
+            try:
+                # worker runtimes refresh on telemetry flushes; the head
+                # has no flush loop, so its own row refreshes here
+                profiler.update_resource_gauges()
+            except Exception:
+                pass
+            sources: List[Tuple[str, List]] = [("head", registry.snapshot())]
+            if cp is not None:
+                try:
+                    for node_hex, rec in cp.telemetry_snapshots().items():
+                        sources.append((node_hex[:12],
+                                        rec.get("metrics") or []))
+                except Exception:
+                    pass
+            for key, fams in sources:
+                row: Dict[str, float] = {}
+                for fam in fams:
+                    out_key = self._UTIL_GAUGES.get(fam.get("name", ""))
+                    if not out_key:
+                        continue
+                    vals = [float(v) for _s, _t, v in fam.get("samples", [])]
+                    if vals:
+                        # fractions are host-wide (any sample is the
+                        # host's value); byte gauges sum across processes
+                        row[out_key] = (max(vals) if "fraction" in out_key
+                                        else sum(vals))
+                if row:
+                    utilization[key] = row
+            goodput = profiler.ledger_from_samples(
+                [f for _k, fams in sources for f in fams])
+        except Exception:  # noqa: BLE001 — payload must render regardless
+            pass
+        return utilization, goodput
 
 
 # -- client-side routing health --------------------------------------------
@@ -723,15 +763,21 @@ _plane_lock = threading.Lock()
 
 def get_health_plane(create: bool = True) -> Optional[HealthPlane]:
     """The process-wide plane, created lazily (by status() or a caller
-    that asks) and started on creation. The reference also installs
-    util/profiler's alert-triggered stack dump here; that waits for
-    ROADMAP A5c."""
+    that asks) and started on creation."""
     global _plane
     if _plane is None and create:
         with _plane_lock:
             if _plane is None:
                 _plane = HealthPlane()
                 _plane.start()
+                try:
+                    # loop closure (profiling plane): sustained stall /
+                    # heartbeat-gap alerts auto-capture a stack dump into
+                    # the flight recorder + postmortem stream
+                    from ..util import profiler
+                    profiler.install_auto_dump(_plane)
+                except Exception:  # noqa: BLE001 — optional plane
+                    pass
     return _plane
 
 

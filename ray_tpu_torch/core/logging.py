@@ -10,9 +10,8 @@ directory sits under the process's temporary directory (`TMPDIR`) unless
 RAY_TPU_TMPDIR names another.
 
 Log-trace correlation: a record emitted while a trace span is active on
-the emitting thread carries ` trace_id=<id>` in its prefix. The
-reference also mirrors every line into the flight recorder
-(util/flight_recorder), which waits for ROADMAP A5c.
+the emitting thread carries ` trace_id=<id>` in its prefix. Every line is
+also mirrored into the flight recorder (util/flight_recorder).
 """
 
 from __future__ import annotations
@@ -73,6 +72,17 @@ class _TraceContextFilter(logging.Filter):
         return True
 
 
+class _FlightHandler(logging.Handler):
+    """Mirrors every formatted line into the flight-recorder ring."""
+
+    def emit(self, record: logging.LogRecord) -> None:
+        try:
+            from ..util import flight_recorder
+            flight_recorder.on_log(self.format(record))
+        except Exception:
+            pass  # crash forensics must never break logging
+
+
 def get_logger(component: str, to_file: bool = True) -> logging.Logger:
     logger = logging.getLogger(f"ray_tpu_torch.{component}")
     if getattr(logger, "_ray_tpu_configured", False):
@@ -91,6 +101,9 @@ def get_logger(component: str, to_file: bool = True) -> logging.Logger:
             logger.addHandler(fh)
         except OSError:
             pass
+    flight = _FlightHandler()
+    flight.setFormatter(formatter)
+    logger.addHandler(flight)
     logger.propagate = False
     logger._ray_tpu_configured = True  # type: ignore[attr-defined]
     return logger

@@ -12,10 +12,7 @@ This guards the HOST side only (pool workers doing decode, data
 preprocessing, rollouts). Card memory belongs to the process that owns the
 card and its caching allocator; there is no worker to kill there.
 
-The port's copy of ray_tpu/core/memory_monitor.py. The reference also
-writes a flight-recorder event before each kill; the flight recorder
-waits for ROADMAP A5c, so the port announces the kill on the health plane
-alone.
+The port's copy of ray_tpu/core/memory_monitor.py.
 """
 
 from __future__ import annotations
@@ -132,9 +129,13 @@ class MemoryMonitor:
             _m_used_fraction.set(used)
             if used < self.threshold:
                 continue
-            # announce the pressure kill as a health alert BEFORE pulling
-            # the trigger: the alert stream should show why the worker died
+            # announce the pressure kill as a health alert + flight-recorder
+            # event BEFORE pulling the trigger: the postmortem and the alert
+            # stream should both show why the worker died
             try:
+                from ..util import flight_recorder
+                flight_recorder.record("memory_pressure", used=used,
+                                       threshold=self.threshold)
                 from .health import get_health_plane
                 plane = get_health_plane(create=False)
                 if plane is not None:

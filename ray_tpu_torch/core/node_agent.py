@@ -21,8 +21,10 @@ A task whose payload cannot cross (a tensor off the CPU, a ref, an
 unpicklable closure) runs on these threads instead and is counted. Where the
 pool cannot be created (no C++ compiler, too little /dev/shm) a CPU task
 raises, naming the cause: a deliberate difference, the reference logs and
-stays on threads. The profiling entry points wait for A5c
-(util/profiler.py).
+stays on threads. The profiling plane (`profile_start` / `profile_fetch`,
+util/profiler.py) samples this process or signals a child; its device trace
+is `kind="torch"`, a torch.profiler capture (util.timeline.trace_torch),
+where the reference's is `kind="jax"`.
 """
 
 from __future__ import annotations
@@ -346,6 +348,7 @@ class NodeAgent:
         # stay inside explicit submission calls.
         self._pool = None
         self._pool_lock = threading.Lock()
+        self._torch_trace: Optional[Dict[str, Any]] = None  # the last device trace
         self._warmup: Optional[threading.Thread] = None
         if config.worker_processes > 0 and config.prestart_worker_processes:
             self._warmup = threading.Thread(
@@ -1052,28 +1055,145 @@ class NodeAgent:
             e.set()
 
     # ------------------------------------------------------ profiling plane
-    # The node-local half of the reference's profile_start/profile_fetch.
-    # Its sampling profiler, stack dumps and device trace wait for ROADMAP
-    # A5c (util/profiler.py); the entry points stay, and raise.
+    # The node-local half of profile_start/profile_fetch: the agent's own
+    # process is profiled in-process (util/profiler) — that is where CPU
+    # tasks and device actors run; a subprocess child (actor process /
+    # pool worker, see profilable_pids) is driven by the signal handlers
+    # util/profiler.install_child_handlers registered at its startup — so
+    # a HUNG child can still be stack-dumped (faulthandler needs no GIL).
+
+    def _session(self) -> str:
+        from .logging import session_dir
+
+        return session_dir()
+
+    def profilable_pids(self) -> Dict[str, Any]:
+        """Every pid profiling can target on this node: the agent process
+        plus live subprocess actor/pool workers."""
+        import os
+
+        actors: Dict[str, int] = {}
+        with self._lock:
+            runners = list(self._actors.items())
+        for actor_id, runner in runners:
+            proc = getattr(runner, "process", None)
+            pid = getattr(proc, "pid", None) if proc is not None else None
+            if pid:
+                actors[actor_id.hex()] = int(pid)
+        pool_pids: List[int] = []
+        with self._pool_lock:
+            pool = self._pool
+        if pool:
+            try:
+                pool_pids = pool.worker_pids()
+            except Exception:
+                pool_pids = []
+        return {"agent": os.getpid(), "actors": actors, "pool": pool_pids}
 
     def profile_start(self, pid: int = 0, duration_s: float = 5.0,
                       hz: Optional[float] = None, kind: str = "cpu",
                       logdir: str = "") -> Dict[str, Any]:
-        """The reference opens a profiling window here: the sampling
-        profiler, or a device trace (kind="jax"). Both stand on
-        util/profiler.py, which waits for ROADMAP A5c; the device trace's
-        counterpart in hand is util.timeline.trace_torch."""
-        raise NotImplementedError(
-            f"profile_start(kind={kind!r}): the profiling plane "
-            "(util/profiler.py) waits for ROADMAP A5c")
+        """Open a profiling window. kind="cpu" starts the sampling
+        profiler (in-process, or SIGUSR1-toggled in a child);
+        kind="torch" captures a torch.profiler device trace (chrome-trace
+        JSON) into `logdir` for `duration_s` — the counterpart of the
+        reference's kind="jax" xplane capture, which the port refuses."""
+        import os
+
+        from ..util import profiler
+
+        pid = int(pid or 0)
+        if kind == "jax":
+            raise ValueError(
+                'profile_start(kind="jax"): the port\'s device trace is '
+                'kind="torch" (a torch.profiler capture)')
+        if kind == "torch":
+            logdir = logdir or os.path.join(self._session(), "torch_trace")
+            self._start_torch_trace(logdir, float(duration_s or 5.0))
+            return {"pid": os.getpid(), "kind": "torch", "logdir": logdir}
+        if pid in (0, os.getpid()):
+            out = profiler.start_profile(duration_s=duration_s, hz=hz)
+            return {**out, "kind": "cpu"}
+        profiler.toggle_child_profile(pid)
+        return {"pid": pid, "kind": "cpu", "running": True}
 
     def profile_fetch(self, pid: int = 0, kind: str = "cpu") -> Dict[str, Any]:
-        """The reference collects a profiling window here (the stack dump,
-        the sampling profile, the targets' pids); all stand on
-        util/profiler.py, which waits for ROADMAP A5c."""
-        raise NotImplementedError(
-            f"profile_fetch(kind={kind!r}): the profiling plane "
-            "(util/profiler.py) waits for ROADMAP A5c")
+        """Collect: kind="stack" returns a live all-threads dump (works
+        on a hung child via the faulthandler signal); kind="cpu" stops
+        the sampling window and returns the collapsed-stack profile;
+        kind="torch" waits for the device trace to be written and returns
+        its files."""
+        import os
+
+        from ..util import profiler
+
+        pid = int(pid or 0)
+        if kind == "pids":
+            return self.profilable_pids()
+        if kind == "torch":
+            return self._fetch_torch_trace()
+        if kind == "stack":
+            if pid in (0, os.getpid()):
+                dump = profiler.dump_stacks()
+                return {"pid": os.getpid(), "kind": "stack",
+                        "threads": len(dump["threads"]),
+                        "text": profiler.format_stacks(dump), "dump": dump}
+            text = profiler.dump_child(pid, self._session())
+            return {"pid": pid, "kind": "stack", "text": text}
+        if pid in (0, os.getpid()):
+            out = profiler.fetch_profile()
+            return {"pid": out["pid"], "kind": "cpu",
+                    "samples": out["samples"], "collapsed": out["collapsed"]}
+        text = profiler.read_child_profile(pid, self._session())
+        return {"pid": pid, "kind": "cpu", "collapsed": text}
+
+    def _start_torch_trace(self, logdir: str, duration_s: float) -> None:
+        """On-demand torch.profiler capture on this node, bounded and one
+        at a time (the profiler cannot nest). Returns once the profiler
+        records, so work started after the call is in the trace."""
+        with self._lock:
+            if self._torch_trace is not None and self._torch_trace["thread"].is_alive():
+                raise RuntimeError("a torch trace capture is already running")
+            state: Dict[str, Any] = {"logdir": logdir, "files": [], "error": None,
+                                     "open": threading.Event()}
+            self._torch_trace = state
+
+        def _capture():
+            import os
+
+            try:
+                from ..util import timeline
+
+                before = set(os.listdir(logdir)) if os.path.isdir(logdir) else set()
+                with timeline.trace_torch(logdir):
+                    state["open"].set()
+                    self._stopped.wait(max(0.1, duration_s))
+                state["files"] = sorted(
+                    os.path.join(logdir, n) for n in os.listdir(logdir)
+                    if n not in before)
+            except Exception as e:
+                state["error"] = repr(e)
+                logger.warning("torch trace capture failed: %r", e)
+            finally:
+                state["open"].set()
+
+        state["thread"] = threading.Thread(target=_capture, daemon=True,
+                                           name="torch-trace-capture")
+        state["thread"].start()
+        state["open"].wait(timeout=60.0)
+
+    def _fetch_torch_trace(self, timeout_s: float = 120.0) -> Dict[str, Any]:
+        """Wait for the open (or last) capture to be written."""
+        with self._lock:
+            state = self._torch_trace
+        if state is None:
+            return {"kind": "torch", "running": False, "files": []}
+        state["thread"].join(timeout=timeout_s)
+        running = state["thread"].is_alive()
+        if state["error"] is not None:
+            raise RuntimeError(f"torch trace capture failed: {state['error']}")
+        return {"kind": "torch", "running": running, "logdir": state["logdir"],
+                "files": list(state["files"])}
 
     def stop(self, notify: bool = True) -> None:
         # notify is part of the RemoteNodeAgent duck surface (suppresses

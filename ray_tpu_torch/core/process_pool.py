@@ -23,8 +23,9 @@ a worker: a payload that holds a tensor off the CPU cannot cross
 (TaskNotSerializableError), so the node agent runs that task in its own
 process and counts it as a fallback. Refs and actor handles cannot cross
 either: the head back-channel that lets the reference's workers resolve
-them waits for ROADMAP A5c. The flight recorder and the profiler's child
-handlers, which the reference attaches in each worker, wait for A5c too.
+them waits for ROADMAP A5c. Each worker attaches the flight recorder and
+the profiler's signal handlers at start, and a worker that dies while
+running a task leaves a postmortem (util/flight_recorder).
 """
 
 from __future__ import annotations
@@ -292,6 +293,23 @@ def _worker_main(store_name: str, req_q, resp_q, log_dir: str = "") -> None:
     # checks this flag and raises a clear error instead.
     os.environ["RAY_TPU_IN_POOL_WORKER"] = "1"
     _redirect_stdio(log_dir, "worker")
+    try:
+        # flight recorder: mirror recent spans/logs/events to disk so a
+        # SIGKILL (chaos, memory monitor) still leaves a postmortem
+        from ..util import flight_recorder
+
+        flight_recorder.attach(log_dir, "worker")
+    except Exception:  # noqa: BLE001 — observability must not block startup
+        pass
+    try:
+        # profiling plane: SIGUSR2 → all-threads stack dump (faulthandler —
+        # fires even when this loop is wedged in user code), SIGUSR1 →
+        # toggle the sampling profiler (util/profiler)
+        from ..util import profiler
+
+        profiler.install_child_handlers(log_dir)
+    except Exception:  # noqa: BLE001 — observability must not block startup
+        pass
     store = ShmObjectStore(store_name, create=False)
     while True:
         item = req_q.get()
@@ -540,6 +558,18 @@ class ProcessPool:
             _cleanup_buffers(self.store, buffer_ids)
             if resp is None:
                 code = worker.proc.exitcode
+                if not self._closed.is_set():
+                    # reap the crash into a postmortem artifact (flight
+                    # mirror + stdout tail); pool teardown is not a crash
+                    try:
+                        from ..util import flight_recorder
+
+                        flight_recorder.write_postmortem(
+                            worker.proc.pid,
+                            "worker process died while running task",
+                            exitcode=code, stdout_hint="worker")
+                    except Exception:  # noqa: BLE001 — must not mask the crash
+                        pass
                 # the payload may sit unread in the dead worker's queue:
                 # its feeder must not be joined at interpreter exit
                 worker.req_q.cancel_join_thread()

@@ -1,6 +1,7 @@
 """Serve config schema of the port: deployment options and autoscaling
-bounds, speculative decoding, and the defaults that the reference keeps
-in its global config (ray_tpu/core/config.py).
+bounds, speculative decoding and disaggregation. The serving knobs of the
+global registry (`spec_overlap`, `kv_frame_layout`) live in core/config.py
+as in the reference.
 
 Counterpart of ray_tpu/serve/config.py's AutoscalingConfig,
 DeploymentConfig, SpeculationConfig and DisaggConfig, as this package's
@@ -11,18 +12,6 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional
-
-# What `overlap=None` means: dispatch the next round's propose right after
-# a round's commit readback (the reference's `spec_overlap` default).
-SPEC_OVERLAP_DEFAULT = True
-
-# The layout of streamed KV-migration frames when a request does not name
-# one (`Request.kv_frame_layout`; the reference's `kv_frame_layout`):
-# "layer" (wire v2: each frame a slab of consecutive layers over a token
-# range, so the stream starts while later layers are still being copied
-# and the importer stages slabs as they land) or "token" (wire v1: every
-# layer in each frame).
-KV_FRAME_LAYOUT_DEFAULT = "layer"
 
 
 @dataclasses.dataclass
@@ -83,7 +72,7 @@ class SpeculationConfig:
     # draft mode: dispatch round N+1's propose right after round N's commit
     # readback so the draft forward overlaps the engine's host bookkeeping
     # (spec_decode.DraftModelProposer.prefetch). None follows
-    # SPEC_OVERLAP_DEFAULT; False forces serial propose -> verify.
+    # config.spec_overlap; False forces serial propose -> verify.
     overlap: Optional[bool] = None
 
     MODES = ("off", "ngram", "draft")
@@ -174,7 +163,7 @@ class DisaggConfig:
     # stream-mode frame layout forwarded to the prefill engines: "layer"
     # (wire v2 — per-layer-group slabs, the stream starts during the
     # first layers of the device->host pull), "token" (wire v1 — full
-    # layer stack per frame), or "" to follow KV_FRAME_LAYOUT_DEFAULT
+    # layer stack per frame), or "" to follow config.kv_frame_layout
     kv_frame_layout: str = ""
     # prefix-aware role routing: a request whose leading prompt pages
     # are warm on a decode replica (per its PrefixCache digest, gossiped

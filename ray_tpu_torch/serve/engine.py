@@ -91,12 +91,13 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..core.config import config
 from ..core.metrics import Counter, Gauge, Histogram
 from ..models.config import ModelConfig
 from ..models.transformer import _require_flash, torch_dtype
 from ..ops.dispatch import resolve_device
 from ..util import slo, tracing
-from .config import KV_FRAME_LAYOUT_DEFAULT, SpeculationConfig
+from .config import SpeculationConfig
 from .programs import (_CAPTURE_LOCK, SAMPLER_MODES, CapturedProgram, PagedModel, _categorical,
                        host_tensor, read_back)
 from .spec_decode import SpecDecoder
@@ -260,7 +261,7 @@ class Request:
     kv_sink: Optional[Callable[[Dict[str, Any]], None]] = None
     kv_window: int = 256  # tokens per streamed frame
     # "layer" (wire v2: each frame a slab of consecutive layers), "token"
-    # (wire v1: every layer in each frame), "" for KV_FRAME_LAYOUT_DEFAULT
+    # (wire v1: every layer in each frame), "" for config.kv_frame_layout
     kv_frame_layout: str = ""
 
     def _emit(self, tok: Optional[int]) -> None:
@@ -800,9 +801,9 @@ class InferenceEngine:
         return blob
 
     def _kv_layout(self, req: Request) -> str:
-        """A request's streamed-frame layout: its own, else
-        KV_FRAME_LAYOUT_DEFAULT; anything unknown is "layer" (wire v2)."""
-        lay = req.kv_frame_layout or KV_FRAME_LAYOUT_DEFAULT
+        """A request's streamed-frame layout: its own, else the
+        config.kv_frame_layout knob; anything unknown is "layer" (wire v2)."""
+        lay = req.kv_frame_layout or str(config.kv_frame_layout)
         return lay if lay in ("layer", "token") else "layer"
 
     def _stream_kv_frames(self, req: Request, k, v, start: int, *, true_len: int, last: bool,

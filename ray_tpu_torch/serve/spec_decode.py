@@ -73,9 +73,10 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.config import config
 from ..core.metrics import Counter, Gauge
 from ..models import get_config, init_params
-from .config import SPEC_OVERLAP_DEFAULT, SpeculationConfig
+from .config import SpeculationConfig
 from .programs import SAMPLER_MODES, PagedModel, _categorical, host_tensor, read_back
 
 _m_spec_proposed = Counter(
@@ -497,7 +498,7 @@ class SpecDecoder:
             self.proposer = DraftModelProposer(engine, spec, draft_params)
         else:
             raise ValueError(f"speculation mode {spec.mode!r} is not a proposer mode")
-        overlap = spec.overlap if spec.overlap is not None else SPEC_OVERLAP_DEFAULT
+        overlap = spec.overlap if spec.overlap is not None else bool(config.spec_overlap)
         self.overlap = overlap and self.proposer.supports_prefetch
         self.proposed_total = 0
         self.accepted_total = 0

@@ -48,6 +48,9 @@ _lock = threading.Lock()
 _spans: List[Dict[str, Any]] = []
 _total = 0  # spans ever buffered (monotone; _spans may have been trimmed)
 _MAX_SPANS = 10_000
+# util/flight_recorder.attach() points this at its ring so finished spans
+# land in the per-process crash record; None = zero-overhead default
+_flight_sink = None
 
 
 def _now_us() -> float:
@@ -89,6 +92,11 @@ class Span:
             _total += 1
             if len(_spans) > _MAX_SPANS:
                 del _spans[: len(_spans) - _MAX_SPANS]
+        if _flight_sink is not None:
+            try:
+                _flight_sink(rec)
+            except Exception:
+                pass  # the flight recorder must never break tracing
 
 
 class _RemoteParent:

@@ -383,12 +383,8 @@ def test_object_ledger_injects_object_leak_as_reference():
 
 
 def test_profiling_sections_and_remote_status_wait_for_a5c():
-    plane = thealth.HealthPlane(rules=[], period_s=60.0, metrics_fn=lambda: [],
-                                digests_fn=lambda: [])
-    payload = plane.payload()
-    assert payload["utilization"] == {} and payload["goodput"] == {}
-    assert "A5c" in thealth.HealthPlane._profiling_sections.__doc__
-    assert "A5c" in thealth.get_health_plane.__doc__
+    # the payload's utilization and goodput sections are ported
+    # (tests/test_torch_profiler.py); reading a remote head waits
     with pytest.raises(NotImplementedError, match="A5c"):
         ray_tpu_torch.status(address="127.0.0.1:8265")
 

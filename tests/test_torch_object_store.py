@@ -170,11 +170,9 @@ def test_process_flag_from_the_environment_starts_the_pool(monkeypatch):
 
 @pytest.mark.parametrize("kwargs", [
     {"address": "127.0.0.1:6379"},
-    {"resume_from": "snapshot.pkl"},
     {"system_config": {"control_plane_rpc_port": 0}},
     {"system_config": {"control_plane_shards": 2}},
-    {"system_config": {"control_plane_snapshot_path": "snap.pkl"}},
-], ids=["address", "resume_from", "rpc_head", "federation", "snapshots"])
+], ids=["address", "rpc_head", "federation"])
 def test_cross_host_entry_points_raise_naming_a5c(kwargs):
     ray_tpu_torch.shutdown()
     with pytest.raises(NotImplementedError, match="A5c"):
@@ -183,14 +181,6 @@ def test_cross_host_entry_points_raise_naming_a5c(kwargs):
 
 
 def test_in_process_runtime_refuses_what_waits(runtime):
-    agent = runtime.driver_agent
-    for kind in ("cpu", "jax"):
-        with pytest.raises(NotImplementedError, match="A5c"):
-            agent.profile_start(kind=kind)
-    for kind in ("stack", "cpu", "pids"):
-        with pytest.raises(NotImplementedError, match="A5c"):
-            agent.profile_fetch(kind=kind)
-
     @ray_tpu_torch.remote
     class Isolated:
         def ping(self):

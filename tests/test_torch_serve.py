@@ -9,6 +9,7 @@ path, a prefix-cache hit and a stop sequence.
 """
 
 import json
+import os
 import subprocess
 import sys
 
@@ -359,4 +360,24 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True, timeout=120)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    # the observability and tooling modules, with the sanitizer armed at
+    # import (RAY_TPU_SANITIZE=1), load neither either
+    tooling = (
+        "import json, sys\n"
+        "import ray_tpu_torch\n"
+        "from ray_tpu_torch.util import sanitizer\n"
+        "assert sanitizer.installed()\n"
+        "import ray_tpu_torch.util.flight_recorder, ray_tpu_torch.util.profiler\n"
+        "import ray_tpu_torch.util.state, ray_tpu_torch.util.chaos\n"
+        "import ray_tpu_torch.core.persistence, ray_tpu_torch.core.log_monitor\n"
+        "import ray_tpu_torch.job_submission, ray_tpu_torch.microbenchmark\n"
+        "from ray_tpu_torch.util import profiler\n"
+        "assert profiler.device_memory_snapshot()['devices'] == []\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'ray_tpu' or m.startswith('ray_tpu.'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", tooling], capture_output=True, text=True,
+                         check=True, timeout=60, env=dict(os.environ, RAY_TPU_SANITIZE="1"))
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -497,8 +497,7 @@ def test_unported_entry_points_raise():
     # are ported (tests/test_torch_disagg.py, test_torch_health.py,
     # test_torch_fleet.py, test_torch_serve_schema.py); what waits for
     # ROADMAP A5c is reading a remote head's health (status(address=): the
-    # dashboard), the profiler's payload sections and the `ray-tpu serve run`
-    # command (scripts.py)
+    # dashboard) and the `ray-tpu serve run` command (scripts.py)
     import importlib.util
 
     from ray_tpu_torch import serve
@@ -509,7 +508,6 @@ def test_unported_entry_points_raise():
         serve.build_openai_app(disagg={"kv_transfer": "carrier-pigeon"})
     with pytest.raises(NotImplementedError, match="A5c"):
         ray_tpu_torch.status(address="127.0.0.1:8265")
-    assert "A5c" in health.HealthPlane._profiling_sections.__doc__
     assert "A5c" in schema.__doc__ and "serve run" in schema.__doc__
     assert importlib.util.find_spec("ray_tpu_torch.scripts") is None
     assert serve.grpc_port() is None  # no proxy until start_grpc()
