@@ -420,6 +420,31 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      spans of the served requests in the flight recorder, and a pool
      worker killed with SIGKILL leaves a postmortem that load_postmortem
      reads;
+  4n. the network (network_path, after 4o): a direct llama3-8b engine
+     (weights from seed 0) gives the tokens of phase 4o's 8 greedy prompts
+     of 32 tokens and is freed (the card's memory read back); the smoke
+     process becomes a head that serves its control plane over RPC and
+     advertises no card (init(num_gpus=0, control_plane_rpc_port=0),
+     health timeout NETWORK_HEALTH_TIMEOUT_MS); two worker processes join
+     with init(address=), each advertising a share of the card and
+     {"replica_pool": 2} (room for the controller to replace the killed
+     host's replica on the survivor); serve.run(LLMServer.options(
+     num_replicas=2)) places one llama3-8b replica on each joined host by
+     resource demand (spread; both built at once); the 8 requests through the handle
+     across the dispatch plane must give tokens bit-equal to the direct
+     engine's, both replicas serving; one host SIGKILLed NETWORK_KILL_AT of
+     the way into a second burst must be reaped within the health timeout,
+     every request answered bit-equal or failed with a typed error, none
+     hung, and nvidia-smi's compute apps one fewer without its pid; the
+     controller's replacement replica must be built on the survivor; there
+     a K1 task over the head's numpy rows (one launch there, the
+     result back over the transfer plane as a CPU tensor, against the
+     plain rms_norm within TOL) and a task that calls the deployment's
+     handle through the head back-channel (tokens bit-equal); then
+     serve.shutdown() and shutdown() leave no host process and no compute
+     app of the phase. Prints the walls: reference engine, head init,
+     join, replica build, burst TPOT p50, time to reap, K1 round trip,
+     back-channel call, phase;
   5. LLMServer serving moe-1b (8 experts, top 2) at full width and depth,
      random bf16 weights from seed 0, phase 3's engine sizes and burst
      shapes: every serving kernel runs, every launch from a graph replay;
@@ -464,7 +489,9 @@ of phase 3g's (a)-(c) and (d)), fleet (the coordinator's requests of phase
 3f's (a)-(d), both cycles), pretrain (phase 4p's first fit and
 its served burst), tune (phase 4t's ASHA and PBT fits), rl (phase 4r's
 GRPO steps at lr 1e-5 and the online loop's iterations), observe (phase
-4o's bursts)), the last
+4o's bursts), network (phase 4n: the head launches nothing, its replicas'
+kernels run in the joined hosts' processes; the K1 task's launch there)),
+then a table of each phase's wall, the last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
 
@@ -9570,8 +9597,11 @@ def observe_path(card: str) -> dict:
     if not hits or hits[0]["pid"] != str(wpid):
         fail("phase 4o (g): the log monitor missed the pool task's line or its pid")
 
-    # (h) the core microbenchmarks
-    rows = microbenchmark.run_all(min_seconds=0.5)
+    # (h) the core microbenchmarks on this host: run_all's cross-host rows
+    # recycle the runtime into an RPC head with a joined process (phase 4n
+    # runs the network; tests/test_torch_tooling.py the bench itself)
+    with swapped(microbenchmark, bench_cross_host=lambda api, min_seconds=0.5: []):
+        rows = microbenchmark.run_all(min_seconds=0.5)
     log("phase 4o (h): " + "; ".join(f"{r['metric']} {r['value']} {r['unit']}" for r in rows))
 
     # (i) the sanitizer's reports, the recorder's spans, a killed worker's postmortem
@@ -9623,9 +9653,382 @@ def observe_path(card: str) -> dict:
     return {"launches": counts}
 
 
+# --------------------------------------------------------------- phase 4n
+
+NETWORK_MODEL = "llama3-8b"
+NETWORK_DEVICE = None  # the replicas' LLMServer device: None is the card
+NETWORK_HEALTH_TIMEOUT_MS = 5000
+# the head (this process) advertises no card; each joined host a share of it,
+# room for two replicas: the controller replaces the killed host's replica
+# on the survivor, as in the reference's serve test
+NETWORK_HOST_GPUS = 1.0
+NETWORK_REPLICA_GPUS = 0.5
+NETWORK_TASK = {"num_cpus": 0, "resources": {"net_host": 0.1}}
+# the second burst runs this share of the first burst's wall before the SIGKILL
+NETWORK_KILL_AT = 0.4
+# a request the killed host held fails with the runtime's typed errors
+NETWORK_TYPED_ERRORS = ("RayActorError", "RayTaskError", "WorkerCrashedError")
+
+_NETWORK_WORKER = """
+import sys
+sys.path.insert(0, {here!r})
+import ray_tpu_torch
+w = ray_tpu_torch.init(address={addr!r}, num_cpus=4, num_gpus={gpus},
+                       resources={{"replica_pool": 2.0, "net_host": 1.0, "net_host_{i}": 1.0}},
+                       system_config={{"worker_processes": 0}})
+print("JOINED", flush=True)
+w.wait(timeout={wait})
+"""
+
+
+def network_tasks(dev: str):
+    """Phase 4n's two tasks for a joined host, made here so that they
+    pickle by value (this script is __main__, which the host cannot
+    import): (K1 on the host's card over the head's numpy rows -> (y on the
+    card, the host's K1 launches during the call, its pid); the
+    deployment's handle resolved and called from the host through the
+    head's ownership tables, core/worker_api.py -> (the tokens, its pid))."""
+
+    def k1(x_np, w_np, eps: float):
+        import os
+
+        import torch
+
+        from ray_tpu_torch.ops import dispatch, norm
+
+        x = torch.from_numpy(x_np).to(dev, torch.bfloat16)
+        w = torch.from_numpy(w_np).to(dev, torch.bfloat16)
+        before = dispatch.launch_counts()["rms_norm"]
+        y = norm.rms_norm(x, w, eps)
+        if y.is_cuda:
+            torch.cuda.synchronize()
+        return y, dispatch.launch_counts()["rms_norm"] - before, os.getpid()
+
+    def back_channel(deployment: str, requests):
+        import os
+
+        from ray_tpu_torch import serve
+
+        handle = serve.get_deployment_handle(deployment)
+        return ([handle.remote(r).result(timeout=600)["token_ids"] for r in requests],
+                os.getpid())
+
+    return k1, back_channel
+
+
+def network_path(card: str) -> dict:
+    """Phase 4n: llama3-8b replicas on joined hosts (the module docstring);
+    -> {"launches": the head's launch counts over its burst (none: the
+    replicas' kernels run in the joined hosts' processes) and the K1 task's
+    launch on a joined host, "walls": the phase's walls}."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import get_config, init_params
+    from ray_tpu_torch.ops import dispatch, norm
+    from ray_tpu_torch.serve import EngineConfig, InferenceEngine, LLMServer
+
+    t_phase = time.monotonic()
+    walls = {}
+    cfg = get_config(NETWORK_MODEL)
+    requests = observe_requests(cfg)
+    rt.shutdown()
+    gc.collect()
+    if NETWORK_DEVICE is None:
+        torch.cuda.synchronize()
+    apps0 = compute_apps()
+    mem0 = torch.cuda.memory_allocated() if NETWORK_DEVICE is None else 0
+
+    # (2) the head serves RPC and advertises no card; two hosts start joining
+    t0 = time.monotonic()
+    head = rt.init(num_gpus=0, system_config={
+        "control_plane_rpc_port": 0, "health_check_timeout_ms": NETWORK_HEALTH_TIMEOUT_MS,
+        "worker_processes": 0, "actor_processes": False})
+    addr = head._cp_server.address
+    walls["head init"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    import tempfile
+
+    host_logs = [tempfile.NamedTemporaryFile(prefix=f"phase4n-host{i}-", suffix=".log",
+                                             delete=False) for i in range(2)]
+    t_join = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _NETWORK_WORKER.format(here=HERE, addr=addr, i=i,
+                                                      gpus=NETWORK_HOST_GPUS, wait=1800)],
+        stdout=host_logs[i], stderr=subprocess.STDOUT) for i in range(2)]
+    hosts, joined_at = {}, {}
+
+    def watch_joins():
+        while len(hosts) < 2 and time.monotonic() - t_join < 120:
+            for n in head.control_plane.alive_nodes():
+                for i in range(2):
+                    if f"net_host_{i}" in n.resources_total and i not in hosts:
+                        hosts[i], joined_at[i] = n.node_id, time.monotonic()
+            if any(p.poll() is not None for p in procs):
+                return
+            time.sleep(0.02)
+
+    watcher = threading.Thread(target=watch_joins, daemon=True, name="phase4n-joins")
+    watcher.start()
+    try:
+        # (1) the reference tokens from a direct engine while the hosts join,
+        # then its memory back
+        t0 = time.monotonic()
+        dev = "cuda" if NETWORK_DEVICE is None else NETWORK_DEVICE
+        engine = InferenceEngine(init_params(cfg, seed=0, device=dev, dtype=cfg.dtype), cfg,
+                                 EngineConfig(**ENGINE), device=dev)
+        engine.warmup()
+        # one at a time: a prompt's tokens do not depend on its batch (prefills
+        # run one prompt each, every decode span at the full batch)
+        want = [engine.generate(r["prompt_ids"], max_tokens=r["max_tokens"])["token_ids"]
+                for r in requests]
+        engine.stop()
+        del engine
+        gc.collect()
+        if NETWORK_DEVICE is None:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        mem1 = torch.cuda.memory_allocated() if NETWORK_DEVICE is None else 0
+        walls["reference engine"] = time.monotonic() - t0
+        log(f"phase 4n (1): a direct {NETWORK_MODEL} engine's tokens for {len(requests)} greedy "
+            f"prompts in {walls['reference engine']:.1f}s; card memory {mem0 / 2**30:.3f} GiB "
+            f"before it, {mem1 / 2**30:.3f} GiB after it was freed ({card})")
+        if mem1 - mem0 > 2**30:
+            fail(f"phase 4n (1): the freed engine left {(mem1 - mem0) / 2**30:.3f} GiB on the card")
+
+        watcher.join(max(1.0, 120 - (time.monotonic() - t_join)))
+        if any(p.poll() is not None for p in procs):
+            fail(f"phase 4n (2): a joining host exited ({[p.poll() for p in procs]})")
+        if len(hosts) < 2:
+            fail("phase 4n (2): the two hosts did not join within 120 s")
+        walls["join"] = max(joined_at.values()) - t_join
+        pid_of = {hosts[i]: procs[i].pid for i in range(2)}
+        log(f"phase 4n (2): init() serving RPC at {addr} in {walls['head init']:.2f}s; two "
+            f"hosts (pids {[p.pid for p in procs]}) joined {walls['join']:.1f}s after they "
+            f"started (beside (1)), each "
+            f"advertising GPU {NETWORK_HOST_GPUS} and replica_pool 2; the head advertises "
+            f"{head.control_plane.get_node(head.driver_agent.node_id).resources_total}")
+
+        # (3) two replicas placed on the joined hosts by resource demand
+        t0 = time.monotonic()
+        # spread, as the reference's serve test does: the head sees a joined
+        # host's free resources as of its last heartbeat
+        handle = serve.run(LLMServer.options(
+            num_replicas=2, ray_actor_options={
+                "num_gpus": NETWORK_REPLICA_GPUS, "resources": {"replica_pool": 1.0},
+                "scheduling_strategy": rt.SpreadSchedulingStrategy()}).bind(
+            model_name=NETWORK_MODEL, engine_config=ENGINE, seed=0, device=NETWORK_DEVICE),
+            name="net")
+        replicas = wait_ready(handle.deployment_name, 2, t0, label="phase 4n (3)")
+        walls["replica build"] = max(s for _, s in replicas)
+        placed = {}
+        for replica, _ in replicas:
+            node = head.control_plane.get_actor(replica._actor_id).node_id
+            if node not in pid_of:
+                fail(f"phase 4n (3): a replica was placed off the joined hosts ({node})")
+            placed[pid_of[node]] = replica
+        if len(placed) != 2:
+            fail("phase 4n (3): both replicas landed on one host")
+        log(f"phase 4n (3): two {NETWORK_MODEL} replicas ready at "
+            f"{[round(s, 1) for _, s in replicas]} s, one on each joined host "
+            f"({sorted(placed)})")
+        served0 = {pid: rt.get(r.stats.remote(), timeout=60)["total"] for pid, r in placed.items()}
+        dispatch.reset_launches()
+        results, latency, wall = handle_burst(handle, requests, label="phase 4n (3)")
+        head_launches = dispatch.launch_counts()
+        line = report_burst("phase 4n (3) burst across the hop", requests, results, wall)
+        walls["burst TPOT p50 (ms)"] = tpot_ms(results)
+        served1 = {pid: rt.get(r.stats.remote(), timeout=60)["total"] for pid, r in placed.items()}
+        by_host = {pid: served1[pid] - served0[pid] for pid in placed}
+        got = [r["token_ids"] for r in results]
+        log(f"phase 4n (3): {line}; the call-to-result hop p50 "
+            f"{statistics.median(latency):.3f} s; requests per host {by_host}; tokens "
+            f"bit-equal to (1): {got == want}")
+        if got != want:
+            fail("phase 4n (3): the tokens through the joined hosts differ from the direct "
+                 "engine's")
+        if min(by_host.values()) < 1:
+            fail(f"phase 4n (3): a replica served no request ({by_host})")
+
+        # (4) SIGKILL one host in the middle of a second burst
+        victim_i = 0
+        victim = procs[victim_i]
+        apps_before = compute_apps()
+        outcomes = [None] * len(requests)
+
+        def wait_one(i, response):
+            try:
+                outcomes[i] = ("ok", response.result(timeout=600)["token_ids"])
+            except Exception as e:  # noqa: BLE001 — its type is the gate
+                outcomes[i] = ("error", type(e).__name__, repr(e)[:200])
+
+        threads = [threading.Thread(target=wait_one, args=(i, handle.remote(r)), daemon=True)
+                   for i, r in enumerate(requests)]
+        for t in threads:
+            t.start()
+        kill_after = NETWORK_KILL_AT * wall
+        time.sleep(kill_after)
+        os.kill(victim.pid, signal.SIGKILL)
+        t_kill = time.monotonic()
+        victim.wait(timeout=30)
+        reap_s = None
+        while time.monotonic() - t_kill < 60:
+            if hosts[victim_i] not in [n.node_id for n in head.control_plane.alive_nodes()]:
+                reap_s = time.monotonic() - t_kill
+                break
+            time.sleep(0.02)
+        for t in threads:
+            t.join(max(1.0, 660 - (time.monotonic() - t_kill)))
+        hung = [i for i, t in enumerate(threads) if t.is_alive() or outcomes[i] is None]
+        walls["time to reap"] = reap_s if reap_s is not None else float("nan")
+        gone = None
+        while time.monotonic() - t_kill < 90:
+            apps = compute_apps()
+            if victim.pid not in apps and len(apps) <= len(apps_before) - 1:
+                gone = time.monotonic() - t_kill
+                break
+            time.sleep(0.2)
+        answered = [(i, o[1]) for i, o in enumerate(outcomes) if o and o[0] == "ok"]
+        failed = [(i, o[1], o[2]) for i, o in enumerate(outcomes) if o and o[0] == "error"]
+        log(f"phase 4n (4): SIGKILL of host pid {victim.pid} {kill_after:.2f} s into a "
+            f"burst of {len(requests)}: reaped after "
+            f"{'not reaped' if reap_s is None else f'{reap_s:.2f} s'} (health timeout "
+            f"{NETWORK_HEALTH_TIMEOUT_MS / 1e3:.1f} s); {len(answered)} answered, "
+            f"{len(failed)} failed ({sorted({f[1] for f in failed})}), {len(hung)} hung; "
+            f"compute apps {len(apps_before)} -> "
+            f"{'unchanged' if gone is None else f'{len(apps_before) - 1} after {gone:.1f} s'}")
+        if reap_s is None or reap_s > NETWORK_HEALTH_TIMEOUT_MS / 1e3 + 2.0:
+            fail(f"phase 4n (4): the killed host was not reaped within the health timeout "
+                 f"({reap_s})")
+        if hung:
+            fail(f"phase 4n (4): requests {hung} neither answered nor failed")
+        if any(f[1] not in NETWORK_TYPED_ERRORS for f in failed):
+            fail(f"phase 4n (4): untyped failures {failed}")
+        if any(toks != want[i] for i, toks in answered):
+            fail("phase 4n (4): an answered request's tokens differ from the direct engine's")
+        if not answered:
+            fail("phase 4n (4): the surviving replica answered nothing")
+        if gone is None:
+            fail(f"phase 4n (4): the killed host pid {victim.pid} still holds the card "
+                 f"({compute_apps()})")
+
+        # the controller replaces the killed host's replica on the survivor;
+        # (5) waits for it to be built: a graph capture in that process
+        # refuses other CUDA work beside it (ROADMAP C17)
+        from ray_tpu_torch.core.control_plane import ActorState
+        from ray_tpu_torch.serve.controller import get_or_create_controller
+
+        survivor = procs[1 - victim_i].pid
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < FLEET_WAIT_S:
+            listed, _ = rt.get(get_or_create_controller().get_replicas.remote(
+                handle.deployment_name), timeout=60)
+            infos = [head.control_plane.get_actor(r._actor_id) for r in listed]
+            if len(listed) == 2 and all(
+                    i is not None and i.state is not ActorState.DEAD
+                    and i.node_id == hosts[1 - victim_i] for i in infos):
+                break
+            time.sleep(0.2)
+        else:
+            fail(f"phase 4n (4): the killed host's replica was not replaced on the survivor "
+                 f"within {FLEET_WAIT_S} s")
+        wait_ready(handle.deployment_name, 2, t0, label="phase 4n (4)")
+        walls["replacement ready"] = time.monotonic() - t0
+        log(f"phase 4n (4): the controller's replacement replica ready on the survivor (pid "
+            f"{survivor}) {walls['replacement ready']:.1f}s after the reap")
+
+        # (5) the dispatch plane and the back-channel on the surviving host
+        rng = np.random.default_rng(5)
+        x_np = rng.standard_normal((8, cfg.d_model), dtype=np.float32)
+        w_np = (1.0 + 0.1 * rng.standard_normal(cfg.d_model)).astype(np.float32)
+        k1, back_channel = network_tasks(dev)
+        t0 = time.monotonic()
+        y, k1_launches, k1_pid = rt.get(rt.remote(**NETWORK_TASK)(k1).remote(
+            x_np, w_np, cfg.norm_eps), timeout=300)
+        walls["K1 round trip"] = time.monotonic() - t0
+        plain = norm.rms_norm(torch.from_numpy(x_np).to(torch.bfloat16),
+                              torch.from_numpy(w_np).to(torch.bfloat16), cfg.norm_eps)
+        atol, rtol = TOL[("rms_norm", torch.bfloat16)]
+        err = (y.float() - plain.float()).abs().max().item()
+        ok = torch.allclose(y.float(), plain.float(), atol=atol, rtol=rtol)
+        log(f"phase 4n (5): K1 on host pid {k1_pid} (the survivor {survivor}) in "
+            f"{walls['K1 round trip']:.3f}s round trip: {k1_launches} launch there, the "
+            f"result back on the head's {y.device} as {y.dtype}, max |kernel - plain| {err:.3e} "
+            f"(tolerance {atol} + {rtol} x |plain|)")
+        if k1_pid != survivor:
+            fail(f"phase 4n (5): the K1 task ran on pid {k1_pid}, not the surviving host")
+        if NETWORK_DEVICE is None and k1_launches != 1:
+            fail(f"phase 4n (5): the K1 task launched K1 {k1_launches} times, not once")
+        if y.device.type != "cpu":
+            fail(f"phase 4n (5): a tensor from the card crossed the hop onto {y.device}")
+        if not ok:
+            fail(f"phase 4n (5): K1 on the joined host disagrees with the plain rms_norm "
+                 f"({err:.3e})")
+        launches = dict(head_launches, rms_norm=head_launches["rms_norm"] + k1_launches)
+        t0 = time.monotonic()
+        toks, bc_pid = rt.get(rt.remote(**NETWORK_TASK)(back_channel).remote(
+            handle.deployment_name, requests[:2]), timeout=900)
+        walls["back-channel call"] = time.monotonic() - t0
+        log(f"phase 4n (5): a task on host pid {bc_pid} called the deployment's handle through "
+            f"the back-channel in {walls['back-channel call']:.2f}s: tokens bit-equal to (1): "
+            f"{toks == want[:2]}")
+        if bc_pid != survivor or toks != want[:2]:
+            fail(f"phase 4n (5): the back-channel call (pid {bc_pid}) gave {toks}")
+    except SystemExit:
+        for f in host_logs:  # what the hosts said, for the failure's reader
+            with open(f.name, errors="replace") as fh:
+                log(f"phase 4n: {f.name} ends:\n" + "".join(fh.readlines()[-40:]))
+        raise
+    finally:
+        # (6) clean-up: serve and the runtime end, the hosts exit, the card
+        # holds no app of the phase
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+        t_end = time.monotonic()
+        left = []
+        for p in procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                left.append(p.pid)
+                p.kill()
+                p.wait(timeout=30)
+    apps = compute_apps()
+    while len(apps) > len(apps0) and time.monotonic() - t_end < 30:
+        time.sleep(0.2)
+        apps = compute_apps()
+    log(f"phase 4n (6): serve.shutdown() and shutdown(): the hosts exited "
+        f"{'cleanly' if not left else f'only when killed ({left})'}; compute apps "
+        f"{len(apps0)} before the phase, {len(apps)} after")
+    if left or len(apps) > len(apps0):
+        fail(f"phase 4n (6): a host or a compute app outlived the phase ({left}, {apps})")
+    walls["phase"] = time.monotonic() - t_phase
+    log("phase 4n walls: " + "; ".join(
+        f"{k} {v:.2f}" + ("" if k.endswith("(ms)") else " s") for k, v in walls.items()))
+    return {"launches": launches, "walls": walls}
+
+
+def network_only(card: str) -> None:
+    """`--network`: phase 4n alone (no result line)."""
+    network_path(card)
+
+
 def observe_only(card: str) -> None:
     """`--observe`: phase 4o alone (no result line)."""
     observe_path(card)
+
+
+PHASE_WALLS: list = []  # (label, seconds) of each phase of the default run
+T_START = time.monotonic()
+
+
+def timed(label: str, fn, *args):
+    """fn(*args), its wall appended to PHASE_WALLS under `label`."""
+    t0 = time.monotonic()
+    out = fn(*args)
+    PHASE_WALLS.append((label, time.monotonic() - t0))
+    return out
 
 
 def main() -> None:
@@ -9677,6 +10080,10 @@ def main() -> None:
                     help="only build the kernels, then run phase 4r (GRPO and the online RL "
                          "loop at llama-600m, PPO with the learner on the card); prints no "
                          "result line")
+    ap.add_argument("--network", action="store_true",
+                    help="only build the kernels, then run phase 4n (llama3-8b replicas on two "
+                         "joined hosts: served, one host killed mid-burst, K1 and the "
+                         "back-channel on the survivor); prints no result line")
     ap.add_argument("--observe", action="store_true",
                     help="only build the kernels, then run phase 4o (observability and tooling "
                          "around a named llama3-8b server: device trace, sampling profile, "
@@ -9701,6 +10108,7 @@ def main() -> None:
 
     t0 = time.monotonic()
     dispatch.library()
+    PHASE_WALLS.append(("1 kernels built", time.monotonic() - t0))
     log(f"phase 1: kernels built in {time.monotonic() - t0:.1f}s "
         f"(nvcc {dispatch.BUILD_INFO.get('seconds', 0.0):.1f}s)")
     with open(dispatch.BUILD_INFO["log"]) as f:
@@ -9754,15 +10162,21 @@ def main() -> None:
     if args.observe:
         observe_only(card)
         return
+    if args.network:
+        network_only(card)
+        return
+    t0 = time.monotonic()
     gen = torch.Generator(device="cuda").manual_seed(0)
     tile_identity_checks(gen)
     figures = norm_checks(gen)
     figures.update(kernel_checks(gen))
     figures.update(training_kernel_checks(gen))
-    served = serve_main_path(card, args.profile)
+    PHASE_WALLS.append(("2 kernels against their plain versions", time.monotonic() - t0))
+    served = timed("3 serving llama3-8b, with 3m 3w 3r 3d 3g 3f", serve_main_path, card,
+                   args.profile)
     gc.collect()  # the server is shut down: free its pool, keep its weights
     torch.cuda.empty_cache()
-    spec = spec_main_path(card, args.profile, served)
+    spec = timed("3s speculation", spec_main_path, card, args.profile, served)
     serve_launches, migrate_launches, live_launches, runtime_launches, deploy_launches = (
         served["launches"], served["migrate"], served["live"], served["runtime"],
         served["deploy"])
@@ -9770,15 +10184,16 @@ def main() -> None:
     del served
     gc.collect()  # free the weights
     torch.cuda.empty_cache()
-    trained = train_main_path(card, args.profile)
-    train2b = train2b_path(card, trained, args.profile)
-    pretrain = pretrain_path(card)
-    procs = procs_path(card)
-    tuned = tune_path(card, train2b)
-    rl_ran = rl_path(card)
-    observed = observe_path(card)
-    moe_served = moe_serve_path(card, args.profile)
-    moe_trained = moe_train_path(card, args.profile)
+    trained = timed("4 training llama-2b", train_main_path, card, args.profile)
+    train2b = timed("4f train2b", train2b_path, card, trained, args.profile)
+    pretrain = timed("4p pretrain, checkpoint, serve", pretrain_path, card)
+    procs = timed("4i worker processes", procs_path, card)
+    tuned = timed("4t tune", tune_path, card, train2b)
+    rl_ran = timed("4r rl", rl_path, card)
+    observed = timed("4o observability", observe_path, card)
+    networked = timed("4n network", network_path, card)
+    moe_served = timed("5 serving moe-1b", moe_serve_path, card, args.profile)
+    moe_trained = timed("6 training moe-1b", moe_train_path, card, args.profile)
     kernels = []
     for name in dispatch.KERNELS:
         source, replaces = SOURCES[name]
@@ -9793,7 +10208,8 @@ def main() -> None:
                    "disagg": disagg_launches[name], "fleet": fleet_launches[name],
                    "pretrain": pretrain["launches"][name], "procs": procs["launches"][name],
                    "tune": tuned["launches"][name],
-                   "rl": rl_ran["launches"][name], "observe": observed["launches"][name]}
+                   "rl": rl_ran["launches"][name], "observe": observed["launches"][name],
+                   "network": networked["launches"][name]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **figures[name]})
@@ -9801,6 +10217,10 @@ def main() -> None:
             kernels[-1]["with_lse"] = figures["flash_attention_lse"]
         if name == "rms_norm":  # decode rows above; the training block here
             kernels[-1]["training_shape"] = figures["rms_norm_training"]
+    log("phase walls, s (this run):")
+    for label, seconds in PHASE_WALLS:
+        log(f"  {label:<48} {seconds:9.1f}")
+    log(f"  {'total since start':<48} {time.monotonic() - T_START:9.1f}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

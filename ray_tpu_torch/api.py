@@ -12,12 +12,16 @@ accelerator resource is "GPU" (`num_gpus=`), counted from
 `torch.cuda.device_count()`.
 
 Control-plane snapshots (`control_plane_snapshot_path`) and restoring
-from one (`init(resume_from=)`) run (core/persistence.py). Waiting for
-ROADMAP A5c: joining a cluster (`address=`), the federated control plane
-(`control_plane_shards`), the control-plane RPC head
-(`control_plane_rpc_port`) and compiled-graph edges to a joined host
-(dag.py). Each raises NotImplementedError naming its item. Compiled graphs
-over this process's actors (`ActorMethod.bind`, ray_tpu_torch.dag) run.
+from one (`init(resume_from=)`) run (core/persistence.py). The network
+runs: a head serves its control plane over RPC
+(`system_config={"control_plane_rpc_port": 0}`, core/rpc.py) and accepts
+joined worker hosts (`init(address=)`, core/cross_host.py), its gossip
+planes may be federated across shard processes (`control_plane_shards`,
+core/shard.py), and code in a pool worker, an actor process or on a
+joined host reaches the head's ownership tables through the back-channel
+(core/worker_api.py). Compiled graphs over this process's actors
+(`ActorMethod.bind`, ray_tpu_torch.dag) run; their edges to a joined host
+wait for ROADMAP A5c's third slice.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import atexit
 import functools
 import inspect
 import os
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 from .core import core_worker as _cw
@@ -71,6 +76,9 @@ __all__ = [
 ]
 
 
+_init_lock = threading.RLock()  # one init() at a time (see init)
+
+
 def init(
     num_cpus: Optional[float] = None,
     num_gpus: Optional[float] = None,
@@ -90,31 +98,52 @@ def init(
     KV/job tables and re-creates named actors from their pickled specs
     (`ray_tpu_torch.core.persistence` documents the restore policy).
 
-    address (join a cluster head as a worker host) waits for ROADMAP A5c
-    and raises NotImplementedError, as do the system_config flags that
-    would serve the control plane over RPC or federate it.
+    address: join an existing cluster head (its control-plane RPC address,
+    ``host:port``) as a WORKER host: this process's NodeAgent registers
+    with the head and executes tasks/actors the head's scheduler pushes to
+    it (see ``ray_tpu_torch.core.cross_host``). Returns the WorkerRuntime
+    handle; the task-submission API proxies to the head (single
+    controller). num_gpus is the share of this host's cards it advertises.
+
+    system_config={"control_plane_rpc_port": 0} serves this head's control
+    plane over RPC (0 = an ephemeral port, ``rt._cp_server.address``) so
+    hosts can join and pool workers reach it; {"control_plane_shards": K}
+    federates its KV and pubsub across K shard processes.
     """
+    # one init at a time: threads that race into the first API call
+    # (api._auto_init) must all get the one runtime that call starts
+    with _init_lock:
+        return _init(num_cpus, num_gpus, resources, system_config,
+                     ignore_reinit_error, resume_from, address)
+
+
+def _init(num_cpus, num_gpus, resources, system_config, ignore_reinit_error,
+          resume_from, address):
+    global _worker_runtime
     if address is not None:
-        raise NotImplementedError(
-            "init(address=...): joining a cluster as a worker host "
-            "(core/cross_host.py) waits for ROADMAP A5c")
+        if _cw.runtime_initialized():
+            raise RuntimeError("this process already hosts a head runtime; "
+                               "init(address=...) joins as a worker")
+        if _worker_runtime is not None and _worker_runtime.is_running:
+            if ignore_reinit_error:
+                return _worker_runtime
+            raise RuntimeError("ray_tpu_torch.init() called twice")
+        config.apply_overrides(system_config)
+        from .core.cross_host import join_cluster
+
+        try:
+            _worker_runtime = join_cluster(
+                address, num_cpus=num_cpus, num_gpus=num_gpus, resources=resources)
+        except BaseException:
+            config.reset()  # a failed join leaves no override behind
+            raise
+        atexit.register(shutdown)
+        return _worker_runtime
     if _cw.runtime_initialized():
         if ignore_reinit_error:
             return _cw.get_runtime()
         raise RuntimeError("ray_tpu_torch.init() called twice")
     config.apply_overrides(system_config)
-    try:
-        if int(config.control_plane_shards) > 0:
-            raise NotImplementedError(
-                "control_plane_shards: the federated control plane "
-                "(core/shard.py) waits for ROADMAP A5c")
-        if int(config.control_plane_rpc_port) >= 0:
-            raise NotImplementedError(
-                "control_plane_rpc_port: serving the control plane over RPC "
-                "(core/rpc.py, core/cross_host.py) waits for ROADMAP A5c")
-    except NotImplementedError:
-        config.reset()  # a refused init leaves no override behind
-        raise
     rt = Runtime()
     rt.add_node(resources=default_node_resources(num_cpus, num_gpus, resources),
                 is_head=True)
@@ -134,6 +163,30 @@ def init(
         rt._snapshot_writer = SnapshotWriter(
             rt, config.control_plane_snapshot_path
         )
+    if int(config.control_plane_shards) > 0:
+        from .core.shard import enable_federation
+
+        # shard the gossip planes (KV / pubsub) BEFORE serving the head:
+        # attaching clients must only ever see the federated routing
+        enable_federation(rt)
+    if config.control_plane_rpc_port >= 0:
+        from .core.cross_host import HeadService, enable_cross_host
+        from .core.rpc import serve_control_plane
+
+        # serve the full head surface (control plane + directory ops) and
+        # accept worker-host joins (cross-host execution plane)
+        rt._cp_server = serve_control_plane(
+            HeadService(rt),
+            host=config.control_plane_rpc_host,
+            port=config.control_plane_rpc_port,
+        )
+        enable_cross_host(rt)
+        # pool-worker children inherit the back-channel address (nested
+        # submission from pool tasks; api._pool_worker_client)
+        host, _, port = rt._cp_server.address.rpartition(":")
+        if host in ("0.0.0.0", "::", ""):
+            host = "127.0.0.1"
+        os.environ["RAY_TPU_HEAD_ADDRESS"] = f"{host}:{port}"
     return rt
 
 
@@ -169,8 +222,17 @@ def _detect_local_gpus() -> float:
 
 
 def shutdown() -> None:
+    global _worker_runtime
+    if _worker_runtime is not None:
+        _worker_runtime.shutdown()
+        _worker_runtime = None
+        config.reset()
     if _cw.runtime_initialized():
         rt = _cw.get_runtime()
+        if getattr(rt, "_cp_server", None) is not None:
+            addr = os.environ.get("RAY_TPU_HEAD_ADDRESS", "")
+            if addr.rpartition(":")[2] == rt._cp_server.address.rpartition(":")[2]:
+                os.environ.pop("RAY_TPU_HEAD_ADDRESS", None)
         rt.shutdown()
         _cw.set_runtime(None)
         # init()-scoped system_config must not leak into the next runtime
@@ -186,23 +248,99 @@ def is_initialized() -> bool:
     return _cw.runtime_initialized()
 
 
+_worker_runtime = None  # WorkerRuntime when this process joined via address=
+
+
 def _auto_init() -> Runtime:
     if not _cw.runtime_initialized():
-        if os.environ.get("RAY_TPU_IN_POOL_WORKER"):
-            # falling through to init() would start a PRIVATE runtime in a
-            # worker process whose refs and handles mean nothing to the
-            # driver; the reference's head back-channel waits for A5c
-            raise RuntimeError(
-                "the ray_tpu_torch API is not available inside worker "
-                "processes (pool tasks / isolated actors): return plain "
-                "values, or create an actor that must drive the runtime "
-                "with @ray_tpu_torch.remote(in_process=True)")
-        init()
+        with _init_lock:
+            client = _uninitialized_entry()
+        if client is not None:
+            return client
     rt = _cw.get_runtime()
     # every API entry is a point where this thread holds no runtime lock:
     # apply the releases that dropped handles queued (ReferenceCounter)
     rt.reference_counter.release_dropped()
     return rt
+
+
+def _uninitialized_entry():
+    """The first API call of a process with no runtime (under _init_lock,
+    so racing threads start one runtime, ROADMAP C22): a joined host or a
+    pool worker gets its back-channel client, a driver starts its runtime
+    (-> None). A thread that lost the race finds the runtime started."""
+    if not _cw.runtime_initialized():
+        if _worker_runtime is not None:
+            if _worker_runtime.is_running:
+                # joined-host process: the API proxies to the head's
+                # ownership tables (single-controller; core.worker_api)
+                return _worker_runtime.api_client()
+            # falling through to init() here would silently spin up a
+            # phantom one-node head in a worker process, masking the
+            # cluster death — fail loudly instead
+            raise RuntimeError(
+                "this process joined a cluster as a WORKER host and its "
+                "runtime has shut down (head died or stop was requested); "
+                "the API is unavailable. Re-join with init(address=...) "
+                "once a head is reachable."
+            )
+        if os.environ.get("RAY_TPU_IN_POOL_WORKER"):
+            client = _pool_worker_client()
+            if client is not None:
+                return client
+            # falling through to init() would start a PRIVATE runtime in a
+            # worker process whose refs and handles mean nothing to the
+            # driver
+            raise RuntimeError(
+                "the ray_tpu_torch API is not available inside worker "
+                "processes (pool tasks / isolated actors) unless the cluster "
+                "serves a control-plane RPC endpoint (the head back-channel). "
+                "Start the head with system_config="
+                "{'control_plane_rpc_port': 0} to enable nested submission, "
+                "or return plain values; for an actor that must drive the "
+                "runtime (spawn tasks/actors), create it with "
+                "@ray_tpu_torch.remote(in_process=True).")
+        init()
+    return None
+
+
+_pool_client = None  # WorkerAPIClient inside a pool-worker subprocess
+_pool_client_lock = __import__("threading").Lock()
+
+
+def _pool_worker_client():
+    """Lazy ownership back-channel for pool workers and actor processes:
+    the head address arrives with each task and actor payload
+    (core/process_pool.py, core/actor_process.py); no address or an
+    unreachable head -> None and the caller raises the explanatory error."""
+    global _pool_client
+    addr = os.environ.get("RAY_TPU_HEAD_ADDRESS")
+    if not addr:
+        return None
+    with _pool_client_lock:
+        if (
+            _pool_client is not None
+            and _pool_client.is_alive
+            and _pool_client.head_address == addr
+        ):
+            return _pool_client
+        from .core.wire import WireError
+        from .core.worker_api import WorkerAPIClient
+
+        if _pool_client is not None:
+            # dead connection (head restarted on the same port) or a new
+            # head address: close the old client, or its socket + reader +
+            # free threads leak once per runtime cycle
+            _pool_client.close()
+            _pool_client = None
+        try:
+            _pool_client = WorkerAPIClient(addr)
+        except (OSError, WireError, RuntimeError) as e:
+            # covers refused connects AND a reachable-but-dying head whose
+            # server answers proxy_job_id with an error (RuntimeError)
+            logger.warning("head back-channel %s unavailable: %s", addr, e)
+            return None
+        return _pool_client
 
 
 # ---------------------------------------------------------------------------

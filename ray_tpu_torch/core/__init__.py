@@ -6,5 +6,7 @@ processes over the C++ shared-memory store (process_pool, actor_process,
 shm_store, memory_monitor), the Prometheus metrics, and the health plane
 (health.py: alert rules, the alert lifecycle, the routers'
 ReplicaHealth), control-plane snapshots (persistence) and the session log
-monitor (log_monitor). Cross-host, RPC and federation wait for ROADMAP
-A5c."""
+monitor (log_monitor), and the network: the control plane over RPC
+(rpc), its federation across shard processes (shard), joined worker
+hosts (cross_host) and the head back-channel (worker_api). The pod
+aggregator (ROADMAP A5c, third slice) is not ported yet."""

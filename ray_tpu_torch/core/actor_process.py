@@ -77,7 +77,16 @@ def _child_main(req_q, resp_q, log_dir: str = "") -> None:
     if kind != "init":
         return
     try:
-        cls, args, kwargs, concurrency, renv = pickle.loads(payload)
+        cls, args, kwargs, concurrency, renv, head_addr = pickle.loads(payload)
+        # the back-channel address travels in the payload, not the fork
+        # env: the forkserver snapshots env at ITS start (see
+        # process_pool._worker_main), so inheritance is unreliable; no
+        # address clears a stale snapshot value, so an actor without a
+        # back-channel gets the clear error, not a dead or reused port
+        if head_addr:
+            os.environ["RAY_TPU_HEAD_ADDRESS"] = head_addr
+        else:
+            os.environ.pop("RAY_TPU_HEAD_ADDRESS", None)
         from .runtime_env import applied
 
         ctx = applied(renv)
@@ -151,14 +160,14 @@ class ActorProcess:
                  runtime_env: Optional[dict] = None):
         # creation payload must cross the boundary NOW (fail fast into the
         # in-process fallback, before a process is started); the pool's
-        # pickler rejects inline-only types (ObjectRef/ActorHandle) and
-        # tensors off the CPU
+        # pickler rejects tensors off the CPU, and inline-only types
+        # (ObjectRef/ActorHandle) unless the head serves a back-channel
         from .process_pool import _cloudpickle_dumps
 
         try:
             payload = _cloudpickle_dumps(
                 (cls, tuple(args), dict(kwargs or {}), max(1, max_concurrency),
-                 runtime_env)
+                 runtime_env, os.environ.get("RAY_TPU_HEAD_ADDRESS", ""))
             )
         except Exception as e:
             raise ActorNotSerializableError(repr(e)) from e

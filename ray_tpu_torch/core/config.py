@@ -6,7 +6,7 @@ runtime knob is declared once here with a type, default and doc; values
 resolve with precedence  init(system_config=...)  >  env RAY_TPU_<NAME>  >
 default. The names, docs and defaults are the reference's, so one
 environment configures both packages. The flags of the reference's
-modules that the port does not have yet (the network, the pipeline
+modules that the port does not have yet (host collectives, the pipeline
 trainer) are left out until their modules come.
 """
 
@@ -208,11 +208,23 @@ declare(
     "the effective period is at least one health_check_period_ms).",
 )
 declare(
+    "telemetry_max_bytes", 1_000_000,
+    "Byte budget for one heartbeat telemetry flush (spans + timeline "
+    "events + metrics snapshot, pickled size). Overflow drops OLDEST "
+    "spans/events first and counts them in telemetry_dropped_total{kind} "
+    "so a span burst cannot bloat heartbeats. 0 = unlimited.",
+)
+declare(
     "telemetry_stale_factor", 3.0,
     "A node's federated telemetry snapshot is dropped from the merged "
     "dashboard/health view once it is older than this many "
     "telemetry_report_period_s (and purged outright on mark_node_dead), "
     "so killed nodes stop haunting /metrics.",
+)
+declare(
+    "control_plane_rpc_host", "127.0.0.1",
+    "Bind address for the control-plane RPC server; set 0.0.0.0 (or a "
+    "specific interface) for cross-host attach.",
 )
 declare(
     "control_plane_rpc_port", -1,
@@ -221,11 +233,48 @@ declare(
     "(logged), >0 = fixed port.",
 )
 declare(
+    "node_host", "127.0.0.1",
+    "This host's address for cross-host serving (worker dispatch + object "
+    "transfer, core/cross_host.py): both the bind interface and the "
+    "address ADVERTISED to the cluster, so it must be reachable from the "
+    "head — set to this machine's cluster-facing IP when joining from "
+    "another host.",
+)
+
+declare(
+    "control_plane_reconnect_max_s", 5.0,
+    "Cap on the exponential backoff between control-plane client "
+    "reconnect attempts after a lost connection (rpc.RemoteControlPlane): "
+    "attempts start at 50ms and double up to this bound, so a client "
+    "rides out a head restart instead of poisoning itself.",
+)
+declare(
+    "control_plane_call_deadline_s", 30.0,
+    "Default per-call deadline for RemoteControlPlane requests. Every "
+    "blocking call fails with the retryable ControlPlaneUnavailable "
+    "within this window; idempotent methods (heartbeat, kv_get, dir_*, "
+    "...) retry transparently across reconnects inside it, non-idempotent "
+    "ones surface the error to the caller.",
+)
+
+declare(
+    "control_plane_redial_rate", 16.0,
+    "Process-wide cap on control-plane reconnect DIAL attempts per second "
+    "(token bucket shared by every RemoteControlPlane in the process). "
+    "Bounds the thundering herd when many clients re-dial a restarted or "
+    "failed-over head/shard at once; <= 0 disables the cap.",
+)
+declare(
     "control_plane_shards", 0,
     "Federate the control plane: shard the KV store, object directory and "
     "pubsub fan-out across this many ControlPlaneShard subprocesses, each "
     "with a warm standby that is promoted on primary death "
     "(core/shard.py). 0 = off (single in-process head, the default).",
+)
+declare(
+    "control_plane_shard_dir", "",
+    "Directory for shard journals + snapshots when control_plane_shards "
+    "> 0; empty = a per-session tmp directory.",
 )
 declare(
     "control_plane_gossip_ttl_s", 600.0,

@@ -9,8 +9,8 @@ object is served over gRPC-style RPC for multi-host (the
 reference's core/rpc.py). State mutations publish to channels so node agents and
 drivers react to membership/actor changes without polling.
 
-The port's copy of ray_tpu/core/control_plane.py; it is in-process only
-until the RPC server (core/rpc.py) is ported with ROADMAP A5c.
+The port's copy of ray_tpu/core/control_plane.py; core/rpc.py serves it
+over TCP and core/shard.py federates its gossip planes.
 """
 
 from __future__ import annotations

@@ -13,10 +13,10 @@ multi-node clusters (tests) add several agents; a real deployment runs one
 agent per host with the same code.
 
 The port's copy of ray_tpu/core/core_worker.py: ownership, lineage, retries,
-actor restarts, the health monitor and the object ledger's sweep. The
-control-plane RPC server, its snapshot writer, federation and the
-cross-host transfer server (ROADMAP A5c) are not built in the port, so
-shutdown has none to stop.
+actor restarts, the health monitor and the object ledger's sweep.
+`shutdown` stops the snapshot writer, the control-plane RPC server, the
+cross-host transfer server and the federation's shard processes, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -1493,12 +1493,24 @@ class Runtime:
         if writer is not None:
             writer.stop(final_write=True)
             self._snapshot_writer = None
+        cp_server = getattr(self, "_cp_server", None)
+        if cp_server is not None:
+            cp_server.stop()
+            self._cp_server = None
+        transfer = getattr(self, "_transfer_server", None)
+        if transfer is not None:
+            transfer.stop()
+            self._transfer_server = None
         self._kick_scheduler()
         self.control_plane.finish_job(self.job_id)
         with self._lock:
             agents = list(self.agents.values())
         for agent in agents:
             agent.stop()
+        if getattr(self, "_federation", None) is not None:
+            from .shard import stop_federation
+
+            stop_federation(self)
         for t in (self._sched_thread, self._monitor_thread):
             if t is not threading.current_thread():
                 t.join(timeout=5.0)

@@ -7,7 +7,7 @@ every worker's log files and publishes lines to the driver, prefixed
 to a sink (driver stderr by default) with a `(file pid=…)` prefix, and
 optionally publishes to the control plane's "logs" pubsub channel (the
 reference's remote CLI, `ray-tpu logs --follow --address …`, streams them
-over RPC; that waits for ROADMAP A5c).
+over RPC; the CLI waits for ROADMAP A5c's third slice).
 
 The port's copy of ray_tpu/core/log_monitor.py: pool workers write
 `worker-<pid>.out` and actor processes `actor-<pid>.out` into the session

@@ -369,10 +369,15 @@ class NodeAgent:
         self._stream_cbs: Dict[TaskID, Callable[[int, ObjectID], None]] = {}
         # test hook: simulate a hung host (stops heartbeating, keeps running)
         self.suspend_heartbeat = False
-        # the reference bounds each heartbeat to a remote control plane
-        # (core/rpc.py) tightly; the control plane is in-process until
-        # ROADMAP A5c, so heartbeats take no extra arguments
-        self._hb_kwargs: Dict[str, Any] = {}
+        # remote control plane: bound each monitor-sweep heartbeat tightly
+        # instead of the default call deadline (see _sync_load)
+        from .rpc import RemoteControlPlane, ShardedControlPlane
+
+        self._hb_kwargs: Dict[str, Any] = (
+            {"_deadline_s": max(2.0, config.health_check_period_ms / 1000.0)}
+            if isinstance(control_plane, (RemoteControlPlane, ShardedControlPlane))
+            else {}
+        )
 
     # ------------------------------------------------------------------ api
     def try_admit(self, demand: Dict[str, float],
@@ -1277,6 +1282,8 @@ class ObjectDirectory:
         # cross-host hook: every add_location also notifies joined worker
         # hosts via pubsub (set by cross_host.enable_cross_host)
         self.on_add: Optional[Callable[[ObjectID, NodeID], None]] = None
+        # ...and every mark_failed, so a joined host's waiter re-checks
+        self.on_failed: Optional[Callable[[ObjectID], None]] = None
         # liveness hook (set by Runtime): locate() skips holders on nodes
         # the control plane no longer reports ALIVE, closing the window
         # between a DEAD mark and the directory purge
@@ -1336,6 +1343,8 @@ class ObjectDirectory:
             callbacks = self._waiters.pop(object_id, [])
         for cb in callbacks:
             cb()
+        if self.on_failed is not None:
+            self.on_failed(object_id)
 
     def failure(self, object_id: ObjectID) -> Optional[BaseException]:
         with self._lock:

@@ -24,15 +24,19 @@ over the socket (striped across holders, or down a relay tree).
 from __future__ import annotations
 
 import hashlib
+import io
 import itertools
 import os
 import pickle
 import socket
 import socketserver
 import struct
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import cloudpickle
 
 from . import object_ledger
 from .config import config
@@ -235,19 +239,63 @@ _BLOB_MAGIC = b"\x93RTB"
 _U32 = struct.Struct(">I")
 
 
+def _to_host(t):
+    """A CPU copy of a tensor off the CPU, outside autograd."""
+    return t.detach().to("cpu")
+
+
+def _host_reduce(obj: Any) -> Any:
+    """The reduction of a torch tensor that lives off the CPU: a CPU copy
+    of it (a Parameter stays a Parameter, requires_grad is kept), so the
+    process that unpickles it receives a CPU tensor and never starts CUDA
+    because of a payload, as the reference's jax arrays cross as host
+    bytes. None for anything else."""
+    torch = sys.modules.get("torch")
+    if torch is None or not isinstance(obj, torch.Tensor) or obj.device.type == "cpu":
+        return None
+    out = _to_host(obj)
+    if isinstance(obj, torch.nn.Parameter):
+        out = torch.nn.Parameter(out, requires_grad=obj.requires_grad)
+    elif obj.requires_grad:
+        out.requires_grad_(True)
+    return out.__reduce_ex__(5)
+
+
+class _HostPickler(pickle.Pickler):
+    def reducer_override(self, obj):
+        reduced = _host_reduce(obj)
+        return NotImplemented if reduced is None else reduced
+
+
+class _CloudHostPickler(cloudpickle.CloudPickler):
+    def reducer_override(self, obj):
+        reduced = _host_reduce(obj)
+        return super().reducer_override(obj) if reduced is None else reduced
+
+
+def host_dumps(value: Any, buffer_callback=None, cloud: bool = False) -> bytes:
+    """Pickle (protocol 5) a value that leaves this process for another
+    host or process: tensors off the CPU go as CPU copies (_host_reduce).
+    cloud=True pickles with cloudpickle (closures, classes defined in
+    __main__), under the same rule."""
+    buf = io.BytesIO()
+    pickler = _CloudHostPickler if cloud else _HostPickler
+    pickler(buf, protocol=5, buffer_callback=buffer_callback).dump(value)
+    return buf.getvalue()
+
+
 def _encode_blob(value: Any) -> bytes:
     """[magic][u32 meta_len][meta][head][raw buffers...]; meta = pickled
     (head_len, [buffer lengths]). Falls back to an unmagiced flat pickle
     whenever out-of-band extraction can't work (exotic buffers,
-    cloudpickle-only values)."""
+    cloudpickle-only values). A tensor off the CPU (a device tree the
+    store holds by reference) goes as a CPU copy (host_dumps)."""
     bufs: List[pickle.PickleBuffer] = []
     try:
-        head = pickle.dumps(value, protocol=5, buffer_callback=bufs.append)
+        head = host_dumps(value, buffer_callback=bufs.append)
         raws = [b.raw() for b in bufs]
     except Exception:  # noqa: BLE001 — non-contiguous buffer / closure
-        import cloudpickle
-
-        return cloudpickle.dumps(value, protocol=5)
+        return host_dumps(value, cloud=True)
     meta = pickle.dumps((len(head), [len(r) for r in raws]), protocol=2)
     return b"".join([_BLOB_MAGIC, _U32.pack(len(meta)), meta, head, *raws])
 

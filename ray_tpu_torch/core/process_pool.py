@@ -21,9 +21,11 @@ multiprocessing forkserver only: nothing may fork the process that owns
 the card, and the forkserver itself runs no torch op. CUDA never starts in
 a worker: a payload that holds a tensor off the CPU cannot cross
 (TaskNotSerializableError), so the node agent runs that task in its own
-process and counts it as a fallback. Refs and actor handles cannot cross
-either: the head back-channel that lets the reference's workers resolve
-them waits for ROADMAP A5c. Each worker attaches the flight recorder and
+process and counts it as a fallback. Refs and actor handles cross when the
+head serves its control plane over RPC: each task carries the head's
+address (RAY_TPU_HEAD_ADDRESS), and the worker resolves them through the
+back-channel (api._pool_worker_client, core/worker_api.py); without one
+they keep their task in-process. Each worker attaches the flight recorder and
 the profiler's signal handlers at start, and a worker that dies while
 running a task leaves a postmortem (util/flight_recorder).
 """
@@ -93,9 +95,15 @@ def _off_cpu(obj) -> bool:
 class _TaskPickler(cloudpickle.CloudPickler):
     def reducer_override(self, obj):
         if _INLINE_ONLY_TYPES and isinstance(obj, _INLINE_ONLY_TYPES):
-            raise TaskNotSerializableError(
-                f"{type(obj).__name__} cannot cross the process boundary "
-                "(the head back-channel waits for ROADMAP A5c)")
+            # With a head back-channel (worker_api), refs and handles ARE
+            # resolvable inside worker/actor processes — let them cross.
+            # Without one they would re-resolve against a meaningless
+            # private runtime: keep the strict inline-only contract.
+            if not os.environ.get("RAY_TPU_HEAD_ADDRESS"):
+                raise TaskNotSerializableError(
+                    f"{type(obj).__name__} cannot cross the process boundary "
+                    "(no head back-channel; start the head with "
+                    "system_config={'control_plane_rpc_port': 0})")
         if _off_cpu(obj):
             raise TaskNotSerializableError(
                 f"a {type(obj).__name__} on {obj.device} cannot cross the process "
@@ -317,7 +325,17 @@ def _worker_main(store_name: str, req_q, resp_q, log_dir: str = "") -> None:
             return
         task_tag, payload, buffer_ids, inline = item
         try:
-            fn, args, kwargs, renv = _load(store, payload, buffer_ids, inline)
+            fn, args, kwargs, renv, head_addr = _load(
+                store, payload, buffer_ids, inline)
+            # per-TASK, not per-fork: the forkserver snapshots the
+            # environment at ITS start, so a fork-time address would be
+            # stale (or absent) whenever runtimes cycle in one parent —
+            # the back-channel (api._pool_worker_client) needs the address
+            # of the head that submitted THIS task
+            if head_addr:
+                os.environ["RAY_TPU_HEAD_ADDRESS"] = head_addr
+            else:
+                os.environ.pop("RAY_TPU_HEAD_ADDRESS", None)
             from .runtime_env import applied
 
             with applied(renv):
@@ -529,7 +547,10 @@ class ProcessPool:
             tag = uuid.uuid4().hex
             try:
                 payload, buffer_ids, inline = _dump(
-                    self.store, (fn, args, kwargs, renv), use_cloudpickle=True)
+                    self.store,
+                    (fn, args, kwargs, renv,
+                     os.environ.get("RAY_TPU_HEAD_ADDRESS", "")),
+                    use_cloudpickle=True)
             except TaskNotSerializableError as e:
                 # genuinely unpicklable task (see _dump's phase-based
                 # classification): callers may fall back in-process

@@ -27,8 +27,8 @@ Message types:
              into a caller-provided buffer at the carried offset)
 
 The port's copy of ray_tpu/core/wire.py; in the port it frames the object
-transfer plane (core/object_transfer.py), the control-plane RPC waiting
-for ROADMAP A5c.
+transfer plane (core/object_transfer.py), the control-plane RPC
+(core/rpc.py) and the cross-host dispatch plane (core/cross_host.py).
 """
 
 from __future__ import annotations

@@ -28,10 +28,10 @@ liveness and raises; an envelope stranded by a death never resolves and
 its ref.get() times out): rebuild the graph after replacing the actor.
 
 Every node of a graph lives in this process (thread mode), so every edge
-is a local `Channel`. A graph with a node on a joined host would ride
-DistChannels (core/channels.py) homed in each consumer's process; joined
-hosts wait for ROADMAP A5c, and that branch raises NotImplementedError
-naming it.
+is a local `Channel`. A graph with a node on a joined host
+(core/cross_host.py) would ride DistChannels (core/channels.py) homed in
+each consumer's process; that branch waits for ROADMAP A5c's third slice
+and raises NotImplementedError naming it.
 """
 
 from __future__ import annotations

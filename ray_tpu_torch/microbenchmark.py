@@ -9,7 +9,7 @@ canaries — regressions in scheduler/dispatch overhead show up here long
 before they show up in end-to-end workloads.
 
 The port's copy of ray_tpu/microbenchmark.py. The cross-host patterns
-(`bench_cross_host`) wait for ROADMAP A5c and raise.
+(`bench_cross_host`) join a worker OS process to an RPC-serving head.
 """
 
 from __future__ import annotations
@@ -142,13 +142,96 @@ def bench_put_get(api, nbytes: int = 1024, min_seconds: float = 2.0) -> float:
 
 
 def bench_cross_host(api, min_seconds: float = 2.0) -> List[tuple]:
-    """The reference's cross-host dispatch plane patterns (a joined worker
-    OS process: submit round trips and transfer-plane pulls) need
-    init(address=...) and the RPC-serving head, which wait for ROADMAP
-    A5c (the network slice)."""
-    raise NotImplementedError(
-        "bench_cross_host: joining a worker host over RPC "
-        "(core/cross_host.py) waits for ROADMAP A5c")
+    """Cross-host dispatch plane: RemoteNodeAgent
+    submit round-trip rate/latency and transfer-plane pull MB/s against a
+    REAL joined worker OS process. These are the numbers that decide
+    whether 8-host orchestration overhead is noise or bottleneck
+    (reference: `_private/ray_perf.py` multi-node patterns)."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    import time as _time
+
+    api.shutdown()  # the dispatch plane needs the RPC-serving head
+    rt = api.init(num_cpus=1, num_gpus=0, system_config={
+        "control_plane_rpc_port": 0, "worker_processes": 0})
+    addr = rt._cp_server.address
+    env = dict(os.environ)
+    env["RAY_TPU_WORKER_PROCESSES"] = "0"
+    env.setdefault("RAY_TPU_LOG_LEVEL", "WARNING")
+    # the joiner must import THIS checkout regardless of the caller's cwd
+    pkg_parent = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = pkg_parent + os.pathsep + env.get("PYTHONPATH", "")
+    code = textwrap.dedent(f"""
+        import ray_tpu_torch
+        w = ray_tpu_torch.init(address={addr!r}, num_cpus=4, num_gpus=0,
+                               resources={{"xbench": 1.0}})
+        w.wait(timeout=600)
+    """)
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.STDOUT)
+    deadline = _time.monotonic() + 60
+    joined = False
+    while _time.monotonic() < deadline:
+        if any("xbench" in n.resources_total
+               for n in rt.control_plane.alive_nodes()):
+            joined = True
+            break
+        if proc.poll() is not None:
+            break
+        _time.sleep(0.1)
+    if not joined:
+        proc.kill()
+        raise RuntimeError(
+            "cross-host bench worker never joined "
+            f"(exit={proc.poll()}); cannot measure the dispatch plane")
+
+    @api.remote(num_cpus=0, resources={"xbench": 0.01})
+    def nop():
+        return 0
+
+    @api.remote(num_cpus=0, resources={"xbench": 0.01})
+    def blob(n):
+        return b"x" * n
+
+    try:
+        def sync_run():
+            for _ in range(20):
+                api.get(nop.remote(), timeout=60)
+            return 20
+
+        sync_rate = _timeit(sync_run, min_seconds)
+
+        def batch_run():
+            api.get([nop.remote() for _ in range(64)], timeout=120)
+            return 64
+
+        batch_rate = _timeit(batch_run, min_seconds)
+
+        nbytes = 4 << 20
+        ref = blob.remote(nbytes)
+        api.get(ref, timeout=60)  # produced; every further get is a fresh pull
+
+        def pull_run():
+            for _ in range(4):
+                api.get(ref, timeout=60)
+            return 4
+
+        pulls_per_s = _timeit(pull_run, min_seconds)
+        return [
+            ("xhost_task_roundtrip", sync_rate, "tasks/s"),
+            ("xhost_task_rtt_ms", 1000.0 / max(sync_rate, 1e-9), "ms"),
+            ("xhost_task_batch_64", batch_rate, "tasks/s"),
+            ("xhost_pull_mb_s", pulls_per_s * nbytes / (1 << 20), "MB/s"),
+        ]
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
 
 
 def run_all(min_seconds: float = 2.0) -> List[Dict[str, Any]]:
@@ -166,8 +249,8 @@ def run_all(min_seconds: float = 2.0) -> List[Dict[str, Any]]:
         ("put_get_1kb", bench_put_get(api, 1024, min_seconds=s), "ops/s"),
         ("put_get_1mb", bench_put_get(api, 1 << 20, min_seconds=s), "ops/s"),
     ]
-    # the reference appends bench_cross_host's rows here; the cross-host
-    # plane waits for ROADMAP A5c, so those rows are left out
+    # cross-host plane LAST: it recycles the runtime (RPC-serving head)
+    rows.extend(bench_cross_host(api, min_seconds=s))
     out = []
     for name, value, unit in rows:
         rec = {"metric": f"micro_{name}", "value": round(value, 1), "unit": unit}

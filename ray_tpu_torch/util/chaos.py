@@ -14,9 +14,8 @@ OSError, which the reconnecting client treats as a lost connection;
 connects — a reconnect dial during a drop partition succeeds but its
 first roundtrip fails, so the process stays partitioned until heal.
 
-The port's copy of ray_tpu/util/chaos.py, over the port's core/wire.py.
-Joined worker hosts (`kill_worker_host`) wait for ROADMAP A5c; the kill
-works on any process handle or pid.
+The port's copy of ray_tpu/util/chaos.py, over the port's core/wire.py;
+`kill_worker_host` takes a joined host's process (init(address=)).
 
     from ray_tpu_torch.util import chaos
 

@@ -13,10 +13,10 @@ detection) call `write_postmortem(pid, cause, ...)`, which folds the
 dead worker's mirror ring together with the tail of its redirected
 stdout/stderr file into one artifact under `<session>/postmortems/`, so
 every `util/chaos.py` kill leaves an inspectable "last 5 seconds"
-record. `drain_postmortems` queues fresh artifacts for the head (in the
-reference, worker hosts ship them with heartbeat telemetry and the
-dashboard serves them at `/api/v0/postmortems`; both wait for ROADMAP
-A5c's network and dashboard slices).
+record. `drain_postmortems` queues fresh artifacts for the head: joined
+worker hosts ship them with heartbeat telemetry (core/cross_host.py); the
+dashboard that serves them at `/api/v0/postmortems` waits for ROADMAP
+A5c's third slice.
 
 Enablement: the in-memory ring and `record()` are always live (a deque
 append). `attach()` — called in worker-process entrypoints — adds the

@@ -27,9 +27,10 @@ Four planes in one module:
   ``merge_collapsed()`` folds per-process profiles into one cluster
   flamegraph. Children toggle theirs via SIGUSR1 (start / stop+write
   ``profile-<pid>.txt``). Control rides the node agent's
-  ``profile_start`` / ``profile_fetch`` (the RPC route, the dashboard's
+  ``profile_start`` / ``profile_fetch``, over RPC through the head's
+  ``HeadService`` for a joined host (core/cross_host.py); the dashboard's
   ``/api/v0/profile/<node>/<pid>`` and ``ray-tpu profile`` wait for
-  ROADMAP A5c's network and dashboard slices).
+  ROADMAP A5c's third slice).
 - **Device-memory accounting**: ``device_memory_snapshot()`` reads the
   CUDA caching allocator (``torch.cuda.memory_stats`` / ``mem_get_info``)
   into gauges that federate with heartbeat telemetry (never starts

@@ -35,12 +35,10 @@ jconfig = importlib.import_module("ray_tpu.core.config")
 tconfig = importlib.import_module("ray_tpu_torch.core.config")
 THREAD_MODE = {"worker_processes": 0, "actor_processes": False}
 
-# the reference's flags whose modules wait for later slices: the network
-# (ROADMAP A5c, second slice) and the pipeline trainer (A7b)
+# the reference's flags whose modules wait for later slices: host
+# collectives (ROADMAP A5c, third slice) and the pipeline trainer (A7b)
 WAITING = {
-    "control_plane_call_deadline_s", "control_plane_reconnect_max_s",
-    "control_plane_redial_rate", "control_plane_rpc_host", "control_plane_shard_dir",
-    "node_host", "telemetry_max_bytes", "gang_barrier_timeout_ms",
+    "gang_barrier_timeout_ms",
     "pipeline_overlap_grad_exchange", "pipeline_virtual_stages", "stage_mesh_axes",
 }
 

@@ -8,8 +8,9 @@ actor still answering normal calls, refs resolved out of order), and the
 results must be equal. Then DistChannel: put/get/put_many and the
 capacity counter on the local registry and over a localhost TCP writer,
 and the writer's reconnect, under both packages with equal outcomes.
-The cross-host graph (TestCrossHostDag) waits for ROADMAP A5c: joining a
-host and a graph with a node on one raise naming it. Every runtime is
+The cross-host graph (TestCrossHostDag) waits for ROADMAP A5c's third
+slice: joining a host runs (tests/test_torch_cross_host.py), a graph with
+a node on a joined host raises naming A5c. Every runtime is
 shut down in a `finally`; every get carries a timeout.
 """
 
@@ -192,9 +193,10 @@ def test_bind_builds_the_references_node():
 
 
 def test_cross_host_graphs_wait_for_a5c():
-    # TestCrossHostDag joins a second runtime with init(address=); a graph
+    # TestCrossHostDag joins a second runtime with init(address=), which is
+    # ported (with no head at the address it fails to connect); a graph
     # whose node sits on a joined host would ride DistChannels homed there
-    with pytest.raises(NotImplementedError, match="A5c"):
+    with pytest.raises(ConnectionError):
         ray_tpu_torch.init(address="127.0.0.1:1", num_cpus=1)
     ray_tpu_torch.shutdown()
     rt = ray_tpu_torch.init(num_cpus=2, num_gpus=0, system_config=dict(THREAD_MODE))

@@ -8,8 +8,9 @@ stands in for CUDA here; tests/test_torch_kernels.py holds the CUDA case on
 the card). Also pinned: a num_gpus task fails fast as infeasible on a box
 without a card, the process flags start the worker-process pool and actor
 processes (from system_config or the environment), and the cross-host,
-persistence, federation, RPC and profiling entry points (A5c) raise
-NotImplementedError naming their item.
+federation and RPC entry points of init() work (tests/test_torch_rpc.py,
+test_torch_cross_host.py and test_torch_shard.py hold them against the
+reference).
 """
 
 import os
@@ -168,16 +169,54 @@ def test_process_flag_from_the_environment_starts_the_pool(monkeypatch):
         cluster.shutdown()
 
 
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 @pytest.mark.parametrize("kwargs", [
     {"address": "127.0.0.1:6379"},
     {"system_config": {"control_plane_rpc_port": 0}},
     {"system_config": {"control_plane_shards": 2}},
 ], ids=["address", "rpc_head", "federation"])
 def test_cross_host_entry_points_raise_naming_a5c(kwargs):
+    # The network slice of ROADMAP A5c is ported: each entry point works
+    # as the reference's does (the name is kept from when they raised).
+    from ray_tpu_torch.core.rpc import RemoteControlPlane
+
     ray_tpu_torch.shutdown()
-    with pytest.raises(NotImplementedError, match="A5c"):
-        ray_tpu_torch.init(**kwargs)
-    assert not ray_tpu_torch.is_initialized() and tconfig._overrides == {}
+    if "address" in kwargs:
+        # joining a head that is not there fails to connect, leaving no
+        # worker runtime and no override behind
+        with pytest.raises(ConnectionError):
+            ray_tpu_torch.init(address=f"127.0.0.1:{_free_port()}",
+                               system_config={"health_check_period_ms": 500})
+        assert ray_tpu_torch.api._worker_runtime is None and tconfig._overrides == {}
+        return
+    rt = ray_tpu_torch.init(num_cpus=2, system_config=dict(kwargs["system_config"],
+                                                          **THREAD_MODE))
+    try:
+        rt.control_plane.kv_put("entry/k", b"v")
+        if "control_plane_rpc_port" in kwargs["system_config"]:
+            client = RemoteControlPlane(rt._cp_server.address)
+            try:
+                assert client.kv_get("entry/k") == b"v"
+                assert [n.node_id for n in client.alive_nodes()] == [rt.driver_agent.node_id]
+            finally:
+                client.close()
+            assert os.environ["RAY_TPU_HEAD_ADDRESS"].endswith(
+                ":" + rt._cp_server.address.rpartition(":")[2])
+        else:
+            sup, fed = rt._federation
+            assert rt.control_plane is fed and len(sup.addresses) == 2
+            assert fed.kv_get("entry/k") == b"v" and rt.control_plane._inner.kv_get(
+                "entry/k") is None
+    finally:
+        ray_tpu_torch.shutdown()
+    assert "RAY_TPU_HEAD_ADDRESS" not in os.environ and tconfig._overrides == {}
 
 
 def test_in_process_runtime_refuses_what_waits(runtime):

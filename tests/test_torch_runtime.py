@@ -747,3 +747,46 @@ def test_a_killed_async_actor_busy_past_the_join_is_released_when_its_call_ends(
         assert alive_after_kill and held[0]() is None
     finally:
         ray_tpu_torch.shutdown()
+
+
+_RACE = """
+import threading
+import ray_tpu_torch as rt
+from ray_tpu_torch.core import core_worker
+
+barrier = threading.Barrier(8)
+refs, runtimes = [None] * 8, set()
+
+
+def first_call(i):
+    barrier.wait()
+    refs[i] = rt.put(i)  # the process's first API call, in eight threads
+    runtimes.add(id(core_worker.get_runtime()))
+
+
+threads = [threading.Thread(target=first_call, args=(i,)) for i in range(8)]
+[t.start() for t in threads]
+[t.join(60) for t in threads]
+assert len(runtimes) == 1, runtimes
+assert rt.get(refs, timeout=10) == list(range(8))
+rt.shutdown()
+print("ONE_RUNTIME")
+"""
+
+
+def test_threads_racing_into_the_first_call_share_one_runtime():
+    # ROADMAP C22: the reference's init takes no lock, so threads that make
+    # a process's first API call at once each start a runtime, and a ref
+    # put into one is waited for in another until the get times out
+    # (tests/test_torch_disagg.py's eight concurrent prefills on a fresh
+    # xdist worker). The port starts one runtime under api._init_lock.
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, RAY_TPU_WORKER_PROCESSES="0", RAY_TPU_ACTOR_PROCESSES="0",
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-c", _RACE], capture_output=True, text=True,
+                         timeout=120, env=env, cwd=repo)
+    assert out.returncode == 0 and "ONE_RUNTIME" in out.stdout, out.stderr[-2000:]

@@ -167,26 +167,41 @@ def test_rlock_reentrancy_and_at_fork_reinit(sanitized):
     assert san.reports() == []
 
 
+_LEAK_CHECK = """
+import threading
+import {pkg}.util.sanitizer as san
+
+assert not san.installed()
+before = san.thread_snapshot()
+release = threading.Event()
+t = threading.Thread(target=release.wait, name="deliberate-leak")
+daemons = [threading.Thread(target=release.wait, daemon=True) for _ in range(5)]
+t.start()
+for d in daemons:
+    d.start()
+try:
+    problems = san.check_thread_leaks(before, grace_s=0.2, daemon_growth_max=3)
+    assert len(problems) == 2, problems
+    assert "deliberate-leak" in problems[0] and "daemon" in problems[1], problems
+finally:
+    release.set()
+    for th in [t, *daemons]:
+        th.join(5)
+assert san.check_thread_leaks(before, grace_s=0.5) == []
+print("LEAK-CHECK-OK")
+"""
+
+
 @pytest.mark.parametrize("pkg", list(PKGS))
 def test_the_thread_leak_checker_is_the_references(pkg):
-    san = PKGS[pkg][0]
-    assert not san.installed()
-    before = san.thread_snapshot()
-    release = threading.Event()
-    t = threading.Thread(target=release.wait, name="deliberate-leak")
-    daemons = [threading.Thread(target=release.wait, daemon=True) for _ in range(5)]
-    t.start()
-    for d in daemons:
-        d.start()
-    try:
-        problems = san.check_thread_leaks(before, grace_s=0.2, daemon_growth_max=3)
-        assert len(problems) == 2
-        assert "deliberate-leak" in problems[0] and "daemon" in problems[1]
-    finally:
-        release.set()
-        for th in [t, *daemons]:
-            th.join(5)
-    assert san.check_thread_leaks(before, grace_s=0.5) == []
+    # in a process of its own: the checker counts every thread of the
+    # process, and in a test worker the threads that earlier tests left
+    # starting or winding down move that count (ROADMAP C21)
+    env = {k: v for k, v in os.environ.items() if k != "RAY_TPU_SANITIZE"}
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", _LEAK_CHECK.format(pkg=pkg)],
+                         capture_output=True, text=True, timeout=120, env=env, cwd=REPO)
+    assert out.returncode == 0 and "LEAK-CHECK-OK" in out.stdout, out.stderr
 
 
 def test_the_environment_arms_it_at_import_and_the_runtime_runs_without_a_cycle():

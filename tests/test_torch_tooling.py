@@ -10,11 +10,13 @@ fan-out and the log inventory; the state rows and summary; a job's
 status and logs, a stop, env vars and working_dir; every microbenchmark
 pattern's row; a partition that drops or delays frames on the wire and
 heals; SIGKILL of a process. The runtimes run in thread mode except where
-a pool worker's stdout is what is read. What waits for ROADMAP A5c raises:
-`JobSubmissionClient(address=)` and `bench_cross_host`. Every wait is
-bounded.
+a pool worker's stdout is what is read. `bench_cross_host` joins a worker
+process to an RPC-serving head, in a process of its own per package. What
+waits for ROADMAP A5c's third slice raises: `JobSubmissionClient(address=)`.
+Every wait is bounded.
 """
 
+import json
 import os
 import socket
 import subprocess
@@ -274,9 +276,41 @@ def test_every_pattern_reports_a_positive_rate(runtimes, monkeypatch, capsys):
     assert len(printed) == 2 * len(rows["ray_tpu"])
 
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_XHOST = """
+import importlib, json, sys
+name = sys.argv[1]
+api = importlib.import_module(name)
+micro = importlib.import_module(name + ".microbenchmark")
+rows = micro.bench_cross_host(api, min_seconds=0.05)
+api.shutdown()
+print("ROWS", json.dumps(rows))
+"""
+
+
 def test_bench_cross_host_waits_for_a5c():
-    with pytest.raises(NotImplementedError, match="A5c"):
-        tmicro.bench_cross_host(ray_tpu_torch)
+    # ported with the network slice (the name is kept from when it raised):
+    # a joined worker process, in a process of its own per package, since
+    # the bench restarts the runtime as an RPC-serving head
+    env = dict(os.environ, JAX_PLATFORMS="cpu", RAY_TPU_LOG_LEVEL="WARNING",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = {pkg: subprocess.Popen([sys.executable, "-c", _XHOST, pkg], env=env, text=True,
+                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for pkg in ("ray_tpu", "ray_tpu_torch")}
+    rows = {}
+    for pkg, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=180)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+        assert proc.returncode == 0 and "ROWS" in out, err[-3000:]
+        rows[pkg] = json.loads(out.split("ROWS", 1)[1])
+    assert [(m, u) for m, _, u in rows["ray_tpu_torch"]] == [(m, u) for m, _, u in rows["ray_tpu"]]
+    assert [m for m, _, _ in rows["ray_tpu_torch"]] == [
+        "xhost_task_roundtrip", "xhost_task_rtt_ms", "xhost_task_batch_64", "xhost_pull_mb_s"]
+    assert all(v > 0 for _, v, _ in rows["ray_tpu_torch"])
 
 
 # ------------------------------------------------------------------ chaos
